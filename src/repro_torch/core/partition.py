@@ -1,0 +1,75 @@
+"""Stable block-structured distribution (paper §4.1–§4.3), plain torch.
+
+Counterpart of ``repro.core.partition``'s "xla" engine: per-tile stable
+grouping, per-tile histograms, exclusive prefix sums over tiles, and one
+gather.  This is the oracle formula that the port's partition kernels K1
+(``kernels.level_fused.level_fused``) and K2 (``kernels.level_fused.rank_hist``)
+are held to: the stable counting placement, which does not depend on the
+tiling.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+__all__ = ["tile_histogram", "partition_permutation", "stable_partition"]
+
+Arrays = Dict[str, torch.Tensor]
+
+
+def tile_histogram(bucket_tiles: torch.Tensor, nb: int) -> torch.Tensor:
+    """(T, tile) int bucket ids -> (T, nb) int32 histogram."""
+    num_tiles = bucket_tiles.shape[0]
+    hist = torch.zeros((num_tiles, nb), dtype=torch.int32, device=bucket_tiles.device)
+    ones = torch.ones_like(bucket_tiles, dtype=torch.int32)
+    return hist.scatter_add_(1, bucket_tiles.to(torch.int64), ones)
+
+
+def partition_permutation(
+    bucket: torch.Tensor, nb: int, tile: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stable partition permutation of ``bucket`` (n,) ids in [0, nb).
+
+    Returns (perm, offsets): ``x[perm]`` groups any payload by bucket,
+    stably; ``offsets`` (nb+1,) int32 are the bucket boundaries.  n must be
+    a multiple of ``tile``.
+    """
+    n = bucket.shape[0]
+    if n % tile:
+        raise ValueError(f"n={n} not a multiple of tile={tile}")
+    dev = bucket.device
+    num_tiles = n // tile
+    bt = bucket.reshape(num_tiles, tile).to(torch.int64)
+
+    # local classification: stable grouping within each tile
+    order = torch.sort(bt, dim=1, stable=True).indices
+    bt_g = torch.gather(bt, 1, order)
+
+    # prefix sums (paper: over stripes)
+    hist = tile_histogram(bt, nb)
+    offsets = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(hist.sum(dim=0, dtype=torch.int32), 0, dtype=torch.int32)
+    tile_off = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+    run_start = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+
+    # block permutation: destination of each grouped element
+    pos = torch.arange(tile, dtype=torch.int32, device=dev)[None, :]
+    dest = (
+        offsets[:-1][bt_g]
+        + torch.gather(tile_off, 1, bt_g)
+        + (pos - torch.gather(run_start, 1, bt_g))
+    )
+    src = order + (torch.arange(num_tiles, device=dev) * tile)[:, None]
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    perm[dest.reshape(-1).to(torch.int64)] = src.reshape(-1)
+    return perm, offsets
+
+
+def stable_partition(
+    bucket: torch.Tensor, arrays: Arrays, nb: int, tile: int
+) -> Tuple[Arrays, torch.Tensor]:
+    """Stably reorder every tensor of ``arrays`` so buckets are contiguous.
+    Returns (reordered arrays, offsets (nb+1,) int32)."""
+    perm, offsets = partition_permutation(bucket, nb, tile)
+    return {name: a[perm] for name, a in arrays.items()}, offsets

@@ -1,0 +1,87 @@
+"""Splitter sampling and the implicit search tree (paper §3, §4).
+
+Counterpart of ``repro.core.sampling``.  The reference draws its sample
+positions with ``jax.random``; the port draws them from an explicit
+``torch.Generator`` seeded from ``SortConfig.seed``.  The two give other
+bits from the same seed, so parity tests feed both sides the same
+splitters; the sorted output and the stable argsort are unique, so the
+end-to-end results agree whatever the sample.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+__all__ = [
+    "tree_permutation",
+    "build_tree",
+    "sentinel_for",
+    "oversampling_factor",
+    "sample_indices",
+    "select_splitters",
+]
+
+
+@functools.lru_cache(maxsize=None)
+def tree_permutation(k: int) -> np.ndarray:
+    """Static permutation mapping BFS tree slots -> sorted-splitter indices
+    (slot 0 unused; the root holds the median splitter)."""
+    if k & (k - 1):
+        raise ValueError(f"k must be a power of two, got {k}")
+    perm = np.zeros(k, np.int64)
+
+    def rec(node: int, lo: int, hi: int) -> None:
+        if lo >= hi:
+            return
+        mid = (lo + hi) // 2
+        perm[node] = mid
+        rec(2 * node, lo, mid)
+        rec(2 * node + 1, mid + 1, hi)
+
+    rec(1, 0, k - 1)
+    return perm
+
+
+def build_tree(splitters: torch.Tensor, k: int) -> torch.Tensor:
+    """Lay out sorted splitters (..., k-1) into BFS tree slots (..., k)."""
+    perm = torch.as_tensor(tree_permutation(k), device=splitters.device)
+    return torch.index_select(splitters, -1, perm)
+
+
+def sentinel_for(dtype: torch.dtype) -> int:
+    """Largest value of ``dtype``: the pad key and the upper splitter of the
+    last bucket.  The port's keys are signed encoded ints, so this is the
+    signed max, which is also the code of NaN."""
+    if dtype.is_floating_point:
+        return torch.finfo(dtype).max
+    return torch.iinfo(dtype).max
+
+
+def oversampling_factor(n: int) -> int:
+    """Paper §4.7: alpha = 0.2 * log2(n), at least 1."""
+    return max(1, int(0.2 * math.log2(max(n, 2))))
+
+
+def sample_indices(
+    gen: torch.Generator, num: int, lo: torch.Tensor, hi: torch.Tensor
+) -> torch.Tensor:
+    """Uniform sample positions (..., num) in [lo, hi) for each (lo, hi);
+    an empty range clamps to ``lo``, which no element classifies into."""
+    u = torch.rand(lo.shape + (num,), generator=gen, device=lo.device)
+    lo64 = lo.to(torch.int64).unsqueeze(-1)
+    hi64 = hi.to(torch.int64).unsqueeze(-1)
+    size = torch.clamp(hi64 - lo64, min=1)
+    idx = lo64 + torch.floor(u * size).to(torch.int64)
+    return torch.minimum(torch.maximum(idx, lo64), torch.maximum(hi64 - 1, lo64))
+
+
+def select_splitters(sorted_sample: torch.Tensor, k: int) -> torch.Tensor:
+    """Pick k-1 equidistant splitters from a sorted sample (..., m)."""
+    m = sorted_sample.shape[-1]
+    idx = np.clip((np.arange(1, k) * m) // k, 0, m - 1)
+    return torch.index_select(
+        sorted_sample, -1, torch.as_tensor(idx, device=sorted_sample.device)
+    )

@@ -1,0 +1,212 @@
+// K1 level_fused and K2 rank_hist: the fused level pass of the sort, by hand
+// for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels in src/repro/kernels/level_fused.py:
+//   K1 `level_fused` (tree mode)  -- classify each key against the k-1
+//      splitters, route positions >= n_real to the pad bucket 2k, and emit
+//      each key's bucket, its stable rank among the same-bucket keys of its
+//      tile, and the (tiles, 2k+1) histogram;
+//   K2 `rank_hist`                -- the same rank + histogram over ids
+//      given by the caller.
+// The global placement dest = offsets[b] + tile_off[t, b] + rank is closed by
+// a plain torch epilogue, as the reference closes it in XLA.
+//
+// Bound: bytes.  K1 reads 4 B of key and writes 4 B of bucket and 4 B of
+// rank per element; K2 reads 4 B of id and writes 4 B of slot and 4 B of
+// rank.  About 12 B per element, ~60 us for 2^24 elements at 3.35 TB/s.  The
+// arithmetic (a log2(k)-step search in shared memory, a warp match and two
+// popcounts per element) is far below the integer rate.
+//
+// Design.  One CTA of 8 warps per tile (K1) or per work item (K2).  The TPU
+// ran its grid in order on one core; here the CTAs run in any order, so
+// nothing carries between them: each CTA owns its tile's counters.  The
+// rank must follow position order -- a rank taken from shared-memory
+// atomics would not be stable -- so each warp walks its own contiguous
+// span of the tile in 32-wide chunks: __match_any_sync groups the lanes
+// holding the same id, popc of the lower lanes of the group is the rank in
+// the chunk, and a per-warp counter per id (in shared memory, bumped by the
+// group's lowest lane) carries the count across the warp's chunks.  An
+// exclusive scan of those counters over the 8 warps then gives each warp's
+// start per id, and the scan's total is the tile histogram.  Ids and ranks
+// are staged in shared memory between the two phases, so the final writes
+// are coalesced.
+//
+// K2 at level 2 of the sort takes composite ids seg * W2 + local with up to
+// 257 * 256 = 65,792 distinct values: too many counters for one CTA.  But
+// segments are contiguous position ranges and the composite id rises with
+// the segment, so the stable placement by composite id is, per segment,
+// the stable placement by the local id (W2 <= 256 counters) offset by the
+// segment's start.  The wrapper cuts work items that never straddle a
+// segment; each CTA ranks one item over W2 counters and writes the slot
+// item * W2 + local for the epilogue.  No dense (tiles x 65,792) histogram
+// exists anywhere.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+
+// Stable rank + histogram of the `len` ids of one item, in position order.
+// get_id(p) gives the id of item position p; an id outside [0, nb) breaks
+// the caller's contract and is emitted as bucket -1, rank -1 without
+// touching the counters.  emit(p, id, rank) stores the results.
+template <class GetId, class Emit>
+__device__ void rank_hist_item(int len, int nb, GetId get_id, Emit emit,
+                               int* hist_row, int* cnt, int* s_id, int* s_rank) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kWarps * nb; i += kThreads) cnt[i] = 0;
+  __syncthreads();
+
+  // each warp walks one contiguous span in position order
+  const int span = (((len + kWarps - 1) / kWarps) + 31) & ~31;
+  const int lo = warp * span;
+  const int hi = min(lo + span, len);
+  int* wcnt = cnt + warp * nb;
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = lo; base < hi; base += 32) {
+    const int p = base + lane;
+    int b = -1;
+    if (p < hi) {
+      b = get_id(p);
+      if (b < 0 || b >= nb) {
+        s_id[p] = -1;
+        b = -1;
+      }
+    }
+    const unsigned same = __match_any_sync(0xffffffffu, b);
+    if (b >= 0) {
+      s_id[p] = b;
+      s_rank[p] = wcnt[b] + __popc(same & below);
+    }
+    __syncwarp();
+    if (b >= 0 && __ffs(same) - 1 == lane) wcnt[b] += __popc(same);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // exclusive scan over the warps, per id; the total is the histogram
+  for (int b = threadIdx.x; b < nb; b += kThreads) {
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = cnt[w * nb + b];
+      cnt[w * nb + b] = run;
+      run += c;
+    }
+    hist_row[b] = run;
+  }
+  __syncthreads();
+
+  for (int p = threadIdx.x; p < len; p += kThreads) {
+    const int b = s_id[p];
+    if (b < 0) {
+      emit(p, -1, -1);
+    } else {
+      emit(p, b, s_rank[p] + cnt[(p / span) * nb + b]);
+    }
+  }
+}
+
+// K1: one CTA per tile of `tile` keys (the last tile may be short).
+// upper holds the k-1 sorted splitters and the sentinel; the bucket index j
+// is the number of splitters below the key, eq = (key == upper[j]).
+__global__ void level_fused_kernel(const int* __restrict__ keys,
+                                   const int* __restrict__ upper, int n,
+                                   int n_real, int k, int tile,
+                                   int* __restrict__ bucket,
+                                   int* __restrict__ rank,
+                                   int* __restrict__ hist) {
+  extern __shared__ int smem[];
+  const int nb = 2 * k + 1;
+  int* s_upper = smem;
+  int* cnt = s_upper + k;
+  int* s_id = cnt + kWarps * nb;
+  int* s_rank = s_id + tile;
+  for (int i = threadIdx.x; i < k; i += kThreads) s_upper[i] = upper[i];
+  // (rank_hist_item's first barrier publishes s_upper)
+
+  const long long start = (long long)blockIdx.x * tile;
+  const int len = (int)min((long long)tile, (long long)n - start);
+  auto get_id = [&](int p) -> int {
+    const long long pos = start + p;
+    if (pos >= n_real) return 2 * k;
+    const int key = keys[pos];
+    int j = 0;
+    for (int step = k >> 1; step > 0; step >>= 1)
+      j += (s_upper[j + step - 1] < key) ? step : 0;
+    return 2 * j + (key == s_upper[j] ? 1 : 0);
+  };
+  auto emit = [&](int p, int b, int r) {
+    bucket[start + p] = b;
+    rank[start + p] = r;
+  };
+  rank_hist_item(len, nb, get_id, emit, hist + (long long)blockIdx.x * nb, cnt,
+                 s_id, s_rank);
+}
+
+// K2: one CTA per work item (start, len, seg); local id = id - seg * nb.
+__global__ void rank_hist_kernel(const int* __restrict__ ids,
+                                 const int* __restrict__ item_start,
+                                 const int* __restrict__ item_len,
+                                 const int* __restrict__ item_seg, int nb,
+                                 int tile, int* __restrict__ rank,
+                                 int* __restrict__ slot,
+                                 int* __restrict__ hist) {
+  extern __shared__ int smem[];
+  int* cnt = smem;
+  int* s_id = cnt + kWarps * nb;
+  int* s_rank = s_id + tile;
+  const int item = blockIdx.x;
+  const long long start = item_start[item];
+  const int len = item_len[item];
+  const int base_id = item_seg[item] * nb;
+  auto get_id = [&](int p) -> int { return ids[start + p] - base_id; };
+  auto emit = [&](int p, int b, int r) {
+    rank[start + p] = r;
+    slot[start + p] = b < 0 ? -1 : item * nb + b;
+  };
+  rank_hist_item(len, nb, get_id, emit, hist + (long long)item * nb, cnt, s_id,
+                 s_rank);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* level_fused_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int level_fused_tree(const void* keys, const void* upper, int n, int n_real,
+                     int k, int tile, void* bucket, void* rank, void* hist,
+                     void* stream) {
+  const int nb = 2 * k + 1;
+  const int smem = (k + kWarps * nb + 2 * tile) * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      level_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n + tile - 1) / tile;
+  if (tiles == 0) return cudaSuccess;
+  level_fused_kernel<<<tiles, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)keys, (const int*)upper, n, n_real, k, tile, (int*)bucket,
+      (int*)rank, (int*)hist);
+  return cudaGetLastError();
+}
+
+int level_fused_rank_hist(const void* ids, const void* item_start,
+                          const void* item_len, const void* item_seg,
+                          int items, int nb, int tile, void* rank, void* slot,
+                          void* hist, void* stream) {
+  const int smem = (kWarps * nb + 2 * tile) * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      rank_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (items == 0) return cudaSuccess;
+  rank_hist_kernel<<<items, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)ids, (const int*)item_start, (const int*)item_len,
+      (const int*)item_seg, nb, tile, (int*)rank, (int*)slot, (int*)hist);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,88 @@
+"""K3 ``sort_windows``: the stable base-case window sort.
+
+Counterpart of ``repro.kernels.bitonic.bitonic_sort_windows`` (the Pallas
+TPU kernel at ``bitonic.py:72``).  The CUDA kernel is in
+``csrc/bitonic.cu``, whose header note gives its bound and design.  The TPU
+network compares (bucket, key) only and is not stable; this one orders by
+(bucket, key, idx), so it equals the stable ``_window_perm`` that the
+reference's main path computes in XLA, which is its plain twin here.
+
+The wrapper launches the kernel on a CUDA tensor and runs the plain twin
+only on a CPU tensor; there is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["sort_windows", "sort_windows_plain", "window_perm_plain", "MAX_W"]
+
+MAX_W = 16384  # W 8-byte words in shared memory
+_P, _I = _build.P, _build.I
+_SIGNATURES = {"bitonic_sort_windows": (_P, _P, _I, _I, _I, _P, _P, _P)}
+
+
+def window_perm_plain(bucket_w: torch.Tensor, keys_w: torch.Tensor) -> torch.Tensor:
+    """Stable lexicographic (bucket, key) sort permutation per window
+    (num_w, W) as int64: the reference's ``_window_perm``, two stable
+    argsorts."""
+    o1 = torch.sort(keys_w, dim=1, stable=True).indices
+    o2 = torch.sort(torch.gather(bucket_w, 1, o1), dim=1, stable=True).indices
+    return torch.gather(o1, 1, o2)
+
+
+def _check(bucket: torch.Tensor, keys: torch.Tensor, nb: int) -> None:
+    for name, x in (("bucket", bucket), ("keys", keys)):
+        if x.dim() != 2 or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"sort_windows {name}: expected a contiguous (num_w, W) "
+                             f"int32 tensor, got {tuple(x.shape)} {x.dtype}")
+    if bucket.shape != keys.shape or bucket.device != keys.device:
+        raise ValueError("sort_windows: bucket and keys must share shape and device")
+    W = keys.shape[1]
+    if W < 2 or W & (W - 1) or W > MAX_W:
+        raise ValueError(f"W={W} must be a power of two in [2, {MAX_W}]")
+    # the kernel packs (bucket, key, idx) into one 64-bit word
+    bucket_bits = 32 - (W.bit_length() - 1)
+    if nb > 1 << bucket_bits:
+        raise ValueError(f"nb={nb} buckets do not fit {bucket_bits} bits at W={W}")
+
+
+def sort_windows_plain(
+    bucket: torch.Tensor, keys: torch.Tensor, nb: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's plain torch twin on any device: (window-local permutation,
+    sorted bucket ids), both (num_w, W) int32."""
+    _check(bucket, keys, nb)
+    perm = window_perm_plain(bucket, keys)
+    return perm.to(torch.int32), torch.gather(bucket, 1, perm)
+
+
+def sort_windows(
+    bucket: torch.Tensor, keys: torch.Tensor, nb: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stably sort each window (row) of (num_w, W) int32 ``bucket`` ids in
+    [0, nb) and encoded ``keys`` by (bucket, key): the K3 kernel on a CUDA
+    tensor, its plain twin on a CPU tensor.
+
+    Returns (perm, sorted bucket), both (num_w, W) int32; ``perm`` holds
+    window-local indices.
+    """
+    if bucket.device.type == "cpu":
+        return sort_windows_plain(bucket, keys, nb)
+    if bucket.device.type != "cuda":
+        raise ValueError(f"unsupported device {bucket.device}")
+    _check(bucket, keys, nb)
+    num_w, W = keys.shape
+    perm = torch.empty_like(keys)
+    bucket_out = torch.empty_like(bucket)
+    lib = _build.library("bitonic", _SIGNATURES)
+    err = lib.bitonic_sort_windows(
+        bucket.data_ptr(), keys.data_ptr(), num_w, W, W.bit_length() - 1,
+        perm.data_ptr(), bucket_out.data_ptr(), _build.stream_handle(keys.device),
+    )
+    _build.check(lib, "bitonic", err, "sort_windows kernel")
+    _build.LAUNCHES["sort_windows"] += 1
+    return perm, bucket_out
