@@ -11,15 +11,24 @@ Phases, each of which exits non-zero when it fails:
    (``torch.equal``; tolerance 0, the outputs are integers):
    K1 at n = 2^24, k = 128 with pads on Uniform and TwoDup, K2 on the
    composite ids of a real level 1 at n = 2^24 (nb = 65,792) and on small
-   nb, K3 on 2048 windows of W = 8192 with heavy duplicates;
-3. the main path: ``repro_torch.ops.sort`` and ``argsort`` at n = 2^24 (two
-   levels) and 2^17 (one level) on float32 Uniform with NaN and +-0.0
-   sprinkled in and on int32 TwoDup, each held to ``torch.sort(stable=True)``
-   of the port's encoded keys, with every kernel's launch count read just
-   after and required to be > 0;
+   nb, K3 on 2048 windows of W = 8192 with heavy duplicates, K1r (radix
+   mode) at n = 2^24 with pads, K4 ``level_fused_batched`` at (64, 2^18) in
+   both modes with pads, and K4 ``rank_hist_batched`` on the composite ids
+   of a real batched level 1 at (64, 2^18);
+3. the paths, each driven with the launch counts set to 0 just before it
+   and read just after, every kernel of the path required to be > 0:
+   the 1-D tree sort (``ops.sort``/``argsort`` at n = 2^24 and 2^17), the
+   1-D radix sort (n = 2^24 int32 full range and float32 Uniform), the
+   batched tree sort (bulk (64, 2^18) float32 with ``batched_sort``,
+   ``batched_argsort``, ``batched_topk`` and ``batched_bottomk`` at k = 64,
+   and the scheduler's (256, 512) int32 rows at W = 256), and the batched
+   radix sort ((64, 2^18) int32 full range).  Every result is held to
+   ``torch.sort(stable=True)`` of the port's encoded keys, per row, and the
+   top/bottom-k to the sorted prefix;
 4. timing with CUDA events (median of several runs after warm-up): each
-   kernel beside its plain twin and its bound, the whole sort beside
-   ``torch.sort``;
+   kernel beside its plain twin and its bound, each entry point beside
+   ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and a profile of
+   three sorts;
 5. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -45,6 +54,9 @@ OPS_32BIT_PER_S = 67e12
 
 N_BIG = 1 << 24
 N_SMALL = 1 << 17
+B_BULK, N_ROW = 64, 1 << 18  # the bulk rows: 2^24 keys, two levels per row
+B_SCHED, N_SCHED = 256, 512  # the serve scheduler's admission queues
+TOP_K = 64
 
 
 def fail(msg: str) -> None:
@@ -86,16 +98,16 @@ def bound_ms(nbytes: float, ops: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_sort(torch, sort, x, top: int = 14) -> None:
-    """Where one sort's time goes: device time per operation (torch.profiler)
+def profile(torch, name, fn, top: int = 14) -> None:
+    """Where one call's time goes: device time per operation (torch.profiler)
     beside the host clock around the whole call."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    sort(x)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sort(x)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -107,7 +119,7 @@ def profile_sort(torch, sort, x, top: int = 14) -> None:
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in events) / 1e3
-    print(f"profile sort n={x.shape[0]}: wall {wall_ms:.3f} ms (host clock, profiler on), "
+    print(f"profile {name}: wall {wall_ms:.3f} ms (host clock, profiler on), "
           f"kernels {busy_ms:.3f} ms in {sum(e.count for e in events)} launches, "
           f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for e in events[:top]:
@@ -163,6 +175,20 @@ def main() -> None:
         return ops.keyspace.encode(torch.as_tensor(make_input(dist, n, dtype, seed=seed),
                                                    device=dev))
 
+    def full_range(shape, seed):
+        """int32 keys uniform over the whole int32 range (made on the host)."""
+        rng = np.random.default_rng(seed)
+        x = rng.integers(-2**31, 2**31, int(np.prod(shape)), dtype=np.int64)
+        return torch.as_tensor(x.astype(np.int32).reshape(shape), device=dev)
+
+    def check_equal(name, got, want, what):
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        print(f"{name} {what}: max_abs_err={err}", flush=True)
+        if err != 0:
+            fail(f"{name} differs from its plain twin on {what}")
+        rows.setdefault(name, {"max_abs_err": 0})
+
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows = {}
 
@@ -174,17 +200,11 @@ def main() -> None:
         keys = ips4o.pad_with_sentinel({"k": keys}, N_BIG)["k"]
         pos = torch.randint(0, n_real, (4 * k,), generator=gen, device=dev)
         spl = sampling.select_splitters(torch.sort(keys[pos]).values, k)
-        raw_kernel = lf._level_tiles_kernel(keys, spl, k, n_real, lf.TILE)
-        raw_plain = lf._level_tiles_plain(keys, spl, k, n_real, lf.TILE)
-        got = lf.level_fused(keys, spl, k=k, n_real=n_real)
-        want = lf.level_fused_plain(keys, spl, k=k, n_real=n_real)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(torch, raw_kernel, raw_plain), max_abs_err(torch, got, want))
-        print(f"K1 level_fused {dist} n={N_BIG} n_real={n_real} k={k}: "
-              f"max_abs_err={err}", flush=True)
-        if err != 0:
-            fail(f"K1 differs from its plain twin on {dist}")
-        rows.setdefault("level_fused", {"max_abs_err": 0})
+        raw_kernel = lf._level_tiles_kernel(keys[None], spl[None], k, n_real, lf.TILE)
+        raw_plain = lf._level_tiles_plain(keys[None], spl[None], k, n_real, lf.TILE)
+        check_equal("level_fused", (raw_kernel, lf.level_fused(keys, spl, k=k, n_real=n_real)),
+                    (raw_plain, lf.level_fused_plain(keys, spl, k=k, n_real=n_real)),
+                    f"{dist} n={N_BIG} n_real={n_real} k={k}")
 
     # K2 on the composite ids of a real level 1 (two-level plan at n = 2^24)
     cfg = ips4o.SortConfig()
@@ -200,100 +220,212 @@ def main() -> None:
     got = lf.rank_hist(comp, tile=k2_tile, **k2_args)
     want = lf.rank_hist_plain(comp, tile=k2_tile, **k2_args)
     yard = torch.sort(comp, stable=True).indices
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, got, want)
-    inverse_ok = torch.equal(got[0][yard].to(torch.int64),
-                             torch.arange(N_BIG, device=dev))
-    print(f"K2 rank_hist composite n={N_BIG} nb={nb2}: max_abs_err={err} "
-          f"stable-argsort inverse {'equal' if inverse_ok else 'DIFFERS'}", flush=True)
-    if err != 0 or not inverse_ok:
-        fail("K2 differs on the level-2 composite ids")
+    check_equal("rank_hist", got, want, f"composite n={N_BIG} nb={nb2}")
+    if not torch.equal(got[0][yard].to(torch.int64), torch.arange(N_BIG, device=dev)):
+        fail("K2 is not the inverse of the stable argsort of the composite ids")
     for nb in (3, 520):
         ids = torch.randint(0, nb, (1 << 20,), generator=gen, device=dev, dtype=torch.int32)
-        err = max_abs_err(torch, lf.rank_hist(ids, nb=nb), lf.rank_hist_plain(ids, nb=nb))
-        print(f"K2 rank_hist n={1 << 20} nb={nb}: max_abs_err={err}", flush=True)
-        if err != 0:
-            fail(f"K2 differs at nb={nb}")
-    rows["rank_hist"] = {"max_abs_err": 0}
+        check_equal("rank_hist", lf.rank_hist(ids, nb=nb), lf.rank_hist_plain(ids, nb=nb),
+                    f"n={1 << 20} nb={nb}")
 
     # K3 on duplicate-heavy windows, where stability shows
     W, num_w = cfg.base_case, 2048
     wb = torch.sort(torch.randint(0, 64, (num_w, W), generator=gen, device=dev,
                                   dtype=torch.int32), dim=1).values
     wk = torch.randint(-3, 4, (num_w, W), generator=gen, device=dev, dtype=torch.int32)
-    got = bitonic.sort_windows(wb, wk, nb=64)
-    want = bitonic.sort_windows_plain(wb, wk, nb=64)
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, got, want)
-    print(f"K3 sort_windows {num_w} x {W} duplicate-heavy: max_abs_err={err}", flush=True)
-    if err != 0:
-        fail("K3 differs from its plain twin")
-    rows["sort_windows"] = {"max_abs_err": 0}
+    check_equal("sort_windows", bitonic.sort_windows(wb, wk, nb=64),
+                bitonic.sort_windows_plain(wb, wk, nb=64), f"{num_w} x {W} duplicate-heavy")
 
-    # ---- 3. the main path -------------------------------------------------
+    # K1r: the radix mode, level 1 (top 7 bits) and a level-2 shift, with pads
+    keys_r = full_range((N_BIG,), seed=11)
+    keys_r[n_real:] = torch.iinfo(torch.int32).max
+    for consumed in (0, 7):
+        kw = dict(k=k, n_real=n_real, classifier="radix", consumed_bits=consumed)
+        check_equal("level_fused_radix",
+                    (lf._level_tiles_kernel(keys_r[None], None, k, n_real, lf.TILE, consumed),
+                     lf.level_fused(keys_r, **kw)),
+                    (lf._level_tiles_plain(keys_r[None], None, k, n_real, lf.TILE, consumed),
+                     lf.level_fused_plain(keys_r, **kw)),
+                    f"n={N_BIG} n_real={n_real} k={k} consumed={consumed}")
+
+    # K4 level_fused_batched: per-row splitters or the radix shift, pads per row
+    row_real = N_ROW - 333
+    kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=3).view(B_BULK, N_ROW)
+    kb = ips4o.batched_pad_with_sentinel({"k": kb[:, :row_real].contiguous()}, N_ROW)["k"]
+    pos = torch.randint(0, row_real, (B_BULK, 4 * k), generator=gen, device=dev)
+    spl_b = sampling.select_splitters(torch.sort(torch.gather(kb, 1, pos), dim=1).values, k)
+    for mode, s in (("tree", spl_b), ("radix", None)):
+        kw = dict(k=k, n_real=row_real, classifier=mode)
+        check_equal("level_fused_batched",
+                    (lf._level_tiles_kernel(kb, s, k, row_real, lf.TILE, batched=True),
+                     lf.level_fused_batched(kb, s, **kw)),
+                    (lf._level_tiles_plain(kb, s, k, row_real, lf.TILE),
+                     lf.level_fused_batched_plain(kb, s, **kw)),
+                    f"{mode} ({B_BULK}, {N_ROW}) n_real={row_real} k={k}")
+
+    # K4 rank_hist_batched on the composite ids of a real batched level 1
+    levels_b = ips4o.plan_levels(N_ROW, cfg)
+    kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=4).view(B_BULK, N_ROW)
+    level_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    arrays_b, off1_b, nb1_b, _ = ips4o.batched_level_pass({"k": kb}, N_ROW, levels_b[0], cfg,
+                                                          level_gen)
+    k2b = levels_b[1]
+    comp_b = ips4o.batched_composite_ids(arrays_b["k"], off1_b, nb1_b, N_ROW, k2b, level_gen)
+    k4_args = dict(nb=nb1_b * 2 * k2b, seg_offsets=off1_b, seg_width=2 * k2b)
+    k4_tile = ips4o._auto_tile(N_ROW, 2 * k2b, cfg)
+    got = lf.rank_hist_batched(comp_b, tile=k4_tile, **k4_args)
+    want = lf.rank_hist_batched_plain(comp_b, tile=k4_tile, **k4_args)
+    check_equal("rank_hist_batched", got, want,
+                f"composite ({B_BULK}, {N_ROW}) nb={k4_args['nb']}")
+    yard = torch.sort(comp_b, dim=1, stable=True).indices
+    if not torch.equal(torch.gather(got[0], 1, yard).to(torch.int64),
+                       torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
+        fail("K4 rank_hist_batched is not the inverse of the per-row stable argsort")
+
+    # ---- 3. the paths ---------------------------------------------------------
+    def specials(x):
+        x[..., 3::3] *= -1
+        x[..., ::1009] = np.nan
+        x[..., 1::1013] = -0.0
+        x[..., 2::1019] = 0.0
+        return x
+
     def main_input(dist, n):
         if dist == "Uniform":
-            x = make_input("Uniform", n, np.float32, seed=5)
-            x[3::3] *= -1
-            x[::1009] = np.nan
-            x[1::1013] = -0.0
-            x[2::1019] = 0.0
-        else:
-            x = make_input("TwoDup", n, np.int32, seed=5)
-        return torch.as_tensor(x, device=dev)
+            return torch.as_tensor(specials(make_input("Uniform", n, np.float32, seed=5)),
+                                   device=dev)
+        return torch.as_tensor(make_input("TwoDup", n, np.int32, seed=5), device=dev)
 
-    cases = [(n, d) for n in (N_BIG, N_SMALL) for d in ("Uniform", "TwoDup")]
-    inputs = {c: main_input(c[1], c[0]) for c in cases}
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    results = {c: (ops.sort(x), ops.argsort(x)) for c, x in inputs.items()}
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    print(f"main path launches: {launches}", flush=True)
-    for (n, dist), x in inputs.items():
-        out, order = results[(n, dist)]
+    def yardstick(x):
+        """Stable sort of the encoded keys (per row for 2-D x)."""
         enc = ops.keyspace.encode(x)
-        yard = torch.sort(enc, stable=True)
-        want = ops.keyspace.decode(yard.values, x.dtype)
-        keys_ok = torch.equal(out.view(torch.int32), want.view(torch.int32))
-        order_ok = torch.equal(order.to(torch.int64), yard.indices)
-        nlev = len(ips4o.plan_levels(-(-n // cfg.base_case) * cfg.base_case, cfg))
-        print(f"main {dist} n={n} levels={nlev}: sort {'ok' if keys_ok else 'WRONG'}, "
-              f"argsort {'ok' if order_ok else 'WRONG'}", flush=True)
-        if not (keys_ok and order_ok):
-            fail(f"main path wrong on {dist} n={n}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-        rows[name]["launches"] = count
+        out = torch.sort(enc, dim=-1, stable=True)
+        return ops.keyspace.decode(out.values, x.dtype), out.indices
 
-    # where the robustness fallback engages at n = 2^24 (the reference's
-    # default sampling leaves some buckets above W/2 there)
-    enc = ops.keyspace.encode(inputs[(N_BIG, "Uniform")])
-    _, off, nb, pad_bucket = ips4o.partition_passes({"k": enc}, N_BIG, cfg, levels)
-    big = ips4o._oversized(off, nb, cfg.base_case, pad_bucket)
-    sizes = off[1:] - off[:-1]
-    print(f"fallback at n={N_BIG}: {int(big.sum())} of {nb} buckets above W/2 hold "
-          f"{int(sizes[big].sum())} keys, the largest "
-          f"{int(sizes[big].max()) if bool(big.any()) else 0}", flush=True)
+    def same_keys(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    sched_cfg = ips4o.SortConfig(base_case=256, tile=256, max_sample=256, kmax=64)
+    radix = "radix"
+    bulk = torch.as_tensor(specials(make_input("Uniform", B_BULK * N_ROW, np.float32, seed=6))
+                           .reshape(B_BULK, N_ROW), device=dev)
+    sched = torch.as_tensor(make_input("Uniform", B_SCHED * N_SCHED, np.int32, seed=7)
+                            .reshape(B_SCHED, N_SCHED), device=dev)
+    bulk_radix = full_range((B_BULK, N_ROW), seed=8)
+    radix_int = full_range((N_BIG,), seed=9)
+    radix_float = torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=10), device=dev)
+
+    # (name, x, the call, the kernels of its path); 1-D and batched sorts and
+    # argsorts, and the batched top/bottom-k
+    def sort_cases(tag, x, call_sort, call_argsort):
+        return [(f"{tag} sort", x, call_sort, "sort"),
+                (f"{tag} argsort", x, call_argsort, "argsort")]
+
+    paths = {
+        "1-D tree": (("level_fused", "rank_hist", "sort_windows"), [
+            c for n in (N_BIG, N_SMALL) for dist in ("Uniform", "TwoDup")
+            for c in sort_cases(f"{dist} n={n}", main_input(dist, n), ops.sort, ops.argsort)
+        ]),
+        "1-D radix": (("level_fused_radix", "rank_hist", "sort_windows"), [
+            c for tag, x in ((f"int32 full range n={N_BIG}", radix_int),
+                             (f"float32 Uniform n={N_BIG}", radix_float))
+            for c in sort_cases(tag, x, lambda x: ops.sort(x, classifier=radix),
+                                lambda x: ops.argsort(x, classifier=radix))
+        ]),
+        "batched tree": (("level_fused_batched", "rank_hist_batched", "sort_windows"), [
+            *sort_cases(f"bulk ({B_BULK}, {N_ROW})", bulk, ops.batched_sort,
+                        ops.batched_argsort),
+            (f"bulk ({B_BULK}, {N_ROW}) topk k={TOP_K}", bulk,
+             lambda x: ops.batched_topk(x, TOP_K), "topk"),
+            (f"bulk ({B_BULK}, {N_ROW}) bottomk k={TOP_K}", bulk,
+             lambda x: ops.batched_bottomk(x, TOP_K), "bottomk"),
+            *sort_cases(f"scheduler ({B_SCHED}, {N_SCHED})", sched,
+                        lambda x: ops.batched_sort(x, cfg=sched_cfg),
+                        lambda x: ops.batched_argsort(x, cfg=sched_cfg)),
+        ]),
+        "batched radix": (("level_fused_batched", "rank_hist_batched", "sort_windows"), [
+            *sort_cases(f"int32 full range ({B_BULK}, {N_ROW})", bulk_radix,
+                        lambda x: ops.batched_sort(x, classifier=radix),
+                        lambda x: ops.batched_argsort(x, classifier=radix)),
+        ]),
+    }
+    torch.cuda.synchronize()
+    total_launches = {name: 0 for name in kernels.launch_counts()}
+    for path, (needed, cases) in paths.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        results = [call(x) for _, x, call, _ in cases]
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"path {path} launches: {launches}", flush=True)
+        for (name, x, _, kind_), got in zip(cases, results):
+            want_keys, want_order = yardstick(x)
+            if kind_ == "sort":
+                ok = same_keys(got, want_keys)
+            elif kind_ == "argsort":
+                ok = torch.equal(got.to(torch.int64), want_order)
+            else:  # top/bottom-k: the sorted prefix, of the complement for topk
+                enc = ops.keyspace.encode(x)
+                order = torch.sort(~enc if kind_ == "topk" else enc, dim=1,
+                                   stable=True).indices[:, :TOP_K]
+                want_v = ops.keyspace.decode(torch.gather(enc, 1, order), x.dtype)
+                ok = same_keys(got[0], want_v) and torch.equal(got[1].to(torch.int64), order)
+            print(f"path {path}: {name} {'ok' if ok else 'WRONG'}", flush=True)
+            if not ok:
+                fail(f"path {path} wrong on {name}")
+        for name in needed:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the path {path}")
+        for name, count in launches.items():
+            total_launches[name] += count
+    for name, r in rows.items():
+        r["launches"] = total_launches[name]
+
+    # where the robustness fallback engages (the default sampling leaves some
+    # buckets above W/2 at n = 2^24; radix on float Uniform keys leaves most)
+    def fallback_share(tag, passes, arrays, n_real, cfg_, levels_):
+        _, off, nb, pad_bucket = passes(arrays, n_real, cfg_, levels_)
+        big = ips4o._oversized(off, nb, cfg_.base_case, pad_bucket)
+        sizes = off[..., 1:] - off[..., :-1]
+        keys_big = int(sizes[big].sum())
+        total = arrays["k"].numel()
+        print(f"fallback {tag}: {int(big.sum())} of {big.numel()} buckets above W/2 hold "
+              f"{keys_big} of {total} keys ({keys_big / total:.4f}), the largest "
+              f"{int(sizes[big].max()) if bool(big.any()) else 0}", flush=True)
+
+    radix_cfg = ips4o.SortConfig(classifier=radix)
+    enc = ops.keyspace.encode
+    fallback_share(f"tree Uniform n={N_BIG}", ips4o.partition_passes,
+                   {"k": enc(paths["1-D tree"][1][0][1])}, N_BIG, cfg, levels)
+    for tag, x in ((f"radix int32 full range n={N_BIG}", radix_int),
+                   (f"radix float32 Uniform n={N_BIG}", radix_float)):
+        fallback_share(tag, ips4o.partition_passes, {"k": enc(x)}, N_BIG, radix_cfg, levels)
+    fallback_share(f"batched tree bulk ({B_BULK}, {N_ROW})", ips4o.batched_partition_passes,
+                   {"k": enc(bulk)}, N_ROW, cfg, levels_b)
+    fallback_share(f"batched radix ({B_BULK}, {N_ROW})", ips4o.batched_partition_passes,
+                   {"k": enc(bulk_radix)}, N_ROW, radix_cfg, levels_b)
 
     # ---- 4. timing ------------------------------------------------------------
     # Op counts for the bounds, per element: K1 3 per search step (load,
     # compare, add) over log2(k) steps plus ~12 for eq, pad routing, the warp
-    # match, the popcounts and the scan; K2 the same ~12 without the search;
-    # K3 4 per compare-exchange (a 64-bit compare is two, the swap two).
+    # match, the popcounts and the scan; K1r ~6 for the bit extraction (xor,
+    # shift, mask, the sentinel test, 2j + eq) in place of the search; K2 the
+    # same ~12 without the search; K3 4 per compare-exchange (a 64-bit
+    # compare is two, the swap two).  Bytes: each input read once, each
+    # output written once (keys or ids in, bucket or slot and rank out).
+    log_k = k.bit_length() - 1
     keys1 = encoded("Uniform", N_BIG, np.float32)
     spl1 = sampling.select_splitters(
         torch.sort(keys1[torch.randint(0, N_BIG, (4 * k,), generator=gen,
                                        device=dev)]).values, k)
     tiles1 = -(-N_BIG // lf.TILE)
     t = rows["level_fused"]
-    t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(keys1, spl1, k, N_BIG, lf.TILE))
-    t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(keys1, spl1, k, N_BIG,
-                                                                 lf.TILE), reps=5)
+    t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(keys1[None], spl1[None], k, N_BIG,
+                                                            lf.TILE))
+    t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(keys1[None], spl1[None], k,
+                                                                 N_BIG, lf.TILE), reps=5)
     t["bound_ms"], t["bound_by"] = bound_ms(
-        N_BIG * 12 + k * 4 + tiles1 * (2 * k + 1) * 4,
-        N_BIG * (3 * (k.bit_length() - 1) + 12))
+        N_BIG * 12 + k * 4 + tiles1 * (2 * k + 1) * 4, N_BIG * (3 * log_k + 12))
     t["library_ms"] = None
     t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(keys1, spl1, k=k))
 
@@ -318,24 +450,73 @@ def main() -> None:
     packed = (wb.to(torch.int64) << 32) + (wk.to(torch.int64) + (1 << 31))
     t["library_ms"] = cuda_ms(torch, lambda: torch.sort(packed, dim=1, stable=True))
 
-    whole = {}
-    for (n, dist), x in inputs.items():
-        whole[(n, dist)] = {
-            "sort_ms": cuda_ms(torch, lambda: ops.sort(x), reps=5),
-            "argsort_ms": cuda_ms(torch, lambda: ops.argsort(x), reps=5),
-            "torch_sort_ms": cuda_ms(torch, lambda: torch.sort(x), reps=5),
-            "torch_stable_argsort_ms": cuda_ms(
-                torch, lambda: torch.sort(x, stable=True).indices, reps=5),
-        }
-    profile_sort(torch, ops.sort, inputs[(N_BIG, "Uniform")])
+    # K1r at the 1-D radix path's level 1: n = 2^24 int32 full range
+    t = rows["level_fused_radix"]
+    t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(radix_int[None], None, k, N_BIG,
+                                                            lf.TILE))
+    t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(radix_int[None], None, k,
+                                                                 N_BIG, lf.TILE), reps=5)
+    t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 12 + tiles1 * (2 * k + 1) * 4,
+                                            N_BIG * (6 + 12))
+    t["library_ms"] = None
+    t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(radix_int, k=k,
+                                                            classifier=radix))
+
+    # K4 level_fused_batched at the bulk path's level 1, tree mode (radix printed)
+    kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=4).view(B_BULK, N_ROW)
+    tiles_b = B_BULK * -(-N_ROW // lf.TILE)
+    t = rows["level_fused_batched"]
+    t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(kb, spl_b, k, N_ROW, lf.TILE,
+                                                            batched=True))
+    t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(kb, spl_b, k, N_ROW,
+                                                                 lf.TILE), reps=5)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        B_BULK * N_ROW * 12 + B_BULK * k * 4 + tiles_b * (2 * k + 1) * 4,
+        B_BULK * N_ROW * (3 * log_k + 12))
+    t["library_ms"] = None
+    t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused_batched(kb, spl_b, k=k))
+    radix_k4_ms = cuda_ms(torch, lambda: lf._level_tiles_kernel(bulk_radix, None, k, N_ROW,
+                                                                lf.TILE, batched=True))
+
+    # K4 rank_hist_batched at the bulk path's level 2
+    flat, _, _, items_b, local_seg = lf._row_segments(comp_b, off1_b, k4_tile)
+    t = rows["rank_hist_batched"]
+    t["ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_kernel(
+        flat, 2 * k2b, items_b[0], items_b[1], local_seg, k4_tile, "rank_hist_batched"))
+    t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
+        flat, 2 * k2b, items_b[0], local_seg), reps=5)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        B_BULK * N_ROW * 12 + items_b[0].shape[0] * (3 + 2 * k2b) * 4, B_BULK * N_ROW * 12)
+    t["library_ms"] = None
+    t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist_batched(comp_b, tile=k4_tile,
+                                                                  **k4_args))
+
+    # the entry points beside one torch call that does the same
+    timed = {}
+    for path, (_, cases) in paths.items():
+        for name, x, call, kind_ in cases:
+            if kind_ == "sort":
+                library = lambda x=x: torch.sort(x, dim=-1, stable=True)
+            elif kind_ == "argsort":
+                library = lambda x=x: torch.sort(x, dim=-1, stable=True).indices
+            else:
+                library = lambda x=x, big=kind_ == "topk": torch.topk(x, TOP_K, dim=1,
+                                                                      largest=big)
+            timed[f"{path}: {name}"] = (cuda_ms(torch, lambda call=call, x=x: call(x), reps=5),
+                                        cuda_ms(torch, library, reps=5))
+    profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(paths["1-D tree"][1][0][1]))
+    profile(torch, f"ops.sort radix int32 n={N_BIG}",
+            lambda: ops.sort(radix_int, classifier=radix))
+    profile(torch, f"ops.batched_sort ({B_BULK}, {N_ROW})", lambda: ops.batched_sort(bulk))
     for name, r in rows.items():
         print(f"time {name}: kernel {r['ms']:.4f} ms, with epilogue "
               f"{r.get('wrapper_ms', r['ms']):.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
               f"{r['library_ms']}", flush=True)
-    for (n, dist), r in whole.items():
-        print(f"time whole {dist} n={n}: " + ", ".join(
-            f"{key} {v:.3f}" for key, v in r.items()), flush=True)
+    print(f"time level_fused_batched radix ({B_BULK}, {N_ROW}): kernel {radix_k4_ms:.4f} ms",
+          flush=True)
+    for name, (ms, library_ms) in timed.items():
+        print(f"time whole {name}: {ms:.3f} ms, torch {library_ms:.3f} ms", flush=True)
 
     # ---- 5. the kernels line and the result ----------------------------------
     meta = {
@@ -345,6 +526,12 @@ def main() -> None:
                       "src/repro/kernels/level_fused.py:311"),
         "sort_windows": ("src/repro_torch/csrc/bitonic.cu",
                          "src/repro/kernels/bitonic.py:72"),
+        "level_fused_radix": ("src/repro_torch/csrc/level_fused.cu",
+                              "src/repro/kernels/level_fused.py:160"),
+        "level_fused_batched": ("src/repro_torch/csrc/level_fused.cu",
+                                "src/repro/kernels/level_fused.py:240"),
+        "rank_hist_batched": ("src/repro_torch/csrc/level_fused.cu",
+                              "src/repro/kernels/level_fused.py:364"),
     }
     line = []
     for name, (source, replaces) in meta.items():

@@ -6,9 +6,10 @@ equality buckets (runs of one key) that deeper levels and the base case
 skip.  The reference descends the implicit BFS tree; the port counts the
 splitters below each key with ``torch.searchsorted``, which gives the same
 j, and needs no tree at all.  This is plain torch on both devices: the
-level-1 classification inside kernel K1 (``kernels.level_fused``) is held
-to :func:`classify`, and level 2's :func:`classify_segmented` stays plain,
-as it is XLA in the reference.
+level-1 classification inside kernels K1 and K4 (``kernels.level_fused``)
+is held to :func:`classify_batched` (:func:`classify` is its one-row
+form), and level 2's :func:`classify_segmented` stays plain, as it is XLA
+in the reference.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.core.sampling import sentinel_for
 
-__all__ = ["classify", "classify_segmented", "num_local_buckets"]
+__all__ = ["classify", "classify_batched", "classify_segmented", "num_local_buckets"]
 
 
 def num_local_buckets(k: int) -> int:
@@ -36,8 +37,14 @@ def _upper(splitters: torch.Tensor) -> torch.Tensor:
 def classify(keys: torch.Tensor, splitters: torch.Tensor, k: int) -> torch.Tensor:
     """Local bucket ids (n,) int32 in [0, 2k) of ``keys`` against sorted
     ``splitters`` (k-1,)."""
+    return classify_batched(keys[None], splitters[None], k)[0]
+
+
+def classify_batched(keys: torch.Tensor, splitters: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-row classification: ``keys`` (B, n) against each row's own
+    sorted ``splitters`` (B, k-1).  Returns local ids (B, n) int32."""
     j = torch.searchsorted(splitters, keys, right=False)
-    eq = keys == _upper(splitters)[j]
+    eq = keys == torch.gather(_upper(splitters), 1, j)
     return (2 * j + eq).to(torch.int32)
 
 

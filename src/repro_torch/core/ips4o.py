@@ -1,21 +1,32 @@
 """IPS4o: In-place Parallel Super Scalar Samplesort, PyTorch/CUDA form.
 
-Counterpart of ``repro.core.ips4o`` for 1-D keys (DESIGN.md §4):
+Counterpart of ``repro.core.ips4o`` for 1-D keys and for (B, n) rows
+(DESIGN.md §4, §6):
 
   * the recursion is flattened into at most two *level passes*;
   * level 1 (:func:`level_pass`) samples k-1 splitters and runs kernel K1
     (``kernels.level_fused.level_fused``: tree classify, pad routing,
     stable in-tile rank and histogram) and a scatter by its destinations;
+    with ``classifier="radix"`` it samples nothing and runs K1's radix
+    mode K1r, which buckets on the top log2(k) key bits;
   * level 2 (:func:`segmented_level_pass`) samples splitters per level-1
-    segment, classifies in plain torch (XLA in the reference) and runs
-    kernel K2 (``kernels.level_fused.rank_hist``) over the composite ids at
-    any number of buckets;
+    segment (or, after a radix level 1, takes the next log2(k2) bits),
+    classifies in plain torch (XLA in the reference) and runs kernel K2
+    (``kernels.level_fused.rank_hist``) over the composite ids at any
+    number of buckets;
+  * the batched pipeline (:func:`ips4o_sort_batched`) runs the same passes
+    over B rows at once: kernel K4 ``level_fused_batched`` at level 1 (each
+    row with its own splitters, or the shared radix shift) and K4
+    ``rank_hist_batched`` at level 2; rows never exchange elements;
   * the base case (:func:`base_case`) is two overlapped passes of kernel K3
     (``kernels.bitonic.sort_windows``), the stable (bucket, key) window
     sort, at window offsets 0 and W/2;
   * the robustness fallback, when a non-trivial bucket exceeds W/2,
-    stably sorts those buckets with ``torch.sort`` before the window passes
-    (the reference sorts everything there; the result is the same).
+    stably sorts those buckets (of every row) with ``torch.sort`` before
+    the window passes (the reference sorts everything there, batch-wide;
+    the result is the same);
+  * ``limit`` restricts the base case and the fallback to a prefix of each
+    row, for the partial sorts of ``ops.topk`` and ``ops.batched``.
 
 The port has no engine switch: on a CUDA tensor these passes launch the
 kernels, and only those; on a CPU tensor the kernels' plain twins run.
@@ -34,10 +45,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import obs
-from repro_torch.classify import CLASSIFIERS, classify_segmented
+from repro_torch.classify import classify_segmented, radix_bucket_ids, resolve_classifier
 from repro_torch.core import sampling
 from repro_torch.kernels.bitonic import window_perm_plain
-from repro_torch.kernels.level_fused import level_fused, rank_hist
+from repro_torch.kernels.level_fused import (
+    level_fused,
+    level_fused_batched,
+    rank_hist,
+    rank_hist_batched,
+)
 from repro_torch.kernels.ops import base_case_windows
 
 __all__ = [
@@ -52,9 +68,21 @@ __all__ = [
     "composite_ids",
     "partition_passes",
     "base_case",
+    "base_case_with_fallback",
     "bucket_violations",
     "segment_ids",
     "stable_full_sort",
+    # the batch-axis pipeline, consumed by ``repro_torch.ops.batched``
+    "ips4o_sort_batched",
+    "batched_pad_with_sentinel",
+    "batched_level_pass",
+    "batched_segmented_level_pass",
+    "batched_composite_ids",
+    "batched_partition_passes",
+    "batched_base_case",
+    "batched_bucket_violations",
+    "batched_segment_ids",
+    "batched_stable_full_sort",
 ]
 
 Arrays = Dict[str, torch.Tensor]
@@ -72,7 +100,7 @@ class SortConfig:
     max_sample: int = 8192         # cap on the level-1 sample size
     seed: int = 0xC0FFEE           # seeds the torch.Generator of the samples
     fallback: bool = True          # robustness fallback (a host read here)
-    classifier: str = "tree"       # only "tree" is ported
+    classifier: str = "tree"       # "tree" | "radix" ("learned", "auto" not ported)
 
 
 # reference fields with no meaning in the port: it has no engine switch (its
@@ -97,11 +125,7 @@ def config_from_reference(d: dict) -> SortConfig:
 
 
 def _check_config(cfg: SortConfig) -> None:
-    if cfg.classifier not in CLASSIFIERS:
-        raise NotImplementedError(
-            f"classifier {cfg.classifier!r} is not ported yet; only "
-            f"{CLASSIFIERS} ({_ROADMAP} item 5)"
-        )
+    resolve_classifier(cfg.classifier)  # raises for the engines not ported
 
 
 def plan_levels(n: int, cfg: SortConfig) -> List[int]:
@@ -131,19 +155,28 @@ def _auto_tile(n: int, nb: int, cfg: SortConfig) -> int:
 
 
 def segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
-    """Per-position bucket/segment id (n,) int32 from (nb+1,) offsets."""
+    """Per-position bucket/segment id (n,) int32 from (nb+1,) offsets; for
+    (B, nb+1) offsets, (B, n) ids per row."""
     pos = torch.arange(n, dtype=torch.int32, device=offsets.device)
+    if offsets.dim() == 2:
+        pos = pos.expand(offsets.shape[0], n).contiguous()
     return (torch.searchsorted(offsets, pos, right=True) - 1).to(torch.int32)
 
 
 def _scatter(arrays: Arrays, dest: torch.Tensor) -> Arrays:
-    """Move every tensor by the destinations: out[dest[i]] = a[i]."""
+    """Move every tensor by the destinations: out[dest[i]] = a[i].  With
+    (B, n) row-local ``dest`` each row moves within itself."""
+    lead = dest.dim()
     d = dest.to(torch.int64)
+    if lead == 2:
+        B, n = d.shape
+        d = (d + torch.arange(B, dtype=torch.int64, device=d.device)[:, None] * n).reshape(-1)
     out = {}
     for name, a in arrays.items():
-        o = torch.empty_like(a)
-        o[d] = a
-        out[name] = o
+        flat = a.reshape((-1,) + tuple(a.shape[lead:]))
+        o = torch.empty_like(flat)
+        o[d] = flat
+        out[name] = o.view(a.shape)
     return out
 
 
@@ -153,10 +186,14 @@ def _window_perm(keys_w: torch.Tensor, fb_w: torch.Tensor) -> torch.Tensor:
     return window_perm_plain(fb_w, keys_w)
 
 
-def base_case(arrays: Arrays, fb: torch.Tensor, W: int, nb: int) -> Arrays:
+def base_case(
+    arrays: Arrays, fb: torch.Tensor, W: int, nb: int, limit: Optional[int] = None
+) -> Arrays:
     """Two overlapped segmented window-sort passes (DESIGN.md §4.3), through
-    K3 (``kernels.ops.base_case_windows``); ``nb`` bounds the bucket ids."""
-    return base_case_windows(arrays, fb, W, nb)
+    K3 (``kernels.ops.base_case_windows``); ``nb`` bounds the bucket ids.
+    ``limit`` (a multiple of W) restricts both passes to [0, limit), for
+    the partial sorts of ``ops.topk``."""
+    return base_case_windows(arrays, fb, W, nb, limit)
 
 
 def stable_full_sort(arrays: Arrays) -> Arrays:
@@ -168,17 +205,27 @@ def stable_full_sort(arrays: Arrays) -> Arrays:
 def pad_with_sentinel(arrays: Arrays, unit: int) -> Arrays:
     """Pad every tensor to a multiple of ``unit``; pad keys get the
     sentinel so they sort to the tail, other tensors get zeros."""
-    n = arrays["k"].shape[0]
+    return _pad(arrays, unit, dim=0)
+
+
+def _pad(arrays: Arrays, unit: int, dim: int) -> Arrays:
+    n = arrays["k"].shape[dim]
     n_pad = -(-n // unit) * unit
     if n_pad == n:
         return arrays
     out = {}
     for name, a in arrays.items():
-        o = torch.zeros((n_pad,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
-        o[:n] = a
+        shape = list(a.shape)
+        shape[dim] = n_pad
+        o = torch.zeros(shape, dtype=a.dtype, device=a.device)
+        o.narrow(dim, 0, n).copy_(a)
         out[name] = o
-    out["k"][n:] = sampling.sentinel_for(out["k"].dtype)
+    out["k"].narrow(dim, n, n_pad - n).fill_(sampling.sentinel_for(out["k"].dtype))
     return out
+
+
+def _level1_sample_size(n_real: int, k: int, cfg: SortConfig) -> int:
+    return min(max(sampling.oversampling_factor(n_real) * k, k), cfg.max_sample, n_real)
 
 
 def level_pass(
@@ -188,25 +235,30 @@ def level_pass(
     cfg: SortConfig,
     gen: torch.Generator,
     splitters: Optional[torch.Tensor] = None,
+    consumed_bits: int = 0,
 ) -> Tuple[Arrays, torch.Tensor, int, int]:
     """One *global* level pass: sample -> K1 (classify + rank + histogram)
     -> scatter.  Pads (positions >= n_real) go to the dedicated bucket 2k.
-    ``splitters`` (k-1,) replaces the sample when given.  Returns
+    ``splitters`` (k-1,) replaces the sample when given.  With
+    ``cfg.classifier == "radix"`` nothing is sampled and K1r buckets on
+    the log2(k) key bits past ``consumed_bits``.  Returns
     (arrays, offsets, nb, pad_bucket) with nb = 2k + 1."""
     keys = arrays["k"]
     n = keys.shape[0]
-    if splitters is None:
+    clf = resolve_classifier(cfg.classifier)
+    if clf == "radix":
+        splitters = None
+    elif splitters is None:
         with obs.trace("sample", k=k, n=n_real):
-            m1 = min(
-                max(sampling.oversampling_factor(n_real) * k, k), cfg.max_sample, n_real
-            )
+            m1 = _level1_sample_size(n_real, k, cfg)
             pos = torch.randint(0, n_real, (m1,), generator=gen, device=keys.device)
             sample = torch.sort(keys[pos]).values
             splitters = sampling.select_splitters(sample, k)
     nb = 2 * k + 1  # +1: dedicated pad bucket (the overflow-block analogue)
-    with obs.trace("classify", fused=True, k=k):
+    with obs.trace("classify", fused=True, classifier=clf, k=k):
         dest, off = level_fused(
-            keys, splitters, k=k, n_real=n_real, tile=_auto_tile(n, nb, cfg)
+            keys, splitters, k=k, n_real=n_real, tile=_auto_tile(n, nb, cfg),
+            classifier=clf, consumed_bits=consumed_bits,
         )
     with obs.trace("partition", fused=True, nb=nb):
         arrays = _scatter(arrays, dest)
@@ -223,15 +275,19 @@ def segmented_level_pass(
     gen: torch.Generator,
     sample_cap: int = 2048,
     splitters: Optional[torch.Tensor] = None,
+    classifier: str = "tree",
+    consumed_bits: int = 0,
 ) -> Tuple[Arrays, torch.Tensor, int]:
     """One *segmented* level pass (recursion level 2): per-segment
-    splitters, plain flattened classification, then K2 over the composite
-    ids ``seg * 2k + local`` with the segments' offsets, and a scatter.
-    ``splitters`` (num_seg, k-1) replaces the sample when given.  Returns
-    (arrays, offsets, nb) with nb = num_seg * 2k."""
+    splitters (or the radix bits past ``consumed_bits``, valid only after a
+    radix level 1), plain flattened classification, then K2 over the
+    composite ids ``seg * 2k + local`` with the segments' offsets, and a
+    scatter.  ``splitters`` (num_seg, k-1) replaces the sample when given.
+    Returns (arrays, offsets, nb) with nb = num_seg * 2k."""
     keys = arrays["k"]
     n = keys.shape[0]
-    comp = composite_ids(keys, seg_offsets, num_seg, n_real, k, gen, sample_cap, splitters)
+    comp = composite_ids(keys, seg_offsets, num_seg, n_real, k, gen, sample_cap,
+                         splitters, classifier, consumed_bits)
     nb = num_seg * 2 * k
     with obs.trace("partition", segmented=True, nb=nb):
         dest, offsets = rank_hist(
@@ -251,22 +307,57 @@ def composite_ids(
     gen: torch.Generator,
     sample_cap: int = 2048,
     splitters: Optional[torch.Tensor] = None,
+    classifier: str = "tree",
+    consumed_bits: int = 0,
 ) -> torch.Tensor:
     """Level 2's composite bucket ids ``seg * 2k + local`` (n,) int32: the
-    ids K2 ranks.  Samples each segment's splitters unless given."""
-    n = keys.shape[0]
+    ids K2 ranks.  Samples each segment's splitters unless given or
+    ``classifier`` is "radix"."""
+    return batched_composite_ids(
+        keys[None], seg_offsets[None], num_seg, n_real, k, gen, sample_cap,
+        None if splitters is None else splitters[None], classifier, consumed_bits,
+    )[0]
+
+
+def batched_composite_ids(
+    keys: torch.Tensor,
+    seg_offsets: torch.Tensor,
+    num_seg: int,
+    n_real: int,
+    k: int,
+    gen: torch.Generator,
+    sample_cap: int = 2048,
+    splitters: Optional[torch.Tensor] = None,
+    classifier: str = "tree",
+    consumed_bits: int = 0,
+) -> torch.Tensor:
+    """Row-local composite ids (B, n) int32 of (B, n) ``keys`` with
+    (B, num_seg+1) ``seg_offsets``; ``splitters`` is (B, num_seg, k-1)."""
+    B, n = keys.shape
     seg = segment_ids(seg_offsets, n)
+    if classifier == "radix":
+        # no sample: within a radix-aligned segment the next bits are monotone
+        with obs.trace("classify", segmented=True, classifier="radix", k=k):
+            local = radix_bucket_ids(keys, k, consumed_bits)
+        return seg * (2 * k) + local
     if splitters is None:
         with obs.trace("sample", segmented=True, k=k, segments=num_seg):
             m = min(max(sampling.oversampling_factor(n_real) * k, k), sample_cap)
-            pos = sampling.sample_indices(gen, m, seg_offsets[:-1], seg_offsets[1:])
+            pos = sampling.sample_indices(gen, m, seg_offsets[:, :-1], seg_offsets[:, 1:])
             # an empty last segment samples position n: clamp it (jnp.take
             # clamps in the reference), no element classifies into it anyway
-            pos = pos.reshape(-1).clamp_(max=n - 1)
-            svals = torch.sort(keys[pos].reshape(num_seg, m), dim=-1).values
+            pos = pos.reshape(B, num_seg * m).clamp_(max=n - 1)
+            svals = torch.sort(torch.gather(keys, 1, pos).reshape(B, num_seg, m),
+                               dim=-1).values
             splitters = sampling.select_splitters(svals, k)
-    with obs.trace("classify", segmented=True, k=k):
-        local = classify_segmented(keys, seg, splitters, k)
+    with obs.trace("classify", segmented=True, classifier="tree", k=k):
+        # (row, segment) -> one global segment for the flattened classifier
+        gseg = seg
+        if B > 1:
+            gseg = seg + torch.arange(B, dtype=torch.int32, device=keys.device)[:, None] * num_seg
+        local = classify_segmented(
+            keys.reshape(-1), gseg.reshape(-1), splitters.reshape(B * num_seg, k - 1), k,
+        ).reshape(B, n)
     return seg * (2 * k) + local
 
 
@@ -285,8 +376,10 @@ def partition_passes(
     sentinel-equality bucket after two).  ``splitters`` gives each level's
     splitters in place of the samples (the parity tests feed the
     reference's); the samples come from a ``torch.Generator`` seeded with
-    ``cfg.seed`` on the keys' device.
+    ``cfg.seed`` on the keys' device.  Level 2 stays radix only when level 1
+    was radix, shifted past the ``log2(k1)`` bits level 1 fixed.
     """
+    clf = resolve_classifier(cfg.classifier)
     keys = arrays["k"]
     gen = torch.Generator(device=keys.device).manual_seed(cfg.seed)
     spl = list(splitters) if splitters is not None else [None] * len(levels)
@@ -298,54 +391,88 @@ def partition_passes(
         return arrays, off1, nb1, pad_bucket
     with obs.trace("level_pass", level=2, k=levels[1], segmented=True):
         arrays, offsets, nb = segmented_level_pass(
-            arrays, off1, nb1, n_real, levels[1], cfg, gen, splitters=spl[1]
+            arrays, off1, nb1, n_real, levels[1], cfg, gen, splitters=spl[1],
+            classifier=clf, consumed_bits=levels[0].bit_length() - 1,
         )
     return arrays, offsets, nb, None  # pads now sit in an odd equality bucket
 
 
 def _oversized(
-    offsets: torch.Tensor, nb: int, W: int, pad_bucket: Optional[int]
+    offsets: torch.Tensor, nb: int, W: int, pad_bucket: Optional[int],
+    limit: Optional[int] = None,
 ) -> torch.Tensor:
-    """(nb,) mask of the non-trivial buckets larger than W/2; odd ids are
-    equality buckets (and the pad bucket holds sentinels), which never need
-    sorting."""
-    sizes = offsets[1:] - offsets[:-1]
+    """(..., nb) mask of the non-trivial buckets larger than W/2 (per row
+    for (B, nb+1) offsets); odd ids are equality buckets (and the pad
+    bucket holds sentinels), which never need sorting.  ``limit`` keeps
+    only the buckets that start below it."""
+    sizes = offsets[..., 1:] - offsets[..., :-1]
     ids = torch.arange(nb, device=offsets.device)
     nontrivial = (ids % 2) == 0
     if pad_bucket is not None:
         nontrivial &= ids != pad_bucket
-    return nontrivial & (sizes > W // 2)
+    big = nontrivial & (sizes > W // 2)
+    if limit is not None:
+        big &= offsets[..., :-1] < limit
+    return big
 
 
 def bucket_violations(
-    offsets: torch.Tensor, nb: int, W: int, pad_bucket: Optional[int] = None
+    offsets: torch.Tensor, nb: int, W: int, pad_bucket: Optional[int] = None,
+    limit: Optional[int] = None,
 ) -> torch.Tensor:
-    """True iff some non-trivial bucket exceeds W/2 (base-case
-    precondition)."""
-    return torch.any(_oversized(offsets, nb, W, pad_bucket))
+    """True iff some non-trivial bucket (of any row) exceeds W/2 (the
+    base-case precondition); ``limit`` restricts the check to the buckets
+    that start below it."""
+    return torch.any(_oversized(offsets, nb, W, pad_bucket, limit))
 
 
 def _sort_oversized(
     arrays: Arrays, fb: torch.Tensor, offsets: torch.Tensor, nb: int, W: int,
-    pad_bucket: Optional[int],
+    pad_bucket: Optional[int], limit: Optional[int] = None,
 ) -> Arrays:
-    """Stably sort, in place, the keys of every bucket larger than W/2.
+    """Stably sort, in place, the keys of every bucket larger than W/2 (that
+    starts below ``limit``), in one row (n,) or in each of B rows (B, n).
 
-    The robustness fallback.  The reference sorts the whole array instead
-    (``lax.cond`` into ``stable_full_sort``).  Sorting only the oversized
-    buckets gives the same result: a window pass re-sorts a piece of a
-    sorted bucket into itself, so the two window passes that follow still
-    finish every other bucket, stably.  At the default config and
-    n = 2^24 some buckets exceeded W/2 in every run measured (PERF.md), so
-    this is on the main path there.
+    The robustness fallback.  The reference sorts the whole array (every
+    row, batch-wide) instead (``lax.cond`` into ``stable_full_sort``).
+    Sorting only the oversized buckets gives the same result: a window pass
+    re-sorts a piece of a sorted bucket into itself, so the two window
+    passes that follow still finish every other bucket, stably.  At the
+    default config and n = 2^24 some buckets exceeded W/2 in every run
+    measured (PERF.md), so this is on the main path there.  The picked
+    positions are sorted by (row, bucket, key), packed into one int64.
     """
-    big = _oversized(offsets, nb, W, pad_bucket)[fb.to(torch.int64)]
-    pos = torch.nonzero(big).squeeze(1)
-    packed = (fb[pos].to(torch.int64) << 32) + (arrays["k"][pos].to(torch.int64) + (1 << 31))
+    fb2 = fb if fb.dim() == 2 else fb[None]
+    B, n = fb2.shape
+    big_rows = _oversized(offsets.reshape(B, nb + 1), nb, W, pad_bucket, limit)
+    pos = torch.nonzero(torch.gather(big_rows, 1, fb2.to(torch.int64)).reshape(-1)).squeeze(1)
+    gid = fb2.reshape(-1)[pos].to(torch.int64)
+    if B > 1:  # (row, bucket) < B * nb < B * n < 2^31: it fits above the key
+        gid += (pos // n) * nb
+    keys = arrays["k"].reshape(-1)
+    packed = (gid << 32) + (keys[pos].to(torch.int64) + (1 << 31))
     src = pos[torch.sort(packed, stable=True).indices]
     for a in arrays.values():
-        a[pos] = a[src]
+        flat = a.view((B * n,) + tuple(a.shape[fb.dim():]))
+        flat[pos] = flat[src]
     return arrays
+
+
+def base_case_with_fallback(
+    arrays: Arrays, offsets: torch.Tensor, nb: int, pad_bucket: Optional[int],
+    cfg: SortConfig, limit: Optional[int] = None,
+) -> Arrays:
+    """After the level passes: the fallback where it is needed, then the
+    base case, over one row or B rows, on [0, limit) of each row."""
+    n = arrays["k"].shape[-1]
+    W = cfg.base_case
+    fb = segment_ids(offsets, n)
+    with obs.trace("base_case", W=W, fallback=cfg.fallback):
+        # the reference picks its fallback branch on the device with
+        # lax.cond; here one host read of the verdict picks it
+        if cfg.fallback and bool(bucket_violations(offsets, nb, W, pad_bucket, limit)):
+            arrays = _sort_oversized(arrays, fb, offsets, nb, W, pad_bucket, limit)
+        return base_case(arrays, fb, W, nb, limit)
 
 
 def _sort_padded(
@@ -355,19 +482,185 @@ def _sort_padded(
     levels: Sequence[int],
 ) -> Arrays:
     """Sort padded arrays (pads = sentinel keys at the tail)."""
-    n = arrays["k"].shape[0]
-    W = cfg.base_case
     if not levels:
         return stable_full_sort(arrays)  # one window: the paper's smallSort
-
     arrays, offsets, nb, pad_bucket = partition_passes(arrays, n_real, cfg, levels)
-    fb = segment_ids(offsets, n)
-    with obs.trace("base_case", W=W, fallback=cfg.fallback):
-        # the reference picks its fallback branch on the device with
-        # lax.cond; here one host read of the verdict picks it
-        if cfg.fallback and bool(bucket_violations(offsets, nb, W, pad_bucket)):
-            arrays = _sort_oversized(arrays, fb, offsets, nb, W, pad_bucket)
-        return base_case(arrays, fb, W, nb)
+    return base_case_with_fallback(arrays, offsets, nb, pad_bucket, cfg)
+
+
+# --------------------------------------------------------------------------
+# The batch-axis pipeline (DESIGN.md §6): every stage over (B, n) rows at
+# once.  Rows never exchange elements; each row gets its own splitters, its
+# own bucket offsets and its own stable partition.  segment_ids, base_case
+# and bucket_violations take (B, n) rows as they are; the reference's
+# batched names stay as aliases.
+
+batched_segment_ids = segment_ids
+batched_base_case = base_case
+batched_bucket_violations = bucket_violations
+
+
+def batched_stable_full_sort(arrays: Arrays) -> Arrays:
+    """Per-row stable sort by key: the smallSort of rows within one window."""
+    order = torch.sort(arrays["k"], dim=1, stable=True).indices
+    row = torch.arange(order.shape[0], device=order.device)[:, None]
+    return {name: a[row, order] for name, a in arrays.items()}
+
+
+def batched_pad_with_sentinel(arrays: Arrays, unit: int) -> Arrays:
+    """Pad axis 1 of every (B, n, ...) tensor to a multiple of ``unit``; pad
+    keys get the sentinel (each row's overflow-block analogue)."""
+    return _pad(arrays, unit, dim=1)
+
+
+def batched_level_pass(
+    arrays: Arrays,
+    n_real: int,
+    k: int,
+    cfg: SortConfig,
+    gen: torch.Generator,
+    splitters: Optional[torch.Tensor] = None,
+) -> Tuple[Arrays, torch.Tensor, int, int]:
+    """One global level pass per row: per-row sample -> K4
+    ``level_fused_batched`` (classify + rank + histogram of all rows in one
+    launch) -> per-row scatter.  "radix" samples nothing: the shift is
+    shared by the rows.  ``splitters`` (B, k-1) replaces the samples when
+    given.  Returns (arrays, offsets (B, nb+1), nb, pad_bucket), nb = 2k+1.
+    """
+    keys = arrays["k"]
+    B, n = keys.shape
+    clf = resolve_classifier(cfg.classifier)
+    if clf == "radix":
+        splitters = None
+    elif splitters is None:
+        with obs.trace("sample", batched=True, k=k, n=n_real):
+            m1 = _level1_sample_size(n_real, k, cfg)
+            pos = torch.randint(0, n_real, (B, m1), generator=gen, device=keys.device)
+            sample = torch.sort(torch.gather(keys, 1, pos), dim=1).values
+            splitters = sampling.select_splitters(sample, k)
+    nb = 2 * k + 1
+    with obs.trace("classify", batched=True, fused=True, classifier=clf, k=k):
+        dest, off = level_fused_batched(
+            keys, splitters, k=k, n_real=n_real, tile=_auto_tile(n, nb, cfg),
+            classifier=clf,
+        )
+    with obs.trace("partition", batched=True, fused=True, nb=nb):
+        arrays = _scatter(arrays, dest)
+    return arrays, off, nb, 2 * k
+
+
+def batched_segmented_level_pass(
+    arrays: Arrays,
+    seg_offsets: torch.Tensor,
+    num_seg: int,
+    n_real: int,
+    k: int,
+    cfg: SortConfig,
+    gen: torch.Generator,
+    sample_cap: int = 2048,
+    splitters: Optional[torch.Tensor] = None,
+    classifier: str = "tree",
+    consumed_bits: int = 0,
+) -> Tuple[Arrays, torch.Tensor, int]:
+    """Recursion level 2 per row: per-(row, segment) splitters (or the radix
+    bits), flattened classification, then K4 ``rank_hist_batched`` over the
+    row-local composite ids at any nb, and a per-row scatter.
+    ``seg_offsets`` is (B, num_seg+1).  Returns (arrays, offsets (B, nb+1),
+    nb) with nb = num_seg * 2k."""
+    keys = arrays["k"]
+    n = keys.shape[1]
+    comp = batched_composite_ids(keys, seg_offsets, num_seg, n_real, k, gen, sample_cap,
+                                 splitters, classifier, consumed_bits)
+    nb = num_seg * 2 * k
+    with obs.trace("partition", batched=True, segmented=True, nb=nb):
+        dest, offsets = rank_hist_batched(
+            comp, nb=nb, seg_offsets=seg_offsets, seg_width=2 * k,
+            tile=_auto_tile(n, 2 * k, cfg),
+        )
+        arrays = _scatter(arrays, dest)
+    return arrays, offsets, nb
+
+
+def batched_partition_passes(
+    arrays: Arrays,
+    n_real: int,
+    cfg: SortConfig,
+    levels: Sequence[int],
+    splitters: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[Arrays, torch.Tensor, int, Optional[int]]:
+    """The (at most two) batched level passes, as :func:`partition_passes`
+    per row.  Returns (arrays, offsets (B, nb+1), nb, pad_bucket).
+    ``splitters`` gives (B, k1-1) and (B, num_seg, k2-1) splitters in place
+    of the samples, which come from one ``torch.Generator`` seeded with
+    ``cfg.seed`` (each row draws its own block of it)."""
+    clf = resolve_classifier(cfg.classifier)
+    gen = torch.Generator(device=arrays["k"].device).manual_seed(cfg.seed)
+    spl = list(splitters) if splitters is not None else [None] * len(levels)
+    with obs.trace("level_pass", level=1, k=levels[0], batched=True):
+        arrays, off1, nb1, pad_bucket = batched_level_pass(
+            arrays, n_real, levels[0], cfg, gen, spl[0]
+        )
+    if len(levels) == 1:
+        return arrays, off1, nb1, pad_bucket
+    with obs.trace("level_pass", level=2, k=levels[1], batched=True, segmented=True):
+        arrays, offsets, nb = batched_segmented_level_pass(
+            arrays, off1, nb1, n_real, levels[1], cfg, gen, splitters=spl[1],
+            classifier=clf, consumed_bits=levels[0].bit_length() - 1,
+        )
+    return arrays, offsets, nb, None  # pads now sit in odd equality buckets
+
+
+def _sort_padded_batched(
+    arrays: Arrays, n_real: int, cfg: SortConfig, levels: Sequence[int]
+) -> Arrays:
+    """Sort padded (B, n_pad, ...) arrays, all rows at once."""
+    if not levels:
+        return batched_stable_full_sort(arrays)
+    arrays, offsets, nb, pad_bucket = batched_partition_passes(arrays, n_real, cfg, levels)
+    return base_case_with_fallback(arrays, offsets, nb, pad_bucket, cfg)
+
+
+def _check_keys(keys: torch.Tensor, dim: int, values) -> None:
+    if keys.dim() != dim:
+        raise ValueError(f"keys must be {'1-D' if dim == 1 else '2-D (B, n)'}")
+    if keys.dtype != torch.int32:
+        raise NotImplementedError(
+            f"the sort takes keyspace-encoded int32 keys, got {keys.dtype} "
+            f"({_ROADMAP} item 1)"
+        )
+    if values is not None and (
+        not isinstance(values, torch.Tensor) or values.dim() < dim
+        or values.shape[:dim] != keys.shape
+    ):
+        raise NotImplementedError(
+            f"values must be one tensor with leading dims {tuple(keys.shape)}; payload "
+            f"pytrees are not ported yet ({_ROADMAP} item 7)"
+        )
+
+
+def ips4o_sort_batched(
+    keys: torch.Tensor,
+    values: Optional[torch.Tensor] = None,
+    cfg: SortConfig = SortConfig(),
+):
+    """Sort every row of encoded int32 ``keys`` (B, n) ascending, stably and
+    independently, in one pipeline; optionally move a ``values`` tensor
+    (leading dims (B, n)) alongside, row by row.  Returns keys or (keys,
+    values) on the keys' device."""
+    _check_config(cfg)
+    _check_keys(keys, 2, values)
+    B, n = keys.shape
+    if n <= 1 or B == 0:
+        return keys if values is None else (keys, values)
+    arrays = {"k": keys}
+    if values is not None:
+        arrays["v"] = values.to(keys.device)
+    with obs.trace("ips4o_sort_batched", B=B, n=n, classifier=cfg.classifier):
+        arrays = batched_pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
+        levels = plan_levels(arrays["k"].shape[1], cfg)
+        arrays = _sort_padded_batched(arrays, n, cfg, levels)
+    out_k = arrays["k"][:, :n]
+    return out_k if values is None else (out_k, arrays["v"][:, :n])
 
 
 def ips4o_sort(
@@ -382,21 +675,7 @@ def ips4o_sort(
     The ``repro_torch.ops`` entry points encode float32/int32 keys first.
     """
     _check_config(cfg)
-    if keys.dim() != 1:
-        raise ValueError("keys must be 1-D")
-    if keys.dtype != torch.int32:
-        raise NotImplementedError(
-            f"ips4o_sort takes keyspace-encoded int32 keys, got {keys.dtype} "
-            f"({_ROADMAP} item 1)"
-        )
-    if values is not None and (
-        not isinstance(values, torch.Tensor) or values.dim() < 1
-        or values.shape[0] != keys.shape[0]
-    ):
-        raise NotImplementedError(
-            "values must be one tensor with leading dim n; payload pytrees are "
-            f"not ported yet ({_ROADMAP} item 7)"
-        )
+    _check_keys(keys, 1, values)
     n = keys.shape[0]
     if n <= 1:
         return keys if values is None else (keys, values)

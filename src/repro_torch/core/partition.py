@@ -5,7 +5,8 @@ grouping, per-tile histograms, exclusive prefix sums over tiles, and one
 gather.  This is the oracle formula that the port's partition kernels K1
 (``kernels.level_fused.level_fused``) and K2 (``kernels.level_fused.rank_hist``)
 are held to: the stable counting placement, which does not depend on the
-tiling.
+tiling.  :func:`batched_stable_partition` is the per-row form, the oracle of
+K4 (``kernels.level_fused.level_fused_batched`` and ``rank_hist_batched``).
 """
 from __future__ import annotations
 
@@ -13,7 +14,12 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["tile_histogram", "partition_permutation", "stable_partition"]
+__all__ = [
+    "tile_histogram",
+    "partition_permutation",
+    "stable_partition",
+    "batched_stable_partition",
+]
 
 Arrays = Dict[str, torch.Tensor]
 
@@ -73,3 +79,29 @@ def stable_partition(
     Returns (reordered arrays, offsets (nb+1,) int32)."""
     perm, offsets = partition_permutation(bucket, nb, tile)
     return {name: a[perm] for name, a in arrays.items()}, offsets
+
+
+def batched_stable_partition(
+    bucket: torch.Tensor, arrays: Arrays, nb: int, tile: int
+) -> Tuple[Arrays, torch.Tensor]:
+    """Per-row stable partition of (B, n) ``bucket`` ids in [0, nb); every
+    tensor of ``arrays`` is (B, n, ...).  Rows never exchange elements.
+    Returns (reordered arrays, offsets (B, nb+1) int32).
+
+    The rows, flattened, are one array whose ids ``row * nb + bucket`` rise
+    with the row; n is a multiple of ``tile``, so no tile straddles a row,
+    and the stable partition of that array is each row's, shifted by the
+    row's start.
+    """
+    B, n = bucket.shape
+    dev = bucket.device
+    row = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+    perm, flat_off = partition_permutation(
+        (bucket.to(torch.int64) + row * nb).reshape(-1), B * nb, tile
+    )
+    offsets = torch.cat(
+        [flat_off[:-1].reshape(B, nb) - (row * n).to(torch.int32),
+         torch.full((B, 1), n, dtype=torch.int32, device=dev)], 1)
+    out = {name: a.reshape((B * n,) + a.shape[2:])[perm].reshape(a.shape)
+           for name, a in arrays.items()}
+    return out, offsets

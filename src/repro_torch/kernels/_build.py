@@ -48,7 +48,10 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset
-LAUNCHES: Dict[str, int] = {"level_fused": 0, "rank_hist": 0, "sort_windows": 0}
+LAUNCHES: Dict[str, int] = {
+    "level_fused": 0, "rank_hist": 0, "sort_windows": 0,
+    "level_fused_radix": 0, "level_fused_batched": 0, "rank_hist_batched": 0,
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 P = ctypes.c_void_p

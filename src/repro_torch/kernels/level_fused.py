@@ -1,27 +1,36 @@
-"""K1 ``level_fused`` and K2 ``rank_hist``: the fused level pass.
+"""K1 ``level_fused`` (tree and radix modes), K2 ``rank_hist`` and their
+batched forms K4: the fused level pass.
 
 Counterpart of ``repro.kernels.level_fused`` (the Pallas TPU kernels at
-``level_fused.py:160`` and ``:311``).  The CUDA kernels are in
-``csrc/level_fused.cu``, whose header note gives their bound and design.
-Each wrapper launches its kernel on a CUDA tensor and runs its plain torch
-twin (``*_plain``, same outputs bit for bit) only on a CPU tensor; there is
-no fallback from one to the other.
+``level_fused.py:160``, ``:240``, ``:311`` and ``:364``).  The CUDA kernels
+are in ``csrc/level_fused.cu``, whose header note gives their bound and
+design.  Each wrapper launches its kernel on a CUDA tensor and runs its
+plain torch twin (``*_plain``, same outputs bit for bit) only on a CPU
+tensor; there is no fallback from one to the other.  Each counts its
+launches under its own key of ``_build.LAUNCHES``.
 
 K1 ``level_fused``: classify each key against the k-1 sorted splitters
-(tree mode), route positions >= n_real to the pad bucket 2k, and rank each
-key stably within its tile; the epilogue :func:`_close_placement` (plain
-torch, as XLA runs it in the reference) turns the per-tile ranks and
-histogram into the global destinations and bucket offsets.
+(tree mode, key ``level_fused``) or by its next log2(k) bits (radix mode,
+K1r, key ``level_fused_radix``), route positions >= n_real to the pad
+bucket 2k, and rank each key stably within its tile; the epilogue
+:func:`_close_placement` (plain torch, as XLA runs it in the reference)
+turns the per-tile ranks and histogram into the global destinations and
+bucket offsets.  K4 ``level_fused_batched`` (key ``level_fused_batched``)
+is the same over (B, n) rows, each row with its own splitters or the shared
+radix shift, its own pads and its own placement.
 
 K2 ``rank_hist``: the same rank + histogram + epilogue over given ids in
 [0, nb).  With ``seg_offsets`` it takes level 2's composite ids
 ``seg * seg_width + local`` at any nb: work items never straddle a segment,
 each item ranks over ``seg_width`` counters, and the epilogue
-:func:`_close_segments` offsets each segment by its start.
+:func:`_close_segments` offsets each segment by its start.  K4
+``rank_hist_batched`` (key ``rank_hist_batched``) runs the K2 kernel over
+items cut from the B x num_seg row-aligned segments of the flattened rows.
 
-Both return (dest (n,) int32, offsets (nb+1,) int32), bit-identical to the
-stable counting placement of ``core.partition.partition_permutation``:
-scattering ``a[i] -> dest[i]`` groups a payload by bucket, stably.
+All return destinations and offsets bit-identical to the stable counting
+placement of ``core.partition.partition_permutation`` (per row for the
+batched forms): scattering ``a[i] -> dest[i]`` groups a payload by bucket,
+stably.
 """
 from __future__ import annotations
 
@@ -29,15 +38,19 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.classify import classify
+from repro_torch.classify import CLASSIFIERS, classify_batched, radix_bucket_ids, radix_shift
 from repro_torch.core.sampling import sentinel_for
 from repro_torch.kernels import _build
 
 __all__ = [
     "level_fused",
     "level_fused_plain",
+    "level_fused_batched",
+    "level_fused_batched_plain",
     "rank_hist",
     "rank_hist_plain",
+    "rank_hist_batched",
+    "rank_hist_batched_plain",
     "TILE",
     "MAX_TILE",
     "MAX_NB",
@@ -50,16 +63,18 @@ MAX_NB = 2048  # counters per CTA: 8 warps x MAX_NB ints of shared memory
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
     "level_fused_tree": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "level_fused_radix": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "level_fused_batched": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "level_fused_rank_hist": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 
-def _check_ids(x: torch.Tensor, what: str) -> None:
-    if x.dim() != 1 or x.dtype != torch.int32 or not x.is_contiguous():
-        raise ValueError(f"{what}: expected a contiguous 1-D int32 tensor, got "
+def _check_ids(x: torch.Tensor, what: str, dim: int = 1) -> None:
+    if x.dim() != dim or x.dtype != torch.int32 or not x.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous {dim}-D int32 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.shape[0] >= 2**31:
-        raise ValueError(f"{what}: n={x.shape[0]} exceeds int32 positions")
+    if x.numel() >= 2**31:
+        raise ValueError(f"{what}: {x.numel()} elements exceed int32 positions")
 
 
 def _check_tile(tile: int, nb: int) -> None:
@@ -94,121 +109,201 @@ def _slot_rank_hist(slot: torch.Tensor, num_slots: int) -> Tuple[torch.Tensor, t
 
 
 def _cumsum_rows(hist: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 cumsum of a (rows, nb) histogram down its rows.  Taken
-    along the inner dim of a transposed copy: PyTorch's int32 scan along the
-    outer dim took 1.1 ms at (4096, 257) on the H100 (PERF.md)."""
-    return torch.cumsum(hist.t().contiguous(), 1, dtype=torch.int32).t()
+    """Inclusive int32 cumsum of a (..., rows, nb) histogram down its rows.
+    Taken along the inner dim of a transposed copy: PyTorch's int32 scan
+    along the outer dim took 1.1 ms at (4096, 257) on the H100 (PERF.md)."""
+    return torch.cumsum(hist.transpose(-1, -2).contiguous(), -1,
+                        dtype=torch.int32).transpose(-1, -2)
 
 
 def _close_placement(
     bucket: torch.Tensor, rank: torch.Tensor, hist: torch.Tensor, nb: int, tile: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's epilogue: prefix-sum the (tiles, nb) histogram and place every
-    element, dest = offsets[b] + tile_off[t, b] + rank."""
-    n = bucket.shape[0]
+    """K1's and K4's epilogue, per row: prefix-sum the (B, tiles, nb)
+    histograms and place every element of the (B, n) rows,
+    dest = offsets[row, b] + tile_off[row, t, b] + rank (row-local)."""
+    B, n = bucket.shape
+    tiles = hist.shape[1]
     dev = bucket.device
-    offsets = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
-    offsets[1:] = torch.cumsum(hist.sum(0, dtype=torch.int32), 0, dtype=torch.int32)
+    offsets = torch.zeros((B, nb + 1), dtype=torch.int32, device=dev)
+    offsets[:, 1:] = torch.cumsum(hist.sum(1, dtype=torch.int32), 1, dtype=torch.int32)
     tile_off = _cumsum_rows(hist) - hist
-    base = (offsets[:-1][None, :] + tile_off).reshape(-1)
+    base = (offsets[:, None, :-1] + tile_off).reshape(B, tiles * nb)
     t_idx = torch.arange(n, dtype=torch.int64, device=dev) // tile
-    dest = base[t_idx * nb + bucket.to(torch.int64)] + rank
+    dest = torch.gather(base, 1, t_idx * nb + bucket.to(torch.int64)) + rank
     return dest, offsets
 
 
 # ---------------------------------------------------------------------------
-# K1
+# K1, K1r and K4 level_fused_batched
 
 
 def _upper(splitters: torch.Tensor) -> torch.Tensor:
-    sent = torch.full((1,), sentinel_for(torch.int32), dtype=torch.int32,
-                      device=splitters.device)
-    return torch.cat([splitters, sent]).contiguous()
+    """(B, k-1) splitters -> (B, k) uppers, the last the sentinel."""
+    sent = torch.full((splitters.shape[0], 1), sentinel_for(torch.int32),
+                      dtype=torch.int32, device=splitters.device)
+    return torch.cat([splitters, sent], 1).contiguous()
 
 
-def _level_tiles_plain(keys, splitters, k, n_real, tile):
-    """(bucket, in-tile rank, (tiles, nb) histogram): what the K1 kernel
-    writes, in plain torch."""
-    n = keys.shape[0]
+def _level_tiles_plain(keys, splitters, k, n_real, tile, consumed_bits=0):
+    """(bucket, in-tile rank, (B, tiles, nb) histogram) of (B, n) keys: what
+    the K1/K1r/K4 kernels write, in plain torch.  ``splitters`` (B, k-1)
+    selects tree mode, None radix mode."""
+    B, n = keys.shape
     nb = 2 * k + 1
-    bucket = classify(keys, splitters, k)
-    bucket[n_real:] = 2 * k
+    if splitters is None:
+        bucket = radix_bucket_ids(keys, k, consumed_bits)
+    else:
+        bucket = classify_batched(keys, splitters, k)
+    bucket[:, n_real:] = 2 * k
     tiles = -(-n // tile)
-    t_idx = torch.arange(n, dtype=torch.int64, device=keys.device) // tile
-    rank, counts = _slot_rank_hist(t_idx * nb + bucket, tiles * nb)
-    return bucket, rank, counts.reshape(tiles, nb)
+    t_idx = (torch.arange(B, dtype=torch.int64, device=keys.device)[:, None] * tiles
+             + torch.arange(n, dtype=torch.int64, device=keys.device) // tile)
+    rank, counts = _slot_rank_hist((t_idx * nb + bucket).reshape(-1), B * tiles * nb)
+    return bucket, rank.reshape(B, n), counts.reshape(B, tiles, nb)
 
 
-def _level_tiles_kernel(keys, splitters, k, n_real, tile):
-    n = keys.shape[0]
+def _level_tiles_kernel(keys, splitters, k, n_real, tile, consumed_bits=0, batched=False):
+    """The same three outputs from the CUDA kernel: K4 when ``batched``,
+    else K1 (tree) or K1r (radix) on the one row of ``keys`` (1, n)."""
+    B, n = keys.shape
     nb = 2 * k + 1
-    upper = _upper(splitters)
     tiles = -(-n // tile)
+    radix = splitters is None
+    shift = radix_shift(k, consumed_bits) if radix else 0
+    upper = None if radix else _upper(splitters)
     bucket = torch.empty_like(keys)
     rank = torch.empty_like(keys)
-    hist = torch.empty((tiles, nb), dtype=torch.int32, device=keys.device)
+    hist = torch.empty((B, tiles, nb), dtype=torch.int32, device=keys.device)
+    outs = (bucket.data_ptr(), rank.data_ptr(), hist.data_ptr(),
+            _build.stream_handle(keys.device))
     lib = _build.library("level_fused", _SIGNATURES)
-    err = lib.level_fused_tree(
-        keys.data_ptr(), upper.data_ptr(), n, n_real, k, tile,
-        bucket.data_ptr(), rank.data_ptr(), hist.data_ptr(),
-        _build.stream_handle(keys.device),
-    )
-    _build.check(lib, "level_fused", err, "level_fused kernel")
-    _build.LAUNCHES["level_fused"] += 1
+    if batched:
+        name = "level_fused_batched"
+        err = lib.level_fused_batched(
+            keys.data_ptr(), None if radix else upper.data_ptr(), B, n, n_real, k,
+            int(radix), shift, tile, *outs)
+    elif radix:
+        name = "level_fused_radix"
+        err = lib.level_fused_radix(keys.data_ptr(), n, n_real, k, shift, tile, *outs)
+    else:
+        name = "level_fused"
+        err = lib.level_fused_tree(keys.data_ptr(), upper.data_ptr(), n, n_real, k,
+                                   tile, *outs)
+    _build.check(lib, "level_fused", err, f"{name} kernel")
+    _build.LAUNCHES[name] += 1
     return bucket, rank, hist
 
 
-def _level_args(keys, splitters, k, n_real, tile):
-    _check_ids(keys, "level_fused keys")
+def _level_args(keys, splitters, k, n_real, tile, classifier, dim):
+    _check_ids(keys, "level_fused keys", dim)
     if k < 2 or k & (k - 1):
         raise ValueError(f"k={k} must be a power of two >= 2")
     _check_tile(tile, 2 * k + 1)
-    n = keys.shape[0]
+    n = keys.shape[-1]
     n_real = n if n_real is None else n_real
     if not 0 <= n_real <= n:
         raise ValueError(f"n_real={n_real} outside [0, {n}]")
-    if splitters.shape != (k - 1,) or splitters.dtype != torch.int32:
-        raise ValueError(f"splitters: expected ({k - 1},) int32, got "
-                         f"{tuple(splitters.shape)} {splitters.dtype}")
+    if classifier not in CLASSIFIERS:
+        raise ValueError(f"classifier={classifier!r} must be one of {CLASSIFIERS}")
+    if classifier == "radix":
+        if splitters is not None:
+            raise ValueError("radix mode takes no splitters")
+        return n_real, None
+    want = keys.shape[:-1] + (k - 1,)
+    if splitters is None or splitters.shape != want or splitters.dtype != torch.int32:
+        raise ValueError(f"splitters: expected {want} int32, got "
+                         f"{None if splitters is None else tuple(splitters.shape)}")
     if splitters.device != keys.device:
         raise ValueError("keys and splitters must share a device")
-    return n_real
+    return n_real, splitters.reshape(-1, k - 1).contiguous()
+
+
+def _level(keys, splitters, k, n_real, tile, classifier, consumed_bits, plain, batched):
+    n_real, spl = _level_args(keys, splitters, k, n_real, tile, classifier,
+                              2 if batched else 1)
+    rows = keys if batched else keys[None]
+    if plain:
+        bucket, rank, hist = _level_tiles_plain(rows, spl, k, n_real, tile, consumed_bits)
+    else:
+        bucket, rank, hist = _level_tiles_kernel(rows, spl, k, n_real, tile,
+                                                 consumed_bits, batched)
+    dest, offsets = _close_placement(bucket, rank, hist, 2 * k + 1, tile)
+    return (dest, offsets) if batched else (dest[0], offsets[0])
 
 
 def level_fused(
     keys: torch.Tensor,
-    splitters: torch.Tensor,
+    splitters: Optional[torch.Tensor] = None,
     *,
     k: int,
     n_real: Optional[int] = None,
     tile: int = TILE,
+    classifier: str = "tree",
+    consumed_bits: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One fused level pass over encoded ``keys`` (n,) int32 with sorted
-    ``splitters`` (k-1,) int32: the K1 kernel on a CUDA tensor, its plain
+    """One fused level pass over encoded ``keys`` (n,) int32: the K1 kernel
+    (tree mode, sorted ``splitters`` (k-1,) int32) or K1r (radix mode, no
+    splitters, the bits past ``consumed_bits``) on a CUDA tensor, its plain
     twin on a CPU tensor.  Positions >= ``n_real`` go to the pad bucket 2k.
 
     Returns (dest (n,) int32, offsets (2k+2,) int32).
     """
-    n_real = _level_args(keys, splitters, k, n_real, tile)
-    if _device_kind(keys) == "cuda":
-        bucket, rank, hist = _level_tiles_kernel(keys, splitters, k, n_real, tile)
-    else:
-        bucket, rank, hist = _level_tiles_plain(keys, splitters, k, n_real, tile)
-    return _close_placement(bucket, rank, hist, 2 * k + 1, tile)
+    return _level(keys, splitters, k, n_real, tile, classifier, consumed_bits,
+                  plain=_device_kind(keys) == "cpu", batched=False)
 
 
 def level_fused_plain(
     keys: torch.Tensor,
-    splitters: torch.Tensor,
+    splitters: Optional[torch.Tensor] = None,
     *,
     k: int,
     n_real: Optional[int] = None,
     tile: int = TILE,
+    classifier: str = "tree",
+    consumed_bits: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's plain torch twin on any device (the card-side comparison)."""
-    n_real = _level_args(keys, splitters, k, n_real, tile)
-    bucket, rank, hist = _level_tiles_plain(keys, splitters, k, n_real, tile)
-    return _close_placement(bucket, rank, hist, 2 * k + 1, tile)
+    """K1's and K1r's plain torch twin on any device (the card-side
+    comparison)."""
+    return _level(keys, splitters, k, n_real, tile, classifier, consumed_bits,
+                  plain=True, batched=False)
+
+
+def level_fused_batched(
+    keys: torch.Tensor,
+    splitters: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    n_real: Optional[int] = None,
+    tile: int = TILE,
+    classifier: str = "tree",
+    consumed_bits: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused level pass per row of ``keys`` (B, n) int32: the K4 kernel
+    on a CUDA tensor, its plain twin on a CPU tensor.  Row r classifies
+    against its own ``splitters[r]`` ((B, k-1), tree mode) or by the shared
+    radix shift (radix mode); positions >= ``n_real`` of every row go to
+    its pad bucket 2k.
+
+    Returns (dest (B, n) int32 within each row, offsets (B, 2k+2) int32).
+    """
+    return _level(keys, splitters, k, n_real, tile, classifier, consumed_bits,
+                  plain=_device_kind(keys) == "cpu", batched=True)
+
+
+def level_fused_batched_plain(
+    keys: torch.Tensor,
+    splitters: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    n_real: Optional[int] = None,
+    tile: int = TILE,
+    classifier: str = "tree",
+    consumed_bits: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 ``level_fused_batched``'s plain torch twin on any device."""
+    return _level(keys, splitters, k, n_real, tile, classifier, consumed_bits,
+                  plain=True, batched=True)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +379,8 @@ def _rank_hist_slots_plain(ids, seg_width, item_start, item_seg):
     return rank, slot, counts.reshape(-1, seg_width)
 
 
-def _rank_hist_slots_kernel(ids, seg_width, item_start, item_len, item_seg, tile):
+def _rank_hist_slots_kernel(ids, seg_width, item_start, item_len, item_seg, tile,
+                            name="rank_hist"):
     num_items = item_start.shape[0]
     rank = torch.empty_like(ids)
     slot = torch.empty_like(ids)
@@ -296,8 +392,8 @@ def _rank_hist_slots_kernel(ids, seg_width, item_start, item_len, item_seg, tile
         rank.data_ptr(), slot.data_ptr(), hist.data_ptr(),
         _build.stream_handle(ids.device),
     )
-    _build.check(lib, "level_fused", err, "rank_hist kernel")
-    _build.LAUNCHES["rank_hist"] += 1
+    _build.check(lib, "level_fused", err, f"{name} kernel")
+    _build.LAUNCHES[name] += 1
     return rank, slot, hist
 
 
@@ -345,3 +441,89 @@ def rank_hist_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's plain torch twin on any device (the card-side comparison)."""
     return _rank_hist(ids, nb, seg_offsets, seg_width, tile, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# K4 rank_hist_batched
+
+
+def _row_segments(ids, seg_offsets, tile):
+    """The B rows of ``ids``, flattened, are B * num_seg segments of one
+    array: (flat ids, flat segment offsets, each row's start (B, 1), the
+    work items of ``_items``, each item's row-local segment id, which is
+    the id base the kernel subtracts)."""
+    B, n = ids.shape
+    dev = ids.device
+    num_seg = seg_offsets.shape[1] - 1
+    row_start = torch.arange(B, dtype=torch.int32, device=dev)[:, None] * n
+    flat_off = torch.cat([(seg_offsets[:, :-1] + row_start).reshape(-1),
+                          torch.full((1,), B * n, dtype=torch.int32, device=dev)])
+    items = _items(flat_off, B * n, tile)
+    return ids.reshape(-1), flat_off, row_start, items, items[2] % num_seg
+
+
+def _rank_hist_batched(ids, nb, seg_offsets, seg_width, tile, plain):
+    _check_ids(ids, "rank_hist_batched ids", 2)
+    B, n = ids.shape
+    dev = ids.device
+    if seg_offsets is None:  # each row is one segment of width nb
+        seg_offsets = torch.tensor([0, n], dtype=torch.int32, device=dev).expand(B, 2)
+        seg_width = nb
+    if seg_width is None or nb % seg_width:
+        raise ValueError(f"nb={nb} must be num_seg * seg_width (seg_width={seg_width})")
+    if seg_offsets.dtype != torch.int32 or seg_offsets.shape[:1] != (B,) or \
+            seg_offsets.dim() != 2:
+        raise ValueError(f"seg_offsets: expected a ({B}, num_seg+1) int32 tensor")
+    if seg_offsets.device != dev:
+        raise ValueError("ids and seg_offsets must share a device")
+    num_seg = seg_offsets.shape[1] - 1
+    if num_seg != nb // seg_width:
+        raise ValueError(f"{num_seg} segments != nb // seg_width")
+    _check_tile(tile, seg_width)
+    flat, flat_off, row_start, items, local_seg = _row_segments(ids, seg_offsets, tile)
+    item_start, item_len, item_seg, first, per_seg = items
+    if plain:
+        rank, slot, hist = _rank_hist_slots_plain(flat, seg_width, item_start, local_seg)
+    else:
+        rank, slot, hist = _rank_hist_slots_kernel(
+            flat, seg_width, item_start, item_len, local_seg, tile, "rank_hist_batched")
+    dest, offsets = _close_segments(rank, slot, hist, flat_off, item_seg, first, per_seg,
+                                    B * n)
+    offsets = torch.cat([offsets[:-1].reshape(B, nb) - row_start,
+                         torch.full((B, 1), n, dtype=torch.int32, device=dev)], 1)
+    return dest.reshape(B, n) - row_start, offsets
+
+
+def rank_hist_batched(
+    ids: torch.Tensor,
+    *,
+    nb: int,
+    seg_offsets: Optional[torch.Tensor] = None,
+    seg_width: Optional[int] = None,
+    tile: int = TILE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row stable rank + histogram over ``ids`` (B, n) int32 in [0, nb):
+    the K2 kernel over the flattened rows on a CUDA tensor (its own launch
+    count), its plain twin on a CPU tensor.
+
+    With ``seg_offsets`` (B, num_seg+1) int32 each row's ids must be
+    row-local composite ids ``seg * seg_width + local`` (nb = num_seg *
+    seg_width, any size); without it each row is one segment of width nb
+    (nb <= MAX_NB).  Work items never straddle a segment, so never a row.
+
+    Returns (dest (B, n) int32 within each row, offsets (B, nb+1) int32).
+    """
+    return _rank_hist_batched(ids, nb, seg_offsets, seg_width, tile,
+                              plain=_device_kind(ids) == "cpu")
+
+
+def rank_hist_batched_plain(
+    ids: torch.Tensor,
+    *,
+    nb: int,
+    seg_offsets: Optional[torch.Tensor] = None,
+    seg_width: Optional[int] = None,
+    tile: int = TILE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 ``rank_hist_batched``'s plain torch twin on any device."""
+    return _rank_hist_batched(ids, nb, seg_offsets, seg_width, tile, plain=True)

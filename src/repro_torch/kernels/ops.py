@@ -1,11 +1,12 @@
 """Public wrappers around the port's kernels.
 
-Counterpart of ``repro.kernels.ops``; this slice ports
-``base_case_windows``, the overlapped-window base case on top of K3.
+Counterpart of ``repro.kernels.ops``; this port has ``base_case_windows``,
+the overlapped-window base case on top of K3, for one row or B rows and
+over a prefix of each row.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -15,35 +16,56 @@ __all__ = ["base_case_windows"]
 
 
 def base_case_windows(
-    arrays: Dict[str, torch.Tensor], fb: torch.Tensor, W: int, nb: int
+    arrays: Dict[str, torch.Tensor], fb: torch.Tensor, W: int, nb: int,
+    limit: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """The two overlapped segmented window-sort passes (DESIGN.md §4.3).
 
-    ``arrays`` maps names to tensors of leading dim n (a multiple of W); its
-    ``"k"`` entry holds the encoded keys and ``fb`` (n,) int32 the bucket id
-    in [0, nb) of every position.  Pass one sorts the windows at offset 0,
-    pass two those at W/2 over the n - W elements between.  K3 gives each
-    window's permutation; every tensor is gathered by it in torch.  Returns
-    new tensors: the inputs are left as they were.
+    ``fb`` holds the bucket id in [0, nb) of every position, as (n,) int32
+    for one row or (B, n) for B rows; every tensor of ``arrays`` has the
+    same leading dims, and its ``"k"`` entry holds the encoded keys.  n is a
+    multiple of W, so windows never straddle rows: pass one sorts the
+    B * (n/W) windows at offset 0, pass two those at W/2 over the n - W
+    positions between (per row).  ``limit`` (a multiple of W) restricts both
+    passes to the positions [0, limit) of each row; the rest is left as it
+    was.  K3 gives each window's permutation; every tensor is gathered by it
+    in torch.  Returns new tensors: the inputs are left as they were.
     """
-    n = fb.shape[0]
+    one_row = fb.dim() == 1
+    if one_row:
+        fb = fb[None]
+        arrays = {name: a[None] for name, a in arrays.items()}
+    B, n = fb.shape
+    m_all = n if limit is None else limit
 
     def one_pass(arrays, fb, lo, hi, out):
         m = hi - lo
-        rows = m // W
+        per_row = m // W
         perm, fb_sorted = sort_windows(
-            fb[lo:hi].view(rows, W), arrays["k"][lo:hi].view(rows, W), nb
+            fb[:, lo:hi].reshape(B * per_row, W).contiguous(),
+            arrays["k"][:, lo:hi].reshape(B * per_row, W).contiguous(), nb,
         )
-        starts = torch.arange(rows, dtype=torch.int64, device=fb.device) * W + lo
+        starts = torch.arange(lo, hi, W, dtype=torch.int64, device=fb.device)
+        if B > 1:  # row r's windows start r * n further on
+            starts = (torch.arange(0, B * n, n, dtype=torch.int64, device=fb.device)[:, None]
+                      + starts).reshape(-1)
         src = (perm.to(torch.int64) + starts[:, None]).reshape(-1)
-        if out is None:  # the first pass covers [0, n) and makes the copies
-            return {name: a[src] for name, a in arrays.items()}, fb_sorted.reshape(-1)
+
+        def gather(a):
+            return a.reshape((B * n,) + a.shape[2:])[src].reshape((B, m) + a.shape[2:])
+
+        if out is None:  # a first pass over all of [0, n) makes the copies
+            return {name: gather(a) for name, a in arrays.items()}, fb_sorted.reshape(B, n)
         for name, a in arrays.items():
-            out[name][lo:hi] = a[src]
-        fb[lo:hi] = fb_sorted.reshape(-1)
+            out[name][:, lo:hi] = gather(a)
+        fb[:, lo:hi] = fb_sorted.reshape(B, m)
         return out, fb
 
-    arrays, fb = one_pass(arrays, fb, 0, n, None)
-    if n > W:  # offset pass: windows at W/2 (the ends need no second pass)
-        arrays, fb = one_pass(arrays, fb, W // 2, n - W // 2, arrays)
-    return arrays
+    if m_all == n:
+        out, fb = one_pass(arrays, fb, 0, n, None)
+    else:
+        out, fb = one_pass(arrays, fb.clone(), 0, m_all,
+                           {name: a.clone() for name, a in arrays.items()})
+    if m_all > W:  # offset pass: windows at W/2 (the ends need no second pass)
+        out, fb = one_pass(out, fb, W // 2, m_all - W // 2, out)
+    return {name: a[0] for name, a in out.items()} if one_row else out

@@ -3,7 +3,8 @@
 Counterpart of ``repro.ops.sort``'s ``sort`` and ``argsort``: biject the
 keys into the ordered keyspace (``ops.keyspace``), run ``ips4o_sort``
 there, and decode.  NaNs sort last, -0.0 before +0.0, and equal keys keep
-their input order.
+their input order.  ``classifier`` ("tree" | "radix") overrides
+``cfg.classifier`` for one call.
 
 Both take ``device=None``, which means ``"cuda"``: the kernels run on the
 card.  ``device="cpu"`` runs the kernels' plain twins (the tests do).  With
@@ -13,6 +14,7 @@ and ``with_engine`` are not ported yet (ROADMAP.md, queue 1 item 7).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -38,15 +40,23 @@ def _device(device: Device) -> torch.device:
     return dev
 
 
-def _keys(keys, dev: torch.device) -> torch.Tensor:
+def _keys(keys, dev: torch.device, dim: int = 1) -> torch.Tensor:
     keys = torch.as_tensor(keys, device=dev)
-    if keys.dim() != 1:
-        raise NotImplementedError(
-            "only 1-D keys are ported; batched (B, n) rows are still to come "
-            "(ROADMAP.md, queue 1 item 8)"
+    if keys.dim() != dim:
+        raise ValueError(
+            "keys must be 1-D; (B, n) rows go to ops.batched_sort / "
+            "batched_argsort / batched_topk / batched_bottomk"
+            if dim == 1 else "keys must be 2-D (B, n)"
         )
     keyspace.encoded_dtype(keys.dtype)  # raises for dtypes not ported yet
     return keys
+
+
+def _with_classifier(cfg: SortConfig, classifier: Optional[str]) -> SortConfig:
+    """``cfg`` with ``classifier`` in place of ``cfg.classifier`` (None
+    keeps it): the classifier half of the reference's ``with_engine``; the
+    port has no engine to pick."""
+    return cfg if classifier is None else dataclasses.replace(cfg, classifier=classifier)
 
 
 def sort(
@@ -54,6 +64,7 @@ def sort(
     values: Optional[torch.Tensor] = None,
     *,
     cfg: SortConfig = SortConfig(),
+    classifier: Optional[str] = None,
     device: Device = None,
 ):
     """Sort ``keys`` ascending (NaNs last, -0.0 before +0.0), optionally
@@ -64,6 +75,7 @@ def sort(
     """
     dev = _device(device)
     keys = _keys(keys, dev)
+    cfg = _with_classifier(cfg, classifier)
     with obs.trace("ops.sort", n=keys.shape[0], dtype=str(keys.dtype)):
         enc = keyspace.encode(keys)
         if values is None:
@@ -81,6 +93,7 @@ def argsort(
     keys,
     *,
     cfg: SortConfig = SortConfig(),
+    classifier: Optional[str] = None,
     device: Device = None,
 ) -> torch.Tensor:
     """Indices (int32) that sort ``keys`` ascending, stably: equal keys keep
@@ -96,6 +109,7 @@ def argsort(
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     if n <= 1:
         return idx
+    cfg = _with_classifier(cfg, classifier)
     with obs.trace("ops.argsort", n=n, dtype=str(keys.dtype)):
         _, order = ips4o_sort(keyspace.encode(keys), idx, cfg=cfg)
     return order

@@ -250,9 +250,13 @@ def test_config_from_reference_round_trip():
         assert set(d) - set(got) == {"engine", "classify_rows"}
         for n in (cfg.base_case, 16 * cfg.base_case, 64 * cfg.base_case):
             assert ips4o.plan_levels(n, cfg) == ref_ips4o.plan_levels(n, ref_cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ips4o.config_from_reference(dataclasses.asdict(ref_ips4o.SortConfig(
-            classifier="radix")))
+    radix = ips4o.config_from_reference(dataclasses.asdict(ref_ips4o.SortConfig(
+        classifier="radix")))
+    assert radix.classifier == "radix"
+    for name in ("learned", "auto"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ips4o.config_from_reference(dataclasses.asdict(ref_ips4o.SortConfig(
+                classifier=name)))
     with pytest.raises(ValueError, match="unknown"):
         ips4o.config_from_reference({"bogus": 1})
 

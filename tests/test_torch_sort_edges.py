@@ -92,10 +92,10 @@ def test_distributions_copy_matches_reference():
 def test_entry_points_refuse_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.sort(torch.zeros(10, dtype=torch.float64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="batched_argsort"):
         ops.argsort(torch.zeros((2, 10)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.sort(torch.zeros(10), cfg=dataclasses.replace(SortConfig(), classifier="radix"),
+        ops.sort(torch.zeros(10), cfg=dataclasses.replace(SortConfig(), classifier="learned"),
                  device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ips4o_sort(torch.zeros(10, dtype=torch.int32), {"v": torch.zeros(10)})
@@ -109,6 +109,7 @@ def test_port_imports_no_jax_or_reference():
         "import sys\n"
         "import repro_torch, repro_torch.ops, repro_torch.core.ips4o\n"
         "import repro_torch.kernels.level_fused, repro_torch.kernels.bitonic\n"
+        "import repro_torch.ops.batched, repro_torch.ops.topk, repro_torch.classify.radix\n"
         "import repro_torch.data.distributions\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
