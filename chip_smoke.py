@@ -13,22 +13,37 @@ Phases, each of which exits non-zero when it fails:
    composite ids of a real level 1 at n = 2^24 (nb = 65,792) and on small
    nb, K3 on 2048 windows of W = 8192 with heavy duplicates, K1r (radix
    mode) at n = 2^24 with pads, K4 ``level_fused_batched`` at (64, 2^18) in
-   both modes with pads, and K4 ``rank_hist_batched`` on the composite ids
-   of a real batched level 1 at (64, 2^18);
+   both modes with pads, K4 ``rank_hist_batched`` on the composite ids
+   of a real batched level 1 at (64, 2^18), K5 ``merge_path_perm`` at
+   2^24 + 2^24 duplicate-heavy keys and at ragged sizes, and K6 as
+   ``dispatch_ranks`` on the MoE routing of 2^21 tokens x top-6 over 64
+   experts (uniform and skewed), ``partition_ranks`` at n = 2^24, nb = 257
+   (non-prefix starts, trash ids) and ``partition_ranks_batched`` at
+   (64, 2^18), nb = 257;
 3. the paths, each driven with the launch counts set to 0 just before it
    and read just after, every kernel of the path required to be > 0:
    the 1-D tree sort (``ops.sort``/``argsort`` at n = 2^24 and 2^17), the
    1-D radix sort (n = 2^24 int32 full range and float32 Uniform), the
    batched tree sort (bulk (64, 2^18) float32 with ``batched_sort``,
    ``batched_argsort``, ``batched_topk`` and ``batched_bottomk`` at k = 64,
-   and the scheduler's (256, 512) int32 rows at W = 256), and the batched
-   radix sort ((64, 2^18) int32 full range).  Every result is held to
-   ``torch.sort(stable=True)`` of the port's encoded keys, per row, and the
-   top/bottom-k to the sorted prefix;
+   and the scheduler's (256, 512) int32 rows at W = 256), the batched
+   radix sort ((64, 2^18) int32 full range), the out-of-core stream
+   (``stream.external_sort``/``external_argsort`` of 2^28 float32 keys in
+   16 chunks of 2^24, 4 tournament rounds with host spills), the streaming
+   top/bottom-k (k = 1024) over the same stream, ``streaming_group_by`` of
+   2^26 int32 RootDup keys in chunks of 2^22, the grouping ops
+   (``group_by`` "pallas" and "partition" on the MoE routing,
+   ``moe_group_tokens``, ``partition_ranks_kernel`` over per-layer routing
+   rows) and ``segmented_sort`` (4096 ragged segments over 2^24 keys).
+   Every result is held to ``torch.sort(stable=True)`` of the port's
+   encoded keys on the card (per row or per segment), the top/bottom-k to
+   the sorted prefix, the group-by to ``torch.unique``;
 4. timing with CUDA events (median of several runs after warm-up): each
-   kernel beside its plain twin and its bound, each entry point beside
-   ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and a profile of
-   three sorts;
+   kernel beside its plain twin, its bound and, where one exists, one
+   torch call that computes the same function; each entry point beside
+   ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``; profiles of
+   three sorts and of one ``external_sort`` (device time, idle share,
+   host <-> device copies);
 5. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -57,6 +72,16 @@ N_SMALL = 1 << 17
 B_BULK, N_ROW = 64, 1 << 18  # the bulk rows: 2^24 keys, two levels per row
 B_SCHED, N_SCHED = 256, 512  # the serve scheduler's admission queues
 TOP_K = 64
+# the out-of-core stream: 1 GiB of float32 keys on the host in 16 chunks (a
+# real out-of-core stream exceeds the card's 80 GB; cut for the time limit)
+N_STREAM, CHUNK = 1 << 28, 1 << 24
+STREAM_K = 1024
+N_GROUPS, CHUNK_GROUPS = 1 << 26, 1 << 22  # streaming_group_by, RootDup int32
+# MoE routing of deepseek-moe-16b: 64 routed experts, top-6, 2^21 tokens
+MOE_EXPERTS, MOE_TOP, MOE_TOKENS = 64, 6, 1 << 21
+MOE_LAYERS = 8  # per-layer routing rows for the batched placement
+NB_PART = 257  # partition_ranks: 2k + 1 buckets at k = 128
+SEGMENTS = 4096
 
 
 def fail(msg: str) -> None:
@@ -114,14 +139,20 @@ def profile(torch, name, fn, top: int = 14) -> None:
     def device_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
-    # device-side kernel events only (the aten ops above them repeat their time)
+    # device-side events only (the aten ops above them repeat their time);
+    # copies between host and device are summed apart from the kernels
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=device_us, reverse=True)
-    busy_ms = sum(device_us(e) for e in events) / 1e3
+    kernel_events = [e for e in events if not e.key.startswith(("Memcpy", "Memset"))]
+    busy_ms = sum(device_us(e) for e in kernel_events) / 1e3
     print(f"profile {name}: wall {wall_ms:.3f} ms (host clock, profiler on), "
-          f"kernels {busy_ms:.3f} ms in {sum(e.count for e in events)} launches, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"kernels {busy_ms:.3f} ms in {sum(e.count for e in kernel_events)} launches, "
+          f"idle share {1 - busy_ms / wall_ms:.3f} (no kernel running)", flush=True)
+    for kind in ("HtoD", "DtoH"):
+        copies = [e for e in events if f"Memcpy {kind}" in e.key]
+        print(f"  copies {kind}: {sum(device_us(e) for e in copies) / 1e3:.3f} ms in "
+              f"{sum(e.count for e in copies)} copies", flush=True)
     for e in events[:top]:
         print(f"  {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
 
@@ -135,10 +166,13 @@ def main() -> None:
     try:
         import numpy as np
 
-        from repro_torch import kernels, ops
+        from repro_torch import kernels, ops, stream
         from repro_torch.core import ips4o, sampling
+        from repro_torch.core.partition import partition_ranks_kernel
         from repro_torch.data.distributions import make_input
-        from repro_torch.kernels import bitonic, level_fused as lf
+        from repro_torch.kernels import bitonic, dispatch_rank as dr, level_fused as lf
+        from repro_torch.kernels import merge_path as mp
+        from repro_torch.kernels.ops import moe_group_tokens
     except ImportError as exc:
         fail(f"cannot import the port from {ROOT / 'src'}: {exc}")
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
@@ -146,6 +180,7 @@ def main() -> None:
         fail("the port imported jax or repro")
 
     # ---- 1. set-up -----------------------------------------------------
+    t_start = time.time()
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -282,6 +317,62 @@ def main() -> None:
                        torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
         fail("K4 rank_hist_batched is not the inverse of the per-row stable argsort")
 
+    # K5 on two duplicate-heavy runs of 2^24 (the keys of each run repeat
+    # ~8,400 times and every value occurs in both), NaN codes at the tails,
+    # and at ragged sizes; the yardstick checks the permutation itself
+    def sorted_run(n, lo, hi):
+        run = torch.sort(torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                       dtype=torch.int32)).values
+        run[-max(1, n // 1000):] = torch.iinfo(torch.int32).max
+        return run
+
+    merge_a, merge_b = sorted_run(N_BIG, -1000, 1000), sorted_run(N_BIG, -1000, 1000)
+    for a, b in ((merge_a, merge_b), (sorted_run(1_000_003, -50, 50), sorted_run(77, -50, 50)),
+                 (sorted_run(1000, 0, 10), merge_b[:0])):
+        got = mp.merge_path_perm(a, b)
+        check_equal("merge_path", got, mp.merge_path_perm_plain(a, b),
+                    f"{a.shape[0]} + {b.shape[0]}")
+        if not torch.equal(got.to(torch.int64), torch.sort(torch.cat([a, b]), stable=True).indices):
+            fail("K5 is not the stable merge permutation")
+
+    # K6: dispatch_ranks on the MoE routing (uniform, then half on one expert),
+    # partition_ranks with trash ids and non-prefix starts, the batched form
+    def counts_prefix(ids, nb):
+        counts = torch.bincount(ids.reshape(-1), minlength=nb)[:nb].to(torch.int32)
+        return torch.cumsum(counts, 0, dtype=torch.int32) - counts
+
+    n_moe = MOE_TOKENS * MOE_TOP
+    moe_uniform = torch.randint(0, MOE_EXPERTS, (n_moe,), generator=gen, device=dev,
+                                dtype=torch.int32)
+    moe_skewed = moe_uniform.clone()
+    moe_skewed[torch.rand(n_moe, generator=gen, device=dev) < 0.5] = 7
+    for tag, ids in (("uniform", moe_uniform), ("skewed", moe_skewed)):
+        start = counts_prefix(ids, MOE_EXPERTS)
+        got = dr.dispatch_ranks(ids, start, num_experts=MOE_EXPERTS)
+        check_equal("dispatch_ranks", got,
+                    dr.dispatch_ranks_plain(ids, start, num_experts=MOE_EXPERTS),
+                    f"{tag} {MOE_TOKENS} tokens x top-{MOE_TOP} over {MOE_EXPERTS} experts")
+        if not torch.equal(got[torch.sort(ids, stable=True).indices].to(torch.int64),
+                           torch.arange(n_moe, device=dev)):
+            fail("K6 dispatch_ranks is not the inverse of the stable argsort")
+    part_ids = torch.randint(0, NB_PART + 1, (N_BIG,), generator=gen, device=dev,
+                             dtype=torch.int32)  # NB_PART is the trash id
+    part_start = torch.randint(0, 1 << 24, (NB_PART,), generator=gen, device=dev,
+                               dtype=torch.int32)
+    check_equal("partition_ranks", dr.partition_ranks(part_ids, part_start, nb=NB_PART),
+                dr.partition_ranks_plain(part_ids, part_start, nb=NB_PART),
+                f"n={N_BIG} nb={NB_PART} non-prefix starts, trash ids")
+    rows_ids = torch.randint(0, NB_PART, (B_BULK, N_ROW), generator=gen, device=dev,
+                             dtype=torch.int32)
+    rows_start = torch.stack([counts_prefix(r, NB_PART) for r in rows_ids])
+    got = dr.partition_ranks_batched(rows_ids, rows_start, nb=NB_PART)
+    check_equal("partition_ranks_batched", got,
+                dr.partition_ranks_batched_plain(rows_ids, rows_start, nb=NB_PART),
+                f"({B_BULK}, {N_ROW}) nb={NB_PART}")
+    if not torch.equal(torch.gather(got, 1, torch.sort(rows_ids, dim=1, stable=True).indices)
+                       .to(torch.int64), torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
+        fail("K6 partition_ranks_batched is not the inverse of the per-row stable argsort")
+
     # ---- 3. the paths ---------------------------------------------------------
     def specials(x):
         x[..., 3::3] *= -1
@@ -378,6 +469,122 @@ def main() -> None:
                 fail(f"kernel {name} was not launched on the path {path}")
         for name, count in launches.items():
             total_launches[name] += count
+    # the new paths: each driven with the counts at 0 just before and read just
+    # after, then checked against torch on the card
+    def drive(path, needed, calls):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        results = {name: fn() for name, fn in calls.items()}
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"path {path} launches: {launches} ({time.time() - t0:.1f} s)", flush=True)
+        for name in needed:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the path {path}")
+        for name, count in launches.items():
+            total_launches[name] += count
+        return results
+
+    def verdict(path, name, ok):
+        print(f"path {path}: {name} {'ok' if ok else 'WRONG'}", flush=True)
+        if not ok:
+            fail(f"path {path} wrong on {name}")
+
+    sort_kernels = ("level_fused", "rank_hist", "sort_windows")
+    t0 = time.time()
+    stream_x = specials(make_input("Uniform", N_STREAM, np.float32, seed=12))
+    print(f"stream input: {N_STREAM} float32 keys on the host in {time.time() - t0:.1f} s",
+          flush=True)
+    path = f"stream sort ({N_STREAM} keys, chunks of {CHUNK})"
+    got = drive(path, sort_kernels + ("merge_path",), {
+        "external_sort": lambda: stream.external_sort(stream_x, chunk_size=CHUNK),
+        "external_argsort": lambda: stream.external_argsort(stream_x, chunk_size=CHUNK),
+    })
+    stream_enc = ops.keyspace.encode(torch.as_tensor(stream_x, device=dev))
+    want = torch.sort(stream_enc, stable=True)
+    verdict(path, "external_sort", torch.equal(
+        ops.keyspace.encode(torch.as_tensor(got["external_sort"], device=dev)), want.values))
+    verdict(path, "external_argsort", torch.equal(
+        torch.as_tensor(got["external_argsort"], device=dev).to(torch.int64), want.indices))
+    del got, want
+
+    path = f"stream top-k ({N_STREAM} keys, k={STREAM_K})"
+    got = drive(path, sort_kernels + ("merge_path",), {
+        "streaming_topk": lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK),
+        "streaming_bottomk": lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK,
+                                                           largest=False),
+    })
+    for name, codes in (("streaming_topk", ~stream_enc), ("streaming_bottomk", stream_enc)):
+        order = torch.sort(codes, stable=True).indices[:STREAM_K]
+        vals, idx = got[name]
+        verdict(path, name, torch.equal(torch.as_tensor(idx, device=dev).to(torch.int64), order)
+                and torch.equal(ops.keyspace.encode(torch.as_tensor(vals, device=dev)),
+                                stream_enc[order]))
+    del got, stream_enc
+
+    group_x = make_input("RootDup", N_GROUPS, np.int32, seed=13)
+    path = f"stream group-by ({N_GROUPS} RootDup int32, chunks of {CHUNK_GROUPS})"
+    got = drive(path, sort_kernels + ("merge_path",), {
+        "streaming_group_by": lambda: stream.streaming_group_by(group_x,
+                                                                chunk_size=CHUNK_GROUPS),
+    })
+    vals, counts = got["streaming_group_by"]
+    want_v, want_c = torch.unique(torch.as_tensor(group_x, device=dev), return_counts=True)
+    verdict(path, f"streaming_group_by ({vals.shape[0]} groups)",
+            torch.equal(torch.as_tensor(vals, device=dev), want_v)
+            and torch.equal(torch.as_tensor(counts, device=dev), want_c))
+
+    # grouping: the MoE routing ids grouped by expert (both methods), the
+    # token rows moved with them, and per-layer routing rows placed at once
+    layer_ids = torch.randint(0, MOE_EXPERTS, (MOE_LAYERS, N_ROW * MOE_TOP), generator=gen,
+                              device=dev, dtype=torch.int32)
+    layer_off = torch.cat([torch.stack([counts_prefix(r, MOE_EXPERTS) for r in layer_ids]),
+                           torch.full((MOE_LAYERS, 1), layer_ids.shape[1], device=dev,
+                                      dtype=torch.int32)], 1)
+    moe_tok_ids = moe_uniform[: 1 << 16]
+    moe_tokens = torch.randn((1 << 16, 2048), generator=gen, device=dev).to(torch.bfloat16)
+    path = f"group-by ({MOE_TOKENS} tokens x top-{MOE_TOP} over {MOE_EXPERTS} experts)"
+    got = drive(path, ("dispatch_ranks", "partition_ranks", "partition_ranks_batched"), {
+        "group_by pallas": lambda: ops.group_by(moe_uniform, num_groups=MOE_EXPERTS,
+                                                method="pallas"),
+        "group_by partition": lambda: ops.group_by(moe_skewed, num_groups=MOE_EXPERTS),
+        "moe_group_tokens": lambda: moe_group_tokens(moe_tok_ids, moe_tokens, MOE_EXPERTS),
+        "partition_ranks_kernel rows": lambda: partition_ranks_kernel(layer_ids, layer_off,
+                                                                      MOE_EXPERTS),
+    })
+    for name, ids in (("group_by pallas", moe_uniform), ("group_by partition", moe_skewed)):
+        g = got[name]
+        order = torch.sort(ids, stable=True).indices
+        verdict(path, name, torch.equal(g.perm.to(torch.int64), order)
+                and torch.equal(g.keys, ids[order])
+                and torch.equal(g.counts, torch.bincount(ids, minlength=MOE_EXPERTS).int()))
+    grouped, _, dest = got["moe_group_tokens"]
+    order = torch.sort(moe_tok_ids, stable=True).indices
+    verdict(path, "moe_group_tokens", torch.equal(grouped, moe_tokens[order])
+            and torch.equal(dest[order].to(torch.int64),
+                            torch.arange(order.shape[0], device=dev)))
+    dest = got["partition_ranks_kernel rows"]
+    verdict(path, f"partition_ranks_kernel ({MOE_LAYERS}, {layer_ids.shape[1]})", torch.equal(
+        torch.gather(dest, 1, torch.sort(layer_ids, dim=1, stable=True).indices).to(torch.int64),
+        torch.arange(layer_ids.shape[1], device=dev).expand_as(layer_ids)))
+    del got, moe_tokens, grouped
+
+    # segmented_sort: 4096 ragged segments over 2^24 keys
+    seg_x = main_input("Uniform", N_BIG)
+    cuts = np.sort(np.random.default_rng(14).integers(0, N_BIG, SEGMENTS - 1))
+    seg_off = torch.as_tensor(np.concatenate([[0], cuts, [N_BIG]]).astype(np.int32), device=dev)
+    path = f"segmented ({SEGMENTS} segments over {N_BIG} keys)"
+    got = drive(path, ("rank_hist", "sort_windows"), {
+        "segmented_sort": lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS),
+    })
+    seg = ips4o.segment_ids(seg_off, N_BIG).to(torch.int64)
+    packed = (seg << 32) + (ops.keyspace.encode(seg_x).to(torch.int64) + (1 << 31))
+    want = ((torch.sort(packed).values & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+    verdict(path, "segmented_sort", torch.equal(ops.keyspace.encode(got["segmented_sort"]), want))
+    del got, packed, want
+    torch.cuda.empty_cache()
+
     for name, r in rows.items():
         r["launches"] = total_launches[name]
 
@@ -491,6 +698,43 @@ def main() -> None:
     t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist_batched(comp_b, tile=k4_tile,
                                                                   **k4_args))
 
+    # K5 at the stream's last tournament round shape class (2^24 + 2^24), on
+    # the duplicate-heavy runs: 8 B per output (a key read, a source written),
+    # ~6 ops per output (compare, two selects, the source, the store)
+    t = rows["merge_path"]
+    t["ms"] = cuda_ms(torch, lambda: mp.merge_path_perm(merge_a, merge_b))
+    t["plain_ms"] = cuda_ms(torch, lambda: mp.merge_path_perm_plain(merge_a, merge_b), reps=5)
+    t["bound_ms"], t["bound_by"] = bound_ms(2 * N_BIG * 8, 2 * N_BIG * 6)
+    merge_cat = torch.cat([merge_a, merge_b])
+    t["library_ms"] = cuda_ms(torch, lambda: torch.sort(merge_cat, stable=True), reps=5)
+
+    # K6 at its main-path shapes: 8 B per id (id read, dest written) and the
+    # starts; ~16 ops per id (the histogram pass's match and atomics, the
+    # placement's match, two popcounts, the scans)
+    def time_k6(name, call, plain, ids, nb, library):
+        t = rows[name]
+        t["ms"] = cuda_ms(torch, call)
+        t["plain_ms"] = cuda_ms(torch, plain, reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(ids.numel() * 8 + ids.numel() // ids.shape[-1]
+                                                * nb * 4, ids.numel() * 16)
+        t["library_ms"] = cuda_ms(torch, library, reps=5)
+
+    moe_start = counts_prefix(moe_uniform, MOE_EXPERTS)
+    time_k6("dispatch_ranks",
+            lambda: dr.dispatch_ranks(moe_uniform, moe_start, num_experts=MOE_EXPERTS),
+            lambda: dr.dispatch_ranks_plain(moe_uniform, moe_start, num_experts=MOE_EXPERTS),
+            moe_uniform, MOE_EXPERTS, lambda: torch.sort(moe_uniform, stable=True))
+    skew_start = counts_prefix(moe_skewed, MOE_EXPERTS)
+    skew_ms = cuda_ms(torch, lambda: dr.dispatch_ranks(moe_skewed, skew_start,
+                                                       num_experts=MOE_EXPERTS))
+    time_k6("partition_ranks", lambda: dr.partition_ranks(part_ids, part_start, nb=NB_PART),
+            lambda: dr.partition_ranks_plain(part_ids, part_start, nb=NB_PART),
+            part_ids, NB_PART, lambda: torch.sort(part_ids, stable=True))
+    time_k6("partition_ranks_batched",
+            lambda: dr.partition_ranks_batched(rows_ids, rows_start, nb=NB_PART),
+            lambda: dr.partition_ranks_batched_plain(rows_ids, rows_start, nb=NB_PART),
+            rows_ids, NB_PART, lambda: torch.sort(rows_ids, dim=1, stable=True))
+
     # the entry points beside one torch call that does the same
     timed = {}
     for path, (_, cases) in paths.items():
@@ -504,6 +748,44 @@ def main() -> None:
                                                                       largest=big)
             timed[f"{path}: {name}"] = (cuda_ms(torch, lambda call=call, x=x: call(x), reps=5),
                                         cuda_ms(torch, library, reps=5))
+    # the new entry points, whole calls (host -> host for the stream), beside
+    # the device sort of the whole stream as the yardstick
+    stream_dev = ops.keyspace.encode(torch.as_tensor(stream_x, device=dev))
+    stream_calls = {
+        "external_sort": lambda: stream.external_sort(stream_x, chunk_size=CHUNK),
+        "external_argsort": lambda: stream.external_argsort(stream_x, chunk_size=CHUNK),
+        f"streaming_topk k={STREAM_K}":
+            lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK),
+        f"streaming_bottomk k={STREAM_K}":
+            lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK, largest=False),
+    }
+    for name, call in stream_calls.items():
+        timed[f"stream ({N_STREAM} keys): {name}"] = (
+            cuda_ms(torch, call, warmup=0, reps=3),
+            cuda_ms(torch, lambda: torch.sort(stream_dev, stable=True), reps=3))
+    del stream_dev
+    group_dev = torch.as_tensor(group_x, device=dev)
+    timed[f"stream ({N_GROUPS} RootDup): streaming_group_by"] = (
+        cuda_ms(torch, lambda: stream.streaming_group_by(group_x, chunk_size=CHUNK_GROUPS),
+                warmup=0, reps=3),
+        cuda_ms(torch, lambda: torch.unique(group_dev, return_counts=True), reps=3))
+    timed[f"group-by ({n_moe} ids): group_by pallas"] = (
+        cuda_ms(torch, lambda: ops.group_by(moe_uniform, num_groups=MOE_EXPERTS,
+                                            method="pallas"), reps=5),
+        cuda_ms(torch, lambda: torch.sort(moe_uniform, stable=True), reps=5))
+    timed[f"segmented ({SEGMENTS} segments, {N_BIG} keys): segmented_sort"] = (
+        cuda_ms(torch, lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS), reps=5),
+        cuda_ms(torch, lambda: torch.sort(seg_x), reps=5))
+    profile(torch, f"stream.external_sort {N_STREAM} keys, chunks of {CHUNK}",
+            lambda: stream.external_sort(stream_x, chunk_size=CHUNK), top=10)
+    chunks, runs_ = N_STREAM // CHUNK, N_STREAM // CHUNK
+    rounds = 0
+    while runs_ > 1:
+        runs_, rounds = -(-runs_ // 2), rounds + 1
+    print(f"copies external_sort by the shapes: H2D {4 * N_STREAM * rounds} B (the chunks, "
+          f"then the spilled runs of rounds 2-{rounds}), D2H {4 * N_STREAM * rounds} B "
+          f"({rounds} spills of {4 * N_STREAM} B; {chunks} chunks, {rounds} rounds)",
+          flush=True)
     profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(paths["1-D tree"][1][0][1]))
     profile(torch, f"ops.sort radix int32 n={N_BIG}",
             lambda: ops.sort(radix_int, classifier=radix))
@@ -514,6 +796,8 @@ def main() -> None:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
               f"{r['library_ms']}", flush=True)
     print(f"time level_fused_batched radix ({B_BULK}, {N_ROW}): kernel {radix_k4_ms:.4f} ms",
+          flush=True)
+    print(f"time dispatch_ranks skewed (half on one expert): kernel {skew_ms:.4f} ms",
           flush=True)
     for name, (ms, library_ms) in timed.items():
         print(f"time whole {name}: {ms:.3f} ms, torch {library_ms:.3f} ms", flush=True)
@@ -532,6 +816,14 @@ def main() -> None:
                                 "src/repro/kernels/level_fused.py:240"),
         "rank_hist_batched": ("src/repro_torch/csrc/level_fused.cu",
                               "src/repro/kernels/level_fused.py:364"),
+        "merge_path": ("src/repro_torch/csrc/merge_path.cu",
+                       "src/repro/kernels/merge_path.py:157"),
+        "dispatch_ranks": ("src/repro_torch/csrc/dispatch_rank.cu",
+                           "src/repro/kernels/dispatch_rank.py:87"),
+        "partition_ranks": ("src/repro_torch/csrc/dispatch_rank.cu",
+                            "src/repro/kernels/dispatch_rank.py:154"),
+        "partition_ranks_batched": ("src/repro_torch/csrc/dispatch_rank.cu",
+                                    "src/repro/kernels/dispatch_rank.py:224"),
     }
     line = []
     for name, (source, replaces) in meta.items():
@@ -542,6 +834,7 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    print(f"total {time.time() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

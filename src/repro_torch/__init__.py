@@ -2,8 +2,11 @@
 
 It mirrors ``repro``'s layout and names, imports ``torch`` and numpy and
 never ``jax`` or ``repro``, and runs its hand-written CUDA kernels
-(``repro_torch.kernels``) on the card.  This slice ports the 1-D
-``ops.sort``/``ops.argsort`` main path for float32 and int32 keys with the
-default ``SortConfig`` and the tree classifier; ROADMAP.md lists what is
-still to be ported.
+(``repro_torch.kernels``) on the card.  Ported so far, for float32 and
+int32 keys with the tree and radix classifiers: the 1-D and batched (B, n)
+sorts (``ops.sort``/``argsort``/``topk``/``bottomk``, ``ops.batched_*``),
+``ops.segmented_sort``, the grouping ops (``ops.unique``, ``run_length``,
+``group_by``) and the out-of-core stream (``stream.external_sort``,
+``external_argsort``, ``streaming_topk``, ``streaming_group_by``,
+``merge``); ROADMAP.md lists what is still to be ported.
 """

@@ -7,6 +7,10 @@ gather.  This is the oracle formula that the port's partition kernels K1
 are held to: the stable counting placement, which does not depend on the
 tiling.  :func:`batched_stable_partition` is the per-row form, the oracle of
 K4 (``kernels.level_fused.level_fused_batched`` and ``rank_hist_batched``).
+
+:func:`partition_ranks_kernel` is the counterpart of the reference's
+``partition_ranks_pallas``: the stable counting destinations from given
+bucket offsets, by kernel K6 (``kernels.dispatch_rank``).
 """
 from __future__ import annotations
 
@@ -14,11 +18,14 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import dispatch_rank
+
 __all__ = [
     "tile_histogram",
     "partition_permutation",
     "stable_partition",
     "batched_stable_partition",
+    "partition_ranks_kernel",
 ]
 
 Arrays = Dict[str, torch.Tensor]
@@ -105,3 +112,24 @@ def batched_stable_partition(
     out = {name: a.reshape((B * n,) + a.shape[2:])[perm].reshape(a.shape)
            for name, a in arrays.items()}
     return out, offsets
+
+
+def partition_ranks_kernel(
+    bucket: torch.Tensor, offsets: torch.Tensor, nb: int, *, tile: int = dispatch_rank.TILE
+) -> torch.Tensor:
+    """Per-element stable counting destination through kernel K6: the
+    counterpart of ``repro.core.partition.partition_ranks_pallas``.
+
+    ``offsets`` is the (nb+1,) bucket-boundary array (only the exclusive
+    prefix ``offsets[:-1]`` is read).  Returns dest (n,) int32 such that
+    scattering ``a[i] -> dest[i]`` gives the stable partition.  For (B, n)
+    ``bucket`` with (B, nb+1) ``offsets`` each row is placed on its own
+    (``partition_ranks_batched``), returning (B, n) row-local destinations.
+    Ids outside [0, nb) get -1.  On a CUDA tensor K6 runs, on a CPU tensor
+    its plain twin.
+    """
+    bucket = bucket.to(torch.int32).contiguous()
+    start = offsets[..., :-1].to(torch.int32).contiguous()
+    if bucket.dim() == 2:
+        return dispatch_rank.partition_ranks_batched(bucket, start, nb=nb, tile=tile)
+    return dispatch_rank.partition_ranks(bucket, start, nb=nb, tile=tile)

@@ -3,8 +3,17 @@
 | kernel | wrapper | source | replaces |
 | --- | --- | --- | --- |
 | K1 | ``level_fused.level_fused`` | ``csrc/level_fused.cu`` | ``repro/kernels/level_fused.py:160`` |
+| K1r | ``level_fused.level_fused(classifier="radix")`` | ``csrc/level_fused.cu`` | ``repro/kernels/level_fused.py:160`` |
 | K2 | ``level_fused.rank_hist`` | ``csrc/level_fused.cu`` | ``repro/kernels/level_fused.py:311`` |
 | K3 | ``bitonic.sort_windows`` | ``csrc/bitonic.cu`` | ``repro/kernels/bitonic.py:72`` |
+| K4 | ``level_fused.level_fused_batched`` | ``csrc/level_fused.cu`` | ``repro/kernels/level_fused.py:240`` |
+| K4 | ``level_fused.rank_hist_batched`` | ``csrc/level_fused.cu`` | ``repro/kernels/level_fused.py:364`` |
+| K5 | ``merge_path.merge_path_perm`` | ``csrc/merge_path.cu`` | ``repro/kernels/merge_path.py:157`` |
+| K6 | ``dispatch_rank.dispatch_ranks`` | ``csrc/dispatch_rank.cu`` | ``repro/kernels/dispatch_rank.py:87`` |
+| K6 | ``dispatch_rank.partition_ranks`` | ``csrc/dispatch_rank.cu`` | ``repro/kernels/dispatch_rank.py:154`` |
+| K6 | ``dispatch_rank.partition_ranks_batched`` | ``csrc/dispatch_rank.cu`` | ``repro/kernels/dispatch_rank.py:224`` |
+
+K1/K1r/K2/K4 and K6 share their in-tile rank pass (``csrc/rank_hist.cuh``).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
 plain torch twin only on a CPU tensor.  The kernels are built with ``nvcc``

@@ -4,8 +4,9 @@ Every ``src/repro_torch/csrc/*.cu`` file is one shared library with a plain
 C interface.  The first CUDA launch builds the libraries that are missing:
 one ``nvcc`` process per source, all started together, for ``sm_90a``
 only, into ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``).  A library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale one is never loaded.  Nothing here
+``.gitignore``).  A library's file name carries a hash of its source and of
+the shared headers (``csrc/*.cuh``), so an edited source is rebuilt and a
+stale one is never loaded.  Nothing here
 runs at import time, so the CPU tests import every module without a
 compiler.
 
@@ -36,7 +37,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("level_fused", "bitonic")
+SOURCES = ("level_fused", "bitonic", "merge_path", "dispatch_rank")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -51,6 +52,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "level_fused": 0, "rank_hist": 0, "sort_windows": 0,
     "level_fused_radix": 0, "level_fused_batched": 0, "rank_hist_batched": 0,
+    "merge_path": 0, "dispatch_ranks": 0, "partition_ranks": 0, "partition_ranks_batched": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -67,6 +69,8 @@ def _nvcc() -> str:
 
 def _lib_path(stem: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared device code
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:12]}.so"
 

@@ -2,17 +2,19 @@
 
 Counterpart of ``repro.kernels.ops``; this port has ``base_case_windows``,
 the overlapped-window base case on top of K3, for one row or B rows and
-over a prefix of each row.
+over a prefix of each row, and ``moe_group_tokens``, the expert-major
+grouping of MoE tokens on top of K6.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import dispatch_rank
 from repro_torch.kernels.bitonic import sort_windows
 
-__all__ = ["base_case_windows"]
+__all__ = ["base_case_windows", "moe_group_tokens"]
 
 
 def base_case_windows(
@@ -69,3 +71,28 @@ def base_case_windows(
     if m_all > W:  # offset pass: windows at W/2 (the ends need no second pass)
         out, fb = one_pass(out, fb, W // 2, m_all - W // 2, out)
     return {name: a[0] for name, a in out.items()} if one_row else out
+
+
+def moe_group_tokens(
+    expert_id: torch.Tensor,
+    tokens: torch.Tensor,
+    num_experts: int,
+    *,
+    tile: int = dispatch_rank.TILE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Group tokens expert-major with the dispatch-rank kernel K6.
+
+    ``expert_id`` (n,) int32 in [0, num_experts) and ``tokens`` (n, ...) on
+    one device.  Returns (grouped tokens, (E+1,) int32 offsets, dest (n,)
+    int32): ``grouped[dest[i]] == tokens[i]``, each expert's tokens in their
+    input order.
+    """
+    expert_id = expert_id.to(torch.int32).contiguous()
+    hist = torch.bincount(expert_id, minlength=num_experts)
+    start = torch.zeros(num_experts + 1, dtype=torch.int32, device=expert_id.device)
+    start[1:] = torch.cumsum(hist, 0, dtype=torch.int32)
+    dest = dispatch_rank.dispatch_ranks(expert_id, start[:-1], num_experts=num_experts,
+                                        tile=tile)
+    grouped = torch.zeros_like(tokens)
+    grouped[dest.to(torch.int64)] = tokens
+    return grouped, start, dest

@@ -1,6 +1,8 @@
 """repro_torch.ops — the sort operations of ``repro.ops`` ported so far:
 NaN-safe ``sort``, ``argsort``, ``topk`` and ``bottomk`` (float32 and int32
-keys), their batched (B, n) forms, and the ``keyspace`` bijection."""
+keys), their batched (B, n) forms, ``segmented_sort``, the grouping ops
+``unique``, ``run_length`` and ``group_by``, and the ``keyspace``
+bijection."""
 from repro_torch.ops import keyspace
 from repro_torch.ops.batched import (
     batched_argsort,
@@ -9,6 +11,8 @@ from repro_torch.ops.batched import (
     batched_topk,
     with_engine_batched,
 )
+from repro_torch.ops.groupby import Groups, group_by, run_length, unique
+from repro_torch.ops.segmented import segmented_sort
 from repro_torch.ops.sort import argsort, sort
 from repro_torch.ops.topk import bottomk, topk
 
@@ -23,4 +27,9 @@ __all__ = [
     "batched_topk",
     "batched_bottomk",
     "with_engine_batched",
+    "segmented_sort",
+    "unique",
+    "run_length",
+    "group_by",
+    "Groups",
 ]

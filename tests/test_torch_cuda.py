@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins, on a CUDA card:
 K1 (tree), K1r (radix), K4 ``level_fused_batched`` (both modes),
-K2 ``rank_hist``, K4 ``rank_hist_batched`` and K3, and the sorts on the
-card against the same sorts on the CPU.
+K2 ``rank_hist``, K4 ``rank_hist_batched``, K3, K5 ``merge_path_perm`` and
+K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``),
+and the sorts and the stream on the card against the same calls on the CPU.
 
 Marked ``gpu``: every test skips (from its fixture) where no card is
 present, so the CPU suite collects the same tests on every worker.  On the
@@ -12,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import kernels, ops
+from repro_torch import kernels, ops, stream
 from repro_torch.core import sampling
 from repro_torch.data.distributions import make_input
-from repro_torch.kernels import bitonic, level_fused as lf
+from repro_torch.kernels import bitonic, dispatch_rank, merge_path, level_fused as lf
 
 pytestmark = pytest.mark.gpu
 
@@ -138,3 +139,82 @@ def test_batched_sort_on_the_card_matches_the_cpu(dev, classifier, B, n):
     wv, wi = ops.batched_topk(torch.as_tensor(x), 64, classifier=classifier, device="cpu")
     assert torch.equal(v.cpu().view(torch.int32), wv.view(torch.int32))
     assert torch.equal(i.cpu(), wi)
+
+
+@pytest.mark.parametrize("na,nb,tile", [(1, 1, 2048), (1000, 77, 2048), (1_000_003, 77, 2048),
+                                        (300_000, 200_000, 256), (5000, 3000, 8),
+                                        (70_000, 0, 2048)])
+def test_merge_path_kernel(dev, na, nb, tile):
+    g = torch.Generator(device=dev).manual_seed(na + nb)
+    a = torch.sort(torch.randint(-50, 50, (na,), generator=g, device=dev, dtype=torch.int32)).values
+    b = torch.sort(torch.randint(-50, 50, (nb,), generator=g, device=dev, dtype=torch.int32)).values
+    a[-1:] = torch.iinfo(torch.int32).max  # a NaN code: no sentinel padding to mistake it for
+    before = kernels.launch_counts()["merge_path"]
+    got = merge_path.merge_path_perm(a, b, tile=tile)
+    assert torch.equal(got, merge_path.merge_path_perm_plain(a, b, tile=tile))
+    assert torch.equal(got.to(torch.int64), torch.sort(torch.cat([a, b]), stable=True).indices)
+    assert kernels.launch_counts()["merge_path"] == before + (1 if na and nb else 0)
+
+
+@pytest.mark.parametrize("rows,n,nb,tile,skew", [(1, 1000, 3, 4096, False),
+                                                 (1, 300_000, 65, 4096, True),
+                                                 (1, 100_000, 257, 1024, False),
+                                                 (5, 20_000, 257, 4096, True),
+                                                 (2, 50_000, 4096, 4096, False)])
+def test_dispatch_rank_kernel(dev, rows, n, nb, tile, skew):
+    g = torch.Generator(device=dev).manual_seed(n + nb)
+    ids = torch.randint(0, nb + 1, (rows, n), generator=g, device=dev, dtype=torch.int32)
+    if skew:  # half the ids on one bucket
+        ids[:, ::2] = nb // 2
+    start = torch.randint(0, 1 << 20, (rows, nb), generator=g, device=dev, dtype=torch.int32)
+    if rows == 1:
+        for fn, plain in ((dispatch_rank.dispatch_ranks, dispatch_rank.dispatch_ranks_plain),
+                          (dispatch_rank.partition_ranks, dispatch_rank.partition_ranks_plain)):
+            kw = dict(num_experts=nb) if fn is dispatch_rank.dispatch_ranks else dict(nb=nb)
+            assert torch.equal(fn(ids[0], start[0], tile=tile, **kw),
+                               plain(ids[0], start[0], tile=tile, **kw))
+    before = kernels.launch_counts()["partition_ranks_batched"]
+    assert torch.equal(dispatch_rank.partition_ranks_batched(ids, start, nb=nb, tile=tile),
+                       dispatch_rank.partition_ranks_batched_plain(ids, start, nb=nb, tile=tile))
+    assert kernels.launch_counts()["partition_ranks_batched"] == before + 1
+
+
+def test_external_argsort_many_chunks_on_the_card(dev):
+    """200 chunks through the two pinned staging buffers: a buffer refilled
+    before its copy finished, or a sort that did not wait for its copy,
+    would sort a half-copied chunk."""
+    x = make_input("Uniform", 200 * 4099, np.float32, seed=3)
+    x[::37] = np.nan
+    before = kernels.launch_counts()["merge_path"]
+    got = stream.external_argsort(x, chunk_size=4099)
+    assert torch.equal(torch.as_tensor(got), ops.argsort(torch.as_tensor(x), device="cpu"))
+    assert kernels.launch_counts()["merge_path"] > before
+    keys = stream.external_sort(x, chunk_size=4099)
+    assert np.array_equal(keys.view(np.int32),
+                          ops.sort(torch.as_tensor(x), device="cpu").numpy().view(np.int32))
+
+
+def test_streaming_ops_on_the_card_match_the_cpu(dev):
+    x = make_input("RootDup", 300_000, np.int32, seed=4)
+    for largest in (True, False):
+        got = stream.streaming_topk(x, 500, chunk_size=65536, largest=largest)
+        want = stream.streaming_topk(x, 500, chunk_size=65536, largest=largest, device="cpu")
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    got = stream.streaming_group_by(x, chunk_size=65536)
+    want = stream.streaming_group_by(x, chunk_size=65536, device="cpu")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("method", ["partition", "pallas", "sort"])
+def test_group_by_on_the_card_matches_the_cpu(dev, method):
+    ids = torch.as_tensor(np.random.default_rng(5).integers(0, 64, 200_000).astype(np.int32))
+    kw = dict(num_groups=64) if method != "sort" else {}
+    name = {"partition": "partition_ranks", "pallas": "dispatch_ranks"}.get(method)
+    before = kernels.launch_counts().get(name, 0)
+    got = ops.group_by(ids, method=method, **kw)
+    want = ops.group_by(ids, method=method, device="cpu", **kw)
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g.cpu(), w)
+    if name:
+        assert kernels.launch_counts()[name] == before + 1
