@@ -19,7 +19,18 @@ Phases, each of which exits non-zero when it fails:
    ``dispatch_ranks`` on the MoE routing of 2^21 tokens x top-6 over 64
    experts (uniform and skewed), ``partition_ranks`` at n = 2^24, nb = 257
    (non-prefix starts, trash ids) and ``partition_ranks_batched`` at
-   (64, 2^18), nb = 257;
+   (64, 2^18), nb = 257, K7 ``classify_histogram`` on raw float32 (NaN,
+   +-0.0, +-inf, finfo.max sprinkled in), int32 TwoDup and bfloat16 keys at
+   n = 2^24, k = 128, ``classify_histogram_batched`` at (64, 2^18) with
+   per-row splitters and ``radix_histogram`` (and its batched form) at k =
+   256, K8 ``permute_blocks_by_dest`` on 2^28 + 1000 int32 keys (262,144
+   blocks of 1024 and a partial tail; block buckets uniform over 256 and
+   half in one bucket, and one cycle through every block) and K9
+   ``permute_blocks_inplace`` at the same N (by
+   the per-bucket block multisets and intact blocks against
+   ``permute_blocks_ref``, and bit for bit against the replay of the
+   reference's moves, also at N = 4096); K8 and K9 must be in place: the
+   same ``data_ptr`` and a peak-memory rise of at most a quarter of the data;
 3. the paths, each driven with the launch counts set to 0 just before it
    and read just after, every kernel of the path required to be > 0:
    the 1-D tree sort (``ops.sort``/``argsort`` at n = 2^24 and 2^17), the
@@ -34,14 +45,21 @@ Phases, each of which exits non-zero when it fails:
    2^26 int32 RootDup keys in chunks of 2^22, the grouping ops
    (``group_by`` "pallas" and "partition" on the MoE routing,
    ``moe_group_tokens``, ``partition_ranks_kernel`` over per-layer routing
-   rows) and ``segmented_sort`` (4096 ragged segments over 2^24 keys).
+   rows), ``segmented_sort`` (4096 ragged segments over 2^24 keys), the
+   block path (``partition_blocks`` of 2^28 int32 keys and an int32 payload
+   in place by K8, and ``sort_blocks``), ``s3_sort`` (the out-of-place
+   baseline, 2^24 float32 with a payload) and the K7 and K9 entry points.
    Every result is held to ``torch.sort(stable=True)`` of the port's
-   encoded keys on the card (per row or per segment), the top/bottom-k to
-   the sorted prefix, the group-by to ``torch.unique``;
+   encoded keys on the card (per row or per segment; of the raw keys for
+   ``s3_sort``), the top/bottom-k to the sorted prefix, the group-by to
+   ``torch.unique``, the block moves to the gather by the stable block
+   order; then the peak device memory per key of ``partition_blocks``,
+   ``s3_sort`` and ``ops.sort``;
 4. timing with CUDA events (median of several runs after warm-up): each
    kernel beside its plain twin, its bound and, where one exists, one
    torch call that computes the same function; each entry point beside
-   ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``; profiles of
+   ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and K8/K9 beside
+   the out-of-place ``index_select`` of the blocks; profiles of
    three sorts and of one ``external_sort`` (device time, idle share,
    host <-> device copies);
 5. a ``{"kernels": [...]}`` JSON line, then the last line
@@ -82,6 +100,9 @@ MOE_EXPERTS, MOE_TOP, MOE_TOKENS = 64, 6, 1 << 21
 MOE_LAYERS = 8  # per-layer routing rows for the batched placement
 NB_PART = 257  # partition_ranks: 2k + 1 buckets at k = 128
 SEGMENTS = 4096
+K_RADIX = 256  # radix_histogram: 8 bits per level
+# the block path: 2^28 int32 keys (1 GiB) in blocks of 1024 over 256 buckets
+N_BLOCK_KEYS, BLOCK, N_BUCKETS = 1 << 28, 1024, 256
 
 
 def fail(msg: str) -> None:
@@ -168,11 +189,13 @@ def main() -> None:
 
         from repro_torch import kernels, ops, stream
         from repro_torch.core import ips4o, sampling
-        from repro_torch.core.partition import partition_ranks_kernel
+        from repro_torch.core.partition import partition_blocks, partition_ranks_kernel
+        from repro_torch.core.s3sort import s3_sort
         from repro_torch.data.distributions import make_input
         from repro_torch.kernels import bitonic, dispatch_rank as dr, level_fused as lf
-        from repro_torch.kernels import merge_path as mp
-        from repro_torch.kernels.ops import moe_group_tokens
+        from repro_torch.kernels import block_permute as bp, classify as cl
+        from repro_torch.kernels import merge_path as mp, permute_inplace as pi, ref as kref
+        from repro_torch.kernels.ops import moe_group_tokens, sort_blocks
     except ImportError as exc:
         fail(f"cannot import the port from {ROOT / 'src'}: {exc}")
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
@@ -372,6 +395,142 @@ def main() -> None:
     if not torch.equal(torch.gather(got, 1, torch.sort(rows_ids, dim=1, stable=True).indices)
                        .to(torch.int64), torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
         fail("K6 partition_ranks_batched is not the inverse of the per-row stable argsort")
+
+    # K7 in tree mode on raw keys: float32 Uniform with NaN, +-0.0, +-inf and
+    # finfo.max sprinkled in, int32 TwoDup and bfloat16 normals with the same
+    # specials, at k = 128 against a sorted sample's splitters; per-row
+    # splitters at (64, 2^18); radix mode at k = 256 on full-range codes
+    def raw_specials(x):
+        x[::1009] = float("nan")
+        x[1::1013] = -0.0
+        x[2::1019] = 0.0
+        x[3::1021] = float("inf")
+        x[4::1031] = float("-inf")
+        x[5::1033] = torch.finfo(x.dtype).max
+        return x
+
+    def sample_splitters(x, k_):
+        pos = torch.randint(0, x.shape[-1], x.shape[:-1] + (4 * k_,), generator=gen, device=dev)
+        sample = torch.gather(x, -1, pos) if x.dim() == 2 else x[pos]
+        return sampling.select_splitters(torch.sort(sample, dim=-1).values, k_).contiguous()
+
+    k7_in = {
+        "float32 Uniform+specials": raw_specials(torch.as_tensor(
+            make_input("Uniform", N_BIG, np.float32, seed=15), device=dev)),
+        "int32 TwoDup": torch.as_tensor(make_input("TwoDup", N_BIG, np.int32, seed=16),
+                                        device=dev),
+        "bfloat16 normal+specials": raw_specials(
+            torch.randn(N_BIG, generator=gen, device=dev).to(torch.bfloat16)),
+    }
+    k7_spl = {tag: sample_splitters(x, k) for tag, x in k7_in.items()}
+    k7_want = {}
+    for tag, x in k7_in.items():
+        k7_want[tag] = cl.classify_histogram_plain(x, k7_spl[tag], k=k)
+        check_equal("classify_histogram", cl.classify_histogram(x, k7_spl[tag], k=k),
+                    k7_want[tag], f"{tag} n={N_BIG} k={k}")
+    k7_rows = raw_specials(torch.randn((B_BULK, N_ROW), generator=gen, device=dev))
+    k7_rows_spl = sample_splitters(k7_rows, k)
+    k7_want["batched"] = cl.classify_histogram_batched_plain(k7_rows, k7_rows_spl, k=k)
+    check_equal("classify_histogram_batched",
+                cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k), k7_want["batched"],
+                f"({B_BULK}, {N_ROW}) per-row splitters k={k}")
+    radix7 = full_range((N_BIG,), seed=17)
+    radix7[::1009] = torch.iinfo(torch.int32).max  # the NaN / pad code
+    for consumed in (0, 8):
+        k7_want[f"radix {consumed}"] = cl.radix_histogram_plain(radix7, k=K_RADIX,
+                                                                consumed_bits=consumed)
+        check_equal("radix_histogram", cl.radix_histogram(radix7, k=K_RADIX,
+                                                          consumed_bits=consumed),
+                    k7_want[f"radix {consumed}"],
+                    f"n={N_BIG} full range k={K_RADIX} consumed={consumed}")
+    radix7_rows = full_range((B_BULK, N_ROW), seed=18)
+    k7_want["radix batched"] = cl.radix_histogram_batched_plain(radix7_rows, k=K_RADIX)
+    check_equal("radix_histogram", cl.radix_histogram_batched(radix7_rows, k=K_RADIX),
+                k7_want["radix batched"], f"batched ({B_BULK}, {N_ROW}) k={K_RADIX}")
+
+    # K8 and K9 at 2^28 int32 keys (1 GiB, N = 262,144 blocks of 1024), block
+    # buckets uniform over 256 and with half the blocks in one bucket; K8
+    # with a partial tail of 1000 keys.  In place: the same data_ptr, and a
+    # peak-memory rise of at most a quarter of the data during the call
+    def rise(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def in_place(name, got, ptr, peak, nbytes):
+        same = got.data_ptr() == ptr
+        print(f"{name} in place: data_ptr {'same' if same else 'NEW'}, peak rise {peak} B "
+              f"({peak / nbytes:.6f} of the {nbytes} B of data)", flush=True)
+        if not same or peak > 0.25 * nbytes:
+            fail(f"{name} is not in place")
+
+    def prefix(bb):
+        d = torch.zeros(N_BUCKETS + 1, dtype=torch.int32, device=dev)
+        d[1:] = torch.cumsum(torch.bincount(bb, minlength=N_BUCKETS), 0)
+        return d
+
+    nblocks = N_BLOCK_KEYS // BLOCK
+    bb_uniform = torch.randint(0, N_BUCKETS, (nblocks,), generator=gen, device=dev,
+                               dtype=torch.int32)
+    bb_skewed = bb_uniform.clone()
+    bb_skewed[torch.rand(nblocks, generator=gen, device=dev) < 0.5] = 7
+    block_cases = (("uniform", bb_uniform), ("half in one bucket", bb_skewed))
+    blocks8 = torch.randint(-2**31, 2**31 - 1, (N_BLOCK_KEYS + 1000,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    one_cycle = ((torch.arange(nblocks, device=dev) + 1) % nblocks).to(torch.int32)
+    for tag, dst in [(tag, bp.stable_block_dest(bb)) for tag, bb in block_cases] + [
+            ("one cycle through every block", one_cycle)]:
+        want = bp.permute_blocks_by_dest_plain(blocks8.clone(), dst)
+        ptr = blocks8.data_ptr()
+        got, peak = rise(lambda: bp.permute_blocks_by_dest(blocks8, dst))
+        in_place("permute_blocks_by_dest", got, ptr, peak, blocks8.numel() * 4)
+        check_equal("permute_blocks_by_dest", got, want,
+                    f"{tag} n={blocks8.numel()} ({nblocks} blocks of {BLOCK} + 1000)")
+        del want, got
+
+    # K9: every block tagged by its source (block i holds i*1024 + [0, 1024)),
+    # so the output shows the per-bucket block multisets and intact blocks
+    # against permute_blocks_ref; bit for bit against the replay at full N
+    # and at N = 4096
+    def tagged(n):
+        return torch.arange(n, device=dev, dtype=torch.int32)
+
+    k9_want = {}
+    for tag, bb in block_cases:
+        d9 = prefix(bb)
+        keys9 = tagged(N_BLOCK_KEYS)
+        ptr = keys9.data_ptr()
+        got, peak = rise(lambda: pi.permute_blocks_inplace(keys9, bb, d9, k=N_BUCKETS))
+        in_place("permute_blocks_inplace", got, ptr, peak, N_BLOCK_KEYS * 4)
+        src = got.view(nblocks, BLOCK)[:, 0] // BLOCK
+        intact = torch.equal(got.view(nblocks, BLOCK),
+                             src[:, None] * BLOCK + tagged(BLOCK)[None, :])
+        canon = kref.permute_blocks_ref(tagged(N_BLOCK_KEYS), bb, k=N_BUCKETS, block_elems=BLOCK)
+        slot_bucket = torch.sort(bb).values.to(torch.int64) << 32
+
+        def multiset(x):
+            return torch.sort(slot_bucket | x.view(nblocks, BLOCK)[:, 0].to(torch.int64)).values
+
+        same_sets = torch.equal(multiset(got), multiset(canon))
+        print(f"permute_blocks_inplace {tag} N={nblocks}: blocks intact {intact}, per-bucket "
+              f"block multisets equal to permute_blocks_ref {same_sets}", flush=True)
+        if not (intact and same_sets):
+            fail(f"K9 lost or misplaced blocks ({tag})")
+        k9_want[tag] = pi.permute_blocks_inplace_plain(tagged(N_BLOCK_KEYS), bb, d9, k=N_BUCKETS)
+        check_equal("permute_blocks_inplace", got, k9_want[tag], f"{tag} N={nblocks} replay")
+        del canon, got
+    bb_small = torch.randint(0, N_BUCKETS, (4096,), generator=gen, device=dev, dtype=torch.int32)
+    small = torch.randint(-2**31, 2**31 - 1, (4096 * BLOCK,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    want = pi.permute_blocks_inplace_plain(small.clone(), bb_small, prefix(bb_small),
+                                           k=N_BUCKETS)
+    check_equal("permute_blocks_inplace",
+                pi.permute_blocks_inplace(small, bb_small, prefix(bb_small), k=N_BUCKETS), want,
+                "N=4096 random data replay")
+    del blocks8, small, want
 
     # ---- 3. the paths ---------------------------------------------------------
     def specials(x):
@@ -583,6 +742,95 @@ def main() -> None:
     want = ((torch.sort(packed).values & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
     verdict(path, "segmented_sort", torch.equal(ops.keyspace.encode(got["segmented_sort"]), want))
     del got, packed, want
+
+    # the block path: partition_blocks moves 2^28 int32 keys and an int32
+    # payload (2 GiB) in place by K8, once per tensor; equal to the gather
+    # by the stable block order, d the prefix of the block counts
+    pb_bb = bb_uniform
+    pb_keys = torch.randint(-2**31, 2**31 - 1, (N_BLOCK_KEYS,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    pb_keys_before = pb_keys.clone()
+    pb_arrays = {"k": pb_keys, "v": tagged(N_BLOCK_KEYS)}
+    block_order = torch.sort(pb_bb, stable=True).indices
+    want_d = prefix(pb_bb)
+    ptr = pb_keys.data_ptr()
+    path = (f"block path ({N_BLOCK_KEYS} int32 keys + int32 payload, blocks of {BLOCK}, "
+            f"{N_BUCKETS} buckets)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = drive(path, ("permute_blocks_by_dest",), {
+        "partition_blocks": lambda: partition_blocks(pb_arrays, pb_bb, N_BUCKETS, BLOCK),
+    })
+    pb_peak = torch.cuda.max_memory_allocated() - base
+    out, d = got["partition_blocks"]
+    in_place("partition_blocks", out["k"], ptr, pb_peak, N_BLOCK_KEYS * 4)
+    if kernels.launch_counts()["permute_blocks_by_dest"] != 2:
+        fail("partition_blocks did not launch K8 once per tensor")
+    verdict(path, "partition_blocks", torch.equal(d, want_d)
+            and torch.equal(out["v"].view(nblocks, BLOCK),
+                            block_order[:, None].to(torch.int32) * BLOCK + tagged(BLOCK))
+            and torch.equal(out["k"].view(nblocks, BLOCK),
+                            pb_keys_before.view(nblocks, BLOCK)[block_order]))
+    sb_keys = pb_keys_before.clone()
+    path = f"sort_blocks ({N_BLOCK_KEYS} int32 keys, blocks of {BLOCK}, {N_BUCKETS} buckets)"
+    got = drive(path, ("permute_blocks_by_dest",), {
+        "sort_blocks": lambda: sort_blocks(sb_keys, pb_bb, k=N_BUCKETS, block_elems=BLOCK),
+    })
+    out, d = got["sort_blocks"]
+    verdict(path, "sort_blocks", out.data_ptr() == sb_keys.data_ptr() and torch.equal(d, want_d)
+            and torch.equal(out.view(nblocks, BLOCK),
+                            pb_keys_before.view(nblocks, BLOCK)[block_order]))
+    del got, out, sb_keys, pb_keys_before
+
+    # s3-sort, the out-of-place baseline: 2^24 float32 Uniform with NaN and
+    # +-0.0 and a payload, equal to torch.sort(stable=True) of the raw keys
+    s3_x = main_input("Uniform", N_BIG)
+    s3_v = torch.arange(N_BIG, device=dev, dtype=torch.int32)
+    path = f"s3-sort ({N_BIG} float32 Uniform with NaN/+-0.0, int32 payload)"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = drive(path, (), {"s3_sort": lambda: s3_sort(s3_x, s3_v)})
+    s3_peak = torch.cuda.max_memory_allocated() - base
+    keys_s3, vals_s3 = got["s3_sort"]
+    want = torch.sort(s3_x, stable=True)
+    verdict(path, "s3_sort", same_keys(keys_s3, want.values)
+            and torch.equal(vals_s3.to(torch.int64), want.indices))
+    del got, keys_s3, vals_s3, want
+
+    # K7's entry points and K9's, at phase 2's shapes
+    path = "classify+histogram (K7 entry points)"
+    got = drive(path, ("classify_histogram", "classify_histogram_batched", "radix_histogram"), {
+        **{f"classify_histogram {tag}": (lambda tag=tag: cl.classify_histogram(
+            k7_in[tag], k7_spl[tag], k=k)) for tag in k7_in},
+        "classify_histogram_batched": lambda: cl.classify_histogram_batched(k7_rows, k7_rows_spl,
+                                                                            k=k),
+        "radix_histogram": lambda: cl.radix_histogram(radix7, k=K_RADIX),
+        "radix_histogram_batched": lambda: cl.radix_histogram_batched(radix7_rows, k=K_RADIX),
+    })
+    for name, want in ((f"classify_histogram {tag}", k7_want[tag]) for tag in k7_in):
+        verdict(path, name, all(torch.equal(g, w) for g, w in zip(got[name], want)))
+    for name, key in (("classify_histogram_batched", "batched"), ("radix_histogram", "radix 0"),
+                      ("radix_histogram_batched", "radix batched")):
+        verdict(path, name, all(torch.equal(g, w) for g, w in zip(got[name], k7_want[key])))
+    keys9 = tagged(N_BLOCK_KEYS)
+    d_uniform = prefix(bb_uniform)
+    path = f"in-place block permutation (K9, {nblocks} blocks of {BLOCK}, {N_BUCKETS} buckets)"
+    got = drive(path, ("permute_blocks_inplace",), {
+        "permute_blocks_inplace": lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
+                                                                    k=N_BUCKETS),
+    })
+    verdict(path, "permute_blocks_inplace",
+            torch.equal(got["permute_blocks_inplace"], k9_want["uniform"]))
+    del got, k9_want
+
+    # peak device memory per key, above the inputs: the in-place block move
+    # against the out-of-place s3-sort and the port's ops.sort
+    _, sort_peak = rise(lambda: ops.sort(s3_x))
+    print(f"peak bytes per key: partition_blocks {pb_peak / N_BLOCK_KEYS:.6f} ({N_BLOCK_KEYS} "
+          f"keys + payload, 8 B of data per key), s3_sort {s3_peak / N_BIG:.4f} ({N_BIG} keys "
+          f"+ payload), ops.sort {sort_peak / N_BIG:.4f} ({N_BIG} keys)", flush=True)
     torch.cuda.empty_cache()
 
     for name, r in rows.items():
@@ -735,6 +983,69 @@ def main() -> None:
             lambda: dr.partition_ranks_batched_plain(rows_ids, rows_start, nb=NB_PART),
             rows_ids, NB_PART, lambda: torch.sort(rows_ids, dim=1, stable=True))
 
+    # K7 at phase 2's shapes: a key read and an id written per element, the
+    # uppers and the (tiles, 2k) histogram; tree ~3 ops per search step plus
+    # ~6 (eq, the atomic, the store), radix ~8 (xor, shift, mask, the
+    # sentinel test, 2j + eq, the atomic)
+    def time_k7(name, call, plain, n_keys, key_bytes, k_, tiles, ops_per_key, uppers):
+        t = rows[name]
+        t["ms"] = cuda_ms(torch, call)
+        t["plain_ms"] = cuda_ms(torch, plain, reps=3)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            n_keys * (key_bytes + 4) + uppers * 4 + tiles * 2 * k_ * 4, n_keys * ops_per_key)
+        t["library_ms"] = None
+
+    xf, sf = k7_in["float32 Uniform+specials"], k7_spl["float32 Uniform+specials"]
+    tile7 = cl.default_rows(N_BIG, 4, k) * cl.LANES
+    time_k7("classify_histogram", lambda: cl.classify_histogram(xf, sf, k=k),
+            lambda: cl.classify_histogram_plain(xf, sf, k=k), N_BIG, 4, k, N_BIG // tile7,
+            3 * log_k + 6, k)
+    time_k7("classify_histogram_batched",
+            lambda: cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k),
+            lambda: cl.classify_histogram_batched_plain(k7_rows, k7_rows_spl, k=k),
+            B_BULK * N_ROW, 4, k, B_BULK * N_ROW // tile7, 3 * log_k + 6, B_BULK * k)
+    tile7r = cl.default_rows(N_BIG, 4, K_RADIX) * cl.LANES
+    time_k7("radix_histogram", lambda: cl.radix_histogram(radix7, k=K_RADIX),
+            lambda: cl.radix_histogram_plain(radix7, k=K_RADIX), N_BIG, 4, K_RADIX,
+            N_BIG // tile7r, 8, 0)
+    k7_more = {
+        f"classify_histogram {tag}": cuda_ms(torch, lambda tag=tag: cl.classify_histogram(
+            k7_in[tag], k7_spl[tag], k=k)) for tag in ("int32 TwoDup", "bfloat16 normal+specials")
+    }
+    k7_more["radix_histogram_batched"] = cuda_ms(
+        torch, lambda: cl.radix_histogram_batched(radix7_rows, k=K_RADIX))
+
+    # K8 and K9 at 2^28 int32 keys, uniform block buckets: every block read
+    # once and written once (2 GiB), the dst or the block buckets read; a
+    # few ops per block.  Library: the out-of-place gather of the blocks by
+    # the stable order (index_select), which is what both compute up to
+    # K9's order within a bucket
+    body = pb_keys.view(nblocks, BLOCK)
+    dst_uniform = bp.stable_block_dest(bb_uniform)
+    gather_ms = cuda_ms(torch, lambda: body.index_select(0, block_order), warmup=1, reps=3)
+    block_bound = bound_ms(2 * N_BLOCK_KEYS * 4 + nblocks * 4, nblocks * 16)
+    t = rows["permute_blocks_by_dest"]
+    t["ms"] = cuda_ms(torch, lambda: bp.permute_blocks_by_dest(pb_keys, dst_uniform))
+    t["plain_ms"] = cuda_ms(torch, lambda: bp.permute_blocks_by_dest_plain(pb_keys, dst_uniform),
+                            warmup=1, reps=3)
+    t["bound_ms"], t["bound_by"] = block_bound
+    t["library_ms"] = gather_ms
+    t = rows["permute_blocks_inplace"]
+    t["ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
+                                                               k=N_BUCKETS), warmup=1, reps=3)
+    t["plain_ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace_plain(
+        keys9, bb_uniform, d_uniform, k=N_BUCKETS), warmup=0, reps=1)
+    t["bound_ms"], t["bound_by"] = block_bound
+    t["library_ms"] = gather_ms
+    dst_skewed = bp.stable_block_dest(bb_skewed)
+    skew_block_ms = {
+        "permute_blocks_by_dest": cuda_ms(torch, lambda: bp.permute_blocks_by_dest(
+            pb_keys, dst_skewed)),
+        "permute_blocks_inplace": cuda_ms(torch, lambda: pi.permute_blocks_inplace(
+            keys9, bb_skewed, prefix(bb_skewed), k=N_BUCKETS), warmup=0, reps=3),
+    }
+    del keys9
+
     # the entry points beside one torch call that does the same
     timed = {}
     for path, (_, cases) in paths.items():
@@ -776,6 +1087,17 @@ def main() -> None:
     timed[f"segmented ({SEGMENTS} segments, {N_BIG} keys): segmented_sort"] = (
         cuda_ms(torch, lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS), reps=5),
         cuda_ms(torch, lambda: torch.sort(seg_x), reps=5))
+    timed[f"block path ({N_BLOCK_KEYS} keys + payload): partition_blocks"] = (
+        cuda_ms(torch, lambda: partition_blocks(pb_arrays, pb_bb, N_BUCKETS, BLOCK), reps=5),
+        cuda_ms(torch, lambda: torch.sort(pb_keys, stable=True), reps=3))
+    timed[f"s3-sort ({N_BIG} float32 with payload): s3_sort"] = (
+        cuda_ms(torch, lambda: s3_sort(s3_x, s3_v), reps=5),
+        cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
+    timed[f"s3-sort ({N_BIG} float32): ops.sort, the in-place IPS4o path"] = (
+        cuda_ms(torch, lambda: ops.sort(s3_x), reps=5),
+        cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
+    del pb_arrays, pb_keys, body
+    torch.cuda.empty_cache()
     profile(torch, f"stream.external_sort {N_STREAM} keys, chunks of {CHUNK}",
             lambda: stream.external_sort(stream_x, chunk_size=CHUNK), top=10)
     chunks, runs_ = N_STREAM // CHUNK, N_STREAM // CHUNK
@@ -799,6 +1121,10 @@ def main() -> None:
           flush=True)
     print(f"time dispatch_ranks skewed (half on one expert): kernel {skew_ms:.4f} ms",
           flush=True)
+    for name, ms_ in k7_more.items():
+        print(f"time {name}: kernel {ms_:.4f} ms", flush=True)
+    for name, ms_ in skew_block_ms.items():
+        print(f"time {name} half the blocks in one bucket: kernel {ms_:.4f} ms", flush=True)
     for name, (ms, library_ms) in timed.items():
         print(f"time whole {name}: {ms:.3f} ms, torch {library_ms:.3f} ms", flush=True)
 
@@ -824,6 +1150,16 @@ def main() -> None:
                             "src/repro/kernels/dispatch_rank.py:154"),
         "partition_ranks_batched": ("src/repro_torch/csrc/dispatch_rank.cu",
                                     "src/repro/kernels/dispatch_rank.py:224"),
+        "classify_histogram": ("src/repro_torch/csrc/classify.cu",
+                               "src/repro/kernels/classify.py:100"),
+        "classify_histogram_batched": ("src/repro_torch/csrc/classify.cu",
+                                       "src/repro/kernels/classify.py:153"),
+        "radix_histogram": ("src/repro_torch/csrc/classify.cu",
+                            "src/repro/kernels/classify.py:222"),
+        "permute_blocks_by_dest": ("src/repro_torch/csrc/block_permute.cu",
+                                   "src/repro/kernels/block_permute.py:145"),
+        "permute_blocks_inplace": ("src/repro_torch/csrc/permute_inplace.cu",
+                                   "src/repro/kernels/permute_inplace.py:148"),
     }
     line = []
     for name, (source, replaces) in meta.items():

@@ -6,7 +6,11 @@ never ``jax`` or ``repro``, and runs its hand-written CUDA kernels
 int32 keys with the tree and radix classifiers: the 1-D and batched (B, n)
 sorts (``ops.sort``/``argsort``/``topk``/``bottomk``, ``ops.batched_*``),
 ``ops.segmented_sort``, the grouping ops (``ops.unique``, ``run_length``,
-``group_by``) and the out-of-core stream (``stream.external_sort``,
+``group_by``), the out-of-core stream (``stream.external_sort``,
 ``external_argsort``, ``streaming_topk``, ``streaming_group_by``,
-``merge``); ROADMAP.md lists what is still to be ported.
+``merge``), the in-place block moves (``core.partition.partition_blocks``,
+``kernels.ops.sort_blocks``, ``kernels.ops.permute_blocks_inplace``), the
+classify + histogram entry points (``kernels.classify``) and the
+out-of-place baseline ``core.s3sort.s3_sort``; ROADMAP.md lists what is
+still to be ported.
 """

@@ -11,6 +11,9 @@ K4 (``kernels.level_fused.level_fused_batched`` and ``rank_hist_batched``).
 :func:`partition_ranks_kernel` is the counterpart of the reference's
 ``partition_ranks_pallas``: the stable counting destinations from given
 bucket offsets, by kernel K6 (``kernels.dispatch_rank``).
+:func:`partition_blocks` is the block-granular move (paper §4.2): whole
+blocks grouped by bucket in place, by kernel K8
+(``kernels.block_permute``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import dispatch_rank
+from repro_torch.kernels.block_permute import permute_blocks_by_dest, stable_block_dest
 
 __all__ = [
     "tile_histogram",
@@ -26,6 +30,7 @@ __all__ = [
     "stable_partition",
     "batched_stable_partition",
     "partition_ranks_kernel",
+    "partition_blocks",
 ]
 
 Arrays = Dict[str, torch.Tensor]
@@ -133,3 +138,42 @@ def partition_ranks_kernel(
     if bucket.dim() == 2:
         return dispatch_rank.partition_ranks_batched(bucket, start, nb=nb, tile=tile)
     return dispatch_rank.partition_ranks(bucket, start, nb=nb, tile=tile)
+
+
+def partition_blocks(
+    arrays: Arrays, block_bucket: torch.Tensor, nb: int, block_elems: int
+) -> Tuple[Arrays, torch.Tensor]:
+    """Group *block-homogeneous* data by bucket: the counterpart of
+    ``repro.core.partition.partition_blocks``.
+
+    Each run of ``block_elems`` elements shares one bucket, ``block_bucket``
+    (N,) int32 in [0, nb) giving it per block.  When every tensor of
+    ``arrays`` is 1-D with a length that is a multiple of ``block_elems``
+    and ``block_elems`` is a multiple of 128 (the reference's rule), the
+    blocks move **in place** in the caller's tensors by K8 with one stable
+    destination per block (:func:`~repro_torch.kernels.block_permute.stable_block_dest`),
+    and the returned dict holds the same tensors.  Otherwise every tensor
+    is gathered into a new one by the stable block order, as the reference
+    does; both branches give the same stable grouping.
+
+    Returns (grouped arrays, (nb+1,) int32 block-boundary offsets d, the
+    exclusive prefix of the block counts).
+    """
+    hist = torch.bincount(block_bucket.to(torch.int64), minlength=nb)
+    d = torch.zeros(nb + 1, dtype=torch.int32, device=block_bucket.device)
+    d[1:] = torch.cumsum(hist, 0)
+    kernel_ok = block_elems % 128 == 0 and all(
+        a.dim() == 1 and a.shape[0] % block_elems == 0 for a in arrays.values()
+    )
+    if kernel_ok:
+        dst = stable_block_dest(block_bucket)
+        return {name: permute_blocks_by_dest(a, dst, block_elems=block_elems)
+                for name, a in arrays.items()}, d
+    order = torch.sort(block_bucket, stable=True).indices
+    nblocks = block_bucket.shape[0]
+
+    def move(a):
+        blocks = a.reshape((nblocks, block_elems) + a.shape[1:])
+        return blocks[order].reshape(a.shape)
+
+    return {name: move(a) for name, a in arrays.items()}, d

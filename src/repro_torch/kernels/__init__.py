@@ -12,8 +12,14 @@
 | K6 | ``dispatch_rank.dispatch_ranks`` | ``csrc/dispatch_rank.cu`` | ``repro/kernels/dispatch_rank.py:87`` |
 | K6 | ``dispatch_rank.partition_ranks`` | ``csrc/dispatch_rank.cu`` | ``repro/kernels/dispatch_rank.py:154`` |
 | K6 | ``dispatch_rank.partition_ranks_batched`` | ``csrc/dispatch_rank.cu`` | ``repro/kernels/dispatch_rank.py:224`` |
+| K7 | ``classify.classify_histogram`` | ``csrc/classify.cu`` | ``repro/kernels/classify.py:100`` |
+| K7 | ``classify.classify_histogram_batched`` | ``csrc/classify.cu`` | ``repro/kernels/classify.py:153`` |
+| K7 | ``classify.radix_histogram`` (and ``radix_histogram_batched``) | ``csrc/classify.cu`` | ``repro/kernels/classify.py:222`` |
+| K8 | ``block_permute.permute_blocks_by_dest`` | ``csrc/block_permute.cu`` | ``repro/kernels/block_permute.py:145`` |
+| K9 | ``permute_inplace.permute_blocks_inplace`` | ``csrc/permute_inplace.cu`` | ``repro/kernels/permute_inplace.py:148`` |
 
 K1/K1r/K2/K4 and K6 share their in-tile rank pass (``csrc/rank_hist.cuh``).
+K8 and K9 move blocks in the caller's tensor and return it.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
 plain torch twin only on a CPU tensor.  The kernels are built with ``nvcc``

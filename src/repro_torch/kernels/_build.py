@@ -37,7 +37,8 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("level_fused", "bitonic", "merge_path", "dispatch_rank")
+SOURCES = ("level_fused", "bitonic", "merge_path", "dispatch_rank", "classify",
+           "block_permute", "permute_inplace")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -53,6 +54,8 @@ LAUNCHES: Dict[str, int] = {
     "level_fused": 0, "rank_hist": 0, "sort_windows": 0,
     "level_fused_radix": 0, "level_fused_batched": 0, "rank_hist_batched": 0,
     "merge_path": 0, "dispatch_ranks": 0, "partition_ranks": 0, "partition_ranks_batched": 0,
+    "classify_histogram": 0, "classify_histogram_batched": 0, "radix_histogram": 0,
+    "permute_blocks_by_dest": 0, "permute_blocks_inplace": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

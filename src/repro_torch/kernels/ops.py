@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.kernels.ops``; this port has ``base_case_windows``,
 the overlapped-window base case on top of K3, for one row or B rows and
-over a prefix of each row, and ``moe_group_tokens``, the expert-major
-grouping of MoE tokens on top of K6.
+over a prefix of each row, ``moe_group_tokens``, the expert-major
+grouping of MoE tokens on top of K6, and ``sort_blocks``, the in-place block
+grouping on top of K8.  It re-exports ``classify_histogram`` (K7) and
+``permute_blocks_inplace`` (K9), as the reference does.
 """
 from __future__ import annotations
 
@@ -11,10 +13,30 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.partition import partition_blocks
 from repro_torch.kernels import dispatch_rank
 from repro_torch.kernels.bitonic import sort_windows
+from repro_torch.kernels.classify import classify_histogram
+from repro_torch.kernels.permute_inplace import permute_blocks_inplace
 
-__all__ = ["base_case_windows", "moe_group_tokens"]
+__all__ = [
+    "classify_histogram",
+    "permute_blocks_inplace",
+    "sort_blocks",
+    "base_case_windows",
+    "moe_group_tokens",
+]
+
+
+def sort_blocks(
+    a: torch.Tensor, block_bucket: torch.Tensor, *, k: int, block_elems: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group the homogeneous blocks of ``a`` by bucket: the one-tensor form
+    of ``core.partition.partition_blocks`` (in place by K8 when ``a`` is a
+    whole number of blocks of a multiple of 128 elements).  Returns
+    (grouped tensor, (k+1,) int32 block-boundary offsets)."""
+    out, d = partition_blocks({"k": a}, block_bucket, k, block_elems)
+    return out["k"], d
 
 
 def base_case_windows(

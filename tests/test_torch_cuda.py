@@ -2,7 +2,10 @@
 K1 (tree), K1r (radix), K4 ``level_fused_batched`` (both modes),
 K2 ``rank_hist``, K4 ``rank_hist_batched``, K3, K5 ``merge_path_perm`` and
 K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``),
-and the sorts and the stream on the card against the same calls on the CPU.
+K7 (``classify_histogram`` and its batched and radix forms), K8
+``permute_blocks_by_dest`` and K9 ``permute_blocks_inplace`` (in place: same
+``data_ptr``, a peak-memory rise of at most a quarter of the data), and the
+sorts and the stream on the card against the same calls on the CPU.
 
 Marked ``gpu``: every test skips (from its fixture) where no card is
 present, so the CPU suite collects the same tests on every worker.  On the
@@ -17,6 +20,7 @@ from repro_torch import kernels, ops, stream
 from repro_torch.core import sampling
 from repro_torch.data.distributions import make_input
 from repro_torch.kernels import bitonic, dispatch_rank, merge_path, level_fused as lf
+from repro_torch.kernels import block_permute, classify, permute_inplace
 
 pytestmark = pytest.mark.gpu
 
@@ -218,3 +222,111 @@ def test_group_by_on_the_card_matches_the_cpu(dev, method):
             assert torch.equal(g.cpu(), w)
     if name:
         assert kernels.launch_counts()[name] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,rows", [(2, 1024, 8), (5, 3 * 4096, 32), (128, 77 * 4096, 32),
+                                      (256, 40 * 2048, None)])
+def test_classify_histogram_kernel(dev, dtype, k, n, rows):
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x = torch.randn(n, device=dev, generator=g)
+    if dtype == torch.int32:
+        x = (x * 300).to(torch.int32)
+    else:
+        x = x.to(dtype)
+        x[::37] = float("nan")
+        x[1::37] = -0.0
+        x[2::37] = float("inf")
+        x[3::37] = torch.finfo(dtype).max
+    sample = torch.sort(x[torch.randint(0, n, (4 * k,), device=dev, generator=g)]).values
+    spl = sample[torch.linspace(0, 4 * k - 1, k - 1, device=dev).long()].contiguous()
+    before = kernels.launch_counts()["classify_histogram"]
+    _equal(classify.classify_histogram(x, spl, k=k, rows=rows),
+           classify.classify_histogram_plain(x, spl, k=k, rows=rows))
+    assert kernels.launch_counts()["classify_histogram"] == before + 1
+
+
+@pytest.mark.parametrize("B,n,k", [(1, 1024, 4), (7, 3 * 4096, 64)])
+def test_classify_histogram_batched_kernel(dev, B, n, k):
+    g = torch.Generator(device=dev).manual_seed(B)
+    x = torch.randn((B, n), device=dev, generator=g)
+    x[:, ::29] = float("nan")
+    spl = torch.sort(torch.randn((B, k - 1), device=dev, generator=g), dim=1).values
+    _equal(classify.classify_histogram_batched(x, spl, k=k),
+           classify.classify_histogram_batched_plain(x, spl, k=k))
+
+
+@pytest.mark.parametrize("k,consumed", [(2, 0), (256, 0), (256, 8), (32, 30)])
+def test_radix_histogram_kernel(dev, k, consumed):
+    g = torch.Generator(device=dev).manual_seed(k + consumed)
+    x = torch.randint(-2**31, 2**31 - 1, (3, 5 * 4096), device=dev, generator=g,
+                      dtype=torch.int32)
+    x[:, ::97] = torch.iinfo(torch.int32).max
+    before = kernels.launch_counts()["radix_histogram"]
+    _equal(classify.radix_histogram(x[0], k=k, consumed_bits=consumed),
+           classify.radix_histogram_plain(x[0], k=k, consumed_bits=consumed))
+    _equal(classify.radix_histogram_batched(x, k=k, consumed_bits=consumed),
+           classify.radix_histogram_batched_plain(x, k=k, consumed_bits=consumed))
+    assert kernels.launch_counts()["radix_histogram"] == before + 2
+
+
+def _in_place_bound(a):
+    """A quarter of the data (the card's form of the reference's <= 1.25n
+    live bytes), but at least the caching allocator's smallest block."""
+    return max(0.25 * a.numel() * a.element_size(), 512)
+
+
+def _rise(fn):
+    """Peak allocation above the start during fn(), in bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+@pytest.mark.parametrize("dst_kind", ["buckets", "random", "one cycle", "identity"])
+@pytest.mark.parametrize("N,be,extra,dtype", [(4096, 1024, 1000, torch.int32),
+                                              (4096, 128, 0, torch.float32),
+                                              (777, 256, 255, torch.int16),
+                                              (2, 128, 3, torch.int32), (1, 1024, 5, torch.int32)])
+def test_permute_blocks_by_dest_kernel(dev, N, be, extra, dtype, dst_kind):
+    g = torch.Generator(device=dev).manual_seed(N + be)
+    a = torch.randint(-1000, 1000, (N * be + extra,), device=dev, generator=g).to(dtype)
+    if dst_kind == "buckets":
+        bb = torch.randint(0, 256, (N,), device=dev, generator=g, dtype=torch.int32)
+        dst = block_permute.stable_block_dest(bb)
+    elif dst_kind == "random":
+        dst = torch.randperm(N, device=dev, generator=g).to(torch.int32)
+    elif dst_kind == "one cycle":
+        dst = ((torch.arange(N, device=dev) + 1) % N).to(torch.int32)
+    else:
+        dst = torch.arange(N, device=dev, dtype=torch.int32)
+    before = kernels.launch_counts()["permute_blocks_by_dest"]
+    want = block_permute.permute_blocks_by_dest_plain(a.clone(), dst, block_elems=be)
+    ptr = a.data_ptr()
+    got, rise = _rise(lambda: block_permute.permute_blocks_by_dest(a, dst, block_elems=be))
+    assert got.data_ptr() == ptr
+    assert rise <= _in_place_bound(a)
+    assert torch.equal(got, want)
+    assert kernels.launch_counts()["permute_blocks_by_dest"] == before + (N > 1)
+
+
+@pytest.mark.parametrize("N,be,k", [(4096, 1024, 256), (300, 128, 7), (1, 256, 3),
+                                    (1000, 512, 1)])
+def test_permute_blocks_inplace_kernel(dev, N, be, k):
+    g = torch.Generator(device=dev).manual_seed(N + k)
+    a = torch.randint(-2**31, 2**31 - 1, (N * be,), device=dev, generator=g, dtype=torch.int32)
+    bb = torch.randint(0, k, (N,), device=dev, generator=g, dtype=torch.int32)
+    d = torch.zeros(k + 1, dtype=torch.int32, device=dev)
+    d[1:] = torch.cumsum(torch.bincount(bb, minlength=k), 0)
+    want = permute_inplace.permute_blocks_inplace_plain(a.clone(), bb, d, k=k, block_elems=be)
+    ptr = a.data_ptr()
+    before = kernels.launch_counts()["permute_blocks_inplace"]
+    got, rise = _rise(lambda: permute_inplace.permute_blocks_inplace(a, bb, d, k=k,
+                                                                     block_elems=be))
+    assert got.data_ptr() == ptr
+    assert rise <= _in_place_bound(a)
+    assert torch.equal(got, want)
+    assert kernels.launch_counts()["permute_blocks_inplace"] == before + 1
