@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Phases, each of which exits non-zero when it fails:
+Phases, each of which exits non-zero when it fails.  Phases 2-4 run first
+for the sort kernels and paths, then, after their tensors are freed, again
+for the attention kernels and the serve path:
 
 1. set-up: print the card's name and power limit, build every kernel from
    ``src/repro_torch/csrc`` with ``nvcc`` (into ``build/``);
-2. each kernel against its plain torch twin on the card, bit for bit
-   (``torch.equal``; tolerance 0, the outputs are integers):
+2. each kernel against its plain torch twin on the card.  The sort kernels
+   bit for bit (``torch.equal``; tolerance 0, the outputs are integers):
    K1 at n = 2^24, k = 128 with pads on Uniform and TwoDup, K2 on the
    composite ids of a real level 1 at n = 2^24 (nb = 65,792) and on small
    nb, K3 on 2048 windows of W = 8192 with heavy duplicates, K1r (radix
@@ -30,7 +32,17 @@ Phases, each of which exits non-zero when it fails:
    the per-bucket block multisets and intact blocks against
    ``permute_blocks_ref``, and bit for bit against the replay of the
    reference's moves, also at N = 4096); K8 and K9 must be in place: the
-   same ``data_ptr`` and a peak-memory rise of at most a quarter of the data;
+   same ``data_ptr`` and a peak-memory rise of at most a quarter of the data.
+   The attention kernels within |got - want| <= atol + rtol * |want| (2e-5
+   + 2e-5 in float32, 4e-3 + 2^-8 in bfloat16; their ``max_abs_err`` in the
+   kernels line is a float), and each limit shown to flag a fault, the
+   twin's output with one tile of 64 keys dropped: K10 ``flash_decode`` at
+   yi-9b's decode shape (B = 8, H = 32, KVH = 4, hd = 128, T = 4096)
+   reading the strided (B, T, KVH, hd) cache with ragged lengths {1, 1, 17,
+   1024, 1025, 2048, 4095, 4096}, in both dtypes, and once on the
+   pre-expanded (B, H, T, hd) copy; K11 ``flash_attention`` at (1, 32,
+   4096, 128) causal, causal with window 1024, and non-causal at S = 2048,
+   in both dtypes;
 3. the paths, each driven with the launch counts set to 0 just before it
    and read just after, every kernel of the path required to be > 0:
    the 1-D tree sort (``ops.sort``/``argsort`` at n = 2^24 and 2^17), the
@@ -54,15 +66,30 @@ Phases, each of which exits non-zero when it fails:
    ``s3_sort``), the top/bottom-k to the sorted prefix, the group-by to
    ``torch.unique``, the block moves to the gather by the stable block
    order; then the peak device memory per key of ``partition_blocks``,
-   ``s3_sort`` and ``ops.sort``;
+   ``s3_sort`` and ``ops.sort``.  Last, with the card's memory emptied:
+   K11's entry point on layer 0's q, k, v of the served prompts (the
+   prefill shape, 8 x 1024 tokens, through strides) against its twin, and
+   the serve path: yi-9b at full width and depth (48 layers, bf16, random
+   weights from a seeded CUDA generator), ``Engine`` with
+   ``ServeConfig(max_seq=4096, batch_size=8)``, 8 prompts of 1024 tokens,
+   32 new tokens, greedy, under ``compute_policy(flash_decode=True)``; K10
+   must launch once per layer per decode step; two ``generate`` calls must
+   give equal tokens; teacher forced over the generated sequence, the K10
+   decode logits against the eager decode on the same cache and prefill +
+   decode against the full forward, each within 5% of the largest logit;
+   the greedy tokens of the K10 and eager paths compared as a measure;
 4. timing with CUDA events (median of several runs after warm-up): each
    kernel beside its plain twin, its bound and, where one exists, one
    torch call that computes the same function; each entry point beside
    ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and K8/K9 beside
    the out-of-place ``index_select`` of the blocks; profiles of
    three sorts and of one ``external_sort`` (device time, idle share,
-   host <-> device copies);
-5. a ``{"kernels": [...]}`` JSON line, then the last line
+   host <-> device copies); the serve path's prefill ms and decode ms per
+   step and tokens/s on the K10 and the eager path, K10 (at the last
+   step's length, 1056) and K11 (at (1, 32, 4096, 128) bf16) beside
+   ``scaled_dot_product_attention`` (K10 with a boolean length mask), and
+   a profile of 8 decode steps (device time, launches, idle share);
+5. a ``{"kernels": [...]}`` JSON line (17 entries), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the ``repro`` package.
@@ -103,6 +130,24 @@ SEGMENTS = 4096
 K_RADIX = 256  # radix_histogram: 8 bits per level
 # the block path: 2^28 int32 keys (1 GiB) in blocks of 1024 over 256 buckets
 N_BLOCK_KEYS, BLOCK, N_BUCKETS = 1 << 28, 1024, 256
+# serving yi-9b at full width and depth: 8 requests of 1024-token prompts,
+# 32 new tokens each, a 4096-slot cache per request
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 8, 1024, 32, 4096
+DECODE_LENGTHS = (1, 1, 17, 1024, 1025, 2048, 4095, 4096)  # K10's ragged check
+ATTN_S = 4096  # K11's check and timing: (1, 32, 4096, 128)
+BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
+# |got - want| <= atol + rtol * |want| for the attention kernels against
+# their twins: f32 is the same math in another summation order; bf16 is the
+# output's rounding, one step of 2^-8 relative, above an absolute floor of
+# about twice the largest sound difference (one bf16 step, 2^-9, at outputs
+# in [0.25, 0.5)), far below what a dropped tile of keys moves (PERF.md)
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-3, 2 ** -8)}
+FAULT_KEYS = 64  # the fault each attention check must flag: one tile dropped
+# the served model's teacher-forced checks, max |a - b| over max |b| of the
+# logits: random bf16 weights through 48 layers, where the two sides round
+# at other places (the eager path rounds the softmax weights to bf16, K10
+# keeps them f32; the full forward's products have other shapes)
+SERVE_TOL = 0.05
 
 
 def fail(msg: str) -> None:
@@ -138,10 +183,45 @@ def max_abs_err(torch, got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = OPS_32BIT_PER_S):
     """The least time for the work: the larger of the byte and op times."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_32BIT_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_us(e) -> float:
+    """A profiler event's own device time in us."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms: its kernels' own time summed
+    by torch.profiler over ``reps`` calls (copies and memsets apart), so the
+    host's time between launches is left out."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))) / 1e3 / reps
+
+
+def host_us(torch, fn, reps: int = 50) -> float:
+    """Host time of one call of ``fn`` in us, launches only (no synchronize
+    inside the loop; the device queue absorbs the kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
 
 
 def profile(torch, name, fn, top: int = 14) -> None:
@@ -156,9 +236,6 @@ def profile(torch, name, fn, top: int = 14) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
     # device-side events only (the aten ops above them repeat their time);
     # copies between host and device are summed apart from the kernels
@@ -176,6 +253,335 @@ def profile(torch, name, fn, top: int = 14) -> None:
               f"{sum(e.count for e in copies)} copies", flush=True)
     for e in events[:top]:
         print(f"  {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+
+
+def attention_phases(torch, dev) -> dict:
+    """Phases 2-4 for K10, K11 and the serve path, after the sort phases have
+    freed their tensors.  Returns the two kernels' rows of the kernels line
+    (their ``max_abs_err`` is a float: the largest over phase 2's checks)."""
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd, ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models.attention import _causal_mask, _sdpa
+    from repro_torch.models.layers import dense, rms_norm, rope
+    from repro_torch.models.policy import compute_policy
+    from repro_torch.models.transformer import forward, init_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    rows = {"flash_decode": {"max_abs_err": 0.0}, "flash_attention": {"max_abs_err": 0.0}}
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config("yi-9b")
+    H, KVH, HD = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    B, T = SERVE_BATCH, SERVE_MAX_SEQ
+
+    def check_close(name, got, want, dtype, what, fault=None):
+        """``fault``: (the twin's output with a tile of keys dropped, what
+        was dropped), which the limit must flag."""
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[str(dtype).split(".")[-1]]
+        limit = atol + rtol * want.to(f32).abs()
+        diff = (got.to(f32) - want.to(f32)).abs()
+        err = float(diff.max())
+        ok = bool((diff <= limit).all())  # NaN fails
+        line = f"{name} {what}: max_abs_err={err:.3e} (limit {atol} + {rtol} * |want|)"
+        caught = True
+        if fault is not None:
+            fdiff = (fault[0].to(f32) - want.to(f32)).abs()
+            caught = bool((fdiff > limit).any())
+            line += (f"; a fault ({fault[1]}) would read {float(fdiff.max()):.3e}, "
+                     f"{'flagged' if caught else 'NOT flagged'}")
+        print(f"{line} {'ok' if ok and caught else 'WRONG'}", flush=True)
+        if not ok:
+            fail(f"{name} differs from its plain twin on {what}")
+        if not caught:
+            fail(f"{name}: the limit on {what} does not flag a dropped tile of keys")
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    def drive(path, needed, calls):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        results = {name: fn() for name, fn in calls.items()}
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"path {path} launches: {launches} ({time.time() - t0:.1f} s)", flush=True)
+        for name in needed:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the path {path}")
+        return results, launches
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # ---- 2. K10 and K11 against their plain twins ---------------------------
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    # the fault: the longest request's last tile of keys dropped
+    short = torch.where(lengths == T, lengths - FAULT_KEYS, lengths)
+    for dtype in (f32, bf16):
+        q, ck, cv = randn(B, H, HD, dtype=dtype), randn(B, T, KVH, HD, dtype=dtype), \
+            randn(B, T, KVH, HD, dtype=dtype)
+
+        def twin(lens):
+            return kref.flash_decode_ref(q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
+                                         lens)[:, :, 0]
+
+        want = twin(lengths)
+        fault = (twin(short), f"keys {T - FAULT_KEYS}..{T - 1} of the length-{T} request")
+        check_close("flash_decode", fd.flash_decode_cache(q, ck, cv, lengths), want, dtype,
+                    f"{dtype} cache (B, T, KVH, hd) = ({B}, {T}, {KVH}, {HD}), H={H}, "
+                    f"lengths {DECODE_LENGTHS}", fault)
+    kx = ck.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+    vx = cv.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+    check_close("flash_decode", fd.flash_decode(q[:, :, None], kx, vx, lengths)[:, :, 0],
+                want, bf16, f"bf16 pre-expanded (B, H, T, hd) = ({B}, {H}, {T}, {HD})", fault)
+    del q, ck, cv, kx, vx, want, fault
+    attn_cases = ((True, 0, ATTN_S), (True, 1024, ATTN_S), (False, 0, ATTN_S // 2))
+    for dtype in (f32, bf16):
+        for causal, window, s in attn_cases:
+            q, k, v = (randn(1, H, s, HD, dtype=dtype) for _ in range(3))
+            want = kref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            # the fault: the window (or the whole row) one tile narrower, so
+            # the last query rows lose their first tile of keys
+            narrow = (window or s) - FAULT_KEYS
+            fault = (kref.flash_attention_ref(q, k, v, causal=causal, window=narrow),
+                     f"window {narrow}")
+            check_close("flash_attention",
+                        fa.flash_attention(q, k, v, causal=causal, window=window), want, dtype,
+                        f"{dtype} (1, {H}, {s}, {HD}) causal={causal} window={window}", fault)
+            del q, k, v, want, fault
+    torch.cuda.empty_cache()
+
+    # ---- 3. the K11 entry point at the prefill shape, then the serve path ----
+    print(f"serve: device memory allocated before the model {torch.cuda.memory_allocated()} B",
+          flush=True)
+    t0 = time.time()
+    model = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)  # bf16
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"serve: {cfg.name} {cfg.num_layers} layers, {n_params} parameters, {weight_bytes} B, "
+          f"random from a seeded CUDA generator in {time.time() - t0:.1f} s", flush=True)
+    prompts = torch.randint(0, cfg.vocab_size, (B, SERVE_PROMPT), generator=gen, device=dev)
+
+    # K11 on layer 0's q, k, v of the served prompts, in their (B, S, H, hd)
+    # layout read through strides
+    blk = model.layers[0]
+    x = rms_norm(blk.ln1, model.embed[prompts], cfg.norm_eps)
+    pos = torch.arange(SERVE_PROMPT, device=dev)[None].expand(B, SERVE_PROMPT)
+
+    def heads(w, n):
+        return dense(w, x).reshape(B, SERVE_PROMPT, n, HD)
+
+    q0 = rope(heads(blk.attn.wq, H), pos, cfg.rope_theta)
+    k0 = rope(heads(blk.attn.wk, KVH), pos, cfg.rope_theta)
+    v0 = heads(blk.attn.wv, KVH)
+    path = f"flash_attention entry point (layer 0 of {B} x {SERVE_PROMPT} prompt tokens)"
+    got, launches = drive(path, ("flash_attention",), {
+        "causal": lambda: kops.flash_attention(q0.transpose(1, 2), k0.transpose(1, 2),
+                                               v0.transpose(1, 2), causal=True)})
+    rows["flash_attention"]["launches"] = launches["flash_attention"]
+    check_close("flash_attention", got["causal"], kref.flash_attention_ref(
+        q0.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2)), bf16, path)
+    eager = _sdpa(q0, k0, v0, _causal_mask(SERVE_PROMPT, 0, dev))
+    print(f"path {path}: against the model's eager prefill attention max |diff| "
+          f"{float((got['causal'].transpose(1, 2).reshape(eager.shape).float() - eager.float()).abs().max()):.3e}"
+          " (measure only: the eager path rounds its weights to bf16)", flush=True)
+    del x, q0, k0, v0, eager, got
+
+    engine = Engine(cfg, ServeConfig(max_seq=SERVE_MAX_SEQ, batch_size=B), model, device=dev)
+
+    def serve(flash=True):
+        with compute_policy(flash_decode=flash):
+            return engine.generate(prompts, SERVE_NEW)
+
+    path = (f"serve {cfg.name} ({cfg.num_layers} layers, bf16; {B} requests x {SERVE_PROMPT} "
+            f"prompt tokens, {SERVE_NEW} new, greedy, flash_decode)")
+    got, launches = drive(path, ("flash_decode",), {"generate": serve})
+    tokens = got["generate"]
+    rows["flash_decode"]["launches"] = launches["flash_decode"]
+    if launches["flash_decode"] != cfg.num_layers * SERVE_NEW:
+        fail(f"K10 launched {launches['flash_decode']} times, not once per layer per decode "
+             f"step ({cfg.num_layers * SERVE_NEW})")
+    ok = (tokens.shape == (B, SERVE_NEW) and tokens.dtype == torch.int32
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size)
+    print(f"path serve: tokens {tuple(tokens.shape)} {'ok' if ok else 'WRONG'}; "
+          f"first request {tokens[0, :12].tolist()}", flush=True)
+    if not ok:
+        fail("serve: the generated tokens are malformed")
+    again = serve()
+    print(f"path serve: two generate calls on one engine equal: {torch.equal(tokens, again)}",
+          flush=True)
+    if not torch.equal(tokens, again):
+        fail("serve: two greedy generate calls on one engine differ")
+    eager_tokens = serve(flash=False)
+    agree = float((eager_tokens == tokens).float().mean())
+    print(f"path serve: greedy tokens of the K10 path equal to the eager path's: {agree:.4f} "
+          f"(measure only)", flush=True)
+
+    # teacher forced over the generated sequence: at every decode step the
+    # K10 path against the eager path on the same cache, and prefill + decode
+    # against the full forward at the last positions
+    seq = torch.cat([prompts, tokens], dim=1)
+    cache = engine.cache
+    forward(model, cfg, prompts, cache=cache)
+    k10_logits, eager_logits = [], []
+    for i in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_NEW):
+        tok, pos_i = seq[:, i:i + 1], torch.full((B, 1), i, device=dev)
+        with compute_policy(flash_decode=True):
+            k10_logits.append(forward(model, cfg, tok, positions=pos_i, cache=cache)[0][:, 0])
+        for c in cache["layers"]:
+            c["pos"] = i  # the eager step rewrites slot i from the same cache
+        eager_logits.append(forward(model, cfg, tok, positions=pos_i, cache=cache)[0][:, 0])
+    k10_logits = torch.stack(k10_logits, 1).float()
+    eager_logits = torch.stack(eager_logits, 1).float()
+    full_logits = forward(model, cfg, seq)[0][:, SERVE_PROMPT:].float()
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    for what, err in (("K10 decode against the eager decode, same cache",
+                       rel(k10_logits, eager_logits)),
+                      ("prefill + eager decode against the full forward",
+                       rel(eager_logits, full_logits)),
+                      ("prefill + K10 decode against the full forward",
+                       rel(k10_logits, full_logits))):
+        ok = err <= SERVE_TOL
+        print(f"path serve teacher-forced, {what}: max |diff| / max |logit| = {err:.4e} "
+              f"(tol {SERVE_TOL}; max |logit| {float(full_logits.abs().max()):.3f}) "
+              f"{'ok' if ok else 'WRONG'}", flush=True)
+        if not ok:
+            fail(f"serve: {what} beyond {SERVE_TOL}")
+    print("path serve: argmax of the K10 decode logits equal to the full forward's: "
+          f"{float((k10_logits.argmax(-1) == full_logits.argmax(-1)).float().mean()):.4f} "
+          "(measure only)", flush=True)
+    del k10_logits, eager_logits, full_logits
+
+    # ---- 4. timing ------------------------------------------------------------
+    def prefill():
+        forward(model, cfg, prompts, cache=cache)
+
+    prefill_ms = cuda_ms(torch, prefill, warmup=1, reps=3)
+    for flash in (True, False):
+        gen_ms = cuda_ms(torch, lambda: serve(flash), warmup=1, reps=3)
+        step_ms = (gen_ms - prefill_ms) / SERVE_NEW
+        print(f"time serve {'K10' if flash else 'eager'} path: generate {gen_ms:.3f} ms, "
+              f"prefill {prefill_ms:.3f} ms ({B} x {SERVE_PROMPT} tokens), decode "
+              f"{step_ms:.3f} ms per step, {B * 1e3 / step_ms:.1f} tokens/s", flush=True)
+
+    def decode_steps(n, flash):
+        for c in cache["layers"]:
+            c["pos"] = SERVE_PROMPT
+        with compute_policy(flash_decode=flash):
+            for i in range(SERVE_PROMPT, SERVE_PROMPT + n):
+                forward(model, cfg, seq[:, i:i + 1], positions=torch.full((B, 1), i, device=dev),
+                        cache=cache)
+
+    profile(torch, f"prefill of {cfg.name} ({B} x {SERVE_PROMPT} tokens, eager attention)",
+            prefill, top=8)
+    for flash in (True, False):
+        prefill()
+        profile(torch, f"8 decode steps of {cfg.name} ({B} requests, "
+                f"{'K10' if flash else 'eager'} path)", lambda: decode_steps(8, flash), top=12)
+    kv_bytes = cfg.num_layers * 2 * B * KVH * (SERVE_PROMPT + SERVE_NEW) * HD * 2
+    decode_bound = bound_ms(weight_bytes - model.embed.numel() * 2 + kv_bytes, 0)[0]
+    print(f"decode step bound at length {SERVE_PROMPT + SERVE_NEW}: {decode_bound:.3f} ms (the "
+          f"weights read once, the embedding only gathered, + {kv_bytes} B of valid KV)",
+          flush=True)
+
+    # K10 at the served shape: the last step's length, over the 48 layers'
+    # caches in turn, so that each launch finds its cache cold in the L2 as
+    # the decode step does (one layer's valid K and V, 17.3 MB, would stay
+    # in the 50 MB L2 if one cache were timed over and over).  Device time
+    # by the profiler: at ~0.1 ms a launch, CUDA events around one call
+    # would mostly time the host's wrapper
+    length = SERVE_PROMPT + SERVE_NEW
+    layer_kv = [(c["k"], c["v"]) for c in cache["layers"]]
+    q = randn(B, H, HD, dtype=bf16)
+    q4 = q[:, :, None]
+    lens = torch.full((B,), length, dtype=torch.int32, device=dev)
+    mask = (torch.arange(T, device=dev) < lens[:, None])[:, None, None, :]
+    n_kv = len(layer_kv)
+
+    def per_layer(call):
+        return lambda: [call(ck, cv) for ck, cv in layer_kv]
+
+    k10 = per_layer(lambda ck, cv: fd.flash_decode_cache(q, ck, cv, lens))
+    sdpa = per_layer(lambda ck, cv: F.scaled_dot_product_attention(
+        q4, ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask, enable_gqa=True))
+    t = rows["flash_decode"]
+    t["ms"] = device_ms(torch, k10, reps=3) / n_kv
+    t["plain_ms"] = device_ms(torch, per_layer(lambda ck, cv: kref.flash_decode_ref(
+        q4, ck.transpose(1, 2), cv.transpose(1, 2), lens)), reps=1) / n_kv
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        2 * B * KVH * length * HD * 2 + 2 * q.numel() * 2 + B * 4,
+        4 * B * H * length * HD, BF16_FLOPS_PER_S)
+    t["library_ms"] = device_ms(torch, sdpa, reps=3) / n_kv
+    ck, cv = layer_kv[0]
+    got = fd.flash_decode_cache(q, ck, cv, lens)
+    want = F.scaled_dot_product_attention(q4, ck.transpose(1, 2), cv.transpose(1, 2),
+                                          attn_mask=mask, enable_gqa=True)[:, :, 0]
+    print(f"flash_decode: SDPA (boolean length mask, enable_gqa) against the kernel max |diff| "
+          f"{float((want.float() - got.float()).abs().max()):.3e}", flush=True)
+    warm_ms = device_ms(torch, lambda: fd.flash_decode_cache(q, ck, cv, lens))
+    kx = ck.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+    vx = cv.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+    sdpa_expanded_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, kx, vx, attn_mask=mask))
+    k10_expanded_ms = device_ms(torch, lambda: fd.flash_decode(q4, kx, vx, lens))
+    decode_mask = (torch.arange(T, device=dev) <= length - 1)[None, None, None, :]
+    k10_events_ms = cuda_ms(torch, lambda: fd.flash_decode_cache(q, ck, cv, lens), reps=50)
+    host = {
+        "K10 wrapper": host_us(torch, lambda: fd.flash_decode_cache(q, ck, cv, lens)),
+        "SDPA": host_us(torch, lambda: F.scaled_dot_product_attention(
+            q4, ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask, enable_gqa=True)),
+        "eager _sdpa (decode)": host_us(torch, lambda: _sdpa(q[:, None], ck, cv, decode_mask)),
+    }
+    del kx, vx, cache, engine, model
+    torch.cuda.empty_cache()
+
+    # K11 at (1, 32, 4096, 128) bf16: causal (the kernels line), windowed and
+    # non-causal beside SDPA (is_causal, or the boolean window mask)
+    q, k, v = (randn(1, H, ATTN_S, HD, dtype=bf16) for _ in range(3))
+    t = rows["flash_attention"]
+    t["ms"] = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), reps=5)
+    t["plain_ms"] = cuda_ms(torch, lambda: kref.flash_attention_ref(q, k, v, causal=True),
+                            reps=3)
+    pairs = ATTN_S * (ATTN_S + 1) // 2  # unmasked (row, col) pairs per head
+    t["bound_ms"], t["bound_by"] = bound_ms(4 * q.numel() * 2, 4 * H * pairs * HD,
+                                            BF16_FLOPS_PER_S)
+    t["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=5)
+    rows_ = torch.arange(ATTN_S, device=dev)
+    window_mask = (rows_[None, :] <= rows_[:, None]) & (rows_[None, :] > rows_[:, None] - 1024)
+    more = {
+        "window 1024": (cuda_ms(torch, lambda: fa.flash_attention(q, k, v, window=1024), reps=5),
+                        cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=window_mask), reps=5)),
+        "non-causal": (cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=False), reps=5),
+                       cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), reps=5)),
+    }
+    for name in ("flash_decode", "flash_attention"):
+        r = rows[name]
+        how = ("device time, the layers' caches in turn" if name == "flash_decode"
+               else "CUDA events")
+        print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA {r['library_ms']:.4f} ms ({how})",
+              flush=True)
+    print(f"time flash_decode one cache over and over (warm L2): kernel {warm_ms:.4f} ms; on "
+          f"the pre-expanded (B, H, T, hd) copy: kernel {k10_expanded_ms:.4f} ms, SDPA "
+          f"{sdpa_expanded_ms:.4f} ms (device time)", flush=True)
+    print(f"time flash_decode by CUDA events around one call: {k10_events_ms:.4f} ms (with the "
+          "host's wrapper)", flush=True)
+    print("host us per call at the decode shape: " + ", ".join(
+        f"{name} {us:.1f}" for name, us in host.items()), flush=True)
+    for name, (ms, lib_ms) in more.items():
+        print(f"time flash_attention (1, {H}, {ATTN_S}, {HD}) bf16 {name}: kernel {ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms", flush=True)
+    return rows
 
 
 def main() -> None:
@@ -250,883 +656,890 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows = {}
 
-    # ---- 2. kernels against their plain twins ------------------------------
-    k = 128
-    n_real = N_BIG - 12345
-    for dist, dtype in (("Uniform", np.float32), ("TwoDup", np.int32)):
-        keys = encoded(dist, n_real, dtype)
-        keys = ips4o.pad_with_sentinel({"k": keys}, N_BIG)["k"]
-        pos = torch.randint(0, n_real, (4 * k,), generator=gen, device=dev)
-        spl = sampling.select_splitters(torch.sort(keys[pos]).values, k)
-        raw_kernel = lf._level_tiles_kernel(keys[None], spl[None], k, n_real, lf.TILE)
-        raw_plain = lf._level_tiles_plain(keys[None], spl[None], k, n_real, lf.TILE)
-        check_equal("level_fused", (raw_kernel, lf.level_fused(keys, spl, k=k, n_real=n_real)),
-                    (raw_plain, lf.level_fused_plain(keys, spl, k=k, n_real=n_real)),
-                    f"{dist} n={N_BIG} n_real={n_real} k={k}")
+    def sort_phases():
+        """Phases 2-4 for the sort kernels and paths; their tensors are freed
+        when it returns."""
+        # ---- 2. kernels against their plain twins ------------------------------
+        k = 128
+        n_real = N_BIG - 12345
+        for dist, dtype in (("Uniform", np.float32), ("TwoDup", np.int32)):
+            keys = encoded(dist, n_real, dtype)
+            keys = ips4o.pad_with_sentinel({"k": keys}, N_BIG)["k"]
+            pos = torch.randint(0, n_real, (4 * k,), generator=gen, device=dev)
+            spl = sampling.select_splitters(torch.sort(keys[pos]).values, k)
+            raw_kernel = lf._level_tiles_kernel(keys[None], spl[None], k, n_real, lf.TILE)
+            raw_plain = lf._level_tiles_plain(keys[None], spl[None], k, n_real, lf.TILE)
+            check_equal("level_fused", (raw_kernel, lf.level_fused(keys, spl, k=k, n_real=n_real)),
+                        (raw_plain, lf.level_fused_plain(keys, spl, k=k, n_real=n_real)),
+                        f"{dist} n={N_BIG} n_real={n_real} k={k}")
 
-    # K2 on the composite ids of a real level 1 (two-level plan at n = 2^24)
-    cfg = ips4o.SortConfig()
-    levels = ips4o.plan_levels(N_BIG, cfg)
-    keys = encoded("Uniform", N_BIG, np.float32)
-    level_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    arrays, off1, nb1, _ = ips4o.level_pass({"k": keys}, N_BIG, levels[0], cfg, level_gen)
-    k2 = levels[1]
-    comp = ips4o.composite_ids(arrays["k"], off1, nb1, N_BIG, k2, level_gen)
-    nb2 = nb1 * 2 * k2
-    k2_args = dict(nb=nb2, seg_offsets=off1, seg_width=2 * k2)
-    k2_tile = ips4o._auto_tile(N_BIG, 2 * k2, cfg)
-    got = lf.rank_hist(comp, tile=k2_tile, **k2_args)
-    want = lf.rank_hist_plain(comp, tile=k2_tile, **k2_args)
-    yard = torch.sort(comp, stable=True).indices
-    check_equal("rank_hist", got, want, f"composite n={N_BIG} nb={nb2}")
-    if not torch.equal(got[0][yard].to(torch.int64), torch.arange(N_BIG, device=dev)):
-        fail("K2 is not the inverse of the stable argsort of the composite ids")
-    for nb in (3, 520):
-        ids = torch.randint(0, nb, (1 << 20,), generator=gen, device=dev, dtype=torch.int32)
-        check_equal("rank_hist", lf.rank_hist(ids, nb=nb), lf.rank_hist_plain(ids, nb=nb),
-                    f"n={1 << 20} nb={nb}")
+        # K2 on the composite ids of a real level 1 (two-level plan at n = 2^24)
+        cfg = ips4o.SortConfig()
+        levels = ips4o.plan_levels(N_BIG, cfg)
+        keys = encoded("Uniform", N_BIG, np.float32)
+        level_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        arrays, off1, nb1, _ = ips4o.level_pass({"k": keys}, N_BIG, levels[0], cfg, level_gen)
+        k2 = levels[1]
+        comp = ips4o.composite_ids(arrays["k"], off1, nb1, N_BIG, k2, level_gen)
+        nb2 = nb1 * 2 * k2
+        k2_args = dict(nb=nb2, seg_offsets=off1, seg_width=2 * k2)
+        k2_tile = ips4o._auto_tile(N_BIG, 2 * k2, cfg)
+        got = lf.rank_hist(comp, tile=k2_tile, **k2_args)
+        want = lf.rank_hist_plain(comp, tile=k2_tile, **k2_args)
+        yard = torch.sort(comp, stable=True).indices
+        check_equal("rank_hist", got, want, f"composite n={N_BIG} nb={nb2}")
+        if not torch.equal(got[0][yard].to(torch.int64), torch.arange(N_BIG, device=dev)):
+            fail("K2 is not the inverse of the stable argsort of the composite ids")
+        for nb in (3, 520):
+            ids = torch.randint(0, nb, (1 << 20,), generator=gen, device=dev, dtype=torch.int32)
+            check_equal("rank_hist", lf.rank_hist(ids, nb=nb), lf.rank_hist_plain(ids, nb=nb),
+                        f"n={1 << 20} nb={nb}")
 
-    # K3 on duplicate-heavy windows, where stability shows
-    W, num_w = cfg.base_case, 2048
-    wb = torch.sort(torch.randint(0, 64, (num_w, W), generator=gen, device=dev,
-                                  dtype=torch.int32), dim=1).values
-    wk = torch.randint(-3, 4, (num_w, W), generator=gen, device=dev, dtype=torch.int32)
-    check_equal("sort_windows", bitonic.sort_windows(wb, wk, nb=64),
-                bitonic.sort_windows_plain(wb, wk, nb=64), f"{num_w} x {W} duplicate-heavy")
+        # K3 on duplicate-heavy windows, where stability shows
+        W, num_w = cfg.base_case, 2048
+        wb = torch.sort(torch.randint(0, 64, (num_w, W), generator=gen, device=dev,
+                                      dtype=torch.int32), dim=1).values
+        wk = torch.randint(-3, 4, (num_w, W), generator=gen, device=dev, dtype=torch.int32)
+        check_equal("sort_windows", bitonic.sort_windows(wb, wk, nb=64),
+                    bitonic.sort_windows_plain(wb, wk, nb=64), f"{num_w} x {W} duplicate-heavy")
 
-    # K1r: the radix mode, level 1 (top 7 bits) and a level-2 shift, with pads
-    keys_r = full_range((N_BIG,), seed=11)
-    keys_r[n_real:] = torch.iinfo(torch.int32).max
-    for consumed in (0, 7):
-        kw = dict(k=k, n_real=n_real, classifier="radix", consumed_bits=consumed)
-        check_equal("level_fused_radix",
-                    (lf._level_tiles_kernel(keys_r[None], None, k, n_real, lf.TILE, consumed),
-                     lf.level_fused(keys_r, **kw)),
-                    (lf._level_tiles_plain(keys_r[None], None, k, n_real, lf.TILE, consumed),
-                     lf.level_fused_plain(keys_r, **kw)),
-                    f"n={N_BIG} n_real={n_real} k={k} consumed={consumed}")
+        # K1r: the radix mode, level 1 (top 7 bits) and a level-2 shift, with pads
+        keys_r = full_range((N_BIG,), seed=11)
+        keys_r[n_real:] = torch.iinfo(torch.int32).max
+        for consumed in (0, 7):
+            kw = dict(k=k, n_real=n_real, classifier="radix", consumed_bits=consumed)
+            check_equal("level_fused_radix",
+                        (lf._level_tiles_kernel(keys_r[None], None, k, n_real, lf.TILE, consumed),
+                         lf.level_fused(keys_r, **kw)),
+                        (lf._level_tiles_plain(keys_r[None], None, k, n_real, lf.TILE, consumed),
+                         lf.level_fused_plain(keys_r, **kw)),
+                        f"n={N_BIG} n_real={n_real} k={k} consumed={consumed}")
 
-    # K4 level_fused_batched: per-row splitters or the radix shift, pads per row
-    row_real = N_ROW - 333
-    kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=3).view(B_BULK, N_ROW)
-    kb = ips4o.batched_pad_with_sentinel({"k": kb[:, :row_real].contiguous()}, N_ROW)["k"]
-    pos = torch.randint(0, row_real, (B_BULK, 4 * k), generator=gen, device=dev)
-    spl_b = sampling.select_splitters(torch.sort(torch.gather(kb, 1, pos), dim=1).values, k)
-    for mode, s in (("tree", spl_b), ("radix", None)):
-        kw = dict(k=k, n_real=row_real, classifier=mode)
-        check_equal("level_fused_batched",
-                    (lf._level_tiles_kernel(kb, s, k, row_real, lf.TILE, batched=True),
-                     lf.level_fused_batched(kb, s, **kw)),
-                    (lf._level_tiles_plain(kb, s, k, row_real, lf.TILE),
-                     lf.level_fused_batched_plain(kb, s, **kw)),
-                    f"{mode} ({B_BULK}, {N_ROW}) n_real={row_real} k={k}")
+        # K4 level_fused_batched: per-row splitters or the radix shift, pads per row
+        row_real = N_ROW - 333
+        kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=3).view(B_BULK, N_ROW)
+        kb = ips4o.batched_pad_with_sentinel({"k": kb[:, :row_real].contiguous()}, N_ROW)["k"]
+        pos = torch.randint(0, row_real, (B_BULK, 4 * k), generator=gen, device=dev)
+        spl_b = sampling.select_splitters(torch.sort(torch.gather(kb, 1, pos), dim=1).values, k)
+        for mode, s in (("tree", spl_b), ("radix", None)):
+            kw = dict(k=k, n_real=row_real, classifier=mode)
+            check_equal("level_fused_batched",
+                        (lf._level_tiles_kernel(kb, s, k, row_real, lf.TILE, batched=True),
+                         lf.level_fused_batched(kb, s, **kw)),
+                        (lf._level_tiles_plain(kb, s, k, row_real, lf.TILE),
+                         lf.level_fused_batched_plain(kb, s, **kw)),
+                        f"{mode} ({B_BULK}, {N_ROW}) n_real={row_real} k={k}")
 
-    # K4 rank_hist_batched on the composite ids of a real batched level 1
-    levels_b = ips4o.plan_levels(N_ROW, cfg)
-    kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=4).view(B_BULK, N_ROW)
-    level_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    arrays_b, off1_b, nb1_b, _ = ips4o.batched_level_pass({"k": kb}, N_ROW, levels_b[0], cfg,
-                                                          level_gen)
-    k2b = levels_b[1]
-    comp_b = ips4o.batched_composite_ids(arrays_b["k"], off1_b, nb1_b, N_ROW, k2b, level_gen)
-    k4_args = dict(nb=nb1_b * 2 * k2b, seg_offsets=off1_b, seg_width=2 * k2b)
-    k4_tile = ips4o._auto_tile(N_ROW, 2 * k2b, cfg)
-    got = lf.rank_hist_batched(comp_b, tile=k4_tile, **k4_args)
-    want = lf.rank_hist_batched_plain(comp_b, tile=k4_tile, **k4_args)
-    check_equal("rank_hist_batched", got, want,
-                f"composite ({B_BULK}, {N_ROW}) nb={k4_args['nb']}")
-    yard = torch.sort(comp_b, dim=1, stable=True).indices
-    if not torch.equal(torch.gather(got[0], 1, yard).to(torch.int64),
-                       torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
-        fail("K4 rank_hist_batched is not the inverse of the per-row stable argsort")
+        # K4 rank_hist_batched on the composite ids of a real batched level 1
+        levels_b = ips4o.plan_levels(N_ROW, cfg)
+        kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=4).view(B_BULK, N_ROW)
+        level_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        arrays_b, off1_b, nb1_b, _ = ips4o.batched_level_pass({"k": kb}, N_ROW, levels_b[0], cfg,
+                                                              level_gen)
+        k2b = levels_b[1]
+        comp_b = ips4o.batched_composite_ids(arrays_b["k"], off1_b, nb1_b, N_ROW, k2b, level_gen)
+        k4_args = dict(nb=nb1_b * 2 * k2b, seg_offsets=off1_b, seg_width=2 * k2b)
+        k4_tile = ips4o._auto_tile(N_ROW, 2 * k2b, cfg)
+        got = lf.rank_hist_batched(comp_b, tile=k4_tile, **k4_args)
+        want = lf.rank_hist_batched_plain(comp_b, tile=k4_tile, **k4_args)
+        check_equal("rank_hist_batched", got, want,
+                    f"composite ({B_BULK}, {N_ROW}) nb={k4_args['nb']}")
+        yard = torch.sort(comp_b, dim=1, stable=True).indices
+        if not torch.equal(torch.gather(got[0], 1, yard).to(torch.int64),
+                           torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
+            fail("K4 rank_hist_batched is not the inverse of the per-row stable argsort")
 
-    # K5 on two duplicate-heavy runs of 2^24 (the keys of each run repeat
-    # ~8,400 times and every value occurs in both), NaN codes at the tails,
-    # and at ragged sizes; the yardstick checks the permutation itself
-    def sorted_run(n, lo, hi):
-        run = torch.sort(torch.randint(lo, hi, (n,), generator=gen, device=dev,
-                                       dtype=torch.int32)).values
-        run[-max(1, n // 1000):] = torch.iinfo(torch.int32).max
-        return run
+        # K5 on two duplicate-heavy runs of 2^24 (the keys of each run repeat
+        # ~8,400 times and every value occurs in both), NaN codes at the tails,
+        # and at ragged sizes; the yardstick checks the permutation itself
+        def sorted_run(n, lo, hi):
+            run = torch.sort(torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                           dtype=torch.int32)).values
+            run[-max(1, n // 1000):] = torch.iinfo(torch.int32).max
+            return run
 
-    merge_a, merge_b = sorted_run(N_BIG, -1000, 1000), sorted_run(N_BIG, -1000, 1000)
-    for a, b in ((merge_a, merge_b), (sorted_run(1_000_003, -50, 50), sorted_run(77, -50, 50)),
-                 (sorted_run(1000, 0, 10), merge_b[:0])):
-        got = mp.merge_path_perm(a, b)
-        check_equal("merge_path", got, mp.merge_path_perm_plain(a, b),
-                    f"{a.shape[0]} + {b.shape[0]}")
-        if not torch.equal(got.to(torch.int64), torch.sort(torch.cat([a, b]), stable=True).indices):
-            fail("K5 is not the stable merge permutation")
+        merge_a, merge_b = sorted_run(N_BIG, -1000, 1000), sorted_run(N_BIG, -1000, 1000)
+        for a, b in ((merge_a, merge_b), (sorted_run(1_000_003, -50, 50), sorted_run(77, -50, 50)),
+                     (sorted_run(1000, 0, 10), merge_b[:0])):
+            got = mp.merge_path_perm(a, b)
+            check_equal("merge_path", got, mp.merge_path_perm_plain(a, b),
+                        f"{a.shape[0]} + {b.shape[0]}")
+            if not torch.equal(got.to(torch.int64), torch.sort(torch.cat([a, b]), stable=True).indices):
+                fail("K5 is not the stable merge permutation")
 
-    # K6: dispatch_ranks on the MoE routing (uniform, then half on one expert),
-    # partition_ranks with trash ids and non-prefix starts, the batched form
-    def counts_prefix(ids, nb):
-        counts = torch.bincount(ids.reshape(-1), minlength=nb)[:nb].to(torch.int32)
-        return torch.cumsum(counts, 0, dtype=torch.int32) - counts
+        # K6: dispatch_ranks on the MoE routing (uniform, then half on one expert),
+        # partition_ranks with trash ids and non-prefix starts, the batched form
+        def counts_prefix(ids, nb):
+            counts = torch.bincount(ids.reshape(-1), minlength=nb)[:nb].to(torch.int32)
+            return torch.cumsum(counts, 0, dtype=torch.int32) - counts
 
-    n_moe = MOE_TOKENS * MOE_TOP
-    moe_uniform = torch.randint(0, MOE_EXPERTS, (n_moe,), generator=gen, device=dev,
-                                dtype=torch.int32)
-    moe_skewed = moe_uniform.clone()
-    moe_skewed[torch.rand(n_moe, generator=gen, device=dev) < 0.5] = 7
-    for tag, ids in (("uniform", moe_uniform), ("skewed", moe_skewed)):
-        start = counts_prefix(ids, MOE_EXPERTS)
-        got = dr.dispatch_ranks(ids, start, num_experts=MOE_EXPERTS)
-        check_equal("dispatch_ranks", got,
-                    dr.dispatch_ranks_plain(ids, start, num_experts=MOE_EXPERTS),
-                    f"{tag} {MOE_TOKENS} tokens x top-{MOE_TOP} over {MOE_EXPERTS} experts")
-        if not torch.equal(got[torch.sort(ids, stable=True).indices].to(torch.int64),
-                           torch.arange(n_moe, device=dev)):
-            fail("K6 dispatch_ranks is not the inverse of the stable argsort")
-    part_ids = torch.randint(0, NB_PART + 1, (N_BIG,), generator=gen, device=dev,
-                             dtype=torch.int32)  # NB_PART is the trash id
-    part_start = torch.randint(0, 1 << 24, (NB_PART,), generator=gen, device=dev,
-                               dtype=torch.int32)
-    check_equal("partition_ranks", dr.partition_ranks(part_ids, part_start, nb=NB_PART),
-                dr.partition_ranks_plain(part_ids, part_start, nb=NB_PART),
-                f"n={N_BIG} nb={NB_PART} non-prefix starts, trash ids")
-    rows_ids = torch.randint(0, NB_PART, (B_BULK, N_ROW), generator=gen, device=dev,
-                             dtype=torch.int32)
-    rows_start = torch.stack([counts_prefix(r, NB_PART) for r in rows_ids])
-    got = dr.partition_ranks_batched(rows_ids, rows_start, nb=NB_PART)
-    check_equal("partition_ranks_batched", got,
-                dr.partition_ranks_batched_plain(rows_ids, rows_start, nb=NB_PART),
-                f"({B_BULK}, {N_ROW}) nb={NB_PART}")
-    if not torch.equal(torch.gather(got, 1, torch.sort(rows_ids, dim=1, stable=True).indices)
-                       .to(torch.int64), torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
-        fail("K6 partition_ranks_batched is not the inverse of the per-row stable argsort")
+        n_moe = MOE_TOKENS * MOE_TOP
+        moe_uniform = torch.randint(0, MOE_EXPERTS, (n_moe,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+        moe_skewed = moe_uniform.clone()
+        moe_skewed[torch.rand(n_moe, generator=gen, device=dev) < 0.5] = 7
+        for tag, ids in (("uniform", moe_uniform), ("skewed", moe_skewed)):
+            start = counts_prefix(ids, MOE_EXPERTS)
+            got = dr.dispatch_ranks(ids, start, num_experts=MOE_EXPERTS)
+            check_equal("dispatch_ranks", got,
+                        dr.dispatch_ranks_plain(ids, start, num_experts=MOE_EXPERTS),
+                        f"{tag} {MOE_TOKENS} tokens x top-{MOE_TOP} over {MOE_EXPERTS} experts")
+            if not torch.equal(got[torch.sort(ids, stable=True).indices].to(torch.int64),
+                               torch.arange(n_moe, device=dev)):
+                fail("K6 dispatch_ranks is not the inverse of the stable argsort")
+        part_ids = torch.randint(0, NB_PART + 1, (N_BIG,), generator=gen, device=dev,
+                                 dtype=torch.int32)  # NB_PART is the trash id
+        part_start = torch.randint(0, 1 << 24, (NB_PART,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+        check_equal("partition_ranks", dr.partition_ranks(part_ids, part_start, nb=NB_PART),
+                    dr.partition_ranks_plain(part_ids, part_start, nb=NB_PART),
+                    f"n={N_BIG} nb={NB_PART} non-prefix starts, trash ids")
+        rows_ids = torch.randint(0, NB_PART, (B_BULK, N_ROW), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        rows_start = torch.stack([counts_prefix(r, NB_PART) for r in rows_ids])
+        got = dr.partition_ranks_batched(rows_ids, rows_start, nb=NB_PART)
+        check_equal("partition_ranks_batched", got,
+                    dr.partition_ranks_batched_plain(rows_ids, rows_start, nb=NB_PART),
+                    f"({B_BULK}, {N_ROW}) nb={NB_PART}")
+        if not torch.equal(torch.gather(got, 1, torch.sort(rows_ids, dim=1, stable=True).indices)
+                           .to(torch.int64), torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
+            fail("K6 partition_ranks_batched is not the inverse of the per-row stable argsort")
 
-    # K7 in tree mode on raw keys: float32 Uniform with NaN, +-0.0, +-inf and
-    # finfo.max sprinkled in, int32 TwoDup and bfloat16 normals with the same
-    # specials, at k = 128 against a sorted sample's splitters; per-row
-    # splitters at (64, 2^18); radix mode at k = 256 on full-range codes
-    def raw_specials(x):
-        x[::1009] = float("nan")
-        x[1::1013] = -0.0
-        x[2::1019] = 0.0
-        x[3::1021] = float("inf")
-        x[4::1031] = float("-inf")
-        x[5::1033] = torch.finfo(x.dtype).max
-        return x
+        # K7 in tree mode on raw keys: float32 Uniform with NaN, +-0.0, +-inf and
+        # finfo.max sprinkled in, int32 TwoDup and bfloat16 normals with the same
+        # specials, at k = 128 against a sorted sample's splitters; per-row
+        # splitters at (64, 2^18); radix mode at k = 256 on full-range codes
+        def raw_specials(x):
+            x[::1009] = float("nan")
+            x[1::1013] = -0.0
+            x[2::1019] = 0.0
+            x[3::1021] = float("inf")
+            x[4::1031] = float("-inf")
+            x[5::1033] = torch.finfo(x.dtype).max
+            return x
 
-    def sample_splitters(x, k_):
-        pos = torch.randint(0, x.shape[-1], x.shape[:-1] + (4 * k_,), generator=gen, device=dev)
-        sample = torch.gather(x, -1, pos) if x.dim() == 2 else x[pos]
-        return sampling.select_splitters(torch.sort(sample, dim=-1).values, k_).contiguous()
+        def sample_splitters(x, k_):
+            pos = torch.randint(0, x.shape[-1], x.shape[:-1] + (4 * k_,), generator=gen, device=dev)
+            sample = torch.gather(x, -1, pos) if x.dim() == 2 else x[pos]
+            return sampling.select_splitters(torch.sort(sample, dim=-1).values, k_).contiguous()
 
-    k7_in = {
-        "float32 Uniform+specials": raw_specials(torch.as_tensor(
-            make_input("Uniform", N_BIG, np.float32, seed=15), device=dev)),
-        "int32 TwoDup": torch.as_tensor(make_input("TwoDup", N_BIG, np.int32, seed=16),
-                                        device=dev),
-        "bfloat16 normal+specials": raw_specials(
-            torch.randn(N_BIG, generator=gen, device=dev).to(torch.bfloat16)),
-    }
-    k7_spl = {tag: sample_splitters(x, k) for tag, x in k7_in.items()}
-    k7_want = {}
-    for tag, x in k7_in.items():
-        k7_want[tag] = cl.classify_histogram_plain(x, k7_spl[tag], k=k)
-        check_equal("classify_histogram", cl.classify_histogram(x, k7_spl[tag], k=k),
-                    k7_want[tag], f"{tag} n={N_BIG} k={k}")
-    k7_rows = raw_specials(torch.randn((B_BULK, N_ROW), generator=gen, device=dev))
-    k7_rows_spl = sample_splitters(k7_rows, k)
-    k7_want["batched"] = cl.classify_histogram_batched_plain(k7_rows, k7_rows_spl, k=k)
-    check_equal("classify_histogram_batched",
-                cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k), k7_want["batched"],
-                f"({B_BULK}, {N_ROW}) per-row splitters k={k}")
-    radix7 = full_range((N_BIG,), seed=17)
-    radix7[::1009] = torch.iinfo(torch.int32).max  # the NaN / pad code
-    for consumed in (0, 8):
-        k7_want[f"radix {consumed}"] = cl.radix_histogram_plain(radix7, k=K_RADIX,
-                                                                consumed_bits=consumed)
-        check_equal("radix_histogram", cl.radix_histogram(radix7, k=K_RADIX,
-                                                          consumed_bits=consumed),
-                    k7_want[f"radix {consumed}"],
-                    f"n={N_BIG} full range k={K_RADIX} consumed={consumed}")
-    radix7_rows = full_range((B_BULK, N_ROW), seed=18)
-    k7_want["radix batched"] = cl.radix_histogram_batched_plain(radix7_rows, k=K_RADIX)
-    check_equal("radix_histogram", cl.radix_histogram_batched(radix7_rows, k=K_RADIX),
-                k7_want["radix batched"], f"batched ({B_BULK}, {N_ROW}) k={K_RADIX}")
+        k7_in = {
+            "float32 Uniform+specials": raw_specials(torch.as_tensor(
+                make_input("Uniform", N_BIG, np.float32, seed=15), device=dev)),
+            "int32 TwoDup": torch.as_tensor(make_input("TwoDup", N_BIG, np.int32, seed=16),
+                                            device=dev),
+            "bfloat16 normal+specials": raw_specials(
+                torch.randn(N_BIG, generator=gen, device=dev).to(torch.bfloat16)),
+        }
+        k7_spl = {tag: sample_splitters(x, k) for tag, x in k7_in.items()}
+        k7_want = {}
+        for tag, x in k7_in.items():
+            k7_want[tag] = cl.classify_histogram_plain(x, k7_spl[tag], k=k)
+            check_equal("classify_histogram", cl.classify_histogram(x, k7_spl[tag], k=k),
+                        k7_want[tag], f"{tag} n={N_BIG} k={k}")
+        k7_rows = raw_specials(torch.randn((B_BULK, N_ROW), generator=gen, device=dev))
+        k7_rows_spl = sample_splitters(k7_rows, k)
+        k7_want["batched"] = cl.classify_histogram_batched_plain(k7_rows, k7_rows_spl, k=k)
+        check_equal("classify_histogram_batched",
+                    cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k), k7_want["batched"],
+                    f"({B_BULK}, {N_ROW}) per-row splitters k={k}")
+        radix7 = full_range((N_BIG,), seed=17)
+        radix7[::1009] = torch.iinfo(torch.int32).max  # the NaN / pad code
+        for consumed in (0, 8):
+            k7_want[f"radix {consumed}"] = cl.radix_histogram_plain(radix7, k=K_RADIX,
+                                                                    consumed_bits=consumed)
+            check_equal("radix_histogram", cl.radix_histogram(radix7, k=K_RADIX,
+                                                              consumed_bits=consumed),
+                        k7_want[f"radix {consumed}"],
+                        f"n={N_BIG} full range k={K_RADIX} consumed={consumed}")
+        radix7_rows = full_range((B_BULK, N_ROW), seed=18)
+        k7_want["radix batched"] = cl.radix_histogram_batched_plain(radix7_rows, k=K_RADIX)
+        check_equal("radix_histogram", cl.radix_histogram_batched(radix7_rows, k=K_RADIX),
+                    k7_want["radix batched"], f"batched ({B_BULK}, {N_ROW}) k={K_RADIX}")
 
-    # K8 and K9 at 2^28 int32 keys (1 GiB, N = 262,144 blocks of 1024), block
-    # buckets uniform over 256 and with half the blocks in one bucket; K8
-    # with a partial tail of 1000 keys.  In place: the same data_ptr, and a
-    # peak-memory rise of at most a quarter of the data during the call
-    def rise(fn):
+        # K8 and K9 at 2^28 int32 keys (1 GiB, N = 262,144 blocks of 1024), block
+        # buckets uniform over 256 and with half the blocks in one bucket; K8
+        # with a partial tail of 1000 keys.  In place: the same data_ptr, and a
+        # peak-memory rise of at most a quarter of the data during the call
+        def rise(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, torch.cuda.max_memory_allocated() - base
+
+        def in_place(name, got, ptr, peak, nbytes):
+            same = got.data_ptr() == ptr
+            print(f"{name} in place: data_ptr {'same' if same else 'NEW'}, peak rise {peak} B "
+                  f"({peak / nbytes:.6f} of the {nbytes} B of data)", flush=True)
+            if not same or peak > 0.25 * nbytes:
+                fail(f"{name} is not in place")
+
+        def prefix(bb):
+            d = torch.zeros(N_BUCKETS + 1, dtype=torch.int32, device=dev)
+            d[1:] = torch.cumsum(torch.bincount(bb, minlength=N_BUCKETS), 0)
+            return d
+
+        nblocks = N_BLOCK_KEYS // BLOCK
+        bb_uniform = torch.randint(0, N_BUCKETS, (nblocks,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+        bb_skewed = bb_uniform.clone()
+        bb_skewed[torch.rand(nblocks, generator=gen, device=dev) < 0.5] = 7
+        block_cases = (("uniform", bb_uniform), ("half in one bucket", bb_skewed))
+        blocks8 = torch.randint(-2**31, 2**31 - 1, (N_BLOCK_KEYS + 1000,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        one_cycle = ((torch.arange(nblocks, device=dev) + 1) % nblocks).to(torch.int32)
+        for tag, dst in [(tag, bp.stable_block_dest(bb)) for tag, bb in block_cases] + [
+                ("one cycle through every block", one_cycle)]:
+            want = bp.permute_blocks_by_dest_plain(blocks8.clone(), dst)
+            ptr = blocks8.data_ptr()
+            got, peak = rise(lambda: bp.permute_blocks_by_dest(blocks8, dst))
+            in_place("permute_blocks_by_dest", got, ptr, peak, blocks8.numel() * 4)
+            check_equal("permute_blocks_by_dest", got, want,
+                        f"{tag} n={blocks8.numel()} ({nblocks} blocks of {BLOCK} + 1000)")
+            del want, got
+
+        # K9: every block tagged by its source (block i holds i*1024 + [0, 1024)),
+        # so the output shows the per-bucket block multisets and intact blocks
+        # against permute_blocks_ref; bit for bit against the replay at full N
+        # and at N = 4096
+        def tagged(n):
+            return torch.arange(n, device=dev, dtype=torch.int32)
+
+        k9_want = {}
+        for tag, bb in block_cases:
+            d9 = prefix(bb)
+            keys9 = tagged(N_BLOCK_KEYS)
+            ptr = keys9.data_ptr()
+            got, peak = rise(lambda: pi.permute_blocks_inplace(keys9, bb, d9, k=N_BUCKETS))
+            in_place("permute_blocks_inplace", got, ptr, peak, N_BLOCK_KEYS * 4)
+            src = got.view(nblocks, BLOCK)[:, 0] // BLOCK
+            intact = torch.equal(got.view(nblocks, BLOCK),
+                                 src[:, None] * BLOCK + tagged(BLOCK)[None, :])
+            canon = kref.permute_blocks_ref(tagged(N_BLOCK_KEYS), bb, k=N_BUCKETS, block_elems=BLOCK)
+            slot_bucket = torch.sort(bb).values.to(torch.int64) << 32
+
+            def multiset(x):
+                return torch.sort(slot_bucket | x.view(nblocks, BLOCK)[:, 0].to(torch.int64)).values
+
+            same_sets = torch.equal(multiset(got), multiset(canon))
+            print(f"permute_blocks_inplace {tag} N={nblocks}: blocks intact {intact}, per-bucket "
+                  f"block multisets equal to permute_blocks_ref {same_sets}", flush=True)
+            if not (intact and same_sets):
+                fail(f"K9 lost or misplaced blocks ({tag})")
+            k9_want[tag] = pi.permute_blocks_inplace_plain(tagged(N_BLOCK_KEYS), bb, d9, k=N_BUCKETS)
+            check_equal("permute_blocks_inplace", got, k9_want[tag], f"{tag} N={nblocks} replay")
+            del canon, got
+        bb_small = torch.randint(0, N_BUCKETS, (4096,), generator=gen, device=dev, dtype=torch.int32)
+        small = torch.randint(-2**31, 2**31 - 1, (4096 * BLOCK,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        want = pi.permute_blocks_inplace_plain(small.clone(), bb_small, prefix(bb_small),
+                                               k=N_BUCKETS)
+        check_equal("permute_blocks_inplace",
+                    pi.permute_blocks_inplace(small, bb_small, prefix(bb_small), k=N_BUCKETS), want,
+                    "N=4096 random data replay")
+        del blocks8, small, want
+
+        # ---- 3. the paths ---------------------------------------------------------
+        def specials(x):
+            x[..., 3::3] *= -1
+            x[..., ::1009] = np.nan
+            x[..., 1::1013] = -0.0
+            x[..., 2::1019] = 0.0
+            return x
+
+        def main_input(dist, n):
+            if dist == "Uniform":
+                return torch.as_tensor(specials(make_input("Uniform", n, np.float32, seed=5)),
+                                       device=dev)
+            return torch.as_tensor(make_input("TwoDup", n, np.int32, seed=5), device=dev)
+
+        def yardstick(x):
+            """Stable sort of the encoded keys (per row for 2-D x)."""
+            enc = ops.keyspace.encode(x)
+            out = torch.sort(enc, dim=-1, stable=True)
+            return ops.keyspace.decode(out.values, x.dtype), out.indices
+
+        def same_keys(a, b):
+            return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+        sched_cfg = ips4o.SortConfig(base_case=256, tile=256, max_sample=256, kmax=64)
+        radix = "radix"
+        bulk = torch.as_tensor(specials(make_input("Uniform", B_BULK * N_ROW, np.float32, seed=6))
+                               .reshape(B_BULK, N_ROW), device=dev)
+        sched = torch.as_tensor(make_input("Uniform", B_SCHED * N_SCHED, np.int32, seed=7)
+                                .reshape(B_SCHED, N_SCHED), device=dev)
+        bulk_radix = full_range((B_BULK, N_ROW), seed=8)
+        radix_int = full_range((N_BIG,), seed=9)
+        radix_float = torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=10), device=dev)
+
+        # (name, x, the call, the kernels of its path); 1-D and batched sorts and
+        # argsorts, and the batched top/bottom-k
+        def sort_cases(tag, x, call_sort, call_argsort):
+            return [(f"{tag} sort", x, call_sort, "sort"),
+                    (f"{tag} argsort", x, call_argsort, "argsort")]
+
+        paths = {
+            "1-D tree": (("level_fused", "rank_hist", "sort_windows"), [
+                c for n in (N_BIG, N_SMALL) for dist in ("Uniform", "TwoDup")
+                for c in sort_cases(f"{dist} n={n}", main_input(dist, n), ops.sort, ops.argsort)
+            ]),
+            "1-D radix": (("level_fused_radix", "rank_hist", "sort_windows"), [
+                c for tag, x in ((f"int32 full range n={N_BIG}", radix_int),
+                                 (f"float32 Uniform n={N_BIG}", radix_float))
+                for c in sort_cases(tag, x, lambda x: ops.sort(x, classifier=radix),
+                                    lambda x: ops.argsort(x, classifier=radix))
+            ]),
+            "batched tree": (("level_fused_batched", "rank_hist_batched", "sort_windows"), [
+                *sort_cases(f"bulk ({B_BULK}, {N_ROW})", bulk, ops.batched_sort,
+                            ops.batched_argsort),
+                (f"bulk ({B_BULK}, {N_ROW}) topk k={TOP_K}", bulk,
+                 lambda x: ops.batched_topk(x, TOP_K), "topk"),
+                (f"bulk ({B_BULK}, {N_ROW}) bottomk k={TOP_K}", bulk,
+                 lambda x: ops.batched_bottomk(x, TOP_K), "bottomk"),
+                *sort_cases(f"scheduler ({B_SCHED}, {N_SCHED})", sched,
+                            lambda x: ops.batched_sort(x, cfg=sched_cfg),
+                            lambda x: ops.batched_argsort(x, cfg=sched_cfg)),
+            ]),
+            "batched radix": (("level_fused_batched", "rank_hist_batched", "sort_windows"), [
+                *sort_cases(f"int32 full range ({B_BULK}, {N_ROW})", bulk_radix,
+                            lambda x: ops.batched_sort(x, classifier=radix),
+                            lambda x: ops.batched_argsort(x, classifier=radix)),
+            ]),
+        }
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, torch.cuda.max_memory_allocated() - base
+        total_launches = {name: 0 for name in kernels.launch_counts()}
+        for path, (needed, cases) in paths.items():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            results = [call(x) for _, x, call, _ in cases]
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            print(f"path {path} launches: {launches}", flush=True)
+            for (name, x, _, kind_), got in zip(cases, results):
+                want_keys, want_order = yardstick(x)
+                if kind_ == "sort":
+                    ok = same_keys(got, want_keys)
+                elif kind_ == "argsort":
+                    ok = torch.equal(got.to(torch.int64), want_order)
+                else:  # top/bottom-k: the sorted prefix, of the complement for topk
+                    enc = ops.keyspace.encode(x)
+                    order = torch.sort(~enc if kind_ == "topk" else enc, dim=1,
+                                       stable=True).indices[:, :TOP_K]
+                    want_v = ops.keyspace.decode(torch.gather(enc, 1, order), x.dtype)
+                    ok = same_keys(got[0], want_v) and torch.equal(got[1].to(torch.int64), order)
+                print(f"path {path}: {name} {'ok' if ok else 'WRONG'}", flush=True)
+                if not ok:
+                    fail(f"path {path} wrong on {name}")
+            for name in needed:
+                if launches[name] <= 0:
+                    fail(f"kernel {name} was not launched on the path {path}")
+            for name, count in launches.items():
+                total_launches[name] += count
+        # the new paths: each driven with the counts at 0 just before and read just
+        # after, then checked against torch on the card
+        def drive(path, needed, calls):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            results = {name: fn() for name, fn in calls.items()}
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            print(f"path {path} launches: {launches} ({time.time() - t0:.1f} s)", flush=True)
+            for name in needed:
+                if launches[name] <= 0:
+                    fail(f"kernel {name} was not launched on the path {path}")
+            for name, count in launches.items():
+                total_launches[name] += count
+            return results
 
-    def in_place(name, got, ptr, peak, nbytes):
-        same = got.data_ptr() == ptr
-        print(f"{name} in place: data_ptr {'same' if same else 'NEW'}, peak rise {peak} B "
-              f"({peak / nbytes:.6f} of the {nbytes} B of data)", flush=True)
-        if not same or peak > 0.25 * nbytes:
-            fail(f"{name} is not in place")
-
-    def prefix(bb):
-        d = torch.zeros(N_BUCKETS + 1, dtype=torch.int32, device=dev)
-        d[1:] = torch.cumsum(torch.bincount(bb, minlength=N_BUCKETS), 0)
-        return d
-
-    nblocks = N_BLOCK_KEYS // BLOCK
-    bb_uniform = torch.randint(0, N_BUCKETS, (nblocks,), generator=gen, device=dev,
-                               dtype=torch.int32)
-    bb_skewed = bb_uniform.clone()
-    bb_skewed[torch.rand(nblocks, generator=gen, device=dev) < 0.5] = 7
-    block_cases = (("uniform", bb_uniform), ("half in one bucket", bb_skewed))
-    blocks8 = torch.randint(-2**31, 2**31 - 1, (N_BLOCK_KEYS + 1000,), generator=gen,
-                            device=dev, dtype=torch.int32)
-    one_cycle = ((torch.arange(nblocks, device=dev) + 1) % nblocks).to(torch.int32)
-    for tag, dst in [(tag, bp.stable_block_dest(bb)) for tag, bb in block_cases] + [
-            ("one cycle through every block", one_cycle)]:
-        want = bp.permute_blocks_by_dest_plain(blocks8.clone(), dst)
-        ptr = blocks8.data_ptr()
-        got, peak = rise(lambda: bp.permute_blocks_by_dest(blocks8, dst))
-        in_place("permute_blocks_by_dest", got, ptr, peak, blocks8.numel() * 4)
-        check_equal("permute_blocks_by_dest", got, want,
-                    f"{tag} n={blocks8.numel()} ({nblocks} blocks of {BLOCK} + 1000)")
-        del want, got
-
-    # K9: every block tagged by its source (block i holds i*1024 + [0, 1024)),
-    # so the output shows the per-bucket block multisets and intact blocks
-    # against permute_blocks_ref; bit for bit against the replay at full N
-    # and at N = 4096
-    def tagged(n):
-        return torch.arange(n, device=dev, dtype=torch.int32)
-
-    k9_want = {}
-    for tag, bb in block_cases:
-        d9 = prefix(bb)
-        keys9 = tagged(N_BLOCK_KEYS)
-        ptr = keys9.data_ptr()
-        got, peak = rise(lambda: pi.permute_blocks_inplace(keys9, bb, d9, k=N_BUCKETS))
-        in_place("permute_blocks_inplace", got, ptr, peak, N_BLOCK_KEYS * 4)
-        src = got.view(nblocks, BLOCK)[:, 0] // BLOCK
-        intact = torch.equal(got.view(nblocks, BLOCK),
-                             src[:, None] * BLOCK + tagged(BLOCK)[None, :])
-        canon = kref.permute_blocks_ref(tagged(N_BLOCK_KEYS), bb, k=N_BUCKETS, block_elems=BLOCK)
-        slot_bucket = torch.sort(bb).values.to(torch.int64) << 32
-
-        def multiset(x):
-            return torch.sort(slot_bucket | x.view(nblocks, BLOCK)[:, 0].to(torch.int64)).values
-
-        same_sets = torch.equal(multiset(got), multiset(canon))
-        print(f"permute_blocks_inplace {tag} N={nblocks}: blocks intact {intact}, per-bucket "
-              f"block multisets equal to permute_blocks_ref {same_sets}", flush=True)
-        if not (intact and same_sets):
-            fail(f"K9 lost or misplaced blocks ({tag})")
-        k9_want[tag] = pi.permute_blocks_inplace_plain(tagged(N_BLOCK_KEYS), bb, d9, k=N_BUCKETS)
-        check_equal("permute_blocks_inplace", got, k9_want[tag], f"{tag} N={nblocks} replay")
-        del canon, got
-    bb_small = torch.randint(0, N_BUCKETS, (4096,), generator=gen, device=dev, dtype=torch.int32)
-    small = torch.randint(-2**31, 2**31 - 1, (4096 * BLOCK,), generator=gen, device=dev,
-                          dtype=torch.int32)
-    want = pi.permute_blocks_inplace_plain(small.clone(), bb_small, prefix(bb_small),
-                                           k=N_BUCKETS)
-    check_equal("permute_blocks_inplace",
-                pi.permute_blocks_inplace(small, bb_small, prefix(bb_small), k=N_BUCKETS), want,
-                "N=4096 random data replay")
-    del blocks8, small, want
-
-    # ---- 3. the paths ---------------------------------------------------------
-    def specials(x):
-        x[..., 3::3] *= -1
-        x[..., ::1009] = np.nan
-        x[..., 1::1013] = -0.0
-        x[..., 2::1019] = 0.0
-        return x
-
-    def main_input(dist, n):
-        if dist == "Uniform":
-            return torch.as_tensor(specials(make_input("Uniform", n, np.float32, seed=5)),
-                                   device=dev)
-        return torch.as_tensor(make_input("TwoDup", n, np.int32, seed=5), device=dev)
-
-    def yardstick(x):
-        """Stable sort of the encoded keys (per row for 2-D x)."""
-        enc = ops.keyspace.encode(x)
-        out = torch.sort(enc, dim=-1, stable=True)
-        return ops.keyspace.decode(out.values, x.dtype), out.indices
-
-    def same_keys(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-    sched_cfg = ips4o.SortConfig(base_case=256, tile=256, max_sample=256, kmax=64)
-    radix = "radix"
-    bulk = torch.as_tensor(specials(make_input("Uniform", B_BULK * N_ROW, np.float32, seed=6))
-                           .reshape(B_BULK, N_ROW), device=dev)
-    sched = torch.as_tensor(make_input("Uniform", B_SCHED * N_SCHED, np.int32, seed=7)
-                            .reshape(B_SCHED, N_SCHED), device=dev)
-    bulk_radix = full_range((B_BULK, N_ROW), seed=8)
-    radix_int = full_range((N_BIG,), seed=9)
-    radix_float = torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=10), device=dev)
-
-    # (name, x, the call, the kernels of its path); 1-D and batched sorts and
-    # argsorts, and the batched top/bottom-k
-    def sort_cases(tag, x, call_sort, call_argsort):
-        return [(f"{tag} sort", x, call_sort, "sort"),
-                (f"{tag} argsort", x, call_argsort, "argsort")]
-
-    paths = {
-        "1-D tree": (("level_fused", "rank_hist", "sort_windows"), [
-            c for n in (N_BIG, N_SMALL) for dist in ("Uniform", "TwoDup")
-            for c in sort_cases(f"{dist} n={n}", main_input(dist, n), ops.sort, ops.argsort)
-        ]),
-        "1-D radix": (("level_fused_radix", "rank_hist", "sort_windows"), [
-            c for tag, x in ((f"int32 full range n={N_BIG}", radix_int),
-                             (f"float32 Uniform n={N_BIG}", radix_float))
-            for c in sort_cases(tag, x, lambda x: ops.sort(x, classifier=radix),
-                                lambda x: ops.argsort(x, classifier=radix))
-        ]),
-        "batched tree": (("level_fused_batched", "rank_hist_batched", "sort_windows"), [
-            *sort_cases(f"bulk ({B_BULK}, {N_ROW})", bulk, ops.batched_sort,
-                        ops.batched_argsort),
-            (f"bulk ({B_BULK}, {N_ROW}) topk k={TOP_K}", bulk,
-             lambda x: ops.batched_topk(x, TOP_K), "topk"),
-            (f"bulk ({B_BULK}, {N_ROW}) bottomk k={TOP_K}", bulk,
-             lambda x: ops.batched_bottomk(x, TOP_K), "bottomk"),
-            *sort_cases(f"scheduler ({B_SCHED}, {N_SCHED})", sched,
-                        lambda x: ops.batched_sort(x, cfg=sched_cfg),
-                        lambda x: ops.batched_argsort(x, cfg=sched_cfg)),
-        ]),
-        "batched radix": (("level_fused_batched", "rank_hist_batched", "sort_windows"), [
-            *sort_cases(f"int32 full range ({B_BULK}, {N_ROW})", bulk_radix,
-                        lambda x: ops.batched_sort(x, classifier=radix),
-                        lambda x: ops.batched_argsort(x, classifier=radix)),
-        ]),
-    }
-    torch.cuda.synchronize()
-    total_launches = {name: 0 for name in kernels.launch_counts()}
-    for path, (needed, cases) in paths.items():
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        results = [call(x) for _, x, call, _ in cases]
-        torch.cuda.synchronize()
-        launches = kernels.launch_counts()
-        print(f"path {path} launches: {launches}", flush=True)
-        for (name, x, _, kind_), got in zip(cases, results):
-            want_keys, want_order = yardstick(x)
-            if kind_ == "sort":
-                ok = same_keys(got, want_keys)
-            elif kind_ == "argsort":
-                ok = torch.equal(got.to(torch.int64), want_order)
-            else:  # top/bottom-k: the sorted prefix, of the complement for topk
-                enc = ops.keyspace.encode(x)
-                order = torch.sort(~enc if kind_ == "topk" else enc, dim=1,
-                                   stable=True).indices[:, :TOP_K]
-                want_v = ops.keyspace.decode(torch.gather(enc, 1, order), x.dtype)
-                ok = same_keys(got[0], want_v) and torch.equal(got[1].to(torch.int64), order)
+        def verdict(path, name, ok):
             print(f"path {path}: {name} {'ok' if ok else 'WRONG'}", flush=True)
             if not ok:
                 fail(f"path {path} wrong on {name}")
-        for name in needed:
-            if launches[name] <= 0:
-                fail(f"kernel {name} was not launched on the path {path}")
-        for name, count in launches.items():
-            total_launches[name] += count
-    # the new paths: each driven with the counts at 0 just before and read just
-    # after, then checked against torch on the card
-    def drive(path, needed, calls):
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
+
+        sort_kernels = ("level_fused", "rank_hist", "sort_windows")
         t0 = time.time()
-        results = {name: fn() for name, fn in calls.items()}
+        stream_x = specials(make_input("Uniform", N_STREAM, np.float32, seed=12))
+        print(f"stream input: {N_STREAM} float32 keys on the host in {time.time() - t0:.1f} s",
+              flush=True)
+        path = f"stream sort ({N_STREAM} keys, chunks of {CHUNK})"
+        got = drive(path, sort_kernels + ("merge_path",), {
+            "external_sort": lambda: stream.external_sort(stream_x, chunk_size=CHUNK),
+            "external_argsort": lambda: stream.external_argsort(stream_x, chunk_size=CHUNK),
+        })
+        stream_enc = ops.keyspace.encode(torch.as_tensor(stream_x, device=dev))
+        want = torch.sort(stream_enc, stable=True)
+        verdict(path, "external_sort", torch.equal(
+            ops.keyspace.encode(torch.as_tensor(got["external_sort"], device=dev)), want.values))
+        verdict(path, "external_argsort", torch.equal(
+            torch.as_tensor(got["external_argsort"], device=dev).to(torch.int64), want.indices))
+        del got, want
+
+        path = f"stream top-k ({N_STREAM} keys, k={STREAM_K})"
+        got = drive(path, sort_kernels + ("merge_path",), {
+            "streaming_topk": lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK),
+            "streaming_bottomk": lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK,
+                                                               largest=False),
+        })
+        for name, codes in (("streaming_topk", ~stream_enc), ("streaming_bottomk", stream_enc)):
+            order = torch.sort(codes, stable=True).indices[:STREAM_K]
+            vals, idx = got[name]
+            verdict(path, name, torch.equal(torch.as_tensor(idx, device=dev).to(torch.int64), order)
+                    and torch.equal(ops.keyspace.encode(torch.as_tensor(vals, device=dev)),
+                                    stream_enc[order]))
+        del got, stream_enc
+
+        group_x = make_input("RootDup", N_GROUPS, np.int32, seed=13)
+        path = f"stream group-by ({N_GROUPS} RootDup int32, chunks of {CHUNK_GROUPS})"
+        got = drive(path, sort_kernels + ("merge_path",), {
+            "streaming_group_by": lambda: stream.streaming_group_by(group_x,
+                                                                    chunk_size=CHUNK_GROUPS),
+        })
+        vals, counts = got["streaming_group_by"]
+        want_v, want_c = torch.unique(torch.as_tensor(group_x, device=dev), return_counts=True)
+        verdict(path, f"streaming_group_by ({vals.shape[0]} groups)",
+                torch.equal(torch.as_tensor(vals, device=dev), want_v)
+                and torch.equal(torch.as_tensor(counts, device=dev), want_c))
+
+        # grouping: the MoE routing ids grouped by expert (both methods), the
+        # token rows moved with them, and per-layer routing rows placed at once
+        layer_ids = torch.randint(0, MOE_EXPERTS, (MOE_LAYERS, N_ROW * MOE_TOP), generator=gen,
+                                  device=dev, dtype=torch.int32)
+        layer_off = torch.cat([torch.stack([counts_prefix(r, MOE_EXPERTS) for r in layer_ids]),
+                               torch.full((MOE_LAYERS, 1), layer_ids.shape[1], device=dev,
+                                          dtype=torch.int32)], 1)
+        moe_tok_ids = moe_uniform[: 1 << 16]
+        moe_tokens = torch.randn((1 << 16, 2048), generator=gen, device=dev).to(torch.bfloat16)
+        path = f"group-by ({MOE_TOKENS} tokens x top-{MOE_TOP} over {MOE_EXPERTS} experts)"
+        got = drive(path, ("dispatch_ranks", "partition_ranks", "partition_ranks_batched"), {
+            "group_by pallas": lambda: ops.group_by(moe_uniform, num_groups=MOE_EXPERTS,
+                                                    method="pallas"),
+            "group_by partition": lambda: ops.group_by(moe_skewed, num_groups=MOE_EXPERTS),
+            "moe_group_tokens": lambda: moe_group_tokens(moe_tok_ids, moe_tokens, MOE_EXPERTS),
+            "partition_ranks_kernel rows": lambda: partition_ranks_kernel(layer_ids, layer_off,
+                                                                          MOE_EXPERTS),
+        })
+        for name, ids in (("group_by pallas", moe_uniform), ("group_by partition", moe_skewed)):
+            g = got[name]
+            order = torch.sort(ids, stable=True).indices
+            verdict(path, name, torch.equal(g.perm.to(torch.int64), order)
+                    and torch.equal(g.keys, ids[order])
+                    and torch.equal(g.counts, torch.bincount(ids, minlength=MOE_EXPERTS).int()))
+        grouped, _, dest = got["moe_group_tokens"]
+        order = torch.sort(moe_tok_ids, stable=True).indices
+        verdict(path, "moe_group_tokens", torch.equal(grouped, moe_tokens[order])
+                and torch.equal(dest[order].to(torch.int64),
+                                torch.arange(order.shape[0], device=dev)))
+        dest = got["partition_ranks_kernel rows"]
+        verdict(path, f"partition_ranks_kernel ({MOE_LAYERS}, {layer_ids.shape[1]})", torch.equal(
+            torch.gather(dest, 1, torch.sort(layer_ids, dim=1, stable=True).indices).to(torch.int64),
+            torch.arange(layer_ids.shape[1], device=dev).expand_as(layer_ids)))
+        del got, moe_tokens, grouped
+
+        # segmented_sort: 4096 ragged segments over 2^24 keys
+        seg_x = main_input("Uniform", N_BIG)
+        cuts = np.sort(np.random.default_rng(14).integers(0, N_BIG, SEGMENTS - 1))
+        seg_off = torch.as_tensor(np.concatenate([[0], cuts, [N_BIG]]).astype(np.int32), device=dev)
+        path = f"segmented ({SEGMENTS} segments over {N_BIG} keys)"
+        got = drive(path, ("rank_hist", "sort_windows"), {
+            "segmented_sort": lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS),
+        })
+        seg = ips4o.segment_ids(seg_off, N_BIG).to(torch.int64)
+        packed = (seg << 32) + (ops.keyspace.encode(seg_x).to(torch.int64) + (1 << 31))
+        want = ((torch.sort(packed).values & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+        verdict(path, "segmented_sort", torch.equal(ops.keyspace.encode(got["segmented_sort"]), want))
+        del got, packed, want
+
+        # the block path: partition_blocks moves 2^28 int32 keys and an int32
+        # payload (2 GiB) in place by K8, once per tensor; equal to the gather
+        # by the stable block order, d the prefix of the block counts
+        pb_bb = bb_uniform
+        pb_keys = torch.randint(-2**31, 2**31 - 1, (N_BLOCK_KEYS,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        pb_keys_before = pb_keys.clone()
+        pb_arrays = {"k": pb_keys, "v": tagged(N_BLOCK_KEYS)}
+        block_order = torch.sort(pb_bb, stable=True).indices
+        want_d = prefix(pb_bb)
+        ptr = pb_keys.data_ptr()
+        path = (f"block path ({N_BLOCK_KEYS} int32 keys + int32 payload, blocks of {BLOCK}, "
+                f"{N_BUCKETS} buckets)")
         torch.cuda.synchronize()
-        launches = kernels.launch_counts()
-        print(f"path {path} launches: {launches} ({time.time() - t0:.1f} s)", flush=True)
-        for name in needed:
-            if launches[name] <= 0:
-                fail(f"kernel {name} was not launched on the path {path}")
-        for name, count in launches.items():
-            total_launches[name] += count
-        return results
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = drive(path, ("permute_blocks_by_dest",), {
+            "partition_blocks": lambda: partition_blocks(pb_arrays, pb_bb, N_BUCKETS, BLOCK),
+        })
+        pb_peak = torch.cuda.max_memory_allocated() - base
+        out, d = got["partition_blocks"]
+        in_place("partition_blocks", out["k"], ptr, pb_peak, N_BLOCK_KEYS * 4)
+        if kernels.launch_counts()["permute_blocks_by_dest"] != 2:
+            fail("partition_blocks did not launch K8 once per tensor")
+        verdict(path, "partition_blocks", torch.equal(d, want_d)
+                and torch.equal(out["v"].view(nblocks, BLOCK),
+                                block_order[:, None].to(torch.int32) * BLOCK + tagged(BLOCK))
+                and torch.equal(out["k"].view(nblocks, BLOCK),
+                                pb_keys_before.view(nblocks, BLOCK)[block_order]))
+        sb_keys = pb_keys_before.clone()
+        path = f"sort_blocks ({N_BLOCK_KEYS} int32 keys, blocks of {BLOCK}, {N_BUCKETS} buckets)"
+        got = drive(path, ("permute_blocks_by_dest",), {
+            "sort_blocks": lambda: sort_blocks(sb_keys, pb_bb, k=N_BUCKETS, block_elems=BLOCK),
+        })
+        out, d = got["sort_blocks"]
+        verdict(path, "sort_blocks", out.data_ptr() == sb_keys.data_ptr() and torch.equal(d, want_d)
+                and torch.equal(out.view(nblocks, BLOCK),
+                                pb_keys_before.view(nblocks, BLOCK)[block_order]))
+        del got, out, sb_keys, pb_keys_before
 
-    def verdict(path, name, ok):
-        print(f"path {path}: {name} {'ok' if ok else 'WRONG'}", flush=True)
-        if not ok:
-            fail(f"path {path} wrong on {name}")
+        # s3-sort, the out-of-place baseline: 2^24 float32 Uniform with NaN and
+        # +-0.0 and a payload, equal to torch.sort(stable=True) of the raw keys
+        s3_x = main_input("Uniform", N_BIG)
+        s3_v = torch.arange(N_BIG, device=dev, dtype=torch.int32)
+        path = f"s3-sort ({N_BIG} float32 Uniform with NaN/+-0.0, int32 payload)"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = drive(path, (), {"s3_sort": lambda: s3_sort(s3_x, s3_v)})
+        s3_peak = torch.cuda.max_memory_allocated() - base
+        keys_s3, vals_s3 = got["s3_sort"]
+        want = torch.sort(s3_x, stable=True)
+        verdict(path, "s3_sort", same_keys(keys_s3, want.values)
+                and torch.equal(vals_s3.to(torch.int64), want.indices))
+        del got, keys_s3, vals_s3, want
 
-    sort_kernels = ("level_fused", "rank_hist", "sort_windows")
-    t0 = time.time()
-    stream_x = specials(make_input("Uniform", N_STREAM, np.float32, seed=12))
-    print(f"stream input: {N_STREAM} float32 keys on the host in {time.time() - t0:.1f} s",
-          flush=True)
-    path = f"stream sort ({N_STREAM} keys, chunks of {CHUNK})"
-    got = drive(path, sort_kernels + ("merge_path",), {
-        "external_sort": lambda: stream.external_sort(stream_x, chunk_size=CHUNK),
-        "external_argsort": lambda: stream.external_argsort(stream_x, chunk_size=CHUNK),
-    })
-    stream_enc = ops.keyspace.encode(torch.as_tensor(stream_x, device=dev))
-    want = torch.sort(stream_enc, stable=True)
-    verdict(path, "external_sort", torch.equal(
-        ops.keyspace.encode(torch.as_tensor(got["external_sort"], device=dev)), want.values))
-    verdict(path, "external_argsort", torch.equal(
-        torch.as_tensor(got["external_argsort"], device=dev).to(torch.int64), want.indices))
-    del got, want
+        # K7's entry points and K9's, at phase 2's shapes
+        path = "classify+histogram (K7 entry points)"
+        got = drive(path, ("classify_histogram", "classify_histogram_batched", "radix_histogram"), {
+            **{f"classify_histogram {tag}": (lambda tag=tag: cl.classify_histogram(
+                k7_in[tag], k7_spl[tag], k=k)) for tag in k7_in},
+            "classify_histogram_batched": lambda: cl.classify_histogram_batched(k7_rows, k7_rows_spl,
+                                                                                k=k),
+            "radix_histogram": lambda: cl.radix_histogram(radix7, k=K_RADIX),
+            "radix_histogram_batched": lambda: cl.radix_histogram_batched(radix7_rows, k=K_RADIX),
+        })
+        for name, want in ((f"classify_histogram {tag}", k7_want[tag]) for tag in k7_in):
+            verdict(path, name, all(torch.equal(g, w) for g, w in zip(got[name], want)))
+        for name, key in (("classify_histogram_batched", "batched"), ("radix_histogram", "radix 0"),
+                          ("radix_histogram_batched", "radix batched")):
+            verdict(path, name, all(torch.equal(g, w) for g, w in zip(got[name], k7_want[key])))
+        keys9 = tagged(N_BLOCK_KEYS)
+        d_uniform = prefix(bb_uniform)
+        path = f"in-place block permutation (K9, {nblocks} blocks of {BLOCK}, {N_BUCKETS} buckets)"
+        got = drive(path, ("permute_blocks_inplace",), {
+            "permute_blocks_inplace": lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
+                                                                        k=N_BUCKETS),
+        })
+        verdict(path, "permute_blocks_inplace",
+                torch.equal(got["permute_blocks_inplace"], k9_want["uniform"]))
+        del got, k9_want
 
-    path = f"stream top-k ({N_STREAM} keys, k={STREAM_K})"
-    got = drive(path, sort_kernels + ("merge_path",), {
-        "streaming_topk": lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK),
-        "streaming_bottomk": lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK,
-                                                           largest=False),
-    })
-    for name, codes in (("streaming_topk", ~stream_enc), ("streaming_bottomk", stream_enc)):
-        order = torch.sort(codes, stable=True).indices[:STREAM_K]
-        vals, idx = got[name]
-        verdict(path, name, torch.equal(torch.as_tensor(idx, device=dev).to(torch.int64), order)
-                and torch.equal(ops.keyspace.encode(torch.as_tensor(vals, device=dev)),
-                                stream_enc[order]))
-    del got, stream_enc
+        # peak device memory per key, above the inputs: the in-place block move
+        # against the out-of-place s3-sort and the port's ops.sort
+        _, sort_peak = rise(lambda: ops.sort(s3_x))
+        print(f"peak bytes per key: partition_blocks {pb_peak / N_BLOCK_KEYS:.6f} ({N_BLOCK_KEYS} "
+              f"keys + payload, 8 B of data per key), s3_sort {s3_peak / N_BIG:.4f} ({N_BIG} keys "
+              f"+ payload), ops.sort {sort_peak / N_BIG:.4f} ({N_BIG} keys)", flush=True)
+        torch.cuda.empty_cache()
 
-    group_x = make_input("RootDup", N_GROUPS, np.int32, seed=13)
-    path = f"stream group-by ({N_GROUPS} RootDup int32, chunks of {CHUNK_GROUPS})"
-    got = drive(path, sort_kernels + ("merge_path",), {
-        "streaming_group_by": lambda: stream.streaming_group_by(group_x,
-                                                                chunk_size=CHUNK_GROUPS),
-    })
-    vals, counts = got["streaming_group_by"]
-    want_v, want_c = torch.unique(torch.as_tensor(group_x, device=dev), return_counts=True)
-    verdict(path, f"streaming_group_by ({vals.shape[0]} groups)",
-            torch.equal(torch.as_tensor(vals, device=dev), want_v)
-            and torch.equal(torch.as_tensor(counts, device=dev), want_c))
+        for name, r in rows.items():
+            r["launches"] = total_launches[name]
 
-    # grouping: the MoE routing ids grouped by expert (both methods), the
-    # token rows moved with them, and per-layer routing rows placed at once
-    layer_ids = torch.randint(0, MOE_EXPERTS, (MOE_LAYERS, N_ROW * MOE_TOP), generator=gen,
-                              device=dev, dtype=torch.int32)
-    layer_off = torch.cat([torch.stack([counts_prefix(r, MOE_EXPERTS) for r in layer_ids]),
-                           torch.full((MOE_LAYERS, 1), layer_ids.shape[1], device=dev,
-                                      dtype=torch.int32)], 1)
-    moe_tok_ids = moe_uniform[: 1 << 16]
-    moe_tokens = torch.randn((1 << 16, 2048), generator=gen, device=dev).to(torch.bfloat16)
-    path = f"group-by ({MOE_TOKENS} tokens x top-{MOE_TOP} over {MOE_EXPERTS} experts)"
-    got = drive(path, ("dispatch_ranks", "partition_ranks", "partition_ranks_batched"), {
-        "group_by pallas": lambda: ops.group_by(moe_uniform, num_groups=MOE_EXPERTS,
-                                                method="pallas"),
-        "group_by partition": lambda: ops.group_by(moe_skewed, num_groups=MOE_EXPERTS),
-        "moe_group_tokens": lambda: moe_group_tokens(moe_tok_ids, moe_tokens, MOE_EXPERTS),
-        "partition_ranks_kernel rows": lambda: partition_ranks_kernel(layer_ids, layer_off,
-                                                                      MOE_EXPERTS),
-    })
-    for name, ids in (("group_by pallas", moe_uniform), ("group_by partition", moe_skewed)):
-        g = got[name]
-        order = torch.sort(ids, stable=True).indices
-        verdict(path, name, torch.equal(g.perm.to(torch.int64), order)
-                and torch.equal(g.keys, ids[order])
-                and torch.equal(g.counts, torch.bincount(ids, minlength=MOE_EXPERTS).int()))
-    grouped, _, dest = got["moe_group_tokens"]
-    order = torch.sort(moe_tok_ids, stable=True).indices
-    verdict(path, "moe_group_tokens", torch.equal(grouped, moe_tokens[order])
-            and torch.equal(dest[order].to(torch.int64),
-                            torch.arange(order.shape[0], device=dev)))
-    dest = got["partition_ranks_kernel rows"]
-    verdict(path, f"partition_ranks_kernel ({MOE_LAYERS}, {layer_ids.shape[1]})", torch.equal(
-        torch.gather(dest, 1, torch.sort(layer_ids, dim=1, stable=True).indices).to(torch.int64),
-        torch.arange(layer_ids.shape[1], device=dev).expand_as(layer_ids)))
-    del got, moe_tokens, grouped
+        # where the robustness fallback engages (the default sampling leaves some
+        # buckets above W/2 at n = 2^24; radix on float Uniform keys leaves most)
+        def fallback_share(tag, passes, arrays, n_real, cfg_, levels_):
+            _, off, nb, pad_bucket = passes(arrays, n_real, cfg_, levels_)
+            big = ips4o._oversized(off, nb, cfg_.base_case, pad_bucket)
+            sizes = off[..., 1:] - off[..., :-1]
+            keys_big = int(sizes[big].sum())
+            total = arrays["k"].numel()
+            print(f"fallback {tag}: {int(big.sum())} of {big.numel()} buckets above W/2 hold "
+                  f"{keys_big} of {total} keys ({keys_big / total:.4f}), the largest "
+                  f"{int(sizes[big].max()) if bool(big.any()) else 0}", flush=True)
 
-    # segmented_sort: 4096 ragged segments over 2^24 keys
-    seg_x = main_input("Uniform", N_BIG)
-    cuts = np.sort(np.random.default_rng(14).integers(0, N_BIG, SEGMENTS - 1))
-    seg_off = torch.as_tensor(np.concatenate([[0], cuts, [N_BIG]]).astype(np.int32), device=dev)
-    path = f"segmented ({SEGMENTS} segments over {N_BIG} keys)"
-    got = drive(path, ("rank_hist", "sort_windows"), {
-        "segmented_sort": lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS),
-    })
-    seg = ips4o.segment_ids(seg_off, N_BIG).to(torch.int64)
-    packed = (seg << 32) + (ops.keyspace.encode(seg_x).to(torch.int64) + (1 << 31))
-    want = ((torch.sort(packed).values & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
-    verdict(path, "segmented_sort", torch.equal(ops.keyspace.encode(got["segmented_sort"]), want))
-    del got, packed, want
+        radix_cfg = ips4o.SortConfig(classifier=radix)
+        enc = ops.keyspace.encode
+        fallback_share(f"tree Uniform n={N_BIG}", ips4o.partition_passes,
+                       {"k": enc(paths["1-D tree"][1][0][1])}, N_BIG, cfg, levels)
+        for tag, x in ((f"radix int32 full range n={N_BIG}", radix_int),
+                       (f"radix float32 Uniform n={N_BIG}", radix_float)):
+            fallback_share(tag, ips4o.partition_passes, {"k": enc(x)}, N_BIG, radix_cfg, levels)
+        fallback_share(f"batched tree bulk ({B_BULK}, {N_ROW})", ips4o.batched_partition_passes,
+                       {"k": enc(bulk)}, N_ROW, cfg, levels_b)
+        fallback_share(f"batched radix ({B_BULK}, {N_ROW})", ips4o.batched_partition_passes,
+                       {"k": enc(bulk_radix)}, N_ROW, radix_cfg, levels_b)
 
-    # the block path: partition_blocks moves 2^28 int32 keys and an int32
-    # payload (2 GiB) in place by K8, once per tensor; equal to the gather
-    # by the stable block order, d the prefix of the block counts
-    pb_bb = bb_uniform
-    pb_keys = torch.randint(-2**31, 2**31 - 1, (N_BLOCK_KEYS,), generator=gen, device=dev,
-                            dtype=torch.int32)
-    pb_keys_before = pb_keys.clone()
-    pb_arrays = {"k": pb_keys, "v": tagged(N_BLOCK_KEYS)}
-    block_order = torch.sort(pb_bb, stable=True).indices
-    want_d = prefix(pb_bb)
-    ptr = pb_keys.data_ptr()
-    path = (f"block path ({N_BLOCK_KEYS} int32 keys + int32 payload, blocks of {BLOCK}, "
-            f"{N_BUCKETS} buckets)")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    got = drive(path, ("permute_blocks_by_dest",), {
-        "partition_blocks": lambda: partition_blocks(pb_arrays, pb_bb, N_BUCKETS, BLOCK),
-    })
-    pb_peak = torch.cuda.max_memory_allocated() - base
-    out, d = got["partition_blocks"]
-    in_place("partition_blocks", out["k"], ptr, pb_peak, N_BLOCK_KEYS * 4)
-    if kernels.launch_counts()["permute_blocks_by_dest"] != 2:
-        fail("partition_blocks did not launch K8 once per tensor")
-    verdict(path, "partition_blocks", torch.equal(d, want_d)
-            and torch.equal(out["v"].view(nblocks, BLOCK),
-                            block_order[:, None].to(torch.int32) * BLOCK + tagged(BLOCK))
-            and torch.equal(out["k"].view(nblocks, BLOCK),
-                            pb_keys_before.view(nblocks, BLOCK)[block_order]))
-    sb_keys = pb_keys_before.clone()
-    path = f"sort_blocks ({N_BLOCK_KEYS} int32 keys, blocks of {BLOCK}, {N_BUCKETS} buckets)"
-    got = drive(path, ("permute_blocks_by_dest",), {
-        "sort_blocks": lambda: sort_blocks(sb_keys, pb_bb, k=N_BUCKETS, block_elems=BLOCK),
-    })
-    out, d = got["sort_blocks"]
-    verdict(path, "sort_blocks", out.data_ptr() == sb_keys.data_ptr() and torch.equal(d, want_d)
-            and torch.equal(out.view(nblocks, BLOCK),
-                            pb_keys_before.view(nblocks, BLOCK)[block_order]))
-    del got, out, sb_keys, pb_keys_before
-
-    # s3-sort, the out-of-place baseline: 2^24 float32 Uniform with NaN and
-    # +-0.0 and a payload, equal to torch.sort(stable=True) of the raw keys
-    s3_x = main_input("Uniform", N_BIG)
-    s3_v = torch.arange(N_BIG, device=dev, dtype=torch.int32)
-    path = f"s3-sort ({N_BIG} float32 Uniform with NaN/+-0.0, int32 payload)"
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    got = drive(path, (), {"s3_sort": lambda: s3_sort(s3_x, s3_v)})
-    s3_peak = torch.cuda.max_memory_allocated() - base
-    keys_s3, vals_s3 = got["s3_sort"]
-    want = torch.sort(s3_x, stable=True)
-    verdict(path, "s3_sort", same_keys(keys_s3, want.values)
-            and torch.equal(vals_s3.to(torch.int64), want.indices))
-    del got, keys_s3, vals_s3, want
-
-    # K7's entry points and K9's, at phase 2's shapes
-    path = "classify+histogram (K7 entry points)"
-    got = drive(path, ("classify_histogram", "classify_histogram_batched", "radix_histogram"), {
-        **{f"classify_histogram {tag}": (lambda tag=tag: cl.classify_histogram(
-            k7_in[tag], k7_spl[tag], k=k)) for tag in k7_in},
-        "classify_histogram_batched": lambda: cl.classify_histogram_batched(k7_rows, k7_rows_spl,
-                                                                            k=k),
-        "radix_histogram": lambda: cl.radix_histogram(radix7, k=K_RADIX),
-        "radix_histogram_batched": lambda: cl.radix_histogram_batched(radix7_rows, k=K_RADIX),
-    })
-    for name, want in ((f"classify_histogram {tag}", k7_want[tag]) for tag in k7_in):
-        verdict(path, name, all(torch.equal(g, w) for g, w in zip(got[name], want)))
-    for name, key in (("classify_histogram_batched", "batched"), ("radix_histogram", "radix 0"),
-                      ("radix_histogram_batched", "radix batched")):
-        verdict(path, name, all(torch.equal(g, w) for g, w in zip(got[name], k7_want[key])))
-    keys9 = tagged(N_BLOCK_KEYS)
-    d_uniform = prefix(bb_uniform)
-    path = f"in-place block permutation (K9, {nblocks} blocks of {BLOCK}, {N_BUCKETS} buckets)"
-    got = drive(path, ("permute_blocks_inplace",), {
-        "permute_blocks_inplace": lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
-                                                                    k=N_BUCKETS),
-    })
-    verdict(path, "permute_blocks_inplace",
-            torch.equal(got["permute_blocks_inplace"], k9_want["uniform"]))
-    del got, k9_want
-
-    # peak device memory per key, above the inputs: the in-place block move
-    # against the out-of-place s3-sort and the port's ops.sort
-    _, sort_peak = rise(lambda: ops.sort(s3_x))
-    print(f"peak bytes per key: partition_blocks {pb_peak / N_BLOCK_KEYS:.6f} ({N_BLOCK_KEYS} "
-          f"keys + payload, 8 B of data per key), s3_sort {s3_peak / N_BIG:.4f} ({N_BIG} keys "
-          f"+ payload), ops.sort {sort_peak / N_BIG:.4f} ({N_BIG} keys)", flush=True)
-    torch.cuda.empty_cache()
-
-    for name, r in rows.items():
-        r["launches"] = total_launches[name]
-
-    # where the robustness fallback engages (the default sampling leaves some
-    # buckets above W/2 at n = 2^24; radix on float Uniform keys leaves most)
-    def fallback_share(tag, passes, arrays, n_real, cfg_, levels_):
-        _, off, nb, pad_bucket = passes(arrays, n_real, cfg_, levels_)
-        big = ips4o._oversized(off, nb, cfg_.base_case, pad_bucket)
-        sizes = off[..., 1:] - off[..., :-1]
-        keys_big = int(sizes[big].sum())
-        total = arrays["k"].numel()
-        print(f"fallback {tag}: {int(big.sum())} of {big.numel()} buckets above W/2 hold "
-              f"{keys_big} of {total} keys ({keys_big / total:.4f}), the largest "
-              f"{int(sizes[big].max()) if bool(big.any()) else 0}", flush=True)
-
-    radix_cfg = ips4o.SortConfig(classifier=radix)
-    enc = ops.keyspace.encode
-    fallback_share(f"tree Uniform n={N_BIG}", ips4o.partition_passes,
-                   {"k": enc(paths["1-D tree"][1][0][1])}, N_BIG, cfg, levels)
-    for tag, x in ((f"radix int32 full range n={N_BIG}", radix_int),
-                   (f"radix float32 Uniform n={N_BIG}", radix_float)):
-        fallback_share(tag, ips4o.partition_passes, {"k": enc(x)}, N_BIG, radix_cfg, levels)
-    fallback_share(f"batched tree bulk ({B_BULK}, {N_ROW})", ips4o.batched_partition_passes,
-                   {"k": enc(bulk)}, N_ROW, cfg, levels_b)
-    fallback_share(f"batched radix ({B_BULK}, {N_ROW})", ips4o.batched_partition_passes,
-                   {"k": enc(bulk_radix)}, N_ROW, radix_cfg, levels_b)
-
-    # ---- 4. timing ------------------------------------------------------------
-    # Op counts for the bounds, per element: K1 3 per search step (load,
-    # compare, add) over log2(k) steps plus ~12 for eq, pad routing, the warp
-    # match, the popcounts and the scan; K1r ~6 for the bit extraction (xor,
-    # shift, mask, the sentinel test, 2j + eq) in place of the search; K2 the
-    # same ~12 without the search; K3 4 per compare-exchange (a 64-bit
-    # compare is two, the swap two).  Bytes: each input read once, each
-    # output written once (keys or ids in, bucket or slot and rank out).
-    log_k = k.bit_length() - 1
-    keys1 = encoded("Uniform", N_BIG, np.float32)
-    spl1 = sampling.select_splitters(
-        torch.sort(keys1[torch.randint(0, N_BIG, (4 * k,), generator=gen,
-                                       device=dev)]).values, k)
-    tiles1 = -(-N_BIG // lf.TILE)
-    t = rows["level_fused"]
-    t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(keys1[None], spl1[None], k, N_BIG,
-                                                            lf.TILE))
-    t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(keys1[None], spl1[None], k,
-                                                                 N_BIG, lf.TILE), reps=5)
-    t["bound_ms"], t["bound_by"] = bound_ms(
-        N_BIG * 12 + k * 4 + tiles1 * (2 * k + 1) * 4, N_BIG * (3 * log_k + 12))
-    t["library_ms"] = None
-    t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(keys1, spl1, k=k))
-
-    items = lf._items(off1, N_BIG, k2_tile)
-    t = rows["rank_hist"]
-    t["ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_kernel(
-        comp, 2 * k2, items[0], items[1], items[2], k2_tile))
-    t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
-        comp, 2 * k2, items[0], items[2]), reps=5)
-    num_items = items[0].shape[0]
-    t["bound_ms"], t["bound_by"] = bound_ms(
-        N_BIG * 12 + num_items * (3 + 2 * k2) * 4, N_BIG * 12)
-    t["library_ms"] = None
-    t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist(comp, tile=k2_tile, **k2_args))
-
-    t = rows["sort_windows"]
-    t["ms"] = cuda_ms(torch, lambda: bitonic.sort_windows(wb, wk, nb=64))
-    t["plain_ms"] = cuda_ms(torch, lambda: bitonic.sort_windows_plain(wb, wk, nb=64))
-    log_w = W.bit_length() - 1
-    compare_exchanges = (num_w * W // 2) * log_w * (log_w + 1) // 2
-    t["bound_ms"], t["bound_by"] = bound_ms(num_w * W * 16, compare_exchanges * 4)
-    packed = (wb.to(torch.int64) << 32) + (wk.to(torch.int64) + (1 << 31))
-    t["library_ms"] = cuda_ms(torch, lambda: torch.sort(packed, dim=1, stable=True))
-
-    # K1r at the 1-D radix path's level 1: n = 2^24 int32 full range
-    t = rows["level_fused_radix"]
-    t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(radix_int[None], None, k, N_BIG,
-                                                            lf.TILE))
-    t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(radix_int[None], None, k,
-                                                                 N_BIG, lf.TILE), reps=5)
-    t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 12 + tiles1 * (2 * k + 1) * 4,
-                                            N_BIG * (6 + 12))
-    t["library_ms"] = None
-    t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(radix_int, k=k,
-                                                            classifier=radix))
-
-    # K4 level_fused_batched at the bulk path's level 1, tree mode (radix printed)
-    kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=4).view(B_BULK, N_ROW)
-    tiles_b = B_BULK * -(-N_ROW // lf.TILE)
-    t = rows["level_fused_batched"]
-    t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(kb, spl_b, k, N_ROW, lf.TILE,
-                                                            batched=True))
-    t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(kb, spl_b, k, N_ROW,
-                                                                 lf.TILE), reps=5)
-    t["bound_ms"], t["bound_by"] = bound_ms(
-        B_BULK * N_ROW * 12 + B_BULK * k * 4 + tiles_b * (2 * k + 1) * 4,
-        B_BULK * N_ROW * (3 * log_k + 12))
-    t["library_ms"] = None
-    t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused_batched(kb, spl_b, k=k))
-    radix_k4_ms = cuda_ms(torch, lambda: lf._level_tiles_kernel(bulk_radix, None, k, N_ROW,
-                                                                lf.TILE, batched=True))
-
-    # K4 rank_hist_batched at the bulk path's level 2
-    flat, _, _, items_b, local_seg = lf._row_segments(comp_b, off1_b, k4_tile)
-    t = rows["rank_hist_batched"]
-    t["ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_kernel(
-        flat, 2 * k2b, items_b[0], items_b[1], local_seg, k4_tile, "rank_hist_batched"))
-    t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
-        flat, 2 * k2b, items_b[0], local_seg), reps=5)
-    t["bound_ms"], t["bound_by"] = bound_ms(
-        B_BULK * N_ROW * 12 + items_b[0].shape[0] * (3 + 2 * k2b) * 4, B_BULK * N_ROW * 12)
-    t["library_ms"] = None
-    t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist_batched(comp_b, tile=k4_tile,
-                                                                  **k4_args))
-
-    # K5 at the stream's last tournament round shape class (2^24 + 2^24), on
-    # the duplicate-heavy runs: 8 B per output (a key read, a source written),
-    # ~6 ops per output (compare, two selects, the source, the store)
-    t = rows["merge_path"]
-    t["ms"] = cuda_ms(torch, lambda: mp.merge_path_perm(merge_a, merge_b))
-    t["plain_ms"] = cuda_ms(torch, lambda: mp.merge_path_perm_plain(merge_a, merge_b), reps=5)
-    t["bound_ms"], t["bound_by"] = bound_ms(2 * N_BIG * 8, 2 * N_BIG * 6)
-    merge_cat = torch.cat([merge_a, merge_b])
-    t["library_ms"] = cuda_ms(torch, lambda: torch.sort(merge_cat, stable=True), reps=5)
-
-    # K6 at its main-path shapes: 8 B per id (id read, dest written) and the
-    # starts; ~16 ops per id (the histogram pass's match and atomics, the
-    # placement's match, two popcounts, the scans)
-    def time_k6(name, call, plain, ids, nb, library):
-        t = rows[name]
-        t["ms"] = cuda_ms(torch, call)
-        t["plain_ms"] = cuda_ms(torch, plain, reps=5)
-        t["bound_ms"], t["bound_by"] = bound_ms(ids.numel() * 8 + ids.numel() // ids.shape[-1]
-                                                * nb * 4, ids.numel() * 16)
-        t["library_ms"] = cuda_ms(torch, library, reps=5)
-
-    moe_start = counts_prefix(moe_uniform, MOE_EXPERTS)
-    time_k6("dispatch_ranks",
-            lambda: dr.dispatch_ranks(moe_uniform, moe_start, num_experts=MOE_EXPERTS),
-            lambda: dr.dispatch_ranks_plain(moe_uniform, moe_start, num_experts=MOE_EXPERTS),
-            moe_uniform, MOE_EXPERTS, lambda: torch.sort(moe_uniform, stable=True))
-    skew_start = counts_prefix(moe_skewed, MOE_EXPERTS)
-    skew_ms = cuda_ms(torch, lambda: dr.dispatch_ranks(moe_skewed, skew_start,
-                                                       num_experts=MOE_EXPERTS))
-    time_k6("partition_ranks", lambda: dr.partition_ranks(part_ids, part_start, nb=NB_PART),
-            lambda: dr.partition_ranks_plain(part_ids, part_start, nb=NB_PART),
-            part_ids, NB_PART, lambda: torch.sort(part_ids, stable=True))
-    time_k6("partition_ranks_batched",
-            lambda: dr.partition_ranks_batched(rows_ids, rows_start, nb=NB_PART),
-            lambda: dr.partition_ranks_batched_plain(rows_ids, rows_start, nb=NB_PART),
-            rows_ids, NB_PART, lambda: torch.sort(rows_ids, dim=1, stable=True))
-
-    # K7 at phase 2's shapes: a key read and an id written per element, the
-    # uppers and the (tiles, 2k) histogram; tree ~3 ops per search step plus
-    # ~6 (eq, the atomic, the store), radix ~8 (xor, shift, mask, the
-    # sentinel test, 2j + eq, the atomic)
-    def time_k7(name, call, plain, n_keys, key_bytes, k_, tiles, ops_per_key, uppers):
-        t = rows[name]
-        t["ms"] = cuda_ms(torch, call)
-        t["plain_ms"] = cuda_ms(torch, plain, reps=3)
+        # ---- 4. timing ------------------------------------------------------------
+        # Op counts for the bounds, per element: K1 3 per search step (load,
+        # compare, add) over log2(k) steps plus ~12 for eq, pad routing, the warp
+        # match, the popcounts and the scan; K1r ~6 for the bit extraction (xor,
+        # shift, mask, the sentinel test, 2j + eq) in place of the search; K2 the
+        # same ~12 without the search; K3 4 per compare-exchange (a 64-bit
+        # compare is two, the swap two).  Bytes: each input read once, each
+        # output written once (keys or ids in, bucket or slot and rank out).
+        log_k = k.bit_length() - 1
+        keys1 = encoded("Uniform", N_BIG, np.float32)
+        spl1 = sampling.select_splitters(
+            torch.sort(keys1[torch.randint(0, N_BIG, (4 * k,), generator=gen,
+                                           device=dev)]).values, k)
+        tiles1 = -(-N_BIG // lf.TILE)
+        t = rows["level_fused"]
+        t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(keys1[None], spl1[None], k, N_BIG,
+                                                                lf.TILE))
+        t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(keys1[None], spl1[None], k,
+                                                                     N_BIG, lf.TILE), reps=5)
         t["bound_ms"], t["bound_by"] = bound_ms(
-            n_keys * (key_bytes + 4) + uppers * 4 + tiles * 2 * k_ * 4, n_keys * ops_per_key)
+            N_BIG * 12 + k * 4 + tiles1 * (2 * k + 1) * 4, N_BIG * (3 * log_k + 12))
         t["library_ms"] = None
+        t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(keys1, spl1, k=k))
 
-    xf, sf = k7_in["float32 Uniform+specials"], k7_spl["float32 Uniform+specials"]
-    tile7 = cl.default_rows(N_BIG, 4, k) * cl.LANES
-    time_k7("classify_histogram", lambda: cl.classify_histogram(xf, sf, k=k),
-            lambda: cl.classify_histogram_plain(xf, sf, k=k), N_BIG, 4, k, N_BIG // tile7,
-            3 * log_k + 6, k)
-    time_k7("classify_histogram_batched",
-            lambda: cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k),
-            lambda: cl.classify_histogram_batched_plain(k7_rows, k7_rows_spl, k=k),
-            B_BULK * N_ROW, 4, k, B_BULK * N_ROW // tile7, 3 * log_k + 6, B_BULK * k)
-    tile7r = cl.default_rows(N_BIG, 4, K_RADIX) * cl.LANES
-    time_k7("radix_histogram", lambda: cl.radix_histogram(radix7, k=K_RADIX),
-            lambda: cl.radix_histogram_plain(radix7, k=K_RADIX), N_BIG, 4, K_RADIX,
-            N_BIG // tile7r, 8, 0)
-    k7_more = {
-        f"classify_histogram {tag}": cuda_ms(torch, lambda tag=tag: cl.classify_histogram(
-            k7_in[tag], k7_spl[tag], k=k)) for tag in ("int32 TwoDup", "bfloat16 normal+specials")
-    }
-    k7_more["radix_histogram_batched"] = cuda_ms(
-        torch, lambda: cl.radix_histogram_batched(radix7_rows, k=K_RADIX))
+        items = lf._items(off1, N_BIG, k2_tile)
+        t = rows["rank_hist"]
+        t["ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_kernel(
+            comp, 2 * k2, items[0], items[1], items[2], k2_tile))
+        t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
+            comp, 2 * k2, items[0], items[2]), reps=5)
+        num_items = items[0].shape[0]
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            N_BIG * 12 + num_items * (3 + 2 * k2) * 4, N_BIG * 12)
+        t["library_ms"] = None
+        t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist(comp, tile=k2_tile, **k2_args))
 
-    # K8 and K9 at 2^28 int32 keys, uniform block buckets: every block read
-    # once and written once (2 GiB), the dst or the block buckets read; a
-    # few ops per block.  Library: the out-of-place gather of the blocks by
-    # the stable order (index_select), which is what both compute up to
-    # K9's order within a bucket
-    body = pb_keys.view(nblocks, BLOCK)
-    dst_uniform = bp.stable_block_dest(bb_uniform)
-    gather_ms = cuda_ms(torch, lambda: body.index_select(0, block_order), warmup=1, reps=3)
-    block_bound = bound_ms(2 * N_BLOCK_KEYS * 4 + nblocks * 4, nblocks * 16)
-    t = rows["permute_blocks_by_dest"]
-    t["ms"] = cuda_ms(torch, lambda: bp.permute_blocks_by_dest(pb_keys, dst_uniform))
-    t["plain_ms"] = cuda_ms(torch, lambda: bp.permute_blocks_by_dest_plain(pb_keys, dst_uniform),
-                            warmup=1, reps=3)
-    t["bound_ms"], t["bound_by"] = block_bound
-    t["library_ms"] = gather_ms
-    t = rows["permute_blocks_inplace"]
-    t["ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
-                                                               k=N_BUCKETS), warmup=1, reps=3)
-    t["plain_ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace_plain(
-        keys9, bb_uniform, d_uniform, k=N_BUCKETS), warmup=0, reps=1)
-    t["bound_ms"], t["bound_by"] = block_bound
-    t["library_ms"] = gather_ms
-    dst_skewed = bp.stable_block_dest(bb_skewed)
-    skew_block_ms = {
-        "permute_blocks_by_dest": cuda_ms(torch, lambda: bp.permute_blocks_by_dest(
-            pb_keys, dst_skewed)),
-        "permute_blocks_inplace": cuda_ms(torch, lambda: pi.permute_blocks_inplace(
-            keys9, bb_skewed, prefix(bb_skewed), k=N_BUCKETS), warmup=0, reps=3),
-    }
-    del keys9
+        t = rows["sort_windows"]
+        t["ms"] = cuda_ms(torch, lambda: bitonic.sort_windows(wb, wk, nb=64))
+        t["plain_ms"] = cuda_ms(torch, lambda: bitonic.sort_windows_plain(wb, wk, nb=64))
+        log_w = W.bit_length() - 1
+        compare_exchanges = (num_w * W // 2) * log_w * (log_w + 1) // 2
+        t["bound_ms"], t["bound_by"] = bound_ms(num_w * W * 16, compare_exchanges * 4)
+        packed = (wb.to(torch.int64) << 32) + (wk.to(torch.int64) + (1 << 31))
+        t["library_ms"] = cuda_ms(torch, lambda: torch.sort(packed, dim=1, stable=True))
 
-    # the entry points beside one torch call that does the same
-    timed = {}
-    for path, (_, cases) in paths.items():
-        for name, x, call, kind_ in cases:
-            if kind_ == "sort":
-                library = lambda x=x: torch.sort(x, dim=-1, stable=True)
-            elif kind_ == "argsort":
-                library = lambda x=x: torch.sort(x, dim=-1, stable=True).indices
-            else:
-                library = lambda x=x, big=kind_ == "topk": torch.topk(x, TOP_K, dim=1,
-                                                                      largest=big)
-            timed[f"{path}: {name}"] = (cuda_ms(torch, lambda call=call, x=x: call(x), reps=5),
-                                        cuda_ms(torch, library, reps=5))
-    # the new entry points, whole calls (host -> host for the stream), beside
-    # the device sort of the whole stream as the yardstick
-    stream_dev = ops.keyspace.encode(torch.as_tensor(stream_x, device=dev))
-    stream_calls = {
-        "external_sort": lambda: stream.external_sort(stream_x, chunk_size=CHUNK),
-        "external_argsort": lambda: stream.external_argsort(stream_x, chunk_size=CHUNK),
-        f"streaming_topk k={STREAM_K}":
-            lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK),
-        f"streaming_bottomk k={STREAM_K}":
-            lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK, largest=False),
-    }
-    for name, call in stream_calls.items():
-        timed[f"stream ({N_STREAM} keys): {name}"] = (
-            cuda_ms(torch, call, warmup=0, reps=3),
-            cuda_ms(torch, lambda: torch.sort(stream_dev, stable=True), reps=3))
-    del stream_dev
-    group_dev = torch.as_tensor(group_x, device=dev)
-    timed[f"stream ({N_GROUPS} RootDup): streaming_group_by"] = (
-        cuda_ms(torch, lambda: stream.streaming_group_by(group_x, chunk_size=CHUNK_GROUPS),
-                warmup=0, reps=3),
-        cuda_ms(torch, lambda: torch.unique(group_dev, return_counts=True), reps=3))
-    timed[f"group-by ({n_moe} ids): group_by pallas"] = (
-        cuda_ms(torch, lambda: ops.group_by(moe_uniform, num_groups=MOE_EXPERTS,
-                                            method="pallas"), reps=5),
-        cuda_ms(torch, lambda: torch.sort(moe_uniform, stable=True), reps=5))
-    timed[f"segmented ({SEGMENTS} segments, {N_BIG} keys): segmented_sort"] = (
-        cuda_ms(torch, lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS), reps=5),
-        cuda_ms(torch, lambda: torch.sort(seg_x), reps=5))
-    timed[f"block path ({N_BLOCK_KEYS} keys + payload): partition_blocks"] = (
-        cuda_ms(torch, lambda: partition_blocks(pb_arrays, pb_bb, N_BUCKETS, BLOCK), reps=5),
-        cuda_ms(torch, lambda: torch.sort(pb_keys, stable=True), reps=3))
-    timed[f"s3-sort ({N_BIG} float32 with payload): s3_sort"] = (
-        cuda_ms(torch, lambda: s3_sort(s3_x, s3_v), reps=5),
-        cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
-    timed[f"s3-sort ({N_BIG} float32): ops.sort, the in-place IPS4o path"] = (
-        cuda_ms(torch, lambda: ops.sort(s3_x), reps=5),
-        cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
-    del pb_arrays, pb_keys, body
+        # K1r at the 1-D radix path's level 1: n = 2^24 int32 full range
+        t = rows["level_fused_radix"]
+        t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(radix_int[None], None, k, N_BIG,
+                                                                lf.TILE))
+        t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(radix_int[None], None, k,
+                                                                     N_BIG, lf.TILE), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 12 + tiles1 * (2 * k + 1) * 4,
+                                                N_BIG * (6 + 12))
+        t["library_ms"] = None
+        t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(radix_int, k=k,
+                                                                classifier=radix))
+
+        # K4 level_fused_batched at the bulk path's level 1, tree mode (radix printed)
+        kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=4).view(B_BULK, N_ROW)
+        tiles_b = B_BULK * -(-N_ROW // lf.TILE)
+        t = rows["level_fused_batched"]
+        t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(kb, spl_b, k, N_ROW, lf.TILE,
+                                                                batched=True))
+        t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(kb, spl_b, k, N_ROW,
+                                                                     lf.TILE), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            B_BULK * N_ROW * 12 + B_BULK * k * 4 + tiles_b * (2 * k + 1) * 4,
+            B_BULK * N_ROW * (3 * log_k + 12))
+        t["library_ms"] = None
+        t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused_batched(kb, spl_b, k=k))
+        radix_k4_ms = cuda_ms(torch, lambda: lf._level_tiles_kernel(bulk_radix, None, k, N_ROW,
+                                                                    lf.TILE, batched=True))
+
+        # K4 rank_hist_batched at the bulk path's level 2
+        flat, _, _, items_b, local_seg = lf._row_segments(comp_b, off1_b, k4_tile)
+        t = rows["rank_hist_batched"]
+        t["ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_kernel(
+            flat, 2 * k2b, items_b[0], items_b[1], local_seg, k4_tile, "rank_hist_batched"))
+        t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
+            flat, 2 * k2b, items_b[0], local_seg), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            B_BULK * N_ROW * 12 + items_b[0].shape[0] * (3 + 2 * k2b) * 4, B_BULK * N_ROW * 12)
+        t["library_ms"] = None
+        t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist_batched(comp_b, tile=k4_tile,
+                                                                      **k4_args))
+
+        # K5 at the stream's last tournament round shape class (2^24 + 2^24), on
+        # the duplicate-heavy runs: 8 B per output (a key read, a source written),
+        # ~6 ops per output (compare, two selects, the source, the store)
+        t = rows["merge_path"]
+        t["ms"] = cuda_ms(torch, lambda: mp.merge_path_perm(merge_a, merge_b))
+        t["plain_ms"] = cuda_ms(torch, lambda: mp.merge_path_perm_plain(merge_a, merge_b), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(2 * N_BIG * 8, 2 * N_BIG * 6)
+        merge_cat = torch.cat([merge_a, merge_b])
+        t["library_ms"] = cuda_ms(torch, lambda: torch.sort(merge_cat, stable=True), reps=5)
+
+        # K6 at its main-path shapes: 8 B per id (id read, dest written) and the
+        # starts; ~16 ops per id (the histogram pass's match and atomics, the
+        # placement's match, two popcounts, the scans)
+        def time_k6(name, call, plain, ids, nb, library):
+            t = rows[name]
+            t["ms"] = cuda_ms(torch, call)
+            t["plain_ms"] = cuda_ms(torch, plain, reps=5)
+            t["bound_ms"], t["bound_by"] = bound_ms(ids.numel() * 8 + ids.numel() // ids.shape[-1]
+                                                    * nb * 4, ids.numel() * 16)
+            t["library_ms"] = cuda_ms(torch, library, reps=5)
+
+        moe_start = counts_prefix(moe_uniform, MOE_EXPERTS)
+        time_k6("dispatch_ranks",
+                lambda: dr.dispatch_ranks(moe_uniform, moe_start, num_experts=MOE_EXPERTS),
+                lambda: dr.dispatch_ranks_plain(moe_uniform, moe_start, num_experts=MOE_EXPERTS),
+                moe_uniform, MOE_EXPERTS, lambda: torch.sort(moe_uniform, stable=True))
+        skew_start = counts_prefix(moe_skewed, MOE_EXPERTS)
+        skew_ms = cuda_ms(torch, lambda: dr.dispatch_ranks(moe_skewed, skew_start,
+                                                           num_experts=MOE_EXPERTS))
+        time_k6("partition_ranks", lambda: dr.partition_ranks(part_ids, part_start, nb=NB_PART),
+                lambda: dr.partition_ranks_plain(part_ids, part_start, nb=NB_PART),
+                part_ids, NB_PART, lambda: torch.sort(part_ids, stable=True))
+        time_k6("partition_ranks_batched",
+                lambda: dr.partition_ranks_batched(rows_ids, rows_start, nb=NB_PART),
+                lambda: dr.partition_ranks_batched_plain(rows_ids, rows_start, nb=NB_PART),
+                rows_ids, NB_PART, lambda: torch.sort(rows_ids, dim=1, stable=True))
+
+        # K7 at phase 2's shapes: a key read and an id written per element, the
+        # uppers and the (tiles, 2k) histogram; tree ~3 ops per search step plus
+        # ~6 (eq, the atomic, the store), radix ~8 (xor, shift, mask, the
+        # sentinel test, 2j + eq, the atomic)
+        def time_k7(name, call, plain, n_keys, key_bytes, k_, tiles, ops_per_key, uppers):
+            t = rows[name]
+            t["ms"] = cuda_ms(torch, call)
+            t["plain_ms"] = cuda_ms(torch, plain, reps=3)
+            t["bound_ms"], t["bound_by"] = bound_ms(
+                n_keys * (key_bytes + 4) + uppers * 4 + tiles * 2 * k_ * 4, n_keys * ops_per_key)
+            t["library_ms"] = None
+
+        xf, sf = k7_in["float32 Uniform+specials"], k7_spl["float32 Uniform+specials"]
+        tile7 = cl.default_rows(N_BIG, 4, k) * cl.LANES
+        time_k7("classify_histogram", lambda: cl.classify_histogram(xf, sf, k=k),
+                lambda: cl.classify_histogram_plain(xf, sf, k=k), N_BIG, 4, k, N_BIG // tile7,
+                3 * log_k + 6, k)
+        time_k7("classify_histogram_batched",
+                lambda: cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k),
+                lambda: cl.classify_histogram_batched_plain(k7_rows, k7_rows_spl, k=k),
+                B_BULK * N_ROW, 4, k, B_BULK * N_ROW // tile7, 3 * log_k + 6, B_BULK * k)
+        tile7r = cl.default_rows(N_BIG, 4, K_RADIX) * cl.LANES
+        time_k7("radix_histogram", lambda: cl.radix_histogram(radix7, k=K_RADIX),
+                lambda: cl.radix_histogram_plain(radix7, k=K_RADIX), N_BIG, 4, K_RADIX,
+                N_BIG // tile7r, 8, 0)
+        k7_more = {
+            f"classify_histogram {tag}": cuda_ms(torch, lambda tag=tag: cl.classify_histogram(
+                k7_in[tag], k7_spl[tag], k=k)) for tag in ("int32 TwoDup", "bfloat16 normal+specials")
+        }
+        k7_more["radix_histogram_batched"] = cuda_ms(
+            torch, lambda: cl.radix_histogram_batched(radix7_rows, k=K_RADIX))
+
+        # K8 and K9 at 2^28 int32 keys, uniform block buckets: every block read
+        # once and written once (2 GiB), the dst or the block buckets read; a
+        # few ops per block.  Library: the out-of-place gather of the blocks by
+        # the stable order (index_select), which is what both compute up to
+        # K9's order within a bucket
+        body = pb_keys.view(nblocks, BLOCK)
+        dst_uniform = bp.stable_block_dest(bb_uniform)
+        gather_ms = cuda_ms(torch, lambda: body.index_select(0, block_order), warmup=1, reps=3)
+        block_bound = bound_ms(2 * N_BLOCK_KEYS * 4 + nblocks * 4, nblocks * 16)
+        t = rows["permute_blocks_by_dest"]
+        t["ms"] = cuda_ms(torch, lambda: bp.permute_blocks_by_dest(pb_keys, dst_uniform))
+        t["plain_ms"] = cuda_ms(torch, lambda: bp.permute_blocks_by_dest_plain(pb_keys, dst_uniform),
+                                warmup=1, reps=3)
+        t["bound_ms"], t["bound_by"] = block_bound
+        t["library_ms"] = gather_ms
+        t = rows["permute_blocks_inplace"]
+        t["ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
+                                                                   k=N_BUCKETS), warmup=1, reps=3)
+        t["plain_ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace_plain(
+            keys9, bb_uniform, d_uniform, k=N_BUCKETS), warmup=0, reps=1)
+        t["bound_ms"], t["bound_by"] = block_bound
+        t["library_ms"] = gather_ms
+        dst_skewed = bp.stable_block_dest(bb_skewed)
+        skew_block_ms = {
+            "permute_blocks_by_dest": cuda_ms(torch, lambda: bp.permute_blocks_by_dest(
+                pb_keys, dst_skewed)),
+            "permute_blocks_inplace": cuda_ms(torch, lambda: pi.permute_blocks_inplace(
+                keys9, bb_skewed, prefix(bb_skewed), k=N_BUCKETS), warmup=0, reps=3),
+        }
+        del keys9
+
+        # the entry points beside one torch call that does the same
+        timed = {}
+        for path, (_, cases) in paths.items():
+            for name, x, call, kind_ in cases:
+                if kind_ == "sort":
+                    library = lambda x=x: torch.sort(x, dim=-1, stable=True)
+                elif kind_ == "argsort":
+                    library = lambda x=x: torch.sort(x, dim=-1, stable=True).indices
+                else:
+                    library = lambda x=x, big=kind_ == "topk": torch.topk(x, TOP_K, dim=1,
+                                                                          largest=big)
+                timed[f"{path}: {name}"] = (cuda_ms(torch, lambda call=call, x=x: call(x), reps=5),
+                                            cuda_ms(torch, library, reps=5))
+        # the new entry points, whole calls (host -> host for the stream), beside
+        # the device sort of the whole stream as the yardstick
+        stream_dev = ops.keyspace.encode(torch.as_tensor(stream_x, device=dev))
+        stream_calls = {
+            "external_sort": lambda: stream.external_sort(stream_x, chunk_size=CHUNK),
+            "external_argsort": lambda: stream.external_argsort(stream_x, chunk_size=CHUNK),
+            f"streaming_topk k={STREAM_K}":
+                lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK),
+            f"streaming_bottomk k={STREAM_K}":
+                lambda: stream.streaming_topk(stream_x, STREAM_K, chunk_size=CHUNK, largest=False),
+        }
+        for name, call in stream_calls.items():
+            timed[f"stream ({N_STREAM} keys): {name}"] = (
+                cuda_ms(torch, call, warmup=0, reps=3),
+                cuda_ms(torch, lambda: torch.sort(stream_dev, stable=True), reps=3))
+        del stream_dev
+        group_dev = torch.as_tensor(group_x, device=dev)
+        timed[f"stream ({N_GROUPS} RootDup): streaming_group_by"] = (
+            cuda_ms(torch, lambda: stream.streaming_group_by(group_x, chunk_size=CHUNK_GROUPS),
+                    warmup=0, reps=3),
+            cuda_ms(torch, lambda: torch.unique(group_dev, return_counts=True), reps=3))
+        timed[f"group-by ({n_moe} ids): group_by pallas"] = (
+            cuda_ms(torch, lambda: ops.group_by(moe_uniform, num_groups=MOE_EXPERTS,
+                                                method="pallas"), reps=5),
+            cuda_ms(torch, lambda: torch.sort(moe_uniform, stable=True), reps=5))
+        timed[f"segmented ({SEGMENTS} segments, {N_BIG} keys): segmented_sort"] = (
+            cuda_ms(torch, lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS), reps=5),
+            cuda_ms(torch, lambda: torch.sort(seg_x), reps=5))
+        timed[f"block path ({N_BLOCK_KEYS} keys + payload): partition_blocks"] = (
+            cuda_ms(torch, lambda: partition_blocks(pb_arrays, pb_bb, N_BUCKETS, BLOCK), reps=5),
+            cuda_ms(torch, lambda: torch.sort(pb_keys, stable=True), reps=3))
+        timed[f"s3-sort ({N_BIG} float32 with payload): s3_sort"] = (
+            cuda_ms(torch, lambda: s3_sort(s3_x, s3_v), reps=5),
+            cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
+        timed[f"s3-sort ({N_BIG} float32): ops.sort, the in-place IPS4o path"] = (
+            cuda_ms(torch, lambda: ops.sort(s3_x), reps=5),
+            cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
+        del pb_arrays, pb_keys, body
+        torch.cuda.empty_cache()
+        profile(torch, f"stream.external_sort {N_STREAM} keys, chunks of {CHUNK}",
+                lambda: stream.external_sort(stream_x, chunk_size=CHUNK), top=10)
+        chunks, runs_ = N_STREAM // CHUNK, N_STREAM // CHUNK
+        rounds = 0
+        while runs_ > 1:
+            runs_, rounds = -(-runs_ // 2), rounds + 1
+        print(f"copies external_sort by the shapes: H2D {4 * N_STREAM * rounds} B (the chunks, "
+              f"then the spilled runs of rounds 2-{rounds}), D2H {4 * N_STREAM * rounds} B "
+              f"({rounds} spills of {4 * N_STREAM} B; {chunks} chunks, {rounds} rounds)",
+              flush=True)
+        profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(paths["1-D tree"][1][0][1]))
+        profile(torch, f"ops.sort radix int32 n={N_BIG}",
+                lambda: ops.sort(radix_int, classifier=radix))
+        profile(torch, f"ops.batched_sort ({B_BULK}, {N_ROW})", lambda: ops.batched_sort(bulk))
+        for name, r in rows.items():
+            print(f"time {name}: kernel {r['ms']:.4f} ms, with epilogue "
+                  f"{r.get('wrapper_ms', r['ms']):.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+                  f"{r['library_ms']}", flush=True)
+        print(f"time level_fused_batched radix ({B_BULK}, {N_ROW}): kernel {radix_k4_ms:.4f} ms",
+              flush=True)
+        print(f"time dispatch_ranks skewed (half on one expert): kernel {skew_ms:.4f} ms",
+              flush=True)
+        for name, ms_ in k7_more.items():
+            print(f"time {name}: kernel {ms_:.4f} ms", flush=True)
+        for name, ms_ in skew_block_ms.items():
+            print(f"time {name} half the blocks in one bucket: kernel {ms_:.4f} ms", flush=True)
+        for name, (ms, library_ms) in timed.items():
+            print(f"time whole {name}: {ms:.3f} ms, torch {library_ms:.3f} ms", flush=True)
+
+    sort_phases()
     torch.cuda.empty_cache()
-    profile(torch, f"stream.external_sort {N_STREAM} keys, chunks of {CHUNK}",
-            lambda: stream.external_sort(stream_x, chunk_size=CHUNK), top=10)
-    chunks, runs_ = N_STREAM // CHUNK, N_STREAM // CHUNK
-    rounds = 0
-    while runs_ > 1:
-        runs_, rounds = -(-runs_ // 2), rounds + 1
-    print(f"copies external_sort by the shapes: H2D {4 * N_STREAM * rounds} B (the chunks, "
-          f"then the spilled runs of rounds 2-{rounds}), D2H {4 * N_STREAM * rounds} B "
-          f"({rounds} spills of {4 * N_STREAM} B; {chunks} chunks, {rounds} rounds)",
-          flush=True)
-    profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(paths["1-D tree"][1][0][1]))
-    profile(torch, f"ops.sort radix int32 n={N_BIG}",
-            lambda: ops.sort(radix_int, classifier=radix))
-    profile(torch, f"ops.batched_sort ({B_BULK}, {N_ROW})", lambda: ops.batched_sort(bulk))
-    for name, r in rows.items():
-        print(f"time {name}: kernel {r['ms']:.4f} ms, with epilogue "
-              f"{r.get('wrapper_ms', r['ms']):.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-              f"{r['library_ms']}", flush=True)
-    print(f"time level_fused_batched radix ({B_BULK}, {N_ROW}): kernel {radix_k4_ms:.4f} ms",
-          flush=True)
-    print(f"time dispatch_ranks skewed (half on one expert): kernel {skew_ms:.4f} ms",
-          flush=True)
-    for name, ms_ in k7_more.items():
-        print(f"time {name}: kernel {ms_:.4f} ms", flush=True)
-    for name, ms_ in skew_block_ms.items():
-        print(f"time {name} half the blocks in one bucket: kernel {ms_:.4f} ms", flush=True)
-    for name, (ms, library_ms) in timed.items():
-        print(f"time whole {name}: {ms:.3f} ms, torch {library_ms:.3f} ms", flush=True)
+    rows.update(attention_phases(torch, dev))
 
     # ---- 5. the kernels line and the result ----------------------------------
     meta = {
@@ -1160,6 +1573,10 @@ def main() -> None:
                                    "src/repro/kernels/block_permute.py:145"),
         "permute_blocks_inplace": ("src/repro_torch/csrc/permute_inplace.cu",
                                    "src/repro/kernels/permute_inplace.py:148"),
+        "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:70"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:102"),
     }
     line = []
     for name, (source, replaces) in meta.items():

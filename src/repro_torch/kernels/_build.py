@@ -38,7 +38,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("level_fused", "bitonic", "merge_path", "dispatch_rank", "classify",
-           "block_permute", "permute_inplace")
+           "block_permute", "permute_inplace", "flash_decode", "flash_attention")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -56,6 +56,7 @@ LAUNCHES: Dict[str, int] = {
     "merge_path": 0, "dispatch_ranks": 0, "partition_ranks": 0, "partition_ranks_batched": 0,
     "classify_histogram": 0, "classify_histogram_batched": 0, "radix_histogram": 0,
     "permute_blocks_by_dest": 0, "permute_blocks_inplace": 0,
+    "flash_decode": 0, "flash_attention": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,79 @@
+"""K11 ``flash_attention``: fused forward attention, causal and/or windowed.
+
+Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
+Pallas TPU kernel at ``flash_attention.py:102``), which lies on no model
+path of the reference: only its tests call it, and here ``chip_smoke.py``
+drives it at the served model's prefill shape.  The CUDA kernel is in
+``csrc/flash_attention.cu``, whose header note gives its bound and design.
+Query row i attends key j iff (not causal or j <= i) and (no window or
+j > i - window); the window also applies when ``causal=False``, as in the
+reference.  The scale 1/sqrt(hd) is applied to q, masked scores are -1e30
+with a weight of exactly 0, the softmax is f32 and the output has q's dtype
+(float32 or bfloat16).  KV heads that divide the query heads are read as
+groups (head h reads KV head h // group), through strides.
+
+The wrapper launches the kernel on CUDA tensors and runs the plain twin
+(``kernels.ref.flash_attention_ref``) only on CPU tensors; there is no
+fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+__all__ = ["flash_attention", "HEAD_DIMS"]
+
+HEAD_DIMS = (64, 128)  # the kernel's compiled head dims
+_P, _I, _L, _F = _build.P, _build.I, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {"flash_attention_launch": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _I,
+                                          _I, _I, _I, _I, _I, _I, _F, _I, _P, _P)}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: expected q (B, H, S, hd) and k, v (B, KVH, S, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, s, hd = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, hd) or h % k.shape[1]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not match k, v "
+                         f"{tuple(k.shape)} (the KV heads must divide the query heads)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k, v must share float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention: q, k and v must be on one device")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Fused attention of q (B, H, S, hd) over k, v (B, KVH, S, hd), KVH
+    dividing H (the reference's pre-expanded KVH = H included) -> (B, H, S,
+    hd) in q's dtype: the K11 kernel on CUDA tensors, its plain twin on CPU
+    tensors."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, h, s, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: hd={hd} is not one of {HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(-1) != 1:
+            raise ValueError(f"flash_attention kernel: {name}'s head dim must be contiguous")
+    out = torch.empty((b, h, s, hd), dtype=q.dtype, device=q.device)
+    lib = _build.library("flash_attention", _SIGNATURES)
+    err = lib.flash_attention_launch(
+        q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3], b, h, s, hd, h // k.shape[1], int(causal), int(window),
+        1.0 / math.sqrt(hd), _DTYPES[q.dtype], out.data_ptr(), _build.stream_handle(q.device),
+    )
+    _build.check(lib, "flash_attention", err, "flash_attention kernel")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out

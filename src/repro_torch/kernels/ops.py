@@ -4,8 +4,9 @@ Counterpart of ``repro.kernels.ops``; this port has ``base_case_windows``,
 the overlapped-window base case on top of K3, for one row or B rows and
 over a prefix of each row, ``moe_group_tokens``, the expert-major
 grouping of MoE tokens on top of K6, and ``sort_blocks``, the in-place block
-grouping on top of K8.  It re-exports ``classify_histogram`` (K7) and
-``permute_blocks_inplace`` (K9), as the reference does.
+grouping on top of K8.  It re-exports ``classify_histogram`` (K7),
+``permute_blocks_inplace`` (K9), ``flash_decode`` (K10) and
+``flash_attention`` (K11), as the reference does.
 """
 from __future__ import annotations
 
@@ -17,11 +18,15 @@ from repro_torch.core.partition import partition_blocks
 from repro_torch.kernels import dispatch_rank
 from repro_torch.kernels.bitonic import sort_windows
 from repro_torch.kernels.classify import classify_histogram
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.permute_inplace import permute_blocks_inplace
 
 __all__ = [
     "classify_histogram",
     "permute_blocks_inplace",
+    "flash_attention",
+    "flash_decode",
     "sort_blocks",
     "base_case_windows",
     "moe_group_tokens",

@@ -5,12 +5,17 @@ K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``),
 K7 (``classify_histogram`` and its batched and radix forms), K8
 ``permute_blocks_by_dest`` and K9 ``permute_blocks_inplace`` (in place: same
 ``data_ptr``, a peak-memory rise of at most a quarter of the data), and the
-sorts and the stream on the card against the same calls on the CPU.
+sorts and the stream on the card against the same calls on the CPU; K10
+``flash_decode`` (the reference layout and the decode step's strided
+(B, T, KVH, hd) cache) and K11 ``flash_attention`` against their plain
+twins (|got - want| <= atol + rtol * |want|: 2e-5 + 2e-5 in float32,
+4e-3 + 2^-8 in bfloat16), and a 2-layer yi-9b at full
+width served through K10.
 
 Marked ``gpu``: every test skips (from its fixture) where no card is
 present, so the CPU suite collects the same tests on every worker.  On the
 card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
-Tolerance: exact equality (integer outputs).
+Tolerance: exact equality for the integer outputs.
 """
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ from repro_torch.core import sampling
 from repro_torch.data.distributions import make_input
 from repro_torch.kernels import bitonic, dispatch_rank, merge_path, level_fused as lf
 from repro_torch.kernels import block_permute, classify, permute_inplace
+from repro_torch.kernels import flash_attention, flash_decode, ref
 
 pytestmark = pytest.mark.gpu
 
@@ -330,3 +336,102 @@ def test_permute_blocks_inplace_kernel(dev, N, be, k):
     assert rise <= _in_place_bound(a)
     assert torch.equal(got, want)
     assert kernels.launch_counts()["permute_blocks_inplace"] == before + 1
+
+
+# (atol, rtol): f32 is the same math in another summation order; bf16 is
+# the output's rounding, one step of 2^-8 relative, with an absolute floor
+# a few times the largest sound difference (chip_smoke.py's bf16 limit)
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 2 ** -8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,t,hd,lengths", [
+    (2, 4, 4, 2048, 64, (1, 2048)),
+    (8, 32, 4, 4096, 128, (1, 1, 17, 1024, 1025, 2048, 4095, 4096)),
+    (3, 8, 8, 512, 128, (0, 300, 64)),
+    (2, 16, 2, 1000, 64, (999, 64)),
+])
+def test_flash_decode_kernel(dev, b, h, kvh, t, hd, lengths, dtype):
+    g = torch.Generator(device=dev).manual_seed(t + hd)
+    q = torch.randn((b, h, hd), generator=g, device=dev).to(dtype)
+    cache_k = torch.randn((b, t, kvh, hd), generator=g, device=dev).to(dtype)
+    cache_v = torch.randn((b, t, kvh, hd), generator=g, device=dev).to(dtype)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = kernels.launch_counts()["flash_decode"]
+    got = flash_decode.flash_decode_cache(q, cache_k, cache_v, length)
+    want = ref.flash_decode_ref(q[:, :, None], cache_k.transpose(1, 2), cache_v.transpose(1, 2),
+                                length)[:, :, 0]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_decode"] == before + 1
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    if 0 in lengths:
+        assert not bool(got[lengths.index(0)].any())
+    # the reference's (B, H, T, hd) contract, GQA pre-expanded
+    kx = cache_k.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+    vx = cache_v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
+    got4 = flash_decode.flash_decode(q[:, :, None], kx, vx, length)
+    torch.testing.assert_close(got4[:, :, 0].float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,s,hd,causal,window", [
+    (2, 4, 4, 512, 64, True, 0),
+    (1, 2, 2, 1024, 128, True, 0),
+    (1, 2, 2, 512, 64, True, 200),
+    (1, 2, 2, 256, 64, False, 0),
+    (1, 4, 2, 300, 128, False, 100),
+    (2, 8, 2, 1000, 128, True, 333),
+])
+def test_flash_attention_kernel(dev, b, h, kvh, s, hd, causal, window, dtype):
+    g = torch.Generator(device=dev).manual_seed(s + hd)
+    q = torch.randn((b, h, s, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, kvh, s, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, kvh, s, hd), generator=g, device=dev).to(dtype)
+    before = kernels.launch_counts()["flash_attention"]
+    got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    # a (B, S, H, hd) layout, read through strides
+    got_t = flash_attention.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                                            causal=causal, window=window)
+    assert torch.equal(got_t, got)
+
+
+def test_yi_9b_two_layers_full_width_served_through_k10(dev):
+    """yi-9b at full width (d 4096, 32 heads, 4 KV heads, vocab 64000), two
+    layers, bf16: the K10 path's decode logits against the eager path's on
+    the same cache (teacher forced), and greedy generate twice equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.policy import compute_policy
+    from repro_torch.models.transformer import forward, init_decode_cache, init_model
+    from repro_torch.serve import Engine, ServeConfig
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=2)
+    model = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 136), generator=g, device=dev)
+    full, _, _ = forward(model, cfg, tokens)
+    for flash in (False, True):
+        cache = init_decode_cache(cfg, 4, 256, device=dev)
+        before = kernels.launch_counts()["flash_decode"]
+        with compute_policy(flash_decode=flash):
+            forward(model, cfg, tokens[:, :128], cache=cache)
+            for i in range(128, 136):
+                got, cache, _ = forward(model, cfg, tokens[:, i:i + 1],
+                                        positions=torch.full((4, 1), i, device=dev),
+                                        cache=cache)
+                err = (got[:, 0].float() - full[:, i].float()).abs().max().item()
+                scale = full[:, i].float().abs().max().item()
+                assert err <= 0.05 * scale, (flash, i, err, scale)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["flash_decode"] - before == (8 * 2 if flash else 0)
+    engine = Engine(cfg, ServeConfig(max_seq=256, batch_size=4), model, device=dev)
+    with compute_policy(flash_decode=True):
+        a = engine.generate(tokens[:, :100], 12)
+        b = engine.generate(tokens[:, :100], 12)
+    assert torch.equal(a, b) and a.shape == (4, 12)

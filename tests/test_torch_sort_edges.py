@@ -111,6 +111,8 @@ def test_port_imports_no_jax_or_reference():
         "import repro_torch.kernels.level_fused, repro_torch.kernels.bitonic\n"
         "import repro_torch.ops.batched, repro_torch.ops.topk, repro_torch.classify.radix\n"
         "import repro_torch.data.distributions\n"
+        "import repro_torch.configs, repro_torch.serve, repro_torch.models.convert\n"
+        "import repro_torch.kernels.flash_decode, repro_torch.kernels.flash_attention\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
