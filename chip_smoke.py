@@ -28,11 +28,14 @@ for the attention kernels and the serve path:
    256, K8 ``permute_blocks_by_dest`` on 2^28 + 1000 int32 keys (262,144
    blocks of 1024 and a partial tail; block buckets uniform over 256 and
    half in one bucket, and one cycle through every block) and K9
-   ``permute_blocks_inplace`` at the same N (by
-   the per-bucket block multisets and intact blocks against
-   ``permute_blocks_ref``, and bit for bit against the replay of the
-   reference's moves, also at N = 4096); K8 and K9 must be in place: the
-   same ``data_ptr`` and a peak-memory rise of at most a quarter of the data.
+   ``permute_blocks_inplace`` at the same N and in five cases that stress
+   its claiming at N = 4096, five runs each (k = 1, every block already in
+   its range, empty buckets, all blocks but one in one bucket, uniform).
+   K9 is not stable, so each of its outputs is held to its plain twin (the
+   replay of the reference's moves) by intact blocks and, per bucket, the
+   blocks sorted by their tag; the twin is held to ``permute_blocks_ref``
+   the same way.  K8 and K9 must be in place: the same ``data_ptr`` and a
+   peak-memory rise of at most a quarter of the data.
    The attention kernels within |got - want| <= atol + rtol * |want| (2e-5
    + 2e-5 in float32, 4e-3 + 2^-8 in bfloat16; their ``max_abs_err`` in the
    kernels line is a float), and each limit shown to flag a fault, the
@@ -42,7 +45,9 @@ for the attention kernels and the serve path:
    1024, 1025, 2048, 4095, 4096}, in both dtypes, and once on the
    pre-expanded (B, H, T, hd) copy; K11 ``flash_attention`` at (1, 32,
    4096, 128) causal, causal with window 1024, and non-causal at S = 2048,
-   in both dtypes;
+   in both dtypes (bfloat16 is the ``wgmma`` kernel, row
+   ``flash_attention``; float32 the FMA kernel, row
+   ``flash_attention_f32``);
 3. the paths, each driven with the launch counts set to 0 just before it
    and read just after, every kernel of the path required to be > 0:
    the 1-D tree sort (``ops.sort``/``argsort`` at n = 2^24 and 2^17), the
@@ -68,7 +73,8 @@ for the attention kernels and the serve path:
    order; then the peak device memory per key of ``partition_blocks``,
    ``s3_sort`` and ``ops.sort``.  Last, with the card's memory emptied:
    K11's entry point on layer 0's q, k, v of the served prompts (the
-   prefill shape, 8 x 1024 tokens, through strides) against its twin, and
+   prefill shape, 8 x 1024 tokens, through strides, in bfloat16 and in
+   float32) against its twin, and
    the serve path: yi-9b at full width and depth (48 layers, bf16, random
    weights from a seeded CUDA generator), ``Engine`` with
    ``ServeConfig(max_seq=4096, batch_size=8)``, 8 prompts of 1024 tokens,
@@ -86,10 +92,10 @@ for the attention kernels and the serve path:
    three sorts and of one ``external_sort`` (device time, idle share,
    host <-> device copies); the serve path's prefill ms and decode ms per
    step and tokens/s on the K10 and the eager path, K10 (at the last
-   step's length, 1056) and K11 (at (1, 32, 4096, 128) bf16) beside
+   step's length, 1056) and K11 (at (1, 32, 4096, 128), bf16 and f32) beside
    ``scaled_dot_product_attention`` (K10 with a boolean length mask), and
    a profile of 8 decode steps (device time, launches, idle share);
-5. a ``{"kernels": [...]}`` JSON line (17 entries), then the last line
+5. a ``{"kernels": [...]}`` JSON line (18 entries), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the ``repro`` package.
@@ -257,7 +263,7 @@ def profile(torch, name, fn, top: int = 14) -> None:
 
 def attention_phases(torch, dev) -> dict:
     """Phases 2-4 for K10, K11 and the serve path, after the sort phases have
-    freed their tensors.  Returns the two kernels' rows of the kernels line
+    freed their tensors.  Returns the attention kernels' rows of the kernels line
     (their ``max_abs_err`` is a float: the largest over phase 2's checks)."""
     import torch.nn.functional as F
 
@@ -271,9 +277,11 @@ def attention_phases(torch, dev) -> dict:
     from repro_torch.models.transformer import forward, init_model
     from repro_torch.serve import Engine, ServeConfig
 
-    rows = {"flash_decode": {"max_abs_err": 0.0}, "flash_attention": {"max_abs_err": 0.0}}
+    rows = {"flash_decode": {"max_abs_err": 0.0}, "flash_attention": {"max_abs_err": 0.0},
+            "flash_attention_f32": {"max_abs_err": 0.0}}
     gen = torch.Generator(device=dev).manual_seed(4321)
     bf16, f32 = torch.bfloat16, torch.float32
+    k11 = {bf16: "flash_attention", f32: "flash_attention_f32"}  # row (and launch key) by dtype
     cfg = get_config("yi-9b")
     H, KVH, HD = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     B, T = SERVE_BATCH, SERVE_MAX_SEQ
@@ -349,7 +357,7 @@ def attention_phases(torch, dev) -> dict:
             narrow = (window or s) - FAULT_KEYS
             fault = (kref.flash_attention_ref(q, k, v, causal=causal, window=narrow),
                      f"window {narrow}")
-            check_close("flash_attention",
+            check_close(k11[dtype],
                         fa.flash_attention(q, k, v, causal=causal, window=window), want, dtype,
                         f"{dtype} (1, {H}, {s}, {HD}) causal={causal} window={window}", fault)
             del q, k, v, want, fault
@@ -380,12 +388,23 @@ def attention_phases(torch, dev) -> dict:
     k0 = rope(heads(blk.attn.wk, KVH), pos, cfg.rope_theta)
     v0 = heads(blk.attn.wv, KVH)
     path = f"flash_attention entry point (layer 0 of {B} x {SERVE_PROMPT} prompt tokens)"
-    got, launches = drive(path, ("flash_attention",), {
+    q0f, k0f, v0f = (x.float() for x in (q0, k0, v0))
+    copies = fa.LAYOUT_COPIES["flash_attention"]
+    got, launches = drive(path, ("flash_attention", "flash_attention_f32"), {
         "causal": lambda: kops.flash_attention(q0.transpose(1, 2), k0.transpose(1, 2),
-                                               v0.transpose(1, 2), causal=True)})
-    rows["flash_attention"]["launches"] = launches["flash_attention"]
+                                               v0.transpose(1, 2), causal=True),
+        "causal f32": lambda: kops.flash_attention(q0f.transpose(1, 2), k0f.transpose(1, 2),
+                                                   v0f.transpose(1, 2), causal=True)})
+    for name in k11.values():
+        rows[name]["launches"] = launches[name]
+    print(f"path {path}: layout copies for TMA "
+          f"{fa.LAYOUT_COPIES['flash_attention'] - copies} (strides read as they are)",
+          flush=True)
     check_close("flash_attention", got["causal"], kref.flash_attention_ref(
         q0.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2)), bf16, path)
+    check_close("flash_attention_f32", got["causal f32"], kref.flash_attention_ref(
+        q0f.transpose(1, 2), k0f.transpose(1, 2), v0f.transpose(1, 2)), f32, path + " f32")
+    del q0f, k0f, v0f
     eager = _sdpa(q0, k0, v0, _causal_mask(SERVE_PROMPT, 0, dev))
     print(f"path {path}: against the model's eager prefill attention max |diff| "
           f"{float((got['causal'].transpose(1, 2).reshape(eager.shape).float() - eager.float()).abs().max()):.3e}"
@@ -555,6 +574,17 @@ def attention_phases(torch, dev) -> dict:
                                             BF16_FLOPS_PER_S)
     t["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps=5)
+    # the float32 FMA kernel on the same inputs; its bound takes the f32
+    # CUDA-core rate, which its products run at
+    qf, kf, vf = q.float(), k.float(), v.float()
+    t = rows["flash_attention_f32"]
+    t["ms"] = cuda_ms(torch, lambda: fa.flash_attention(qf, kf, vf, causal=True), reps=5)
+    t["plain_ms"] = cuda_ms(torch, lambda: kref.flash_attention_ref(qf, kf, vf, causal=True),
+                            reps=3)
+    t["bound_ms"], t["bound_by"] = bound_ms(4 * qf.numel() * 4, 4 * H * pairs * HD)
+    t["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, is_causal=True), reps=5)
+    del qf, kf, vf
     rows_ = torch.arange(ATTN_S, device=dev)
     window_mask = (rows_[None, :] <= rows_[:, None]) & (rows_[None, :] > rows_[:, None] - 1024)
     more = {
@@ -564,7 +594,7 @@ def attention_phases(torch, dev) -> dict:
         "non-causal": (cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=False), reps=5),
                        cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), reps=5)),
     }
-    for name in ("flash_decode", "flash_attention"):
+    for name in ("flash_decode", "flash_attention", "flash_attention_f32"):
         r = rows[name]
         how = ("device time, the layers' caches in turn" if name == "flash_decode"
                else "CUDA events")
@@ -901,45 +931,69 @@ def main() -> None:
             del want, got
 
         # K9: every block tagged by its source (block i holds i*1024 + [0, 1024)),
-        # so the output shows the per-bucket block multisets and intact blocks
-        # against permute_blocks_ref; bit for bit against the replay at full N
-        # and at N = 4096
+        # so the output shows intact blocks and, per bucket, the multiset of
+        # its blocks.  K9 is not stable: its order within a bucket follows how
+        # its CTAs interleave, so it is held to the plain twin (the replay of
+        # the reference's order) after sorting each bucket range's blocks by
+        # their tag, and to permute_blocks_ref by the per-bucket multisets
         def tagged(n):
             return torch.arange(n, device=dev, dtype=torch.int32)
+
+        def k9_canonical(x, d, n_blocks):
+            """Each bucket range's blocks sorted by their tag."""
+            blocks = x.view(n_blocks, -1)
+            slots = torch.arange(n_blocks, device=dev, dtype=torch.int32)
+            slot_bucket = (torch.searchsorted(d, slots, right=True) - 1).to(torch.int64)
+            return blocks[torch.argsort((slot_bucket << 32) | blocks[:, 0].to(torch.int64))]
+
+        def k9_check(bb, d, n_blocks, k9, what, runs=1):
+            """``runs`` calls of K9 on tagged blocks: in place, intact, and
+            per bucket the twin's blocks.  Returns the twin's canonical form."""
+            keys9 = tagged(n_blocks * BLOCK)
+            want = k9_canonical(pi.permute_blocks_inplace_plain(keys9.clone(), bb, d, k=k9),
+                                d, n_blocks)
+            for _ in range(runs):
+                keys9 = tagged(n_blocks * BLOCK)
+                ptr = keys9.data_ptr()
+                got, peak = rise(lambda: pi.permute_blocks_inplace(keys9, bb, d, k=k9))
+                in_place("permute_blocks_inplace", got, ptr, peak, keys9.numel() * 4)
+                blocks = got.view(n_blocks, BLOCK)
+                intact = torch.equal(blocks - blocks[:, :1], tagged(BLOCK).expand(n_blocks, BLOCK))
+                if not intact:
+                    fail(f"K9 broke a block ({what})")
+                check_equal("permute_blocks_inplace", k9_canonical(got, d, n_blocks), want,
+                            f"{what}: per-bucket blocks against the twin")
+            return want
 
         k9_want = {}
         for tag, bb in block_cases:
             d9 = prefix(bb)
-            keys9 = tagged(N_BLOCK_KEYS)
-            ptr = keys9.data_ptr()
-            got, peak = rise(lambda: pi.permute_blocks_inplace(keys9, bb, d9, k=N_BUCKETS))
-            in_place("permute_blocks_inplace", got, ptr, peak, N_BLOCK_KEYS * 4)
-            src = got.view(nblocks, BLOCK)[:, 0] // BLOCK
-            intact = torch.equal(got.view(nblocks, BLOCK),
-                                 src[:, None] * BLOCK + tagged(BLOCK)[None, :])
+            k9_want[tag] = k9_check(bb, d9, nblocks, N_BUCKETS, f"{tag} N={nblocks}")
             canon = kref.permute_blocks_ref(tagged(N_BLOCK_KEYS), bb, k=N_BUCKETS, block_elems=BLOCK)
-            slot_bucket = torch.sort(bb).values.to(torch.int64) << 32
-
-            def multiset(x):
-                return torch.sort(slot_bucket | x.view(nblocks, BLOCK)[:, 0].to(torch.int64)).values
-
-            same_sets = torch.equal(multiset(got), multiset(canon))
-            print(f"permute_blocks_inplace {tag} N={nblocks}: blocks intact {intact}, per-bucket "
-                  f"block multisets equal to permute_blocks_ref {same_sets}", flush=True)
-            if not (intact and same_sets):
-                fail(f"K9 lost or misplaced blocks ({tag})")
-            k9_want[tag] = pi.permute_blocks_inplace_plain(tagged(N_BLOCK_KEYS), bb, d9, k=N_BUCKETS)
-            check_equal("permute_blocks_inplace", got, k9_want[tag], f"{tag} N={nblocks} replay")
-            del canon, got
-        bb_small = torch.randint(0, N_BUCKETS, (4096,), generator=gen, device=dev, dtype=torch.int32)
-        small = torch.randint(-2**31, 2**31 - 1, (4096 * BLOCK,), generator=gen, device=dev,
-                              dtype=torch.int32)
-        want = pi.permute_blocks_inplace_plain(small.clone(), bb_small, prefix(bb_small),
-                                               k=N_BUCKETS)
-        check_equal("permute_blocks_inplace",
-                    pi.permute_blocks_inplace(small, bb_small, prefix(bb_small), k=N_BUCKETS), want,
-                    "N=4096 random data replay")
-        del blocks8, small, want
+            same_sets = torch.equal(k9_want[tag], k9_canonical(canon, d9, nblocks))
+            print(f"permute_blocks_inplace {tag} N={nblocks}: the twin's per-bucket block "
+                  f"multisets equal to permute_blocks_ref {same_sets}", flush=True)
+            if not same_sets:
+                fail(f"K9's twin lost or misplaced blocks ({tag})")
+            del canon
+        # the claiming under stress, at N = 4096, each case several times in a row
+        n_small = 4096
+        uniform_small = torch.randint(0, N_BUCKETS, (n_small,), generator=gen, device=dev,
+                                      dtype=torch.int32)
+        all_but_one = torch.full((n_small,), N_BUCKETS // 2, device=dev, dtype=torch.int32)
+        all_but_one[n_small // 3] = N_BUCKETS - 1
+        stress = {
+            "k=1": (torch.zeros(n_small, device=dev, dtype=torch.int32), 1),
+            "every block in its range": (torch.sort(uniform_small).values, N_BUCKETS),
+            "empty buckets (every fourth used)": (uniform_small // 4 * 4, N_BUCKETS),
+            "all blocks but one in one bucket": (all_but_one, N_BUCKETS),
+            "uniform": (uniform_small, N_BUCKETS),
+        }
+        for tag, (bb, k9) in stress.items():
+            d9 = torch.zeros(k9 + 1, dtype=torch.int32, device=dev)
+            d9[1:] = torch.cumsum(torch.bincount(bb, minlength=k9), 0)
+            k9_check(bb, d9, n_small, k9, f"{tag} N={n_small} k={k9}, 5 runs", runs=5)
+        del blocks8
 
         # ---- 3. the paths ---------------------------------------------------------
         def specials(x):
@@ -1230,8 +1284,8 @@ def main() -> None:
             "permute_blocks_inplace": lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
                                                                         k=N_BUCKETS),
         })
-        verdict(path, "permute_blocks_inplace",
-                torch.equal(got["permute_blocks_inplace"], k9_want["uniform"]))
+        verdict(path, "permute_blocks_inplace (per-bucket block multisets)", torch.equal(
+            k9_canonical(got["permute_blocks_inplace"], d_uniform, nblocks), k9_want["uniform"]))
         del got, k9_want
 
         # peak device memory per key, above the inputs: the in-place block move
@@ -1441,7 +1495,7 @@ def main() -> None:
         t["library_ms"] = gather_ms
         t = rows["permute_blocks_inplace"]
         t["ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
-                                                                   k=N_BUCKETS), warmup=1, reps=3)
+                                                                   k=N_BUCKETS), warmup=1, reps=10)
         t["plain_ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace_plain(
             keys9, bb_uniform, d_uniform, k=N_BUCKETS), warmup=0, reps=1)
         t["bound_ms"], t["bound_by"] = block_bound
@@ -1451,7 +1505,7 @@ def main() -> None:
             "permute_blocks_by_dest": cuda_ms(torch, lambda: bp.permute_blocks_by_dest(
                 pb_keys, dst_skewed)),
             "permute_blocks_inplace": cuda_ms(torch, lambda: pi.permute_blocks_inplace(
-                keys9, bb_skewed, prefix(bb_skewed), k=N_BUCKETS), warmup=0, reps=3),
+                keys9, bb_skewed, prefix(bb_skewed), k=N_BUCKETS), warmup=1, reps=10),
         }
         del keys9
 
@@ -1577,6 +1631,8 @@ def main() -> None:
                          "src/repro/kernels/flash_decode.py:70"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:102"),
+        "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:102"),
     }
     line = []
     for name, (source, replaces) in meta.items():

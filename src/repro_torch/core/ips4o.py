@@ -190,7 +190,8 @@ def base_case(
     arrays: Arrays, fb: torch.Tensor, W: int, nb: int, limit: Optional[int] = None
 ) -> Arrays:
     """Two overlapped segmented window-sort passes (DESIGN.md §4.3), through
-    K3 (``kernels.ops.base_case_windows``); ``nb`` bounds the bucket ids.
+    K3 (``kernels.ops.base_case_windows``); ``nb`` bounds the bucket ids
+    (any nb: above K3's bucket field it sees window-local run indices).
     ``limit`` (a multiple of W) restricts both passes to [0, limit), for
     the partial sorts of ``ops.topk``."""
     return base_case_windows(arrays, fb, W, nb, limit)

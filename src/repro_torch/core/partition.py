@@ -131,13 +131,55 @@ def partition_ranks_kernel(
     ``bucket`` with (B, nb+1) ``offsets`` each row is placed on its own
     (``partition_ranks_batched``), returning (B, n) row-local destinations.
     Ids outside [0, nb) get -1.  On a CUDA tensor K6 runs, on a CPU tensor
-    its plain twin.
+    its plain twin.  One row takes nb up to 2^24: above K6's ``MAX_NB``
+    counters it is placed by two K6 passes (:func:`_two_pass_ranks`); rows
+    take nb up to ``MAX_NB``.
     """
     bucket = bucket.to(torch.int32).contiguous()
     start = offsets[..., :-1].to(torch.int32).contiguous()
     if bucket.dim() == 2:
         return dispatch_rank.partition_ranks_batched(bucket, start, nb=nb, tile=tile)
+    if nb > dispatch_rank.MAX_NB:
+        return _two_pass_ranks(bucket, start, nb, tile)
     return dispatch_rank.partition_ranks(bucket, start, nb=nb, tile=tile)
+
+
+def _two_pass_ranks(bucket: torch.Tensor, start: torch.Tensor, nb: int,
+                    tile: int) -> torch.Tensor:
+    """The stable counting destinations of (n,) ids in [0, nb), nb up to
+    2^24, by two stable K6 passes, least significant digit first: the low
+    12 bits, then the high bits of the ids in the first pass's order.  The
+    composed placement is the stable argsort of the ids, which gives each id
+    its rank among the equal ids before it; id b's destination is start[b]
+    plus that rank, as in one pass.  Ids outside [0, nb) get -1."""
+    digits = dispatch_rank.MAX_NB.bit_length() - 1
+    if nb > dispatch_rank.MAX_NB << digits:
+        raise ValueError(f"nb={nb} exceeds the two K6 passes' {dispatch_rank.MAX_NB << digits}")
+    n, dev = bucket.shape[0], bucket.device
+    valid = (bucket >= 0) & (bucket < nb)
+    b = torch.where(valid, bucket, 0)
+
+    def place(ids, nb_pass):
+        """One stable K6 pass over ids in [0, nb_pass) (-1: none), against
+        the exclusive prefix of their counts."""
+        counts = torch.bincount(torch.where(ids >= 0, ids, nb_pass), minlength=nb_pass + 1)
+        first = torch.cumsum(counts[:nb_pass], 0, dtype=torch.int32) - counts[:nb_pass]
+        return dispatch_rank.partition_ranks(ids, first.to(torch.int32), nb=nb_pass, tile=tile)
+
+    none = torch.full_like(b, -1)
+    dest_lo = place(torch.where(valid, b & (dispatch_rank.MAX_NB - 1), none),
+                    dispatch_rank.MAX_NB)
+    # the high digits in the first pass's order; the invalid ids take no
+    # place there, so the last n - n_valid places keep -1 (one spare slot
+    # takes the invalid ids' writes)
+    high = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    high[torch.where(valid, dest_lo, n).to(torch.int64)] = torch.where(valid, b >> digits, none)
+    dest_hi = place(high[:n].contiguous(), -(-nb >> digits))
+    pos = dest_hi[torch.where(valid, dest_lo, 0).to(torch.int64)]  # place in the stable argsort
+    counts = torch.bincount(torch.where(valid, b, nb), minlength=nb + 1)[:nb]
+    first = torch.cumsum(counts, 0) - counts  # the argsort's first place of each id
+    b64 = b.to(torch.int64)
+    return torch.where(valid, start[b64] + (pos - first[b64]).to(torch.int32), none)
 
 
 def partition_blocks(

@@ -18,7 +18,7 @@
 | K8 | ``block_permute.permute_blocks_by_dest`` | ``csrc/block_permute.cu`` | ``repro/kernels/block_permute.py:145`` |
 | K9 | ``permute_inplace.permute_blocks_inplace`` | ``csrc/permute_inplace.cu`` | ``repro/kernels/permute_inplace.py:148`` |
 | K10 | ``flash_decode.flash_decode`` (and ``flash_decode_cache``) | ``csrc/flash_decode.cu`` | ``repro/kernels/flash_decode.py:70`` |
-| K11 | ``flash_attention.flash_attention`` | ``csrc/flash_attention.cu`` | ``repro/kernels/flash_attention.py:102`` |
+| K11 | ``flash_attention.flash_attention`` (bf16: TMA + ``wgmma``; f32: FMA) | ``csrc/flash_attention.cu`` | ``repro/kernels/flash_attention.py:102`` |
 
 K1/K1r/K2/K4 and K6 share their in-tile rank pass (``csrc/rank_hist.cuh``).
 K8 and K9 move blocks in the caller's tensor and return it.  K10 reads the

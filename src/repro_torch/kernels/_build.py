@@ -56,7 +56,7 @@ LAUNCHES: Dict[str, int] = {
     "merge_path": 0, "dispatch_ranks": 0, "partition_ranks": 0, "partition_ranks_batched": 0,
     "classify_histogram": 0, "classify_histogram_batched": 0, "radix_histogram": 0,
     "permute_blocks_by_dest": 0, "permute_blocks_inplace": 0,
-    "flash_decode": 0, "flash_attention": 0,
+    "flash_decode": 0, "flash_attention": 0, "flash_attention_f32": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -3,18 +3,29 @@
 Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
 Pallas TPU kernel at ``flash_attention.py:102``), which lies on no model
 path of the reference: only its tests call it, and here ``chip_smoke.py``
-drives it at the served model's prefill shape.  The CUDA kernel is in
-``csrc/flash_attention.cu``, whose header note gives its bound and design.
+drives it at the served model's prefill shape.  The CUDA kernels are in
+``csrc/flash_attention.cu``, whose header note gives their bound (flops:
+~0.14 ms for a causal (1, 32, 4096, 128) call on the H100's bf16 tensor
+cores) and design.  bfloat16 runs on the tensor cores: TMA loads of q and
+of a 2-stage ring of K and V tiles, ``wgmma`` for both products, the
+online softmax in registers (the first design ran both products in f32 FMA
+on the CUDA cores, 48x the bound).  float32 keeps that FMA kernel: TF32
+products would miss its 2e-5 check.
+
 Query row i attends key j iff (not causal or j <= i) and (no window or
 j > i - window); the window also applies when ``causal=False``, as in the
-reference.  The scale 1/sqrt(hd) is applied to q, masked scores are -1e30
-with a weight of exactly 0, the softmax is f32 and the output has q's dtype
+reference.  The scale 1/sqrt(hd) is applied to q (the bf16 kernel scales
+the f32 scores, the same up to f32 rounding), masked scores are -1e30 with
+a weight of exactly 0, the softmax is f32 and the output has q's dtype
 (float32 or bfloat16).  KV heads that divide the query heads are read as
 groups (head h reads KV head h // group), through strides.
 
-The wrapper launches the kernel on CUDA tensors and runs the plain twin
-(``kernels.ref.flash_attention_ref``) only on CPU tensors; there is no
-fallback from one to the other.
+The wrapper launches a kernel on CUDA tensors (launch keys
+``flash_attention`` for bfloat16 and ``flash_attention_f32``) and runs the
+plain twin (``kernels.ref.flash_attention_ref``) only on CPU tensors; there
+is no fallback from one to the other.  The bf16 kernel's TMA needs 16-byte
+aligned pointers and strides; a tensor without them is copied once to a
+contiguous layout, counted in :data:`LAYOUT_COPIES`.
 """
 from __future__ import annotations
 
@@ -26,13 +37,28 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "HEAD_DIMS", "LAYOUT_COPIES"]
 
 HEAD_DIMS = (64, 128)  # the kernel's compiled head dims
 _P, _I, _L, _F = _build.P, _build.I, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {"flash_attention_launch": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _I,
                                           _I, _I, _I, _I, _I, _I, _F, _I, _P, _P)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LAUNCH_KEYS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention"}
+# bf16 inputs copied to a contiguous layout for TMA (the count of copies)
+LAYOUT_COPIES = {"flash_attention": 0}
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when TMA can read it (16-byte aligned pointer and
+    batch, head and seq strides, a unit inner stride), else one contiguous
+    copy, counted in ``LAYOUT_COPIES``."""
+    aligned = x.data_ptr() % 16 == 0 and all(
+        (st * x.element_size()) % 16 == 0 for st in x.stride()[:3])
+    if aligned and x.stride(-1) == 1:
+        return x
+    LAYOUT_COPIES["flash_attention"] += 1
+    return x.contiguous()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -64,6 +90,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, s, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: hd={hd} is not one of {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16:
+        q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
             raise ValueError(f"flash_attention kernel: {name}'s head dim must be contiguous")
@@ -75,5 +103,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         1.0 / math.sqrt(hd), _DTYPES[q.dtype], out.data_ptr(), _build.stream_handle(q.device),
     )
     _build.check(lib, "flash_attention", err, "flash_attention kernel")
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.LAUNCHES[_LAUNCH_KEYS[q.dtype]] += 1
     return out

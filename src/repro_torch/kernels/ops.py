@@ -44,21 +44,36 @@ def sort_blocks(
     return out["k"], d
 
 
+def _window_runs(fb_w: torch.Tensor) -> torch.Tensor:
+    """Each window's (row's) run index: the number of bucket changes since
+    the window's first position, (num_w, W) int32 in [0, W)."""
+    change = torch.zeros_like(fb_w)
+    change[:, 1:] = fb_w[:, 1:] != fb_w[:, :-1]
+    return torch.cumsum(change, 1, dtype=torch.int32)
+
+
 def base_case_windows(
     arrays: Dict[str, torch.Tensor], fb: torch.Tensor, W: int, nb: int,
     limit: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """The two overlapped segmented window-sort passes (DESIGN.md §4.3).
 
-    ``fb`` holds the bucket id in [0, nb) of every position, as (n,) int32
-    for one row or (B, n) for B rows; every tensor of ``arrays`` has the
-    same leading dims, and its ``"k"`` entry holds the encoded keys.  n is a
-    multiple of W, so windows never straddle rows: pass one sorts the
-    B * (n/W) windows at offset 0, pass two those at W/2 over the n - W
-    positions between (per row).  ``limit`` (a multiple of W) restricts both
-    passes to the positions [0, limit) of each row; the rest is left as it
-    was.  K3 gives each window's permutation; every tensor is gathered by it
-    in torch.  Returns new tensors: the inputs are left as they were.
+    ``fb`` holds the bucket id in [0, nb) of every position, nondecreasing
+    along each row (the partition's output), as (n,) int32 for one row or
+    (B, n) for B rows; every tensor of ``arrays`` has the same leading dims,
+    and its ``"k"`` entry holds the encoded keys.  n is a multiple of W, so
+    windows never straddle rows: pass one sorts the B * (n/W) windows at
+    offset 0, pass two those at W/2 over the n - W positions between (per
+    row).  ``limit`` (a multiple of W) restricts both passes to the
+    positions [0, limit) of each row; the rest is left as it was.  K3 gives
+    each window's permutation; every tensor is gathered by it in torch.
+    Returns new tensors: the inputs are left as they were.
+
+    K3 packs (bucket, key, idx) into 64 bits, so it takes ids below
+    2^(32 - log2 W).  Above that (a segmented sort of many segments), it is
+    handed each window's run index (:func:`_window_runs`) in place of the
+    bucket id: the ids do not decrease, so the two order the window alike,
+    and a window of W keys holds at most W runs, which always fits.
     """
     one_row = fb.dim() == 1
     if one_row:
@@ -66,13 +81,15 @@ def base_case_windows(
         arrays = {name: a[None] for name, a in arrays.items()}
     B, n = fb.shape
     m_all = n if limit is None else limit
+    fits = nb <= 1 << (32 - (W.bit_length() - 1))  # K3's bucket field
 
-    def one_pass(arrays, fb, lo, hi, out):
+    def one_pass(arrays, lo, hi, out):
         m = hi - lo
         per_row = m // W
-        perm, fb_sorted = sort_windows(
-            fb[:, lo:hi].reshape(B * per_row, W).contiguous(),
-            arrays["k"][:, lo:hi].reshape(B * per_row, W).contiguous(), nb,
+        fb_w = fb[:, lo:hi].reshape(B * per_row, W)
+        perm, _ = sort_windows(
+            fb_w.contiguous() if fits else _window_runs(fb_w),
+            arrays["k"][:, lo:hi].reshape(B * per_row, W).contiguous(), nb if fits else W,
         )
         starts = torch.arange(lo, hi, W, dtype=torch.int64, device=fb.device)
         if B > 1:  # row r's windows start r * n further on
@@ -84,19 +101,18 @@ def base_case_windows(
             return a.reshape((B * n,) + a.shape[2:])[src].reshape((B, m) + a.shape[2:])
 
         if out is None:  # a first pass over all of [0, n) makes the copies
-            return {name: gather(a) for name, a in arrays.items()}, fb_sorted.reshape(B, n)
+            return {name: gather(a) for name, a in arrays.items()}
         for name, a in arrays.items():
             out[name][:, lo:hi] = gather(a)
-        fb[:, lo:hi] = fb_sorted.reshape(B, m)
-        return out, fb
+        return out
 
+    # a window's sort leaves its (nondecreasing) bucket ids where they were
     if m_all == n:
-        out, fb = one_pass(arrays, fb, 0, n, None)
+        out = one_pass(arrays, 0, n, None)
     else:
-        out, fb = one_pass(arrays, fb.clone(), 0, m_all,
-                           {name: a.clone() for name, a in arrays.items()})
+        out = one_pass(arrays, 0, m_all, {name: a.clone() for name, a in arrays.items()})
     if m_all > W:  # offset pass: windows at W/2 (the ends need no second pass)
-        out, fb = one_pass(out, fb, W // 2, m_all - W // 2, out)
+        out = one_pass(out, W // 2, m_all - W // 2, out)
     return {name: a[0] for name, a in out.items()} if one_row else out
 
 

@@ -1,18 +1,27 @@
 """K9 ``permute_blocks_inplace``: the paper's in-place block permutation
-(Fig. 3) with per-bucket write/read pointers.
+(§4.2, Fig. 3) with per-bucket write/read pointers.
 
 Counterpart of ``repro.kernels.permute_inplace`` (the Pallas TPU kernel
 ``permute_blocks_inplace`` at ``permute_inplace.py:148``, kernel ``:46``).
 The CUDA kernel is in ``csrc/permute_inplace.cu``, whose header note gives
-the order of its moves, its bound and its design.  The wrapper launches it
-on a CUDA tensor (key ``permute_blocks_inplace`` of ``_build.LAUNCHES``)
-and runs the plain twin only on a CPU tensor; there is no fallback from one
-to the other.
+its bound (bytes: 2 x N x block bytes, 0.64 ms for 1 GiB on the H100), what
+the first design lost (it replayed the TPU kernel's one-core move order,
+one chain of dependent steps, 219x the bound) and what this one does: the
+paper's parallel form, many CTAs each a paper thread with its own swap
+buffers, the (w, r) pair of every bucket in one 64-bit word updated by
+atomics, and a per-slot read flag that a writer into an emptied slot waits
+for.  The wrapper launches it on a CUDA tensor (key
+``permute_blocks_inplace`` of ``_build.LAUNCHES``) and runs the plain twin
+only on a CPU tensor; there is no fallback from one to the other.
 
-The permutation is not stable: which block of a bucket lands in which of
-its slots follows the order of the moves.  Kernel and plain twin replay the
-reference's order exactly, so all three agree bit for bit.  The move happens
-in the caller's tensor, which the wrapper returns (same ``data_ptr``).
+The permutation is not stable, as the reference's docstring says: which
+block of a bucket lands in which of its slots follows the order of the
+moves.  The plain twin replays the reference's one-core order and equals it
+bit for bit; the kernel's order depends on how its CTAs interleave.  All of
+them put every block, intact, into its bucket's range, so their outputs
+agree block multiset by block multiset per bucket, which is the reference's
+own test.  The move happens in the caller's tensor, which the wrapper
+returns (same ``data_ptr``).
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from repro_torch.kernels.level_fused import _device_kind
 __all__ = ["permute_blocks_inplace", "permute_blocks_inplace_plain", "replay_moves"]
 
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"permute_inplace": (_P, _P, _P, _I, _I, _I, _P)}
+_SIGNATURES = {"permute_inplace": (_P, _P, _P, _P, _I, _I, _I, _P)}
 
 
 def _check(a, block_bucket, d, k, block_elems) -> int:
@@ -87,9 +96,11 @@ def _move_plain(a, block_bucket, d, k, nblocks, block_elems) -> None:
 def _move_kernel(a, block_bucket, d, k, nblocks, block_elems) -> None:
     if a.data_ptr() % 16:
         raise ValueError("a: the kernel moves 16-byte words; data_ptr must be 16-byte aligned")
+    # the kernel's scratch: a (w, r) word per bucket, then a read flag per slot
+    scratch = torch.empty(k + -(-nblocks // 2), dtype=torch.int64, device=a.device)
     lib = _build.library("permute_inplace", _SIGNATURES)
     err = lib.permute_inplace(a.data_ptr(), block_bucket.contiguous().data_ptr(),
-                              d.contiguous().data_ptr(), k, nblocks,
+                              d.contiguous().data_ptr(), scratch.data_ptr(), k, nblocks,
                               block_elems * a.element_size() // 16,
                               _build.stream_handle(a.device))
     _build.check(lib, "permute_inplace", err, "permute_blocks_inplace kernel")
@@ -110,7 +121,8 @@ def permute_blocks_inplace(a: torch.Tensor, block_bucket: torch.Tensor, d: torch
 
     ``block_bucket`` (N,) int32 in [0, k) is each block's bucket and ``d``
     (k+1,) int32 the buckets' block boundaries (the histogram's exclusive
-    prefix, d[k] == N).  Not stable.  Returns ``a`` itself, permuted.
+    prefix, d[k] == N).  Not stable: the kernel's order within a bucket
+    differs from the twin's.  Returns ``a`` itself, permuted.
     """
     return _permute(a, block_bucket, d, k, block_elems, _device_kind(a) == "cpu")
 

@@ -13,7 +13,8 @@ and zero counts), so the whole outputs agree.
     dispatch path) or ``kernels.dispatch_rank.dispatch_ranks``
     (``"pallas"``).  The port has one engine, so both launch the same K6
     kernel on a card and its plain twin on the CPU; they differ only in
-    the launch counter;
+    the launch counter.  Above K6's 4096 counters (``MAX_NB``) both take
+    ``partition_ranks_kernel``'s two K6 passes, up to 2^24 groups;
   * ``"sort"`` — arbitrary keys: ``ips4o_sort`` of the encoded keys with
     their positions, then a boundary scan;
   * ``"auto"`` — ``"partition"`` with ``num_groups``, else ``"sort"``.
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch.core.ips4o import SortConfig, ips4o_sort
 from repro_torch.core.partition import partition_ranks_kernel
-from repro_torch.kernels.dispatch_rank import dispatch_ranks
+from repro_torch.kernels.dispatch_rank import MAX_NB, dispatch_ranks
 from repro_torch.ops import keyspace
 from repro_torch.ops.sort import Device, _device, _keys
 
@@ -75,13 +76,13 @@ def _int_group_perm(
     keys: torch.Tensor, num_groups: int, method: str, tile: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(perm, offsets (num_groups+1,)) grouping int keys in [0, num_groups),
-    stably, by the counting placement K6."""
+    stably, by the counting placement K6 (two passes above ``MAX_NB``)."""
     n = keys.shape[0]
     b = keys.to(torch.int32).contiguous()
     counts = torch.bincount(b, minlength=num_groups).to(torch.int32)
     offsets = torch.zeros(num_groups + 1, dtype=torch.int32, device=b.device)
     offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
-    if method == "pallas":
+    if method == "pallas" and num_groups <= MAX_NB:
         dest = dispatch_ranks(b, offsets[:-1], num_experts=num_groups, tile=tile)
     else:
         dest = partition_ranks_kernel(b, offsets, num_groups, tile=tile)

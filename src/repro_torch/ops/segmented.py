@@ -54,8 +54,10 @@ def segmented_sort(
     segment (a power of two; by default sized to the average segment).
     ``classifier`` is accepted for symmetry with ``sort``, but every value
     maps to "tree", as in the reference: user segments are arbitrary key
-    ranges, which the radix bits are not monotone within.  The composite
-    ids must fit K3's bucket field (segments * 2k <= 2^19 at W = 8192).
+    ranges, which the radix bits are not monotone within.  Any number of
+    segments works whose composite ids fit int32 ((segments + 1) * 2k <
+    2^31): past K3's bucket field (2^19 ids at W = 8192) the base case
+    hands K3 window-local run indices in place of the composite ids.
 
     Returns sorted keys, or (keys, values).
 

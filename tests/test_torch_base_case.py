@@ -100,6 +100,28 @@ def test_base_case_windows_moves_wide_payloads():
     np.testing.assert_array_equal(out["p"].numpy(), payload.numpy()[order])
 
 
+@pytest.mark.parametrize("rows,limit", [(1, None), (1, 512), (3, None), (3, 256)])
+def test_base_case_windows_above_k3_bucket_field(rows, limit):
+    """With more buckets than K3's bucket field holds (2^25 at W = 128), K3
+    is handed each window's run index instead of the bucket id: the same
+    order, so the same output as with the ids themselves, for one row or B
+    rows, over all of each row or a prefix of it."""
+    W, n = 128, 1024
+    cases = [_bucketed(n, W, seed, W // 2) for seed in range(rows)]
+    fb = torch.as_tensor(np.stack([c[0] for c in cases]))
+    keys = torch.as_tensor(np.stack([c[1] for c in cases]))
+    nb = max(c[2] for c in cases)
+    arrays = {"k": keys, "v": torch.arange(rows * n, dtype=torch.int32).reshape(rows, n)}
+    if rows == 1:
+        fb, arrays = fb[0], {name: a[0] for name, a in arrays.items()}
+    want = base_case_windows(arrays, fb, W, nb, limit)
+    spread = 1 << 21  # the same order, ids beyond 2^25
+    big = base_case_windows(arrays, fb * spread, W, spread * nb, limit)
+    assert spread * nb > 1 << 25
+    for name in arrays:
+        assert torch.equal(big[name], want[name])
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_oversized_buckets_are_sorted_before_the_windows(seed):
     """The port's robustness fallback: buckets above W/2 are stably sorted in

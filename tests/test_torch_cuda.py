@@ -230,6 +230,35 @@ def test_group_by_on_the_card_matches_the_cpu(dev, method):
         assert kernels.launch_counts()[name] == before + 1
 
 
+@pytest.mark.parametrize("method", ["auto", "partition", "pallas"])
+def test_group_by_above_k6_counters_on_the_card(dev, method):
+    """10,000 groups, above K6's 4096 counters: two K6 passes on the card,
+    equal to the same call on the CPU and to the stable argsort."""
+    ids = torch.as_tensor(np.random.default_rng(6).integers(0, 10_000, 300_000).astype(np.int32))
+    before = kernels.launch_counts()["partition_ranks"]
+    got = ops.group_by(ids, num_groups=10_000, method=method)
+    want = ops.group_by(ids, num_groups=10_000, method=method, device="cpu")
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g.cpu(), w)
+    assert torch.equal(got.perm.cpu().to(torch.int64), torch.sort(ids, stable=True).indices)
+    assert kernels.launch_counts()["partition_ranks"] == before + 2
+
+
+def test_segmented_sort_above_k3_bucket_field_on_the_card(dev):
+    """2048 segments at k = 128: composite ids past K3's 2^19 bucket field
+    at W = 8192, so K3 sees window-local run indices; equal to the CPU."""
+    rng = np.random.default_rng(7)
+    n, segs = 1 << 16, 2048
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32))
+    off = torch.as_tensor(np.concatenate([[0], np.sort(rng.integers(0, n, segs - 1)), [n]])
+                          .astype(np.int32))
+    v = torch.arange(n, dtype=torch.int32)
+    got = ops.segmented_sort(x, off, segs, v, k=128)
+    want = ops.segmented_sort(x, off, segs, v, k=128, device="cpu")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bfloat16])
 @pytest.mark.parametrize("k,n,rows", [(2, 1024, 8), (5, 3 * 4096, 32), (128, 77 * 4096, 32),
                                       (256, 40 * 2048, None)])
@@ -319,23 +348,63 @@ def test_permute_blocks_by_dest_kernel(dev, N, be, extra, dtype, dst_kind):
     assert kernels.launch_counts()["permute_blocks_by_dest"] == before + (N > 1)
 
 
-@pytest.mark.parametrize("N,be,k", [(4096, 1024, 256), (300, 128, 7), (1, 256, 3),
-                                    (1000, 512, 1)])
-def test_permute_blocks_inplace_kernel(dev, N, be, k):
+def _k9_buckets(kind, N, k, g, dev):
+    """Block buckets for K9's claiming: uniform, already grouped (every block
+    in its range), every fourth bucket only (the rest empty), or all blocks
+    but one in one bucket."""
+    if kind == "uniform":
+        return torch.randint(0, k, (N,), device=dev, generator=g, dtype=torch.int32)
+    if kind == "in place":
+        return torch.sort(_k9_buckets("uniform", N, k, g, dev)).values
+    if kind == "empty buckets":
+        return torch.randint(0, -(-k // 4), (N,), device=dev, generator=g,
+                             dtype=torch.int32) * 4 % k
+    bb = torch.full((N,), k // 2, device=dev, dtype=torch.int32)  # all but one
+    bb[N // 3] = k - 1
+    return bb
+
+
+def _k9_canonical(a, d, be):
+    """The blocks of ``a`` with each bucket range's blocks sorted by their
+    tag (first element): equal for two outputs iff their per-bucket block
+    multisets are."""
+    blocks = a.view(-1, be)
+    slots = torch.arange(blocks.shape[0], device=a.device, dtype=torch.int32)
+    slot_bucket = torch.searchsorted(d, slots, right=True) - 1
+    return blocks[torch.argsort((slot_bucket.to(torch.int64) << 32) | blocks[:, 0].to(torch.int64))]
+
+
+@pytest.mark.parametrize("N,be,k,kind", [
+    (4096, 1024, 256, "uniform"), (300, 128, 7, "uniform"), (1, 256, 3, "uniform"),
+    (1000, 512, 1, "uniform"), (4096, 1024, 1, "uniform"), (4096, 1024, 256, "in place"),
+    (4096, 1024, 256, "empty buckets"), (3000, 128, 1024, "empty buckets"),
+    (4096, 1024, 256, "all but one"), (2, 128, 2, "all but one"),
+])
+def test_permute_blocks_inplace_kernel(dev, N, be, k, kind):
+    """K9 is not stable: its order within a bucket follows how its CTAs
+    interleave.  Each output must hold every block intact, in its bucket's
+    range, as multisets per bucket equal to the plain twin's (the replay of
+    the reference's order), in place; 20 runs in a row of each case."""
     g = torch.Generator(device=dev).manual_seed(N + k)
-    a = torch.randint(-2**31, 2**31 - 1, (N * be,), device=dev, generator=g, dtype=torch.int32)
-    bb = torch.randint(0, k, (N,), device=dev, generator=g, dtype=torch.int32)
+    bb = _k9_buckets(kind, N, k, g, dev)
     d = torch.zeros(k + 1, dtype=torch.int32, device=dev)
     d[1:] = torch.cumsum(torch.bincount(bb, minlength=k), 0)
-    want = permute_inplace.permute_blocks_inplace_plain(a.clone(), bb, d, k=k, block_elems=be)
-    ptr = a.data_ptr()
-    before = kernels.launch_counts()["permute_blocks_inplace"]
-    got, rise = _rise(lambda: permute_inplace.permute_blocks_inplace(a, bb, d, k=k,
-                                                                     block_elems=be))
-    assert got.data_ptr() == ptr
-    assert rise <= _in_place_bound(a)
-    assert torch.equal(got, want)
-    assert kernels.launch_counts()["permute_blocks_inplace"] == before + 1
+    tags = torch.arange(N * be, device=dev, dtype=torch.int32)  # block i holds i*be + [0, be)
+    want = _k9_canonical(
+        permute_inplace.permute_blocks_inplace_plain(tags.clone(), bb, d, k=k, block_elems=be),
+        d, be)
+    for _ in range(20):
+        a = tags.clone()
+        ptr = a.data_ptr()
+        before = kernels.launch_counts()["permute_blocks_inplace"]
+        got, rise = _rise(lambda: permute_inplace.permute_blocks_inplace(a, bb, d, k=k,
+                                                                         block_elems=be))
+        assert got.data_ptr() == ptr
+        assert rise <= _in_place_bound(a)
+        blocks = got.view(N, be)
+        assert torch.equal(blocks - blocks[:, :1], tags[:be].expand(N, be))  # intact
+        assert torch.equal(_k9_canonical(got, d, be), want)
+        assert kernels.launch_counts()["permute_blocks_inplace"] == before + 1
 
 
 # (atol, rtol): f32 is the same math in another summation order; bf16 is
@@ -374,31 +443,78 @@ def test_flash_decode_kernel(dev, b, h, kvh, t, hd, lengths, dtype):
     torch.testing.assert_close(got4[:, :, 0].float(), want.float(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,kvh,s,hd,causal,window", [
+ATTN_CASES = [
     (2, 4, 4, 512, 64, True, 0),
     (1, 2, 2, 1024, 128, True, 0),
     (1, 2, 2, 512, 64, True, 200),
     (1, 2, 2, 256, 64, False, 0),
     (1, 4, 2, 300, 128, False, 100),
     (2, 8, 2, 1000, 128, True, 333),
-])
+    (1, 16, 2, 700, 64, True, 0),
+    (2, 16, 2, 640, 128, False, 0),
+    (1, 16, 2, 1100, 128, True, 256),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,s,hd,causal,window", ATTN_CASES)
 def test_flash_attention_kernel(dev, b, h, kvh, s, hd, causal, window, dtype):
+    """bfloat16 runs the wgmma kernel, float32 the FMA kernel; KV heads H or
+    H/8 (GQA), read through strides from a (B, S, KVH, hd) layout too."""
     g = torch.Generator(device=dev).manual_seed(s + hd)
     q = torch.randn((b, h, s, hd), generator=g, device=dev).to(dtype)
     k = torch.randn((b, kvh, s, hd), generator=g, device=dev).to(dtype)
     v = torch.randn((b, kvh, s, hd), generator=g, device=dev).to(dtype)
-    before = kernels.launch_counts()["flash_attention"]
+    key = "flash_attention" if dtype == torch.bfloat16 else "flash_attention_f32"
+    before = kernels.launch_counts()[key]
+    copies = flash_attention.LAYOUT_COPIES["flash_attention"]
     got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["flash_attention"] == before + 1
+    assert kernels.launch_counts()[key] == before + 1
     atol, rtol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
-    # a (B, S, H, hd) layout, read through strides
-    got_t = flash_attention.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
-                                            causal=causal, window=window)
+    # (B, S, H, hd) layouts, read through strides (no layout copy)
+    def bshd(x):
+        return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+    got_t = flash_attention.flash_attention(bshd(q), bshd(k), bshd(v), causal=causal,
+                                            window=window)
     assert torch.equal(got_t, got)
+    assert flash_attention.LAYOUT_COPIES["flash_attention"] == copies
+
+
+@pytest.mark.parametrize("hd,causal,window", [(128, True, 0), (64, True, 0), (128, True, 512),
+                                              (128, False, 0)])
+def test_flash_attention_bf16_limit_flags_a_dropped_tile(dev, hd, causal, window):
+    """The bf16 kernel passes the bf16 limit, and the limit flags the twin
+    with one tile of 64 keys dropped (the window, or the whole row, 64 keys
+    narrower)."""
+    g = torch.Generator(device=dev).manual_seed(hd)
+    s = 2048
+    q, k, v = (torch.randn((1, 8, s, hd), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window).float()
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    limit = atol + rtol * want.abs()
+    got = flash_attention.flash_attention(q, k, v, causal=causal, window=window).float()
+    assert bool(((got - want).abs() <= limit).all())
+    fault = ref.flash_attention_ref(q, k, v, causal=causal, window=(window or s) - 64).float()
+    assert bool(((fault - want).abs() > limit).any())
+
+
+def test_flash_attention_bf16_unaligned_strides_are_copied(dev):
+    """A bf16 tensor whose strides TMA cannot take (here a seq stride of
+    hd + 1 elements) is copied once to a contiguous layout and counted."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, 2, 256, 65), generator=g, device=dev).to(torch.bfloat16)[..., :64]
+    k, v = (torch.randn((1, 2, 256, 64), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    copies = flash_attention.LAYOUT_COPIES["flash_attention"]
+    got = flash_attention.flash_attention(q, k, v)
+    assert flash_attention.LAYOUT_COPIES["flash_attention"] == copies + 1
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v).float(),
+                               atol=4e-3, rtol=2 ** -8)
 
 
 def test_yi_9b_two_layers_full_width_served_through_k10(dev):

@@ -97,6 +97,23 @@ def test_group_by_int(method, G):
     assert got.num_groups == G
 
 
+@pytest.mark.parametrize("method", ["auto", "partition", "pallas"])
+def test_group_by_above_k6_counters(method):
+    """More groups than K6's 4096 counters (``MAX_NB``): two K6 passes, bit
+    for bit the reference's "auto" (its XLA partition at any num_groups);
+    "pallas" also equals the stable argsort of the ids."""
+    G, n = 10_000, 4096
+    assert G > dispatch_rank.MAX_NB
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, G, n).astype(np.int32)
+    v = rng.standard_normal((n, 2)).astype(np.float32)
+    got = ops.group_by(torch.as_tensor(ids), torch.as_tensor(v), num_groups=G, method=method,
+                       **CPU)
+    check_groups(got, ref_ops.group_by(jnp.asarray(ids), jnp.asarray(v), num_groups=G))
+    np.testing.assert_array_equal(got.perm.numpy(), np.argsort(ids, kind="stable"))
+    assert got.num_groups == G
+
+
 def test_group_by_edges():
     x = specials(300, seed=2)  # NaN of both signs and signed zeros: three classes of "zero"
     check_groups(ops.group_by(x, **CPU), ref_ops.group_by(jnp.asarray(x)))
@@ -150,6 +167,26 @@ def test_segmented_sort(bounds, dtype):
                                       torch.as_tensor(v), cfg=CFG, **CPU)
     want_k, want_v = ref_ops.segmented_sort(jnp.asarray(x), jnp.asarray(off), len(bounds) - 1,
                                             jnp.asarray(v), cfg=REF_CFG)
+    np.testing.assert_array_equal(bits(got_k.numpy()), bits(np.asarray(want_k)))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+def test_segmented_sort_above_k3_bucket_field():
+    """(num_segments + 1) * 2k composite ids beyond K3's bucket field of
+    2^(32 - log2 W) = 2^19 at the default W = 8192: at k = 128 the smallest
+    such input is 2048 segments, over n = 8192 (one window pair).  The base
+    case hands K3 window-local run indices, so the sort still returns, bit
+    for bit the reference's."""
+    n, segs, k = 8192, 2048, 128
+    assert (segs + 1) * 2 * k > 1 << 19
+    rng = np.random.default_rng(11)
+    x = specials(n, seed=11)
+    off = np.concatenate([[0], np.sort(rng.integers(0, n, segs - 1)), [n]]).astype(np.int32)
+    v = np.arange(n, dtype=np.int32)
+    got_k, got_v = ops.segmented_sort(x, torch.as_tensor(off), segs, torch.as_tensor(v), k=k,
+                                      **CPU)
+    want_k, want_v = ref_ops.segmented_sort(jnp.asarray(x), jnp.asarray(off), segs,
+                                            jnp.asarray(v), k=k)
     np.testing.assert_array_equal(bits(got_k.numpy()), bits(np.asarray(want_k)))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
 
