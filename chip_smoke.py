@@ -27,7 +27,8 @@ for the attention kernels and the serve path:
    per-row splitters and ``radix_histogram`` (and its batched form) at k =
    256, K8 ``permute_blocks_by_dest`` on 2^28 + 1000 int32 keys (262,144
    blocks of 1024 and a partial tail; block buckets uniform over 256 and
-   half in one bucket, and one cycle through every block) and K9
+   half in one bucket, and one cycle through every block; and 65,536 blocks
+   of 4096, 16 KB each, taken by a CTA team) and K9
    ``permute_blocks_inplace`` at the same N and in five cases that stress
    its claiming at N = 4096, five runs each (k = 1, every block already in
    its range, empty buckets, all blocks but one in one bucket, uniform).
@@ -94,7 +95,13 @@ for the attention kernels and the serve path:
    step and tokens/s on the K10 and the eager path, K10 (at the last
    step's length, 1056) and K11 (at (1, 32, 4096, 128), bf16 and f32) beside
    ``scaled_dot_product_attention`` (K10 with a boolean length mask), and
-   a profile of 8 decode steps (device time, launches, idle share);
+   a profile of 8 decode steps (device time, launches, idle share); K10
+   also at one request of length 4096 and at the ragged lengths beside
+   SDPA, its device kernels per call counted by torch.profiler (it must be
+   one: no memset, no combine launch) and its launch (registers and shared
+   memory per CTA, cluster size) from ``cudaFuncGetAttributes``; K8 also
+   with the half-in-one-bucket and one-cycle ``dst`` and at 16 KB blocks
+   beside ``index_select``, and its teams (chains in flight);
 5. a ``{"kernels": [...]}`` JSON line (18 entries), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -136,6 +143,7 @@ SEGMENTS = 4096
 K_RADIX = 256  # radix_histogram: 8 bits per level
 # the block path: 2^28 int32 keys (1 GiB) in blocks of 1024 over 256 buckets
 N_BLOCK_KEYS, BLOCK, N_BUCKETS = 1 << 28, 1024, 256
+BLOCK16 = 4096  # K8 also at blocks of 16 KB (a CTA team of 4 warps)
 # serving yi-9b at full width and depth: 8 requests of 1024-token prompts,
 # 32 new tokens each, a 4096-slot cache per request
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 8, 1024, 32, 4096
@@ -200,21 +208,34 @@ def device_us(e) -> float:
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
 
+def device_events(torch, fn, reps: int):
+    """The device-side events (kernels, copies, memsets) of ``reps`` calls of
+    ``fn``, by torch.profiler.  The calls are profiled twice, a warm-up
+    window and an active one, and only the active window counts: the first
+    launches of a window can go missing from the trace."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile, schedule
+
+    active = []
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                       on_trace_ready=lambda p: active.extend(p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in active if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]  # the step's own span
+
+
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Device time of one call of ``fn`` in ms: its kernels' own time summed
     by torch.profiler over ``reps`` calls (copies and memsets apart), so the
     host's time between launches is left out."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_us(e) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith(("Memcpy", "Memset"))) / 1e3 / reps
+    return sum(device_us(e) for e in device_events(torch, fn, reps)
+               if not e.key.startswith(("Memcpy", "Memset"))) / 1e3 / reps
 
 
 def host_us(torch, fn, reps: int = 50) -> float:
@@ -562,6 +583,49 @@ def attention_phases(torch, dev) -> dict:
     del kx, vx, cache, engine, model
     torch.cuda.empty_cache()
 
+    # K10 is one device kernel a call: no memset, no combine launch
+    k10_device = {e.key: e.count for e in device_events(
+        torch, lambda: fd.flash_decode_cache(q, ck, cv, lens), reps=10)}
+    print(f"flash_decode device work in 10 calls (torch.profiler): {k10_device}", flush=True)
+    if list(k10_device.values()) != [10]:
+        fail(f"K10 is not one device kernel per call: {k10_device}")
+    k10_launch = {f"B={b_} {str(dt).split('.')[-1]}": fd.launch_info(b_, KVH, H // KVH, HD, dt)
+                  for b_ in (B, 1) for dt in (bf16, f32)}
+    for what, info in k10_launch.items():
+        print(f"flash_decode launch ({what}, KVH={KVH}, group {H // KVH}, hd {HD}; "
+              f"cudaFuncGetAttributes): registers {info['registers']} per thread, shared "
+              f"memory {info['static_smem']} static + {info['dynamic_smem']} dynamic B per CTA, "
+              f"{info['threads']} threads, cluster of {info['cluster']} CTAs "
+              f"({info['resident_clusters']} resident at once), local memory "
+              f"{info['local_bytes']} B, {'tensor-core' if info['tensor_cores'] else 'FMA'} "
+              f"kernel", flush=True)
+    del ck, cv
+
+    # K10 beside SDPA at one request of length 4096 and at the ragged lengths
+    # of phase 2, bf16, device time over enough copies of the cache that each
+    # call finds its cache cold in the L2
+    def k10_beside_sdpa(lengths_):
+        b_ = len(lengths_)
+        ln = torch.tensor(lengths_, dtype=torch.int32, device=dev)
+        valid_bytes = 2 * KVH * sum(lengths_) * HD * 2
+        copies = max(2, -(-120_000_000 // valid_bytes))
+        qq = randn(b_, H, HD, dtype=bf16)
+        caches = [(randn(b_, T, KVH, HD, dtype=bf16), randn(b_, T, KVH, HD, dtype=bf16))
+                  for _ in range(copies)]
+        m = (torch.arange(T, device=dev) < ln[:, None])[:, None, None, :]
+        k_ms = device_ms(torch, lambda: [fd.flash_decode_cache(qq, kk, vv, ln)
+                                         for kk, vv in caches], reps=3) / copies
+        s_ms = device_ms(torch, lambda: [F.scaled_dot_product_attention(
+            qq[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=m,
+            enable_gqa=True) for kk, vv in caches], reps=3) / copies
+        b_ms = bound_ms(valid_bytes + 2 * qq.numel() * 2 + b_ * 4,
+                        4 * H * sum(lengths_) * HD, BF16_FLOPS_PER_S)[0]
+        return k_ms, s_ms, b_ms
+
+    k10_more = {"B=1 length 4096": k10_beside_sdpa((T,)),
+                f"B={B} lengths {DECODE_LENGTHS}": k10_beside_sdpa(DECODE_LENGTHS)}
+    torch.cuda.empty_cache()
+
     # K11 at (1, 32, 4096, 128) bf16: causal (the kernels line), windowed and
     # non-causal beside SDPA (is_causal, or the boolean window mask)
     q, k, v = (randn(1, H, ATTN_S, HD, dtype=bf16) for _ in range(3))
@@ -606,6 +670,9 @@ def attention_phases(torch, dev) -> dict:
           f"{sdpa_expanded_ms:.4f} ms (device time)", flush=True)
     print(f"time flash_decode by CUDA events around one call: {k10_events_ms:.4f} ms (with the "
           "host's wrapper)", flush=True)
+    for what, (k_ms, s_ms, b_ms) in k10_more.items():
+        print(f"time flash_decode {what} bf16: kernel {k_ms:.4f} ms, SDPA {s_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms (device time, caches cold in the L2)", flush=True)
     print("host us per call at the decode shape: " + ", ".join(
         f"{name} {us:.1f}" for name, us in host.items()), flush=True)
     for name, (ms, lib_ms) in more.items():
@@ -920,15 +987,26 @@ def main() -> None:
         blocks8 = torch.randint(-2**31, 2**31 - 1, (N_BLOCK_KEYS + 1000,), generator=gen,
                                 device=dev, dtype=torch.int32)
         one_cycle = ((torch.arange(nblocks, device=dev) + 1) % nblocks).to(torch.int32)
-        for tag, dst in [(tag, bp.stable_block_dest(bb)) for tag, bb in block_cases] + [
-                ("one cycle through every block", one_cycle)]:
-            want = bp.permute_blocks_by_dest_plain(blocks8.clone(), dst)
+        # blocks of 16 KB: the same keys as N / 4 blocks of 4 * BLOCK, taken by
+        # a CTA team of 4 warps instead of one warp
+        nblocks16 = N_BLOCK_KEYS // BLOCK16
+        bb16 = torch.randint(0, N_BUCKETS, (nblocks16,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        for tag, dst, be in [(tag, bp.stable_block_dest(bb), BLOCK) for tag, bb in block_cases] + [
+                ("one cycle through every block", one_cycle, BLOCK),
+                ("uniform, 16 KB blocks", bp.stable_block_dest(bb16), BLOCK16)]:
+            want = bp.permute_blocks_by_dest_plain(blocks8.clone(), dst, block_elems=be)
             ptr = blocks8.data_ptr()
-            got, peak = rise(lambda: bp.permute_blocks_by_dest(blocks8, dst))
+            got, peak = rise(lambda: bp.permute_blocks_by_dest(blocks8, dst, block_elems=be))
             in_place("permute_blocks_by_dest", got, ptr, peak, blocks8.numel() * 4)
             check_equal("permute_blocks_by_dest", got, want,
-                        f"{tag} n={blocks8.numel()} ({nblocks} blocks of {BLOCK} + 1000)")
+                        f"{tag} n={blocks8.numel()} ({dst.numel()} blocks of {be} + "
+                        f"{blocks8.numel() % be})")
             del want, got
+        for be in (BLOCK, BLOCK16):
+            info = bp.launch_info(N_BLOCK_KEYS // be, be * 4)
+            print(f"permute_blocks_by_dest launch, blocks of {be * 4} B (team "
+                  f"{bp.team_shape(be * 4)} warps x words a lane): {info}", flush=True)
 
         # K9: every block tagged by its source (block i holds i*1024 + [0, 1024)),
         # so the output shows intact blocks and, per bucket, the multiset of
@@ -1501,12 +1579,25 @@ def main() -> None:
         t["bound_ms"], t["bound_by"] = block_bound
         t["library_ms"] = gather_ms
         dst_skewed = bp.stable_block_dest(bb_skewed)
-        skew_block_ms = {
-            "permute_blocks_by_dest": cuda_ms(torch, lambda: bp.permute_blocks_by_dest(
-                pb_keys, dst_skewed)),
-            "permute_blocks_inplace": cuda_ms(torch, lambda: pi.permute_blocks_inplace(
-                keys9, bb_skewed, prefix(bb_skewed), k=N_BUCKETS), warmup=1, reps=10),
+        dst16 = bp.stable_block_dest(bb16)
+        order16 = torch.sort(bb16, stable=True).indices
+        k8_more = {
+            "one cycle through every block": (
+                cuda_ms(torch, lambda: bp.permute_blocks_by_dest(pb_keys, one_cycle)),
+                cuda_ms(torch, lambda: body.index_select(0, (one_cycle - 2) % nblocks),
+                        warmup=1, reps=3)),
+            f"blocks of {BLOCK16 * 4} B, uniform": (
+                cuda_ms(torch, lambda: bp.permute_blocks_by_dest(pb_keys, dst16,
+                                                                 block_elems=BLOCK16)),
+                cuda_ms(torch, lambda: pb_keys.view(-1, BLOCK16).index_select(0, order16),
+                        warmup=1, reps=3)),
+            "half the blocks in one bucket": (
+                cuda_ms(torch, lambda: bp.permute_blocks_by_dest(pb_keys, dst_skewed)),
+                cuda_ms(torch, lambda: body.index_select(
+                    0, torch.sort(bb_skewed, stable=True).indices), warmup=1, reps=3)),
         }
+        k9_skew_ms = cuda_ms(torch, lambda: pi.permute_blocks_inplace(
+            keys9, bb_skewed, prefix(bb_skewed), k=N_BUCKETS), warmup=1, reps=10)
         del keys9
 
         # the entry points beside one torch call that does the same
@@ -1586,8 +1677,11 @@ def main() -> None:
               flush=True)
         for name, ms_ in k7_more.items():
             print(f"time {name}: kernel {ms_:.4f} ms", flush=True)
-        for name, ms_ in skew_block_ms.items():
-            print(f"time {name} half the blocks in one bucket: kernel {ms_:.4f} ms", flush=True)
+        print(f"time permute_blocks_inplace half the blocks in one bucket: kernel "
+              f"{k9_skew_ms:.4f} ms", flush=True)
+        for tag, (ms_, lib_ms) in k8_more.items():
+            print(f"time permute_blocks_by_dest {tag}: kernel {ms_:.4f} ms, index_select "
+                  f"{lib_ms:.4f} ms", flush=True)
         for name, (ms, library_ms) in timed.items():
             print(f"time whole {name}: {ms:.3f} ms, torch {library_ms:.3f} ms", flush=True)
 

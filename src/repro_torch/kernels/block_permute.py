@@ -15,8 +15,16 @@ partial block of ``n % block_elems`` elements (the overflow block) stays
 where it is, and with at most one full block nothing moves.  The kernel
 moves bytes, so any element type of the tensor works; besides the data it
 needs N + 1 ints of scratch (the slots' states and a cursor), 4 B per block.
+
+The kernel cuts the cycles of ``dst`` into chains that teams of threads
+follow at once: one warp holding its block in registers for a block of up
+to 4 KB, a CTA of up to 29 warps holding it in shared memory above that.
+:func:`team_shape` picks the team for a block size; blocks of 128 B to
+``MAX_BLOCK_BYTES`` are taken, and the wrapper raises on any other size.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -27,14 +35,55 @@ __all__ = [
     "permute_blocks_by_dest",
     "permute_blocks_by_dest_plain",
     "stable_block_dest",
+    "team_shape",
+    "launch_info",
     "LANES",
+    "MAX_BLOCK_BYTES",
 ]
 
 LANES = 128
-_SMEM_BYTES = 232_448  # shared memory one CTA may use on the H100
+# the largest block the kernel takes: half the shared memory one H100 CTA
+# may use (232,448 B), the limit of the design that held two blocks there;
+# the teams keep it: at most 29 warps of 8 words a lane
+MAX_BLOCK_BYTES = 116_224
+_WARP_WORDS = 32 * 8  # 16-byte words a warp holds at 8 a lane: 4 KB
 
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"block_permute_by_dest": (_P, _P, _P, _I, _I, _P)}
+_SIGNATURES = {"block_permute_by_dest": (_P, _P, _P, _I, _I, _I, _I, _P),
+               "block_permute_info": (_I, _I, _I, _I, _P)}
+
+
+def team_shape(block_bytes: int) -> tuple:
+    """(warps, words per lane) of the team that moves one block of
+    ``block_bytes``, as 16-byte words: one warp with 1, 2, 4
+    or 8 words a lane up to 4 KB, else ceil(words / 256) warps with 8 a
+    lane.  Raises for a size the kernel does not take (not a multiple of
+    128 B, or outside [128, MAX_BLOCK_BYTES]).
+
+    >>> team_shape(4096), team_shape(128), team_shape(16384)
+    ((1, 8), (1, 1), (4, 8))
+    """
+    if block_bytes % 128 or not 128 <= block_bytes <= MAX_BLOCK_BYTES:
+        raise ValueError(f"permute_blocks_by_dest kernel: blocks of {block_bytes} B; it takes "
+                         f"multiples of 128 B up to {MAX_BLOCK_BYTES} B")
+    words = block_bytes // 16
+    if words <= _WARP_WORDS:
+        return 1, next(w for w in (1, 2, 4, 8) if 32 * w >= words)
+    return -(-words // _WARP_WORDS), 8
+
+
+def launch_info(nblocks: int, block_bytes: int) -> dict:
+    """The kernel's launch for N blocks of that size, from the CUDA runtime:
+    registers and local memory (spills) per thread, threads per CTA, CTAs,
+    teams (the chains in flight) and dynamic shared memory per CTA.  Builds
+    and loads the library; needs a card."""
+    out = (ctypes.c_int * 6)()
+    lib = _build.library("block_permute", _SIGNATURES)
+    err = lib.block_permute_info(nblocks, block_bytes // 16, *team_shape(block_bytes),
+                                 ctypes.addressof(out))
+    _build.check(lib, "block_permute", err, "permute_blocks_by_dest kernel")
+    return dict(zip(("registers", "local_bytes", "threads", "ctas", "teams", "dynamic_smem"),
+                    out))
 
 
 def stable_block_dest(block_bucket: torch.Tensor) -> torch.Tensor:
@@ -79,13 +128,12 @@ def _move_kernel(a: torch.Tensor, dst: torch.Tensor, nblocks: int, block_elems: 
     block_bytes = block_elems * a.element_size()
     if a.data_ptr() % 16:
         raise ValueError("a: the kernel moves 16-byte words; data_ptr must be 16-byte aligned")
-    if 2 * block_bytes > _SMEM_BYTES:
-        raise ValueError(f"two blocks of {block_bytes} B exceed one CTA's shared memory")
+    warps, wpl = team_shape(block_bytes)
     scratch = torch.zeros(nblocks + 1, dtype=torch.int32, device=a.device)  # states, cursor
     lib = _build.library("block_permute", _SIGNATURES)
     err = lib.block_permute_by_dest(a.data_ptr(), dst.contiguous().data_ptr(),
-                                    scratch.data_ptr(), nblocks, block_bytes // 16,
-                                    _build.stream_handle(a.device))
+                                    scratch.data_ptr(), nblocks, block_bytes // 16, warps,
+                                    wpl, _build.stream_handle(a.device))
     _build.check(lib, "block_permute", err, "permute_blocks_by_dest kernel")
     _build.LAUNCHES["permute_blocks_by_dest"] += 1
 

@@ -2,10 +2,15 @@
 
 Counterpart of ``repro.kernels.flash_decode.flash_decode`` (the Pallas TPU
 kernel at ``flash_decode.py:70``).  The CUDA kernel is in
-``csrc/flash_decode.cu``, whose header note gives its bound and design.  It
-reads the cache through strides with a GQA ``group`` (query head h reads KV
-head h // group), so the decode step hands it the cache in its own
-(B, T, KVH, hd) layout (``flash_decode_cache``), with no copy; the
+``csrc/flash_decode.cu``, whose header note gives its bound and design:
+one launch per call, a thread-block cluster of 8 (or 16) CTAs per
+(request, KV head), each CTA taking a share of the valid prefix through
+``cp.async`` rings, in bf16 on the tensor cores (``mma.sync``; group <= 16
+and hd in {16, 32, 64, 128}, every config) and otherwise with FMAs, the
+shares' partial softmax states combined through distributed shared
+memory.  It reads the cache through strides with a GQA ``group`` (query
+head h reads KV head h // group), so the decode step hands it the cache in
+its own (B, T, KVH, hd) layout (``flash_decode_cache``), with no copy; the
 reference's (B, H, T, hd) contract is ``flash_decode``.  Each request b
 attends to its cache rows [0, length[b]) in an f32 online softmax, with
 the TPU kernel's edges: masked scores are -1e30 with a weight of exactly
@@ -27,12 +32,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_decode_ref
 
-__all__ = ["flash_decode", "flash_decode_cache", "MAX_GROUP_HD"]
+__all__ = ["flash_decode", "flash_decode_cache", "launch_info", "MAX_GROUP_HD"]
 
-MAX_GROUP_HD = 4096  # group * hd accumulators: 8 per thread of 512
+MAX_GROUP_HD = 4096  # group * hd accumulators: 16 per thread of 256
 _P, _I, _L, _F = _build.P, _build.I, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {"flash_decode_launch": (_P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I,
-                                       _I, _I, _I, _F, _I, _P, _P)}
+                                       _I, _I, _I, _F, _I, _P, _P),
+               "flash_decode_info": (_I, _I, _I, _I, _I, _P)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -81,6 +87,22 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, "flash_decode", err, "flash_decode kernel")
     _build.LAUNCHES["flash_decode"] += 1
     return out
+
+
+def launch_info(b: int, kvh: int, group: int, hd: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch for a call of that shape, from the CUDA runtime
+    (``cudaFuncGetAttributes``): registers per thread, static and dynamic
+    shared memory per CTA in bytes, CTAs per cluster (the split of T),
+    local memory per thread in bytes (spills), threads per CTA, the
+    clusters the card holds at once, and whether the tensor-core kernel
+    (bf16, group <= 16, hd in {16, 32, 64, 128}) or the FMA one runs.
+    Builds and loads the library; needs a card."""
+    out = (ctypes.c_int * 8)()
+    lib = _build.library("flash_decode", _SIGNATURES)
+    err = lib.flash_decode_info(b, kvh, group, hd, _DTYPES[dtype], ctypes.addressof(out))
+    _build.check(lib, "flash_decode", err, "flash_decode kernel")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "cluster", "local_bytes",
+                     "threads", "resident_clusters", "tensor_cores"), out))
 
 
 def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

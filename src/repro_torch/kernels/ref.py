@@ -13,7 +13,9 @@ masked scores are -1e30 with a weight of exactly 0, and the denominator is
 ``max(l, 1e-30)``, so a query with no valid key gives 0 (the reference's
 oracles give NaN there).  KV heads that divide the query heads are read as
 groups (query head h reads KV head h // group); the reference's
-pre-expanded KVH = H is the case group = 1.
+pre-expanded KVH = H is the case group = 1.  ``flash_decode_split_ref``
+states K10's split-and-combine algebra (the tests hold it to the
+reference).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 from repro_torch.classify import classify
 
 __all__ = ["classify_histogram_ref", "permute_blocks_ref", "flash_attention_ref",
-           "flash_decode_ref"]
+           "flash_decode_ref", "flash_decode_split_ref"]
 
 
 def classify_histogram_ref(keys: torch.Tensor, splitters: torch.Tensor, *, k: int,
@@ -97,4 +99,38 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t = k.shape[2]
     valid = torch.arange(t, device=q.device)[None, :] < length.to(q.device)[:, None]
     out = _softmax_pv(_scaled_groups(q, k.shape[1]), k, v, valid[:, None, None, None, :])
+    return out.reshape(b, h, 1, hd).to(q.dtype)
+
+
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           length: torch.Tensor, splits: int, unit: int = 16) -> torch.Tensor:
+    """K10's algebra, plainly: ``flash_decode_ref`` computed as the kernel's
+    cluster computes it.  Request b's valid prefix, ``length[b]`` clamped to
+    [0, T], is cut into ``splits`` contiguous shares in units of ``unit``
+    rows (share r: units [r * u // splits, (r + 1) * u // splits), u =
+    ceil(length / unit)).  Each share keeps its own f32 (m, l, acc): m the
+    largest score (-1e30 if the share is empty), l the sum of exp(s - m),
+    acc that sum's weights times V.  The shares combine with M = max m_r:
+    out = sum acc_r e^(m_r - M) / max(sum l_r e^(m_r - M), 1e-30), so an
+    empty share weighs 0 beside any other and length 0 gives 0."""
+    b, h, _, hd = q.shape
+    t = k.shape[2]
+    lens = length.to(q.device, torch.int64).clamp(0, t)
+    units = (lens + unit - 1) // unit
+    sc = torch.einsum("bkgsd,bktd->bkgst", _scaled_groups(q, k.shape[1]), k.to(torch.float32))
+    pos = torch.arange(t, device=q.device)
+    parts = []
+    for r in range(splits):
+        start = torch.minimum(lens, r * units // splits * unit)
+        end = torch.minimum(lens, (r + 1) * units // splits * unit)
+        share = ((pos >= start[:, None]) & (pos < end[:, None]))[:, None, None, None, :]
+        s_r = torch.where(share, sc, NEG_INF)
+        m_r = s_r.amax(dim=-1, keepdim=True)
+        p_r = torch.where(share, torch.exp(s_r - m_r), 0.0)
+        parts.append((m_r, p_r.sum(dim=-1, keepdim=True),
+                      torch.einsum("bkgst,bktd->bkgsd", p_r, v.to(torch.float32))))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_sum = sum(l * torch.exp(m - m_all) for m, l, _ in parts)
+    acc = sum(a * torch.exp(m - m_all) for m, _, a in parts)
+    out = acc / torch.clamp(l_sum, min=1e-30)
     return out.reshape(b, h, 1, hd).to(q.dtype)

@@ -4,7 +4,8 @@ K8 (``kernels.block_permute.permute_blocks_by_dest`` on CPU tensors, which
 runs its plain twin) and ``stable_block_dest`` against the reference's
 Pallas kernel in interpret mode over the adversarial layouts of
 ``tests/test_inplace.py`` (identity, alternating buckets, partial tails,
-one full cycle, random fuzz, one block); K9
+one full cycle, random fuzz, one block), and the choice of K8's team
+(``team_shape``) over every block size the kernel's wrapper takes; K9
 (``kernels.permute_inplace.permute_blocks_inplace``, the host replay of the
 reference's moves) against the reference's interpret-mode kernel bit for
 bit on ``tests/test_kernels.py``'s cases, and against the multiset oracle
@@ -121,6 +122,41 @@ def test_by_dest_refuses_bad_blocks():
     with pytest.raises(ValueError):  # dst must cover the full blocks
         block_permute.permute_blocks_by_dest(torch.zeros(4 * 128),
                                              torch.zeros(3, dtype=torch.int32), block_elems=128)
+
+
+ACCEPTED_BLOCK_BYTES = range(128, block_permute.MAX_BLOCK_BYTES + 1, 128)
+
+
+def test_team_shape_covers_every_accepted_block():
+    """Every block size the wrapper takes (multiples of 128 B up to
+    MAX_BLOCK_BYTES) gets a team that holds the whole block, at most 8
+    words a lane and 32 warps, one warp up to 4 KB, and no whole warp or
+    words-per-lane step to spare."""
+    for block_bytes in ACCEPTED_BLOCK_BYTES:
+        warps, wpl = block_permute.team_shape(block_bytes)
+        words = block_bytes // 16
+        assert wpl in (1, 2, 4, 8) and 1 <= warps <= 32
+        assert warps * 32 * wpl >= words
+        if block_bytes <= 4096:
+            assert warps == 1 and (wpl == 1 or 32 * wpl // 2 < words)
+        else:
+            assert wpl == 8 and (warps - 1) * 32 * wpl < words
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (1, 4), (1, 8), (2, 8), (29, 8)])
+def test_team_shape_reaches_every_variant(shape):
+    """The kernel's five variants (one-warp teams with 1, 2, 4 and 8 words a
+    lane; CTA teams of 2 to 29 warps) are each some accepted size's team;
+    29 warps is the largest block's."""
+    assert shape in {block_permute.team_shape(n) for n in ACCEPTED_BLOCK_BYTES}
+    assert block_permute.team_shape(block_permute.MAX_BLOCK_BYTES) == (29, 8)
+
+
+@pytest.mark.parametrize("block_bytes", [0, 64, 200, 4000, block_permute.MAX_BLOCK_BYTES + 128,
+                                         1 << 17])
+def test_team_shape_refuses_sizes_the_kernel_does_not_take(block_bytes):
+    with pytest.raises(ValueError, match="takes multiples of 128 B"):
+        block_permute.team_shape(block_bytes)
 
 
 # ---------------------------------------------------------------------------

@@ -3,12 +3,14 @@ K1 (tree), K1r (radix), K4 ``level_fused_batched`` (both modes),
 K2 ``rank_hist``, K4 ``rank_hist_batched``, K3, K5 ``merge_path_perm`` and
 K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``),
 K7 (``classify_histogram`` and its batched and radix forms), K8
-``permute_blocks_by_dest`` and K9 ``permute_blocks_inplace`` (in place: same
+``permute_blocks_by_dest`` (every team size, 20 runs in a row, and a ``dst``
+that is not a permutation) and K9 ``permute_blocks_inplace`` (in place: same
 ``data_ptr``, a peak-memory rise of at most a quarter of the data), and the
 sorts and the stream on the card against the same calls on the CPU; K10
 ``flash_decode`` (the reference layout and the decode step's strided
-(B, T, KVH, hd) cache) and K11 ``flash_attention`` against their plain
-twins (|got - want| <= atol + rtol * |want|: 2e-5 + 2e-5 in float32,
+(B, T, KVH, hd) cache; idle cluster ranks, length 0, shares below one
+unit, two streams and 50 calls in a row) and K11 ``flash_attention``
+against their plain twins (|got - want| <= atol + rtol * |want|: 2e-5 + 2e-5 in float32,
 4e-3 + 2^-8 in bfloat16), and a 2-layer yi-9b at full
 width served through K10.
 
@@ -322,22 +324,19 @@ def _rise(fn):
 
 
 @pytest.mark.parametrize("dst_kind", ["buckets", "random", "one cycle", "identity"])
-@pytest.mark.parametrize("N,be,extra,dtype", [(4096, 1024, 1000, torch.int32),
-                                              (4096, 128, 0, torch.float32),
-                                              (777, 256, 255, torch.int16),
-                                              (2, 128, 3, torch.int32), (1, 1024, 5, torch.int32)])
+@pytest.mark.parametrize("N,be,extra,dtype", [
+    (4096, 1024, 1000, torch.int32), (4096, 128, 0, torch.float32),
+    (777, 256, 255, torch.int16), (2, 128, 3, torch.int32), (1, 1024, 5, torch.int32),
+    # every team of the kernel: one warp at 128 B, 1 KB and 2 KB a block;
+    # CTA teams at 16 KB, 64 KB and the largest block the wrapper takes
+    (4096, 128, 100, torch.int8), (4096, 256, 0, torch.int32), (3000, 512, 9, torch.int32),
+    (1024, 4096, 77, torch.int32), (300, 16384, 5, torch.int32),
+    (150, block_permute.MAX_BLOCK_BYTES, 3, torch.int8),
+])
 def test_permute_blocks_by_dest_kernel(dev, N, be, extra, dtype, dst_kind):
     g = torch.Generator(device=dev).manual_seed(N + be)
     a = torch.randint(-1000, 1000, (N * be + extra,), device=dev, generator=g).to(dtype)
-    if dst_kind == "buckets":
-        bb = torch.randint(0, 256, (N,), device=dev, generator=g, dtype=torch.int32)
-        dst = block_permute.stable_block_dest(bb)
-    elif dst_kind == "random":
-        dst = torch.randperm(N, device=dev, generator=g).to(torch.int32)
-    elif dst_kind == "one cycle":
-        dst = ((torch.arange(N, device=dev) + 1) % N).to(torch.int32)
-    else:
-        dst = torch.arange(N, device=dev, dtype=torch.int32)
+    dst = _k8_dst(dst_kind, N, g, dev)
     before = kernels.launch_counts()["permute_blocks_by_dest"]
     want = block_permute.permute_blocks_by_dest_plain(a.clone(), dst, block_elems=be)
     ptr = a.data_ptr()
@@ -346,6 +345,62 @@ def test_permute_blocks_by_dest_kernel(dev, N, be, extra, dtype, dst_kind):
     assert rise <= _in_place_bound(a)
     assert torch.equal(got, want)
     assert kernels.launch_counts()["permute_blocks_by_dest"] == before + (N > 1)
+
+
+def _k8_dst(kind, N, g, dev):
+    if kind == "buckets":
+        bb = torch.randint(0, 256, (N,), device=dev, generator=g, dtype=torch.int32)
+        return block_permute.stable_block_dest(bb)
+    if kind == "random":
+        return torch.randperm(N, device=dev, generator=g).to(torch.int32)
+    if kind == "one cycle":
+        return ((torch.arange(N, device=dev) + 1) % N).to(torch.int32)
+    return torch.arange(N, device=dev, dtype=torch.int32)
+
+
+def test_permute_blocks_by_dest_kernel_twenty_runs(dev):
+    """The uniform case (block buckets uniform over 256, the stable order)
+    at 32,768 blocks of 1024 int32, 20 runs in a row: the chains' claiming
+    interleaves differently each time, the output stays the twin's bit for
+    bit and in place."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    N, be = 32768, 1024
+    src = torch.randint(-2**31, 2**31 - 1, (N * be + 100,), device=dev, generator=g,
+                        dtype=torch.int32)
+    dst = _k8_dst("buckets", N, g, dev)
+    want = block_permute.permute_blocks_by_dest_plain(src.clone(), dst, block_elems=be)
+    for _ in range(20):
+        a = src.clone()
+        ptr = a.data_ptr()
+        before = kernels.launch_counts()["permute_blocks_by_dest"]
+        got, rise = _rise(lambda: block_permute.permute_blocks_by_dest(a, dst, block_elems=be))
+        assert got.data_ptr() == ptr
+        assert rise <= _in_place_bound(a)
+        assert torch.equal(got, want)
+        assert kernels.launch_counts()["permute_blocks_by_dest"] == before + 1
+
+
+@pytest.mark.parametrize("kind", ["all zero", "repeats and out of range"])
+@pytest.mark.parametrize("be", [1024, 4096])
+def test_permute_blocks_by_dest_kernel_returns_on_a_non_permutation(dev, kind, be):
+    """A dst that is not a permutation gives no defined output, but the
+    kernel (one-warp teams at 4 KB blocks, CTA teams at 16 KB) must return:
+    a chain stops at a slot outside [0, N), and a slot claimed by a chain is
+    never waited on.  The trailing partial block stays untouched."""
+    g = torch.Generator(device=dev).manual_seed(be)
+    N = 2048
+    a = torch.randint(-1000, 1000, (N * be + 100,), device=dev, generator=g, dtype=torch.int32)
+    tail = a[N * be:].clone()
+    if kind == "all zero":
+        dst = torch.zeros(N, dtype=torch.int32, device=dev)
+    else:
+        dst = torch.randint(-5, N + 5, (N,), device=dev, generator=g, dtype=torch.int32)
+    before = kernels.launch_counts()["permute_blocks_by_dest"]
+    got = block_permute.permute_blocks_by_dest(a, dst, block_elems=be)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == a.data_ptr()
+    assert torch.equal(got[N * be:], tail)
+    assert kernels.launch_counts()["permute_blocks_by_dest"] == before + 1
 
 
 def _k9_buckets(kind, N, k, g, dev):
@@ -419,6 +474,11 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 2 ** -8)}
     (8, 32, 4, 4096, 128, (1, 1, 17, 1024, 1025, 2048, 4095, 4096)),
     (3, 8, 8, 512, 128, (0, 300, 64)),
     (2, 16, 2, 1000, 64, (999, 64)),
+    # one request: a cluster of 16 with idle ranks at length 1
+    (1, 32, 4, 4096, 128, (4096,)), (1, 32, 4, 4096, 128, (1,)),
+    (3, 8, 8, 512, 128, (0, 0, 0)),            # every length 0
+    (4, 8, 2, 256, 64, (5, 3, 16, 17)),         # below one 16-row unit per share
+    (8, 32, 4, 4096, 128, (1056,) * 8),         # the served shape at the last step
 ])
 def test_flash_decode_kernel(dev, b, h, kvh, t, hd, lengths, dtype):
     g = torch.Generator(device=dev).manual_seed(t + hd)
@@ -441,6 +501,41 @@ def test_flash_decode_kernel(dev, b, h, kvh, t, hd, lengths, dtype):
     vx = cache_v.transpose(1, 2).repeat_interleave(h // kvh, dim=1).contiguous()
     got4 = flash_decode.flash_decode(q[:, :, None], kx, vx, length)
     torch.testing.assert_close(got4[:, :, 0].float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_decode_kernel_streams_and_repeats(dev):
+    """Two streams at once, then 50 calls in a row on one: every result is
+    the twin's within the limit and equal to the first call's (the kernel
+    keeps nothing between calls: no counter, no workspace), and the launch
+    count rises by one a call."""
+    g = torch.Generator(device=dev).manual_seed(50)
+    b, h, kvh, t, hd = 4, 32, 4, 2048, 128
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    calls = []
+    for lengths in ((1, 700, 2048, 33), (2048, 0, 5, 1500)):
+        q = torch.randn((b, h, hd), generator=g, device=dev).to(torch.bfloat16)
+        ck = torch.randn((b, t, kvh, hd), generator=g, device=dev).to(torch.bfloat16)
+        cv = torch.randn((b, t, kvh, hd), generator=g, device=dev).to(torch.bfloat16)
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        want = ref.flash_decode_ref(q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
+                                    length)[:, :, 0]
+        calls.append(((q, ck, cv, length), want))
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()["flash_decode"]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(5):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[i].append(flash_decode.flash_decode_cache(*calls[i][0]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        torch.testing.assert_close(outs[i][0].float(), calls[i][1].float(), atol=atol, rtol=rtol)
+        assert all(torch.equal(o, outs[i][0]) for o in outs[i])
+    row = [flash_decode.flash_decode_cache(*calls[0][0]) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0][0]) for o in row)
+    assert kernels.launch_counts()["flash_decode"] == before + 60
 
 
 ATTN_CASES = [

@@ -6,7 +6,11 @@ tensors, which run the plain twin ``kernels.ref.flash_decode_ref``) against
 the reference's Pallas kernel in interpret mode and its oracle
 ``flash_decode_ref``, at ``tests/test_perf_paths.py``'s shapes, on a
 GQA cache read in its own (B, T, KVH, hd) layout, and at the edges
-(length 0 gives 0 as in the Pallas kernel; length T).  K11
+(length 0 gives 0 as in the Pallas kernel; length T).  K10's
+split-and-combine algebra (``kernels.ref.flash_decode_split_ref``: the
+valid prefix cut into 1, 3, 8 or 16 shares, combined by their m and l)
+against the same reference kernel and oracle, with empty shares and
+length 0.  K11
 (``kernels.flash_attention.flash_attention``, whose CPU route is the plain
 twin ``kernels.ref.flash_attention_ref``) against the reference's oracle
 ``flash_attention_ref``, causal, windowed and non-causal: the
@@ -117,6 +121,69 @@ def test_flash_decode_rejects_bad_inputs():
                         torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="length"):
         fd.flash_decode(q, k[:, :2], k[:, :2], torch.ones(3, dtype=torch.int32))
+
+
+SPLITS = [1, 3, 8, 16]
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_flash_decode_split_matches_reference(splits, dtype, tol):
+    """The split algebra on the reference's (B, H, T, hd) layout, with
+    lengths below one unit per share (most shares empty), ragged and
+    whole, against the reference's Pallas K10 in interpret mode and its
+    oracle."""
+    rng = np.random.default_rng(7)
+    b, h, t, hd = 4, 2, 512, 64
+    jq, q = pair(rng, (b, h, 1, hd), dtype)
+    jk, k = pair(rng, (b, h, t, hd), dtype)
+    jv, v = pair(rng, (b, h, t, hd), dtype)
+    lengths = np.array([5, 1, 301, t], np.int32)
+    got = ref.flash_decode_split_ref(q, k, v, torch.as_tensor(lengths), splits)
+    assert got.shape == (b, h, 1, hd) and got.dtype == q.dtype
+    jl = jnp.asarray(lengths)
+    close(got, ref_flash_decode(jq, jk, jv, jl, bt=128, interpret=True), tol)
+    close(got, ref_decode_oracle(jq, jk, jv, jl), tol)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+def test_flash_decode_split_gqa_cache(splits):
+    """The split algebra on a GQA cache (KV heads read as groups) against
+    the reference kernel on the expanded copy, in float32."""
+    rng = np.random.default_rng(8)
+    b, h, kvh, t, hd = 3, 8, 2, 256, 32
+    jq, q = pair(rng, (b, h, 1, hd), jnp.float32)
+    jk, k = pair(rng, (b, kvh, t, hd), jnp.float32)
+    jv, v = pair(rng, (b, kvh, t, hd), jnp.float32)
+    lengths = np.array([17, t, 130], np.int32)
+    got = ref.flash_decode_split_ref(q, k, v, torch.as_tensor(lengths), splits)
+    want = ref_flash_decode(jq, jnp.repeat(jk, h // kvh, axis=1), jnp.repeat(jv, h // kvh, axis=1),
+                            jnp.asarray(lengths), bt=t, interpret=True)
+    close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+def test_flash_decode_split_edges(splits):
+    """Length 0 gives exactly 0 (every share empty: M = -1e30, l = 0), as
+    the kernel's twin and the Pallas kernel give; lengths past T clamp; the
+    split equals the unsplit twin within float32's summation order."""
+    rng = np.random.default_rng(9)
+    b, h, t, hd = 5, 2, 128, 32
+    jq, q = pair(rng, (b, h, 1, hd), jnp.float32)
+    jk, k = pair(rng, (b, h, t, hd), jnp.float32)
+    jv, v = pair(rng, (b, h, t, hd), jnp.float32)
+    lengths = torch.tensor([0, 3, t, t + 40, 0], dtype=torch.int32)
+    got = ref.flash_decode_split_ref(q, k, v, lengths, splits)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+    torch.testing.assert_close(got, ref.flash_decode_ref(q, k, v, lengths), atol=2e-5, rtol=2e-5)
+    whole = ref.flash_decode_split_ref(q, k, v, torch.full((b,), t, dtype=torch.int32), splits)
+    assert torch.equal(got[3], whole[3])
+    want = ref_flash_decode(jq, jk, jv, jnp.asarray(lengths.clamp(max=t).numpy()), bt=t,
+                            interpret=True)
+    close(got, want, 2e-5)
+    zero = ref.flash_decode_split_ref(q, k, v, torch.zeros(b, dtype=torch.int32), splits)
+    assert not bool(zero.any())
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
