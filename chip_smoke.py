@@ -13,7 +13,8 @@ for the attention kernels and the serve path:
    bit for bit (``torch.equal``; tolerance 0, the outputs are integers):
    K1 at n = 2^24, k = 128 with pads on Uniform and TwoDup, K2 on the
    composite ids of a real level 1 at n = 2^24 (nb = 65,792) and on small
-   nb, K3 on 2048 windows of W = 8192 with heavy duplicates, K1r (radix
+   nb, K3 on 2048 windows of W = 8192 with heavy duplicates (and on 65,536
+   windows of 256 and 1024 of 16384), K1r (radix
    mode) at n = 2^24 with pads, K4 ``level_fused_batched`` at (64, 2^18) in
    both modes with pads, K4 ``rank_hist_batched`` on the composite ids
    of a real batched level 1 at (64, 2^18), K5 ``merge_path_perm`` at
@@ -47,7 +48,7 @@ for the attention kernels and the serve path:
    pre-expanded (B, H, T, hd) copy; K11 ``flash_attention`` at (1, 32,
    4096, 128) causal, causal with window 1024, and non-causal at S = 2048,
    in both dtypes (bfloat16 is the ``wgmma`` kernel, row
-   ``flash_attention``; float32 the FMA kernel, row
+   ``flash_attention``; float32 the 3xTF32 ``wgmma`` kernel, row
    ``flash_attention_f32``);
 3. the paths, each driven with the launch counts set to 0 just before it
    and read just after, every kernel of the path required to be > 0:
@@ -93,7 +94,9 @@ for the attention kernels and the serve path:
    three sorts and of one ``external_sort`` (device time, idle share,
    host <-> device copies); the serve path's prefill ms and decode ms per
    step and tokens/s on the K10 and the eager path, K10 (at the last
-   step's length, 1056) and K11 (at (1, 32, 4096, 128), bf16 and f32) beside
+   step's length, 1056) and K11 (at (1, 32, 4096, 128), bf16 and f32,
+   causal, window 1024 and non-causal, and the f32 kernel's launch:
+   threads, registers, shared memory, CTAs) beside
    ``scaled_dot_product_attention`` (K10 with a boolean length mask), and
    a profile of 8 decode steps (device time, launches, idle share); K10
    also at one request of length 4096 and at the ragged lengths beside
@@ -150,6 +153,7 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 8, 1024, 32, 4096
 DECODE_LENGTHS = (1, 1, 17, 1024, 1025, 2048, 4095, 4096)  # K10's ragged check
 ATTN_S = 4096  # K11's check and timing: (1, 32, 4096, 128)
 BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # dense tf32 on the tensor cores
 # |got - want| <= atol + rtol * |want| for the attention kernels against
 # their twins: f32 is the same math in another summation order; bf16 is the
 # output's rounding, one step of 2^-8 relative, above an absolute floor of
@@ -638,26 +642,30 @@ def attention_phases(torch, dev) -> dict:
                                             BF16_FLOPS_PER_S)
     t["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps=5)
-    # the float32 FMA kernel on the same inputs; its bound takes the f32
-    # CUDA-core rate, which its products run at
+    # the float32 3xTF32 kernel on the same inputs; its bound is its three
+    # TF32 products (big x big, big x small, small x big) at the TF32 rate
     qf, kf, vf = q.float(), k.float(), v.float()
     t = rows["flash_attention_f32"]
     t["ms"] = cuda_ms(torch, lambda: fa.flash_attention(qf, kf, vf, causal=True), reps=5)
     t["plain_ms"] = cuda_ms(torch, lambda: kref.flash_attention_ref(qf, kf, vf, causal=True),
                             reps=3)
-    t["bound_ms"], t["bound_by"] = bound_ms(4 * qf.numel() * 4, 4 * H * pairs * HD)
+    t["bound_ms"], t["bound_by"] = bound_ms(4 * qf.numel() * 4, 3 * 4 * H * pairs * HD,
+                                            TF32_FLOPS_PER_S)
     t["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qf, kf, vf, is_causal=True), reps=5)
-    del qf, kf, vf
+    f32_launch = fa.launch_info(1, H, ATTN_S, HD)
     rows_ = torch.arange(ATTN_S, device=dev)
     window_mask = (rows_[None, :] <= rows_[:, None]) & (rows_[None, :] > rows_[:, None] - 1024)
-    more = {
-        "window 1024": (cuda_ms(torch, lambda: fa.flash_attention(q, k, v, window=1024), reps=5),
-                        cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                            q, k, v, attn_mask=window_mask), reps=5)),
-        "non-causal": (cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=False), reps=5),
-                       cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), reps=5)),
-    }
+    more = {}
+    for tag, (x, y, z) in (("bf16", (q, k, v)), ("f32", (qf, kf, vf))):
+        more[f"{tag} window 1024"] = (
+            cuda_ms(torch, lambda: fa.flash_attention(x, y, z, window=1024), reps=5),
+            cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                x, y, z, attn_mask=window_mask), reps=5))
+        more[f"{tag} non-causal"] = (
+            cuda_ms(torch, lambda: fa.flash_attention(x, y, z, causal=False), reps=5),
+            cuda_ms(torch, lambda: F.scaled_dot_product_attention(x, y, z), reps=5))
+    del qf, kf, vf
     for name in ("flash_decode", "flash_attention", "flash_attention_f32"):
         r = rows[name]
         how = ("device time, the layers' caches in turn" if name == "flash_decode"
@@ -676,8 +684,13 @@ def attention_phases(torch, dev) -> dict:
     print("host us per call at the decode shape: " + ", ".join(
         f"{name} {us:.1f}" for name, us in host.items()), flush=True)
     for name, (ms, lib_ms) in more.items():
-        print(f"time flash_attention (1, {H}, {ATTN_S}, {HD}) bf16 {name}: kernel {ms:.4f} ms, "
+        print(f"time flash_attention (1, {H}, {ATTN_S}, {HD}) {name}: kernel {ms:.4f} ms, "
               f"SDPA {lib_ms:.4f} ms", flush=True)
+    print(f"flash_attention_f32 launch ((1, {H}, {ATTN_S}, {HD}); cudaFuncGetAttributes): "
+          f"{f32_launch['threads']} threads, registers {f32_launch['registers']} per thread, "
+          f"shared memory {f32_launch['static_smem']} static + {f32_launch['dynamic_smem']} "
+          f"dynamic B per CTA, {f32_launch['ctas']} CTAs ({f32_launch['ctas_per_sm']} an SM at "
+          f"once), local memory {f32_launch['local_bytes']} B", flush=True)
     return rows
 
 
@@ -792,7 +805,15 @@ def main() -> None:
             check_equal("rank_hist", lf.rank_hist(ids, nb=nb), lf.rank_hist_plain(ids, nb=nb),
                         f"n={1 << 20} nb={nb}")
 
-        # K3 on duplicate-heavy windows, where stability shows
+        # K3 on duplicate-heavy windows, where stability shows: the main
+        # path's W, the scheduler path's and the largest
+        for W_, num_w_ in ((256, 1 << 16), (bitonic.MAX_W, 1024)):
+            wb = torch.sort(torch.randint(0, 64, (num_w_, W_), generator=gen, device=dev,
+                                          dtype=torch.int32), dim=1).values
+            wk = torch.randint(-3, 4, (num_w_, W_), generator=gen, device=dev, dtype=torch.int32)
+            check_equal("sort_windows", bitonic.sort_windows(wb, wk, nb=64),
+                        bitonic.sort_windows_plain(wb, wk, nb=64),
+                        f"{num_w_} x {W_} duplicate-heavy")
         W, num_w = cfg.base_case, 2048
         wb = torch.sort(torch.randint(0, 64, (num_w, W), generator=gen, device=dev,
                                       dtype=torch.int32), dim=1).values

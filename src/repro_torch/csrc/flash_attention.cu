@@ -14,6 +14,8 @@
 // Bound: operations.  A causal (1, 32, 4096, 128) call needs ~6.9e10
 // multiply-adds for QK^T and PV over the unmasked half: ~0.14 ms on the
 // tensor cores (989 TFLOP/s bf16), against ~0.02 ms for its bf16 bytes.
+// In float32, split three ways on the TF32 tensor cores (below), it is
+// three times those products at 495 TFLOP/s: ~0.83 ms.
 //
 // bfloat16: `wgmma` on the tensor cores.  The first design ran both
 // products on the CUDA cores in f32 FMA, with q, k and v staged in shared
@@ -45,17 +47,43 @@
 // P 16 significant bits (TF32: 11), and cost one more wgmma per k-step of
 // P V.
 //
-// float32: FMA on the CUDA cores, as first written.  TF32 products would
-// keep ~10 bits of each operand and miss the float32 check (2e-5).  One CTA
-// of 256 threads per (b * h, BQ = 64 query rows); the block's queries,
-// scaled by 1/sqrt(hd), sit in shared memory as f32, transposed (hd x BQ);
-// each KV block of BK = 64 rows is staged K transposed (hd x BK) and V as
-// is (BK x hd).  Each thread owns a 4 x 4 tile of the scores (rows
-// 4*ty.., columns 4*tx..) computed by outer products of float4 reads, the
-// online softmax of its 4 rows (max and sum across the 16 threads of a row
-// by shuffles, f32), and a 4 x hd/16 tile of the f32 accumulator (columns
-// 4*tx + 64*c..), updated from the probabilities written transposed to
-// shared memory.
+// float32: 3xTF32 `wgmma` on the tensor cores.  The first design ran both
+// products as f32 FMA on the CUDA cores (6.93 ms causal at (1, 32, 4096,
+// 128) on an NVIDIA H100 80GB HBM3 at 700 W, 3.4x its FMA bound of 2.05 ms
+// at 67 TFLOP/s, 2.1x SDPA's f32 kernel).  TF32 keeps 11
+// significant bits, which alone misses the f32 check (2e-5 + 2e-5 |want|),
+// so every operand x is split into big = x rounded to tf32 and small = (x -
+// big) rounded to tf32, and each product a b is taken as a_s b_b + a_b b_s +
+// a_b b_b (a_s b_s, ~2^-22 of |a b|, is dropped), the small terms first so
+// that each partial sum is rounded at its own size.  One CTA of 256 threads
+// (two warpgroups, no producer) per (b * h, block of BQ = 128 query rows),
+// the longest causal blocks first:
+//   - q is scaled by 1/sqrt(hd) in f32 (as the twin does), split, and
+//     written once into two tf32 copies in shared memory (128-byte rows,
+//     swizzled as TMA would lay them out, in boxes of 32 columns);
+//   - the KV loop takes tiles of BK = 32 keys.  tf32 `wgmma` reads both
+//     shared operands K-major only (no transpose), so V must sit transposed
+//     (hd x keys), which TMA cannot write: the threads themselves load each
+//     tile (16-byte loads, one key a lane, the tile after next in flight in
+//     registers while the current one is multiplied), split it, and write K
+//     as is and V transposed into their big and small copies (the V^T store
+//     of a warp is one 128-byte row: conflict-free), then
+//     `fence.proxy.async` and a barrier;
+//   - S = q K^T by wgmma m64n32k8 from shared memory (3 x hd/8 per tile),
+//     the mask and the online softmax in f32 registers in the log2 domain;
+//     P split in registers into its two tf32 terms.  The f32 accumulator
+//     holds columns (2c, 2c+1) of 8 where a tf32 A fragment holds (c, c+4),
+//     so V^T's columns are stored in that order (key 2c at c, 2c+1 at c+4
+//     of each 8) and S's registers serve as P's A fragments as they are;
+//   - O += P V by wgmma m64nHDk8 with A from registers (3 x 4 per tile).
+// Shared memory at hd = 128: q 2 x 64 KB, K and V^T 2 x 16 KB each, 192 KB
+// (one CTA an SM; hd = 64 half of it, two CTAs).  BK = 32 is what fits:
+// BK = 64 would need 256 KB.  Measured (chip_smoke.py, the same card): ~2.2
+// ms causal, 0.67x SDPA's f32 kernel and 2.6x the 3xTF32 bound, with
+// max |got - want| ~7e-6 against the f32 twin.  What is left: the S
+// products read both operands from shared memory at N = 32 keys, and with
+// one tile in shared memory the staging and the softmax do not overlap the
+// products (239 registers a thread, one CTA an SM).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,175 +92,6 @@
 #include <cstdint>
 
 namespace {
-
-// ---- float32: FMA on the CUDA cores --------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int PAD = 4;  // keeps the transposed rows 16-byte aligned
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float row_max(float x) {  // over the 16 threads of a row
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const float* __restrict__ q, long long q_sb, long long q_sh, long long q_ss,
-    const float* __restrict__ k, long long k_sb, long long k_sh, long long k_ss,
-    const float* __restrict__ v, long long v_sb, long long v_sh, long long v_ss,
-    int H, int S, int group, int causal, int window, float scale, float* __restrict__ out) {
-  constexpr int NC = HD / 64;  // float4 column groups of the accumulator per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt = reinterpret_cast<float*>(smem_raw);  // HD x (BQ + PAD)
-  float* kt = qt + HD * (BQ + PAD);                // HD x (BK + PAD)
-  float* vs = kt + HD * (BK + PAD);                // BK x HD
-  float* pt = vs + BK * HD;                        // BK x (BQ + PAD)
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal blocks first
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + hk * k_sh;
-  const float* vb = v + b * v_sb + hk * v_sh;
-  for (int idx = tid; idx < BQ * HD; idx += kThreads) {
-    const int i = idx / HD, d = idx % HD;
-    qt[d * (BQ + PAD) + i] = q0 + i < S ? qb[(q0 + i) * q_ss + d] * scale : 0.f;
-  }
-
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int nkv = (S + BK - 1) / BK;
-  const int hi = causal ? min(nkv, q_last / BK + 1) : nkv;
-  const int lo = window > 0 ? max(0, (q0 - window + 1) / BK) : 0;
-
-  float m[4], l[4], acc[4][4 * NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int kb_i = lo; kb_i < hi; ++kb_i) {
-    const int k0 = kb_i * BK;
-    __syncthreads();  // the previous block's readers are done (and qt is written)
-    for (int idx = tid; idx < BK * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD;
-      const bool in = k0 + j < S;
-      kt[d * (BK + PAD) + j] = in ? kb[(k0 + j) * k_ss + d] : 0.f;
-      vs[j * HD + d] = in ? vb[(k0 + j) * v_ss + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * (BQ + PAD) + 4 * ty);
-      const float4 bb = *reinterpret_cast<const float4*>(kt + d * (BK + PAD) + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
-    }
-
-    float p[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + 4 * ty + r;
-      bool valid[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = k0 + 4 * tx + c;
-        valid[c] = j < S && (!causal || j <= i) && (window <= 0 || j > i - window);
-        s[r][c] = valid[c] ? s[r][c] : kNegInf;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[r], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        p[r][c] = valid[c] ? expf(s[r][c] - m_new) : 0.f;
-        sum += p[r][c];
-      }
-      sum = row_sum(sum);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[r][c] *= corr;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(pt + (4 * tx + c) * (BQ + PAD) + 4 * ty) =
-          make_float4(p[0][c], p[1][c], p[2][c], p[3][c]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 pp = *reinterpret_cast<const float4*>(pt + j * (BQ + PAD) + 4 * ty);
-      const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
-#pragma unroll
-      for (int cg = 0; cg < NC; ++cg) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + j * HD + 64 * cg + 4 * tx);
-        const float vvv[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[r][4 * cg + e] = fmaf(pv[r], vvv[e], acc[r][4 * cg + e]);
-      }
-    }
-  }
-
-  float* ob = out + ((long long)bh * S) * HD;  // out (B, H, S, HD) contiguous
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + 4 * ty + r;
-    if (i >= S) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int cg = 0; cg < NC; ++cg)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ob[(long long)i * HD + 64 * cg + 4 * tx + e] = acc[r][4 * cg + e] * inv;
-  }
-}
-
-template <int HD>
-int launch(const void* q, const long long* qs, const void* k, const long long* ks,
-           const void* v, const long long* vs, int B, int H, int S, int group, int causal,
-           int window, float scale, void* out, cudaStream_t stream) {
-  const int smem = (HD * (BQ + PAD) + HD * (BK + PAD) + BK * HD + BK * (BQ + PAD)) *
-                   (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  if (B * H == 0 || S == 0) return cudaSuccess;
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, qs[0], qs[1], qs[2], (const float*)k, ks[0], ks[1], ks[2],
-      (const float*)v, vs[0], vs[1], vs[2], H, S, group, causal, window, scale, (float*)out);
-  return cudaGetLastError();
-}
 
 // ---- bfloat16: wgmma on the tensor cores ---------------------------------
 
@@ -593,6 +452,357 @@ int launch(const void* q, const long long* qs, const void* k, const long long* k
 
 }  // namespace tc
 
+// ---- float32: 3xTF32 on the tensor cores ---------------------------------
+
+namespace tf32 {
+
+using tc::smem_desc;
+using tc::smem_u32;
+using tc::wgmma_commit;
+using tc::wgmma_fence;
+using tc::wgmma_wait_all;
+
+constexpr int BQ = 128;         // query rows per CTA: two warpgroups of 64
+constexpr int BK = 32;          // keys per tile: one 128-byte row of V^T
+constexpr int kThreads = 256;   // the two warpgroups; they also stage the tiles
+constexpr float kNegInit = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// byte offsets of the split copies in shared memory, each of 128-byte rows
+// in boxes of 32 f32 columns, 128-byte swizzled (1024-byte atoms)
+template <int HD>
+struct Smem {
+  static constexpr int NT = HD / 32;       // column boxes of a row of q or K
+  static constexpr int kQBox = BQ * 128;   // 128 query rows x 32 columns
+  static constexpr int kKBox = BK * 128;   // 32 keys x 32 columns
+  static constexpr int kQ = NT * kQBox, kK = NT * kKBox;
+  static constexpr int kV = HD * 128;      // V^T: HD rows x 32 keys
+  static constexpr int q_big = 0, q_small = kQ, k_big = 2 * kQ, k_small = k_big + kK,
+                       v_big = k_small + kK, v_small = v_big + kV, bytes = v_small + kV;
+};
+
+// byte offset of f32 column col of row row in a box of 128-byte rows, as
+// TMA's 128-byte swizzle lays it out (16-byte chunk ^= row % 8)
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  const uint32_t off = row * 128 + col * 4;
+  return off ^ ((off >> 3) & 0x70);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to ~2^-22 of |x|: big = x rounded to tf32, small = the
+// rest rounded to tf32
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void split4(float4 x, uint4& big, uint4& small) {
+  split(x.x, big.x, small.x);
+  split(x.y, big.y, small.y);
+  split(x.z, big.z, small.z);
+  split(x.w, big.w, small.w);
+}
+
+// D (64 x 32, f32) (+)= A (64 x 8) B (8 x 32), tf32, both from shared
+// memory, K-major.  scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N, f32) += A (64 x 8, tf32 registers) B (8 x N, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// this thread's part of a KV tile (keys k0 .. k0 + 31, rows past S as 0):
+// key k0 + lane, float4 columns warp * NCW .. + NCW - 1 of K and of V
+template <int NCW>
+__device__ __forceinline__ void fetch(const float* kb, long long k_ss, const float* vb,
+                                      long long v_ss, int key, int S, int c0, float4* kr,
+                                      float4* vr) {
+#pragma unroll
+  for (int c = 0; c < NCW; ++c) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    kr[c] = key < S ? *reinterpret_cast<const float4*>(kb + key * k_ss + 4 * (c0 + c)) : zero;
+    vr[c] = key < S ? *reinterpret_cast<const float4*>(vb + key * v_ss + 4 * (c0 + c)) : zero;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 2 : 1) attention_kernel(
+    const float* __restrict__ q, long long q_sb, long long q_sh, long long q_ss,
+    const float* __restrict__ k, long long k_sb, long long k_sh, long long k_ss,
+    const float* __restrict__ v, long long v_sb, long long v_sh, long long v_ss,
+    int H, int S, int group, int causal, int window, float scale, float* __restrict__ out) {
+  using L = Smem<HD>;
+  constexpr int NO = HD / 2;   // f32 accumulator registers of O per thread
+  constexpr int C4 = HD / 4;   // float4 columns of a row
+  constexpr int NCW = C4 / 8;  // float4 columns of a tile row per warp
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* sm = smem_raw + (base - raw);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal blocks first
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int nkv = (S + BK - 1) / BK;
+  const int hi = causal ? min(nkv, q_last / BK + 1) : nkv;
+  const int lo = window > 0 ? max(0, (q0 - window + 1) / BK) : 0;
+  const int tid = threadIdx.x, lane = tid % 32, c0 = (tid / 32) * NCW;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + hk * k_sh;
+  const float* vb = v + b * v_sb + hk * v_sh;
+
+  // q * scale, split into its two tf32 copies (rows past S as 0)
+  for (int idx = tid; idx < BQ * C4; idx += kThreads) {
+    const int i = idx / C4, c4 = idx % C4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + i < S) x = *reinterpret_cast<const float4*>(qb + (q0 + i) * q_ss + 4 * c4);
+    uint4 big, small;
+    split4(make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale), big, small);
+    const uint32_t off = (c4 / 8) * L::kQBox + swz(i, 4 * (c4 % 8));
+    *reinterpret_cast<uint4*>(sm + L::q_big + off) = big;
+    *reinterpret_cast<uint4*>(sm + L::q_small + off) = small;
+  }
+
+  // a consumer warpgroup: query rows q0 + 64 * wg .. + 63
+  const int wg = tid / 128;
+  const int warp = (tid / 32) % 4;
+  const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // and row0 + 8
+  const int col_l = 2 * (lane % 4);
+  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+  // key lane's column in V^T: within each group of 8 keys, key 2c at c and
+  // 2c + 1 at c + 4, which is where the tf32 A fragment of P holds them
+  const int v_col = (lane & ~7) | ((lane & 7) >> 1) | ((lane & 1) << 2);
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};
+  float4 kr[NCW], vr[NCW];
+  if (lo < hi) fetch<NCW>(kb, k_ss, vb, v_ss, lo * BK + lane, S, c0, kr, vr);
+
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * BK;
+    __syncthreads();  // both warpgroups are done with the previous tile
+    // stage the fetched tile: K split as is (keys x hd), V split transposed
+#pragma unroll
+    for (int c = 0; c < NCW; ++c) {
+      const int c4 = c0 + c;
+      uint4 big, small;
+      split4(kr[c], big, small);
+      const uint32_t off = (c4 / 8) * L::kKBox + swz(lane, 4 * (c4 % 8));
+      *reinterpret_cast<uint4*>(sm + L::k_big + off) = big;
+      *reinterpret_cast<uint4*>(sm + L::k_small + off) = small;
+      const float vv[4] = {vr[c].x, vr[c].y, vr[c].z, vr[c].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t vbig, vsmall;
+        split(vv[e], vbig, vsmall);
+        const uint32_t voff = swz(4 * c4 + e, v_col);
+        *reinterpret_cast<uint32_t*>(sm + L::v_big + voff) = vbig;
+        *reinterpret_cast<uint32_t*>(sm + L::v_small + voff) = vsmall;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();
+    if (t + 1 < hi) fetch<NCW>(kb, k_ss, vb, v_ss, k0 + BK + lane, S, c0, kr, vr);
+    // a tile that masks every row of this warpgroup (or rows all past S)
+    if (wg_first >= S || (causal && k0 > wg_last) ||
+        (window > 0 && k0 + BK - 1 <= wg_first - window))
+      continue;
+
+    // S = q K^T: the two small terms first, then big x big, so each sum is
+    // rounded relative to its own size
+    float s[16];
+    wgmma_fence();
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      const int qa = term == 1 ? L::q_small : L::q_big;
+      const int kbo = term == 0 ? L::k_small : L::k_big;
+#pragma unroll
+      for (int step = 0; step < HD / 8; ++step) {  // 8 columns of hd per step
+        const uint32_t col = (step % 4) * 32;
+        wgmma_ss_n32(s, smem_desc(base + qa + (step / 4) * L::kQBox + 64 * 128 * wg + col, 16, 1024),
+                     smem_desc(base + kbo + (step / 4) * L::kKBox + col, 16, 1024),
+                     term > 0 || step > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+
+    // mask, into the log2 domain, and the row maxima
+    const bool edge = (causal && k0 + BK - 1 > wg_first) ||
+                      (window > 0 && k0 <= wg_last - window) || k0 + BK > S;
+    float mx[2] = {kNegInit, kNegInit};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * kLog2e;
+        if (edge) {
+          const int row = row0 + 8 * (e >> 1), col = k0 + 8 * j + col_l + (e & 1);
+          const bool ok = col < S && (!causal || col <= row) && (window <= 0 || col > row - window);
+          x = ok ? x : -INFINITY;  // a weight of exactly 0
+        }
+        s[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+    // P = exp2(s - m) as tf32 A fragments of 8 keys each, in two terms:
+    // registers (row0, 2c), (row0 + 8, 2c), (row0, 2c + 1), (row0 + 8, 2c + 1)
+    // hold the fragment's columns c, c, c + 4, c + 4 (V^T's column order)
+    uint32_t p_big[BK / 2], p_small[BK / 2];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = exp2f(s[4 * j] - m[0]), p1 = exp2f(s[4 * j + 1] - m[0]);
+      const float p2 = exp2f(s[4 * j + 2] - m[1]), p3 = exp2f(s[4 * j + 3] - m[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      split(p0, p_big[4 * j], p_small[4 * j]);
+      split(p2, p_big[4 * j + 1], p_small[4 * j + 1]);
+      split(p1, p_big[4 * j + 2], p_small[4 * j + 2]);
+      split(p3, p_big[4 * j + 3], p_small[4 * j + 3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] *= corr[(j >> 1) & 1];
+
+    // O += P V: the two small terms, then big x big
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {  // 8 keys per step
+      const uint64_t dvb = smem_desc(base + L::v_big + kk * 32, 16, 1024);
+      const uint64_t dvs = smem_desc(base + L::v_small + kk * 32, 16, 1024);
+      if constexpr (HD == 128) {
+        wgmma_rs_n128(o, p_small + 4 * kk, dvb);
+        wgmma_rs_n128(o, p_big + 4 * kk, dvs);
+        wgmma_rs_n128(o, p_big + 4 * kk, dvb);
+      } else {
+        wgmma_rs_n64(o, p_small + 4 * kk, dvb);
+        wgmma_rs_n64(o, p_big + 4 * kk, dvs);
+        wgmma_rs_n64(o, p_big + 4 * kk, dvb);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+
+  // O / l, the row sums gathered across the four lanes of a row
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  float* ob = out + (long long)bh * S * HD;  // out (B, H, S, HD) contiguous
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(ob + (long long)row * HD + 8 * j + col_l) =
+          make_float2(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+  }
+}
+
+template <int HD>
+int smem_bytes() {
+  return Smem<HD>::bytes + 1024;  // and the alignment of the atoms
+}
+
+template <int HD>
+int launch(const void* q, const long long* qs, const void* k, const long long* ks,
+           const void* v, const long long* vs, int B, int H, int S, int group, int causal,
+           int window, float scale, void* out, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<HD>());
+  if (err != cudaSuccess) return err;
+  if (B * H == 0 || S == 0) return cudaSuccess;
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  attention_kernel<HD><<<grid, kThreads, smem_bytes<HD>(), stream>>>(
+      (const float*)q, qs[0], qs[1], qs[2], (const float*)k, ks[0], ks[1], ks[2],
+      (const float*)v, vs[0], vs[1], vs[2], H, S, group, causal, window, scale, (float*)out);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int info(int B, int H, int S, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<HD>());
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes a;
+  if ((err = cudaFuncGetAttributes(&a, attention_kernel<HD>)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], attention_kernel<HD>,
+                                                           kThreads, smem_bytes<HD>())) !=
+      cudaSuccess)
+    return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = smem_bytes<HD>();
+  out[3] = kThreads;
+  out[5] = (int)a.localSizeBytes;
+  out[6] = B * H * ((S + BQ - 1) / BQ);
+  return cudaSuccess;
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 extern "C" {
@@ -601,10 +811,10 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 float32 (FMA), 1 bfloat16 (wgmma); hd 64 or 128.  Strides
-// (batch, head, seq) in elements, the head dim contiguous; for bfloat16 the
-// pointers and strides are 16-byte aligned (TMA).  out is a contiguous
-// (B, H, S, hd) tensor of the dtype.
+// dtype: 0 float32 (3xTF32 wgmma), 1 bfloat16 (wgmma); hd 64 or 128.
+// Strides (batch, head, seq) in elements, the head dim contiguous; the
+// pointers and strides are 16-byte aligned (TMA for bfloat16, 16-byte loads
+// for float32).  out is a contiguous (B, H, S, hd) tensor of the dtype.
 int flash_attention_launch(const void* q, long long q_sb, long long q_sh, long long q_ss,
                            const void* k, long long k_sb, long long k_sh, long long k_ss,
                            const void* v, long long v_sb, long long v_sh, long long v_ss,
@@ -620,10 +830,19 @@ int flash_attention_launch(const void* q, long long q_sb, long long q_sh, long l
     return tc::launch<128>(q, qs, k, ks, v, vs, B, H, kvh, S, causal, window, scale, out, st);
   }
   if (hd == 64)
-    return launch<64>(q, qs, k, ks, v, vs, B, H, S, group, causal, window, scale, out,
-                             st);
-  return launch<128>(q, qs, k, ks, v, vs, B, H, S, group, causal, window, scale, out,
+    return tf32::launch<64>(q, qs, k, ks, v, vs, B, H, S, group, causal, window, scale, out,
                             st);
+  return tf32::launch<128>(q, qs, k, ks, v, vs, B, H, S, group, causal, window, scale, out,
+                           st);
+}
+
+// The float32 kernel's launch for (B, H, S, hd): out[0] registers per
+// thread, out[1] static and out[2] dynamic shared memory per CTA in bytes,
+// out[3] threads per CTA, out[4] CTAs an SM holds at once, out[5] local
+// memory per thread (spills) in bytes, out[6] CTAs of the grid.
+int flash_attention_f32_info(int B, int H, int S, int hd, int* out) {
+  if (hd == 64) return tf32::info<64>(B, H, S, out);
+  return tf32::info<128>(B, H, S, out);
 }
 
 }  // extern "C"

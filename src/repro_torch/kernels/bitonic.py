@@ -2,13 +2,21 @@
 
 Counterpart of ``repro.kernels.bitonic.bitonic_sort_windows`` (the Pallas
 TPU kernel at ``bitonic.py:72``).  The CUDA kernel is in
-``csrc/bitonic.cu``, whose header note gives its bound and design.  The TPU
-network compares (bucket, key) only and is not stable; this one orders by
-(bucket, key, idx), so it equals the stable ``_window_perm`` that the
-reference's main path computes in XLA, which is its plain twin here.
+``csrc/bitonic.cu``, whose header note gives its bound (bytes: 16 B an
+element, ~0.08 ms for 2^24) and design: each element a 64-bit word
+(bucket, key, window index), a bitonic network whose steps run in
+registers, E = 16 words a thread (32 at W = 16384), with the window going
+through shared memory only to re-map which index bits a thread's registers
+span (24 exchanges at W = 8192 where the first design made 91 block-wide
+passes).  The TPU network compares (bucket, key) only and is not stable;
+this one orders by (bucket, key, idx), so it equals the stable
+``_window_perm`` that the reference's main path computes in XLA, which is
+its plain twin here.
 
 The wrapper launches the kernel on a CUDA tensor and runs the plain twin
-only on a CPU tensor; there is no fallback from one to the other.
+only on a CPU tensor; there is no fallback from one to the other.  The
+kernel reads 16 bytes at a time, so an input whose pointer is not 16-byte
+aligned is copied once.
 """
 from __future__ import annotations
 
@@ -50,6 +58,11 @@ def _check(bucket: torch.Tensor, keys: torch.Tensor, nb: int) -> None:
         raise ValueError(f"nb={nb} buckets do not fit {bucket_bits} bits at W={W}")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it when its pointer is not 16-byte aligned."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def sort_windows_plain(
     bucket: torch.Tensor, keys: torch.Tensor, nb: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,6 +89,7 @@ def sort_windows(
         raise ValueError(f"unsupported device {bucket.device}")
     _check(bucket, keys, nb)
     num_w, W = keys.shape
+    bucket, keys = _aligned(bucket), _aligned(keys)
     perm = torch.empty_like(keys)
     bucket_out = torch.empty_like(bucket)
     lib = _build.library("bitonic", _SIGNATURES)

@@ -71,13 +71,42 @@ def test_rank_hist_kernel(dev, nb, seg):
     _equal(lf.rank_hist(ids, **kw), lf.rank_hist_plain(ids, **kw))
 
 
-@pytest.mark.parametrize("W", [2, 1024, 8192])
-def test_sort_windows_kernel(dev, W):
+SORT_WINDOWS_CASES = ["sorted ids", "any ids", "equal keys", "one window", "2049 windows",
+                      "run indices"]
+
+
+@pytest.mark.parametrize("case", SORT_WINDOWS_CASES)
+@pytest.mark.parametrize("W", [2, 32, 256, 1024, 8192, 16384])
+def test_sort_windows_kernel(dev, W, case):
+    """K3 bit for bit its plain twin: bucket ids nondecreasing (the sorts'
+    windows) or in any order (the wrapper does not ask for sorted ids),
+    every key and id equal, one window and 2049 (a partial last CTA at
+    every W), and the run-index route of ``base_case_windows`` for ids
+    above K3's bucket field."""
+    from repro_torch.kernels.ops import base_case_windows
+
     g = torch.Generator(device=dev).manual_seed(W)
-    b = torch.sort(torch.randint(0, 9, (5, W), generator=g, device=dev,
-                                 dtype=torch.int32), dim=1).values
-    k = torch.randint(-3, 4, (5, W), generator=g, device=dev, dtype=torch.int32)
+    num_w = {"one window": 1, "2049 windows": 2049}.get(case, 5)
+    b = torch.randint(0, 9, (num_w, W), generator=g, device=dev, dtype=torch.int32)
+    k = torch.randint(-3, 4, (num_w, W), generator=g, device=dev, dtype=torch.int32)
+    if case == "equal keys":
+        b, k = torch.zeros_like(b), torch.full_like(k, -5)
+    elif case != "any ids":
+        b = torch.sort(b, dim=1).values
+    if case == "run indices":  # nb = 2^31: past K3's field from W = 4 on, so K3
+        # gets each window's run index (W = 2's 31-bit field takes any id)
+        fb = (torch.arange(4 * W, device=dev, dtype=torch.int32) // 3) * 30011
+        keys = torch.randint(-2**31, 2**31 - 1, (4 * W,), generator=g, device=dev,
+                             dtype=torch.int32)
+        before = kernels.launch_counts()["sort_windows"]
+        got = base_case_windows({"k": keys}, fb, W, 1 << 31)["k"]
+        assert kernels.launch_counts()["sort_windows"] > before
+        want = base_case_windows({"k": keys.cpu()}, fb.cpu(), W, 1 << 31)["k"]
+        assert torch.equal(got.cpu(), want)
+        return
+    before = kernels.launch_counts()["sort_windows"]
     _equal(bitonic.sort_windows(b, k, nb=9), bitonic.sort_windows_plain(b, k, nb=9))
+    assert kernels.launch_counts()["sort_windows"] == before + 1
 
 
 @pytest.mark.parametrize("n", [1, 5000, 300_000])
@@ -554,8 +583,9 @@ ATTN_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,kvh,s,hd,causal,window", ATTN_CASES)
 def test_flash_attention_kernel(dev, b, h, kvh, s, hd, causal, window, dtype):
-    """bfloat16 runs the wgmma kernel, float32 the FMA kernel; KV heads H or
-    H/8 (GQA), read through strides from a (B, S, KVH, hd) layout too."""
+    """bfloat16 runs the wgmma kernel, float32 the 3xTF32 wgmma kernel; KV
+    heads H or H/8 (GQA), read through strides from a (B, S, KVH, hd) layout
+    too."""
     g = torch.Generator(device=dev).manual_seed(s + hd)
     q = torch.randn((b, h, s, hd), generator=g, device=dev).to(dtype)
     k = torch.randn((b, kvh, s, hd), generator=g, device=dev).to(dtype)
@@ -579,18 +609,19 @@ def test_flash_attention_kernel(dev, b, h, kvh, s, hd, causal, window, dtype):
     assert flash_attention.LAYOUT_COPIES["flash_attention"] == copies
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,causal,window", [(128, True, 0), (64, True, 0), (128, True, 512),
                                               (128, False, 0)])
-def test_flash_attention_bf16_limit_flags_a_dropped_tile(dev, hd, causal, window):
-    """The bf16 kernel passes the bf16 limit, and the limit flags the twin
-    with one tile of 64 keys dropped (the window, or the whole row, 64 keys
-    narrower)."""
+def test_flash_attention_bf16_limit_flags_a_dropped_tile(dev, hd, causal, window, dtype):
+    """Each kernel passes its dtype's limit (bf16: the wgmma kernel; f32: the
+    3xTF32 kernel), and the limit flags the twin with one tile of 64 keys
+    dropped (the window, or the whole row, 64 keys narrower)."""
     g = torch.Generator(device=dev).manual_seed(hd)
     s = 2048
-    q, k, v = (torch.randn((1, 8, s, hd), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn((1, 8, s, hd), generator=g, device=dev).to(dtype)
                for _ in range(3))
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window).float()
-    atol, rtol = ATTN_TOL[torch.bfloat16]
+    atol, rtol = ATTN_TOL[dtype]
     limit = atol + rtol * want.abs()
     got = flash_attention.flash_attention(q, k, v, causal=causal, window=window).float()
     assert bool(((got - want).abs() <= limit).all())
