@@ -88,7 +88,11 @@ for the attention kernels and the serve path:
    the greedy tokens of the K10 and eager paths compared as a measure;
 4. timing with CUDA events (median of several runs after warm-up): each
    kernel beside its plain twin, its bound and, where one exists, one
-   torch call that computes the same function; each entry point beside
+   torch call that computes the same function, and each kernel's own
+   device time by torch.profiler (``device_ms``: events around the wrapper
+   also time its host work); K1's and K5's device kernels per call (one
+   each) and their launches (registers, shared memory, threads, CTAs an SM
+   from ``cudaFuncGetAttributes``); each entry point beside
    ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and K8/K9 beside
    the out-of-place ``index_select`` of the blocks; profiles of
    three sorts and of one ``external_sort`` (device time, idle share,
@@ -107,6 +111,12 @@ for the attention kernels and the serve path:
    beside ``index_select``, and its teams (chains in flight);
 5. a ``{"kernels": [...]}`` JSON line (18 entries), then the last line
    ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --parent DIR
+
+times K1 (tree, radix, batched) and K5 of the CUDA sources under DIR (an
+earlier commit, unpacked by ``git archive``) beside this tree's, in turns,
+and checks that both give the same outputs.
 
 It imports nothing of JAX or of the ``repro`` package.
 """
@@ -234,12 +244,54 @@ def device_events(torch, fn, reps: int):
             and not e.key.startswith("ProfilerStep")]  # the step's own span
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn`` in ms: its kernels' own time summed
-    by torch.profiler over ``reps`` calls (copies and memsets apart), so the
-    host's time between launches is left out."""
-    return sum(device_us(e) for e in device_events(torch, fn, reps)
-               if not e.key.startswith(("Memcpy", "Memset"))) / 1e3 / reps
+def device_ms(torch, fn, reps: int = 20, names=None, launches: int = 1) -> float:
+    """Device time in ms by torch.profiler over ``reps`` calls of ``fn``
+    (copies and memsets apart), so the host's time between launches is left
+    out.  Without ``names``: all of one call's kernels.  With ``names``: one
+    launch of each kernel whose name holds one of them, at its mean over
+    the launches the trace kept, summed over those kernels; each is
+    launched ``launches`` times a call, and a line says when the trace kept
+    fewer (it does, more often the longer the kernel)."""
+    events = [e for e in device_events(torch, fn, reps)
+              if not e.key.startswith(("Memcpy", "Memset"))]
+    if names is None:
+        return sum(device_us(e) for e in events) / 1e3 / reps
+    own = [e for e in events if any(x in e.key for x in names)]
+    if any(e.count != reps * launches for e in own):
+        print(f"device_ms: the trace kept {[e.count for e in own]} of {reps * launches} launches "
+              f"of {[e.key[:60] for e in own]}", flush=True)
+    return sum(device_us(e) / e.count for e in own) / 1e3
+
+
+# each row's device functions, by name (csrc/*.cu): a row's device_ms sums
+# these alone, without the torch kernels its wrapper launches around them
+DEVICE_FUNCTIONS = {
+    "level_fused": ("level_fused_kernel",), "level_fused_radix": ("level_fused_kernel",),
+    "level_fused_batched": ("level_fused_kernel",),
+    "rank_hist": ("rank_hist_kernel",), "rank_hist_batched": ("rank_hist_kernel",),
+    "sort_windows": ("sort_windows_kernel", "sort_small_windows_kernel"),
+    # the second name: the first design's kernel, which --parent times
+    "merge_path": ("merge_kernel<", "merge_path_kernel"),
+    "dispatch_ranks": ("tile_hist_kernel", "scan_tiles_kernel", "place_kernel"),
+    "partition_ranks": ("tile_hist_kernel", "scan_tiles_kernel", "place_kernel"),
+    "partition_ranks_batched": ("tile_hist_kernel", "scan_tiles_kernel", "place_kernel"),
+    "classify_histogram": ("classify_hist_kernel",),
+    "classify_histogram_batched": ("classify_hist_kernel",),
+    "radix_histogram": ("classify_hist_kernel",),
+    "permute_blocks_by_dest": ("permute_by_dest_kernel",),
+    "permute_blocks_inplace": ("permute_inplace_kernel", "permute_inplace_init"),
+    "flash_decode": ("flash_decode_",),
+    "flash_attention": ("attention_kernel",), "flash_attention_f32": ("attention_kernel",),
+}
+
+
+def kernel_ms(torch, name, t, fn, warmup: int = 2, reps: int = 10, device_reps: int = 20):
+    """A kernel row's two times for one call of ``fn``: CUDA events around
+    it (``ms``, the host's wrapper included, median of ``reps``) and the
+    device time of the row's own device functions (``device_ms``,
+    torch.profiler over ``device_reps`` calls)."""
+    t["ms"] = cuda_ms(torch, fn, warmup=warmup, reps=reps)
+    t["device_ms"] = device_ms(torch, fn, reps=device_reps, names=DEVICE_FUNCTIONS[name])
 
 
 def host_us(torch, fn, reps: int = 50) -> float:
@@ -255,9 +307,10 @@ def host_us(torch, fn, reps: int = 50) -> float:
     return us
 
 
-def profile(torch, name, fn, top: int = 14) -> None:
+def profile(torch, name, fn, top: int = 14, show=()) -> None:
     """Where one call's time goes: device time per operation (torch.profiler)
-    beside the host clock around the whole call."""
+    beside the host clock around the whole call; the ``top`` kernels, and
+    those whose name holds one of ``show`` wherever they rank."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -282,8 +335,9 @@ def profile(torch, name, fn, top: int = 14) -> None:
         copies = [e for e in events if f"Memcpy {kind}" in e.key]
         print(f"  copies {kind}: {sum(device_us(e) for e in copies) / 1e3:.3f} ms in "
               f"{sum(e.count for e in copies)} copies", flush=True)
-    for e in events[:top]:
-        print(f"  {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+    for rank_, e in enumerate(events):
+        if rank_ < top or any(x in e.key for x in show):
+            print(f"  {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
 
 
 def attention_phases(torch, dev) -> dict:
@@ -557,7 +611,9 @@ def attention_phases(torch, dev) -> dict:
     sdpa = per_layer(lambda ck, cv: F.scaled_dot_product_attention(
         q4, ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask, enable_gqa=True))
     t = rows["flash_decode"]
-    t["ms"] = device_ms(torch, k10, reps=3) / n_kv
+    k10_names = DEVICE_FUNCTIONS["flash_decode"]  # one launch a call: its mean over those kept
+    t["ms"] = device_ms(torch, k10, reps=3, names=k10_names, launches=n_kv)
+    t["device_ms"] = t["ms"]  # the layers' caches in turn (events would time the wrapper)
     t["plain_ms"] = device_ms(torch, per_layer(lambda ck, cv: kref.flash_decode_ref(
         q4, ck.transpose(1, 2), cv.transpose(1, 2), lens)), reps=1) / n_kv
     t["bound_ms"], t["bound_by"] = bound_ms(
@@ -570,12 +626,12 @@ def attention_phases(torch, dev) -> dict:
                                           attn_mask=mask, enable_gqa=True)[:, :, 0]
     print(f"flash_decode: SDPA (boolean length mask, enable_gqa) against the kernel max |diff| "
           f"{float((want.float() - got.float()).abs().max()):.3e}", flush=True)
-    warm_ms = device_ms(torch, lambda: fd.flash_decode_cache(q, ck, cv, lens))
+    warm_ms = device_ms(torch, lambda: fd.flash_decode_cache(q, ck, cv, lens), names=k10_names)
     kx = ck.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
     vx = cv.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
     sdpa_expanded_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q4, kx, vx, attn_mask=mask))
-    k10_expanded_ms = device_ms(torch, lambda: fd.flash_decode(q4, kx, vx, lens))
+    k10_expanded_ms = device_ms(torch, lambda: fd.flash_decode(q4, kx, vx, lens), names=k10_names)
     decode_mask = (torch.arange(T, device=dev) <= length - 1)[None, None, None, :]
     k10_events_ms = cuda_ms(torch, lambda: fd.flash_decode_cache(q, ck, cv, lens), reps=50)
     host = {
@@ -618,7 +674,8 @@ def attention_phases(torch, dev) -> dict:
                   for _ in range(copies)]
         m = (torch.arange(T, device=dev) < ln[:, None])[:, None, None, :]
         k_ms = device_ms(torch, lambda: [fd.flash_decode_cache(qq, kk, vv, ln)
-                                         for kk, vv in caches], reps=3) / copies
+                                         for kk, vv in caches], reps=3, names=k10_names,
+                         launches=copies)
         s_ms = device_ms(torch, lambda: [F.scaled_dot_product_attention(
             qq[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=m,
             enable_gqa=True) for kk, vv in caches], reps=3) / copies
@@ -634,7 +691,8 @@ def attention_phases(torch, dev) -> dict:
     # non-causal beside SDPA (is_causal, or the boolean window mask)
     q, k, v = (randn(1, H, ATTN_S, HD, dtype=bf16) for _ in range(3))
     t = rows["flash_attention"]
-    t["ms"] = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), reps=5)
+    kernel_ms(torch, "flash_attention", t, lambda: fa.flash_attention(q, k, v, causal=True),
+              reps=5, device_reps=5)
     t["plain_ms"] = cuda_ms(torch, lambda: kref.flash_attention_ref(q, k, v, causal=True),
                             reps=3)
     pairs = ATTN_S * (ATTN_S + 1) // 2  # unmasked (row, col) pairs per head
@@ -646,7 +704,8 @@ def attention_phases(torch, dev) -> dict:
     # TF32 products (big x big, big x small, small x big) at the TF32 rate
     qf, kf, vf = q.float(), k.float(), v.float()
     t = rows["flash_attention_f32"]
-    t["ms"] = cuda_ms(torch, lambda: fa.flash_attention(qf, kf, vf, causal=True), reps=5)
+    kernel_ms(torch, "flash_attention_f32", t,
+              lambda: fa.flash_attention(qf, kf, vf, causal=True), reps=5, device_reps=5)
     t["plain_ms"] = cuda_ms(torch, lambda: kref.flash_attention_ref(qf, kf, vf, causal=True),
                             reps=3)
     t["bound_ms"], t["bound_by"] = bound_ms(4 * qf.numel() * 4, 3 * 4 * H * pairs * HD,
@@ -670,9 +729,9 @@ def attention_phases(torch, dev) -> dict:
         r = rows[name]
         how = ("device time, the layers' caches in turn" if name == "flash_decode"
                else "CUDA events")
-        print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA {r['library_ms']:.4f} ms ({how})",
-              flush=True)
+        print(f"time {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA "
+              f"{r['library_ms']:.4f} ms ({how})", flush=True)
     print(f"time flash_decode one cache over and over (warm L2): kernel {warm_ms:.4f} ms; on "
           f"the pre-expanded (B, H, T, hd) copy: kernel {k10_expanded_ms:.4f} ms, SDPA "
           f"{sdpa_expanded_ms:.4f} ms (device time)", flush=True)
@@ -692,6 +751,104 @@ def attention_phases(torch, dev) -> dict:
           f"dynamic B per CTA, {f32_launch['ctas']} CTAs ({f32_launch['ctas_per_sm']} an SM at "
           f"once), local memory {f32_launch['local_bytes']} B", flush=True)
     return rows
+
+
+def compare_with_parent(parent: Path) -> None:
+    """``--parent DIR``: K1 (tree, radix, batched) and K5 of the CUDA sources
+    under DIR (a checkout of an earlier commit, unpacked by ``git archive``)
+    beside this tree's, through this tree's wrappers, on the same inputs and
+    card, in turns (earlier, this, this, earlier): CUDA events around the
+    wrapper's launch and the kernel's own device time (torch.profiler), and
+    whether both give the same outputs.  K1 at phase 4's shapes (n = 2^24,
+    k = 128, tile 4096; (64, 2^18) for K4), K5 on two duplicate-heavy runs
+    of 2^24.  The C entry points of both kernels kept their signatures."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import ops
+    from repro_torch.core import sampling
+    from repro_torch.data.distributions import make_input
+    from repro_torch.kernels import _build, level_fused as lf, merge_path as mp
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"card: {smi.stdout.strip()}", flush=True)
+    out_dir = ROOT / "build" / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for stem, sigs in (("level_fused", lf._SIGNATURES), ("merge_path", mp._SIGNATURES)):
+        so = out_dir / f"lib{stem}.so"
+        built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                                str(parent / "src" / "repro_torch" / "csrc" / f"{stem}.cu")],
+                               capture_output=True, text=True)
+        if built.returncode:
+            fail(f"the earlier {stem}.cu does not build: {built.stdout[-2000:]}")
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in sigs.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = list(argtypes)
+                getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, f"{stem}_error_string").restype = ctypes.c_char_p
+        libs[stem] = {"parent": lib, "this": _build.library(stem, sigs)}
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    k = 128
+    keys = ops.keyspace.encode(torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=1),
+                                               device=dev))
+    spl = sampling.select_splitters(torch.sort(keys[torch.randint(
+        0, N_BIG, (4 * k,), generator=gen, device=dev)]).values, k)
+    rng = np.random.default_rng(9)
+    radix_int = torch.as_tensor(rng.integers(-2**31, 2**31, N_BIG, dtype=np.int64)
+                                .astype(np.int32), device=dev)
+    kb = keys.view(B_BULK, N_ROW)
+    pos = torch.randint(0, N_ROW, (B_BULK, 4 * k), generator=gen, device=dev)
+    spl_b = sampling.select_splitters(torch.sort(torch.gather(kb, 1, pos), dim=1).values, k)
+
+    def run(n, lo, hi):
+        x = torch.sort(torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                     dtype=torch.int32)).values
+        x[-(n // 1000):] = torch.iinfo(torch.int32).max
+        return x
+
+    merge_a, merge_b = run(N_BIG, -1000, 1000), run(N_BIG, -1000, 1000)
+    cases = {
+        "level_fused": ("level_fused", lambda: lf._level_tiles_kernel(
+            keys[None], spl[None], k, N_BIG, lf.TILE)),
+        "level_fused_radix": ("level_fused", lambda: lf._level_tiles_kernel(
+            radix_int[None], None, k, N_BIG, lf.TILE)),
+        "level_fused_batched": ("level_fused", lambda: lf._level_tiles_kernel(
+            kb, spl_b, k, N_ROW, lf.TILE, batched=True)),
+        "merge_path": ("merge_path", lambda: mp.merge_path_perm(merge_a, merge_b)),
+    }
+    result = {}
+    for name, (stem, call) in cases.items():
+        times = {"parent": [], "this": []}
+        outs = {}
+        for side in ("parent", "this", "this", "parent"):
+            _build._LIBS[stem] = libs[stem][side]
+            outs[side] = call()
+            times[side].append((cuda_ms(torch, call), device_ms(
+                torch, call, names=DEVICE_FUNCTIONS[name])))
+        _build._LIBS[stem] = libs[stem]["this"]
+        got, want = outs["this"], outs["parent"]
+        same = all(torch.equal(g, w) for g, w in zip(got, want)) if isinstance(got, tuple) \
+            else torch.equal(got, want)
+        result[name] = {side: {"ms": [t[0] for t in ts], "device_ms": [t[1] for t in ts]}
+                        for side, ts in times.items()}
+        result[name]["same_outputs"] = same
+        print(f"before/after {name}: " + "; ".join(
+            f"{side} events {' '.join(f'{t[0]:.4f}' for t in ts)} ms, device "
+            f"{' '.join(f'{t[1]:.4f}' for t in ts)} ms" for side, ts in times.items())
+              + f"; same outputs: {same}", flush=True)
+        if not same:
+            fail(f"{name}: this tree's kernel and the earlier one differ")
+    print(json.dumps({"before_after": result}))
 
 
 def main() -> None:
@@ -1437,8 +1594,8 @@ def main() -> None:
                                            device=dev)]).values, k)
         tiles1 = -(-N_BIG // lf.TILE)
         t = rows["level_fused"]
-        t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(keys1[None], spl1[None], k, N_BIG,
-                                                                lf.TILE))
+        k1_call = lambda: lf._level_tiles_kernel(keys1[None], spl1[None], k, N_BIG, lf.TILE)
+        kernel_ms(torch, "level_fused", t, k1_call)
         t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(keys1[None], spl1[None], k,
                                                                      N_BIG, lf.TILE), reps=5)
         t["bound_ms"], t["bound_by"] = bound_ms(
@@ -1448,7 +1605,7 @@ def main() -> None:
 
         items = lf._items(off1, N_BIG, k2_tile)
         t = rows["rank_hist"]
-        t["ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_kernel(
+        kernel_ms(torch, "rank_hist", t, lambda: lf._rank_hist_slots_kernel(
             comp, 2 * k2, items[0], items[1], items[2], k2_tile))
         t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
             comp, 2 * k2, items[0], items[2]), reps=5)
@@ -1459,7 +1616,7 @@ def main() -> None:
         t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist(comp, tile=k2_tile, **k2_args))
 
         t = rows["sort_windows"]
-        t["ms"] = cuda_ms(torch, lambda: bitonic.sort_windows(wb, wk, nb=64))
+        kernel_ms(torch, "sort_windows", t, lambda: bitonic.sort_windows(wb, wk, nb=64))
         t["plain_ms"] = cuda_ms(torch, lambda: bitonic.sort_windows_plain(wb, wk, nb=64))
         log_w = W.bit_length() - 1
         compare_exchanges = (num_w * W // 2) * log_w * (log_w + 1) // 2
@@ -1469,8 +1626,8 @@ def main() -> None:
 
         # K1r at the 1-D radix path's level 1: n = 2^24 int32 full range
         t = rows["level_fused_radix"]
-        t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(radix_int[None], None, k, N_BIG,
-                                                                lf.TILE))
+        kernel_ms(torch, "level_fused_radix", t, lambda: lf._level_tiles_kernel(
+            radix_int[None], None, k, N_BIG, lf.TILE))
         t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(radix_int[None], None, k,
                                                                      N_BIG, lf.TILE), reps=5)
         t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 12 + tiles1 * (2 * k + 1) * 4,
@@ -1483,8 +1640,8 @@ def main() -> None:
         kb = encoded("Uniform", B_BULK * N_ROW, np.float32, seed=4).view(B_BULK, N_ROW)
         tiles_b = B_BULK * -(-N_ROW // lf.TILE)
         t = rows["level_fused_batched"]
-        t["ms"] = cuda_ms(torch, lambda: lf._level_tiles_kernel(kb, spl_b, k, N_ROW, lf.TILE,
-                                                                batched=True))
+        kernel_ms(torch, "level_fused_batched", t, lambda: lf._level_tiles_kernel(
+            kb, spl_b, k, N_ROW, lf.TILE, batched=True))
         t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(kb, spl_b, k, N_ROW,
                                                                      lf.TILE), reps=5)
         t["bound_ms"], t["bound_by"] = bound_ms(
@@ -1498,7 +1655,7 @@ def main() -> None:
         # K4 rank_hist_batched at the bulk path's level 2
         flat, _, _, items_b, local_seg = lf._row_segments(comp_b, off1_b, k4_tile)
         t = rows["rank_hist_batched"]
-        t["ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_kernel(
+        kernel_ms(torch, "rank_hist_batched", t, lambda: lf._rank_hist_slots_kernel(
             flat, 2 * k2b, items_b[0], items_b[1], local_seg, k4_tile, "rank_hist_batched"))
         t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
             flat, 2 * k2b, items_b[0], local_seg), reps=5)
@@ -1512,18 +1669,39 @@ def main() -> None:
         # the duplicate-heavy runs: 8 B per output (a key read, a source written),
         # ~6 ops per output (compare, two selects, the source, the store)
         t = rows["merge_path"]
-        t["ms"] = cuda_ms(torch, lambda: mp.merge_path_perm(merge_a, merge_b))
+        kernel_ms(torch, "merge_path", t, lambda: mp.merge_path_perm(merge_a, merge_b))
         t["plain_ms"] = cuda_ms(torch, lambda: mp.merge_path_perm_plain(merge_a, merge_b), reps=5)
         t["bound_ms"], t["bound_by"] = bound_ms(2 * N_BIG * 8, 2 * N_BIG * 6)
         merge_cat = torch.cat([merge_a, merge_b])
         t["library_ms"] = cuda_ms(torch, lambda: torch.sort(merge_cat, stable=True), reps=5)
+
+        # K1 and K5: one device kernel per call each (K1's wrapper adds the
+        # uppers' fill and cat), and their launches from the CUDA runtime
+        k5_call = lambda: mp.merge_path_perm(merge_a, merge_b)
+        for name, call in (("level_fused", k1_call), ("merge_path", k5_call)):
+            work = {e.key: e.count for e in device_events(torch, call, reps=10)}
+            print(f"{name} device work in 10 calls (torch.profiler): {work}", flush=True)
+            own = [c for key, c in work.items() if any(f in key for f in DEVICE_FUNCTIONS[name])]
+            if own != [10]:
+                fail(f"{name} is not one device kernel per call: {work}")
+        k1_launch = {f"{mode} k={k} tile={lf.TILE}": lf.launch_info(k, lf.TILE, mode == "radix")
+                     for mode in ("tree", "radix")}
+        k1_launch[f"tree k=512 tile={lf.MAX_TILE}"] = lf.launch_info(512, lf.MAX_TILE)
+        k5_launch = {f"tile={tile}": mp.launch_info(tile) for tile in (mp.TILE, mp.MAX_TILE)}
+        for name, launches in (("level_fused", k1_launch), ("merge_path", k5_launch)):
+            for what, info in launches.items():
+                print(f"{name} launch ({what}; cudaFuncGetAttributes): registers "
+                      f"{info['registers']} per thread, shared memory {info['static_smem']} "
+                      f"static + {info['dynamic_smem']} dynamic B per CTA, {info['threads']} "
+                      f"threads, {info['ctas_per_sm']} CTAs an SM at once, local memory "
+                      f"{info['local_bytes']} B", flush=True)
 
         # K6 at its main-path shapes: 8 B per id (id read, dest written) and the
         # starts; ~16 ops per id (the histogram pass's match and atomics, the
         # placement's match, two popcounts, the scans)
         def time_k6(name, call, plain, ids, nb, library):
             t = rows[name]
-            t["ms"] = cuda_ms(torch, call)
+            kernel_ms(torch, name, t, call)
             t["plain_ms"] = cuda_ms(torch, plain, reps=5)
             t["bound_ms"], t["bound_by"] = bound_ms(ids.numel() * 8 + ids.numel() // ids.shape[-1]
                                                     * nb * 4, ids.numel() * 16)
@@ -1551,7 +1729,7 @@ def main() -> None:
         # sentinel test, 2j + eq, the atomic)
         def time_k7(name, call, plain, n_keys, key_bytes, k_, tiles, ops_per_key, uppers):
             t = rows[name]
-            t["ms"] = cuda_ms(torch, call)
+            kernel_ms(torch, name, t, call)
             t["plain_ms"] = cuda_ms(torch, plain, reps=3)
             t["bound_ms"], t["bound_by"] = bound_ms(
                 n_keys * (key_bytes + 4) + uppers * 4 + tiles * 2 * k_ * 4, n_keys * ops_per_key)
@@ -1587,14 +1765,15 @@ def main() -> None:
         gather_ms = cuda_ms(torch, lambda: body.index_select(0, block_order), warmup=1, reps=3)
         block_bound = bound_ms(2 * N_BLOCK_KEYS * 4 + nblocks * 4, nblocks * 16)
         t = rows["permute_blocks_by_dest"]
-        t["ms"] = cuda_ms(torch, lambda: bp.permute_blocks_by_dest(pb_keys, dst_uniform))
+        kernel_ms(torch, "permute_blocks_by_dest", t,
+                  lambda: bp.permute_blocks_by_dest(pb_keys, dst_uniform))
         t["plain_ms"] = cuda_ms(torch, lambda: bp.permute_blocks_by_dest_plain(pb_keys, dst_uniform),
                                 warmup=1, reps=3)
         t["bound_ms"], t["bound_by"] = block_bound
         t["library_ms"] = gather_ms
         t = rows["permute_blocks_inplace"]
-        t["ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace(keys9, bb_uniform, d_uniform,
-                                                                   k=N_BUCKETS), warmup=1, reps=10)
+        kernel_ms(torch, "permute_blocks_inplace", t, lambda: pi.permute_blocks_inplace(
+            keys9, bb_uniform, d_uniform, k=N_BUCKETS), warmup=1, reps=10, device_reps=5)
         t["plain_ms"] = cuda_ms(torch, lambda: pi.permute_blocks_inplace_plain(
             keys9, bb_uniform, d_uniform, k=N_BUCKETS), warmup=0, reps=1)
         t["bound_ms"], t["bound_by"] = block_bound
@@ -1673,8 +1852,10 @@ def main() -> None:
             cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
         del pb_arrays, pb_keys, body
         torch.cuda.empty_cache()
+        level_kernels = DEVICE_FUNCTIONS["level_fused"] + DEVICE_FUNCTIONS["rank_hist"]
         profile(torch, f"stream.external_sort {N_STREAM} keys, chunks of {CHUNK}",
-                lambda: stream.external_sort(stream_x, chunk_size=CHUNK), top=10)
+                lambda: stream.external_sort(stream_x, chunk_size=CHUNK), top=10,
+                show=level_kernels + DEVICE_FUNCTIONS["merge_path"])
         chunks, runs_ = N_STREAM // CHUNK, N_STREAM // CHUNK
         rounds = 0
         while runs_ > 1:
@@ -1683,12 +1864,15 @@ def main() -> None:
               f"then the spilled runs of rounds 2-{rounds}), D2H {4 * N_STREAM * rounds} B "
               f"({rounds} spills of {4 * N_STREAM} B; {chunks} chunks, {rounds} rounds)",
               flush=True)
-        profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(paths["1-D tree"][1][0][1]))
+        profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(paths["1-D tree"][1][0][1]),
+                show=level_kernels)
         profile(torch, f"ops.sort radix int32 n={N_BIG}",
-                lambda: ops.sort(radix_int, classifier=radix))
-        profile(torch, f"ops.batched_sort ({B_BULK}, {N_ROW})", lambda: ops.batched_sort(bulk))
+                lambda: ops.sort(radix_int, classifier=radix), show=level_kernels)
+        profile(torch, f"ops.batched_sort ({B_BULK}, {N_ROW})", lambda: ops.batched_sort(bulk),
+                show=level_kernels)
         for name, r in rows.items():
-            print(f"time {name}: kernel {r['ms']:.4f} ms, with epilogue "
+            print(f"time {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), with "
+                  f"epilogue "
                   f"{r.get('wrapper_ms', r['ms']):.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
                   f"{r['library_ms']}", flush=True)
@@ -1755,7 +1939,8 @@ def main() -> None:
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(f"total {time.time() - t_start:.1f} s")
@@ -1766,4 +1951,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        compare_with_parent(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--parent DIR]")
+    else:
+        main()

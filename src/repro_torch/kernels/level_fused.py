@@ -34,6 +34,7 @@ stably.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +44,7 @@ from repro_torch.core.sampling import sentinel_for
 from repro_torch.kernels import _build
 
 __all__ = [
+    "launch_info",
     "level_fused",
     "level_fused_plain",
     "level_fused_batched",
@@ -57,7 +59,7 @@ __all__ = [
 ]
 
 TILE = 4096  # default keys per CTA (K1) or per work item (K2)
-MAX_TILE = 16384  # two staged int arrays of this many keys fit shared memory
+MAX_TILE = 16384  # K1: 32 warps of 512 positions; K2: two staged int arrays in shared memory
 MAX_NB = 2048  # counters per CTA: 8 warps x MAX_NB ints of shared memory
 
 _P, _I = _build.P, _build.I
@@ -66,6 +68,7 @@ _SIGNATURES = {
     "level_fused_radix": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "level_fused_batched": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "level_fused_rank_hist": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "level_fused_info": (_I, _I, _I, _P),
 }
 
 
@@ -193,6 +196,22 @@ def _level_tiles_kernel(keys, splitters, k, n_real, tile, consumed_bits=0, batch
     _build.check(lib, "level_fused", err, f"{name} kernel")
     _build.LAUNCHES[name] += 1
     return bucket, rank, hist
+
+
+def launch_info(k: int, tile: int = TILE, radix: bool = False) -> dict:
+    """The K1/K1r/K4 kernel's launch at (k, tile, mode), from the CUDA runtime
+    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    registers per thread, static and dynamic shared memory per CTA in bytes,
+    threads per CTA, CTAs an SM holds at once and local memory per thread
+    in bytes (spills).  Builds and loads the library; needs a card."""
+    _check_tile(tile, 2 * k + 1)
+    out = (ctypes.c_int * 6)()
+    lib = _build.library("level_fused", _SIGNATURES)
+    _build.check(lib, "level_fused", lib.level_fused_info(k, int(radix), tile,
+                                                          ctypes.addressof(out)),
+                 "level_fused kernel")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "threads", "ctas_per_sm",
+                     "local_bytes"), out))
 
 
 def _level_args(keys, splitters, k, n_real, tile, classifier, dim):

@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.merge_path`` (the Pallas TPU kernel at
 ``merge_path.py:157`` and its XLA diagonal search ``merge_path_partition``
 at ``:76``).  The CUDA kernel is in ``csrc/merge_path.cu``, whose header
 note gives its bound and design.  The wrapper launches the kernel on a CUDA
-tensor (key ``merge_path`` of ``_build.LAUNCHES``) and runs the plain twin
+tensor (key ``merge_path`` of ``_build.LAUNCHES``, one device kernel a
+call) and runs the plain twin
 ``merge_path_perm_plain`` only on a CPU tensor; there is no fallback from
 one to the other.
 
@@ -18,11 +19,14 @@ signed ints; the stream layer encodes before it merges.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 
 __all__ = [
+    "launch_info",
     "merge_path_partition",
     "merge_path_perm",
     "merge_path_perm_plain",
@@ -31,13 +35,14 @@ __all__ = [
     "MAX_OUTPUTS",
 ]
 
-TILE = 2048  # outputs per CTA: 256 threads x 8
-MAX_TILE = 16384  # the window and the staged sources, 8 B per output, in shared memory
+TILE = 2048  # outputs a CTA merges at a step of its persistent loop: 256 threads x 8
+MAX_TILE = 16384  # the largest tile taken; the kernel runs one above 8192 as steps of 8192
 MAX_OUTPUTS = 1 << 30  # the reference's int32 source encoding (_PAD_SRC)
 
 _SIGNATURES = {
     "merge_path_perm": (_build.P, _build.I, _build.P, _build.I, _build.I, _build.P,
                         _build.P),
+    "merge_path_info": (_build.I, _build.P),
 }
 
 
@@ -61,8 +66,9 @@ def merge_path_partition(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor) -> t
     """The number of ``a`` keys among the first ``d`` outputs of the stable
     merge (ties to ``a``), for every diagonal in ``d``: the largest i in
     [max(0, d-nB), min(d, nA)] with ``a[i-1] <= b[d-i]``, by a binary search
-    over all diagonals at once.  The plain form of the search each CTA of
-    K5 runs for its two cuts."""
+    over all diagonals at once.  The plain form of what K5's cut kernel
+    finds at a CTA's first tile boundary, and then in shared memory at
+    every later one."""
     nA, nB = a.shape[0], b.shape[0]
     d = d.to(torch.int64)
     lo = torch.clamp(d - nB, min=0)
@@ -98,8 +104,8 @@ def merge_path_perm(a: torch.Tensor, b: torch.Tensor, *, tile: int = TILE) -> to
     """Stable-merge permutation of two sorted runs of encoded int32 keys:
     the K5 kernel on a CUDA tensor, its plain twin on a CPU tensor.
 
-    ``tile`` is the outputs per CTA, a power of two; it never changes the
-    result.  Returns ``perm`` (nA+nB,) int32 with ``cat(a, b)[perm]`` the
+    ``tile`` is the outputs a CTA merges at a time, a power of two; it
+    never changes the result.  Returns ``perm`` (nA+nB,) int32 with ``cat(a, b)[perm]`` the
     stable merge: ties keep all of ``a`` before ``b``, each run in its own
     order.  Raises for nA + nB >= 2^30, as the reference does.
     """
@@ -116,3 +122,19 @@ def merge_path_perm(a: torch.Tensor, b: torch.Tensor, *, tile: int = TILE) -> to
     _build.check(lib, "merge_path", err, "merge_path kernel")
     _build.LAUNCHES["merge_path"] += 1
     return perm
+
+
+def launch_info(tile: int = TILE) -> dict:
+    """The kernel's launch at ``tile``, from the CUDA runtime
+    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    registers per thread, static and dynamic shared memory per CTA in
+    bytes, threads per CTA, CTAs an SM holds at once and local memory per
+    thread in bytes (spills).  Builds and loads the library; needs a card."""
+    if tile < 1 or tile & (tile - 1) or tile > MAX_TILE:
+        raise ValueError(f"tile={tile} must be a power of two in [1, {MAX_TILE}]")
+    out = (ctypes.c_int * 6)()
+    lib = _build.library("merge_path", _SIGNATURES)
+    _build.check(lib, "merge_path", lib.merge_path_info(tile, ctypes.addressof(out)),
+                 "merge_path kernel")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "threads", "ctas_per_sm",
+                     "local_bytes"), out))

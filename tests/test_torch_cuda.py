@@ -1,6 +1,10 @@
 """The port's CUDA kernels against their plain twins, on a CUDA card:
-K1 (tree), K1r (radix), K4 ``level_fused_batched`` (both modes),
-K2 ``rank_hist``, K4 ``rank_hist_batched``, K3, K5 ``merge_path_perm`` and
+K1 (tree), K1r (radix), K4 ``level_fused_batched`` (both modes; also at
+MAX_TILE, a tile of 33, k = 2 and the largest k, every key on one
+splitter, every position a pad), K2 ``rank_hist``, K4
+``rank_hist_batched``, K3, K5 ``merge_path_perm`` (also at tile 1, the
+default and MAX_TILE, all-equal runs, runs of length 1, unaligned
+starts) and
 K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``),
 K7 (``classify_histogram`` and its batched and radix forms), K8
 ``permute_blocks_by_dest`` (every team size, 20 runs in a row, and a ``dst``
@@ -52,6 +56,64 @@ def test_level_fused_kernel(dev, k, n, n_real, tile):
     _equal(lf.level_fused(keys, spl, k=k, n_real=n_real, tile=tile),
            lf.level_fused_plain(keys, spl, k=k, n_real=n_real, tile=tile))
     assert kernels.launch_counts()["level_fused"] == before + 1
+
+
+LEVEL_EDGE_CASES = ["tile MAX_TILE", "tile 33", "k=2", "largest k", "all on one splitter",
+                    "all pads"]
+
+
+def _level_edge(dev, case, radix):
+    """Keys, splitters (None in radix mode) and kwargs of one K1 edge case:
+    a CTA of 32 warps (MAX_TILE) or one partial warp (33), k = 2 or the
+    largest k under MAX_NB, every key equal to one splitter, every position
+    a pad; heavy duplicates and sentinel keys throughout."""
+    k, n, n_real, tile = 128, 50_000, 49_001, lf.TILE
+    if case == "tile MAX_TILE":
+        tile, n, n_real = lf.MAX_TILE, 3 * lf.MAX_TILE + 777, 3 * lf.MAX_TILE + 500
+    elif case == "tile 33":
+        tile, n, n_real = 33, 5000, 4990
+    elif case == "k=2":
+        k = 2
+    elif case == "largest k":
+        k = 1 << ((lf.MAX_NB - 1) // 2).bit_length() - 1
+    elif case == "all pads":
+        n_real = 0
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    keys = torch.randint(-3000, 3000, (n,), generator=g, device=dev, dtype=torch.int32)
+    keys[::53] = torch.iinfo(torch.int32).max  # the sentinel: an equality bucket
+    spl = sampling.select_splitters(torch.sort(keys[:8192]).values, k)
+    if case == "all on one splitter":
+        keys.fill_(int(spl[k // 2]))
+    kw = dict(k=k, n_real=n_real, tile=tile, classifier="radix" if radix else "tree")
+    return keys, None if radix else spl, kw
+
+
+@pytest.mark.parametrize("classifier", ["tree", "radix"])
+@pytest.mark.parametrize("case", LEVEL_EDGE_CASES)
+def test_level_fused_kernel_edges(dev, case, classifier):
+    """K1 and K1r bit for bit their plain twins at the edges of the CTA
+    shape (one warp per 512 positions) and of the classifier."""
+    keys, spl, kw = _level_edge(dev, case, classifier == "radix")
+    name = "level_fused_radix" if classifier == "radix" else "level_fused"
+    assert 2 * kw["k"] + 1 <= lf.MAX_NB
+    before = kernels.launch_counts()[name]
+    _equal(lf.level_fused(keys, spl, **kw), lf.level_fused_plain(keys, spl, **kw))
+    assert kernels.launch_counts()[name] == before + 1
+
+
+@pytest.mark.parametrize("classifier", ["tree", "radix"])
+@pytest.mark.parametrize("case", ["tile MAX_TILE", "tile 33", "largest k", "all pads"])
+def test_level_fused_batched_kernel_edges(dev, case, classifier):
+    """K4 ``level_fused_batched`` bit for bit its twin over three rows of
+    the same edge cases, each row with its own splitters."""
+    keys, spl, kw = _level_edge(dev, case, classifier == "radix")
+    rows = torch.stack([keys, keys.flip(0), keys.roll(7)])
+    if spl is not None:
+        spl = torch.stack([spl, spl, sampling.select_splitters(
+            torch.sort(rows[2, :8192]).values, kw["k"])])
+    before = kernels.launch_counts()["level_fused_batched"]
+    _equal(lf.level_fused_batched(rows, spl, **kw), lf.level_fused_batched_plain(rows, spl, **kw))
+    assert kernels.launch_counts()["level_fused_batched"] == before + 1
 
 
 @pytest.mark.parametrize("nb,seg", [(3, 0), (520, 0), (40 * 256, 40)])
@@ -195,6 +257,39 @@ def test_merge_path_kernel(dev, na, nb, tile):
     assert torch.equal(got, merge_path.merge_path_perm_plain(a, b, tile=tile))
     assert torch.equal(got.to(torch.int64), torch.sort(torch.cat([a, b]), stable=True).indices)
     assert kernels.launch_counts()["merge_path"] == before + (1 if na and nb else 0)
+
+
+MERGE_EDGE_CASES = ["all equal", "a of length 1", "b of length 1", "random"]
+
+
+@pytest.mark.parametrize("case", MERGE_EDGE_CASES)
+@pytest.mark.parametrize("tile", [1, merge_path.TILE, merge_path.MAX_TILE])
+def test_merge_path_kernel_edges(dev, tile, case):
+    """K5 bit for bit its twin and the stable sort at tile 1 (a CTA of one
+    thread per output), the default and MAX_TILE (64 outputs a thread),
+    with every key equal, one run of length 1, and runs whose first keys
+    sit at every 4-byte offset from a 16-byte boundary (views into a
+    larger tensor)."""
+    g = torch.Generator(device=dev).manual_seed(tile)
+    na, nb = (3000, 2000) if tile == 1 else (200_003, 150_001)
+    if case == "a of length 1":
+        na = 1
+    elif case == "b of length 1":
+        nb = 1
+    lo, hi = (0, 1) if case == "all equal" else (-20, 20)
+    for off in range(4):
+        buf = torch.randint(lo, hi, (na + nb + 8,), generator=g, device=dev, dtype=torch.int32)
+        a = torch.sort(buf[off:off + na]).values
+        b = torch.sort(buf[na + off + 4:na + off + 4 + nb]).values
+        base = torch.empty(na + nb + 8, dtype=torch.int32, device=dev)
+        base[off:off + na], base[na + off + 4:na + off + 4 + nb] = a, b
+        a, b = base[off:off + na], base[na + off + 4:na + off + 4 + nb]
+        before = kernels.launch_counts()["merge_path"]
+        got = merge_path.merge_path_perm(a, b, tile=tile)
+        assert kernels.launch_counts()["merge_path"] == before + 1
+        assert torch.equal(got, merge_path.merge_path_perm_plain(a, b, tile=tile))
+        assert torch.equal(got.to(torch.int64),
+                           torch.sort(torch.cat([a, b]), stable=True).indices)
 
 
 @pytest.mark.parametrize("rows,n,nb,tile,skew", [(1, 1000, 3, 4096, False),

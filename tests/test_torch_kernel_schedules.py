@@ -1,4 +1,4 @@
-"""The arithmetic of two of the port's CUDA kernels, replayed on the CPU and
+"""The arithmetic of four of the port's CUDA kernels, replayed on the CPU and
 held to the reference's oracles.
 
 The kernels run only on a card; their plain twins compute the same
@@ -20,6 +20,25 @@ step, so that their schedules are checked where there is no card:
   big + big x small + big x big in f32, held to the reference's oracle
   ``flash_attention_ref`` within the float32 limit 2e-5 + 2e-5 |want|,
   which one TF32 product alone misses.
+- K1 ``level_fused`` (``csrc/level_fused.cu``): one warp per 512 positions
+  of a tile, the splitters in Eytzinger order and each key's bucket found
+  by the branchless descent j = 2j + (key > tree[j]), eq against the
+  uppers, pads routed to 2k, the ranks taken chunk by chunk in each warp's
+  span (the lanes holding the same id, OR-ed into a mask per id, the
+  warp's counter) and offset by
+  the exclusive scan over the warps.  Held bit for bit to the reference's
+  ``_classify_tile`` and ``_rank_and_hist`` per tile, and through the
+  placement to its ``level_fused`` in interpret mode.
+- K5 ``merge_path_perm`` (``csrc/merge_path.cu``): a persistent grid of
+  CTAs, each a contiguous run of steps; a CTA's first cut by a warp search
+  in device memory (32 probes a step, the first steps on multiples of the
+  step), every later cut by a warp search in the stage of the next T keys
+  of both runs; the stage's 16-byte bulk copies from the rounded-down
+  starts (at every alignment of the runs), each thread's sub-diagonal
+  search and serial merge of its outputs, and the padded transpose (a
+  bijection with no bank conflict on the write and on the 16-byte read).
+  The cuts are held to the reference's ``merge_path_partition`` and the
+  permutation to ``merge_path_perm_ref``, bit for bit.
 """
 import math
 
@@ -28,8 +47,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.ref import bitonic_sort_windows_ref
+from repro.classify.radix import radix_bucket_ids as ref_radix_bucket_ids
+from repro.kernels.level_fused import _classify_tile as ref_classify_tile
+from repro.kernels.level_fused import _rank_and_hist as ref_rank_and_hist
+from repro.kernels.level_fused import level_fused as ref_level_fused
+from repro.kernels.merge_path import merge_path_partition as ref_merge_path_partition
+from repro.kernels.ref import bitonic_sort_windows_ref, merge_path_perm_ref
 from repro.kernels.ref import flash_attention_ref as ref_attention_oracle
+from repro_torch.classify import radix_shift
+from repro_torch.kernels.level_fused import _close_placement
 
 # ---- K3 -------------------------------------------------------------------
 
@@ -195,3 +221,346 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     big, small = _split(y)
     assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
     assert ((big + small - y).abs() <= 2.0 ** -22 * y.abs()).all()
+
+
+# ---- K1 -------------------------------------------------------------------
+
+INT_MAX = np.iinfo(np.int32).max
+SIGN = np.uint32(0x80000000)
+
+
+def _eytzinger(upper: np.ndarray, k: int) -> np.ndarray:
+    """The kernel's s_tree: node i at depth h, p-th of its depth, holds the
+    sorted splitter (2p + 1) k / 2^(h+1) - 1 (node 0 unused)."""
+    tree = np.zeros(k, np.int64)
+    for i in range(1, k):
+        h = i.bit_length() - 1
+        tree[i] = upper[(2 * (i - (1 << h)) + 1) * (k >> (h + 1)) - 1]
+    return tree
+
+
+def _replay_k1_tile(keys, upper, k, pad_from, shift):
+    """K1's CTA over one tile of signed keys: (bucket, rank, hist).  Tree
+    mode when ``upper`` is given, else radix at ``shift``; positions >=
+    ``pad_from`` are pads."""
+    length = keys.shape[0]
+    warps = max(1, -(-length // 512)) if length else 1
+    nb = 2 * k + 1
+    key = keys.astype(np.int64)
+    if upper is None:
+        bits = ((keys.view(np.uint32) ^ SIGN).astype(np.int64) >> shift) & (k - 1)
+        ids = 2 * bits + (key == INT_MAX)
+    else:
+        tree = _eytzinger(upper, k)
+        j = np.ones(length, np.int64)
+        for _ in range(k.bit_length() - 1):  # the interleaved descent, all keys at once
+            j = 2 * j + (key > tree[j])
+        j -= k
+        ids = 2 * j + (key == upper[j])
+    ids[np.arange(length) >= pad_from] = 2 * k
+    return ids, *_replay_k1_ranks(ids, nb, warps)
+
+
+def _replay_k1_ranks(ids, nb, warps):
+    """The warps' spans of 32-wide chunks, the ranks in registers, the scan."""
+    length = ids.shape[0]
+    span = ((-(-length // warps)) + 31) // 32 * 32
+    assert span <= 512
+    cnt = np.zeros((warps, nb), np.int64)
+    rank = np.zeros(length, np.int64)
+    warp_of = np.zeros(length, np.int64)
+    for w in range(warps):
+        lo, hi = w * span, min(w * span + span, length)
+        for base in range(lo, hi, 32):
+            chunk = ids[base:min(base + 32, hi)]
+            same = chunk[:, None] == chunk[None, :]  # the lanes' bits OR-ed into a mask per id
+            below = np.tril(same, -1).sum(1)  # popc(same & below)
+            rank[base:base + chunk.shape[0]] = cnt[w, chunk] + below
+            np.add.at(cnt[w], chunk, 1)  # the group's lowest lane bumps the counter
+        warp_of[lo:hi] = w
+    excl = np.cumsum(cnt, 0) - cnt
+    return rank + excl[warp_of, ids], cnt.sum(0)
+
+
+def _k1_keys(n, k, seed):
+    """Keys with heavy duplicates, many equal to a splitter, some equal to
+    the sentinel; sorted splitters with duplicates."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-40, 40, n).astype(np.int32)
+    keys[rng.random(n) < 0.05] = INT_MAX
+    keys[rng.random(n) < 0.02] = np.iinfo(np.int32).min
+    spl = np.sort(rng.choice(keys[keys != INT_MAX], k - 1)).astype(np.int32)
+    on_splitter = rng.random(n) < 0.3
+    keys[on_splitter] = rng.choice(spl, int(on_splitter.sum()))
+    return keys, spl
+
+
+def _ref_tile_ids(keys, spl, k, classifier, consumed):
+    """The reference's classification of the whole row (uint32 codes)."""
+    u = keys.view(np.uint32) ^ SIGN
+    rows = -(-u.shape[0] // 128)
+    padded = np.full(rows * 128, np.iinfo(np.uint32).max, np.uint32)
+    padded[: u.shape[0]] = u
+    if classifier == "radix":
+        ids = ref_radix_bucket_ids(jnp.asarray(padded), k, consumed)
+    else:
+        upper = np.append(spl.view(np.uint32) ^ SIGN, np.uint32(np.iinfo(np.uint32).max))
+        ids = ref_classify_tile(jnp.asarray(padded.reshape(rows, 128)),
+                                jnp.asarray(upper.reshape(1, k)), k=k, classifier="tree",
+                                consumed=0)
+    return np.asarray(ids).reshape(-1)[: u.shape[0]]
+
+
+@pytest.mark.parametrize("classifier", ["tree", "radix"])
+@pytest.mark.parametrize("k,n,n_real,tile", [(2, 5000, 4900, 4096), (16, 9000, 9000, 1024),
+                                             (128, 20000, 19000, 4096), (16, 1000, 990, 33),
+                                             (128, 17000, 16500, 16384), (2, 600, 0, 512)])
+def test_k1_descent_and_register_ranks_match_the_reference(classifier, k, n, n_real, tile):
+    """Per tile, the replayed bucket, rank and histogram equal the
+    reference's ``_classify_tile`` (or radix ids) with its pad routing and
+    ``_rank_and_hist``; a ragged last tile is held to the reference's
+    trash-id padding (rank -1, out of the histogram)."""
+    keys, spl = _k1_keys(n, k, seed=k + n + tile)
+    consumed = 3 if classifier == "radix" else 0
+    shift = radix_shift(k, consumed)
+    want_ids = _ref_tile_ids(keys, spl, k, classifier, consumed)
+    want_ids = np.where(np.arange(n) >= n_real, 2 * k, want_ids)
+    nb = 2 * k + 1
+    upper = None if classifier == "radix" else np.append(spl, INT_MAX).astype(np.int64)
+    for col in range(0, n, tile):
+        length = min(tile, n - col)
+        ids, rank, hist = _replay_k1_tile(keys[col:col + length], upper, k, n_real - col, shift)
+        np.testing.assert_array_equal(ids, want_ids[col:col + length])
+        rows = -(-length // 128)
+        padded = np.full(rows * 128, nb, np.int32)  # the reference's trash id
+        padded[:length] = want_ids[col:col + length]
+        ref_rank, ref_hist = ref_rank_and_hist(jnp.asarray(padded.reshape(rows, 128)), nb, rows)
+        np.testing.assert_array_equal(rank, np.asarray(ref_rank).reshape(-1)[:length])
+        np.testing.assert_array_equal(hist, np.asarray(ref_hist).reshape(-1))
+
+
+@pytest.mark.parametrize("classifier", ["tree", "radix"])
+def test_k1_replay_places_like_the_reference_kernel(classifier):
+    """The replay's outputs through the port's epilogue give the reference
+    kernel's (dest, offsets) in interpret mode, pads included."""
+    n, n_real, k, tile = 4096, 4000, 16, 1024
+    keys, spl = _k1_keys(n, k, seed=5)
+    u = keys.view(np.uint32) ^ SIGN
+    upper = None if classifier == "radix" else np.append(spl, INT_MAX).astype(np.int64)
+    outs = [_replay_k1_tile(keys[c:c + tile], upper, k, n_real - c, radix_shift(k, 0))
+            for c in range(0, n, tile)]
+    bucket = torch.as_tensor(np.concatenate([o[0] for o in outs]).astype(np.int32))[None]
+    rank = torch.as_tensor(np.concatenate([o[1] for o in outs]).astype(np.int32))[None]
+    hist = torch.as_tensor(np.stack([o[2] for o in outs]).astype(np.int32))[None]
+    dest, offsets = _close_placement(bucket, rank, hist, 2 * k + 1, tile)
+    ref_spl = None if classifier == "radix" else jnp.asarray(spl.view(np.uint32) ^ SIGN)
+    want_dest, want_off = ref_level_fused(jnp.asarray(u), ref_spl, k=k, n_real=n_real,
+                                          classifier=classifier, rows=tile // 128,
+                                          interpret=True)
+    np.testing.assert_array_equal(dest[0].numpy(), np.asarray(want_dest))
+    np.testing.assert_array_equal(offsets[0].numpy(), np.asarray(want_off))
+
+
+def test_k1_eytzinger_descent_counts_the_splitters_below():
+    """The descent equals the sorted-array search for every key around every
+    splitter, with duplicate splitters and the sentinel upper."""
+    for k in (2, 4, 16, 128, 512):
+        rng = np.random.default_rng(k)
+        upper = np.append(np.sort(rng.integers(-20, 20, k - 1)), INT_MAX).astype(np.int64)
+        tree = _eytzinger(upper, k)
+        keys = np.concatenate([upper, upper - 1, upper + 1, [np.iinfo(np.int32).min]])
+        j = np.ones(keys.shape[0], np.int64)
+        for _ in range(k.bit_length() - 1):
+            j = 2 * j + (keys > tree[j])
+        np.testing.assert_array_equal(j - k, np.searchsorted(upper[:-1], keys, side="left"))
+
+
+# ---- K5 -------------------------------------------------------------------
+
+
+def _warp_search(lo, hi, pred):
+    """The cut kernel's warp search over many diagonals at once: the largest
+    c in [lo, hi] with pred(c) (pred(lo) taken to hold), 32 probes a step."""
+    lo, hi = lo.astype(np.int64).copy(), hi.astype(np.int64).copy()
+    lanes = np.arange(32)
+    steps = 0
+    while (hi > lo).any():
+        act = hi > lo
+        span = hi - lo
+        probe = np.where(span[:, None] >= 32, lo[:, None] + (((lanes + 1) * span[:, None]) >> 5),
+                         lo[:, None] + lanes + 1)
+        valid = probe <= hi[:, None]
+        q = valid & pred(np.where(valid, probe, lo[:, None] + 1))
+        c = q.sum(1)
+        assert (q == (lanes[None, :] < c[:, None])).all()  # the ballot is a prefix
+        first_false = probe[np.arange(probe.shape[0]), np.minimum(c, 31)]
+        new_lo = np.where(c > 0, probe[np.arange(probe.shape[0]), np.maximum(c - 1, 0)], lo)
+        new_hi = np.where((c < 32) & (first_false <= hi), first_false - 1, hi)
+        lo, hi = np.where(act, new_lo, lo), np.where(act, new_hi, hi)
+        steps += 1
+    return lo, steps
+
+
+def _replay_warp_cut(a, b, d, s):
+    """A CTA's first cut, as its first warp finds it in device memory: the
+    first steps on the multiples of s (which divides d), then the span left."""
+    na, nb = a.shape[0], b.shape[0]
+    lo, hi = np.array([max(0, d - nb)]), np.array([min(d, na)])
+    a64, b64 = a.astype(np.int64), b.astype(np.int64)
+
+    def q(i):
+        return a64[np.clip(i - 1, 0, na - 1)] <= b64[np.clip(d - i, 0, nb - 1)]
+
+    m, coarse = _warp_search(lo // s, hi // s, lambda m: q(m * s))
+    cut, fine = _warp_search(np.maximum(lo, m * s), np.minimum(hi, m * s + s - 1), q)
+    return int(cut[0]), coarse, fine
+
+
+def _window(x_off, start, length):
+    """The 16-byte pieces of a window of int32 keys at element offset
+    ``start`` of a run whose first key sits x_off bytes past a 16-byte
+    boundary: (first piece's byte address, pieces, keys skipped)."""
+    lo = x_off + 4 * start
+    first = lo & ~15
+    pieces = ((lo + 4 * length + 15) & ~15) - first >> 4 if length > 0 else 0
+    return first, pieces, (lo - first) >> 2
+
+
+def _copy_window(x, x_off, start, length):
+    """What the bulk copy brings: memory words around the run are -1 (never
+    read as keys); each piece must hold at least one key of the run."""
+    first, pieces, skip = _window(x_off, start, length)
+    words = np.full(4 * pieces, -1, np.int64)
+    for w in range(4 * pieces):
+        e = (first + 4 * w - x_off) // 4  # element index of this word
+        if 0 <= e < x.shape[0]:
+            words[w] = x[e]
+    for c in range(pieces):  # inside the allocation: a key of the run in every piece
+        e0 = (first + 16 * c - x_off) // 4
+        assert e0 + 3 >= 0 and e0 < x.shape[0]
+    return words, pieces, skip
+
+
+def _replay_k5(a, b, tile, grid, a_off=0, b_off=0):
+    """The merge kernel over ``grid`` CTAs, each a contiguous run of steps:
+    (perm, {step: cut at its start}, the most warp-search steps a cut took
+    in shared memory)."""
+    na, nb = a.shape[0], b.shape[0]
+    n = na + nb
+    step = min(tile, 8192)
+    per = step // 256 if step >= 2048 else min(step, 8)
+    threads = max(32, step // per)  # a whole warp at least: the cut searches are a warp's
+    stage_words = 2 * ((step + 3) & ~3) + 16
+    num_tiles = -(-n // step)
+    grid = min(grid, num_tiles)
+    share, extra = divmod(num_tiles, grid)
+    perm = np.full(n, -1, np.int64)
+    cuts, stage_steps = {}, 0
+    for cta in range(grid):
+        t0 = cta * share + min(cta, extra)
+        t1 = t0 + share + (cta < extra)
+        ia = _replay_warp_cut(a, b, t0 * step, step)[0]
+        ja = t0 * step - ia
+        for t in range(t0, t1):
+            cuts[t] = ia
+            d0 = t * step
+            length = min(step, n - d0)
+            la, lb = min(step, na - ia), min(step, nb - ja)  # the stage's keys
+            wa, ca, sa_skip = _copy_window(a, a_off, ia, la)
+            wb, cb, sb_skip = _copy_window(b, b_off, ja, lb)
+            assert 4 * (ca + cb) <= stage_words
+            stage = np.concatenate([wa, wb])
+            sa, sb = stage[sa_skip:sa_skip + la], stage[4 * ca + sb_skip:4 * ca + sb_skip + lb]
+            np.testing.assert_array_equal(sa, a[ia:ia + la])
+            np.testing.assert_array_equal(sb, b[ja:ja + lb])
+            # the step's end cut, by one warp in the stage
+            end, steps = _warp_search(np.array([max(0, length - lb)]), np.array([min(length, la)]),
+                                      lambda i: sa[np.clip(i - 1, 0, max(la - 1, 0))]
+                                      <= sb[np.clip(length - i, 0, max(lb - 1, 0))])
+            stage_steps = max(stage_steps, steps)
+            lo = np.minimum(np.arange(threads) * per, length)
+            # each thread's sub-diagonal: a binary search in the stage
+            slo, shi = np.maximum(0, lo - lb), np.minimum(lo, la)
+            while (slo < shi).any():
+                act = slo < shi
+                mid = (slo + shi + 1) >> 1
+                q = (sa[np.clip(mid - 1, 0, max(la - 1, 0))]
+                     <= sb[np.clip(lo - mid, 0, max(lb - 1, 0))]) if la and lb else act
+                slo = np.where(act & q, mid, slo)
+                shi = np.where(act & ~q, mid - 1, shi)
+            i, j = slo.copy(), lo - slo
+            s_out = np.full(step + step // 32 + 1, -1, np.int64)
+            for r in range(per):
+                ka = sa[np.minimum(i, max(la - 1, 0))] if la else np.zeros_like(i)
+                kb = sb[np.minimum(j, max(lb - 1, 0))] if lb else np.zeros_like(j)
+                take_a = (i < la) & ((j >= lb) | (ka <= kb))
+                src = np.where(take_a, ia + i, na + ja + j)
+                o = np.arange(threads) * per + r
+                keep = o < length
+                s_out[(o + (o >> 5))[keep]] = src[keep]
+                i, j = i + take_a, j + ~take_a
+            o = np.arange(length)
+            perm[d0:d0 + length] = s_out[o + (o >> 5)]
+            ia, ja = ia + int(end[0]), ja + length - int(end[0])
+    return perm, cuts, stage_steps
+
+
+@pytest.mark.parametrize("na,nb,lo_hi,tile", [
+    (50_000, 30_000, (-5, 5), 2048),  # duplicate-heavy runs, a partial last step
+    (3000, 9000, None, 2048),  # a exhausted inside the first step
+    (100, 70_000, (-50, 50), 4096),  # nA smaller than a step
+    (70_000, 5, (-50, 50), 16384),  # nB smaller than a step; steps of 8192, 32 outputs a thread
+    (20_000, 20_001, (-3, 3), 512),  # 64 threads of 8
+    (300, 211, (-2, 2), 8),  # one warp, its first thread's 8 outputs
+    (40, 33, (-2, 2), 1),  # a step of one output
+])
+def test_k5_cuts_and_thread_merge_match_the_reference(na, nb, lo_hi, tile):
+    """The replayed cuts (a CTA's first in device memory, every later one in
+    its stage) equal ``merge_path_partition`` at every step boundary, and
+    the replayed merge equals ``merge_path_perm_ref``, on grids of one CTA,
+    of three and of one CTA a step, with NaN codes (INT_MAX) at the runs'
+    ends and at every alignment of the runs' first keys."""
+    rng = np.random.default_rng(na + nb + tile)
+    if lo_hi is None:  # every a below every b
+        a = np.sort(rng.integers(-100, 0, na)).astype(np.int32)
+        b = np.sort(rng.integers(0, 100, nb)).astype(np.int32)
+    else:
+        a = np.sort(rng.integers(*lo_hi, na)).astype(np.int32)
+        b = np.sort(rng.integers(*lo_hi, nb)).astype(np.int32)
+        a[-2:] = INT_MAX
+        b[-1:] = INT_MAX
+    n = na + nb
+    step = min(tile, 8192)
+    d = np.arange(-(-n // step), dtype=np.int64) * step
+    want_cuts = np.asarray(ref_merge_path_partition(jnp.asarray(a), jnp.asarray(b),
+                                                    jnp.asarray(d.astype(np.int32))))
+    want = np.asarray(merge_path_perm_ref(jnp.asarray(a), jnp.asarray(b)))
+    for grid, (a_off, b_off) in ((1, (0, 0)), (3, (4, 12)), (n, (8, 4)), (2, (12, 8))):
+        perm, cuts, stage_steps = _replay_k5(a, b, tile, grid, a_off, b_off)
+        np.testing.assert_array_equal(np.array([cuts[t] for t in range(d.shape[0])]), want_cuts)
+        np.testing.assert_array_equal(perm, want)
+        assert stage_steps <= 3  # a span of at most 8193 closes in 3 steps of 32 probes
+    for t in range(0, d.shape[0], max(1, d.shape[0] // 5)):  # a CTA's first cut
+        cut, coarse, fine = _replay_warp_cut(a, b, int(d[t]), step)
+        assert cut == want_cuts[t] and fine <= (3 if step > 32 else 1)
+
+
+@pytest.mark.parametrize("per", [8, 16, 32])
+def test_k5_padded_transpose_has_no_bank_conflict(per):
+    """Slot o + o/32 of output o = t * per + r: a bijection into the
+    buffer; the 32 threads of a warp hit 32 banks when they write their
+    r-th output, and when each reads the four slots of its 16-byte store."""
+    threads = 256
+    tile = threads * per
+    o = np.arange(tile)
+    slots = o + (o >> 5)
+    assert len(np.unique(slots)) == tile and slots.max() < tile + tile // 32 + 1
+    t = np.arange(threads)
+    for r in range(per):
+        banks = (slots[t * per + r] % 32).reshape(-1, 32)
+        assert all(len(np.unique(w)) == 32 for w in banks)
+    v = np.arange(tile // 4)
+    for q in range(4):
+        read = 4 * v + q + (v >> 3)
+        np.testing.assert_array_equal(read, slots[4 * v + q])
+        assert all(len(np.unique(w)) == 32 for w in (read % 32).reshape(-1, 32))
