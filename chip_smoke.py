@@ -92,7 +92,9 @@ for the attention kernels and the serve path:
    device time by torch.profiler (``device_ms``: events around the wrapper
    also time its host work); K1's and K5's device kernels per call (one
    each) and their launches (registers, shared memory, threads, CTAs an SM
-   from ``cudaFuncGetAttributes``); each entry point beside
+   from ``cudaFuncGetAttributes``); K2's and K4 ``rank_hist_batched``'s
+   kernels per call (at most 5; the four kernels' device times) and their
+   rank kernel's launch; each entry point beside
    ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and K8/K9 beside
    the out-of-place ``index_select`` of the blocks; profiles of
    three sorts and of one ``external_sort`` (device time, idle share,
@@ -116,7 +118,11 @@ for the attention kernels and the serve path:
 
 times K1 (tree, radix, batched) and K5 of the CUDA sources under DIR (an
 earlier commit, unpacked by ``git archive``) beside this tree's, in turns,
-and checks that both give the same outputs.
+and checks that both give the same outputs; and K2 ``rank_hist`` and K4
+``rank_hist_batched`` of DIR's sources through DIR's own wrappers (their C
+entry points differ), in a child process with ``DIR/src`` on its path:
+entry point by events, device time and kernels of a call, and equal
+(dest, offsets).
 
 It imports nothing of JAX or of the ``repro`` package.
 """
@@ -263,12 +269,17 @@ def device_ms(torch, fn, reps: int = 20, names=None, launches: int = 1) -> float
     return sum(device_us(e) / e.count for e in own) / 1e3
 
 
+K2_KERNELS = ("segment_items_kernel", "segment_count_kernel", "segment_tiny_count_kernel",
+              "segment_small_kernel", "segment_scan_kernel", "segment_rank_kernel",
+              "rank_hist_kernel")
+
 # each row's device functions, by name (csrc/*.cu): a row's device_ms sums
 # these alone, without the torch kernels its wrapper launches around them
 DEVICE_FUNCTIONS = {
     "level_fused": ("level_fused_kernel",), "level_fused_radix": ("level_fused_kernel",),
     "level_fused_batched": ("level_fused_kernel",),
-    "rank_hist": ("rank_hist_kernel",), "rank_hist_batched": ("rank_hist_kernel",),
+    # K2's kernels (four a call); the last name: the first design's one kernel
+    "rank_hist": K2_KERNELS, "rank_hist_batched": K2_KERNELS,
     "sort_windows": ("sort_windows_kernel", "sort_small_windows_kernel"),
     # the second name: the first design's kernel, which --parent times
     "merge_path": ("merge_kernel<", "merge_path_kernel"),
@@ -292,6 +303,15 @@ def kernel_ms(torch, name, t, fn, warmup: int = 2, reps: int = 10, device_reps: 
     torch.profiler over ``device_reps`` calls)."""
     t["ms"] = cuda_ms(torch, fn, warmup=warmup, reps=reps)
     t["device_ms"] = device_ms(torch, fn, reps=device_reps, names=DEVICE_FUNCTIONS[name])
+
+
+def call_kernels(torch, fn, reps: int = 10):
+    """One call's device kernels by torch.profiler (copies and memsets
+    apart): (launches a call, device ms a call, {kernel: mean ms a launch})."""
+    events = [e for e in device_events(torch, fn, reps)
+              if not e.key.startswith(("Memcpy", "Memset"))]
+    return (sum(e.count for e in events) / reps, sum(device_us(e) for e in events) / 1e3 / reps,
+            {e.key: device_us(e) / e.count / 1e3 for e in events})
 
 
 def host_us(torch, fn, reps: int = 50) -> float:
@@ -848,7 +868,119 @@ def compare_with_parent(parent: Path) -> None:
               + f"; same outputs: {same}", flush=True)
         if not same:
             fail(f"{name}: this tree's kernel and the earlier one differ")
+    result.update(compare_rank_hist_with_parent(torch, parent, keys, dev))
     print(json.dumps({"before_after": result}))
+
+
+# The earlier tree's K2 and K4 rank_hist_batched entry points, in a child
+# process with that tree's ``src`` first on its path: reads a kernel name a
+# line, answers with one JSON line of its timings; the first call of each
+# saves its (dest, offsets).
+PARENT_CHILD = r"""
+import json, sys, torch
+from pathlib import Path
+root, parent_src, inputs = sys.argv[1:4]
+sys.path[:0] = [parent_src, root]
+import chip_smoke as cs
+from repro_torch.kernels import level_fused as lf
+dev = torch.device("cuda", 0)
+x = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in torch.load(inputs).items()}
+calls = {
+    "rank_hist": lambda: lf.rank_hist(x["comp"], nb=x["nb"], seg_offsets=x["off"],
+                                      seg_width=x["width"], tile=x["tile"]),
+    "rank_hist_batched": lambda: lf.rank_hist_batched(
+        x["comp_b"], nb=x["nb_b"], seg_offsets=x["off_b"], seg_width=x["width_b"],
+        tile=x["tile_b"]),
+}
+for line in sys.stdin:
+    name = line.strip()
+    out = calls[name]()
+    torch.cuda.synchronize()
+    torch.save(tuple(o.cpu() for o in out), str(Path(inputs).with_name(f"k2_{name}.pt")))
+    launches, device, _ = cs.call_kernels(torch, calls[name])
+    print(json.dumps({"ms": cs.cuda_ms(torch, calls[name]), "device_ms": device,
+                      "launches": launches}), flush=True)
+"""
+
+
+def compare_rank_hist_with_parent(torch, parent: Path, keys, dev) -> dict:
+    """``--parent DIR``, K2 and K4 ``rank_hist_batched``: the earlier tree's
+    entry points (kernel and torch epilogue; their C signatures differ, so
+    through its own wrappers, in a child process) beside this tree's, on
+    the composite ids of a real level 1 (2^24 keys; (64, 2^18) rows), in
+    turns (earlier, this, this, earlier): CUDA events around the entry
+    point, the device time of all kernels of one call and their launches
+    (torch.profiler, copies apart), and whether (dest, offsets) are equal."""
+    from repro_torch.core import ips4o
+    from repro_torch.kernels import level_fused as lf
+
+    cfg = ips4o.SortConfig()
+    x = {}
+    for tag, rows_, n in (("", 1, N_BIG), ("_b", B_BULK, N_ROW)):
+        levels = ips4o.plan_levels(n, cfg)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        if rows_ == 1:
+            arrays, off, nb1, _ = ips4o.level_pass({"k": keys}, n, levels[0], cfg, gen)
+            comp = ips4o.composite_ids(arrays["k"], off, nb1, n, levels[1], gen)
+        else:
+            arrays, off, nb1, _ = ips4o.batched_level_pass({"k": keys.view(rows_, n)}, n,
+                                                           levels[0], cfg, gen)
+            comp = ips4o.batched_composite_ids(arrays["k"], off, nb1, n, levels[1], gen)
+        x.update({f"comp{tag}": comp, f"off{tag}": off, f"nb{tag}": nb1 * 2 * levels[1],
+                  f"width{tag}": 2 * levels[1], f"tile{tag}": ips4o._auto_tile(
+                      n, 2 * levels[1], cfg)})
+    inputs = ROOT / "build" / "parent" / "k2_inputs.pt"
+    torch.save({k: v.cpu() if torch.is_tensor(v) else v for k, v in x.items()}, inputs)
+    calls = {
+        "rank_hist": lambda: lf.rank_hist(x["comp"], nb=x["nb"], seg_offsets=x["off"],
+                                          seg_width=x["width"], tile=x["tile"]),
+        "rank_hist_batched": lambda: lf.rank_hist_batched(
+            x["comp_b"], nb=x["nb_b"], seg_offsets=x["off_b"], seg_width=x["width_b"],
+            tile=x["tile_b"]),
+    }
+    child = subprocess.Popen([sys.executable, "-c", PARENT_CHILD, str(ROOT),
+                              str(parent / "src"), str(inputs)],
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    result = {}
+    try:
+        for name, call in calls.items():
+            times = {"parent": [], "this": []}
+            for side in ("parent", "this", "this", "parent"):
+                if side == "parent":
+                    child.stdin.write(name + "\n")
+                    child.stdin.flush()
+                    line = child.stdout.readline()
+                    if not line:
+                        fail(f"the earlier tree's {name} child process ended")
+                    times[side].append(json.loads(line))
+                else:
+                    launches, device, _ = call_kernels(torch, call)
+                    times[side].append({"ms": cuda_ms(torch, call), "device_ms": device,
+                                        "launches": launches})
+            got = call()
+            want = torch.load(inputs.with_name(f"k2_{name}.pt"))
+            same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            result[name] = {side: {key: [t[key] for t in ts] for key in ("ms", "device_ms",
+                                                                         "launches")}
+                            for side, ts in times.items()}
+            result[name]["same_outputs"] = same
+            def turns(ts, key, fmt=".4f"):
+                return " ".join(format(t[key], fmt) for t in ts)
+
+            print(f"before/after {name} entry point: " + "; ".join(
+                f"{side} events {turns(ts, 'ms')} ms, device (all kernels of a call) "
+                f"{turns(ts, 'device_ms')} ms, kernels a call {turns(ts, 'launches', 'g')}"
+                for side, ts in times.items()) + f"; same outputs: {same}", flush=True)
+            if not same:
+                fail(f"{name}: this tree's entry point and the earlier one differ")
+    finally:
+        child.stdin.close()
+        try:
+            child.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+    return result
 
 
 def main() -> None:
@@ -1583,10 +1715,10 @@ def main() -> None:
         # Op counts for the bounds, per element: K1 3 per search step (load,
         # compare, add) over log2(k) steps plus ~12 for eq, pad routing, the warp
         # match, the popcounts and the scan; K1r ~6 for the bit extraction (xor,
-        # shift, mask, the sentinel test, 2j + eq) in place of the search; K2 the
-        # same ~12 without the search; K3 4 per compare-exchange (a 64-bit
-        # compare is two, the swap two).  Bytes: each input read once, each
-        # output written once (keys or ids in, bucket or slot and rank out).
+        # shift, mask, the sentinel test, 2j + eq) in place of the search; K3 4
+        # per compare-exchange (a 64-bit compare is two, the swap two).  Bytes:
+        # each input read once, each output written once (keys in, bucket and
+        # rank out).
         log_k = k.bit_length() - 1
         keys1 = encoded("Uniform", N_BIG, np.float32)
         spl1 = sampling.select_splitters(
@@ -1603,16 +1735,18 @@ def main() -> None:
         t["library_ms"] = None
         t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(keys1, spl1, k=k))
 
-        items = lf._items(off1, N_BIG, k2_tile)
+        # K2 at the 1-D path's level 2: 8 B per id (the id read, dest written)
+        # and the offsets; ~16 ops per id (the count's load and atomic, the
+        # rank's mask, counter and popcounts, the store)
         t = rows["rank_hist"]
-        kernel_ms(torch, "rank_hist", t, lambda: lf._rank_hist_slots_kernel(
-            comp, 2 * k2, items[0], items[1], items[2], k2_tile))
-        t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
-            comp, 2 * k2, items[0], items[2]), reps=5)
-        num_items = items[0].shape[0]
-        t["bound_ms"], t["bound_by"] = bound_ms(
-            N_BIG * 12 + num_items * (3 + 2 * k2) * 4, N_BIG * 12)
-        t["library_ms"] = None
+        k2_call = lambda: lf._segment_place_kernel(comp[None], off1[None], nb1, 2 * k2, k2_tile,
+                                                   "rank_hist")
+        kernel_ms(torch, "rank_hist", t, k2_call)
+        t["plain_ms"] = cuda_ms(torch, lambda: lf.rank_hist_plain(comp, tile=k2_tile, **k2_args),
+                                reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 8 + (nb1 + 1) * 4 + (nb2 + 1) * 4,
+                                                N_BIG * 16)
+        t["library_ms"] = cuda_ms(torch, lambda: torch.sort(comp, stable=True), reps=5)
         t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist(comp, tile=k2_tile, **k2_args))
 
         t = rows["sort_windows"]
@@ -1653,17 +1787,41 @@ def main() -> None:
                                                                     lf.TILE, batched=True))
 
         # K4 rank_hist_batched at the bulk path's level 2
-        flat, _, _, items_b, local_seg = lf._row_segments(comp_b, off1_b, k4_tile)
         t = rows["rank_hist_batched"]
-        kernel_ms(torch, "rank_hist_batched", t, lambda: lf._rank_hist_slots_kernel(
-            flat, 2 * k2b, items_b[0], items_b[1], local_seg, k4_tile, "rank_hist_batched"))
-        t["plain_ms"] = cuda_ms(torch, lambda: lf._rank_hist_slots_plain(
-            flat, 2 * k2b, items_b[0], local_seg), reps=5)
+        k4_call = lambda: lf._segment_place_kernel(comp_b, off1_b, nb1_b, 2 * k2b, k4_tile,
+                                                   "rank_hist_batched")
+        kernel_ms(torch, "rank_hist_batched", t, k4_call)
+        t["plain_ms"] = cuda_ms(torch, lambda: lf.rank_hist_batched_plain(
+            comp_b, tile=k4_tile, **k4_args), reps=5)
         t["bound_ms"], t["bound_by"] = bound_ms(
-            B_BULK * N_ROW * 12 + items_b[0].shape[0] * (3 + 2 * k2b) * 4, B_BULK * N_ROW * 12)
-        t["library_ms"] = None
+            B_BULK * N_ROW * 8 + B_BULK * (nb1_b + 1) * 4 + B_BULK * (k4_args["nb"] + 1) * 4,
+            B_BULK * N_ROW * 16)
+        t["library_ms"] = cuda_ms(torch, lambda: torch.sort(comp_b, dim=1, stable=True), reps=5)
         t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist_batched(comp_b, tile=k4_tile,
                                                                       **k4_args))
+        # K2 and K4: every kernel of one call (at most 5, no torch op over the
+        # ids) and the rank kernel's launch
+        for name, call in (("rank_hist", k2_call), ("rank_hist_batched", k4_call),
+                           ("rank_hist entry point", lambda: lf.rank_hist(
+                               comp, tile=k2_tile, **k2_args)),
+                           ("rank_hist_batched entry point", lambda: lf.rank_hist_batched(
+                               comp_b, tile=k4_tile, **k4_args))):
+            per_call, _, kernels_ms = call_kernels(torch, call)
+            print(f"{name} device kernels a call (torch.profiler): {per_call:g}; "
+                  + ", ".join(f"{k.replace('(anonymous namespace)::', '').split('(')[0]} "
+                              f"{v:.4f} ms" for k, v in kernels_ms.items()), flush=True)
+            if per_call > 5:
+                fail(f"{name} launches {per_call} kernels a call")
+        k2_launch = {f"width={2 * k2} tile={k2_tile}": lf.segment_launch_info(2 * k2, k2_tile),
+                     f"width={2 * k2b} tile={k4_tile}": lf.segment_launch_info(2 * k2b, k4_tile),
+                     f"width={lf.MAX_NB} tile={lf.MAX_TILE}": lf.segment_launch_info(
+                         lf.MAX_NB, lf.MAX_TILE)}
+        for what, info in k2_launch.items():
+            print(f"rank_hist rank kernel launch ({what}; cudaFuncGetAttributes): registers "
+                  f"{info['registers']} per thread, shared memory {info['static_smem']} static + "
+                  f"{info['dynamic_smem']} dynamic B per CTA, {info['threads']} threads, "
+                  f"{info['ctas_per_sm']} CTAs an SM at once, local memory "
+                  f"{info['local_bytes']} B", flush=True)
 
         # K5 at the stream's last tournament round shape class (2^24 + 2^24), on
         # the duplicate-heavy runs: 8 B per output (a key read, a source written),
@@ -1871,9 +2029,8 @@ def main() -> None:
         profile(torch, f"ops.batched_sort ({B_BULK}, {N_ROW})", lambda: ops.batched_sort(bulk),
                 show=level_kernels)
         for name, r in rows.items():
-            print(f"time {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), with "
-                  f"epilogue "
-                  f"{r.get('wrapper_ms', r['ms']):.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            print(f"time {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), entry "
+                  f"point {r.get('wrapper_ms', r['ms']):.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
                   f"{r['library_ms']}", flush=True)
         print(f"time level_fused_batched radix ({B_BULK}, {N_ROW}): kernel {radix_k4_ms:.4f} ms",

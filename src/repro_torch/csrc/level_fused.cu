@@ -14,18 +14,21 @@
 //      (row, tile), each row with its own splitters (tree) or the shared
 //      shift (radix), pads routed within the row, one histogram slab per
 //      row;
-//   K2 `rank_hist`                -- the same rank + histogram over ids
-//      given by the caller; its batched form K4 `rank_hist_batched` is this
-//      kernel over work items cut from the B x num_seg row-aligned segments
-//      of the flattened rows (the wrapper cuts them).
-// The global placement dest = offsets[b] + tile_off[t, b] + rank is closed by
-// a plain torch epilogue, as the reference closes it in XLA.
+//   K2 `rank_hist`                -- the stable counting placement over ids
+//      given by the caller, dest[i] = offsets[b] + #{j < i : id[j] == b}
+//      for b = id[i], and the nb + 1 offsets; its batched form K4
+//      `rank_hist_batched` places each row of (B, n) ids, dest and offsets
+//      row-local.
+// K1's global placement dest = offsets[b] + tile_off[t, b] + rank is closed
+// by a plain torch epilogue, as the reference closes it in XLA.  K2 closes
+// its own on the device (four launches, below).
 //
 // Bound: bytes.  K1 reads 4 B of key and writes 4 B of bucket and 4 B of
-// rank per element; K2 reads 4 B of id and writes 4 B of slot and 4 B of
-// rank.  About 12 B per element, ~60 us for 2^24 elements at 3.35 TB/s.  The
-// arithmetic (a log2(k)-level descent in shared memory, a warp match and
-// two popcounts per element) is far below the integer rate.
+// rank per element: 12 B, ~60 us for 2^24 elements at 3.35 TB/s.  K2 must
+// read 4 B of id and write 4 B of dest: 8 B, ~40 us; it reads the ids twice
+// (count, then rank), so it moves 12 B.  The arithmetic (a log2(k)-level
+// descent in shared memory, a peer mask and two popcounts per element) is
+// far below the integer rate.
 //
 // The rank must follow position order -- a rank taken from shared-memory
 // atomics would not be stable -- and the CTAs run in any order, so nothing
@@ -36,9 +39,9 @@
 // bumped by the group's lowest lane) carries the count across the warp's
 // chunks.  An exclusive scan of those counters over the warps then gives
 // each warp's start per id, and the scan's total is the tile histogram.
-// K2 finds a group by __match_any_sync; K1 by an atomicOr of each lane's
-// bit into a per-warp mask per id (as CUB's radix rank does), which the
-// group's lowest lane clears with its counter update.
+// A group is found by an atomicOr of each lane's bit into a per-warp mask
+// per id (as CUB's radix rank does), which the group's lowest lane clears
+// with its counter update.
 //
 // K1, K1r and K4 level_fused_batched (`level_fused_kernel`).  What held the
 // first design back (0.183 ms of device time at n = 2^24, k = 128 on an H100,
@@ -75,26 +78,62 @@
 // never straddles a row, pads are routed by the position within the row,
 // and each row's histogram slab is contiguous for the per-row epilogue.
 //
-// K2 `rank_hist` and K4 `rank_hist_batched` (`rank_hist_kernel`, one CTA of
-// 8 warps per work item, through rank_hist.cuh, whose ids and ranks are
-// staged in shared memory between the rank and the write).  K2 at level 2
-// of the sort takes composite ids seg * W2 + local with up to 257 * 256 =
-// 65,792 distinct values: too many counters for one CTA.  But segments are
-// contiguous position ranges and the composite id rises with the segment,
-// so the stable placement by composite id is, per segment, the stable
-// placement by the local id (W2 <= 256 counters) offset by the segment's
-// start.  The wrapper cuts work items that never straddle a segment; each
-// CTA ranks one item over W2 counters and writes the slot item * W2 +
-// local for the epilogue.  No dense (tiles x 65,792) histogram exists
-// anywhere.  The batched rank_hist (K4) needs nothing more: the B rows,
-// flattened, are B x num_seg segments, each item's segment id given to the
-// kernel is its row-local one, and the epilogue subtracts each row's
-// start.
+// K2 `rank_hist` and K4 `rank_hist_batched` (`segment_*_kernel`, four
+// launches: items, count, scan, rank).  K2 at level 2 of the sort takes
+// composite ids seg * W2 + local with up to 257 * 256 = 65,792 distinct
+// values: too many counters for one CTA.  But segments are contiguous
+// position ranges and the composite id rises with the segment, so the
+// stable placement by composite id is, per segment, the stable placement
+// by the local id (W2 = seg_width <= 2048 counters) offset by the
+// segment's start.  Work items of at most `tile` positions never straddle
+// a segment; each row numbers its items in position order within `slots`
+// = n / tile + num_seg, the static bound, so nothing is read back to the
+// host, and the slots past a row's live items are empty.  The first design
+// ranked the items here and left the placement to a torch epilogue of ~45
+// launches (1.31 ms by events at 2^24 on an H100, against 0.17 ms for the
+// kernel).  This one is K6's count, scan and place, made segment-aware:
+//   1. segment_items_kernel, one CTA per row: items per segment, their
+//      scan, and each slot's (row * n + position, length, id base) found by
+//      a binary search over the threads' first items;
+//   2. the count of each slot's local ids into hist[slot, W2];
+//   3. segment_scan_kernel, one team per (row, segment): a warp when the
+//      segment's items are few and W2 small (eight teams a CTA), else a
+//      CTA.  Thread (x, y) takes local id x (of each pass of up to 1024
+//      ids) and run y of the segment's items; one exclusive scan over the
+//      team in thread order, which is the id-major order over (id, run),
+//      gives each run's start; the run's walk turns hist into base[slot,
+//      id] in place, and run 0 of id b writes offsets[seg * W2 + b]
+//      (row-local).  The items kernel writes each row's last offset, n;
+//   4. the rank of each slot's local ids, dest = base[slot, id] + rank.
+// Above W2 = 32 (K2 at level 2: W2 = 256) the count and the rank take a
+// CTA of up to 8 warps per slot (empty slots exit at once).  The count
+// adds one shared-memory atomicAdd per id, all of a lane's loads in flight
+// (few lanes of a warp share an id).  The rank (segment_rank_kernel) is
+// K1's: every load of a lane in flight before it ranks, peer masks by one
+// atomicOr a lane, 16-bit per-warp counters, ranks in registers, the scan
+// over the warps, coalesced stores, the slot's base row in shared memory;
+// chunks are ranked in pairs with a mask buffer each, so their atomicOrs
+// overlap.  A warp takes at most 512 positions (16 chunks) at once; at
+// tiles above 8 x 512 it walks its span twice, counting batch by batch,
+// then, after the scan, ranking again from its start and storing.  Shared
+// memory: W2 * (4 + 10 * warps) B, 21 KB at W2 = 256, 168 KB at W2 =
+// MAX_NB = 2048.
+// Up to W2 = 32 (K4 rank_hist_batched at level 2: W2 = 4, items of ~2,000
+// positions and many of one) a CTA per slot spent its time starting CTAs:
+// the count and the rank take one warp per slot, eight a CTA, and keep
+// their counters in registers: lane b holds id b's count, or its next
+// destination, base + the count so far (segment_small_kernel).  Per chunk
+// log2(W2) + 1 ballots give each lane the lanes holding its id and those
+// holding id `lane`; a lane's destination is lane v's register (one
+// shuffle) plus the group's lower lanes.  Up to W2 = 4 the count needs no
+// ballot: each lane adds its ids into four 8-bit fields of one register a
+// batch (segment_tiny_count_kernel).  Each batch of 16 chunks is loaded
+// while the one before is counted or ranked.
+// An id outside [0, W2) after its segment's base breaks the caller's
+// contract: it is left out of the counts and gets dest -1.
 #include <climits>
 
 #include <cuda_runtime.h>
-
-#include "rank_hist.cuh"
 
 namespace {
 
@@ -224,31 +263,6 @@ __global__ void __launch_bounds__(kLevelMaxThreads)
   }
 }
 
-// K2: one CTA per work item (start, len, seg); local id = id - seg * nb.
-__global__ void rank_hist_kernel(const int* __restrict__ ids,
-                                 const int* __restrict__ item_start,
-                                 const int* __restrict__ item_len,
-                                 const int* __restrict__ item_seg, int nb,
-                                 int tile, int* __restrict__ rank,
-                                 int* __restrict__ slot,
-                                 int* __restrict__ hist) {
-  extern __shared__ int smem[];
-  int* cnt = smem;
-  int* s_id = cnt + kWarps * nb;
-  int* s_rank = s_id + tile;
-  const int item = blockIdx.x;
-  const long long start = item_start[item];
-  const int len = item_len[item];
-  const int base_id = item_seg[item] * nb;
-  auto get_id = [&](int p) -> int { return ids[start + p] - base_id; };
-  auto emit = [&](int p, int b, int r) {
-    rank[start + p] = r;
-    slot[start + p] = b < 0 ? -1 : item * nb + b;
-  };
-  rank_hist_item(len, nb, get_id, emit, hist + (long long)item * nb, cnt, s_id,
-                 s_rank);
-}
-
 // K1's CTA: one warp per 512 positions of the tile, at least one.
 int level_threads(int tile) {
   const int warps = (tile + kLevelSpan - 1) / kLevelSpan;
@@ -283,6 +297,529 @@ int launch_level(const void* keys, const void* upper, int rows, int n,
       (const int*)keys, (const int*)upper, n, n_real, k, shift, tile,
       tiles_per_row, (int*)bucket, (int*)rank, (int*)hist);
   return cudaGetLastError();
+}
+
+// ---- K2 and K4 rank_hist_batched: the segment-aware counting placement ----
+
+constexpr int kRankChunks = 16;      // 32-position chunks a lane holds at once
+constexpr int kRankMaxWarps = 8;     // warps of a count or rank CTA
+constexpr int kItemsThreads = 1024;  // threads of the items kernel (one row)
+constexpr int kItemsCache = 96 * 1024;  // its segments in shared memory up to this
+constexpr unsigned kFull = 0xffffffffu;
+
+// Exclusive scan of v over the warp; *total gets the warp's sum.
+__device__ int warp_exclusive_scan(int v, int* total) {
+  const int lane = threadIdx.x & 31;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  *total = __shfl_sync(kFull, x, 31);
+  return x - v;
+}
+
+// Exclusive scan of v over the CTA (whole warps); *total gets the CTA's
+// sum.  warp_sums: 33 ints of shared memory, free again on return.
+__device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int warp_total;
+  const int excl = warp_exclusive_scan(v, &warp_total);
+  if (lane == 0) warp_sums[warp] = warp_total;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < warps ? warp_sums[lane] : 0;
+    int all;
+    const int before = warp_exclusive_scan(w, &all);
+    if (lane < warps) warp_sums[lane] = before;
+    if (lane == 0) warp_sums[32] = all;
+  }
+  __syncthreads();
+  const int out = excl + warp_sums[warp];
+  *total = warp_sums[32];
+  __syncthreads();
+  return out;
+}
+
+// A call's segments and scratch, as its kernels share them: rows of n ids,
+// num_seg segments a row (seg_off (rows, num_seg + 1), or null: one segment
+// [0, n)) of `width` local ids, `slots` item slots a row; first (rows,
+// num_seg + 1): a segment's first slot in its row; hist (rows * slots,
+// width): the counts, then base, the row-local destination of each slot's
+// first id; offsets (rows, num_seg * width + 1), row-local.
+struct Segments {
+  const int* seg_off;
+  int* first;
+  int* hist;
+  int* offsets;
+  int n, num_seg, width, slots;
+};
+
+// 1. One CTA per row.  Segment s of the row is [off[s], off[s+1]), the last
+// one ending at n; it holds ceil(len / tile) items.  Writes first[row, s]
+// (first[row, num_seg] = the live items), each slot's (row * n + position,
+// length, s * width; length 0 past the live items) and the row's last
+// offset, n.  With `cache`, the slots' search reads the first slots and the
+// segments' starts from shared memory (2 * (num_seg + 1) ints).
+__global__ void __launch_bounds__(kItemsThreads)
+    segment_items_kernel(Segments g, int tile, int cache, int4* __restrict__ items) {
+  extern __shared__ int s_seg[];           // cache: first (num_seg + 1), then lo (num_seg + 1)
+  __shared__ int part[kItemsThreads + 1];  // each thread's first slot, then the total
+  __shared__ int warp_sums[33];
+  const int row = blockIdx.x;
+  const int num_seg = g.num_seg, n = g.n;
+  const int* off = g.seg_off == nullptr ? nullptr : g.seg_off + (long long)row * (num_seg + 1);
+  int* first_out = g.first + (long long)row * (num_seg + 1);
+  int* row_off = g.offsets + (long long)row * ((long long)num_seg * g.width + 1);
+  auto seg_lo = [&](int s) { return s == num_seg ? n : (off == nullptr ? 0 : off[s]); };
+  auto seg_items = [&](int s) {
+    const int len = seg_lo(s + 1) - seg_lo(s);
+    return len > 0 ? len / tile + (len % tile != 0) : 0;
+  };
+  const int per = (num_seg + blockDim.x - 1) / blockDim.x;  // segments a thread
+  const int s0 = min((int)threadIdx.x * per, num_seg);
+  const int s1 = min(s0 + per, num_seg);
+  int mine = 0;
+  for (int s = s0; s < s1; ++s) mine += seg_items(s);
+  int live;
+  int run = block_exclusive_scan(mine, warp_sums, &live);
+  part[threadIdx.x] = run;
+  for (int s = s0; s < s1; ++s) {
+    first_out[s] = run;
+    if (cache) s_seg[s] = run, s_seg[num_seg + 1 + s] = seg_lo(s);
+    run += seg_items(s);
+  }
+  if (threadIdx.x == 0) {
+    part[blockDim.x] = live;
+    first_out[num_seg] = live;
+    if (cache) s_seg[num_seg] = live, s_seg[2 * num_seg + 1] = n;
+    row_off[(long long)num_seg * g.width] = n;
+  }
+  __syncthreads();  // part, the cache and first (device memory) seen by the whole CTA
+  const int* first = cache ? s_seg : first_out;
+  auto lo = [&](int s) { return cache ? s_seg[num_seg + 1 + s] : seg_lo(s); };
+  int4* row_items = items + (long long)row * g.slots;
+  for (int i = threadIdx.x; i < g.slots; i += blockDim.x) {
+    if (i >= live) {
+      row_items[i] = make_int4(0, 0, 0, 0);
+      continue;
+    }
+    int a = 0, b = blockDim.x;  // part[a] <= i < part[b]: thread a's segments hold slot i
+    while (b - a > 1) {
+      const int m = (a + b) >> 1;
+      if (part[m] <= i) a = m; else b = m;
+    }
+    int s = a * per;
+    while (first[s + 1] <= i) ++s;
+    const int start = lo(s) + (i - first[s]) * tile;
+    row_items[i] = make_int4(row * n + start, min(tile, lo(s + 1) - start), s * g.width, 0);
+  }
+}
+
+// 2. One CTA per slot (W2 > 32): the item's local ids (id - id base)
+// counted into hist[slot, width], one shared-memory atomicAdd per id.
+__global__ void __launch_bounds__(kRankMaxWarps * 32)
+    segment_count_kernel(const int* __restrict__ ids, const int4* __restrict__ items,
+                         Segments g) {
+  extern __shared__ int cnt[];
+  const int4 it = items[blockIdx.x];
+  if (it.y == 0) return;  // an empty slot: the whole CTA
+  const int width = g.width;
+  const int step = blockDim.x * kRankChunks;
+  int id[kRankChunks];
+  auto load = [&](int from) {  // every load of the batch in flight
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      const int p = from + c * blockDim.x + threadIdx.x;
+      id[c] = p < it.y ? __ldg(ids + it.x + p) - it.z : -1;
+    }
+  };
+  load(0);
+  for (int b = threadIdx.x; b < width; b += blockDim.x) cnt[b] = 0;
+  __syncthreads();
+  for (int from = 0; from < it.y; from += step) {
+    if (from != 0) load(from);
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      if ((unsigned)id[c] < (unsigned)width) atomicAdd(&cnt[id[c]], 1);
+    }
+  }
+  __syncthreads();
+  int* out = g.hist + (long long)blockIdx.x * width;
+  for (int b = threadIdx.x; b < width; b += blockDim.x) out[b] = cnt[b];
+}
+
+// 3. One team per (row, segment): a warp (kWarpTeam, eight to a CTA) or the
+// CTA.  Thread t of the team is (x = t / runs, y = t % runs): local id b0 +
+// x of each pass of `ids_per_pass` ids, and run y of the segment's items.
+// One exclusive scan over the team, in thread order, is the id-major scan
+// over (id, run): each run's start within the segment.  Each run's walk
+// turns the counts into base in place; run 0 of id b writes the offset.
+template <bool kWarpTeam>
+__global__ void __launch_bounds__(1024)
+    segment_scan_kernel(Segments g, int rows, int ids_per_pass, int runs) {
+  __shared__ int warp_sums[33];
+  const int team = kWarpTeam ? blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)
+                             : blockIdx.x;
+  if (team >= rows * g.num_seg) return;  // a whole team: no barrier is left waiting
+  const int t = kWarpTeam ? (threadIdx.x & 31) : threadIdx.x;
+  const int width = g.width;
+  const int row = team / g.num_seg;
+  const int s = team - row * g.num_seg;
+  const long long seg_at = (long long)row * (g.num_seg + 1) + s;
+  const int f = g.first[seg_at];
+  const int c = g.first[seg_at + 1] - f;
+  int carry = g.seg_off == nullptr ? 0 : g.seg_off[seg_at];
+  int* h = g.hist + ((long long)row * g.slots + f) * width;
+  int* out = g.offsets + (long long)row * ((long long)g.num_seg * width + 1) +
+             (long long)s * width;
+  const int x = t / runs;
+  const int y = t - x * runs;
+  const int per = (c + runs - 1) / runs;
+  const int i0 = min(y * per, c);
+  const int i1 = min(i0 + per, c);
+  for (int b0 = 0; b0 < width; b0 += ids_per_pass) {
+    const int b = b0 + x;
+    const bool act = x < ids_per_pass && b < width;
+    int v = 0;
+    if (act) {
+#pragma unroll 8
+      for (int i = i0; i < i1; ++i) v += h[(long long)i * width + b];
+    }
+    int total;
+    const int excl = kWarpTeam ? warp_exclusive_scan(v, &total)
+                               : block_exclusive_scan(v, warp_sums, &total);
+    if (act) {
+      int run = carry + excl;
+      if (y == 0) out[b] = run;
+      for (int i = i0; i < i1; i += 8) {  // 8 loads in flight, then their stores
+        int n_i[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) n_i[j] = i + j < i1 ? h[(long long)(i + j) * width + b] : 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (i + j < i1) h[(long long)(i + j) * width + b] = run;
+          run += n_i[j];
+        }
+      }
+    }
+    carry += total;
+  }
+}
+
+// 4. One CTA per slot: K1's stable rank over the item's local ids, then
+// dest = base[slot, id] + rank.  Each warp owns a contiguous span of the
+// item (at most 512 positions unless kMulti).  kMulti: spans longer than
+// one batch of 16 chunks are walked twice, counting, then (after the scan)
+// ranking from the warp's start and storing.
+template <bool kMulti>
+__global__ void __launch_bounds__(kRankMaxWarps * 32)
+    segment_rank_kernel(const int* __restrict__ ids, const int4* __restrict__ items,
+                        const int* __restrict__ base, int width, int* __restrict__ dest) {
+  extern __shared__ int smem[];
+  const int4 it = items[blockIdx.x];
+  const int len = it.y;
+  if (len == 0) return;  // an empty slot: the whole CTA
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int span = (((len + warps - 1) / warps) + 31) & ~31;
+  const int lo = warp * span;
+  const int hi = min(lo + span, len);
+  const int* src = ids + it.x;
+  int id[kRankChunks];
+  auto load = [&](int from) {  // a batch: every load in flight, local ids, -1 past hi
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      const int p = from + 32 * c + lane;
+      id[c] = p < hi ? __ldg(src + p) - it.z : -1;
+    }
+  };
+  load(lo);
+
+  int* s_base = smem;  // the slot's base row
+  // per warp and id: the lanes holding the id in the current chunk (two
+  // buffers: a pair of chunks) and the count so far (16 bits: at most 16384
+  // positions an item)
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + width);
+  unsigned short* cnt = reinterpret_cast<unsigned short*>(masks + 2 * warps * width);
+  for (int i = threadIdx.x; i < warps * width; i += blockDim.x) {
+    masks[i] = 0u, masks[warps * width + i] = 0u, cnt[i] = 0;
+  }
+  const int* base_row = base + (long long)blockIdx.x * width;
+  for (int b = threadIdx.x; b < width; b += blockDim.x) s_base[b] = base_row[b];
+  __syncthreads();
+
+  unsigned short* wcnt = cnt + warp * width;
+  unsigned* wsame = masks + warp * width;
+  unsigned* wsame2 = masks + (warps + warp) * width;
+  const unsigned below = (1u << lane) - 1u;
+  // one chunk's ranks after the warp's counter, in position order (the
+  // whole warp calls it; a lane with v outside [0, width) takes no part)
+  auto rank_chunk = [&](int v) -> int {
+    const bool mine = (unsigned)v < (unsigned)width;
+    if (mine) atomicOr(wsame + v, 1u << lane);  // the lanes holding this id
+    __syncwarp();
+    const unsigned same = mine ? wsame[v] : 0u;
+    const int old = mine ? wcnt[v] : 0;
+    __syncwarp();
+    if (mine && (same & below) == 0) {  // the group's lowest lane
+      wcnt[v] = (unsigned short)(old + __popc(same));
+      wsame[v] = 0u;
+    }
+    __syncwarp();
+    return old + __popc(same & below);
+  };
+  // two chunks at once, each with its own masks: their atomicOrs overlap,
+  // and the second reads the counter after the first's leaders wrote it
+  auto rank_pair = [&](int v0, int v1, int* r0, int* r1) {
+    const bool m0 = (unsigned)v0 < (unsigned)width;
+    const bool m1 = (unsigned)v1 < (unsigned)width;
+    if (m0) atomicOr(wsame + v0, 1u << lane);
+    if (m1) atomicOr(wsame2 + v1, 1u << lane);
+    __syncwarp();
+    const unsigned s0 = m0 ? wsame[v0] : 0u;
+    const unsigned s1 = m1 ? wsame2[v1] : 0u;
+    const int o0 = m0 ? wcnt[v0] : 0;
+    __syncwarp();
+    if (m0 && (s0 & below) == 0) {
+      wcnt[v0] = (unsigned short)(o0 + __popc(s0));
+      wsame[v0] = 0u;
+    }
+    __syncwarp();
+    const int o1 = m1 ? wcnt[v1] : 0;
+    __syncwarp();
+    if (m1 && (s1 & below) == 0) {
+      wcnt[v1] = (unsigned short)(o1 + __popc(s1));
+      wsame2[v1] = 0u;
+    }
+    __syncwarp();
+    *r0 = o0 + __popc(s0 & below);
+    *r1 = o1 + __popc(s1 & below);
+  };
+  // exclusive scan over the warps, per id (every load before the stores)
+  auto scan_warps = [&]() {
+    __syncthreads();
+    for (int b = threadIdx.x; b < width; b += blockDim.x) {
+      int c[kRankMaxWarps];
+#pragma unroll
+      for (int w = 0; w < kRankMaxWarps; ++w) c[w] = w < warps ? cnt[w * width + b] : 0;
+      int run = 0;
+#pragma unroll
+      for (int w = 0; w < kRankMaxWarps; ++w) {
+        if (w < warps) cnt[w * width + b] = (unsigned short)run;
+        run += c[w];
+      }
+    }
+    __syncthreads();
+  };
+
+  if (!kMulti) {  // the span is one batch: ranks kept in registers
+    int r[kRankChunks];
+#pragma unroll
+    for (int c = 0; c < kRankChunks; c += 2) {
+      r[c] = r[c + 1] = 0;
+      if (lo + 32 * c >= hi) continue;  // the same for the whole warp
+      rank_pair(id[c], id[c + 1], &r[c], &r[c + 1]);  // past hi, chunk c + 1's ids are -1
+    }
+    scan_warps();
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      const int p = lo + 32 * c + lane;
+      if (p < hi) {
+        const int v = id[c];
+        dest[it.x + p] = (unsigned)v < (unsigned)width ? s_base[v] + wcnt[v] + r[c] : -1;
+      }
+    }
+    return;
+  }
+  for (int from = lo; from < hi; from += 32 * kRankChunks) {  // count
+    if (from != lo) load(from);
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      if (from + 32 * c < hi) rank_chunk(id[c]);
+    }
+  }
+  scan_warps();
+  for (int from = lo; from < hi; from += 32 * kRankChunks) {  // rank from the start, store
+    load(from);
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      if (from + 32 * c >= hi) continue;
+      const int r = rank_chunk(id[c]);
+      const int p = from + 32 * c + lane;
+      if (p < hi) {
+        const int v = id[c];
+        dest[it.x + p] = (unsigned)v < (unsigned)width ? s_base[v] + r : -1;
+      }
+    }
+  }
+}
+
+// 2 and 4 for W2 <= 32, one warp per slot (8 slots a CTA; a warp whose slot
+// is empty exits at once), in registers alone: lane b keeps id b's count
+// (the count) or its next destination, base[slot, b] + the count so far
+// (the rank).  Per chunk, id_bits + 1 ballots give each lane the lanes
+// holding its id and the lanes holding id `lane`; a lane's destination is
+// lane v's register (one shuffle) + the group's lower lanes.  No shared
+// memory, no barrier; each batch of 16 chunks is loaded while the batch
+// before is counted or ranked.  (A warp per slot with its counters and
+// masks in shared memory, and a CTA per slot, were slower at K4's shape;
+// so was a ballot loop of runtime length with an early exit from the
+// chunks, which kept the chunks' ballots from overlapping.)
+template <int kBits>
+__device__ __forceinline__ void small_groups(int v, bool valid, unsigned* peers,
+                                             unsigned* of_lane) {
+  const int lane = threadIdx.x & 31;
+  const unsigned vm = __ballot_sync(kFull, valid);
+  *peers = vm;
+  *of_lane = vm;
+#pragma unroll
+  for (int bit = 0; bit < kBits; ++bit) {
+    const unsigned m = __ballot_sync(kFull, (v >> bit) & 1);
+    *peers &= ((v >> bit) & 1) ? m : ~m;
+    *of_lane &= ((lane >> bit) & 1) ? m : ~m;
+  }
+}
+
+// kBits = ceil(log2(width)), a template argument: the ballots unrolled.
+// Every chunk of a batch runs (past the item its lanes are all invalid and
+// change nothing): a branch between chunks would keep their ballots from
+// overlapping.
+template <bool kRank, int kBits>
+__global__ void __launch_bounds__(kRankMaxWarps * 32)
+    segment_small_kernel(const int* __restrict__ ids, const int4* __restrict__ items, Segments g,
+                         int cells, int* __restrict__ dest) {
+  const int width = g.width;
+  const int lane = threadIdx.x & 31;
+  const int slot = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (slot >= cells) return;
+  const int4 it = items[slot];
+  if (it.y == 0) return;  // an empty slot: the whole warp
+  const int* src = ids + it.x;
+  const unsigned below = (1u << lane) - 1u;
+  int id[kRankChunks], next[kRankChunks];
+  auto load = [&](int* to, int from) {
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      const int p = from + 32 * c + lane;
+      to[c] = p < it.y ? __ldg(src + p) - it.z : -1;
+    }
+  };
+  load(id, 0);
+  int run = kRank && lane < width ? g.hist[(long long)slot * width + lane] : 0;
+  for (int from = 0; from < it.y; from += 32 * kRankChunks) {
+    if (from + 32 * kRankChunks < it.y) load(next, from + 32 * kRankChunks);
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      const int v = id[c];
+      const bool valid = (unsigned)v < (unsigned)width;
+      unsigned peers, of_lane;
+      small_groups<kBits>(v, valid, &peers, &of_lane);
+      if (kRank) {
+        const int old = __shfl_sync(kFull, run, v & 31);
+        const int p = from + 32 * c + lane;
+        if (p < it.y) dest[it.x + p] = valid ? old + __popc(peers & below) : -1;
+      }
+      run += __popc(of_lane);
+    }
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) id[c] = next[c];
+  }
+  if (!kRank && lane < width) g.hist[(long long)slot * width + lane] = run;
+}
+
+// The count for W2 <= 4, without ballots: each lane counts its own ids as
+// four 8-bit fields of one register (at most 16 a batch), added into four
+// counters after each batch; one warp sum per id at the end (faster than
+// the ballots at K4's shape; at W2 = 32 the 32 counters a lane were far
+// slower).
+__global__ void __launch_bounds__(kRankMaxWarps * 32)
+    segment_tiny_count_kernel(const int* __restrict__ ids, const int4* __restrict__ items,
+                              Segments g, int cells) {
+  const int width = g.width;
+  const int lane = threadIdx.x & 31;
+  const int slot = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (slot >= cells) return;
+  const int4 it = items[slot];
+  if (it.y == 0) return;  // an empty slot: the whole warp
+  const int* src = ids + it.x;
+  int id[kRankChunks], next[kRankChunks];
+  auto load = [&](int* to, int from) {
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      const int p = from + 32 * c + lane;
+      to[c] = p < it.y ? __ldg(src + p) - it.z : -1;
+    }
+  };
+  load(id, 0);
+  int cnt[4] = {0, 0, 0, 0};
+  for (int from = 0; from < it.y; from += 32 * kRankChunks) {
+    if (from + 32 * kRankChunks < it.y) load(next, from + 32 * kRankChunks);
+    unsigned packed = 0u;
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) {
+      if ((unsigned)id[c] < (unsigned)width) packed += 1u << (8 * id[c]);
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) cnt[b] += (packed >> (8 * b)) & 255u;
+#pragma unroll
+    for (int c = 0; c < kRankChunks; ++c) id[c] = next[c];
+  }
+  int mine = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    int v = cnt[b];
+#pragma unroll
+    for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    if (lane == b) mine = v;
+  }
+  if (lane < width) g.hist[(long long)slot * width + lane] = mine;
+}
+
+template <bool kRank>
+void launch_small(int id_bits, unsigned ctas, int threads, cudaStream_t s, const int* ids,
+                  const int4* items, const Segments& g, int cells, int* dest) {
+  switch (id_bits) {
+#define SMALL_CASE(b)                                                                   \
+  case b:                                                                               \
+    segment_small_kernel<kRank, b><<<ctas, threads, 0, s>>>(ids, items, g, cells, dest); \
+    break;
+    SMALL_CASE(0) SMALL_CASE(1) SMALL_CASE(2) SMALL_CASE(3) SMALL_CASE(4) SMALL_CASE(5)
+#undef SMALL_CASE
+  }
+}
+
+// K2's count and rank CTAs: one warp per 512 positions of a tile, 1 to 8.
+int segment_warps(int tile) {
+  const int warps = (tile + kLevelSpan - 1) / kLevelSpan;
+  return warps < 1 ? 1 : (warps > kRankMaxWarps ? kRankMaxWarps : warps);
+}
+
+bool segment_multi(int tile) {
+  const int warps = segment_warps(tile);
+  return (((tile + warps - 1) / warps) + 31) / 32 > kRankChunks;
+}
+
+int segment_rank_smem(int width, int tile) {
+  return width * (int)sizeof(int) + segment_warps(tile) * width * 10;  // base; masks, counts
+}
+
+cudaError_t segment_rank_setup(int width, int tile, const void** kernel, int* smem) {
+  *kernel = segment_multi(tile) ? (const void*)&segment_rank_kernel<true>
+                                : (const void*)&segment_rank_kernel<false>;
+  *smem = segment_rank_smem(width, tile);
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+}
+
+// ceil(log2(width)): the ballots of the W2 <= 32 kernels
+int segment_id_bits(int width) {
+  int bits = 0;
+  while ((1 << bits) < width) ++bits;
+  return bits;
 }
 
 }  // namespace
@@ -340,19 +877,102 @@ int level_fused_info(int k, int radix, int tile, int* out) {
   return cudaSuccess;
 }
 
-int level_fused_rank_hist(const void* ids, const void* item_start,
-                          const void* item_len, const void* item_seg,
-                          int items, int nb, int tile, void* rank, void* slot,
-                          void* hist, void* stream) {
-  const int smem = (kWarps * nb + 2 * tile) * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      rank_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// K2 (rows = 1) and K4 rank_hist_batched over `rows` rows of n ids:
+// dest (rows, n) and offsets (rows, num_seg * width + 1), row-local.
+// seg_off (rows, num_seg + 1) or null (one segment a row).  Scratch:
+// items (rows * slots int4), first (rows * (num_seg + 1) ints) and hist
+// (rows * slots * width ints).  scan_threads: threads of a scan team (32:
+// warp teams), scan_ids: the local ids it takes per pass.
+int level_fused_segment_place(const void* ids, const void* seg_off, int rows, int n,
+                              int num_seg, int width, int tile, int slots, int scan_threads,
+                              int scan_ids, void* items, void* first, void* hist, void* dest,
+                              void* offsets, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const void* rank_kernel;
+  int rank_smem;
+  cudaError_t err = segment_rank_setup(width, tile, &rank_kernel, &rank_smem);
   if (err != cudaSuccess) return err;
-  if (items == 0) return cudaSuccess;
-  rank_hist_kernel<<<items, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)ids, (const int*)item_start, (const int*)item_len,
-      (const int*)item_seg, nb, tile, (int*)rank, (int*)slot, (int*)hist);
+  if (rows == 0) return cudaSuccess;
+  const long long cells = (long long)rows * slots;
+  const long long teams = (long long)rows * num_seg;
+  if (cells > INT_MAX || teams > INT_MAX || scan_ids < 1 || scan_ids > scan_threads ||
+      scan_threads > 1024)
+    return cudaErrorInvalidConfiguration;
+  const Segments g{(const int*)seg_off, (int*)first, (int*)hist, (int*)offsets,
+                   n, num_seg, width, slots};
+  const bool small = width <= 32;
+  const int threads = small ? 32 * kRankMaxWarps : 32 * segment_warps(tile);
+  const unsigned ctas = small ? (unsigned)((cells + kRankMaxWarps - 1) / kRankMaxWarps)
+                              : (unsigned)cells;
+  const int cache_smem = 2 * (num_seg + 1) * (int)sizeof(int);
+  const int cache = cache_smem <= kItemsCache;
+  if (cache && (err = cudaFuncSetAttribute((const void*)segment_items_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           cache_smem)) != cudaSuccess)
+    return err;
+  segment_items_kernel<<<rows, kItemsThreads, cache ? cache_smem : 0, s>>>(g, tile, cache,
+                                                                          (int4*)items);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (!small) {
+    segment_count_kernel<<<ctas, threads, width * sizeof(int), s>>>((const int*)ids,
+                                                                    (const int4*)items, g);
+  } else if (width <= 4) {
+    segment_tiny_count_kernel<<<ctas, threads, 0, s>>>((const int*)ids, (const int4*)items, g,
+                                                       (int)cells);
+  } else {
+    launch_small<false>(segment_id_bits(width), ctas, threads, s, (const int*)ids,
+                        (const int4*)items, g, (int)cells, nullptr);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int runs = scan_threads / scan_ids;
+  if (scan_threads == 32) {
+    segment_scan_kernel<true><<<(unsigned)((teams + 7) / 8), 256, 0, s>>>(g, rows, scan_ids,
+                                                                           runs);
+  } else {
+    segment_scan_kernel<false><<<(unsigned)teams, scan_threads, 0, s>>>(g, rows, scan_ids, runs);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (small) {
+    launch_small<true>(segment_id_bits(width), ctas, threads, s, (const int*)ids,
+                       (const int4*)items, g, (int)cells, (int*)dest);
+  } else {
+    const auto launch =
+        segment_multi(tile) ? segment_rank_kernel<true> : segment_rank_kernel<false>;
+    launch<<<ctas, threads, rank_smem, s>>>((const int*)ids, (const int4*)items,
+                                            (const int*)hist, width, (int*)dest);
+  }
   return cudaGetLastError();
+}
+
+// K2's rank kernel at (width, tile) -- segment_small_kernel up to width 32,
+// else segment_rank_kernel -- as level_fused_info reports K1's.
+int level_fused_segment_info(int width, int tile, int* out) {
+  const void* kernel;
+  int smem = 0, threads = 32 * kRankMaxWarps;
+  cudaError_t err = cudaSuccess;
+  if (width <= 32) {
+    const void* small[] = {(const void*)&segment_small_kernel<true, 0>,
+                           (const void*)&segment_small_kernel<true, 1>,
+                           (const void*)&segment_small_kernel<true, 2>,
+                           (const void*)&segment_small_kernel<true, 3>,
+                           (const void*)&segment_small_kernel<true, 4>,
+                           (const void*)&segment_small_kernel<true, 5>};
+    kernel = small[segment_id_bits(width)];
+  } else {
+    if ((err = segment_rank_setup(width, tile, &kernel, &smem)) != cudaSuccess) return err;
+    threads = 32 * segment_warps(tile);
+  }
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel, threads, smem)) !=
+      cudaSuccess)
+    return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = threads;
+  out[5] = (int)attr.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // extern "C"

@@ -19,13 +19,18 @@ bucket offsets.  K4 ``level_fused_batched`` (key ``level_fused_batched``)
 is the same over (B, n) rows, each row with its own splitters or the shared
 radix shift, its own pads and its own placement.
 
-K2 ``rank_hist``: the same rank + histogram + epilogue over given ids in
+K2 ``rank_hist``: the stable counting placement over given ids in
 [0, nb).  With ``seg_offsets`` it takes level 2's composite ids
-``seg * seg_width + local`` at any nb: work items never straddle a segment,
-each item ranks over ``seg_width`` counters, and the epilogue
-:func:`_close_segments` offsets each segment by its start.  K4
-``rank_hist_batched`` (key ``rank_hist_batched``) runs the K2 kernel over
-items cut from the B x num_seg row-aligned segments of the flattened rows.
+``seg * seg_width + local`` at any nb: work items of at most ``tile``
+positions never straddle a segment, and each is counted and ranked over
+``seg_width`` counters.  On the card the placement is closed there too,
+in four launches from one C call (items, count, per-segment scan, rank;
+:func:`segment_schedule` gives their shape), with no torch op over the n
+elements and no host read.  The plain twin cuts the items with
+:func:`_items`, ranks them in torch and closes the placement with
+:func:`_close_segments`.  K4 ``rank_hist_batched`` (key
+``rank_hist_batched``) is the same per row of (B, n) ids: the kernels take
+a row dimension, the twin flattens the rows into B x num_seg segments.
 
 All return destinations and offsets bit-identical to the stable counting
 placement of ``core.partition.partition_permutation`` (per row for the
@@ -53,22 +58,30 @@ __all__ = [
     "rank_hist_plain",
     "rank_hist_batched",
     "rank_hist_batched_plain",
+    "segment_launch_info",
+    "segment_schedule",
     "TILE",
     "MAX_TILE",
     "MAX_NB",
 ]
 
 TILE = 4096  # default keys per CTA (K1) or per work item (K2)
-MAX_TILE = 16384  # K1: 32 warps of 512 positions; K2: two staged int arrays in shared memory
-MAX_NB = 2048  # counters per CTA: 8 warps x MAX_NB ints of shared memory
+MAX_TILE = 16384  # K1: 32 warps of 512 positions; K2: 8 warps, 4 batches of 512 each
+MAX_NB = 2048  # K2's counters per CTA: 8 warps x MAX_NB x 6 B of shared memory
+RANK_SPAN = 512  # positions a warp of K2's count and rank CTAs takes at once (16 chunks)
+RANK_WARPS = 8  # at most, a CTA of K2's count and rank
+SMALL_WIDTH = 32  # up to this W2, K2's count and rank take a warp per item, in registers
+SCAN_THREADS = 1024  # at most, a team of K2's per-segment scan
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
     "level_fused_tree": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "level_fused_radix": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "level_fused_batched": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    "level_fused_rank_hist": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "level_fused_segment_place": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                  _P),
     "level_fused_info": (_I, _I, _I, _P),
+    "level_fused_segment_info": (_I, _I, _P),
 }
 
 
@@ -372,21 +385,23 @@ def _close_segments(rank, slot, hist, seg_offsets, item_seg, first, per_seg, n):
 
 
 def _rank_hist_args(ids, nb, seg_offsets, seg_width, tile):
+    """Checked (seg_offsets or None, seg_width, num_seg); None is one
+    segment [0, n) of width nb."""
     _check_ids(ids, "rank_hist ids")
-    n = ids.shape[0]
     if seg_offsets is None:
-        seg_offsets = torch.tensor([0, n], dtype=torch.int32, device=ids.device)
         seg_width = nb
-    if seg_width is None or nb % seg_width:
+    if seg_width is None or seg_width < 1 or nb % seg_width:
         raise ValueError(f"nb={nb} must be num_seg * seg_width (seg_width={seg_width})")
-    if seg_offsets.dtype != torch.int32 or seg_offsets.dim() != 1:
-        raise ValueError("seg_offsets: expected a 1-D int32 tensor")
-    if seg_offsets.device != ids.device:
-        raise ValueError("ids and seg_offsets must share a device")
-    if seg_offsets.shape[0] - 1 != nb // seg_width:
-        raise ValueError(f"{seg_offsets.shape[0] - 1} segments != nb // seg_width")
+    if seg_offsets is not None:
+        if seg_offsets.dtype != torch.int32 or seg_offsets.dim() != 1:
+            raise ValueError("seg_offsets: expected a 1-D int32 tensor")
+        if seg_offsets.device != ids.device:
+            raise ValueError("ids and seg_offsets must share a device")
+        if seg_offsets.shape[0] - 1 != nb // seg_width:
+            raise ValueError(f"{seg_offsets.shape[0] - 1} segments != nb // seg_width")
+        seg_offsets = seg_offsets.contiguous()
     _check_tile(tile, seg_width)
-    return seg_offsets.contiguous(), seg_width
+    return seg_offsets, seg_width, nb // seg_width
 
 
 def _rank_hist_slots_plain(ids, seg_width, item_start, item_seg):
@@ -398,33 +413,97 @@ def _rank_hist_slots_plain(ids, seg_width, item_start, item_seg):
     return rank, slot, counts.reshape(-1, seg_width)
 
 
-def _rank_hist_slots_kernel(ids, seg_width, item_start, item_len, item_seg, tile,
-                            name="rank_hist"):
-    num_items = item_start.shape[0]
-    rank = torch.empty_like(ids)
-    slot = torch.empty_like(ids)
-    hist = torch.empty((num_items, seg_width), dtype=torch.int32, device=ids.device)
+def _pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def segment_schedule(n: int, num_seg: int, width: int, tile: int) -> dict:
+    """The launch shape of K2's kernels for rows of n ids in ``num_seg``
+    segments of ``width`` local ids, as ``csrc/level_fused.cu`` takes it:
+
+    - ``slots``: item slots a row, the static bound n // tile + num_seg;
+    - ``small``: width <= ``SMALL_WIDTH``: the count and the rank take one
+      warp per slot, eight slots a CTA, in registers (``id_bits`` =
+      ceil(log2(width)) ballots a chunk; up to width 4 the count needs none);
+    - else ``warps``: of the count and rank CTAs, one CTA per slot, a warp
+      per ``RANK_SPAN`` positions of a tile, 1 to ``RANK_WARPS``, and
+      ``multi``: a warp's span can exceed one batch of 16 chunks, so the
+      rank walks it twice;
+    - ``scan_threads``: a team of the per-segment scan, a warp (eight to a
+      CTA) or a CTA of up to ``SCAN_THREADS``: width rounded up to a power
+      of two times the runs that take about 8 of a segment's items each on
+      average; ``scan_ids``: the local ids it takes per pass, min(width,
+      team), and ``scan_runs``: the runs it splits a segment's items into.
+    """
+    small = width <= SMALL_WIDTH
+    warps = min(RANK_WARPS, max(1, -(-tile // RANK_SPAN)))
+    span = -(-tile // warps)
+    per_seg = max(1, -(-(-(-n // tile)) // num_seg))  # a segment's items on average
+    team = min(SCAN_THREADS, max(32, _pow2(width) * _pow2(-(-per_seg // 8))))
+    scan_ids = min(width, team)
+    return {
+        "slots": n // tile + num_seg, "small": small, "warps": warps,
+        "multi": -(-span // 32) > RANK_SPAN // 32, "id_bits": (width - 1).bit_length(),
+        "scan_threads": team, "scan_ids": scan_ids, "scan_runs": team // scan_ids,
+    }
+
+
+def _segment_place_kernel(ids, seg_offsets, num_seg, width, tile, name):
+    """K2's four kernels on the card over (rows, n) ``ids``: (dest (rows, n),
+    offsets (rows, num_seg * width + 1)), both row-local.  ``seg_offsets``
+    (rows, num_seg + 1) or None (one segment a row)."""
+    rows, n = ids.shape
+    sched = segment_schedule(n, num_seg, width, tile)
+    cells = rows * sched["slots"]
+    if cells * width >= 2**31 or rows * (num_seg * width + 1) >= 2**31:
+        raise ValueError(f"{rows} rows x {sched['slots']} items x {width} counters exceed "
+                         "int32 indexing")
+    # one allocation: the items (int4 each, first for 16-byte alignment), each
+    # segment's first slot, and the (slots, width) counts
+    sizes = (cells * 4, rows * (num_seg + 1), cells * width)
+    items, first, hist = torch.empty(sum(sizes), dtype=torch.int32,
+                                     device=ids.device).split(sizes)
+    dest = torch.empty_like(ids)
+    offsets = torch.empty((rows, num_seg * width + 1), dtype=torch.int32, device=ids.device)
     lib = _build.library("level_fused", _SIGNATURES)
-    err = lib.level_fused_rank_hist(
-        ids.data_ptr(), item_start.data_ptr(), item_len.data_ptr(),
-        item_seg.data_ptr(), num_items, seg_width, tile,
-        rank.data_ptr(), slot.data_ptr(), hist.data_ptr(),
-        _build.stream_handle(ids.device),
+    err = lib.level_fused_segment_place(
+        ids.data_ptr(), None if seg_offsets is None else seg_offsets.data_ptr(), rows, n,
+        num_seg, width, tile, sched["slots"], sched["scan_threads"], sched["scan_ids"],
+        items.data_ptr(), first.data_ptr(), hist.data_ptr(), dest.data_ptr(),
+        offsets.data_ptr(), _build.stream_handle(ids.device),
     )
-    _build.check(lib, "level_fused", err, f"{name} kernel")
+    _build.check(lib, "level_fused", err, f"{name} kernels")
     _build.LAUNCHES[name] += 1
-    return rank, slot, hist
+    return dest, offsets
+
+
+def segment_launch_info(width: int, tile: int = TILE) -> dict:
+    """K2's rank kernel at (width, tile) (a warp per slot up to
+    ``SMALL_WIDTH``, else a CTA per slot), from the CUDA runtime, with the
+    keys of :func:`launch_info`.  Builds and loads the library; needs a
+    card."""
+    _check_tile(tile, width)
+    out = (ctypes.c_int * 6)()
+    lib = _build.library("level_fused", _SIGNATURES)
+    _build.check(lib, "level_fused", lib.level_fused_segment_info(width, tile,
+                                                                  ctypes.addressof(out)),
+                 "rank_hist kernel")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "threads", "ctas_per_sm",
+                     "local_bytes"), out))
 
 
 def _rank_hist(ids, nb, seg_offsets, seg_width, tile, plain):
-    seg_offsets, seg_width = _rank_hist_args(ids, nb, seg_offsets, seg_width, tile)
+    seg_offsets, seg_width, num_seg = _rank_hist_args(ids, nb, seg_offsets, seg_width, tile)
     n = ids.shape[0]
+    if not plain:
+        dest, offsets = _segment_place_kernel(
+            ids[None], None if seg_offsets is None else seg_offsets[None], num_seg, seg_width,
+            tile, "rank_hist")
+        return dest[0], offsets[0]
+    if seg_offsets is None:
+        seg_offsets = torch.tensor([0, n], dtype=torch.int32, device=ids.device)
     item_start, item_len, item_seg, first, per_seg = _items(seg_offsets, n, tile)
-    if plain:
-        rank, slot, hist = _rank_hist_slots_plain(ids, seg_width, item_start, item_seg)
-    else:
-        rank, slot, hist = _rank_hist_slots_kernel(
-            ids, seg_width, item_start, item_len, item_seg, tile)
+    rank, slot, hist = _rank_hist_slots_plain(ids, seg_width, item_start, item_seg)
     return _close_segments(rank, slot, hist, seg_offsets, item_seg, first, per_seg, n)
 
 
@@ -437,7 +516,7 @@ def rank_hist(
     tile: int = TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable rank + histogram over ``ids`` (n,) int32 in [0, nb): the K2
-    kernel on a CUDA tensor, its plain twin on a CPU tensor.
+    kernels on a CUDA tensor, its plain twin on a CPU tensor.
 
     With ``seg_offsets`` (num_seg+1,) int32 the ids must be composite,
     ``seg * seg_width + local`` for the segment holding the position, and nb
@@ -486,26 +565,28 @@ def _rank_hist_batched(ids, nb, seg_offsets, seg_width, tile, plain):
     B, n = ids.shape
     dev = ids.device
     if seg_offsets is None:  # each row is one segment of width nb
-        seg_offsets = torch.tensor([0, n], dtype=torch.int32, device=dev).expand(B, 2)
         seg_width = nb
-    if seg_width is None or nb % seg_width:
+    if seg_width is None or seg_width < 1 or nb % seg_width:
         raise ValueError(f"nb={nb} must be num_seg * seg_width (seg_width={seg_width})")
-    if seg_offsets.dtype != torch.int32 or seg_offsets.shape[:1] != (B,) or \
-            seg_offsets.dim() != 2:
-        raise ValueError(f"seg_offsets: expected a ({B}, num_seg+1) int32 tensor")
-    if seg_offsets.device != dev:
-        raise ValueError("ids and seg_offsets must share a device")
-    num_seg = seg_offsets.shape[1] - 1
-    if num_seg != nb // seg_width:
-        raise ValueError(f"{num_seg} segments != nb // seg_width")
+    num_seg = nb // seg_width
+    if seg_offsets is not None:
+        if seg_offsets.dtype != torch.int32 or seg_offsets.shape[:1] != (B,) or \
+                seg_offsets.dim() != 2:
+            raise ValueError(f"seg_offsets: expected a ({B}, num_seg+1) int32 tensor")
+        if seg_offsets.device != dev:
+            raise ValueError("ids and seg_offsets must share a device")
+        if seg_offsets.shape[1] - 1 != num_seg:
+            raise ValueError(f"{seg_offsets.shape[1] - 1} segments != nb // seg_width")
+        seg_offsets = seg_offsets.contiguous()
     _check_tile(tile, seg_width)
+    if not plain:
+        return _segment_place_kernel(ids, seg_offsets, num_seg, seg_width, tile,
+                                     "rank_hist_batched")
+    if seg_offsets is None:
+        seg_offsets = torch.tensor([0, n], dtype=torch.int32, device=dev).expand(B, 2)
     flat, flat_off, row_start, items, local_seg = _row_segments(ids, seg_offsets, tile)
     item_start, item_len, item_seg, first, per_seg = items
-    if plain:
-        rank, slot, hist = _rank_hist_slots_plain(flat, seg_width, item_start, local_seg)
-    else:
-        rank, slot, hist = _rank_hist_slots_kernel(
-            flat, seg_width, item_start, item_len, local_seg, tile, "rank_hist_batched")
+    rank, slot, hist = _rank_hist_slots_plain(flat, seg_width, item_start, local_seg)
     dest, offsets = _close_segments(rank, slot, hist, flat_off, item_seg, first, per_seg,
                                     B * n)
     offsets = torch.cat([offsets[:-1].reshape(B, nb) - row_start,
@@ -522,7 +603,7 @@ def rank_hist_batched(
     tile: int = TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row stable rank + histogram over ``ids`` (B, n) int32 in [0, nb):
-    the K2 kernel over the flattened rows on a CUDA tensor (its own launch
+    K2's kernels with a row dimension on a CUDA tensor (their own launch
     count), its plain twin on a CPU tensor.
 
     With ``seg_offsets`` (B, num_seg+1) int32 each row's ids must be

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain twins, on a CUDA card:
 K1 (tree), K1r (radix), K4 ``level_fused_batched`` (both modes; also at
 MAX_TILE, a tile of 33, k = 2 and the largest k, every key on one
-splitter, every position a pad), K2 ``rank_hist``, K4
-``rank_hist_batched``, K3, K5 ``merge_path_perm`` (also at tile 1, the
+splitter, every position a pad), K2 ``rank_hist`` and K4
+``rank_hist_batched`` (also with empty segments, W2 = MAX_NB at MAX_TILE,
+widths about the count's ballot path, one id, sorted ids, no positions),
+K3, K5 ``merge_path_perm`` (also at tile 1, the
 default and MAX_TILE, all-equal runs, runs of length 1, unaligned
 starts) and
 K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``),
@@ -130,7 +132,67 @@ def test_rank_hist_kernel(dev, nb, seg):
     else:
         ids = torch.randint(0, nb, (n,), generator=g, device=dev, dtype=torch.int32)
         kw = dict(nb=nb)
+    before = kernels.launch_counts()["rank_hist"]
     _equal(lf.rank_hist(ids, **kw), lf.rank_hist_plain(ids, **kw))
+    assert kernels.launch_counts()["rank_hist"] == before + 1
+
+
+RANK_HIST_EDGES = {  # case: (rows, n, num_seg, width, tile)
+    "empty segments": (3, 50000, 40, 256, 4096),
+    "MAX_NB at MAX_TILE": (2, 100000, 3, lf.MAX_NB, lf.MAX_TILE),
+    "two batches a warp": (1, 70000, 5, 300, 8192),
+    "K4 shape, width 4": (4, 1 << 16, 257, 4, 4096),
+    "width 32": (2, 30000, 9, 32, 1024),
+    "width 33": (2, 30000, 9, 33, 1024),
+    "tile 64": (2, 5000, 17, 16, 64),
+    "one id": (2, 50000, 1, 256, 4096),
+    "sorted ids": (2, 50000, 7, 64, 4096),
+    "no positions": (2, 0, 3, 8, 512),
+}
+
+
+def _edge_ids(dev, case, rows, n, num_seg, width):
+    """Row-local composite ids over segments: a quarter of them empty and
+    the last two empty (one segment: every id equal for "one id")."""
+    g = torch.Generator(device=dev).manual_seed(n + width)
+    off = torch.sort(torch.randint(0, n + 1, (rows, num_seg + 1), generator=g, device=dev),
+                     dim=1).values
+    off[:, 1:num_seg // 4 + 1] = 0
+    if num_seg >= 4:
+        off[:, -3:] = n
+    off[:, 0], off[:, -1] = 0, n
+    off = off.to(torch.int32)
+    pos = torch.arange(n, device=dev, dtype=torch.int32).expand(rows, n).contiguous()
+    seg = torch.searchsorted(off, pos, right=True) - 1
+    local = torch.randint(0, width, (rows, n), generator=g, device=dev)
+    if case == "one id":
+        local = torch.full_like(local, width - 1)
+    elif case == "sorted ids":
+        local = torch.sort(local, dim=1).values
+    ids = (seg * width + local).to(torch.int32)
+    return ids, off
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("case", list(RANK_HIST_EDGES))
+def test_rank_hist_kernel_edges(dev, case, batched):
+    """K2 (one row) and K4 ``rank_hist_batched`` bit for bit their twins
+    at the edges of the four kernels: empty segments and empty slots, n not
+    a multiple of the tile, W2 = MAX_NB at MAX_TILE (a warp's span walked
+    twice), widths on both sides of the count's ballot path, CTAs of one
+    warp, every id equal, sorted ids, no positions; one launch a call."""
+    rows, n, num_seg, width, tile = RANK_HIST_EDGES[case]
+    ids, off = _edge_ids(dev, case, rows, n, num_seg, width)
+    kw = dict(nb=num_seg * width, seg_width=width, tile=tile)
+    name = "rank_hist_batched" if batched else "rank_hist"
+    before = kernels.launch_counts()[name]
+    if batched:
+        _equal(lf.rank_hist_batched(ids, seg_offsets=off, **kw),
+               lf.rank_hist_batched_plain(ids, seg_offsets=off, **kw))
+    else:
+        _equal(lf.rank_hist(ids[0], seg_offsets=off[0], **kw),
+               lf.rank_hist_plain(ids[0], seg_offsets=off[0], **kw))
+    assert kernels.launch_counts()[name] == before + 1
 
 
 SORT_WINDOWS_CASES = ["sorted ids", "any ids", "equal keys", "one window", "2049 windows",

@@ -51,11 +51,15 @@ from repro.classify.radix import radix_bucket_ids as ref_radix_bucket_ids
 from repro.kernels.level_fused import _classify_tile as ref_classify_tile
 from repro.kernels.level_fused import _rank_and_hist as ref_rank_and_hist
 from repro.kernels.level_fused import level_fused as ref_level_fused
+from repro.kernels.level_fused import rank_hist as ref_rank_hist
+from repro.kernels.level_fused import rank_hist_batched as ref_rank_hist_batched
 from repro.kernels.merge_path import merge_path_partition as ref_merge_path_partition
 from repro.kernels.ref import bitonic_sort_windows_ref, merge_path_perm_ref
 from repro.kernels.ref import flash_attention_ref as ref_attention_oracle
 from repro_torch.classify import radix_shift
-from repro_torch.kernels.level_fused import _close_placement
+from repro_torch.kernels.level_fused import MAX_NB, MAX_TILE, _close_placement, _items
+from repro_torch.kernels.level_fused import rank_hist_batched_plain, rank_hist_plain
+from repro_torch.kernels.level_fused import segment_schedule
 
 # ---- K3 -------------------------------------------------------------------
 
@@ -564,3 +568,322 @@ def test_k5_padded_transpose_has_no_bank_conflict(per):
         read = 4 * v + q + (v >> 3)
         np.testing.assert_array_equal(read, slots[4 * v + q])
         assert all(len(np.unique(w)) == 32 for w in (read % 32).reshape(-1, 32))
+
+
+# ---- K2 and K4 rank_hist_batched -----------------------------------------
+
+ITEMS_THREADS = 1024  # segment_items_kernel's CTA
+GARBAGE = -7777  # what torch.empty may hold: a slot the count kernel skips
+
+
+def _replay_k2_items(off, n, num_seg, width, tile, slots, row):
+    """segment_items_kernel for one row: the slots' (position, length, id
+    base) and first (num_seg + 1): each thread a contiguous run of
+    segments, the scan over the threads, a binary search per slot."""
+    lo = np.zeros(1, np.int64) if off is None else off[:num_seg].astype(np.int64)
+    hi = np.append(lo[1:], n)
+    length = hi - lo
+    count = np.where(length > 0, length // tile + (length % tile != 0), 0)
+    per = -(-num_seg // ITEMS_THREADS)
+    starts = np.minimum(np.arange(ITEMS_THREADS) * per, num_seg)
+    mine = np.array([count[s:min(s + per, num_seg)].sum() for s in starts])
+    part = np.append(np.cumsum(mine) - mine, mine.sum())
+    first = np.append(np.cumsum(count) - count, count.sum())
+    live = int(part[-1])
+    items = np.zeros((slots, 3), np.int64)
+    for i in range(live):
+        a, b = 0, ITEMS_THREADS
+        while b - a > 1:
+            m = (a + b) >> 1
+            a, b = (m, b) if part[m] <= i else (a, m)
+        s = a * per
+        while first[s + 1] <= i:
+            s += 1
+        start = lo[s] + (i - first[s]) * tile
+        items[i] = row * n + start, min(tile, hi[s] - start), s * width
+    return items, first, live
+
+
+def _ballot(pred):
+    """(warps, 32) bools -> each warp's ballot word."""
+    return (pred.astype(np.int64) << np.arange(32)).sum(-1)
+
+
+def _small_groups(local, valid, id_bits):
+    """segment_small_kernel's ballots over one chunk of 32 lanes: each
+    lane's peers (the lanes holding its id) and of_lane (the lanes holding
+    id == lane), from the valid ballot and one ballot per id bit."""
+    lane = np.arange(32)
+    vm = _ballot(valid[None])[0]
+    peers = np.full(32, vm, np.int64)
+    of_lane = np.full(32, vm, np.int64)
+    for bit in range(id_bits):
+        m = _ballot((((local >> bit) & 1) == 1)[None])[0]
+        peers &= np.where((local >> bit) & 1, m, ~m)
+        of_lane &= np.where((lane >> bit) & 1, m, ~m)
+    return peers, of_lane
+
+
+def _popc(x):
+    return ((np.asarray(x)[..., None] >> np.arange(32)) & 1).sum(-1)
+
+
+def _chunk(flat_ids, item, width, at, length):
+    """Lanes of the 32-wide chunk at ``at``: local ids, -1 past the item."""
+    pos, _, id_base = item
+    p = at + np.arange(32)
+    local = np.where(p < length, flat_ids[pos + np.minimum(p, length - 1)] - id_base, -1)
+    return local, (local >= 0) & (local < width)
+
+
+def _replay_k2_count(flat_ids, item, width, sch):
+    """One slot's counts.  W2 <= 4 (segment_tiny_count_kernel): each lane
+    counts its ids as 8-bit fields of one word a batch; W2 <= 32
+    (segment_small_kernel): one warp walks the item, lane b adding
+    popc(of_lane) a chunk.  Else
+    (segment_count_kernel): batches of 16 loads a thread, one atomicAdd
+    an id."""
+    _, length, _ = item
+    cnt = np.zeros(width, np.int64)
+    if width <= 4:  # segment_tiny_count_kernel: a lane's ids as 8-bit fields, a batch at a time
+        lanes = np.zeros((32, 4), np.int64)
+        for frm in range(0, length, 32 * 16):
+            packed = np.zeros(32, np.int64)
+            for c in range(16):
+                local, valid = _chunk(flat_ids, item, width, frm + 32 * c, length)
+                packed += np.where(valid, 1 << (8 * np.where(valid, local, 0)), 0)
+            fields = (packed[:, None] >> (8 * np.arange(4))) & 255
+            assert fields.sum() == sum(
+                _chunk(flat_ids, item, width, frm + 32 * c, length)[1].sum() for c in range(16))
+            lanes += fields
+        return lanes.sum(0)[:width]
+    if sch["small"]:
+        run = np.zeros(32, np.int64)
+        for at in range(0, length, 32):
+            local, valid = _chunk(flat_ids, item, width, at, length)
+            run += _popc(_small_groups(local, valid, sch["id_bits"])[1])
+        return run[:width]
+    threads = 32 * sch["warps"]
+    for frm in range(0, length, threads * 16):
+        for c in range(16):
+            for w in range(sch["warps"]):
+                local, valid = _chunk(flat_ids, item, width, frm + c * threads + 32 * w, length)
+                np.add.at(cnt, local[valid], 1)
+    return cnt
+
+
+def _replay_k2_scan(off, first, hist, n, num_seg, width, team, scan_ids):
+    """segment_scan_kernel over one row (the items kernel wrote the last
+    offset, n): per segment, thread t = (x, y) of the team takes id b0 + x
+    and run y of the slots; the exclusive scan in thread order; each run's
+    walk writes base in place; run 0 writes the offsets.  Only the
+    segment's live slots are read."""
+    runs = team // scan_ids
+    base = hist.copy()
+    offsets = np.full(num_seg * width + 1, GARBAGE, np.int64)
+    offsets[-1] = n
+    t = np.arange(team)
+    x, y = t // runs, t % runs
+    for s in range(num_seg):
+        f, c = int(first[s]), int(first[s + 1] - first[s])
+        lo = 0 if off is None else int(off[s])
+        seg = hist[f:f + c]
+        assert (seg != GARBAGE).all()
+        cs = np.concatenate([np.zeros((1, width), np.int64), np.cumsum(seg, 0)])
+        carry = lo
+        per = -(-c // runs)
+        i0 = np.minimum(y * per, c)
+        i1 = np.minimum(i0 + per, c)
+        for b0 in range(0, width, scan_ids):
+            b = b0 + x
+            act = (x < scan_ids) & (b < width)
+            bb = np.minimum(b, width - 1)
+            v = np.where(act, cs[i1, bb] - cs[i0, bb], 0)
+            excl = np.cumsum(v) - v
+            for tt in np.nonzero(act)[0]:
+                run = carry + excl[tt]
+                if y[tt] == 0:
+                    offsets[s * width + b[tt]] = run
+                items = np.arange(i0[tt], i1[tt])
+                base[f + items, b[tt]] = run + cs[items, b[tt]] - cs[i0[tt], b[tt]]
+            carry += v.sum()
+    return base, offsets
+
+
+def _replay_k2_rank(flat_ids, item, base_row, width, sch, dest):
+    """One slot's destinations.  W2 <= 32 (segment_small_kernel): one warp
+    walks the item, lane b holding id b's next destination (base + the
+    count so far); a lane's is lane v's (a shuffle) + popc(peers & below).
+    Else (segment_rank_kernel): each warp's span in batches of 16 chunks,
+    peers OR-ed into a mask per id, 16-bit per-warp counters, the scan over
+    the warps, dest = base + the warp's start + rank (kMulti: a counting
+    walk, then ranks again from the start)."""
+    pos, length, id_base = item
+    below = (1 << np.arange(32)) - 1
+    if sch["small"]:
+        run = np.zeros(32, np.int64)
+        run[:width] = base_row
+        for at in range(0, length, 32):
+            local, valid = _chunk(flat_ids, item, width, at, length)
+            peers, of_lane = _small_groups(local, valid, sch["id_bits"])
+            got = run[local & 31] + _popc(peers & below)
+            n_at = min(32, length - at)
+            dest[pos + at:pos + at + n_at] = np.where(valid, got, -1)[:n_at]
+            run += _popc(of_lane)
+        return
+    warps, multi = sch["warps"], sch["multi"]
+    span = ((-(-length // warps)) + 31) // 32 * 32
+    assert multi or span <= 16 * 32  # one batch in registers
+    cnt = np.zeros((warps, width), np.int64)
+    local = flat_ids[pos:pos + length].astype(np.int64) - id_base
+    valid = (local >= 0) & (local < width)
+
+    def rank_chunk(w, at):
+        ids_, ok = local[at], valid[at]
+        same = ids_[:, None] == ids_[None, :]  # the lanes' bits OR-ed into a mask per id
+        lower = np.tril(same & ok[None, :] & ok[:, None], -1).sum(1)
+        r = cnt[w, np.where(ok, ids_, 0)] + lower
+        np.add.at(cnt[w], ids_[ok], 1)  # the group's lowest lane bumps the counter
+        assert cnt[w].max() < 1 << 16
+        return r
+
+    r = np.zeros(length, np.int64)
+    for w in range(warps):
+        lo, hi = w * span, min(w * span + span, length)
+        for frm in range(lo, hi, 16 * 32):  # a batch: 16 chunks in flight
+            for c in range(16):
+                if frm + 32 * c < hi:
+                    at = np.arange(frm + 32 * c, min(frm + 32 * c + 32, hi))
+                    r[at] = rank_chunk(w, at)
+    cnt = np.cumsum(cnt, 0) - cnt  # the exclusive scan over the warps
+    assert cnt.max(initial=0) < 1 << 16
+    warp_of = np.minimum(np.arange(length) // max(span, 1), warps - 1)
+    if multi:
+        for w in range(warps):
+            lo, hi = w * span, min(w * span + span, length)
+            for frm in range(lo, hi, 16 * 32):
+                for c in range(16):
+                    if frm + 32 * c < hi:
+                        at = np.arange(frm + 32 * c, min(frm + 32 * c + 32, hi))
+                        r[at] = rank_chunk(w, at)  # from the warp's start
+        got = base_row[np.where(valid, local, 0)] + r
+    else:
+        got = base_row[np.where(valid, local, 0)] + cnt[warp_of, np.where(valid, local, 0)] + r
+    dest[pos:pos + length] = np.where(valid, got, -1)
+
+
+def _replay_k2(ids, off, num_seg, width, tile):
+    """The four kernels over (rows, n) ids: (dest, offsets), row-local."""
+    rows, n = ids.shape
+    sch = segment_schedule(n, num_seg, width, tile)
+    flat = ids.reshape(-1).astype(np.int64)
+    dest = np.full(rows * n, GARBAGE, np.int64)
+    offsets = np.zeros((rows, num_seg * width + 1), np.int64)
+    for row in range(rows):
+        o = None if off is None else off[row]
+        items, first, live = _replay_k2_items(o, n, num_seg, width, tile, sch["slots"], row)
+        assert (items[live:, 1] == 0).all()
+        hist = np.full((sch["slots"], width), GARBAGE, np.int64)
+        for i in range(live):
+            hist[i] = _replay_k2_count(flat, items[i], width, sch)
+        base, offsets[row] = _replay_k2_scan(o, first, hist, n, num_seg, width,
+                                             sch["scan_threads"], sch["scan_ids"])
+        for i in range(live):
+            _replay_k2_rank(flat, items[i], base[i], width, sch, dest)
+    return dest.reshape(rows, n), offsets
+
+
+def _k2_segments(rng, B, n, num_seg, width, empty_tail=False):
+    """Row-local composite ids over sorted segment boundaries with a run of
+    empty segments (and, with ``empty_tail``, empty last segments)."""
+    cuts = np.sort(rng.integers(0, n + 1, (B, num_seg - 1)), axis=1)
+    cuts[:, : num_seg // 4] = cuts[:, :1]
+    if empty_tail:
+        cuts[:, -2:] = n
+    off = np.concatenate([np.zeros((B, 1)), cuts, np.full((B, 1), n)], 1).astype(np.int32)
+    seg = np.stack([np.searchsorted(o, np.arange(n), side="right") - 1 for o in off])
+    return (seg * width + rng.integers(0, width, (B, n))).astype(np.int32), off
+
+
+@pytest.mark.parametrize("nb", [3, 65, 520])
+def test_k2_replay_matches_the_reference_kernels(nb):
+    """One segment of width nb: the replay equals the reference's
+    ``rank_hist`` and ``rank_hist_batched`` in interpret mode, n not a
+    multiple of the tile."""
+    rng = np.random.default_rng(nb)
+    ids = rng.integers(0, nb, 5000).astype(np.int32)
+    want_dest, want_off = ref_rank_hist(jnp.asarray(ids), nb=nb, interpret=True)
+    dest, off = _replay_k2(ids[None], None, 1, nb, 512)
+    np.testing.assert_array_equal(dest[0], np.asarray(want_dest))
+    np.testing.assert_array_equal(off[0], np.asarray(want_off))
+    rows = rng.integers(0, nb, (4, 1500)).astype(np.int32)
+    rows[1] = nb - 1  # a row of one id
+    want_dest, want_off = ref_rank_hist_batched(jnp.asarray(rows), nb=nb, interpret=True)
+    dest, off = _replay_k2(rows, None, 1, nb, 256)
+    np.testing.assert_array_equal(dest, np.asarray(want_dest))
+    np.testing.assert_array_equal(off, np.asarray(want_off))
+
+
+@pytest.mark.parametrize("B,n,num_seg,width,tile", [
+    (1, 5000, 33, 64, 256),       # atomics count, several items a segment
+    (1, 4096, 9, 8, 4096),        # ballot count, n a multiple of the tile
+    (3, 2048, 257, 4, 512),       # K4's shape in miniature: W2 = 4, most slots short or empty
+    (2, 3000, 17, 32, 128),       # five ballots; warp teams
+    (1, 3001, 5, 33, 64),         # the first atomics width; one warp a CTA
+    (1, 40000, 3, 2048, 16384),   # W2 = MAX_NB at MAX_TILE: batches of 16 chunks, twice
+    (2, 20000, 2, 300, 8192),     # two batches a warp; a width that is no power of two
+])
+def test_k2_replay_matches_the_plain_twins_on_segments(B, n, num_seg, width, tile):
+    """Composite ids over segments with empty ones: the replay equals the
+    port's plain ``rank_hist`` (B = 1) and ``rank_hist_batched`` bit for
+    bit, dest and the row-local offsets."""
+    rng = np.random.default_rng(n + num_seg + width)
+    comp, off = _k2_segments(rng, B, n, num_seg, width, empty_tail=B > 1)
+    nb = num_seg * width
+    dest, offsets = _replay_k2(comp, off, num_seg, width, tile)
+    if B == 1:
+        want = rank_hist_plain(torch.as_tensor(comp[0]), nb=nb, seg_offsets=torch.as_tensor(off[0]),
+                               seg_width=width, tile=tile)
+        want = (want[0][None], want[1][None])
+    else:
+        want = rank_hist_batched_plain(torch.as_tensor(comp), nb=nb,
+                                       seg_offsets=torch.as_tensor(off), seg_width=width,
+                                       tile=tile)
+    np.testing.assert_array_equal(dest, want[0].numpy())
+    np.testing.assert_array_equal(offsets, want[1].numpy())
+
+
+@pytest.mark.parametrize("n,num_seg,tile", [(5000, 33, 256), (4096, 1, 4096), (100, 2000, 64),
+                                            (0, 3, 512), (70000, 1500, 128)])
+def test_k2_items_kernel_cuts_the_plain_items(n, num_seg, tile):
+    """The items kernel's slots, found by a binary search over its threads'
+    first slots (several segments a thread above 1024), are the plain
+    twin's ``_items``: the same live items in position order, then empty
+    slots up to the static bound."""
+    rng = np.random.default_rng(num_seg)
+    _, off = _k2_segments(rng, 1, n, num_seg, 2)
+    width = 2
+    slots = segment_schedule(n, num_seg, width, tile)["slots"]
+    items, first, live = _replay_k2_items(off[0], n, num_seg, width, tile, slots, 0)
+    start, length, seg, want_first, per_seg = _items(torch.as_tensor(off[0]), n, tile)
+    assert slots == start.shape[0] and live == int(per_seg.sum())
+    np.testing.assert_array_equal(items[:live, 0], start[:live].numpy())
+    np.testing.assert_array_equal(items[:live, 1], length[:live].numpy())
+    np.testing.assert_array_equal(items[:live, 2], seg[:live].numpy() * width)
+    np.testing.assert_array_equal(first[:-1], want_first.numpy())
+    assert (items[live:, 1] == 0).all() and (length[live:] == 0).all()
+
+
+def test_k2_schedule_at_the_main_path_shapes():
+    """The launch shapes the sorts give K2 (level 2 of 2^24 keys: 257
+    segments of 256 ids) and K4 (64 rows of 2^18: 257 segments of 4 ids),
+    and the largest: W2 = MAX_NB at MAX_TILE fits a CTA's shared memory."""
+    assert segment_schedule(1 << 24, 257, 256, 4096) == {
+        "slots": 4353, "small": False, "warps": 8, "multi": False, "id_bits": 8,
+        "scan_threads": 512, "scan_ids": 256, "scan_runs": 2}
+    assert segment_schedule(1 << 18, 257, 4, 4096) == {
+        "slots": 321, "small": True, "warps": 8, "multi": False, "id_bits": 2,
+        "scan_threads": 32, "scan_ids": 4, "scan_runs": 8}
+    big = segment_schedule(1 << 20, 4, MAX_NB, MAX_TILE)
+    assert big["multi"] and big["warps"] == 8 and big["scan_ids"] == 1024
+    assert MAX_NB * (4 + 6 * big["warps"]) <= 232448  # base row; masks and counters
