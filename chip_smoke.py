@@ -94,7 +94,8 @@ for the attention kernels and the serve path:
    each) and their launches (registers, shared memory, threads, CTAs an SM
    from ``cudaFuncGetAttributes``); K2's and K4 ``rank_hist_batched``'s
    kernels per call (at most 5; the four kernels' device times) and their
-   rank kernel's launch; each entry point beside
+   rank kernel's launch; K6's kernels per call (one) and its launch, and
+   the memset of its scratch; each entry point beside
    ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and K8/K9 beside
    the out-of-place ``index_select`` of the blocks; profiles of
    three sorts and of one ``external_sort`` (device time, idle share,
@@ -118,11 +119,12 @@ for the attention kernels and the serve path:
 
 times K1 (tree, radix, batched) and K5 of the CUDA sources under DIR (an
 earlier commit, unpacked by ``git archive``) beside this tree's, in turns,
-and checks that both give the same outputs; and K2 ``rank_hist`` and K4
-``rank_hist_batched`` of DIR's sources through DIR's own wrappers (their C
-entry points differ), in a child process with ``DIR/src`` on its path:
-entry point by events, device time and kernels of a call, and equal
-(dest, offsets).
+and checks that both give the same outputs; and K2 ``rank_hist``, K4
+``rank_hist_batched`` and K6's three entry points (and ``dispatch_ranks``
+on the skewed routing) of DIR's sources through DIR's own wrappers (their
+C entry points differ), in a child process with ``DIR/src`` on its path:
+entry point by events, device time and kernels of a call, the earlier
+tree's device time per kernel, and equal outputs.
 
 It imports nothing of JAX or of the ``repro`` package.
 """
@@ -250,6 +252,23 @@ def device_events(torch, fn, reps: int):
             and not e.key.startswith("ProfilerStep")]  # the step's own span
 
 
+def one_kernel_a_call(torch, name, fn, counted, reps: int = 10, tries: int = 5):
+    """The device events of ``reps`` calls of ``fn`` in which the events
+    that ``counted`` picks are one kernel, launched once a call; fails
+    otherwise.  The trace can drop launches but never adds one, so a
+    second kernel or a count above ``reps`` fails at once, and a count
+    below ``reps`` is profiled again, up to ``tries`` times."""
+    for _ in range(tries):
+        events = device_events(torch, fn, reps)
+        work = {e.key: e.count for e in events if counted(e)}
+        if len(work) > 1 or any(c > reps for c in work.values()):
+            fail(f"{name} is not one device kernel per call: {work}")
+        if list(work.values()) == [reps]:
+            return events
+        print(f"{name}: the trace kept {work} of {reps} launches; profiling again", flush=True)
+    fail(f"{name}: none of {tries} traces kept all {reps} launches: {work}")
+
+
 def device_ms(torch, fn, reps: int = 20, names=None, launches: int = 1) -> float:
     """Device time in ms by torch.profiler over ``reps`` calls of ``fn``
     (copies and memsets apart), so the host's time between launches is left
@@ -283,9 +302,10 @@ DEVICE_FUNCTIONS = {
     "sort_windows": ("sort_windows_kernel", "sort_small_windows_kernel"),
     # the second name: the first design's kernel, which --parent times
     "merge_path": ("merge_kernel<", "merge_path_kernel"),
-    "dispatch_ranks": ("tile_hist_kernel", "scan_tiles_kernel", "place_kernel"),
-    "partition_ranks": ("tile_hist_kernel", "scan_tiles_kernel", "place_kernel"),
-    "partition_ranks_batched": ("tile_hist_kernel", "scan_tiles_kernel", "place_kernel"),
+    # K6's one kernel (the memset of its scratch is not a kernel)
+    "dispatch_ranks": ("dispatch_rank_kernel",),
+    "partition_ranks": ("dispatch_rank_kernel",),
+    "partition_ranks_batched": ("dispatch_rank_kernel",),
     "classify_histogram": ("classify_hist_kernel",),
     "classify_histogram_batched": ("classify_hist_kernel",),
     "radix_histogram": ("classify_hist_kernel",),
@@ -664,11 +684,9 @@ def attention_phases(torch, dev) -> dict:
     torch.cuda.empty_cache()
 
     # K10 is one device kernel a call: no memset, no combine launch
-    k10_device = {e.key: e.count for e in device_events(
-        torch, lambda: fd.flash_decode_cache(q, ck, cv, lens), reps=10)}
+    k10_device = {e.key: e.count for e in one_kernel_a_call(
+        torch, "K10", lambda: fd.flash_decode_cache(q, ck, cv, lens), lambda e: True)}
     print(f"flash_decode device work in 10 calls (torch.profiler): {k10_device}", flush=True)
-    if list(k10_device.values()) != [10]:
-        fail(f"K10 is not one device kernel per call: {k10_device}")
     k10_launch = {f"B={b_} {str(dt).split('.')[-1]}": fd.launch_info(b_, KVH, H // KVH, HD, dt)
                   for b_ in (B, 1) for dt in (bf16, f32)}
     for what, info in k10_launch.items():
@@ -868,51 +886,75 @@ def compare_with_parent(parent: Path) -> None:
               + f"; same outputs: {same}", flush=True)
         if not same:
             fail(f"{name}: this tree's kernel and the earlier one differ")
-    result.update(compare_rank_hist_with_parent(torch, parent, keys, dev))
+    result.update(compare_entry_points_with_parent(torch, parent, keys, dev))
     print(json.dumps({"before_after": result}))
 
 
-# The earlier tree's K2 and K4 rank_hist_batched entry points, in a child
-# process with that tree's ``src`` first on its path: reads a kernel name a
-# line, answers with one JSON line of its timings; the first call of each
-# saves its (dest, offsets).
+# The entry points of K2, K4 rank_hist_batched and K6 (``entry_calls``,
+# through whichever tree's ``repro_torch`` is imported) on the inputs saved
+# by compare_entry_points_with_parent.
+def entry_calls(torch, x):
+    from repro_torch.kernels import dispatch_rank as dr, level_fused as lf
+
+    return {
+        "rank_hist": lambda: lf.rank_hist(x["comp"], nb=x["nb"], seg_offsets=x["off"],
+                                          seg_width=x["width"], tile=x["tile"]),
+        "rank_hist_batched": lambda: lf.rank_hist_batched(
+            x["comp_b"], nb=x["nb_b"], seg_offsets=x["off_b"], seg_width=x["width_b"],
+            tile=x["tile_b"]),
+        "dispatch_ranks": lambda: dr.dispatch_ranks(x["moe"], x["moe_start"],
+                                                    num_experts=MOE_EXPERTS),
+        "dispatch_ranks skewed": lambda: dr.dispatch_ranks(x["skew"], x["skew_start"],
+                                                           num_experts=MOE_EXPERTS),
+        "partition_ranks": lambda: dr.partition_ranks(x["part"], x["part_start"], nb=NB_PART),
+        "partition_ranks_batched": lambda: dr.partition_ranks_batched(
+            x["rows"], x["rows_start"], nb=NB_PART),
+    }
+
+
+def short_kernel(key: str) -> str:
+    return key.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+# The earlier tree's entry points, in a child process with that tree's
+# ``src`` first on its path: reads an entry point's name a line, answers
+# with one JSON line of its timings and its device time per kernel; the
+# first call of each saves its outputs.
 PARENT_CHILD = r"""
 import json, sys, torch
 from pathlib import Path
 root, parent_src, inputs = sys.argv[1:4]
 sys.path[:0] = [parent_src, root]
 import chip_smoke as cs
-from repro_torch.kernels import level_fused as lf
 dev = torch.device("cuda", 0)
 x = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in torch.load(inputs).items()}
-calls = {
-    "rank_hist": lambda: lf.rank_hist(x["comp"], nb=x["nb"], seg_offsets=x["off"],
-                                      seg_width=x["width"], tile=x["tile"]),
-    "rank_hist_batched": lambda: lf.rank_hist_batched(
-        x["comp_b"], nb=x["nb_b"], seg_offsets=x["off_b"], seg_width=x["width_b"],
-        tile=x["tile_b"]),
-}
+calls = cs.entry_calls(torch, x)
 for line in sys.stdin:
     name = line.strip()
     out = calls[name]()
+    out = out if isinstance(out, tuple) else (out,)
     torch.cuda.synchronize()
-    torch.save(tuple(o.cpu() for o in out), str(Path(inputs).with_name(f"k2_{name}.pt")))
-    launches, device, _ = cs.call_kernels(torch, calls[name])
+    torch.save(tuple(o.cpu() for o in out), str(Path(inputs).with_name(f"parent_{name}.pt")))
+    launches, device, kernels = cs.call_kernels(torch, calls[name])
     print(json.dumps({"ms": cs.cuda_ms(torch, calls[name]), "device_ms": device,
-                      "launches": launches}), flush=True)
+                      "launches": launches,
+                      "kernels": {cs.short_kernel(k): v for k, v in kernels.items()}}), flush=True)
 """
 
 
-def compare_rank_hist_with_parent(torch, parent: Path, keys, dev) -> dict:
-    """``--parent DIR``, K2 and K4 ``rank_hist_batched``: the earlier tree's
-    entry points (kernel and torch epilogue; their C signatures differ, so
-    through its own wrappers, in a child process) beside this tree's, on
-    the composite ids of a real level 1 (2^24 keys; (64, 2^18) rows), in
-    turns (earlier, this, this, earlier): CUDA events around the entry
-    point, the device time of all kernels of one call and their launches
-    (torch.profiler, copies apart), and whether (dest, offsets) are equal."""
+def compare_entry_points_with_parent(torch, parent: Path, keys, dev) -> dict:
+    """``--parent DIR``, K2, K4 ``rank_hist_batched`` and K6: the earlier
+    tree's entry points (kernels and any torch epilogue; their C signatures
+    differ, so through its own wrappers, in a child process) beside this
+    tree's, on the same inputs, in turns (earlier, this, this, earlier):
+    CUDA events around the entry point, the device time of all kernels of
+    one call and their launches (torch.profiler, copies and memsets apart),
+    the earlier tree's device time per kernel, and whether the outputs are
+    equal.  K2 and K4 on the composite ids of a real level 1 (2^24 keys;
+    (64, 2^18) rows); K6 at phase 2's shapes: the MoE routing (uniform and
+    half on one expert), 2^24 ids over 257 buckets with trash ids and
+    non-prefix starts, (64, 2^18) rows."""
     from repro_torch.core import ips4o
-    from repro_torch.kernels import level_fused as lf
 
     cfg = ips4o.SortConfig()
     x = {}
@@ -929,15 +971,29 @@ def compare_rank_hist_with_parent(torch, parent: Path, keys, dev) -> dict:
         x.update({f"comp{tag}": comp, f"off{tag}": off, f"nb{tag}": nb1 * 2 * levels[1],
                   f"width{tag}": 2 * levels[1], f"tile{tag}": ips4o._auto_tile(
                       n, 2 * levels[1], cfg)})
-    inputs = ROOT / "build" / "parent" / "k2_inputs.pt"
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def prefix(ids, nb):
+        counts = torch.bincount(ids.reshape(-1), minlength=nb)[:nb].to(torch.int32)
+        return torch.cumsum(counts, 0, dtype=torch.int32) - counts
+
+    n_moe = MOE_TOKENS * MOE_TOP
+    x["moe"] = torch.randint(0, MOE_EXPERTS, (n_moe,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    x["skew"] = x["moe"].clone()
+    x["skew"][torch.rand(n_moe, generator=gen, device=dev) < 0.5] = 7
+    x["moe_start"], x["skew_start"] = prefix(x["moe"], MOE_EXPERTS), prefix(x["skew"],
+                                                                            MOE_EXPERTS)
+    x["part"] = torch.randint(0, NB_PART + 1, (N_BIG,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    x["part_start"] = torch.randint(0, 1 << 24, (NB_PART,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+    x["rows"] = torch.randint(0, NB_PART, (B_BULK, N_ROW), generator=gen, device=dev,
+                              dtype=torch.int32)
+    x["rows_start"] = torch.stack([prefix(r, NB_PART) for r in x["rows"]])
+    inputs = ROOT / "build" / "parent" / "entry_inputs.pt"
     torch.save({k: v.cpu() if torch.is_tensor(v) else v for k, v in x.items()}, inputs)
-    calls = {
-        "rank_hist": lambda: lf.rank_hist(x["comp"], nb=x["nb"], seg_offsets=x["off"],
-                                          seg_width=x["width"], tile=x["tile"]),
-        "rank_hist_batched": lambda: lf.rank_hist_batched(
-            x["comp_b"], nb=x["nb_b"], seg_offsets=x["off_b"], seg_width=x["width_b"],
-            tile=x["tile_b"]),
-    }
+    calls = entry_calls(torch, x)
     child = subprocess.Popen([sys.executable, "-c", PARENT_CHILD, str(ROOT),
                               str(parent / "src"), str(inputs)],
                              stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
@@ -954,23 +1010,31 @@ def compare_rank_hist_with_parent(torch, parent: Path, keys, dev) -> dict:
                         fail(f"the earlier tree's {name} child process ended")
                     times[side].append(json.loads(line))
                 else:
-                    launches, device, _ = call_kernels(torch, call)
+                    launches, device, kernels = call_kernels(torch, call)
                     times[side].append({"ms": cuda_ms(torch, call), "device_ms": device,
-                                        "launches": launches})
+                                        "launches": launches,
+                                        "kernels": {short_kernel(k): v
+                                                    for k, v in kernels.items()}})
             got = call()
-            want = torch.load(inputs.with_name(f"k2_{name}.pt"))
+            got = got if isinstance(got, tuple) else (got,)
+            want = torch.load(inputs.with_name(f"parent_{name}.pt"))
             same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
             result[name] = {side: {key: [t[key] for t in ts] for key in ("ms", "device_ms",
-                                                                         "launches")}
+                                                                         "launches", "kernels")}
                             for side, ts in times.items()}
             result[name]["same_outputs"] = same
+
             def turns(ts, key, fmt=".4f"):
                 return " ".join(format(t[key], fmt) for t in ts)
 
+            split = {k: sum(t["kernels"].get(k, 0.0) for t in times["parent"]) / 2
+                     for k in times["parent"][0]["kernels"]}
             print(f"before/after {name} entry point: " + "; ".join(
                 f"{side} events {turns(ts, 'ms')} ms, device (all kernels of a call) "
                 f"{turns(ts, 'device_ms')} ms, kernels a call {turns(ts, 'launches', 'g')}"
-                for side, ts in times.items()) + f"; same outputs: {same}", flush=True)
+                for side, ts in times.items()) + f"; same outputs: {same}; the earlier "
+                f"tree's device ms per kernel: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
             if not same:
                 fail(f"{name}: this tree's entry point and the earlier one differ")
     finally:
@@ -1837,11 +1901,9 @@ def main() -> None:
         # uppers' fill and cat), and their launches from the CUDA runtime
         k5_call = lambda: mp.merge_path_perm(merge_a, merge_b)
         for name, call in (("level_fused", k1_call), ("merge_path", k5_call)):
-            work = {e.key: e.count for e in device_events(torch, call, reps=10)}
+            work = {e.key: e.count for e in one_kernel_a_call(
+                torch, name, call, lambda e: any(f in e.key for f in DEVICE_FUNCTIONS[name]))}
             print(f"{name} device work in 10 calls (torch.profiler): {work}", flush=True)
-            own = [c for key, c in work.items() if any(f in key for f in DEVICE_FUNCTIONS[name])]
-            if own != [10]:
-                fail(f"{name} is not one device kernel per call: {work}")
         k1_launch = {f"{mode} k={k} tile={lf.TILE}": lf.launch_info(k, lf.TILE, mode == "radix")
                      for mode in ("tree", "radix")}
         k1_launch[f"tree k=512 tile={lf.MAX_TILE}"] = lf.launch_info(512, lf.MAX_TILE)
@@ -1855,8 +1917,21 @@ def main() -> None:
                       f"{info['local_bytes']} B", flush=True)
 
         # K6 at its main-path shapes: 8 B per id (id read, dest written) and the
-        # starts; ~16 ops per id (the histogram pass's match and atomics, the
-        # placement's match, two popcounts, the scans)
+        # starts; ~16 ops per id (the atomicOr, the mask and counter reads,
+        # two popcounts, the warp start, the staged rank and the store)
+        def k6_call_work(name, call):
+            """One call's device kernels (one: the memset of the scratch is
+            no kernel) and the memset's device time."""
+            is_copy = lambda e: e.key.startswith(("Memcpy", "Memset"))
+            events = one_kernel_a_call(torch, name, call, lambda e: not is_copy(e))
+            kernels_ms = {e.key: device_us(e) / e.count / 1e3 for e in events if not is_copy(e)}
+            memset = [e for e in events if e.key.startswith("Memset")]
+            memset_ms = sum(device_us(e) for e in memset) / 1e3 / 10
+            print(f"{name} device kernels a call (torch.profiler): 1; "
+                  + ", ".join(f"{short_kernel(k)} {v:.4f} ms" for k, v in kernels_ms.items())
+                  + f"; memsets a call {sum(e.count for e in memset) / 10:g}, "
+                    f"{memset_ms:.4f} ms", flush=True)
+
         def time_k6(name, call, plain, ids, nb, library):
             t = rows[name]
             kernel_ms(torch, name, t, call)
@@ -1864,6 +1939,7 @@ def main() -> None:
             t["bound_ms"], t["bound_by"] = bound_ms(ids.numel() * 8 + ids.numel() // ids.shape[-1]
                                                     * nb * 4, ids.numel() * 16)
             t["library_ms"] = cuda_ms(torch, library, reps=5)
+            k6_call_work(name, call)
 
         moe_start = counts_prefix(moe_uniform, MOE_EXPERTS)
         time_k6("dispatch_ranks",
@@ -1871,8 +1947,10 @@ def main() -> None:
                 lambda: dr.dispatch_ranks_plain(moe_uniform, moe_start, num_experts=MOE_EXPERTS),
                 moe_uniform, MOE_EXPERTS, lambda: torch.sort(moe_uniform, stable=True))
         skew_start = counts_prefix(moe_skewed, MOE_EXPERTS)
-        skew_ms = cuda_ms(torch, lambda: dr.dispatch_ranks(moe_skewed, skew_start,
-                                                           num_experts=MOE_EXPERTS))
+        skew_call = lambda: dr.dispatch_ranks(moe_skewed, skew_start, num_experts=MOE_EXPERTS)
+        skew_ms = cuda_ms(torch, skew_call)
+        skew_device_ms = device_ms(torch, skew_call, names=DEVICE_FUNCTIONS["dispatch_ranks"])
+        k6_call_work("dispatch_ranks skewed", skew_call)
         time_k6("partition_ranks", lambda: dr.partition_ranks(part_ids, part_start, nb=NB_PART),
                 lambda: dr.partition_ranks_plain(part_ids, part_start, nb=NB_PART),
                 part_ids, NB_PART, lambda: torch.sort(part_ids, stable=True))
@@ -1880,6 +1958,14 @@ def main() -> None:
                 lambda: dr.partition_ranks_batched(rows_ids, rows_start, nb=NB_PART),
                 lambda: dr.partition_ranks_batched_plain(rows_ids, rows_start, nb=NB_PART),
                 rows_ids, NB_PART, lambda: torch.sort(rows_ids, dim=1, stable=True))
+        for nb_, tile_ in ((MOE_EXPERTS, dr.TILE), (NB_PART, dr.TILE), (dr.MAX_NB, dr.TILE)):
+            info = dr.launch_info(nb_, tile_)
+            print(f"dispatch_rank launch (nb={nb_} tile={tile_}, warps and tile "
+                  f"{dr.schedule(nb_, tile_)}; cudaFuncGetAttributes): registers "
+                  f"{info['registers']} per thread, shared memory {info['static_smem']} static + "
+                  f"{info['dynamic_smem']} dynamic B per CTA, {info['threads']} threads, "
+                  f"{info['ctas_per_sm']} CTAs an SM at once, local memory "
+                  f"{info['local_bytes']} B", flush=True)
 
         # K7 at phase 2's shapes: a key read and an id written per element, the
         # uppers and the (tiles, 2k) histogram; tree ~3 ops per search step plus
@@ -2035,8 +2121,8 @@ def main() -> None:
                   f"{r['library_ms']}", flush=True)
         print(f"time level_fused_batched radix ({B_BULK}, {N_ROW}): kernel {radix_k4_ms:.4f} ms",
               flush=True)
-        print(f"time dispatch_ranks skewed (half on one expert): kernel {skew_ms:.4f} ms",
-              flush=True)
+        print(f"time dispatch_ranks skewed (half on one expert): kernel {skew_ms:.4f} ms "
+              f"(device {skew_device_ms:.4f} ms)", flush=True)
         for name, ms_ in k7_more.items():
             print(f"time {name}: kernel {ms_:.4f} ms", flush=True)
         print(f"time permute_blocks_inplace half the blocks in one bucket: kernel "

@@ -20,11 +20,12 @@
 | K10 | ``flash_decode.flash_decode`` (and ``flash_decode_cache``) | ``csrc/flash_decode.cu`` | ``repro/kernels/flash_decode.py:70`` |
 | K11 | ``flash_attention.flash_attention`` (bf16: TMA + ``wgmma``; f32: FMA) | ``csrc/flash_attention.cu`` | ``repro/kernels/flash_attention.py:102`` |
 
-K6's in-tile rank pass is ``csrc/rank_hist.cuh``; K1, K1r, K4
-``level_fused_batched`` and K2's rank above W2 = 32 rank the same way in
-``csrc/level_fused.cu`` (peer masks by atomicOr, ranks in registers).  K2
-and K4 ``rank_hist_batched`` close their placement on the card (items,
-count, per-segment scan, rank).
+K1, K1r, K4 ``level_fused_batched``, K2's rank above W2 = 32 and K6 rank
+a tile the same way (peer masks by atomicOr, 16-bit per-warp counters,
+ranks in registers, a scan over the warps).  K2 and K4 ``rank_hist_batched``
+close their placement on the card in four launches (items, count,
+per-segment scan, rank); K6 closes it in one, carrying the earlier tiles'
+counts by decoupled look-back.
 K8 and K9 move blocks in the caller's tensor and return it.  K10 reads the
 decode cache in place, through strides.
 

@@ -15,8 +15,16 @@ id nb that the reference pads with) is ignored, touches no counter and gets
 -1.  The plain twin is that formula (``kernels/ref.py::partition_ranks_ref``
 lifted over rows); with the starts the exclusive prefix of the counts it is
 ``dispatch_ranks_ref``, the inverse of the stable argsort of the ids.
+
+The kernel is one pass with a look-back over the earlier tiles' counts:
+:func:`schedule` gives its CTA shape and the scratch it needs, which the
+wrapper allocates (a ticket and rows x tiles x nb 4-byte status words) and
+the kernel's C entry point zeroes with one memset before its one launch.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Tuple
 
 import torch
 
@@ -30,15 +38,41 @@ __all__ = [
     "partition_ranks_plain",
     "partition_ranks_batched",
     "partition_ranks_batched_plain",
+    "schedule",
+    "launch_info",
     "TILE",
     "MAX_NB",
 ]
 
-TILE = 4096  # ids per CTA
-MAX_NB = 4096  # counters per CTA: 9 x MAX_NB ints of shared memory, beside the tile
+TILE = 8192  # ids per ticket (a CTA ranks one tile at a time)
+MAX_NB = 4096  # counters per CTA: 6 warps at MAX_NB (``_smem_bytes``)
 _SMEM_BYTES = 232_448  # shared memory one CTA may use on the H100
+_HEADER = 16  # the ticket's bytes at the head of the scratch (and of shared memory)
+_SPAN = 512  # positions a warp ranks: 16 chunks of 32, in registers
+_MAX_WARPS = 32
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"dispatch_rank_place": (_P, _P, _I, _I, _I, _I, _P, _P, _P)}
+_SIGNATURES = {"dispatch_rank_place": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+               "dispatch_rank_info": (_I, _I, _P)}
+
+
+def _smem_bytes(nb: int, warps: int) -> int:
+    """The CTA's shared memory: per id the counts of the last two tiles and
+    a base (4 B each), per warp and id a peer mask (4 B) and a 16-bit
+    counter, two tiles of packed ranks (4 B a position), the look-back's
+    rounds (16 B a thread) and the tickets."""
+    return (_HEADER + nb * (12 + 6 * warps) + (warps * nb & 1) * 2 + 2 * warps * _SPAN * 4
+            + 4 * 4 * 32 * warps)
+
+
+def schedule(nb: int, tile: int) -> Tuple[int, int]:
+    """(warps, tile) of the kernel's CTA for ``tile`` ids a ticket at
+    ``nb`` counters: a warp per 512 ids, as many as shared memory holds (6
+    at nb = 4096, at most 32); a tile above warps x 512 is cut to that.
+    The placement never depends on the tile."""
+    warps = max(1, min(-(-tile // _SPAN), _MAX_WARPS))
+    while warps > 1 and _smem_bytes(nb, warps) > _SMEM_BYTES:
+        warps -= 1
+    return warps, min(tile, warps * _SPAN)
 
 
 def _check(ids: torch.Tensor, start: torch.Tensor, nb: int, tile: int, dim: int) -> None:
@@ -56,8 +90,8 @@ def _check(ids: torch.Tensor, start: torch.Tensor, nb: int, tile: int, dim: int)
         raise ValueError(f"{ids.numel()} ids exceed int32 positions")
     if not 1 <= nb <= MAX_NB:
         raise ValueError(f"nb={nb} must be in [1, {MAX_NB}] (the counters of one CTA)")
-    if tile < 1 or (9 * nb + 2 * tile) * 4 > _SMEM_BYTES:
-        raise ValueError(f"tile={tile} at nb={nb} does not fit one CTA's shared memory")
+    if tile < 1:  # any larger tile fits: ``schedule`` cuts it to what a CTA holds
+        raise ValueError(f"tile={tile} must be positive")
 
 
 def _place_plain(ids: torch.Tensor, start: torch.Tensor, nb: int) -> torch.Tensor:
@@ -74,11 +108,13 @@ def _place_plain(ids: torch.Tensor, start: torch.Tensor, nb: int) -> torch.Tenso
 def _place_kernel(ids: torch.Tensor, start: torch.Tensor, nb: int, tile: int,
                   name: str) -> torch.Tensor:
     rows, n = ids.shape
+    warps, tile = schedule(nb, tile)
     dest = torch.empty_like(ids)
-    hist = torch.empty(rows * -(-n // tile) * nb, dtype=torch.int32, device=ids.device)
+    scratch = torch.empty(_HEADER + rows * -(-n // tile) * nb * 4, dtype=torch.uint8,
+                          device=ids.device)
     lib = _build.library("dispatch_rank", _SIGNATURES)
     err = lib.dispatch_rank_place(ids.data_ptr(), start.contiguous().data_ptr(), rows, n, nb,
-                                  tile, hist.data_ptr(), dest.data_ptr(),
+                                  tile, warps, scratch.data_ptr(), dest.data_ptr(),
                                   _build.stream_handle(ids.device))
     _build.check(lib, "dispatch_rank", err, f"{name} kernel")
     _build.LAUNCHES[name] += 1
@@ -139,3 +175,21 @@ def partition_ranks_batched_plain(bucket: torch.Tensor, start: torch.Tensor, *, 
                                   tile: int = TILE) -> torch.Tensor:
     """``partition_ranks_batched``'s plain torch twin on any device."""
     return _place(bucket, start, nb, tile, "partition_ranks_batched", True)
+
+
+def launch_info(nb: int, tile: int = TILE) -> dict:
+    """The kernel's launch at ``nb`` and ``tile``, from the CUDA runtime
+    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    registers per thread, static and dynamic shared memory per CTA in
+    bytes, threads per CTA, CTAs an SM holds at once (the persistent grid
+    is that times the SMs) and local memory per thread in bytes (spills).
+    Builds and loads the library; needs a card."""
+    if not 1 <= nb <= MAX_NB or tile < 1:
+        raise ValueError(f"nb={nb} must be in [1, {MAX_NB}] and tile={tile} positive")
+    out = (ctypes.c_int * 6)()
+    lib = _build.library("dispatch_rank", _SIGNATURES)
+    _build.check(lib, "dispatch_rank",
+                 lib.dispatch_rank_info(nb, schedule(nb, tile)[0], ctypes.addressof(out)),
+                 "dispatch_rank kernel")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "threads", "ctas_per_sm",
+                     "local_bytes"), out))

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.ips4o import SortConfig, ips4o_sort
 from repro_torch.core.partition import partition_ranks_kernel
-from repro_torch.kernels.dispatch_rank import MAX_NB, dispatch_ranks
+from repro_torch.kernels.dispatch_rank import MAX_NB, TILE, dispatch_ranks
 from repro_torch.ops import keyspace
 from repro_torch.ops.sort import Device, _device, _keys
 
@@ -97,18 +97,19 @@ def group_by(
     *,
     num_groups: Optional[int] = None,
     method: str = "auto",
-    tile: int = 2048,
+    tile: int = TILE,
     cfg: SortConfig = SortConfig(),
     device: Device = None,
 ) -> Groups:
     """Group elements by key, key-ascending, stably within a group.
 
     With ``num_groups`` (keys are ints in [0, num_groups)) the grouping is
-    the stable counting placement, K6 (``tile`` ids per CTA), and
-    ``counts``/``num_groups`` are exact.  Without it, keys are float32 or
-    int32 (``method="sort"``): a NaN-safe sort groups equal keys, ``counts``
-    comes back (n,)-padded and ``num_groups`` is a 0-d tensor.  ``values``
-    (one tensor, leading dim n) is grouped alongside.
+    the stable counting placement, K6 (``tile`` ids per ticket; by default
+    K6's own, where the reference's 2048 is a TPU tile; it never changes the
+    result), and ``counts``/``num_groups`` are exact.  Without it, keys are
+    float32 or int32 (``method="sort"``): a NaN-safe sort groups equal keys,
+    ``counts`` comes back (n,)-padded and ``num_groups`` is a 0-d tensor.
+    ``values`` (one tensor, leading dim n) is grouped alongside.
 
     >>> g = group_by(torch.tensor([2, 0, 2, 1]), num_groups=3, device="cpu")
     >>> g.keys.tolist(), g.counts.tolist(), g.perm.tolist()
@@ -180,11 +181,13 @@ def unique(
 
 
 def run_length(
-    keys, *, device: Device = None
+    keys, *, cfg: SortConfig = SortConfig(), device: Device = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run-length encoding of *consecutive* equal keys (no sorting).
     Returns (values, lengths, num_runs), (n,)-padded like :func:`unique`;
-    equality is keyspace equality (NaN == NaN, -0.0 != +0.0).
+    equality is keyspace equality (NaN == NaN, -0.0 != +0.0).  ``cfg`` is
+    accepted for symmetry with :func:`unique` and ignored, as in the
+    reference: nothing is sorted.
 
     >>> vals, lens, num = run_length(torch.tensor([5, 5, 2, 2, 2, 5], dtype=torch.int32),
     ...                              device="cpu")

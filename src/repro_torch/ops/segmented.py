@@ -44,6 +44,7 @@ def segmented_sort(
     *,
     k: Optional[int] = None,
     cfg: SortConfig = SortConfig(),
+    classifier: Optional[str] = None,
     device: Device = None,
 ):
     """Sort each segment of ``keys`` (n,) independently, ascending, NaN-safe.

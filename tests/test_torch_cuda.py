@@ -7,7 +7,9 @@ widths about the count's ballot path, one id, sorted ids, no positions),
 K3, K5 ``merge_path_perm`` (also at tile 1, the
 default and MAX_TILE, all-equal runs, runs of length 1, unaligned
 starts) and
-K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``),
+K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``;
+also at 65,536 tiles, one id, all trash, rows whose first tile is all
+trash, nb = 4096 at tile 16384 and (8, 2^20) rows, each twice),
 K7 (``classify_histogram`` and its batched and radix forms), K8
 ``permute_blocks_by_dest`` (every team size, 20 runs in a row, and a ``dst``
 that is not a permutation) and K9 ``permute_blocks_inplace`` (in place: same
@@ -354,27 +356,57 @@ def test_merge_path_kernel_edges(dev, tile, case):
                            torch.sort(torch.cat([a, b]), stable=True).indices)
 
 
-@pytest.mark.parametrize("rows,n,nb,tile,skew", [(1, 1000, 3, 4096, False),
-                                                 (1, 300_000, 65, 4096, True),
-                                                 (1, 100_000, 257, 1024, False),
-                                                 (5, 20_000, 257, 4096, True),
-                                                 (2, 50_000, 4096, 4096, False)])
-def test_dispatch_rank_kernel(dev, rows, n, nb, tile, skew):
+K6_CASES = [  # rows, n, nb, tile, ids
+    (1, 1000, 3, 4096, "random"),
+    (1, 300_000, 65, 4096, "skew"),        # half the ids on one bucket
+    (1, 100_000, 257, 1024, "random"),
+    (5, 20_000, 257, 4096, "skew"),
+    (2, 50_000, 4096, 4096, "random"),
+    (1, 1 << 24, 257, 256, "prefix"),      # 65,536 tiles to look back over
+    (1, 1 << 22, 64, 8192, "equal"),       # every id the same
+    (1, 1 << 20, 64, 8192, "trash"),       # every id outside [0, nb)
+    (3, 1 << 20, 257, 4096, "first empty"),  # each row's first tile all trash
+    (1, 1 << 22, 4096, 16384, "prefix"),   # nb = MAX_NB at tile 16384 (cut to 3072)
+    (8, 1 << 20, 257, 8192, "prefix"),     # (8, 2^20) rows
+]
+
+
+@pytest.mark.parametrize("rows,n,nb,tile,kind", K6_CASES)
+def test_dispatch_rank_kernel(dev, rows, n, nb, tile, kind):
+    """K6's one-pass kernel against its plain twin bit for bit, twice in a
+    row (a race in the look-back would show as a difference), one launch a
+    call; with prefix starts also the inverse of each row's stable argsort."""
     g = torch.Generator(device=dev).manual_seed(n + nb)
-    ids = torch.randint(0, nb + 1, (rows, n), generator=g, device=dev, dtype=torch.int32)
-    if skew:  # half the ids on one bucket
+    hi = nb if kind in ("prefix", "equal") else nb + 1  # nb is the trash id
+    ids = torch.randint(0, hi, (rows, n), generator=g, device=dev, dtype=torch.int32)
+    if kind == "skew":
         ids[:, ::2] = nb // 2
-    start = torch.randint(0, 1 << 20, (rows, nb), generator=g, device=dev, dtype=torch.int32)
-    if rows == 1:
-        for fn, plain in ((dispatch_rank.dispatch_ranks, dispatch_rank.dispatch_ranks_plain),
-                          (dispatch_rank.partition_ranks, dispatch_rank.partition_ranks_plain)):
-            kw = dict(num_experts=nb) if fn is dispatch_rank.dispatch_ranks else dict(nb=nb)
-            assert torch.equal(fn(ids[0], start[0], tile=tile, **kw),
-                               plain(ids[0], start[0], tile=tile, **kw))
-    before = kernels.launch_counts()["partition_ranks_batched"]
-    assert torch.equal(dispatch_rank.partition_ranks_batched(ids, start, nb=nb, tile=tile),
-                       dispatch_rank.partition_ranks_batched_plain(ids, start, nb=nb, tile=tile))
-    assert kernels.launch_counts()["partition_ranks_batched"] == before + 1
+    elif kind == "equal":
+        ids[:] = nb - 1
+    elif kind == "trash":
+        ids[:] = nb
+    elif kind == "first empty":
+        ids[:, :tile] = nb
+    if kind in ("prefix", "equal"):
+        counts = torch.stack([torch.bincount(r, minlength=nb) for r in ids]).to(torch.int32)
+        start = (torch.cumsum(counts, 1) - counts).to(torch.int32)
+    else:
+        start = torch.randint(0, 1 << 20, (rows, nb), generator=g, device=dev,
+                              dtype=torch.int32)
+    want = dispatch_rank.partition_ranks_batched_plain(ids, start, nb=nb, tile=tile)
+    for _ in range(2):
+        if rows == 1:
+            for fn in (dispatch_rank.dispatch_ranks, dispatch_rank.partition_ranks):
+                kw = dict(num_experts=nb) if fn is dispatch_rank.dispatch_ranks else dict(nb=nb)
+                assert torch.equal(fn(ids[0], start[0], tile=tile, **kw), want[0])
+        before = kernels.launch_counts()["partition_ranks_batched"]
+        got = dispatch_rank.partition_ranks_batched(ids, start, nb=nb, tile=tile)
+        assert kernels.launch_counts()["partition_ranks_batched"] == before + 1
+        assert torch.equal(got, want)
+    if kind in ("prefix", "equal"):
+        order = torch.sort(ids, dim=1, stable=True).indices
+        assert torch.equal(torch.gather(got, 1, order).to(torch.int64),
+                           torch.arange(n, device=dev).expand(rows, n))
 
 
 def test_external_argsort_many_chunks_on_the_card(dev):

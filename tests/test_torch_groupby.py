@@ -154,6 +154,17 @@ def test_unique_and_run_length_edges():
         _check_triple(ops.run_length(y, **CPU), ref_ops.run_length(jnp.asarray(y)))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_run_length_takes_cfg(dtype):
+    """``run_length`` takes the reference's ``cfg`` and ignores it: nothing
+    is sorted.  Float keys carry NaN of both signs and signed zeros."""
+    x = specials(N, seed=8) if dtype == np.float32 else make_input("TwoDup", N, dtype, seed=8)
+    for ref_cfg in (REF_CFG, ref_ips4o.SortConfig(classifier="radix")):
+        cfg = ips4o.config_from_reference(dataclasses.asdict(ref_cfg))
+        _check_triple(ops.run_length(x, cfg=cfg, **CPU),
+                      ref_ops.run_length(jnp.asarray(x), cfg=ref_cfg))
+
+
 # ---------------------------------------------------------------------------
 # segmented_sort
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
@@ -167,6 +178,21 @@ def test_segmented_sort(bounds, dtype):
                                       torch.as_tensor(v), cfg=CFG, **CPU)
     want_k, want_v = ref_ops.segmented_sort(jnp.asarray(x), jnp.asarray(off), len(bounds) - 1,
                                             jnp.asarray(v), cfg=REF_CFG)
+    np.testing.assert_array_equal(bits(got_k.numpy()), bits(np.asarray(want_k)))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+@pytest.mark.parametrize("classifier", [None, "tree", "radix", "learned"])
+def test_segmented_sort_classifier(classifier):
+    """``segmented_sort`` takes the reference's ``classifier``; every value
+    runs the per-segment tree, so the result is the reference's bit for bit."""
+    x = specials(N, seed=9)
+    v = np.arange(N, dtype=np.int32)
+    off = np.asarray([0, 7, 7, 1000, 2048], np.int32)
+    got_k, got_v = ops.segmented_sort(x, torch.as_tensor(off), 4, torch.as_tensor(v), cfg=CFG,
+                                      classifier=classifier, **CPU)
+    want_k, want_v = ref_ops.segmented_sort(jnp.asarray(x), jnp.asarray(off), 4, jnp.asarray(v),
+                                            cfg=REF_CFG, classifier=classifier)
     np.testing.assert_array_equal(bits(got_k.numpy()), bits(np.asarray(want_k)))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
 

@@ -1,4 +1,4 @@
-"""The arithmetic of four of the port's CUDA kernels, replayed on the CPU and
+"""The arithmetic of six of the port's CUDA kernels, replayed on the CPU and
 held to the reference's oracles.
 
 The kernels run only on a card; their plain twins compute the same
@@ -39,6 +39,19 @@ step, so that their schedules are checked where there is no card:
   bijection with no bank conflict on the write and on the 16-byte read).
   The cuts are held to the reference's ``merge_path_partition`` and the
   permutation to ``merge_path_perm_ref``, bit for bit.
+- K2 ``rank_hist`` and K4 ``rank_hist_batched`` (``csrc/level_fused.cu``):
+  the items kernel's binary search, the count, the per-segment scan and
+  the rank, against the reference's ``rank_hist``/``rank_hist_batched`` and
+  the plain twins.
+- K6 ``dispatch_ranks``, ``partition_ranks`` and
+  ``partition_ranks_batched`` (``csrc/dispatch_rank.cu``): persistent CTAs
+  taking tiles by ticket, each tile's ranks by K1's peer masks and
+  per-warp counters, its count published as a 32-bit status word, and the
+  look-back (deferred by one tile, the whole CTA reading 8 words a thread
+  a round) under seeded interleavings of the CTAs, so that tiles publish
+  in shuffled orders.  Held bit for bit to the reference's three Pallas
+  kernels in interpret mode and to the plain twins; the status word is
+  shown to keep counts past 2^30.
 """
 import math
 
@@ -887,3 +900,280 @@ def test_k2_schedule_at_the_main_path_shapes():
     big = segment_schedule(1 << 20, 4, MAX_NB, MAX_TILE)
     assert big["multi"] and big["warps"] == 8 and big["scan_ids"] == 1024
     assert MAX_NB * (4 + 6 * big["warps"]) <= 232448  # base row; masks and counters
+
+
+# ---- K6 -------------------------------------------------------------------
+
+K6_WINDOW = 8  # status words a thread of the look-back reads a round
+K6_PREFIX = 1 << 31
+K6_ID_BITS = 13  # a packed position: id | rank in the tile << 13
+
+
+def _k6_aggregate(count):
+    """A tile's own count as its status word: at most the tile, < 2^15."""
+    assert 0 <= count < 1 << 15
+    return 1 + count
+
+
+def _k6_prefix(count):
+    """The count of the row's tiles up to and including this one."""
+    assert 0 <= count < K6_PREFIX
+    return K6_PREFIX | count
+
+
+def _k6_unpack(word):
+    """(state, count) of a 32-bit status word: 0 is not yet published."""
+    word = int(word)
+    if word == 0:
+        return "none", 0
+    if word & K6_PREFIX:
+        return "prefix", word & (K6_PREFIX - 1)
+    return "aggregate", word - 1
+
+
+def _k6_tile_ranks(seg, nb, warps):
+    """One tile's rank per position (-1 outside [0, nb)) and count per id:
+    warp spans of 32-wide chunks, the lanes of one id by OR-ed peer masks,
+    16-bit per-warp counters, the exclusive scan over the warps."""
+    length = seg.shape[0]
+    span = ((-(-length // warps)) + 31) // 32 * 32
+    assert span <= 512
+    ids = seg.astype(np.int64)
+    valid = (ids >= 0) & (ids < nb)
+    safe = np.where(valid, ids, 0)
+    cnt = np.zeros((warps, nb), np.int64)
+    r = np.zeros(length, np.int64)
+    for w in range(warps):
+        lo, hi = w * span, min(w * span + span, length)
+        for base in range(lo, hi, 32):
+            at = np.arange(base, min(base + 32, hi))
+            same = (ids[at][:, None] == ids[at][None, :]) & valid[at][None, :]
+            r[at] = cnt[w, safe[at]] + np.tril(same, -1).sum(1)
+            np.add.at(cnt[w], ids[at][valid[at]], 1)  # the group's lowest lane
+            assert cnt[w].max(initial=0) < 1 << 16
+    warp_of = np.minimum(np.arange(length) // max(span, 1), warps - 1)
+    rank = r + (np.cumsum(cnt, 0) - cnt)[warp_of, safe]
+    assert rank.max(initial=0) < 1 << (31 - K6_ID_BITS)  # fits the packed position
+    return np.where(valid, rank, -1), cnt.sum(0)
+
+
+def _k6_look_back(status, g, first, nb, threads):
+    """Tile g's look-back by a CTA of ``threads``: per round each thread
+    reads the 8 words of its (id, window); an id's windows are taken in
+    order until a prefix, or a word not yet published, where the next round
+    starts.  A generator: it yields after each round (a round trip, while
+    other CTAs go on), and returns the count over the row's earlier tiles
+    per id."""
+    excl = np.zeros(nb, np.int64)
+    for b0 in range(0, nb, threads):
+        C = min(nb - b0, threads)
+        k = np.full(C, g - 1)
+        done = np.zeros(C, bool)
+        while not done.all():
+            for b in np.nonzero(~done)[0]:
+                windows = (threads - b + C - 1) // C
+                taken = 0
+                for m in range(windows):
+                    top = k[b] - K6_WINDOW * m
+                    ready = 0
+                    for i in range(K6_WINDOW):
+                        t = top - i
+                        state, count = _k6_unpack(status[t, b0 + b]) if t >= first else ("none", 0)
+                        if state == "none":
+                            break
+                        excl[b0 + b] += count
+                        if state == "prefix":
+                            done[b] = True
+                            break
+                        ready += 1
+                    if done[b]:
+                        break
+                    taken += ready
+                    if ready < K6_WINDOW:
+                        break
+                k[b] -= taken
+            yield
+    return excl
+
+
+def _replay_k6(ids, start, nb, tile, grid, seed):
+    """The kernel over (rows, n) ids: ``grid`` persistent CTAs take tickets
+    in order (two ahead), rank each tile, publish its count, and look back
+    for the tile before only after ranking the next one; a seeded scheduler
+    interleaves the CTAs' steps, so tiles publish in a shuffled order.
+    Returns (dest, the order in which tiles published their counts)."""
+    from repro_torch.kernels.dispatch_rank import schedule
+
+    rows, n = ids.shape
+    warps, tile = schedule(nb, tile)
+    tiles = -(-n // tile)
+    total = rows * tiles
+    status = np.zeros((total, nb), np.uint32)  # the memset
+    dest = np.full((rows, n), GARBAGE, np.int64)
+    ticket = [0]
+    published = []
+
+    def take():
+        ticket[0] += 1
+        return ticket[0] - 1
+
+    def finish(g, rank, count):
+        row, j = divmod(g, tiles)
+        if j == 0:
+            excl = np.zeros(nb, np.int64)
+        else:
+            excl = yield from _k6_look_back(status, g, g - j, nb, 32 * warps)
+            for b in range(nb):
+                status[g, b] = _k6_prefix(int(excl[b] + count[b]))
+        seg = ids[row, j * tile:(j + 1) * tile]
+        safe = np.where(rank >= 0, seg, 0)
+        dest[row, j * tile:j * tile + seg.shape[0]] = np.where(
+            rank >= 0, start[row, safe].astype(np.int64) + excl[safe] + rank, -1)
+
+    def cta():
+        cur, nxt = take(), take()
+        pending = None
+        while cur < total:
+            after = take()
+            row, j = divmod(cur, tiles)
+            rank, count = _k6_tile_ranks(ids[row, j * tile:(j + 1) * tile], nb, warps)
+            for b in range(nb):
+                status[cur, b] = _k6_prefix(int(count[b])) if j == 0 else _k6_aggregate(int(count[b]))
+            published.append(cur)
+            yield
+            if pending is not None:
+                yield from finish(*pending)
+            pending = (cur, rank, count)
+            cur, nxt = nxt, after
+        if pending is not None:
+            yield from finish(*pending)
+
+    rng = np.random.default_rng(seed)
+    live = [cta() for _ in range(grid)]
+    steps = 0
+    while live:
+        i = int(rng.integers(len(live)))
+        try:
+            next(live[i])
+        except StopIteration:
+            live.pop(i)
+        steps += 1
+        assert steps < 100 * (total + grid) * (total + 2), "the CTAs wait on each other"
+    assert sorted(published) == list(range(total))
+    return dest, published
+
+
+def _k6_case(kind, nb, rows, n, seed):
+    """(ids, starts) of one case: trash ids (nb), prefix or other starts,
+    or every id in one bucket."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, nb + 1, (rows, n)).astype(np.int32)
+    if kind == "one bucket":
+        ids[:] = nb // 2
+    counts = np.stack([np.bincount(r, minlength=nb + 1)[:nb] for r in ids])
+    if kind == "prefix":
+        start = (np.cumsum(counts, 1) - counts).astype(np.int32)
+    else:
+        start = rng.integers(0, 1 << 20, (rows, nb)).astype(np.int32)
+    return ids, start
+
+
+@pytest.mark.parametrize("kind,nb,rows,n,tile,grid", [
+    ("starts", 257, 1, 3000, 256, 5),       # trash ids, ragged last tile, W2-wide walks
+    ("prefix", 64, 1, 8192, 512, 7),        # the MoE shape in miniature; n a tile multiple
+    ("starts", 257, 1, 500, 4096, 3),       # one tile: nothing to look back on
+    ("one bucket", 5, 1, 2000, 128, 4),     # every id the same; 16 tiles
+    ("starts", 4096, 1, 5000, 1024, 3),     # nb = 4096: ids in chunks of the CTA's threads
+    ("prefix", 21, 3, 2000, 256, 6),        # rows: each row's first tile publishes a prefix
+    ("starts", 64, 2, 20000, 8192, 2),      # 16 warps, eight windows an id
+])
+def test_k6_replay_matches_the_plain_twins(kind, nb, rows, n, tile, grid):
+    """The replayed kernel equals the port's plain twins bit for bit,
+    trash ids (-1) included, under three seeded interleavings of its CTAs,
+    which publish the tiles' counts in three different orders."""
+    from repro_torch.kernels import dispatch_rank as dr
+
+    ids, start = _k6_case(kind, nb, rows, n, seed=nb + n)
+    want = dr.partition_ranks_batched_plain(torch.as_tensor(ids), torch.as_tensor(start),
+                                            nb=nb).numpy()
+    orders = []
+    for seed in range(3):
+        dest, order = _replay_k6(ids, start, nb, tile, grid, seed)
+        np.testing.assert_array_equal(dest, want)
+        orders.append(tuple(order))
+    if len(order) > grid + 2:
+        assert len(set(orders)) > 1 and any(o != tuple(sorted(o)) for o in orders)
+
+
+@pytest.mark.parametrize("entry", ["dispatch_ranks", "partition_ranks",
+                                   "partition_ranks_batched"])
+def test_k6_replay_matches_the_reference_kernels(entry):
+    """The replay equals the reference's Pallas kernels in interpret mode:
+    ``dispatch_ranks`` at 64 experts with prefix starts, ``partition_ranks``
+    and ``partition_ranks_batched`` at nb = 257 with trash ids (whose
+    destination the reference leaves unspecified) and other starts."""
+    from repro.kernels import dispatch_rank as ref
+
+    if entry == "dispatch_ranks":
+        ids, start = _k6_case("prefix", 64, 1, 4096, seed=1)
+        ids = np.minimum(ids, 63)  # no trash: the reference asks ids in [0, E)
+        counts = np.bincount(ids[0], minlength=64)
+        start = (np.cumsum(counts) - counts).astype(np.int32)[None]
+        want = np.asarray(ref.dispatch_ranks(jnp.asarray(ids[0]), jnp.asarray(start[0]),
+                                             num_experts=64, interpret=True))[None]
+        nb = 64
+    elif entry == "partition_ranks":
+        ids, start = _k6_case("starts", 257, 1, 3000, seed=2)
+        want = np.asarray(ref.partition_ranks(jnp.asarray(ids[0]), jnp.asarray(start[0]),
+                                              nb=257, interpret=True))[None]
+        nb = 257
+    else:
+        ids, start = _k6_case("starts", 257, 3, 1500, seed=3)
+        want = np.asarray(ref.partition_ranks_batched(jnp.asarray(ids), jnp.asarray(start),
+                                                      nb=257, interpret=True))
+        nb = 257
+    dest, _ = _replay_k6(ids, start, nb, 256, 4, seed=11)
+    live = ids < nb
+    np.testing.assert_array_equal(dest[live], want[live])
+    assert (dest[~live] == -1).all()
+
+
+def test_k6_status_word_holds_any_count_the_contract_allows():
+    """A prefix may count up to rows * n - 1 < 2^31 - 1 ids: the status
+    word keeps it beside its flag (an aggregate is at most one tile, below
+    2^15), where 2 flag bits beside a 30-bit count would wrap.  The
+    look-back sums words past 2^30 exactly, over three synthetic tiles."""
+    for count in (0, 1, (1 << 30) - 1, 1 << 30, (1 << 30) + 5, (1 << 31) - 2):
+        assert _k6_unpack(_k6_prefix(count)) == ("prefix", count)
+        assert (count & ((1 << 30) - 1)) == count or count >= 1 << 30  # what 30 bits keep
+    assert ((1 << 30) + 5) & ((1 << 30) - 1) != (1 << 30) + 5
+    for count in (0, 1, 8192, 16384):
+        assert _k6_unpack(_k6_aggregate(count)) == ("aggregate", count)
+    status = np.zeros((4, 1), np.uint32)
+    status[0, 0] = _k6_prefix((1 << 30) + 3)
+    status[1, 0] = _k6_aggregate(16384)
+    status[2, 0] = _k6_aggregate(7)
+    walk = _k6_look_back(status, 3, 0, 1, 32)
+    with pytest.raises(StopIteration) as stop:
+        while True:
+            next(walk)
+    assert int(stop.value.value[0]) == (1 << 30) + 3 + 16384 + 7
+    assert _k6_unpack(_k6_prefix(int(stop.value.value[0]) + 11)) == (
+        "prefix", (1 << 30) + 3 + 16384 + 7 + 11)
+
+
+def test_k6_schedule_and_shared_memory():
+    """The CTA shapes the main path gives K6 (tiles of 8192: 16 warps) and
+    the largest nb: 6 warps, tiles of 3072; every shape fits a CTA's
+    shared memory, and a tile above its warps' 512 ids each is cut."""
+    from repro_torch.kernels import dispatch_rank as dr
+
+    assert dr.schedule(64, dr.TILE) == (16, 8192)
+    assert dr.schedule(257, dr.TILE) == (16, 8192)
+    assert dr.schedule(dr.MAX_NB, 16384) == (6, 3072)
+    assert dr.schedule(1, 1 << 20) == (32, 16384)
+    assert dr.schedule(5, 33) == (1, 33)
+    for nb in (1, 64, 257, 1000, dr.MAX_NB):
+        for tile in (1, 256, 4096, 8192, 16384, 60000):
+            warps, t = dr.schedule(nb, tile)
+            assert dr._smem_bytes(nb, warps) <= 232_448 and 1 <= t <= min(tile, warps * 512)
