@@ -33,6 +33,12 @@ for the attention kernels and the serve path:
    ``permute_blocks_inplace`` at the same N and in five cases that stress
    its claiming at N = 4096, five runs each (k = 1, every block already in
    its range, empty buckets, all blocks but one in one bucket, uniform).
+   The 64-bit forms (the int64 codes of the 64-bit key dtypes): K1 at n =
+   2^24, k = 128 with pads on float64 Uniform (a third negated, NaN, +-0.0
+   and +-inf sprinkled in) and int64 TwoDup, K1r on int64 and uint64 over
+   the whole range (level 1 and a level-2 shift), K4 ``level_fused_batched``
+   at (64, 2^18) in both modes, K3 on 2048 windows of 8192, 65,536 of 256
+   and 1024 of 16384, heavy duplicates at the int64 extremes.
    K9 is not stable, so each of its outputs is held to its plain twin (the
    replay of the reference's moves) by intact blocks and, per bucket, the
    blocks sorted by their tag; the twin is held to ``permute_blocks_ref``
@@ -67,7 +73,18 @@ for the attention kernels and the serve path:
    rows), ``segmented_sort`` (4096 ragged segments over 2^24 keys), the
    block path (``partition_blocks`` of 2^28 int32 keys and an int32 payload
    in place by K8, and ``sort_blocks``), ``s3_sort`` (the out-of-place
-   baseline, 2^24 float32 with a payload) and the K7 and K9 entry points.
+   baseline, 2^24 float32 with a payload) and the K7 and K9 entry points;
+   every key dtype: ``ops.sort`` and ``argsort`` on the paper's element
+   types at 2^24 (double, Pair, Quartet, 100Bytes: float64 or uint64 keys
+   with 0, 1, 3 or 12 uint64 payload words), double once at 2^27 (kmax =
+   256, slack 4), int64 TwoDup by argsort, uint64 and float64 over the
+   whole range by radix, ``topk``/``bottomk`` of float64 at k = 1024,
+   ``batched_sort``/``batched_argsort`` of (64, 2^18) float64,
+   ``segmented_sort`` of int64 (4096 ragged segments over 2^24),
+   ``group_by``/``unique`` of 2^24 int64 RootDup, ``TPU_BIG_PAYLOAD`` on
+   2^23 doubles, and ``ops.sort`` of 2^24 keys of each of int8, uint8,
+   int16, uint16, float16, bfloat16 and uint32 with both classifiers; the
+   64-bit paths must launch the 64-bit forms.
    Every result is held to ``torch.sort(stable=True)`` of the port's
    encoded keys on the card (per row or per segment; of the raw keys for
    ``s3_sort``), the top/bottom-k to the sorted prefix, the group-by to
@@ -112,13 +129,21 @@ for the attention kernels and the serve path:
    memory per CTA, cluster size) from ``cudaFuncGetAttributes``; K8 also
    with the half-in-one-bucket and one-cycle ``dst`` and at 16 KB blocks
    beside ``index_select``, and its teams (chains in flight);
-5. a ``{"kernels": [...]}`` JSON line (18 entries), then the last line
+   The 64-bit forms at the 64-bit paths' shapes (K1 on 2^24 doubles, K1r
+   on 2^24 uint64, K4 on (64, 2^18) float64, K3 on 2048 windows of 8192),
+   K1's 64-bit launch, ``ops.sort`` of 2^24 and 2^27 doubles and of 2^24
+   int64 beside ``torch.sort`` of the same keys, a profile of one double
+   sort and its fallback share;
+5. a ``{"kernels": [...]}`` JSON line (22 entries: the four 64-bit forms
+   are rows of their own, ``level_fused64``, ``level_fused_radix64``,
+   ``level_fused_batched64`` and ``sort_windows64``), then the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --parent DIR
 
-times K1 (tree, radix, batched) and K5 of the CUDA sources under DIR (an
-earlier commit, unpacked by ``git archive``) beside this tree's, in turns,
+times K1 (tree, radix, batched), the 32-bit K3 and K5 of the CUDA sources
+under DIR (an earlier commit, unpacked by ``git archive``) beside this
+tree's, in turns,
 and checks that both give the same outputs; and K2 ``rank_hist``, K4
 ``rank_hist_batched`` and K6's three entry points (and ``dispatch_ranks``
 on the skewed routing) of DIR's sources through DIR's own wrappers (their
@@ -161,6 +186,11 @@ MOE_EXPERTS, MOE_TOP, MOE_TOKENS = 64, 6, 1 << 21
 MOE_LAYERS = 8  # per-layer routing rows for the batched placement
 NB_PART = 257  # partition_ranks: 2k + 1 buckets at k = 128
 SEGMENTS = 4096
+# double once at 2^27 (1 GiB of keys): the default kmax = 128 takes two
+# levels up to 2^24 keys, so the paper's k = 256 and a slack of 4 (buckets
+# of W / 4 expected) cover 2^27
+N_HUGE = 1 << 27
+HUGE_KMAX, HUGE_SLACK = 256, 4
 K_RADIX = 256  # radix_histogram: 8 bits per level
 # the block path: 2^28 int32 keys (1 GiB) in blocks of 1024 over 256 buckets
 N_BLOCK_KEYS, BLOCK, N_BUCKETS = 1 << 28, 1024, 256
@@ -313,6 +343,10 @@ DEVICE_FUNCTIONS = {
     "permute_blocks_inplace": ("permute_inplace_kernel", "permute_inplace_init"),
     "flash_decode": ("flash_decode_",),
     "flash_attention": ("attention_kernel",), "flash_attention_f32": ("attention_kernel",),
+    # the 64-bit forms: the same templates, instantiated for long long keys
+    "level_fused64": ("level_fused_kernel",), "level_fused_radix64": ("level_fused_kernel",),
+    "level_fused_batched64": ("level_fused_kernel",),
+    "sort_windows64": ("sort_windows_kernel", "sort_small_windows_kernel"),
 }
 
 
@@ -792,14 +826,16 @@ def attention_phases(torch, dev) -> dict:
 
 
 def compare_with_parent(parent: Path) -> None:
-    """``--parent DIR``: K1 (tree, radix, batched) and K5 of the CUDA sources
-    under DIR (a checkout of an earlier commit, unpacked by ``git archive``)
-    beside this tree's, through this tree's wrappers, on the same inputs and
-    card, in turns (earlier, this, this, earlier): CUDA events around the
-    wrapper's launch and the kernel's own device time (torch.profiler), and
-    whether both give the same outputs.  K1 at phase 4's shapes (n = 2^24,
-    k = 128, tile 4096; (64, 2^18) for K4), K5 on two duplicate-heavy runs
-    of 2^24.  The C entry points of both kernels kept their signatures."""
+    """``--parent DIR``: K1 (tree, radix, batched), K3 and K5 of the CUDA
+    sources under DIR (a checkout of an earlier commit, unpacked by ``git
+    archive``) beside this tree's, through this tree's wrappers, on the same
+    inputs and card, in turns (earlier, this, this, earlier): CUDA events
+    around the wrapper's launch and the kernel's own device time
+    (torch.profiler), and whether both give the same outputs.  K1 at phase
+    4's shapes (n = 2^24, k = 128, tile 4096; (64, 2^18) for K4), K3 on
+    2048 duplicate-heavy windows of 8192 int32 keys, K5 on two
+    duplicate-heavy runs of 2^24.  The 32-bit C entry points of the three
+    kept their signatures (the 64-bit forms are new entry points)."""
     import ctypes
 
     import numpy as np
@@ -811,7 +847,7 @@ def compare_with_parent(parent: Path) -> None:
     from repro_torch import ops
     from repro_torch.core import sampling
     from repro_torch.data.distributions import make_input
-    from repro_torch.kernels import _build, level_fused as lf, merge_path as mp
+    from repro_torch.kernels import _build, bitonic, level_fused as lf, merge_path as mp
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -819,7 +855,8 @@ def compare_with_parent(parent: Path) -> None:
     out_dir = ROOT / "build" / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {}
-    for stem, sigs in (("level_fused", lf._SIGNATURES), ("merge_path", mp._SIGNATURES)):
+    for stem, sigs in (("level_fused", lf._SIGNATURES), ("merge_path", mp._SIGNATURES),
+                       ("bitonic", bitonic._SIGNATURES)):
         so = out_dir / f"lib{stem}.so"
         built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                                 str(parent / "src" / "repro_torch" / "csrc" / f"{stem}.cu")],
@@ -855,6 +892,9 @@ def compare_with_parent(parent: Path) -> None:
         return x
 
     merge_a, merge_b = run(N_BIG, -1000, 1000), run(N_BIG, -1000, 1000)
+    wb = torch.sort(torch.randint(0, 64, (2048, 8192), generator=gen, device=dev,
+                                  dtype=torch.int32), dim=1).values
+    wk = torch.randint(-3, 4, (2048, 8192), generator=gen, device=dev, dtype=torch.int32)
     cases = {
         "level_fused": ("level_fused", lambda: lf._level_tiles_kernel(
             keys[None], spl[None], k, N_BIG, lf.TILE)),
@@ -863,6 +903,7 @@ def compare_with_parent(parent: Path) -> None:
         "level_fused_batched": ("level_fused", lambda: lf._level_tiles_kernel(
             kb, spl_b, k, N_ROW, lf.TILE, batched=True)),
         "merge_path": ("merge_path", lambda: mp.merge_path_perm(merge_a, merge_b)),
+        "sort_windows": ("bitonic", lambda: bitonic.sort_windows(wb, wk, nb=64)),
     }
     result = {}
     for name, (stem, call) in cases.items():
@@ -1060,7 +1101,8 @@ def main() -> None:
         from repro_torch.core import ips4o, sampling
         from repro_torch.core.partition import partition_blocks, partition_ranks_kernel
         from repro_torch.core.s3sort import s3_sort
-        from repro_torch.data.distributions import make_input
+        from repro_torch.configs.ips4o_paper import TPU_BIG_PAYLOAD
+        from repro_torch.data.distributions import ELEMENT_TYPES, make_input, make_payload
         from repro_torch.kernels import bitonic, dispatch_rank as dr, level_fused as lf
         from repro_torch.kernels import block_permute as bp, classify as cl
         from repro_torch.kernels import merge_path as mp, permute_inplace as pi, ref as kref
@@ -1107,6 +1149,27 @@ def main() -> None:
         rng = np.random.default_rng(seed)
         x = rng.integers(-2**31, 2**31, int(np.prod(shape)), dtype=np.int64)
         return torch.as_tensor(x.astype(np.int32).reshape(shape), device=dev)
+
+    def wide_input(name, n, seed):
+        """64-bit keys on the card: float64 Uniform with a third negated and
+        NaN, +-0.0 and +-inf sprinkled in, int64 TwoDup, or int64 / uint64 /
+        float64 bit patterns over the whole range (made on the host from a
+        seed)."""
+        if name == "float64":
+            x = make_input("Uniform", n, np.float64, seed=seed)
+            x[3::3] *= -1
+            x[::1009] = np.nan
+            x[1::1013] = -0.0
+            x[2::1019] = 0.0
+            x[4::1021] = np.inf
+            x[5::1031] = -np.inf
+            return torch.as_tensor(x, device=dev)
+        if name == "int64 TwoDup":
+            return torch.as_tensor(make_input("TwoDup", n, np.int64, seed=seed), device=dev)
+        x = torch.as_tensor(np.random.default_rng(seed).integers(
+            -2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True), device=dev)
+        return {"uint64": x.view(torch.uint64), "float64 full range": x.view(torch.float64)
+                }.get(name, x)
 
     def check_equal(name, got, want, what):
         torch.cuda.synchronize()
@@ -1219,6 +1282,61 @@ def main() -> None:
         if not torch.equal(torch.gather(got[0], 1, yard).to(torch.int64),
                            torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
             fail("K4 rank_hist_batched is not the inverse of the per-row stable argsort")
+
+        # ---- the 64-bit forms (the 64-bit key dtypes' int64 codes) against
+        # their plain twins: K1 on float64 Uniform and int64 TwoDup, K1r on
+        # int64 and uint64 over the whole range (level 1 and a level-2
+        # shift), K4 level_fused_batched in both modes, K3 at W = 8192, 256
+        # and 16384 with heavy duplicates at the int64 extremes
+        for dist in ("float64", "int64 TwoDup"):
+            keys64 = ops.keyspace.encode(wide_input(dist, n_real, seed=31))
+            keys64 = ips4o.pad_with_sentinel({"k": keys64}, N_BIG)["k"]
+            pos = torch.randint(0, n_real, (4 * k,), generator=gen, device=dev)
+            spl64 = sampling.select_splitters(torch.sort(keys64[pos]).values, k)
+            check_equal("level_fused64", (
+                lf._level_tiles_kernel(keys64[None], spl64[None], k, n_real, lf.TILE),
+                lf.level_fused(keys64, spl64, k=k, n_real=n_real)), (
+                lf._level_tiles_plain(keys64[None], spl64[None], k, n_real, lf.TILE),
+                lf.level_fused_plain(keys64, spl64, k=k, n_real=n_real)),
+                f"{dist} n={N_BIG} n_real={n_real} k={k}")
+        for dist in ("int64", "uint64"):
+            keys64 = ops.keyspace.encode(wide_input(dist, N_BIG, seed=32))
+            keys64[n_real:] = torch.iinfo(torch.int64).max
+            for consumed in (0, 7):
+                kw = dict(k=k, n_real=n_real, classifier="radix", consumed_bits=consumed)
+                check_equal("level_fused_radix64", (
+                    lf._level_tiles_kernel(keys64[None], None, k, n_real, lf.TILE, consumed),
+                    lf.level_fused(keys64, **kw)), (
+                    lf._level_tiles_plain(keys64[None], None, k, n_real, lf.TILE, consumed),
+                    lf.level_fused_plain(keys64, **kw)),
+                    f"{dist} full range n={N_BIG} n_real={n_real} k={k} consumed={consumed}")
+        kb64 = ops.keyspace.encode(wide_input("float64", B_BULK * N_ROW, seed=33)).view(
+            B_BULK, N_ROW)
+        kb64 = ips4o.batched_pad_with_sentinel({"k": kb64[:, :row_real].contiguous()}, N_ROW)["k"]
+        pos = torch.randint(0, row_real, (B_BULK, 4 * k), generator=gen, device=dev)
+        spl_b64 = sampling.select_splitters(torch.sort(torch.gather(kb64, 1, pos), dim=1).values, k)
+        for mode, s in (("tree", spl_b64), ("radix", None)):
+            kw = dict(k=k, n_real=row_real, classifier=mode)
+            check_equal("level_fused_batched64",
+                        (lf._level_tiles_kernel(kb64, s, k, row_real, lf.TILE, batched=True),
+                         lf.level_fused_batched(kb64, s, **kw)),
+                        (lf._level_tiles_plain(kb64, s, k, row_real, lf.TILE),
+                         lf.level_fused_batched_plain(kb64, s, **kw)),
+                        f"float64 {mode} ({B_BULK}, {N_ROW}) n_real={row_real} k={k}")
+        wide_windows = {}
+        for W_, num_w_ in ((cfg.base_case, 2048), (256, 1 << 16), (bitonic.MAX_W, 1024)):
+            wb64 = torch.sort(torch.randint(0, 64, (num_w_, W_), generator=gen, device=dev,
+                                            dtype=torch.int32), dim=1).values
+            wk64 = torch.randint(-3, 4, (num_w_, W_), generator=gen, device=dev,
+                                 dtype=torch.int64)
+            wk64[: num_w_ // 3] += torch.iinfo(torch.int64).max - 3  # the extremes, duplicated
+            wk64[num_w_ // 3: 2 * num_w_ // 3] -= torch.iinfo(torch.int64).max - 3
+            wide_windows[W_] = (wb64, wk64)
+            check_equal("sort_windows64", bitonic.sort_windows(wb64, wk64, nb=64),
+                        bitonic.sort_windows_plain(wb64, wk64, nb=64),
+                        f"{num_w_} x {W_} int64 duplicate-heavy")
+        del wb64, wk64
+        del keys64, kb64
 
         # K5 on two duplicate-heavy runs of 2^24 (the keys of each run repeat
         # ~8,400 times and every value occurs in both), NaN codes at the tails,
@@ -1658,6 +1776,142 @@ def main() -> None:
         verdict(path, "segmented_sort", torch.equal(ops.keyspace.encode(got["segmented_sort"]), want))
         del got, packed, want
 
+        # ---- every key dtype: the 64-bit paths run the 64-bit kernels, the
+        # narrow keys the 32-bit ones; each result held to torch.sort(stable)
+        # of the port's encoded keys, keys compared through integer views
+        def same_bits(a, b):
+            bits_ = ops.keyspace.key_bits(a.dtype)
+            signed = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}[bits_]
+            return a.dtype == b.dtype and torch.equal(a.view(signed), b.view(signed))
+
+        def sorted_ok(x, keys_out=None, order=None, vals=None, payload=None):
+            """The sorted keys (NaN in the canonical bits ``decode`` gives),
+            the stable argsort and the payload moved by it, against
+            torch.sort(stable) of the encoded keys."""
+            enc = ops.keyspace.encode(x)
+            want = torch.sort(enc, dim=-1, stable=True)
+            ok = True
+            if keys_out is not None:
+                ok = same_bits(keys_out, ops.keyspace.decode(want.values, x.dtype))
+            if order is not None:
+                ok = ok and torch.equal(order.to(torch.int64), want.indices)
+            if vals is not None:
+                ok = ok and torch.equal(vals.view(torch.int64), payload.view(torch.int64)[
+                    want.indices])
+            return ok
+
+        wide64 = ("level_fused64", "rank_hist", "sort_windows64")
+        huge_cfg = ips4o.SortConfig(kmax=HUGE_KMAX, slack=HUGE_SLACK)
+        narrow_dtypes = (torch.int8, torch.uint8, torch.int16, torch.uint16, torch.float16,
+                         torch.bfloat16, torch.uint32)
+        # the paper's element types (§5): double, Pair (1 payload word),
+        # Quartet (3) and 100Bytes (a uint64 key and 12 words, 1.75 GB)
+        for etype, (np_dtype, words) in ELEMENT_TYPES.items():
+            x = torch.as_tensor(make_input("Uniform", N_BIG, np_dtype, seed=40), device=dev)
+            if np_dtype == np.float64:
+                x[3::3] *= -1
+            payload = None if not words else torch.as_tensor(
+                make_payload(N_BIG, words, seed=41), device=dev)
+            path = f"{etype} ({N_BIG} {np.dtype(np_dtype).name} keys, {words} payload words)"
+            calls = {"argsort": lambda: ops.argsort(x)}
+            calls["sort"] = (lambda: ops.sort(x)) if payload is None else (
+                lambda: ops.sort(x, payload))
+            got = drive(path, wide64, calls)
+            if payload is None:
+                verdict(path, "sort", sorted_ok(x, got["sort"]))
+            else:
+                verdict(path, "sort + payload", sorted_ok(x, got["sort"][0], vals=got["sort"][1],
+                                                          payload=payload))
+            verdict(path, "argsort", sorted_ok(x, order=got["argsort"]))
+            del got, payload
+        big64 = wide_input("float64", N_HUGE, seed=42)
+        path = (f"double ({N_HUGE} float64 keys, 1 GiB; kmax={huge_cfg.kmax}, "
+                f"slack={huge_cfg.slack})")
+        got = drive(path, wide64, {"sort": lambda: ops.sort(big64, cfg=huge_cfg)})
+        verdict(path, "sort", sorted_ok(big64, got["sort"]))
+        del got, big64
+        x64 = {name: wide_input(name, N_BIG, seed=43) for name in (
+            "int64 TwoDup", "uint64", "float64 full range")}
+        path = f"int64 TwoDup ({N_BIG} keys), argsort"
+        got = drive(path, wide64, {"argsort": lambda: ops.argsort(x64["int64 TwoDup"])})
+        verdict(path, "argsort", sorted_ok(x64["int64 TwoDup"], order=got["argsort"]))
+        for name in ("uint64", "float64 full range"):
+            path = f"radix {name} ({N_BIG} keys)"
+            got = drive(path, ("level_fused_radix64", "rank_hist", "sort_windows64"), {
+                "sort": lambda: ops.sort(x64[name], classifier=radix),
+                "argsort": lambda: ops.argsort(x64[name], classifier=radix)})
+            verdict(path, "sort", sorted_ok(x64[name], got["sort"]))
+            verdict(path, "argsort", sorted_ok(x64[name], order=got["argsort"]))
+        xf64 = wide_input("float64", N_BIG, seed=44)
+        path = f"topk/bottomk float64 ({N_BIG} keys, k={STREAM_K})"
+        got = drive(path, wide64, {"topk": lambda: ops.topk(xf64, STREAM_K),
+                                   "bottomk": lambda: ops.bottomk(xf64, STREAM_K)})
+        enc = ops.keyspace.encode(xf64)
+        for name, codes in (("topk", ~enc), ("bottomk", enc)):
+            order = torch.sort(codes, stable=True).indices[:STREAM_K]
+            vals, idx = got[name]
+            verdict(path, name, torch.equal(idx.to(torch.int64), order)
+                    and same_bits(vals, ops.keyspace.decode(enc[order], xf64.dtype)))
+        rows64 = wide_input("float64", B_BULK * N_ROW, seed=45).view(B_BULK, N_ROW)
+        path = f"batched float64 ({B_BULK}, {N_ROW})"
+        got = drive(path, ("level_fused_batched64", "rank_hist_batched", "sort_windows64"), {
+            "batched_sort": lambda: ops.batched_sort(rows64),
+            "batched_argsort": lambda: ops.batched_argsort(rows64)})
+        verdict(path, "batched_sort", sorted_ok(rows64, got["batched_sort"]))
+        verdict(path, "batched_argsort", sorted_ok(rows64, order=got["batched_argsort"]))
+        seg64 = x64["int64 TwoDup"]
+        path = f"segmented int64 ({SEGMENTS} segments over {N_BIG} keys)"
+        got = drive(path, ("rank_hist", "sort_windows64"), {
+            "segmented_sort": lambda: ops.segmented_sort(seg64, seg_off, SEGMENTS)})
+        seg_of = ips4o.segment_ids(seg_off, N_BIG).to(torch.int64)
+        by_key = torch.sort(seg64, stable=True).indices
+        want = seg64[by_key[torch.sort(seg_of[by_key], stable=True).indices]]
+        verdict(path, "segmented_sort", torch.equal(got["segmented_sort"], want))
+        root64 = torch.as_tensor(make_input("RootDup", N_BIG, np.int64, seed=46), device=dev)
+        path = f"group-by int64 RootDup ({N_BIG} keys)"
+        got = drive(path, wide64, {"group_by": lambda: ops.group_by(root64),
+                                   "unique": lambda: ops.unique(root64)})
+        want_v, want_c = torch.unique(root64, return_counts=True)
+        g = got["group_by"]
+        order = torch.sort(root64, stable=True).indices
+        num = want_v.shape[0]
+        verdict(path, "group_by", torch.equal(g.perm.to(torch.int64), order)
+                and torch.equal(g.keys, root64[order]) and int(g.num_groups) == num
+                and torch.equal(g.counts[:num], want_c.to(torch.int32)))
+        vals, counts, num_u = got["unique"]
+        verdict(path, "unique", int(num_u) == num and torch.equal(vals[:num], want_v)
+                and torch.equal(counts[:num], want_c.to(torch.int32)))
+        del got, x64, xf64, rows64, root64, g, vals, counts, order, want, enc
+        path = (f"TPU_BIG_PAYLOAD double ({N_BIG // 2} float64 keys, W=16384, kmax=64, "
+                "tile 8192)")
+        big_payload = wide_input("float64", N_BIG // 2, seed=47)
+        got = drive(path, wide64, {"sort": lambda: ops.sort(big_payload, cfg=TPU_BIG_PAYLOAD),
+                                   "argsort": lambda: ops.argsort(big_payload,
+                                                                  cfg=TPU_BIG_PAYLOAD)})
+        verdict(path, "sort", sorted_ok(big_payload, got["sort"]))
+        verdict(path, "argsort", sorted_ok(big_payload, order=got["argsort"]))
+        del got, big_payload
+        narrow = {}
+        for dtype in narrow_dtypes:
+            bits_ = ops.keyspace.key_bits(dtype)
+            signed = {8: torch.int8, 16: torch.int16, 32: torch.int32}[bits_]
+            raw = torch.randint(-2**31, 2**31 - 1, (N_BIG,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            narrow[dtype] = (raw.to(signed) if bits_ < 32 else raw).view(dtype)
+            if dtype.is_floating_point:
+                narrow[dtype][::1009] = float("nan")
+                narrow[dtype][1::1013] = -0.0
+        for clf in ("tree", radix):
+            path = (f"narrow keys ({N_BIG} each of "
+                    f"{', '.join(str(d)[6:] for d in narrow_dtypes)}), {clf}")
+            needed = ("level_fused_radix" if clf == radix else "level_fused", "rank_hist",
+                      "sort_windows")
+            got = drive(path, needed, {str(d): (lambda d=d: ops.sort(narrow[d], classifier=clf))
+                                       for d in narrow_dtypes})
+            for d in narrow_dtypes:
+                verdict(path, str(d), sorted_ok(narrow[d], got[str(d)]))
+        del got, narrow
+
         # the block path: partition_blocks moves 2^28 int32 keys and an int32
         # payload (2 GiB) in place by K8, once per tensor; equal to the gather
         # by the stable block order, d the prefix of the block counts
@@ -1774,6 +2028,9 @@ def main() -> None:
                        {"k": enc(bulk)}, N_ROW, cfg, levels_b)
         fallback_share(f"batched radix ({B_BULK}, {N_ROW})", ips4o.batched_partition_passes,
                        {"k": enc(bulk_radix)}, N_ROW, radix_cfg, levels_b)
+        double1 = wide_input("float64", N_BIG, seed=50)
+        fallback_share(f"tree double n={N_BIG}", ips4o.partition_passes, {"k": enc(double1)},
+                       N_BIG, cfg, levels)
 
         # ---- 4. timing ------------------------------------------------------------
         # Op counts for the bounds, per element: K1 3 per search step (load,
@@ -1863,6 +2120,77 @@ def main() -> None:
         t["library_ms"] = cuda_ms(torch, lambda: torch.sort(comp_b, dim=1, stable=True), reps=5)
         t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist_batched(comp_b, tile=k4_tile,
                                                                       **k4_args))
+        # the 64-bit forms at the 64-bit paths' shapes: K1 on double (float64
+        # Uniform) at n = 2^24, k = 128; K1r on uint64 over the whole range;
+        # K4 on (64, 2^18) float64 rows; K3 on 2048 windows of 8192.  Bytes:
+        # K1 8 B of key in, 4 B of bucket and 4 B of rank out an element; K3
+        # 8 B of key and 4 B of bucket in, 4 B of index and 4 B of bucket out.
+        # Ops: a 64-bit compare is two, so K1's descent 4 a step; K1r ~8 for
+        # the 64-bit digit; K3 9 a compare-exchange (a 96-bit compare is
+        # three, the swap of three words six).  No torch call
+        # computes K1, and none sorts windows by (bucket, 64-bit key) in one
+        # call, so their library_ms is null
+        keys64 = ops.keyspace.encode(double1)
+        spl64 = sampling.select_splitters(torch.sort(keys64[torch.randint(
+            0, N_BIG, (4 * k,), generator=gen, device=dev)]).values, k)
+        t = rows["level_fused64"]
+        k1_64_call = lambda: lf._level_tiles_kernel(keys64[None], spl64[None], k, N_BIG, lf.TILE)
+        kernel_ms(torch, "level_fused64", t, k1_64_call)
+        t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(
+            keys64[None], spl64[None], k, N_BIG, lf.TILE), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            N_BIG * 16 + k * 8 + tiles1 * (2 * k + 1) * 4, N_BIG * (4 * log_k + 12))
+        t["library_ms"] = None
+        t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(keys64, spl64, k=k))
+        radix64 = ops.keyspace.encode(wide_input("uint64", N_BIG, seed=51))
+        t = rows["level_fused_radix64"]
+        kernel_ms(torch, "level_fused_radix64", t, lambda: lf._level_tiles_kernel(
+            radix64[None], None, k, N_BIG, lf.TILE))
+        t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(radix64[None], None, k,
+                                                                     N_BIG, lf.TILE), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 16 + tiles1 * (2 * k + 1) * 4,
+                                                N_BIG * (8 + 12))
+        t["library_ms"] = None
+        t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused(radix64, k=k, classifier=radix))
+        kb64 = ops.keyspace.encode(wide_input("float64", B_BULK * N_ROW, seed=52)).view(
+            B_BULK, N_ROW)
+        spl_b64 = sampling.select_splitters(torch.sort(torch.gather(kb64, 1, torch.randint(
+            0, N_ROW, (B_BULK, 4 * k), generator=gen, device=dev)), dim=1).values, k)
+        t = rows["level_fused_batched64"]
+        kernel_ms(torch, "level_fused_batched64", t, lambda: lf._level_tiles_kernel(
+            kb64, spl_b64, k, N_ROW, lf.TILE, batched=True))
+        t["plain_ms"] = cuda_ms(torch, lambda: lf._level_tiles_plain(kb64, spl_b64, k, N_ROW,
+                                                                     lf.TILE), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            B_BULK * N_ROW * 16 + B_BULK * k * 8 + tiles_b * (2 * k + 1) * 4,
+            B_BULK * N_ROW * (4 * log_k + 12))
+        t["library_ms"] = None
+        t["wrapper_ms"] = cuda_ms(torch, lambda: lf.level_fused_batched(kb64, spl_b64, k=k))
+        radix_k4_64_ms = cuda_ms(torch, lambda: lf._level_tiles_kernel(kb64, None, k, N_ROW,
+                                                                       lf.TILE, batched=True))
+        wb64, wk64 = wide_windows[W]
+        t = rows["sort_windows64"]
+        kernel_ms(torch, "sort_windows64", t, lambda: bitonic.sort_windows(wb64, wk64, nb=64))
+        t["plain_ms"] = cuda_ms(torch, lambda: bitonic.sort_windows_plain(wb64, wk64, nb=64))
+        t["bound_ms"], t["bound_by"] = bound_ms(num_w * W * 20, compare_exchanges * 9)
+        t["library_ms"] = None
+        k3_64_more = {f"{w_.shape[0]} x {w_.shape[1]}": cuda_ms(
+            torch, lambda w_=w_, k_=k_: bitonic.sort_windows(w_, k_, nb=64))
+            for W_, (w_, k_) in wide_windows.items() if W_ != W}
+        for name, call in (("level_fused64", k1_64_call),):
+            work = {e.key: e.count for e in one_kernel_a_call(
+                torch, name, call, lambda e: any(f in e.key for f in DEVICE_FUNCTIONS[name]))}
+            print(f"{name} device work in 10 calls (torch.profiler): {work}", flush=True)
+        for what, info in {f"{mode} k={k} tile={tile_}": lf.launch_info(
+                k, tile_, mode == "radix", key_bits=64)
+                for mode in ("tree", "radix") for tile_ in (lf.TILE, lf.MAX_TILE64)}.items():
+            print(f"level_fused64 launch ({what}; cudaFuncGetAttributes): registers "
+                  f"{info['registers']} per thread, shared memory {info['static_smem']} "
+                  f"static + {info['dynamic_smem']} dynamic B per CTA, {info['threads']} "
+                  f"threads, {info['ctas_per_sm']} CTAs an SM at once, local memory "
+                  f"{info['local_bytes']} B", flush=True)
+        del keys64, radix64, kb64, wide_windows
+
         # K2 and K4: every kernel of one call (at most 5, no torch op over the
         # ids) and the rank kernel's launch
         for name, call in (("rank_hist", k2_call), ("rank_hist_batched", k4_call),
@@ -2091,6 +2419,17 @@ def main() -> None:
         timed[f"s3-sort ({N_BIG} float32 with payload): s3_sort"] = (
             cuda_ms(torch, lambda: s3_sort(s3_x, s3_v), reps=5),
             cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
+        int64_two = wide_input("int64 TwoDup", N_BIG, seed=53)
+        big64 = wide_input("float64", N_HUGE, seed=42)
+        huge_cfg = ips4o.SortConfig(kmax=HUGE_KMAX, slack=HUGE_SLACK)
+        for name, x, cfg_ in ((f"double ({N_BIG})", double1, cfg),
+                              (f"int64 TwoDup ({N_BIG})", int64_two, cfg),
+                              (f"double ({N_HUGE}, kmax={HUGE_KMAX}, slack={HUGE_SLACK})", big64,
+                               huge_cfg)):
+            timed[f"{name}: ops.sort"] = (
+                cuda_ms(torch, lambda x=x, c=cfg_: ops.sort(x, cfg=c), reps=5),
+                cuda_ms(torch, lambda x=x: torch.sort(x, stable=True), reps=5))
+        del big64, int64_two
         timed[f"s3-sort ({N_BIG} float32): ops.sort, the in-place IPS4o path"] = (
             cuda_ms(torch, lambda: ops.sort(s3_x), reps=5),
             cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
@@ -2112,6 +2451,8 @@ def main() -> None:
                 show=level_kernels)
         profile(torch, f"ops.sort radix int32 n={N_BIG}",
                 lambda: ops.sort(radix_int, classifier=radix), show=level_kernels)
+        profile(torch, f"ops.sort double n={N_BIG}", lambda: ops.sort(double1),
+                show=level_kernels + DEVICE_FUNCTIONS["sort_windows64"])
         profile(torch, f"ops.batched_sort ({B_BULK}, {N_ROW})", lambda: ops.batched_sort(bulk),
                 show=level_kernels)
         for name, r in rows.items():
@@ -2121,6 +2462,10 @@ def main() -> None:
                   f"{r['library_ms']}", flush=True)
         print(f"time level_fused_batched radix ({B_BULK}, {N_ROW}): kernel {radix_k4_ms:.4f} ms",
               flush=True)
+        print(f"time level_fused_batched64 radix ({B_BULK}, {N_ROW}): kernel "
+              f"{radix_k4_64_ms:.4f} ms", flush=True)
+        for what, ms_ in k3_64_more.items():
+            print(f"time sort_windows64 {what}: kernel {ms_:.4f} ms", flush=True)
         print(f"time dispatch_ranks skewed (half on one expert): kernel {skew_ms:.4f} ms "
               f"(device {skew_device_ms:.4f} ms)", flush=True)
         for name, ms_ in k7_more.items():
@@ -2175,6 +2520,14 @@ def main() -> None:
                             "src/repro/kernels/flash_attention.py:102"),
         "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:102"),
+        "level_fused64": ("src/repro_torch/csrc/level_fused.cu",
+                          "src/repro/kernels/level_fused.py:160"),
+        "level_fused_radix64": ("src/repro_torch/csrc/level_fused.cu",
+                                "src/repro/kernels/level_fused.py:160"),
+        "level_fused_batched64": ("src/repro_torch/csrc/level_fused.cu",
+                                  "src/repro/kernels/level_fused.py:240"),
+        "sort_windows64": ("src/repro_torch/csrc/bitonic.cu",
+                           "src/repro/kernels/bitonic.py:72"),
     }
     line = []
     for name, (source, replaces) in meta.items():

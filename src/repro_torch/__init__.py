@@ -2,11 +2,12 @@
 
 It mirrors ``repro``'s layout and names, imports ``torch`` and numpy and
 never ``jax`` or ``repro``, and runs its hand-written CUDA kernels
-(``repro_torch.kernels``) on the card.  Ported so far, for float32 and
-int32 keys with the tree and radix classifiers: the 1-D and batched (B, n)
-sorts (``ops.sort``/``argsort``/``topk``/``bottomk``, ``ops.batched_*``),
+(``repro_torch.kernels``) on the card.  Ported so far, with the tree and
+radix classifiers, for keys of every dtype of ``ops.keyspace`` (8- to
+64-bit ints, uints and floats): the 1-D and batched (B, n) sorts
+(``ops.sort``/``argsort``/``topk``/``bottomk``, ``ops.batched_*``),
 ``ops.segmented_sort``, the grouping ops (``ops.unique``, ``run_length``,
-``group_by``), the out-of-core stream (``stream.external_sort``,
+``group_by``); for float32 and int32 keys: the out-of-core stream (``stream.external_sort``,
 ``external_argsort``, ``streaming_topk``, ``streaming_group_by``,
 ``merge``), the in-place block moves (``core.partition.partition_blocks``,
 ``kernels.ops.sort_blocks``, ``kernels.ops.permute_blocks_inplace``), the

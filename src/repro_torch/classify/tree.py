@@ -57,14 +57,20 @@ def classify_segmented(
     (num_seg, k-1) each segment's sorted splitters.  Returns local ids in
     [0, 2k); the caller forms the composite id ``seg * 2k + local``.
 
-    One ``searchsorted`` over (segment, key) pairs packed into int64 —
-    segment in the high word, the key offset to unsigned in the low word —
-    against the splitters packed the same way, which are globally sorted.
-    It counts every splitter of the earlier segments plus this segment's
-    splitters below the key; n-sized temporaries only.
+    int32 keys: one ``searchsorted`` over (segment, key) pairs packed into
+    int64 — segment in the high word, the key offset to unsigned in the low
+    word — against the splitters packed the same way, which are globally
+    sorted.  It counts every splitter of the earlier segments plus this
+    segment's splitters below the key; n-sized temporaries only.  int64
+    keys do not fit a word beside their segment: they take
+    :func:`_count_below_segmented`, a per-segment binary search.
     """
     num_seg = splitters.shape[0]
     seg64 = seg.to(torch.int64)
+    if keys.dtype == torch.int64:
+        j = _count_below_segmented(keys, seg64, splitters.reshape(-1), k)
+        eq = keys == _upper(splitters).reshape(-1)[seg64 * k + j]
+        return (2 * j + eq).to(torch.int32)
     bias = 1 << 31
     packed_keys = (seg64 << 32) + (keys.to(torch.int64) + bias)
     seg_base = torch.arange(num_seg, dtype=torch.int64, device=keys.device) << 32
@@ -73,3 +79,18 @@ def classify_segmented(
     upper = _upper(splitters).reshape(-1)
     eq = keys == upper[seg64 * k + j]
     return (2 * j + eq).to(torch.int32)
+
+
+def _count_below_segmented(
+    keys: torch.Tensor, seg64: torch.Tensor, flat_spl: torch.Tensor, k: int
+) -> torch.Tensor:
+    """The number of its segment's k-1 sorted splitters below each key (the
+    left ``searchsorted``), by a branchless binary search over the flattened
+    (num_seg * (k-1),) splitters: log2(k) gathers of n, no packing."""
+    base = seg64 * (k - 1)
+    j = torch.zeros_like(seg64)
+    step = k // 2
+    while step:
+        j += (flat_spl[base + j + (step - 1)] < keys) * step
+        step //= 2
+    return j

@@ -30,10 +30,11 @@ Counterpart of ``repro.core.ips4o`` for 1-D keys and for (B, n) rows
 
 The port has no engine switch: on a CUDA tensor these passes launch the
 kernels, and only those; on a CPU tensor the kernels' plain twins run.
-Keys are the keyspace-encoded int32 of ``ops.keyspace`` (signed ``<`` is
-the key order, the sentinel is the int32 max).  Every stage is stable, so
-the sorted keys and the argsort equal the reference's bit for bit whatever
-splitters the sample gives.
+Keys are the keyspace-encoded int32 or int64 codes of ``ops.keyspace``
+(signed ``<`` is the key order, the sentinel is the code dtype's max); K1,
+K4 ``level_fused_batched`` and K3 have a 32-bit and a 64-bit form each, K2
+sees ids only.  Every stage is stable, so the sorted keys and the argsort
+equal the reference's bit for bit whatever splitters the sample gives.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ from repro_torch.classify import classify_segmented, radix_bucket_ids, resolve_c
 from repro_torch.core import sampling
 from repro_torch.kernels.bitonic import window_perm_plain
 from repro_torch.kernels.level_fused import (
+    MAX_TILE64,
     level_fused,
     level_fused_batched,
     rank_hist,
@@ -154,6 +156,14 @@ def _auto_tile(n: int, nb: int, cfg: SortConfig) -> int:
     return tile
 
 
+def _level_tile(keys: torch.Tensor, nb: int, cfg: SortConfig) -> int:
+    """Level 1's tile: :func:`_auto_tile`, at most ``MAX_TILE64`` for int64
+    codes (K1's 64-bit form holds half the chunks a warp).  The tile never
+    changes the stable placement."""
+    tile = _auto_tile(keys.shape[-1], nb, cfg)
+    return min(tile, MAX_TILE64) if keys.dtype == torch.int64 else tile
+
+
 def segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
     """Per-position bucket/segment id (n,) int32 from (nb+1,) offsets; for
     (B, nb+1) offsets, (B, n) ids per row."""
@@ -245,7 +255,6 @@ def level_pass(
     the log2(k) key bits past ``consumed_bits``.  Returns
     (arrays, offsets, nb, pad_bucket) with nb = 2k + 1."""
     keys = arrays["k"]
-    n = keys.shape[0]
     clf = resolve_classifier(cfg.classifier)
     if clf == "radix":
         splitters = None
@@ -258,7 +267,7 @@ def level_pass(
     nb = 2 * k + 1  # +1: dedicated pad bucket (the overflow-block analogue)
     with obs.trace("classify", fused=True, classifier=clf, k=k):
         dest, off = level_fused(
-            keys, splitters, k=k, n_real=n_real, tile=_auto_tile(n, nb, cfg),
+            keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
             classifier=clf, consumed_bits=consumed_bits,
         )
     with obs.trace("partition", fused=True, nb=nb):
@@ -441,7 +450,9 @@ def _sort_oversized(
     passes that follow still finish every other bucket, stably.  At the
     default config and n = 2^24 some buckets exceeded W/2 in every run
     measured (PERF.md), so this is on the main path there.  The picked
-    positions are sorted by (row, bucket, key), packed into one int64.
+    positions are sorted by (row, bucket, key): packed into one int64 for
+    int32 keys; for int64 keys, which leave no room beside them, by two
+    stable sorts (key, then row and bucket).
     """
     fb2 = fb if fb.dim() == 2 else fb[None]
     B, n = fb2.shape
@@ -451,8 +462,12 @@ def _sort_oversized(
     if B > 1:  # (row, bucket) < B * nb < B * n < 2^31: it fits above the key
         gid += (pos // n) * nb
     keys = arrays["k"].reshape(-1)
-    packed = (gid << 32) + (keys[pos].to(torch.int64) + (1 << 31))
-    src = pos[torch.sort(packed, stable=True).indices]
+    if keys.dtype == torch.int64:
+        by_key = torch.sort(keys[pos], stable=True).indices
+        src = pos[by_key[torch.sort(gid[by_key], stable=True).indices]]
+    else:
+        packed = (gid << 32) + (keys[pos].to(torch.int64) + (1 << 31))
+        src = pos[torch.sort(packed, stable=True).indices]
     for a in arrays.values():
         flat = a.view((B * n,) + tuple(a.shape[fb.dim():]))
         flat[pos] = flat[src]
@@ -529,7 +544,7 @@ def batched_level_pass(
     given.  Returns (arrays, offsets (B, nb+1), nb, pad_bucket), nb = 2k+1.
     """
     keys = arrays["k"]
-    B, n = keys.shape
+    B = keys.shape[0]
     clf = resolve_classifier(cfg.classifier)
     if clf == "radix":
         splitters = None
@@ -542,7 +557,7 @@ def batched_level_pass(
     nb = 2 * k + 1
     with obs.trace("classify", batched=True, fused=True, classifier=clf, k=k):
         dest, off = level_fused_batched(
-            keys, splitters, k=k, n_real=n_real, tile=_auto_tile(n, nb, cfg),
+            keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
             classifier=clf,
         )
     with obs.trace("partition", batched=True, fused=True, nb=nb):
@@ -624,9 +639,9 @@ def _sort_padded_batched(
 def _check_keys(keys: torch.Tensor, dim: int, values) -> None:
     if keys.dim() != dim:
         raise ValueError(f"keys must be {'1-D' if dim == 1 else '2-D (B, n)'}")
-    if keys.dtype != torch.int32:
+    if keys.dtype not in (torch.int32, torch.int64):
         raise NotImplementedError(
-            f"the sort takes keyspace-encoded int32 keys, got {keys.dtype} "
+            f"the sort takes keyspace-encoded int32 or int64 keys, got {keys.dtype} "
             f"({_ROADMAP} item 1)"
         )
     if values is not None and (
@@ -639,12 +654,24 @@ def _check_keys(keys: torch.Tensor, dim: int, values) -> None:
         )
 
 
+# torch's unsigned dtypes past 8 bits lack index_put: a payload of them
+# moves as the signed dtype of its width and comes back viewed as it was
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def signed_payload(values: torch.Tensor) -> torch.Tensor:
+    """``values`` viewed as a dtype the passes can scatter (the bits as
+    they are); ``values.view(dtype)`` restores it."""
+    return values.view(_SIGNED_VIEW.get(values.dtype, values.dtype))
+
+
 def ips4o_sort_batched(
     keys: torch.Tensor,
     values: Optional[torch.Tensor] = None,
     cfg: SortConfig = SortConfig(),
 ):
-    """Sort every row of encoded int32 ``keys`` (B, n) ascending, stably and
+    """Sort every row of encoded int32/int64 ``keys`` (B, n) ascending, stably and
     independently, in one pipeline; optionally move a ``values`` tensor
     (leading dims (B, n)) alongside, row by row.  Returns keys or (keys,
     values) on the keys' device."""
@@ -655,13 +682,13 @@ def ips4o_sort_batched(
         return keys if values is None else (keys, values)
     arrays = {"k": keys}
     if values is not None:
-        arrays["v"] = values.to(keys.device)
+        arrays["v"] = signed_payload(values.to(keys.device))
     with obs.trace("ips4o_sort_batched", B=B, n=n, classifier=cfg.classifier):
         arrays = batched_pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
         levels = plan_levels(arrays["k"].shape[1], cfg)
         arrays = _sort_padded_batched(arrays, n, cfg, levels)
     out_k = arrays["k"][:, :n]
-    return out_k if values is None else (out_k, arrays["v"][:, :n])
+    return out_k if values is None else (out_k, arrays["v"][:, :n].view(values.dtype))
 
 
 def ips4o_sort(
@@ -669,11 +696,12 @@ def ips4o_sort(
     values: Optional[torch.Tensor] = None,
     cfg: SortConfig = SortConfig(),
 ):
-    """Sort encoded int32 ``keys`` (n,) ascending, stably; optionally move a
-    ``values`` tensor (leading dim n) alongside.  Returns keys or (keys,
-    values) on the keys' device.
+    """Sort encoded int32 or int64 ``keys`` (n,) ascending, stably;
+    optionally move a ``values`` tensor (leading dim n) alongside.  Returns
+    keys or (keys, values) on the keys' device.
 
-    The ``repro_torch.ops`` entry points encode float32/int32 keys first.
+    The ``repro_torch.ops`` entry points encode keys of every dtype of
+    ``ops.keyspace`` first.
     """
     _check_config(cfg)
     _check_keys(keys, 1, values)
@@ -683,13 +711,13 @@ def ips4o_sort(
 
     arrays = {"k": keys}
     if values is not None:
-        arrays["v"] = values.to(keys.device)
+        arrays["v"] = signed_payload(values.to(keys.device))
     with obs.trace("ips4o_sort", n=n, classifier=cfg.classifier):
         arrays = pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
         levels = plan_levels(arrays["k"].shape[0], cfg)
         arrays = _sort_padded(arrays, n, cfg, levels)
     out_k = arrays["k"][:n]
-    return out_k if values is None else (out_k, arrays["v"][:n])
+    return out_k if values is None else (out_k, arrays["v"][:n].view(values.dtype))
 
 
 def is4o_sort(keys: torch.Tensor, values=None, cfg: SortConfig = SortConfig()):

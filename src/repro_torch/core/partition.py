@@ -182,6 +182,9 @@ def _two_pass_ranks(bucket: torch.Tensor, start: torch.Tensor, nb: int,
     return torch.where(valid, start[b64] + (pos - first[b64]).to(torch.int32), none)
 
 
+BLOCK_DTYPES = (torch.float32, torch.int32)  # the block path's keys and payload
+
+
 def partition_blocks(
     arrays: Arrays, block_bucket: torch.Tensor, nb: int, block_elems: int
 ) -> Tuple[Arrays, torch.Tensor]:
@@ -199,8 +202,14 @@ def partition_blocks(
     does; both branches give the same stable grouping.
 
     Returns (grouped arrays, (nb+1,) int32 block-boundary offsets d, the
-    exclusive prefix of the block counts).
+    exclusive prefix of the block counts).  The tensors hold float32 or
+    int32 elements (``BLOCK_DTYPES``); other dtypes raise.
     """
+    for name, a in arrays.items():
+        if a.dtype not in BLOCK_DTYPES:
+            raise NotImplementedError(
+                f"partition_blocks: {name} is {a.dtype}; the block path takes float32 and "
+                "int32 tensors (ROADMAP.md, queue 1 item 1, what stays open)")
     hist = torch.bincount(block_bucket.to(torch.int64), minlength=nb)
     d = torch.zeros(nb + 1, dtype=torch.int32, device=block_bucket.device)
     d[1:] = torch.cumsum(hist, 0)

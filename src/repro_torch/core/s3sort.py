@@ -33,6 +33,8 @@ from repro_torch.core.ref import ref_partition
 
 __all__ = ["s3_sort"]
 
+S3_DTYPES = (torch.float32, torch.int32, torch.bfloat16)  # K7's raw keys
+
 
 def _oracle(keys: torch.Tensor, splitters: torch.Tensor, k: int) -> torch.Tensor:
     """Tree ids 2j + eq of raw keys against sorted splitters (NaN last),
@@ -54,6 +56,10 @@ def s3_sort(keys: torch.Tensor, values: Optional[torch.Tensor] = None,
     level, then a stable (bucket, key) sort.  ``values`` (n, ...) moves with
     the keys.  Returns the sorted keys, or (keys, values).
     """
+    if keys.dtype not in S3_DTYPES:
+        raise NotImplementedError(
+            f"s3_sort takes raw {list(S3_DTYPES)} keys, as K7 does, got {keys.dtype} "
+            "(ROADMAP.md, queue 1 item 1, what stays open)")
     n = keys.shape[0]
     if n <= 1:
         return keys if values is None else (keys, values)

@@ -56,6 +56,27 @@
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): ~0.5 ms at 2048
 // windows of 8192, 6x the byte bound.  What is left is the integer pipe and
 // the exchanges' shared-memory traffic, which overlap only partly.
+//
+// 64-bit keys (`bitonic_sort_windows64`).  A 64-bit key leaves no room in a
+// 64-bit word, so an element is 12 B in two words, compared as (bucket,
+// key, idx).  The kernel is the same template over a word type (`Packed32`
+// is the one-word form above); the window lives in shared memory as two
+// arrays (8-byte and 4-byte words) at the same padded slots.  Two layouts,
+// picked per W by timing both on an H100 (their times in PERF.md):
+//   - `Packed64`, up to W = 8192: the key and (bucket << log2 W | idx); two
+//     elements of one bucket compare by key, then by the 32-bit word (the
+//     index), of two buckets by the 32-bit word, whose top bits are the
+//     bucket.  E = 8 a thread (W / 8 threads a window, CTAs of 512, two an
+//     SM) up to W = 4096; at W = 8192 E = 16, one window of 512 threads a
+//     CTA, 104,448 B and 92 registers, one CTA an SM (E = 8 in CTAs of 1024
+//     was slower);
+//   - `Packed96`, at W = 16384: the 96-bit number (bucket, key, idx) as a
+//     64-bit high word and a 32-bit low word, compared as (hi, lo); E = 16,
+//     1024 threads, 208,896 B.  At the 64-register cap of 1024 threads it
+//     spills 28 B a thread where `Packed64` spills 228 B.
+// Bound: 20 B an element (8 B of key and 4 B of bucket in, 4 B of index
+// and 4 B of bucket out), ~0.1 ms for 2^24 elements; a compare-exchange is
+// a 96-bit compare and the swap of three words, ~2x the one-word form's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,25 +84,145 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kCta = 512;
+// 32-bit keys: one 64-bit word (bucket, key ^ sign bit, idx), compared as
+// it is; the window in shared memory is one array of words
+struct Packed32 {
+  typedef u64 Word;
+  int log2w;
+  __device__ __forceinline__ bool gt(const u64& a, const u64& b) const { return a > b; }
+  __device__ __forceinline__ Word make(int bucket, int key, int idx) const {
+    return ((u64)(unsigned)bucket << (32 + log2w)) |
+           ((u64)((unsigned)key ^ 0x80000000u) << log2w) | (u64)idx;
+  }
+  __device__ __forceinline__ Word zero() const { return 0; }
+  __device__ __forceinline__ int idx(const u64& x) const {
+    return (int)(x & ((1ull << log2w) - 1ull));
+  }
+  __device__ __forceinline__ int bucket(const u64& x) const { return (int)(x >> (32 + log2w)); }
+  static constexpr int kBytes = 8;  // shared memory a slot
+  struct Window {
+    u64* p;
+    __device__ __forceinline__ void put(int i, const u64& x) const { p[i] = x; }
+    __device__ __forceinline__ void get(int i, u64& x) const { x = p[i]; }
+  };
+  // window local_w of per_cta, each of `slots` padded slots
+  __device__ __forceinline__ Window window(void* smem, int local_w, int per_cta,
+                                           int slots) const {
+    return Window{reinterpret_cast<u64*>(smem) + local_w * slots};
+  }
+};
+
+// 64-bit keys up to W = 8192: the key and (bucket << log2w | idx); (bucket,
+// key, idx) order
+struct Packed64 {
+  struct Word {
+    long long k;
+    unsigned w;
+  };
+  int log2w;
+  __device__ __forceinline__ bool gt(const Word& a, const Word& b) const {
+    const bool same_bucket = ((a.w ^ b.w) >> log2w) == 0u;
+    return same_bucket && a.k != b.k ? a.k > b.k : a.w > b.w;
+  }
+  __device__ __forceinline__ Word make(int bucket, long long key, int idx) const {
+    return Word{key, ((unsigned)bucket << log2w) | (unsigned)idx};
+  }
+  __device__ __forceinline__ Word zero() const { return Word{0, 0u}; }
+  __device__ __forceinline__ int idx(const Word& x) const {
+    return (int)(x.w & ((1u << log2w) - 1u));
+  }
+  __device__ __forceinline__ int bucket(const Word& x) const { return (int)(x.w >> log2w); }
+  static constexpr int kBytes = 12;
+  struct Window {
+    long long* k;
+    unsigned* w;
+    __device__ __forceinline__ void put(int i, const Word& x) const { k[i] = x.k, w[i] = x.w; }
+    __device__ __forceinline__ void get(int i, Word& x) const { x.k = k[i], x.w = w[i]; }
+  };
+  // the CTA's keys first (8-byte slots), then its words
+  __device__ __forceinline__ Window window(void* smem, int local_w, int per_cta,
+                                           int slots) const {
+    long long* keys = reinterpret_cast<long long*>(smem);
+    return Window{keys + local_w * slots,
+                  reinterpret_cast<unsigned*>(keys + per_cta * slots) + local_w * slots};
+  }
+};
+
+// 64-bit keys at W = 16384, as one 96-bit number (bucket, key ^ sign bit,
+// idx) in two words: hi = bucket << (32 + log2w) | key >> (32 - log2w), lo
+// = the key's low 32 - log2w bits, then idx; compared as (hi, lo)
+struct Packed96 {
+  struct Word {
+    u64 hi;
+    unsigned lo;
+  };
+  int log2w;
+  __device__ __forceinline__ bool gt(const Word& a, const Word& b) const {
+    return a.hi > b.hi || (a.hi == b.hi && a.lo > b.lo);
+  }
+  __device__ __forceinline__ Word make(int bucket, long long key, int idx) const {
+    const u64 u = (u64)key ^ 0x8000000000000000ull;
+    return Word{((u64)(unsigned)bucket << (32 + log2w)) | (u >> (32 - log2w)),
+                ((unsigned)u << log2w) | (unsigned)idx};
+  }
+  __device__ __forceinline__ Word zero() const { return Word{0ull, 0u}; }
+  __device__ __forceinline__ int idx(const Word& x) const {
+    return (int)(x.lo & ((1u << log2w) - 1u));
+  }
+  __device__ __forceinline__ int bucket(const Word& x) const {
+    return (int)(x.hi >> (32 + log2w));
+  }
+  static constexpr int kBytes = 12;
+  struct Window {
+    u64* hi;
+    unsigned* lo;
+    __device__ __forceinline__ void put(int i, const Word& x) const { hi[i] = x.hi, lo[i] = x.lo; }
+    __device__ __forceinline__ void get(int i, Word& x) const { x.hi = hi[i], x.lo = lo[i]; }
+  };
+  __device__ __forceinline__ Window window(void* smem, int local_w, int per_cta,
+                                           int slots) const {
+    u64* his = reinterpret_cast<u64*>(smem);
+    return Window{his + local_w * slots,
+                  reinterpret_cast<unsigned*>(his + per_cta * slots) + local_w * slots};
+  }
+};
+
+template <int E>
+__device__ __forceinline__ void load_words(const Packed96& pk, const int* bucket,
+                                           const long long* keys, long long base, int first,
+                                           Packed96::Word (&x)[E]) {
+#pragma unroll
+  for (int r4 = 0; r4 < E; r4 += 4) {
+    const int4 b4 = *reinterpret_cast<const int4*>(bucket + base + r4);
+    const longlong2 k0 = *reinterpret_cast<const longlong2*>(keys + base + r4);
+    const longlong2 k1 = *reinterpret_cast<const longlong2*>(keys + base + r4 + 2);
+    const int bv[4] = {b4.x, b4.y, b4.z, b4.w};
+    const long long kv[4] = {k0.x, k0.y, k1.x, k1.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[r4 + e] = pk.make(bv[e], kv[e], first + r4 + e);
+  }
+}
 
 // after it, a < b when up, a > b otherwise
-__device__ __forceinline__ void exchange(u64& a, u64& b, bool up) {
-  const bool swap = (a > b) == up;
-  const u64 lo = swap ? b : a, hi = swap ? a : b;
+template <class P>
+__device__ __forceinline__ void exchange(const P& pk, typename P::Word& a,
+                                         typename P::Word& b, bool up) {
+  const bool swap = pk.gt(a, b) == up;
+  const typename P::Word lo = swap ? b : a, hi = swap ? a : b;
   a = lo;
   b = hi;
 }
 
 // the strides of local bits LOG_E - 1 .. lj_lo (high first) in registers
-template <int LOG_E>
-__device__ __forceinline__ void register_steps(u64 (&x)[1 << LOG_E], int lj_lo, bool up) {
+template <class P, int LOG_E>
+__device__ __forceinline__ void register_steps(const P& pk, typename P::Word (&x)[1 << LOG_E],
+                                               int lj_lo, bool up) {
 #pragma unroll
   for (int lj = LOG_E - 1; lj >= 0; --lj) {
     if (lj >= lj_lo) {
 #pragma unroll
       for (int r = 0; r < (1 << LOG_E); ++r)
-        if (!(r & (1 << lj))) exchange(x[r], x[r | (1 << lj)], up);
+        if (!(r & (1 << lj))) exchange(pk, x[r], x[r | (1 << lj)], up);
     }
   }
 }
@@ -95,63 +236,88 @@ __device__ __forceinline__ int slot_base(int t, int b) {
   return i + (i >> LOG_E);
 }
 
-template <int LOG_E, bool STORE>
-__device__ __forceinline__ void exchange_window(u64* sw, u64 (&x)[1 << LOG_E], int t, int b) {
+template <class P, int LOG_E, bool STORE>
+__device__ __forceinline__ void exchange_window(const typename P::Window& sw,
+                                                typename P::Word (&x)[1 << LOG_E], int t,
+                                                int b) {
   constexpr int E = 1 << LOG_E;
-  u64* p = sw + slot_base<LOG_E>(t, b);
+  const int p = slot_base<LOG_E>(t, b);
   if (b == 0) {  // offset r
 #pragma unroll
     for (int r = 0; r < E; ++r) {
-      if (STORE) p[r] = x[r]; else x[r] = p[r];
+      if (STORE) sw.put(p + r, x[r]); else sw.get(p + r, x[r]);
     }
   } else if (b >= LOG_E) {  // offset r * (2^b + 2^(b - LOG_E))
     const int step = (1 << b) + (1 << (b - LOG_E));
 #pragma unroll
     for (int r = 0; r < E; ++r) {
-      if (STORE) p[r * step] = x[r]; else x[r] = p[r * step];
+      if (STORE) sw.put(p + r * step, x[r]); else sw.get(p + r * step, x[r]);
     }
   } else {
 #pragma unroll
     for (int r = 0; r < E; ++r) {
       const int off = (r << b) + (r >> (LOG_E - b));
-      if (STORE) p[off] = x[r]; else x[r] = p[off];
+      if (STORE) sw.put(p + off, x[r]); else sw.get(p + off, x[r]);
     }
   }
 }
 
-template <int LOG_E>
-__global__ void __launch_bounds__(kCta, LOG_E == 4 ? 2 : 1) sort_windows_kernel(
-    const int* __restrict__ bucket, const int* __restrict__ keys, int num_w, int log2w,
+// E consecutive elements from index `base`: the keys 16 bytes at a time
+template <int E>
+__device__ __forceinline__ void load_words(const Packed32& pk, const int* bucket,
+                                           const int* keys, long long base, int first,
+                                           u64 (&x)[E]) {
+#pragma unroll
+  for (int r4 = 0; r4 < E; r4 += 4) {
+    const int4 b4 = *reinterpret_cast<const int4*>(bucket + base + r4);
+    const int4 k4 = *reinterpret_cast<const int4*>(keys + base + r4);
+    const int bv[4] = {b4.x, b4.y, b4.z, b4.w}, kv[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[r4 + e] = pk.make(bv[e], kv[e], first + r4 + e);
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void load_words(const Packed64& pk, const int* bucket,
+                                           const long long* keys, long long base, int first,
+                                           Packed64::Word (&x)[E]) {
+#pragma unroll
+  for (int r4 = 0; r4 < E; r4 += 4) {
+    const int4 b4 = *reinterpret_cast<const int4*>(bucket + base + r4);
+    const longlong2 k0 = *reinterpret_cast<const longlong2*>(keys + base + r4);
+    const longlong2 k1 = *reinterpret_cast<const longlong2*>(keys + base + r4 + 2);
+    const int bv[4] = {b4.x, b4.y, b4.z, b4.w};
+    const long long kv[4] = {k0.x, k0.y, k1.x, k1.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[r4 + e] = pk.make(bv[e], kv[e], first + r4 + e);
+  }
+}
+
+// Key: the keys' type (int: one word an element, long long: two); CTA
+// threads, MIN_CTAS at once an SM (the register cap)
+template <class P, typename Key, int LOG_E, int CTA, int MIN_CTAS>
+__global__ void __launch_bounds__(CTA, MIN_CTAS) sort_windows_kernel(
+    const int* __restrict__ bucket, const Key* __restrict__ keys, int num_w, int log2w,
     int* __restrict__ perm, int* __restrict__ bucket_out) {
   constexpr int E = 1 << LOG_E;
   extern __shared__ u64 smem[];
+  const P pk{log2w};
   const int log2t = log2w - LOG_E;  // T = W / E threads a window
   const int T = 1 << log2t, W = 1 << log2w;
   const int local_w = threadIdx.x >> log2t;
   const int t = threadIdx.x & (T - 1);
-  const long long w = (long long)blockIdx.x * (kCta >> log2t) + local_w;
+  const long long w = (long long)blockIdx.x * (CTA >> log2t) + local_w;
   const bool live = w < num_w;
-  u64* sw = smem + local_w * (W + T);  // the padded window
-  const int bucket_shift = 32 + log2w;
+  const typename P::Window sw = pk.window(smem, local_w, CTA >> log2t, W + T);  // padded
   const long long base = w * W + (long long)t * E;
 
   // layout 0: thread t holds indices t * E + r
-  u64 x[E];
+  typename P::Word x[E];
   if (live) {
-#pragma unroll
-    for (int r4 = 0; r4 < E; r4 += 4) {
-      const int4 b4 = *reinterpret_cast<const int4*>(bucket + base + r4);
-      const int4 k4 = *reinterpret_cast<const int4*>(keys + base + r4);
-      const int bv[4] = {b4.x, b4.y, b4.z, b4.w}, kv[4] = {k4.x, k4.y, k4.z, k4.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        x[r4 + e] = ((u64)(unsigned)bv[e] << bucket_shift) |
-                    ((u64)((unsigned)kv[e] ^ 0x80000000u) << log2w) |
-                    (u64)(t * E + r4 + e);
-    }
+    load_words<E>(pk, bucket, keys, base, t * E, x);
   } else {
 #pragma unroll
-    for (int r = 0; r < E; ++r) x[r] = 0;
+    for (int r = 0; r < E; ++r) x[r] = pk.zero();
   }
 
   // stages 0 .. LOG_E - 1 within the thread; the direction is index bit s+1
@@ -163,7 +329,7 @@ __global__ void __launch_bounds__(kCta, LOG_E == 4 ? 2 : 1) sort_windows_kernel(
       for (int r = 0; r < E; ++r) {
         if (r & (1 << j)) continue;
         const bool up = s + 1 < LOG_E ? !((r >> (s + 1)) & 1) : !(t & 1);
-        exchange(x[r], x[r | (1 << j)], up);
+        exchange(pk, x[r], x[r | (1 << j)], up);
       }
     }
   }
@@ -181,77 +347,80 @@ __global__ void __launch_bounds__(kCta, LOG_E == 4 ? 2 : 1) sort_windows_kernel(
       // barrier comes before the write.  Between layouts b_cur and b words
       // move only among the threads that differ in t's bits min(b_cur, b)
       // .. max(b_cur, b) - 1: within a warp when those are lane bits.
-      exchange_window<LOG_E, true>(sw, x, t, b_cur);
+      exchange_window<P, LOG_E, true>(sw, x, t, b_cur);
       if (max(b_cur, b) <= 5) __syncwarp(); else __syncthreads();
-      exchange_window<LOG_E, false>(sw, x, t, b);
+      exchange_window<P, LOG_E, false>(sw, x, t, b);
       b_cur = b;
-      register_steps<LOG_E>(x, k == k_top ? k * LOG_E - b : 0, up);
+      register_steps<P, LOG_E>(pk, x, k == k_top ? k * LOG_E - b : 0, up);
     }
   }
 
   if (!live) return;
-  const u64 idx_mask = (1ull << log2w) - 1ull;
 #pragma unroll
   for (int r4 = 0; r4 < E; r4 += 4) {
     int pv[4], bv[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      pv[e] = (int)(x[r4 + e] & idx_mask);
-      bv[e] = (int)(x[r4 + e] >> bucket_shift);
+      pv[e] = pk.idx(x[r4 + e]);
+      bv[e] = pk.bucket(x[r4 + e]);
     }
     *reinterpret_cast<int4*>(perm + base + r4) = make_int4(pv[0], pv[1], pv[2], pv[3]);
     *reinterpret_cast<int4*>(bucket_out + base + r4) = make_int4(bv[0], bv[1], bv[2], bv[3]);
   }
 }
 
+constexpr int kSmallCta = 512;
+
 // W = 2 .. 8: one thread sorts a window in registers
-template <int LOG_W>
-__global__ void __launch_bounds__(kCta) sort_small_windows_kernel(
-    const int* __restrict__ bucket, const int* __restrict__ keys, int num_w,
+template <class P, typename Key, int LOG_W>
+__global__ void __launch_bounds__(kSmallCta) sort_small_windows_kernel(
+    const int* __restrict__ bucket, const Key* __restrict__ keys, int num_w,
     int* __restrict__ perm, int* __restrict__ bucket_out) {
   constexpr int W = 1 << LOG_W;
-  const long long w = (long long)blockIdx.x * kCta + threadIdx.x;
+  const P pk{LOG_W};
+  const long long w = (long long)blockIdx.x * kSmallCta + threadIdx.x;
   if (w >= num_w) return;
   const long long base = w * W;
-  u64 x[W];
+  typename P::Word x[W];
 #pragma unroll
-  for (int r = 0; r < W; ++r)
-    x[r] = ((u64)(unsigned)bucket[base + r] << (32 + LOG_W)) |
-           ((u64)((unsigned)keys[base + r] ^ 0x80000000u) << LOG_W) | (u64)r;
+  for (int r = 0; r < W; ++r) x[r] = pk.make(bucket[base + r], keys[base + r], r);
 #pragma unroll
   for (int s = 0; s < LOG_W; ++s)
 #pragma unroll
     for (int j = s; j >= 0; --j)
 #pragma unroll
       for (int r = 0; r < W; ++r)
-        if (!(r & (1 << j))) exchange(x[r], x[r | (1 << j)], !((r >> (s + 1)) & 1));
+        if (!(r & (1 << j))) exchange(pk, x[r], x[r | (1 << j)], !((r >> (s + 1)) & 1));
 #pragma unroll
   for (int r = 0; r < W; ++r) {
-    perm[base + r] = (int)(x[r] & (W - 1));
-    bucket_out[base + r] = (int)(x[r] >> (32 + LOG_W));
+    perm[base + r] = pk.idx(x[r]);
+    bucket_out[base + r] = pk.bucket(x[r]);
   }
 }
 
-template <int LOG_E>
+template <class P, typename Key, int LOG_E, int CTA, int MIN_CTAS>
 int launch_windows(const void* bucket, const void* keys, int num_w, int log2w, void* perm,
                    void* bucket_out, cudaStream_t stream) {
-  const int T = 1 << (log2w - LOG_E), per_cta = kCta / T;
-  const int smem = per_cta * ((1 << log2w) + T) * (int)sizeof(u64);
-  cudaError_t err = cudaFuncSetAttribute(
-      sort_windows_kernel<LOG_E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int T = 1 << (log2w - LOG_E), per_cta = CTA / T;
+  if (T > CTA) return cudaErrorInvalidValue;
+  const int smem = per_cta * ((1 << log2w) + T) * P::kBytes;
+  const auto kernel = sort_windows_kernel<P, Key, LOG_E, CTA, MIN_CTAS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   if (num_w == 0) return cudaSuccess;
-  sort_windows_kernel<LOG_E><<<(num_w + per_cta - 1) / per_cta, kCta, smem, stream>>>(
-      (const int*)bucket, (const int*)keys, num_w, log2w, (int*)perm, (int*)bucket_out);
+  kernel<<<(num_w + per_cta - 1) / per_cta, CTA, smem, stream>>>(
+      (const int*)bucket, (const Key*)keys, num_w, log2w, (int*)perm, (int*)bucket_out);
   return cudaGetLastError();
 }
 
-template <int LOG_W>
+template <class P, typename Key, int LOG_W>
 int launch_small(const void* bucket, const void* keys, int num_w, void* perm,
                  void* bucket_out, cudaStream_t stream) {
   if (num_w == 0) return cudaSuccess;
-  sort_small_windows_kernel<LOG_W><<<(num_w + kCta - 1) / kCta, kCta, 0, stream>>>(
-      (const int*)bucket, (const int*)keys, num_w, (int*)perm, (int*)bucket_out);
+  sort_small_windows_kernel<P, Key, LOG_W>
+      <<<(num_w + kSmallCta - 1) / kSmallCta, kSmallCta, 0, stream>>>(
+          (const int*)bucket, (const Key*)keys, num_w, (int*)perm, (int*)bucket_out);
   return cudaGetLastError();
 }
 
@@ -270,13 +439,39 @@ int bitonic_sort_windows(const void* bucket, const void* keys, int num_w, int W,
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (log2w) {
-    case 1: return launch_small<1>(bucket, keys, num_w, perm, bucket_out, s);
-    case 2: return launch_small<2>(bucket, keys, num_w, perm, bucket_out, s);
-    case 3: return launch_small<3>(bucket, keys, num_w, perm, bucket_out, s);
-    case 14: return launch_windows<5>(bucket, keys, num_w, log2w, perm, bucket_out, s);
+    case 1: return launch_small<Packed32, int, 1>(bucket, keys, num_w, perm, bucket_out, s);
+    case 2: return launch_small<Packed32, int, 2>(bucket, keys, num_w, perm, bucket_out, s);
+    case 3: return launch_small<Packed32, int, 3>(bucket, keys, num_w, perm, bucket_out, s);
+    case 14:
+      return launch_windows<Packed32, int, 5, 512, 1>(bucket, keys, num_w, log2w, perm,
+                                                     bucket_out, s);
     default:
       if (log2w < 4 || log2w > 14 || W != 1 << log2w) return cudaErrorInvalidValue;
-      return launch_windows<4>(bucket, keys, num_w, log2w, perm, bucket_out, s);
+      return launch_windows<Packed32, int, 4, 512, 2>(bucket, keys, num_w, log2w, perm,
+                                                     bucket_out, s);
+  }
+}
+
+// The same with int64 keys ((num_w, W) int64, 16-byte aligned): `Packed64`,
+// E = 8 and CTAs of 512 threads up to W = 4096, E = 16 and one window of
+// 512 threads a CTA at 8192; `Packed96`, E = 16 and 1024 threads at 16384
+int bitonic_sort_windows64(const void* bucket, const void* keys, int num_w, int W,
+                           int log2w, void* perm, void* bucket_out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (log2w) {
+    case 1: return launch_small<Packed64, long long, 1>(bucket, keys, num_w, perm, bucket_out, s);
+    case 2: return launch_small<Packed64, long long, 2>(bucket, keys, num_w, perm, bucket_out, s);
+    case 3: return launch_small<Packed64, long long, 3>(bucket, keys, num_w, perm, bucket_out, s);
+    case 13:
+      return launch_windows<Packed64, long long, 4, 512, 1>(bucket, keys, num_w, log2w, perm,
+                                                           bucket_out, s);
+    case 14:
+      return launch_windows<Packed96, long long, 4, 1024, 1>(bucket, keys, num_w, log2w, perm,
+                                                            bucket_out, s);
+    default:
+      if (log2w < 4 || log2w > 14 || W != 1 << log2w) return cudaErrorInvalidValue;
+      return launch_windows<Packed64, long long, 3, 512, 2>(bucket, keys, num_w, log2w, perm,
+                                                           bucket_out, s);
   }
 }
 

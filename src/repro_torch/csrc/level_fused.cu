@@ -78,6 +78,18 @@
 // never straddles a row, pads are routed by the position within the row,
 // and each row's histogram slab is contiguous for the per-row epilogue.
 //
+// 64-bit keys (int64 codes of the 64-bit key dtypes) take the same kernel,
+// templated on the key type (`level_fused_kernel<long long, 8, ...>`; the
+// 32-bit form is `<int, 16, ...>`, unchanged).  A key is two registers, so
+// a lane holds 8 chunks in flight, not 16: the same 64 bytes of loads in
+// flight a lane and the same registers for keys, and a warp takes 256
+// positions, so a CTA of 1024 threads takes tiles up to 8192 (MAX_TILE64).
+// The splitters and uppers are 8 bytes each in shared memory (2 KB at k =
+// 128); the descent compares 64-bit keys (two instructions a compare);
+// radix mode shifts the reference's 64-bit code (shift in [0, 64)) and
+// sends the sentinel LLONG_MAX to the equality bucket.  Bound: 16 B an
+// element (8 B of key, the bucket and the rank), ~80 us at 2^24.
+//
 // K2 `rank_hist` and K4 `rank_hist_batched` (`segment_*_kernel`, four
 // launches: items, count, scan, rank).  K2 at level 2 of the sort takes
 // composite ids seg * W2 + local with up to 257 * 256 = 65,792 distinct
@@ -137,19 +149,38 @@
 
 namespace {
 
-constexpr int kChunks = 16;              // 32-position chunks a warp of K1 holds
-constexpr int kLevelSpan = 32 * kChunks;  // positions a warp of K1 ranks
-constexpr int kLevelMaxThreads = 1024;    // 16384 positions a CTA
+constexpr int kChunks32 = 16;           // 32-position chunks a warp of K1 holds (int keys)
+constexpr int kChunks64 = 8;            // the same for 64-bit keys
+constexpr int kLevelMaxThreads = 1024;  // 16384 positions a CTA (8192 with 64-bit keys)
+
+// The key type's sentinel and its reference code's digits at `shift`.
+template <typename Key>
+struct KeyBits;
+template <>
+struct KeyBits<int> {
+  static constexpr int kMax = INT_MAX;
+  __device__ static unsigned digits(int key, int shift) {
+    return ((unsigned)key ^ 0x80000000u) >> shift;
+  }
+};
+template <>
+struct KeyBits<long long> {
+  static constexpr long long kMax = LLONG_MAX;
+  __device__ static unsigned digits(long long key, int shift) {
+    return (unsigned)(((unsigned long long)key ^ 0x8000000000000000ull) >> shift);
+  }
+};
 
 // K1, K1r and K4: one CTA per (row, tile) over `rows` rows of n keys; the
 // CTAs are numbered row-major, so hist is (rows, tiles_per_row, 2k+1).
 // Tree mode: upper holds each row's k-1 sorted splitters and the sentinel
 // (row stride k); the bucket index j is the number of splitters below the
 // key, eq = (key == upper[j]).  Radix mode: no splitters, j = the bits of
-// the reference's code at `shift`, eq = (key == INT_MAX, the sentinel).
-template <bool kRadix>
+// the reference's code at `shift`, eq = (key == the sentinel, the key
+// type's max).  kChunks: the 32-position chunks a warp holds.
+template <typename Key, int kChunks, bool kRadix>
 __global__ void __launch_bounds__(kLevelMaxThreads)
-    level_fused_kernel(const int* __restrict__ keys, const int* __restrict__ upper,
+    level_fused_kernel(const Key* __restrict__ keys, const Key* __restrict__ upper,
                        int n, int n_real, int k, int shift, int tile,
                        int tiles_per_row, int* __restrict__ bucket,
                        int* __restrict__ rank, int* __restrict__ hist) {
@@ -162,27 +193,27 @@ __global__ void __launch_bounds__(kLevelMaxThreads)
   const int col = (blockIdx.x - row * tiles_per_row) * tile;
   const long long start = (long long)row * n + col;
   const int len = min(tile, n - col);
-  const int span = (((len + warps - 1) / warps) + 31) & ~31;  // <= kLevelSpan
+  const int span = (((len + warps - 1) / warps) + 31) & ~31;  // <= 32 * kChunks
   const int lo = warp * span;
   const int hi = min(lo + span, len);
 
   // every load of the warp's span in flight before anything waits on one
-  int key[kChunks];
+  Key key[kChunks];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int p = lo + 32 * c + lane;
     key[c] = p < hi ? __ldg(keys + start + p) : 0;
   }
 
-  int* s_tree = smem;      // tree mode: [1, k) the splitters in Eytzinger order
-  int* s_upper = smem + k;  // tree mode: the k uppers
+  Key* s_tree = reinterpret_cast<Key*>(smem);  // tree mode: [1, k) the splitters, Eytzinger order
+  Key* s_upper = s_tree + k;                    // tree mode: the k uppers
   // per warp and id: the lanes holding the id in the current chunk, and the
   // count so far (16 bits: at most 16384 positions a tile)
-  unsigned* masks = reinterpret_cast<unsigned*>(smem + (kRadix ? 0 : 2 * k));
+  unsigned* masks = reinterpret_cast<unsigned*>(s_tree + (kRadix ? 0 : 2 * k));
   unsigned short* cnt = reinterpret_cast<unsigned short*>(masks + warps * nb);
   for (int i = threadIdx.x; i < warps * nb; i += blockDim.x) masks[i] = 0u, cnt[i] = 0;
   if (!kRadix) {
-    const int* row_upper = upper + (long long)row * k;
+    const Key* row_upper = upper + (long long)row * k;
     for (int i = threadIdx.x; i < k; i += blockDim.x) {
       s_upper[i] = row_upper[i];
       if (i > 0) {  // node i at depth h, p-th of its depth: sorted index (2p+1) k/2^(h+1) - 1
@@ -197,8 +228,8 @@ __global__ void __launch_bounds__(kLevelMaxThreads)
   if (kRadix) {
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      const unsigned bits = ((unsigned)key[c] ^ 0x80000000u) >> shift;
-      id[c] = 2 * (int)(bits & (unsigned)(k - 1)) + (key[c] == INT_MAX ? 1 : 0);
+      const unsigned bits = KeyBits<Key>::digits(key[c], shift);
+      id[c] = 2 * (int)(bits & (unsigned)(k - 1)) + (key[c] == KeyBits<Key>::kMax ? 1 : 0);
     }
   } else {
 #pragma unroll
@@ -263,40 +294,69 @@ __global__ void __launch_bounds__(kLevelMaxThreads)
   }
 }
 
-// K1's CTA: one warp per 512 positions of the tile, at least one.
+// K1's CTA: one warp per 32 * kChunks positions of the tile, at least one.
+template <typename Key>
 int level_threads(int tile) {
-  const int warps = (tile + kLevelSpan - 1) / kLevelSpan;
+  const int span = 32 * (sizeof(Key) == 8 ? kChunks64 : kChunks32);
+  const int warps = (tile + span - 1) / span;
   return 32 * (warps < 1 ? 1 : warps);
 }
 
+template <typename Key>
 int level_smem_bytes(int k, bool radix, int tile) {
-  const int ids = level_threads(tile) / 32 * (2 * k + 1);  // masks (4 B) and counts (2 B)
-  return (radix ? 0 : 2 * k) * (int)sizeof(int) + ids * 6;
+  const int ids = level_threads<Key>(tile) / 32 * (2 * k + 1);  // masks (4 B), counts (2 B)
+  return (radix ? 0 : 2 * k) * (int)sizeof(Key) + ids * 6;
 }
 
+template <typename Key>
 cudaError_t level_setup(int k, bool radix, int tile, const void** kernel, int* smem) {
-  *kernel = radix ? (const void*)&level_fused_kernel<true>
-                  : (const void*)&level_fused_kernel<false>;
-  *smem = level_smem_bytes(k, radix, tile);
+  constexpr int chunks = sizeof(Key) == 8 ? kChunks64 : kChunks32;
+  *kernel = radix ? (const void*)&level_fused_kernel<Key, chunks, true>
+                  : (const void*)&level_fused_kernel<Key, chunks, false>;
+  *smem = level_smem_bytes<Key>(k, radix, tile);
+  if (level_threads<Key>(tile) > kLevelMaxThreads) return cudaErrorInvalidConfiguration;
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
+template <typename Key>
 int launch_level(const void* keys, const void* upper, int rows, int n,
                  int n_real, int k, bool radix, int shift, int tile,
                  void* bucket, void* rank, void* hist, void* stream) {
+  constexpr int chunks = sizeof(Key) == 8 ? kChunks64 : kChunks32;
   const void* kernel;
   int smem;
-  cudaError_t err = level_setup(k, radix, tile, &kernel, &smem);
+  cudaError_t err = level_setup<Key>(k, radix, tile, &kernel, &smem);
   if (err != cudaSuccess) return err;
   const int tiles_per_row = (n + tile - 1) / tile;
   const long long ctas = (long long)rows * tiles_per_row;
   if (ctas == 0) return cudaSuccess;
   if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
-  const auto launch = radix ? level_fused_kernel<true> : level_fused_kernel<false>;
-  launch<<<(unsigned)ctas, level_threads(tile), smem, (cudaStream_t)stream>>>(
-      (const int*)keys, (const int*)upper, n, n_real, k, shift, tile,
+  const auto launch = radix ? level_fused_kernel<Key, chunks, true>
+                            : level_fused_kernel<Key, chunks, false>;
+  launch<<<(unsigned)ctas, level_threads<Key>(tile), smem, (cudaStream_t)stream>>>(
+      (const Key*)keys, (const Key*)upper, n, n_real, k, shift, tile,
       tiles_per_row, (int*)bucket, (int*)rank, (int*)hist);
   return cudaGetLastError();
+}
+
+// K1's launch at (k, tile, mode), from the CUDA runtime (see level_fused_info).
+template <typename Key>
+int level_info(int k, int radix, int tile, int* out) {
+  const void* kernel;
+  int smem;
+  cudaError_t err = level_setup<Key>(k, radix != 0, tile, &kernel, &smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &out[4], kernel, level_threads<Key>(tile), smem)) != cudaSuccess)
+    return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = level_threads<Key>(tile);
+  out[5] = (int)attr.localSizeBytes;
+  return cudaSuccess;
 }
 
 // ---- K2 and K4 rank_hist_batched: the segment-aware counting placement ----
@@ -795,7 +855,7 @@ void launch_small(int id_bits, unsigned ctas, int threads, cudaStream_t s, const
 
 // K2's count and rank CTAs: one warp per 512 positions of a tile, 1 to 8.
 int segment_warps(int tile) {
-  const int warps = (tile + kLevelSpan - 1) / kLevelSpan;
+  const int warps = (tile + 32 * kRankChunks - 1) / (32 * kRankChunks);
   return warps < 1 ? 1 : (warps > kRankMaxWarps ? kRankMaxWarps : warps);
 }
 
@@ -830,20 +890,32 @@ const char* level_fused_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1, tree mode, over one row of n keys.
+// K1, tree mode, over one row of n keys (int32; the 64 form int64).
 int level_fused_tree(const void* keys, const void* upper, int n, int n_real,
                      int k, int tile, void* bucket, void* rank, void* hist,
                      void* stream) {
-  return launch_level(keys, upper, 1, n, n_real, k, false, 0, tile, bucket,
-                      rank, hist, stream);
+  return launch_level<int>(keys, upper, 1, n, n_real, k, false, 0, tile, bucket,
+                           rank, hist, stream);
+}
+int level_fused_tree64(const void* keys, const void* upper, int n, int n_real,
+                       int k, int tile, void* bucket, void* rank, void* hist,
+                       void* stream) {
+  return launch_level<long long>(keys, upper, 1, n, n_real, k, false, 0, tile, bucket,
+                                 rank, hist, stream);
 }
 
 // K1r, radix mode, over one row of n keys.
 int level_fused_radix(const void* keys, int n, int n_real, int k, int shift,
                       int tile, void* bucket, void* rank, void* hist,
                       void* stream) {
-  return launch_level(keys, nullptr, 1, n, n_real, k, true, shift, tile,
-                      bucket, rank, hist, stream);
+  return launch_level<int>(keys, nullptr, 1, n, n_real, k, true, shift, tile,
+                           bucket, rank, hist, stream);
+}
+int level_fused_radix64(const void* keys, int n, int n_real, int k, int shift,
+                        int tile, void* bucket, void* rank, void* hist,
+                        void* stream) {
+  return launch_level<long long>(keys, nullptr, 1, n, n_real, k, true, shift, tile,
+                                 bucket, rank, hist, stream);
 }
 
 // K4, either mode, over `rows` rows of n keys; upper is (rows, k) in tree
@@ -851,8 +923,14 @@ int level_fused_radix(const void* keys, int n, int n_real, int k, int shift,
 int level_fused_batched(const void* keys, const void* upper, int rows, int n,
                         int n_real, int k, int radix, int shift, int tile,
                         void* bucket, void* rank, void* hist, void* stream) {
-  return launch_level(keys, upper, rows, n, n_real, k, radix != 0, shift, tile,
-                      bucket, rank, hist, stream);
+  return launch_level<int>(keys, upper, rows, n, n_real, k, radix != 0, shift, tile,
+                           bucket, rank, hist, stream);
+}
+int level_fused_batched64(const void* keys, const void* upper, int rows, int n,
+                          int n_real, int k, int radix, int shift, int tile,
+                          void* bucket, void* rank, void* hist, void* stream) {
+  return launch_level<long long>(keys, upper, rows, n, n_real, k, radix != 0, shift, tile,
+                                 bucket, rank, hist, stream);
 }
 
 // K1's launch at (k, tile, mode), from the CUDA runtime: out[0] registers
@@ -860,21 +938,10 @@ int level_fused_batched(const void* keys, const void* upper, int rows, int n,
 // bytes, out[3] threads per CTA, out[4] CTAs an SM holds at once, out[5]
 // local memory per thread (spills) in bytes.
 int level_fused_info(int k, int radix, int tile, int* out) {
-  const void* kernel;
-  int smem;
-  cudaError_t err = level_setup(k, radix != 0, tile, &kernel, &smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel, level_threads(tile),
-                                                           smem)) != cudaSuccess)
-    return err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.sharedSizeBytes;
-  out[2] = smem;
-  out[3] = level_threads(tile);
-  out[5] = (int)attr.localSizeBytes;
-  return cudaSuccess;
+  return level_info<int>(k, radix, tile, out);
+}
+int level_fused_info64(int k, int radix, int tile, int* out) {
+  return level_info<long long>(k, radix, tile, out);
 }
 
 // K2 (rows = 1) and K4 rank_hist_batched over `rows` rows of n ids:

@@ -20,6 +20,9 @@
 | K10 | ``flash_decode.flash_decode`` (and ``flash_decode_cache``) | ``csrc/flash_decode.cu`` | ``repro/kernels/flash_decode.py:70`` |
 | K11 | ``flash_attention.flash_attention`` (bf16: TMA + ``wgmma``; f32: FMA) | ``csrc/flash_attention.cu`` | ``repro/kernels/flash_attention.py:102`` |
 
+K1, K1r, K4 ``level_fused_batched`` and K3 take int32 or int64 codes: each
+has a 64-bit form for the 64-bit key dtypes, launched by the same wrapper
+and counted under its name with ``64`` appended.
 K1, K1r, K4 ``level_fused_batched``, K2's rank above W2 = 32 and K6 rank
 a tile the same way (peer masks by atomicOr, 16-bit per-warp counters,
 ranks in registers, a scan over the warps).  K2 and K4 ``rank_hist_batched``

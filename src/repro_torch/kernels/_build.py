@@ -57,6 +57,9 @@ LAUNCHES: Dict[str, int] = {
     "classify_histogram": 0, "classify_histogram_batched": 0, "radix_histogram": 0,
     "permute_blocks_by_dest": 0, "permute_blocks_inplace": 0,
     "flash_decode": 0, "flash_attention": 0, "flash_attention_f32": 0,
+    # the 64-bit forms of K1, K1r, K4 level_fused_batched and K3
+    "level_fused64": 0, "level_fused_radix64": 0, "level_fused_batched64": 0,
+    "sort_windows64": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -11,7 +11,10 @@ span (24 exchanges at W = 8192 where the first design made 91 block-wide
 passes).  The TPU network compares (bucket, key) only and is not stable;
 this one orders by (bucket, key, idx), so it equals the stable
 ``_window_perm`` that the reference's main path computes in XLA, which is
-its plain twin here.
+its plain twin here.  int64 keys (64-bit key dtypes) take the kernel's
+64-bit form, counted under ``sort_windows64``: each element 12 B in two
+words compared as (bucket, key, idx), E = 8 elements a thread up to W =
+4096 and 16 above.
 
 The wrapper launches the kernel on a CUDA tensor and runs the plain twin
 only on a CPU tensor; there is no fallback from one to the other.  The
@@ -30,7 +33,8 @@ __all__ = ["sort_windows", "sort_windows_plain", "window_perm_plain", "MAX_W"]
 
 MAX_W = 16384  # W 8-byte words in shared memory
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"bitonic_sort_windows": (_P, _P, _I, _I, _I, _P, _P, _P)}
+_SIGNATURES = {"bitonic_sort_windows": (_P, _P, _I, _I, _I, _P, _P, _P),
+               "bitonic_sort_windows64": (_P, _P, _I, _I, _I, _P, _P, _P)}
 
 
 def window_perm_plain(bucket_w: torch.Tensor, keys_w: torch.Tensor) -> torch.Tensor:
@@ -43,16 +47,19 @@ def window_perm_plain(bucket_w: torch.Tensor, keys_w: torch.Tensor) -> torch.Ten
 
 
 def _check(bucket: torch.Tensor, keys: torch.Tensor, nb: int) -> None:
-    for name, x in (("bucket", bucket), ("keys", keys)):
-        if x.dim() != 2 or x.dtype != torch.int32 or not x.is_contiguous():
+    for name, x, dtypes in (("bucket", bucket, (torch.int32,)),
+                            ("keys", keys, (torch.int32, torch.int64))):
+        if x.dim() != 2 or x.dtype not in dtypes or not x.is_contiguous():
             raise ValueError(f"sort_windows {name}: expected a contiguous (num_w, W) "
-                             f"int32 tensor, got {tuple(x.shape)} {x.dtype}")
+                             f"{' or '.join(map(str, dtypes))} tensor, got {tuple(x.shape)} "
+                             f"{x.dtype}")
     if bucket.shape != keys.shape or bucket.device != keys.device:
         raise ValueError("sort_windows: bucket and keys must share shape and device")
     W = keys.shape[1]
     if W < 2 or W & (W - 1) or W > MAX_W:
         raise ValueError(f"W={W} must be a power of two in [2, {MAX_W}]")
-    # the kernel packs (bucket, key, idx) into one 64-bit word
+    # the kernel packs (bucket, idx) into 32 bits (with a 32-bit key, all
+    # three into one 64-bit word)
     bucket_bits = 32 - (W.bit_length() - 1)
     if nb > 1 << bucket_bits:
         raise ValueError(f"nb={nb} buckets do not fit {bucket_bits} bits at W={W}")
@@ -77,8 +84,9 @@ def sort_windows(
     bucket: torch.Tensor, keys: torch.Tensor, nb: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stably sort each window (row) of (num_w, W) int32 ``bucket`` ids in
-    [0, nb) and encoded ``keys`` by (bucket, key): the K3 kernel on a CUDA
-    tensor, its plain twin on a CPU tensor.
+    [0, nb) and encoded int32 or int64 ``keys`` by (bucket, key): the K3
+    kernel (its 64-bit form for int64 keys) on a CUDA tensor, its plain
+    twin on a CPU tensor.
 
     Returns (perm, sorted bucket), both (num_w, W) int32; ``perm`` holds
     window-local indices.
@@ -90,13 +98,14 @@ def sort_windows(
     _check(bucket, keys, nb)
     num_w, W = keys.shape
     bucket, keys = _aligned(bucket), _aligned(keys)
-    perm = torch.empty_like(keys)
+    perm = torch.empty_like(bucket)
     bucket_out = torch.empty_like(bucket)
+    wide = "64" if keys.dtype == torch.int64 else ""
     lib = _build.library("bitonic", _SIGNATURES)
-    err = lib.bitonic_sort_windows(
+    err = getattr(lib, "bitonic_sort_windows" + wide)(
         bucket.data_ptr(), keys.data_ptr(), num_w, W, W.bit_length() - 1,
         perm.data_ptr(), bucket_out.data_ptr(), _build.stream_handle(keys.device),
     )
-    _build.check(lib, "bitonic", err, "sort_windows kernel")
-    _build.LAUNCHES["sort_windows"] += 1
+    _build.check(lib, "bitonic", err, f"sort_windows{wide} kernel")
+    _build.LAUNCHES["sort_windows" + wide] += 1
     return perm, bucket_out

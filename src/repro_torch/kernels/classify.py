@@ -104,7 +104,9 @@ def _check_keys(keys: torch.Tensor, dim: int, radix: bool) -> None:
     if radix and keys.dtype != torch.int32:
         raise ValueError(f"radix mode takes encoded int32 keys, got {keys.dtype}")
     if keys.dtype not in _KEY_KINDS:
-        raise ValueError(f"keys: dtype {keys.dtype} is not one of {list(_KEY_KINDS)}")
+        raise NotImplementedError(
+            f"keys: K7 takes raw {list(_KEY_KINDS)} keys, got {keys.dtype} (ROADMAP.md, "
+            "queue 1 item 1, what stays open)")
     if keys.numel() >= 2**31:
         raise ValueError(f"{keys.numel()} keys exceed int32 positions")
 

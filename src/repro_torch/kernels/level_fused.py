@@ -17,7 +17,10 @@ bucket 2k, and rank each key stably within its tile; the epilogue
 turns the per-tile ranks and histogram into the global destinations and
 bucket offsets.  K4 ``level_fused_batched`` (key ``level_fused_batched``)
 is the same over (B, n) rows, each row with its own splitters or the shared
-radix shift, its own pads and its own placement.
+radix shift, its own pads and its own placement.  The three take int32 or
+int64 codes (``ops.keyspace``): the CUDA kernel is templated on the key
+type, and its 64-bit form counts under the same keys with ``64`` appended
+(``level_fused64``, ``level_fused_radix64``, ``level_fused_batched64``).
 
 K2 ``rank_hist``: the stable counting placement over given ids in
 [0, nb).  With ``seg_offsets`` it takes level 2's composite ids
@@ -62,11 +65,13 @@ __all__ = [
     "segment_schedule",
     "TILE",
     "MAX_TILE",
+    "MAX_TILE64",
     "MAX_NB",
 ]
 
 TILE = 4096  # default keys per CTA (K1) or per work item (K2)
 MAX_TILE = 16384  # K1: 32 warps of 512 positions; K2: 8 warps, 4 batches of 512 each
+MAX_TILE64 = 8192  # K1's 64-bit form: 32 warps of 256 positions (8 chunks of 8-byte keys)
 MAX_NB = 2048  # K2's counters per CTA: 8 warps x MAX_NB x 6 B of shared memory
 RANK_SPAN = 512  # positions a warp of K2's count and rank CTAs takes at once (16 chunks)
 RANK_WARPS = 8  # at most, a CTA of K2's count and rank
@@ -78,9 +83,13 @@ _SIGNATURES = {
     "level_fused_tree": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "level_fused_radix": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "level_fused_batched": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "level_fused_tree64": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "level_fused_radix64": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "level_fused_batched64": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "level_fused_segment_place": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                   _P),
     "level_fused_info": (_I, _I, _I, _P),
+    "level_fused_info64": (_I, _I, _I, _P),
     "level_fused_segment_info": (_I, _I, _P),
 }
 
@@ -93,9 +102,9 @@ def _check_ids(x: torch.Tensor, what: str, dim: int = 1) -> None:
         raise ValueError(f"{what}: {x.numel()} elements exceed int32 positions")
 
 
-def _check_tile(tile: int, nb: int) -> None:
-    if not 0 < tile <= MAX_TILE:
-        raise ValueError(f"tile={tile} must be in (0, {MAX_TILE}]")
+def _check_tile(tile: int, nb: int, max_tile: int = MAX_TILE) -> None:
+    if not 0 < tile <= max_tile:
+        raise ValueError(f"tile={tile} must be in (0, {max_tile}]")
     if nb > MAX_NB:
         raise ValueError(f"{nb} counters per tile exceed MAX_NB={MAX_NB}")
 
@@ -156,8 +165,8 @@ def _close_placement(
 
 def _upper(splitters: torch.Tensor) -> torch.Tensor:
     """(B, k-1) splitters -> (B, k) uppers, the last the sentinel."""
-    sent = torch.full((splitters.shape[0], 1), sentinel_for(torch.int32),
-                      dtype=torch.int32, device=splitters.device)
+    sent = torch.full((splitters.shape[0], 1), sentinel_for(splitters.dtype),
+                      dtype=splitters.dtype, device=splitters.device)
     return torch.cat([splitters, sent], 1).contiguous()
 
 
@@ -181,57 +190,65 @@ def _level_tiles_plain(keys, splitters, k, n_real, tile, consumed_bits=0):
 
 def _level_tiles_kernel(keys, splitters, k, n_real, tile, consumed_bits=0, batched=False):
     """The same three outputs from the CUDA kernel: K4 when ``batched``,
-    else K1 (tree) or K1r (radix) on the one row of ``keys`` (1, n)."""
+    else K1 (tree) or K1r (radix) on the one row of ``keys`` (1, n); the
+    kernel's 64-bit form for int64 keys."""
     B, n = keys.shape
     nb = 2 * k + 1
     tiles = -(-n // tile)
     radix = splitters is None
-    shift = radix_shift(k, consumed_bits) if radix else 0
+    wide = "64" if keys.dtype == torch.int64 else ""
+    shift = radix_shift(k, consumed_bits, 64 if wide else 32) if radix else 0
     upper = None if radix else _upper(splitters)
-    bucket = torch.empty_like(keys)
-    rank = torch.empty_like(keys)
+    bucket = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    rank = torch.empty_like(bucket)
     hist = torch.empty((B, tiles, nb), dtype=torch.int32, device=keys.device)
     outs = (bucket.data_ptr(), rank.data_ptr(), hist.data_ptr(),
             _build.stream_handle(keys.device))
     lib = _build.library("level_fused", _SIGNATURES)
     if batched:
         name = "level_fused_batched"
-        err = lib.level_fused_batched(
+        err = getattr(lib, name + wide)(
             keys.data_ptr(), None if radix else upper.data_ptr(), B, n, n_real, k,
             int(radix), shift, tile, *outs)
     elif radix:
         name = "level_fused_radix"
-        err = lib.level_fused_radix(keys.data_ptr(), n, n_real, k, shift, tile, *outs)
+        err = getattr(lib, name + wide)(keys.data_ptr(), n, n_real, k, shift, tile, *outs)
     else:
         name = "level_fused"
-        err = lib.level_fused_tree(keys.data_ptr(), upper.data_ptr(), n, n_real, k,
-                                   tile, *outs)
-    _build.check(lib, "level_fused", err, f"{name} kernel")
-    _build.LAUNCHES[name] += 1
+        err = getattr(lib, "level_fused_tree" + wide)(keys.data_ptr(), upper.data_ptr(), n,
+                                                      n_real, k, tile, *outs)
+    _build.check(lib, "level_fused", err, f"{name + wide} kernel")
+    _build.LAUNCHES[name + wide] += 1
     return bucket, rank, hist
 
 
-def launch_info(k: int, tile: int = TILE, radix: bool = False) -> dict:
-    """The K1/K1r/K4 kernel's launch at (k, tile, mode), from the CUDA runtime
-    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
-    registers per thread, static and dynamic shared memory per CTA in bytes,
-    threads per CTA, CTAs an SM holds at once and local memory per thread
-    in bytes (spills).  Builds and loads the library; needs a card."""
-    _check_tile(tile, 2 * k + 1)
+def launch_info(k: int, tile: int = TILE, radix: bool = False, key_bits: int = 32) -> dict:
+    """The K1/K1r/K4 kernel's launch at (k, tile, mode) for 32- or 64-bit
+    keys, from the CUDA runtime (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): registers per
+    thread, static and dynamic shared memory per CTA in bytes, threads per
+    CTA, CTAs an SM holds at once and local memory per thread in bytes
+    (spills).  Builds and loads the library; needs a card."""
+    _check_tile(tile, 2 * k + 1, MAX_TILE64 if key_bits == 64 else MAX_TILE)
     out = (ctypes.c_int * 6)()
     lib = _build.library("level_fused", _SIGNATURES)
-    _build.check(lib, "level_fused", lib.level_fused_info(k, int(radix), tile,
-                                                          ctypes.addressof(out)),
+    info = lib.level_fused_info64 if key_bits == 64 else lib.level_fused_info
+    _build.check(lib, "level_fused", info(k, int(radix), tile, ctypes.addressof(out)),
                  "level_fused kernel")
     return dict(zip(("registers", "static_smem", "dynamic_smem", "threads", "ctas_per_sm",
                      "local_bytes"), out))
 
 
 def _level_args(keys, splitters, k, n_real, tile, classifier, dim):
-    _check_ids(keys, "level_fused keys", dim)
+    if keys.dim() != dim or keys.dtype not in (torch.int32, torch.int64) or \
+            not keys.is_contiguous():
+        raise ValueError(f"level_fused keys: expected a contiguous {dim}-D int32 or int64 "
+                         f"tensor, got {tuple(keys.shape)} {keys.dtype}")
+    if keys.numel() >= 2**31:
+        raise ValueError(f"level_fused keys: {keys.numel()} elements exceed int32 positions")
     if k < 2 or k & (k - 1):
         raise ValueError(f"k={k} must be a power of two >= 2")
-    _check_tile(tile, 2 * k + 1)
+    _check_tile(tile, 2 * k + 1, MAX_TILE64 if keys.dtype == torch.int64 else MAX_TILE)
     n = keys.shape[-1]
     n_real = n if n_real is None else n_real
     if not 0 <= n_real <= n:
@@ -243,9 +260,9 @@ def _level_args(keys, splitters, k, n_real, tile, classifier, dim):
             raise ValueError("radix mode takes no splitters")
         return n_real, None
     want = keys.shape[:-1] + (k - 1,)
-    if splitters is None or splitters.shape != want or splitters.dtype != torch.int32:
-        raise ValueError(f"splitters: expected {want} int32, got "
-                         f"{None if splitters is None else tuple(splitters.shape)}")
+    if splitters is None or splitters.shape != want or splitters.dtype != keys.dtype:
+        raise ValueError(f"splitters: expected {want} {keys.dtype}, got "
+                         f"{None if splitters is None else (tuple(splitters.shape), splitters.dtype)}")
     if splitters.device != keys.device:
         raise ValueError("keys and splitters must share a device")
     return n_real, splitters.reshape(-1, k - 1).contiguous()
@@ -274,10 +291,11 @@ def level_fused(
     classifier: str = "tree",
     consumed_bits: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One fused level pass over encoded ``keys`` (n,) int32: the K1 kernel
-    (tree mode, sorted ``splitters`` (k-1,) int32) or K1r (radix mode, no
-    splitters, the bits past ``consumed_bits``) on a CUDA tensor, its plain
-    twin on a CPU tensor.  Positions >= ``n_real`` go to the pad bucket 2k.
+    """One fused level pass over encoded ``keys`` (n,) int32 or int64: the K1
+    kernel (tree mode, sorted ``splitters`` (k-1,) of the keys' dtype) or K1r
+    (radix mode, no splitters, the bits past ``consumed_bits``) on a CUDA
+    tensor, its plain twin on a CPU tensor.  Positions >= ``n_real`` go to
+    the pad bucket 2k.  int64 keys take tiles up to ``MAX_TILE64``.
 
     Returns (dest (n,) int32, offsets (2k+2,) int32).
     """
@@ -311,7 +329,7 @@ def level_fused_batched(
     classifier: str = "tree",
     consumed_bits: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused level pass per row of ``keys`` (B, n) int32: the K4 kernel
+    """The fused level pass per row of ``keys`` (B, n) int32 or int64: the K4 kernel
     on a CUDA tensor, its plain twin on a CPU tensor.  Row r classifies
     against its own ``splitters[r]`` ((B, k-1), tree mode) or by the shared
     radix shift (radix mode); positions >= ``n_real`` of every row go to

@@ -1,8 +1,8 @@
 """repro_torch.ops — the sort operations of ``repro.ops`` ported so far:
-NaN-safe ``sort``, ``argsort``, ``topk`` and ``bottomk`` (float32 and int32
-keys), their batched (B, n) forms, ``segmented_sort``, the grouping ops
-``unique``, ``run_length`` and ``group_by``, and the ``keyspace``
-bijection."""
+NaN-safe ``sort``, ``argsort``, ``topk`` and ``bottomk`` (keys of every
+dtype of ``keyspace``: 8- to 64-bit ints, uints and floats), their
+batched (B, n) forms, ``segmented_sort``, the grouping ops ``unique``,
+``run_length`` and ``group_by``, and the ``keyspace`` bijection."""
 from repro_torch.ops import keyspace
 from repro_torch.ops.batched import (
     batched_argsort,

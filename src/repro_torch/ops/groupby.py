@@ -37,8 +37,6 @@ from repro_torch.ops.sort import Device, _device, _keys
 __all__ = ["Groups", "group_by", "unique", "run_length"]
 
 METHODS = ("auto", "partition", "pallas", "sort")
-# the padding of unique/run_length values: the reference's unsigned zero code
-_ZERO_CODE = torch.iinfo(torch.int32).min
 
 
 class Groups(NamedTuple):
@@ -62,10 +60,12 @@ def _boundaries(enc_sorted: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _compact(enc: torch.Tensor, gid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(first code of each group, group sizes), both padded to n."""
+    """(first code of each group, group sizes), both padded to n; the
+    padding is the reference's unsigned zero code, which is the code
+    dtype's min for every key dtype (narrow codes are left-aligned)."""
     n = enc.shape[0]
     g64 = gid.to(torch.int64)
-    vals = torch.full((n,), _ZERO_CODE, dtype=enc.dtype, device=enc.device)
+    vals = torch.full((n,), torch.iinfo(enc.dtype).min, dtype=enc.dtype, device=enc.device)
     vals[g64] = enc  # every position of a group holds the same code
     counts = torch.zeros(n, dtype=torch.int32, device=enc.device)
     counts.index_add_(0, g64, torch.ones_like(gid))
@@ -107,7 +107,7 @@ def group_by(
     the stable counting placement, K6 (``tile`` ids per ticket; by default
     K6's own, where the reference's 2048 is a TPU tile; it never changes the
     result), and ``counts``/``num_groups`` are exact.  Without it, keys are
-    float32 or int32 (``method="sort"``): a NaN-safe sort groups equal keys,
+    of any ``ops.keyspace`` dtype (``method="sort"``): a NaN-safe sort groups equal keys,
     ``counts`` comes back (n,)-padded and ``num_groups`` is a 0-d tensor.
     ``values`` (one tensor, leading dim n) is grouped alongside.
 

@@ -22,6 +22,7 @@ from repro_torch.core.ips4o import (
     base_case_with_fallback,
     pad_with_sentinel,
     segmented_level_pass,
+    signed_payload,
 )
 from repro_torch.ops import keyspace
 from repro_torch.ops.sort import Device, _device, _keys
@@ -82,7 +83,7 @@ def segmented_sort(
 
     arrays = {"k": keyspace.encode(keys)}
     if values is not None:
-        arrays["v"] = values
+        arrays["v"] = signed_payload(values)
     W = cfg.base_case
     arrays = pad_with_sentinel(arrays, max(W, cfg.tile))
     n_pad = arrays["k"].shape[0]
@@ -97,4 +98,4 @@ def segmented_sort(
                                              gen)
     arrays = base_case_with_fallback(arrays, boffs, nb, None, cfg)
     out = keyspace.decode(arrays["k"][:n], keys.dtype)
-    return out if values is None else (out, arrays["v"][:n])
+    return out if values is None else (out, arrays["v"][:n].view(values.dtype))

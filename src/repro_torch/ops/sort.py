@@ -48,7 +48,7 @@ def _keys(keys, dev: torch.device, dim: int = 1) -> torch.Tensor:
             "batched_argsort / batched_topk / batched_bottomk"
             if dim == 1 else "keys must be 2-D (B, n)"
         )
-    keyspace.encoded_dtype(keys.dtype)  # raises for dtypes not ported yet
+    keyspace.encoded_dtype(keys.dtype)  # raises for dtypes with no order-preserving code
     return keys
 
 

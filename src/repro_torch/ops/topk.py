@@ -10,7 +10,7 @@ fallback) run only over the static, W-aligned prefix
 which covers that bucket whenever every non-trivial bucket holds at most
 W/2 keys; the fallback, restricted to the buckets that start below P,
 guards that.  ``topk`` is the bottom-k of the complemented codes: ``~``
-reverses the signed int32 order of the port's codes just as it reverses
+reverses the signed order of the port's codes just as it reverses
 the reference's unsigned order.  Ties keep their input order, so both
 agree with the reference bit for bit.
 """
@@ -44,7 +44,7 @@ def _prefix_limit(k: int, W: int, n_pad: int) -> int:
 def smallest_encoded(
     enc: torch.Tensor, kk: int, cfg: SortConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(the kk smallest encoded int32 keys ascending, their int32 indices)
+    """(the kk smallest encoded int32/int64 keys ascending, their int32 indices)
     of ``enc`` (n,), with 0 < kk <= n; ties keep their input order."""
     resolve_classifier(cfg.classifier)
     n = enc.shape[0]

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels.merge_path import TILE, merge_path_perm
 from repro_torch.ops import keyspace
+from repro_torch.stream.runs import check_stream_dtype
 
 __all__ = ["merge", "merge_perm", "merge_runs_encoded"]
 
@@ -83,6 +84,7 @@ def merge(
     if values is not None and len(values) != len(runs):
         raise ValueError(f"{len(runs)} runs but {len(values)} payload tensors")
     dtype, dev = runs[0].dtype, runs[0].device
+    check_stream_dtype(dtype)
     for r in runs:
         if r.dim() != 1:
             raise ValueError("runs must be 1-D")

@@ -33,10 +33,25 @@ import torch
 
 from repro_torch.ops.sort import Device, _device, argsort, sort
 
-__all__ = ["iter_chunks", "device_chunks", "form_runs", "form_argsort_runs"]
+__all__ = ["iter_chunks", "device_chunks", "form_runs", "form_argsort_runs",
+           "check_stream_dtype"]
 
 Source = Union[np.ndarray, Iterable[np.ndarray]]
 MAX_INDEX = 2**31 - 1  # global indices are int32, as in the reference
+# the keys the stream takes: K5 merges int32 codes (kernels/merge_path.py)
+STREAM_DTYPES = (torch.float32, torch.int32, np.float32, np.int32)
+
+
+def check_stream_dtype(dtype) -> None:
+    """Raise for keys the stream does not take yet (a numpy or torch dtype):
+    its merge, kernel K5, compares int32 codes, so only float32 and int32
+    keys stream; the other dtypes of ``ops.keyspace`` would reach K5 as
+    codes it cannot take."""
+    if dtype not in STREAM_DTYPES:
+        raise NotImplementedError(
+            f"the stream takes float32 and int32 keys, got {dtype}: its merge K5 compares "
+            "int32 codes (ROADMAP.md, queue 1 item 1, what stays open)"
+        )
 
 
 def iter_chunks(data: Source, chunk_size: int) -> Iterator[np.ndarray]:
@@ -107,6 +122,7 @@ def device_chunks(data: Source, chunk_size: int, device: Device = None
     pending = None
     offset = 0
     for chunk in iter_chunks(data, chunk_size):
+        check_stream_dtype(chunk.dtype)
         if offset + chunk.shape[0] > MAX_INDEX:
             raise ValueError("stream longer than 2^31 - 1 keys: global indices are int32")
         if staging is None:

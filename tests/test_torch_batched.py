@@ -287,7 +287,7 @@ def test_batched_entry_points_check_their_inputs(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.batched_sort(x2, classifier="learned", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.batched_sort(torch.zeros((2, 10), dtype=torch.float64), device="cpu")
+        ops.batched_sort(torch.zeros((2, 10), dtype=torch.complex64), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.batched_argsort(x2)

@@ -19,8 +19,11 @@ sorts and the stream on the card against the same calls on the CPU; K10
 (B, T, KVH, hd) cache; idle cluster ranks, length 0, shares below one
 unit, two streams and 50 calls in a row) and K11 ``flash_attention``
 against their plain twins (|got - want| <= atol + rtol * |want|: 2e-5 + 2e-5 in float32,
-4e-3 + 2^-8 in bfloat16), and a 2-layer yi-9b at full
-width served through K10.
+4e-3 + 2^-8 in bfloat16), a 2-layer yi-9b at full
+width served through K10, and the 64-bit forms of K1, K1r, K4
+``level_fused_batched`` (the edge cases above, shifts up to level 2's
+clamp, no spills) and K3 (every W from 2 to 16384) against their twins,
+and the sorts of every key dtype on the card against the CPU.
 
 Marked ``gpu``: every test skips (from its fixture) where no card is
 present, so the CPU suite collects the same tests on every worker.  On the
@@ -866,3 +869,134 @@ def test_yi_9b_two_layers_full_width_served_through_k10(dev):
         a = engine.generate(tokens[:, :100], 12)
         b = engine.generate(tokens[:, :100], 12)
     assert torch.equal(a, b) and a.shape == (4, 12)
+
+
+# ---------------------------------------------------------------------------
+# the 64-bit forms of K1, K1r, K4 level_fused_batched and K3, and the sorts
+# on every key dtype
+
+
+def _level_edge64(dev, case, radix):
+    """``_level_edge``'s cases with int64 keys over the whole int64 range
+    (a CTA of 32 warps is MAX_TILE64 here) and the sentinel LLONG_MAX."""
+    k, n, n_real, tile = 128, 50_000, 49_001, lf.TILE
+    if case == "tile MAX_TILE":
+        tile, n, n_real = lf.MAX_TILE64, 3 * lf.MAX_TILE64 + 777, 3 * lf.MAX_TILE64 + 500
+    elif case == "tile 33":
+        tile, n, n_real = 33, 5000, 4990
+    elif case == "k=2":
+        k = 2
+    elif case == "largest k":
+        k = 1 << ((lf.MAX_NB - 1) // 2).bit_length() - 1
+    elif case == "all pads":
+        n_real = 0
+    rng = np.random.default_rng(n + k)
+    x = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+    x[rng.random(n) < 0.5] = x[0]  # a heavy duplicate
+    keys = torch.as_tensor(x, device=dev)
+    keys[::53] = torch.iinfo(torch.int64).max  # the sentinel: an equality bucket
+    spl = sampling.select_splitters(torch.sort(keys[:8192]).values, k)
+    if case == "all on one splitter":
+        keys.fill_(int(spl[k // 2]))
+    kw = dict(k=k, n_real=n_real, tile=tile, classifier="radix" if radix else "tree")
+    return keys, None if radix else spl, kw
+
+
+@pytest.mark.parametrize("classifier", ["tree", "radix"])
+@pytest.mark.parametrize("case", LEVEL_EDGE_CASES)
+def test_level_fused64_kernel_edges(dev, case, classifier):
+    """K1's and K1r's 64-bit form bit for bit its plain twin at the edges of
+    its CTA shape (one warp per 256 positions) and of the classifier."""
+    keys, spl, kw = _level_edge64(dev, case, classifier == "radix")
+    name = ("level_fused_radix" if classifier == "radix" else "level_fused") + "64"
+    before = kernels.launch_counts()[name]
+    _equal(lf.level_fused(keys, spl, **kw), lf.level_fused_plain(keys, spl, **kw))
+    assert kernels.launch_counts()[name] == before + 1
+
+
+@pytest.mark.parametrize("consumed", [0, 7, 57, 60])
+def test_level_fused_radix64_kernel_shifts(dev, consumed):
+    """K1r's 64-bit digit at level 1, level 2 and shifts clamped at 0."""
+    g = torch.Generator(device=dev).manual_seed(consumed)
+    keys = torch.randint(-2**63, 2**63 - 1, (70_000,), generator=g, device=dev,
+                         dtype=torch.int64)
+    keys[::97] = torch.iinfo(torch.int64).max
+    kw = dict(k=128, n_real=65_537, classifier="radix", consumed_bits=consumed)
+    _equal(lf.level_fused(keys, **kw), lf.level_fused_plain(keys, **kw))
+
+
+@pytest.mark.parametrize("classifier", ["tree", "radix"])
+@pytest.mark.parametrize("case", ["tile MAX_TILE", "tile 33", "largest k", "all pads"])
+def test_level_fused_batched64_kernel_edges(dev, case, classifier):
+    keys, spl, kw = _level_edge64(dev, case, classifier == "radix")
+    rows = torch.stack([keys, keys.flip(0), keys.roll(7)])
+    if spl is not None:
+        spl = torch.stack([spl, spl, sampling.select_splitters(
+            torch.sort(rows[2, :8192]).values, kw["k"])])
+    before = kernels.launch_counts()["level_fused_batched64"]
+    _equal(lf.level_fused_batched(rows, spl, **kw), lf.level_fused_batched_plain(rows, spl, **kw))
+    assert kernels.launch_counts()["level_fused_batched64"] == before + 1
+
+
+def test_level_fused64_launch_does_not_spill(dev):
+    for radix in (False, True):
+        for tile in (lf.TILE, lf.MAX_TILE64):
+            info = lf.launch_info(128, tile, radix, key_bits=64)
+            assert info["local_bytes"] == 0 and info["threads"] == tile // 256 * 32
+
+
+@pytest.mark.parametrize("case", SORT_WINDOWS_CASES[:5])
+@pytest.mark.parametrize("W", [2, 8, 16, 32, 256, 1024, 4096, 8192, 16384])
+def test_sort_windows64_kernel(dev, W, case):
+    """K3's 64-bit form bit for bit its plain twin, keys over the whole
+    int64 range with heavy duplicates and the extremes."""
+    g = torch.Generator(device=dev).manual_seed(W + 64)
+    num_w = {"one window": 1, "2049 windows": 2049}.get(case, 5)
+    b = torch.randint(0, 9, (num_w, W), generator=g, device=dev, dtype=torch.int32)
+    k = torch.randint(-3, 4, (num_w, W), generator=g, device=dev, dtype=torch.int64)
+    k[:, : W // 4] += torch.iinfo(torch.int64).max - 3
+    k[:, W // 4: W // 2] = torch.iinfo(torch.int64).min + (k[:, W // 4: W // 2] + 3)
+    if case == "equal keys":
+        b, k = torch.zeros_like(b), torch.full_like(k, -5)
+    elif case != "any ids":
+        b = torch.sort(b, dim=1).values
+    before = kernels.launch_counts()["sort_windows64"]
+    _equal(bitonic.sort_windows(b, k, nb=9), bitonic.sort_windows_plain(b, k, nb=9))
+    assert kernels.launch_counts()["sort_windows64"] == before + 1
+
+
+ALL_DTYPES = [torch.int8, torch.uint8, torch.int16, torch.uint16, torch.float16, torch.bfloat16,
+              torch.int32, torch.uint32, torch.float32, torch.int64, torch.uint64, torch.float64]
+
+
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+def test_every_key_dtype_on_the_card_matches_the_cpu(dev, dtype):
+    """``ops.sort``, ``argsort``, ``topk`` and ``batched_sort`` on the card
+    equal the plain twins' on the CPU, keys compared through integer
+    views, NaN of both signs and the extremes included; 64-bit keys run
+    the 64-bit kernels."""
+    bits = ops.keyspace.key_bits(dtype)
+    signed = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}[bits]
+    rng = np.random.default_rng(bits)
+    raw = rng.integers(-2**63, 2**63 - 1, 300_000, dtype=np.int64, endpoint=True)
+    x = torch.as_tensor(raw).to(signed) if bits < 64 else torch.as_tensor(raw)
+    x = x.view(dtype)
+    if dtype.is_floating_point:
+        x[::31] = float("nan")
+        x[1::37] = -0.0
+    wide = bits == 64
+    before = dict(kernels.launch_counts())
+    for classifier in ("tree", "radix"):
+        got = ops.argsort(x, classifier=classifier).cpu()
+        assert torch.equal(got, ops.argsort(x, classifier=classifier, device="cpu"))
+        assert torch.equal(ops.sort(x.to(dev), classifier=classifier).cpu().view(signed),
+                           ops.sort(x, classifier=classifier, device="cpu").view(signed))
+    v, i = ops.topk(x.to(dev), 1024)
+    wv, wi = ops.topk(x, 1024, device="cpu")
+    assert torch.equal(v.cpu().view(signed), wv.view(signed)) and torch.equal(i.cpu(), wi)
+    rows = x[: 4 * 65536].reshape(4, 65536)
+    assert torch.equal(ops.batched_sort(rows.to(dev)).cpu().view(signed),
+                       ops.batched_sort(rows, device="cpu").view(signed))
+    after = kernels.launch_counts()
+    for name in ("level_fused", "level_fused_radix", "level_fused_batched", "sort_windows"):
+        assert after[name + ("64" if wide else "")] > before[name + ("64" if wide else "")]

@@ -1,0 +1,411 @@
+"""Parity of the port's sort ops with the reference's on every key dtype.
+
+The keys of 32 bits or fewer (int8, uint8, int16, uint16, float16,
+bfloat16, uint32; float32 and int32 have their own files) run in this
+process: ``sort``, ``argsort``, ``topk``, ``bottomk``, the ``batched_*``
+ops, ``segmented_sort``, ``group_by`` and ``unique``, with both
+classifiers, at n = 3000 and ``SortConfig(base_case=512, kmax=8,
+tile=256)``, so that two levels and the robustness fallback run.  Level 1's
+radix bucket ids of the 8- and 16-bit keys equal the reference's
+``classify.radix`` ids.  The 64-bit keys (int64, uint64, float64) need
+jax's x64 mode from startup, so they run in one child process (the
+reference's idiom, ``tests/test_classify.py``): the same ops, and the
+64-bit forms' plain twins of K1, K1r, K4 ``level_fused_batched`` and K3
+against the reference's Pallas kernels in interpret mode and its jnp
+oracle.
+
+Inputs are made with numpy from a seed, with NaN of both signs, signed
+zeros, infinities and the integer extremes.  Every comparison is exact,
+through integer views (``assert_array_equal`` on floats would call any two
+NaNs equal).
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro import ops as ref_ops
+from repro.classify.radix import radix_bucket_ids as ref_radix_bucket_ids
+from repro.core.ips4o import SortConfig as RefConfig
+from repro_torch import ops
+from repro_torch.core import ips4o
+from repro_torch.kernels import level_fused as lf
+
+N = 3000
+SMALL = dict(base_case=512, kmax=8, tile=256)
+REF_CFG = RefConfig(**SMALL)
+CFG = ips4o.config_from_reference(dataclasses.asdict(REF_CFG))
+CPU = dict(device="cpu")
+CLASSIFIERS = ("tree", "radix")
+# numpy dtype (bfloat16 from ml_dtypes), torch dtype, the unsigned view
+DTYPES = {
+    "int8": (np.int8, torch.int8, np.uint8),
+    "uint8": (np.uint8, torch.uint8, np.uint8),
+    "int16": (np.int16, torch.int16, np.uint16),
+    "uint16": (np.uint16, torch.uint16, np.uint16),
+    "float16": (np.float16, torch.float16, np.uint16),
+    "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16, np.uint16),
+    "uint32": (np.uint32, torch.uint32, np.uint32),
+}
+
+
+def make_keys(name: str, n: int = N, seed: int = 0) -> np.ndarray:
+    """Keys of dtype ``name`` from a seed: heavy duplicates, the extremes,
+    and for floats NaN of both signs, signed zeros and infinities."""
+    np_dtype, _, udtype = DTYPES[name]
+    rng = np.random.default_rng(seed)
+    bits = np.dtype(udtype).itemsize * 8
+    raw = rng.integers(0, 1 << bits, n, dtype=np.uint64).astype(udtype)
+    raw[rng.random(n) < 0.3] = raw[0]  # a heavy duplicate
+    x = raw.view(np_dtype).copy()
+    if np.dtype(np_dtype).kind == "f" or np_dtype is ml_dtypes.bfloat16:
+        x[::97] = np.nan
+        x[1::89] = -np.array(np.nan, np_dtype)
+        x[2::83] = 0.0
+        x[3::79] = -np.array(0.0, np_dtype)
+        x[4::73] = np.inf
+        x[5::71] = -np.inf
+    else:
+        info = np.iinfo(np_dtype)
+        x[::97] = info.max
+        x[1::89] = info.min
+    return x
+
+
+def to_torch(x: np.ndarray, name: str) -> torch.Tensor:
+    _, torch_dtype, udtype = DTYPES[name]
+    return torch.from_numpy(x.view(udtype).copy()).view(torch_dtype)
+
+
+def ubits(x, name: str) -> np.ndarray:
+    """The bits of a port (torch) or reference (jax) key array."""
+    udtype = DTYPES[name][2]
+    if isinstance(x, torch.Tensor):
+        signed = {np.uint8: torch.uint8, np.uint16: torch.int16, np.uint32: torch.int32}[udtype]
+        return x.view(signed).numpy().view(udtype)
+    return np.asarray(x).view(udtype)
+
+
+@pytest.mark.parametrize("clf", CLASSIFIERS)
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_sort_argsort_and_payload(name, clf):
+    x = make_keys(name, seed=1)
+    t, j = to_torch(x, name), jnp.asarray(x)
+    np.testing.assert_array_equal(ubits(ops.sort(t, cfg=CFG, classifier=clf, **CPU), name),
+                                  ubits(ref_ops.sort(j, cfg=REF_CFG, classifier=clf), name))
+    order = ops.argsort(t, cfg=CFG, classifier=clf, **CPU).numpy()
+    np.testing.assert_array_equal(order, np.asarray(ref_ops.argsort(j, cfg=REF_CFG,
+                                                                    classifier=clf)))
+    np.testing.assert_array_equal(order, np.argsort(ops.keyspace.encode_np(x), kind="stable"))
+    # a Pair-like payload of one uint64 word a key moves with it, bit for bit
+    v = np.random.default_rng(2).integers(0, 1 << 62, (N, 1), dtype=np.uint64)
+    keys, vals = ops.sort(t, torch.from_numpy(v), cfg=CFG, classifier=clf, **CPU)
+    assert vals.dtype == torch.uint64
+    np.testing.assert_array_equal(vals.view(torch.int64).numpy().view(np.uint64), v[order])
+
+
+@pytest.mark.parametrize("clf", CLASSIFIERS)
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_topk_bottomk(name, clf):
+    x = make_keys(name, seed=3)
+    t, j = to_torch(x, name), jnp.asarray(x)
+    for kk in (1, 700):
+        for got, want in ((ops.topk(t, kk, cfg=CFG, classifier=clf, **CPU),
+                           ref_ops.topk(j, kk, cfg=REF_CFG, classifier=clf)),
+                          (ops.bottomk(t, kk, cfg=CFG, classifier=clf, **CPU),
+                           ref_ops.bottomk(j, kk, cfg=REF_CFG, classifier=clf))):
+            np.testing.assert_array_equal(ubits(got[0], name), ubits(want[0], name))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("clf", CLASSIFIERS)
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_batched_ops(name, clf):
+    x = make_keys(name, n=3 * 1000, seed=4).reshape(3, 1000)
+    t, j = to_torch(x, name), jnp.asarray(x)
+    kw, ref_kw = dict(cfg=CFG, classifier=clf, **CPU), dict(cfg=REF_CFG, classifier=clf)
+    np.testing.assert_array_equal(ubits(ops.batched_sort(t, **kw), name),
+                                  ubits(ref_ops.batched_sort(j, **ref_kw), name))
+    np.testing.assert_array_equal(ops.batched_argsort(t, **kw).numpy(),
+                                  np.asarray(ref_ops.batched_argsort(j, **ref_kw)))
+    for got, want in ((ops.batched_topk(t, 300, **kw), ref_ops.batched_topk(j, 300, **ref_kw)),
+                      (ops.batched_bottomk(t, 300, **kw),
+                       ref_ops.batched_bottomk(j, 300, **ref_kw))):
+        np.testing.assert_array_equal(ubits(got[0], name), ubits(want[0], name))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("clf", CLASSIFIERS)
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_segmented_group_by_unique(name, clf):
+    """``segmented_sort`` takes the classifier and runs the tree, as the
+    reference does; ``group_by`` and ``unique`` sort with the given
+    classifier."""
+    x = make_keys(name, seed=5)
+    t, j = to_torch(x, name), jnp.asarray(x)
+    cfg = dataclasses.replace(CFG, classifier=clf)
+    ref_cfg = dataclasses.replace(REF_CFG, classifier=clf)
+    off = np.asarray([0, 5, 5, 1200, 1201, 2500, N], np.int32)
+    v = np.arange(N, dtype=np.int32)
+    got_k, got_v = ops.segmented_sort(t, torch.from_numpy(off), 6, torch.from_numpy(v), cfg=CFG,
+                                      classifier=clf, **CPU)
+    want_k, want_v = ref_ops.segmented_sort(j, jnp.asarray(off), 6, jnp.asarray(v), cfg=REF_CFG,
+                                            classifier=clf)
+    np.testing.assert_array_equal(ubits(got_k, name), ubits(want_k, name))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    got, want = ops.group_by(t, torch.from_numpy(v), cfg=cfg, **CPU), \
+        ref_ops.group_by(j, jnp.asarray(v), cfg=ref_cfg)
+    np.testing.assert_array_equal(ubits(got.keys, name), ubits(want.keys, name))
+    for field in ("group_ids", "counts", "perm", "values"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)), err_msg=field)
+    assert int(got.num_groups) == int(want.num_groups)
+    vals, counts, num = ops.unique(t, cfg=cfg, **CPU)
+    want_vals, want_counts, want_num = ref_ops.unique(j, cfg=ref_cfg)
+    # the whole padded outputs: the padding decodes the reference's zero code
+    np.testing.assert_array_equal(ubits(vals, name), ubits(want_vals, name))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
+    assert int(num) == int(want_num)
+
+
+@pytest.mark.parametrize("k", [2, 8, 128])
+@pytest.mark.parametrize("name", ["int8", "uint8", "int16", "uint16", "float16", "bfloat16"])
+def test_level1_radix_ids_of_narrow_keys(name, k):
+    """The left-aligned int32 codes give level 1 the reference's radix
+    digits: the port's K1r ids (its plain twin) equal the reference's
+    ``classify.radix`` ids on the reference's narrow codes, the equality
+    bucket of the all-ones code (the dtype's max or its NaN class)
+    included."""
+    x = make_keys(name, seed=k)
+    enc = ops.keyspace.encode(to_torch(x, name))
+    bucket, _, _ = lf._level_tiles_plain(enc[None], None, k, N, 256)
+    want = ref_radix_bucket_ids(jnp.asarray(ops.keyspace.encode_np(x)), k, 0)
+    np.testing.assert_array_equal(bucket[0].numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# the entry points outside this slice refuse the new dtypes by name
+
+
+def test_stream_refuses_the_new_dtypes():
+    """The stream's merge K5 compares int32 codes: every stream entry point
+    and ``merge`` refuse other keys before any kernel sees them."""
+    from repro_torch import stream
+
+    x = np.arange(10, dtype=np.float64)
+    for call in (lambda: stream.external_sort(x, chunk_size=4, **CPU),
+                 lambda: stream.external_argsort(x.astype(np.int16), chunk_size=4, **CPU),
+                 lambda: stream.streaming_topk(x.astype(np.uint8), 3, chunk_size=4, **CPU),
+                 lambda: stream.streaming_group_by(x.astype(np.int64), chunk_size=4, **CPU),
+                 lambda: stream.merge([torch.arange(3), torch.arange(3)])):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+def test_k7_and_s3_sort_refuse_the_new_dtypes():
+    """K7's entry points and ``s3_sort`` take raw float32, int32 and
+    bfloat16 keys."""
+    from repro_torch.core.s3sort import s3_sort
+    from repro_torch.kernels import classify
+
+    keys = torch.zeros(1024, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        classify.classify_histogram(keys, torch.zeros(7, dtype=torch.float64), k=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        classify.classify_histogram_batched(keys.view(2, 512), torch.zeros((2, 7),
+                                            dtype=torch.float64), k=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        s3_sort(torch.arange(100, dtype=torch.int64))
+
+
+def test_block_path_refuses_the_new_dtypes():
+    """``partition_blocks`` and ``sort_blocks`` take float32 and int32."""
+    from repro_torch.core.partition import partition_blocks
+    from repro_torch.kernels.ops import sort_blocks
+
+    bb = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        partition_blocks({"k": torch.zeros(256, dtype=torch.int64)}, bb, 1, 128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sort_blocks(torch.zeros(256, dtype=torch.float64), bb, k=1, block_elems=128)
+
+
+def test_paper_presets_match_the_reference():
+    from repro.configs import ips4o_paper as ref_paper
+    from repro_torch.configs import ips4o_paper
+
+    assert ips4o_paper.PAPER_CPU == ref_paper.PAPER_CPU
+    for name in ("TPU_DEFAULT", "TPU_BIG_PAYLOAD"):
+        assert getattr(ips4o_paper, name) == ips4o.config_from_reference(
+            dataclasses.asdict(getattr(ref_paper, name)))
+
+
+X64_CHILD = r"""
+import dataclasses, sys
+import jax, jax.numpy as jnp, numpy as np, torch
+from repro import ops as ref_ops
+from repro.core.ips4o import SortConfig as RefConfig
+from repro.kernels.level_fused import level_fused as ref_level_fused
+from repro.kernels.level_fused import level_fused_batched as ref_level_fused_batched
+from repro.kernels.ref import bitonic_sort_windows_ref
+from repro_torch import ops
+from repro_torch.core import ips4o
+from repro_torch.kernels import bitonic, level_fused as lf
+
+assert jax.config.jax_enable_x64
+N = 3000
+REF_CFG = RefConfig(base_case=512, kmax=8, tile=256)
+CFG = ips4o.config_from_reference(dataclasses.asdict(REF_CFG))
+CPU = dict(device="cpu")
+I64 = np.iinfo(np.int64)
+
+
+def keys(name, n, seed):
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(I64.min, I64.max, n, dtype=np.int64, endpoint=True)
+    raw[rng.random(n) < 0.3] = raw[0]
+    if name == "float64":
+        x = raw.view(np.float64).copy()
+        normal = rng.random(n) < 0.5
+        x[normal] = rng.standard_normal(int(normal.sum()))
+        x[::97] = np.nan; x[1::89] = -np.nan; x[2::83] = 0.0; x[3::79] = -0.0
+        x[4::73] = np.inf; x[5::71] = -np.inf
+        return x
+    raw[::97] = I64.max; raw[1::89] = I64.min
+    return raw.view(np.uint64).copy() if name == "uint64" else raw
+
+
+def tt(x):
+    return torch.from_numpy(x.view(np.int64).copy()).view(
+        {np.dtype(np.float64): torch.float64, np.dtype(np.uint64): torch.uint64,
+         np.dtype(np.int64): torch.int64}[x.dtype])
+
+
+def ub(x):
+    return (x.view(torch.int64).numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            ).view(np.uint64)
+
+
+def eq(a, b, what):
+    np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+for name in ("int64", "uint64", "float64"):
+    x = keys(name, N, 1)
+    t, j = tt(x), jnp.asarray(x)
+    for clf in ("tree", "radix"):
+        kw, rkw = dict(cfg=CFG, classifier=clf, **CPU), dict(cfg=REF_CFG, classifier=clf)
+        eq(ub(ops.sort(t, **kw)), ub(ref_ops.sort(j, **rkw)), f"{name} {clf} sort")
+        order = ops.argsort(t, **kw).numpy()
+        eq(order, np.asarray(ref_ops.argsort(j, **rkw)), f"{name} {clf} argsort")
+        eq(order, np.argsort(ops.keyspace.encode_np(x), kind="stable"), f"{name} oracle")
+        for kk in (1, 700):
+            for got, want in ((ops.topk(t, kk, **kw), ref_ops.topk(j, kk, **rkw)),
+                              (ops.bottomk(t, kk, **kw), ref_ops.bottomk(j, kk, **rkw))):
+                eq(ub(got[0]), ub(want[0]), f"{name} {clf} top/bottom-k keys")
+                eq(got[1].numpy(), np.asarray(want[1]), f"{name} {clf} top/bottom-k idx")
+        xb, jb = t[:2400].reshape(3, 800), j[:2400].reshape(3, 800)
+        eq(ub(ops.batched_sort(xb, **kw)), ub(ref_ops.batched_sort(jb, **rkw)), "batched_sort")
+        eq(ops.batched_argsort(xb, **kw).numpy(), np.asarray(ref_ops.batched_argsort(jb, **rkw)),
+           "batched_argsort")
+        for got, want in ((ops.batched_topk(xb, 300, **kw), ref_ops.batched_topk(jb, 300, **rkw)),
+                          (ops.batched_bottomk(xb, 300, **kw),
+                           ref_ops.batched_bottomk(jb, 300, **rkw))):
+            eq(ub(got[0]), ub(want[0]), f"{name} {clf} batched top/bottom-k keys")
+            eq(got[1].numpy(), np.asarray(want[1]), f"{name} {clf} batched top/bottom-k idx")
+    # the paper's Quartet: three uint64 payload words a key
+    v = np.random.default_rng(2).integers(0, 1 << 62, (N, 3), dtype=np.uint64)
+    _, vals = ops.sort(t, torch.from_numpy(v), cfg=CFG, **CPU)
+    eq(ub(vals), v[np.argsort(ops.keyspace.encode_np(x), kind="stable")], f"{name} payload")
+    off = np.asarray([0, 5, 5, 1200, 1201, 2500, N], np.int32)
+    idx = np.arange(N, dtype=np.int32)
+    for clf in ("tree", "radix"):
+        cfg = dataclasses.replace(CFG, classifier=clf)
+        ref_cfg = dataclasses.replace(REF_CFG, classifier=clf)
+        gk, gv = ops.segmented_sort(t, torch.from_numpy(off), 6, torch.from_numpy(idx), cfg=CFG,
+                                    classifier=clf, **CPU)
+        wk, wv = ref_ops.segmented_sort(j, jnp.asarray(off), 6, jnp.asarray(idx), cfg=REF_CFG,
+                                        classifier=clf)
+        eq(ub(gk), ub(wk), f"{name} {clf} segmented keys")
+        eq(gv.numpy(), np.asarray(wv), f"{name} {clf} segmented values")
+        g, w = ops.group_by(t, torch.from_numpy(idx), cfg=cfg, **CPU), ref_ops.group_by(
+            j, jnp.asarray(idx), cfg=ref_cfg)
+        eq(ub(g.keys), ub(w.keys), f"{name} {clf} group_by keys")
+        for field in ("group_ids", "counts", "perm", "values"):
+            eq(getattr(g, field).numpy(), np.asarray(getattr(w, field)),
+               f"{name} {clf} group_by {field}")
+        assert int(g.num_groups) == int(w.num_groups)
+        u, c, m = ops.unique(t, cfg=cfg, **CPU)
+        wu, wc, wm = ref_ops.unique(j, cfg=ref_cfg)
+        eq(ub(u), ub(wu), f"{name} {clf} unique values")
+        eq(c.numpy(), np.asarray(wc), f"{name} {clf} unique counts")
+        assert int(m) == int(wm)
+print("ops OK")
+
+# the 64-bit forms' plain twins: K1 and K1r (and K4 level_fused_batched per
+# row) against the reference's Pallas kernel in interpret mode on its uint64
+# codes, K3 against its jnp oracle
+SIGN = np.uint64(1 << 63)
+k, n, n_real, tile = 16, 4096, 4000, 1024
+for name in ("float64", "int64"):
+    x = keys(name, n, 7)
+    code = ops.keyspace.encode(tt(x))
+    u = ops.keyspace.reference_code_np(code.numpy(), tt(x).dtype)
+    spl = torch.sort(code[torch.randperm(n, generator=torch.Generator().manual_seed(3))[:64]]
+                     ).values[torch.arange(1, k) * 64 // k]
+    for clf, s, consumed in (("tree", spl, 0), ("radix", None, 0), ("radix", None, 5)):
+        dest, off = lf.level_fused_plain(code, s, k=k, n_real=n_real, tile=tile, classifier=clf,
+                                         consumed_bits=consumed)
+        ref_spl = None if s is None else jnp.asarray(ops.keyspace.reference_code_np(
+            s.numpy(), tt(x).dtype))
+        want_dest, want_off = ref_level_fused(jnp.asarray(u), ref_spl, k=k, n_real=n_real,
+                                              classifier=clf, rows=tile // 128, interpret=True,
+                                              consumed_bits=consumed)
+        eq(dest.numpy(), np.asarray(want_dest), f"K1 64 {name} {clf} dest")
+        eq(off.numpy(), np.asarray(want_off), f"K1 64 {name} {clf} offsets")
+    rows = code.reshape(4, n // 4)
+    urows = u.reshape(4, n // 4)
+    spl_b = torch.sort(rows[:, :: (n // 4) // 32], dim=1).values[:, torch.arange(1, k) * 32 // k]
+    for clf, s in (("tree", spl_b), ("radix", None)):
+        dest, off = lf.level_fused_batched_plain(rows, s, k=k, n_real=n // 4 - 17, tile=256,
+                                                 classifier=clf)
+        ref_s = None if s is None else jnp.asarray(ops.keyspace.reference_code_np(
+            s.numpy(), tt(x).dtype))
+        want_dest, want_off = ref_level_fused_batched(jnp.asarray(urows), ref_s, k=k,
+                                                      n_real=n // 4 - 17, classifier=clf,
+                                                      rows=2, interpret=True)
+        eq(dest.numpy(), np.asarray(want_dest), f"K4 64 {name} {clf} dest")
+        eq(off.numpy(), np.asarray(want_off), f"K4 64 {name} {clf} offsets")
+for W in (8, 256, 16384):
+    rng = np.random.default_rng(W)
+    b = np.sort(rng.integers(0, 9, (2, W)), axis=1).astype(np.int32)
+    kk = rng.integers(-3, 4, (2, W)).astype(np.int64)
+    kk[0, : W // 2] += I64.max - 3
+    kk[1, :: 7] = I64.min
+    idx = np.tile(np.arange(W, dtype=np.int32), (2, 1))
+    perm, bucket_out = bitonic.sort_windows_plain(torch.from_numpy(b), torch.from_numpy(kk), nb=9)
+    want_b, _, want_idx = bitonic_sort_windows_ref(jnp.asarray(b), jnp.asarray(kk),
+                                                   jnp.asarray(idx))
+    eq(perm.numpy(), np.asarray(want_idx), f"K3 64 W={W} perm")
+    eq(bucket_out.numpy(), np.asarray(want_b), f"K3 64 W={W} bucket")
+print("x64 parity OK")
+"""
+
+
+def test_64bit_dtypes_in_an_x64_child():
+    """int64, uint64 and float64 keys: the ops against the reference, and
+    the 64-bit plain twins of K1, K1r, K4 and K3 against its kernels, in a
+    child process with x64 enabled from startup."""
+    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = (os.path.join(os.path.dirname(__file__), "..", "src") + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", X64_CHILD], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-5000:]
+    assert "ops OK" in proc.stdout and "x64 parity OK" in proc.stdout

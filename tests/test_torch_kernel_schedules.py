@@ -13,7 +13,11 @@ step, so that their schedules are checked where there is no card:
   The replay is held to the reference's stable oracle
   ``bitonic_sort_windows_ref`` bit for bit; every layout's padded slots
   are checked to be a bijection that puts the 16 threads of a half-warp on
-  16 distinct 8-byte bank pairs.
+  16 distinct 8-byte bank pairs.  Its 64-bit form (64-bit keys): each
+  element 12 B in two words compared as (bucket, key, idx) -- the key and
+  (bucket << log2 W | idx) up to W = 8192, the 96-bit number as a high and
+  a low word at 16384 -- at E = 8 (16 from W = 8192), held to the same
+  oracle on the keys' dense ranks (the order is all the oracle sees).
 - K11 ``flash_attention`` in float32 (``csrc/flash_attention.cu``): every
   operand split into big = tf32(x) and small = tf32(x - big) (round to
   nearest, ties away: ``cvt.rna.tf32.f32``), each product taken as small x
@@ -28,7 +32,10 @@ step, so that their schedules are checked where there is no card:
   warp's counter) and offset by
   the exclusive scan over the warps.  Held bit for bit to the reference's
   ``_classify_tile`` and ``_rank_and_hist`` per tile, and through the
-  placement to its ``level_fused`` in interpret mode.
+  placement to its ``level_fused`` in interpret mode.  Its 64-bit form (a
+  warp per 256 positions, K1r's digit taken from the 64-bit code at a
+  shift in [0, 64), the sentinel LLONG_MAX) is held to the reference's
+  uint64 classification in a child process with jax's x64 mode.
 - K5 ``merge_path_perm`` (``csrc/merge_path.cu``): a persistent grid of
   CTAs, each a contiguous run of steps; a CTA's first cut by a warp search
   in device memory (32 probes a step, the first steps on multiples of the
@@ -85,13 +92,14 @@ def _layout(T: int, log_e: int, b: int) -> np.ndarray:
     return (t & ((1 << b) - 1)) | (r << b) | ((t >> b) << (b + log_e))
 
 
-def _check_slots(idx: np.ndarray, log_e: int, W: int) -> None:
+def _check_slots(idx: np.ndarray, log_e: int, W: int, banks: bool = True) -> None:
     """The padded slots idx + idx >> log_e: distinct, below W + T, and
-    within each half-warp of one register on 16 distinct bank pairs."""
+    (``banks``) within each half-warp of one register on 16 distinct bank
+    pairs."""
     slots = idx + (idx >> log_e)
     T = idx.shape[0]
     assert len(np.unique(slots)) == W and slots.max() < W + T
-    if T >= 16:
+    if banks and T >= 16:
         pairs = (slots % 16).reshape(T // 16, 16, -1)
         assert all(len(np.unique(pairs[h, :, r])) == 16
                    for h in range(T // 16) for r in range(pairs.shape[2]))
@@ -105,8 +113,22 @@ def _exchange(x: np.ndarray, r0: int, r1: int, up) -> None:
     x[:, r0], x[:, r1] = np.where(up, lo, hi), np.where(up, hi, lo)
 
 
-def _replay_k3(words: np.ndarray, log_e: int) -> np.ndarray:
-    """K3's network over one window of uint64 words, as the kernel runs it."""
+def _exchange_by(x: np.ndarray, r0: int, r1: int, up, gt) -> None:
+    """``_exchange`` by the comparison ``gt`` over the elements' ids: swap
+    where gt(r0, r1) == up, as the kernel's templated compare-exchange."""
+    a, c = x[:, r0].copy(), x[:, r1].copy()
+    swap = gt(a, c) == up
+    x[:, r0], x[:, r1] = np.where(swap, c, a), np.where(swap, a, c)
+
+
+def _replay_k3(words: np.ndarray, log_e: int, gt=None) -> np.ndarray:
+    """K3's network over one window of uint64 words, as the kernel runs it;
+    with ``gt``, over element ids compared by ``gt`` (the 64-bit form)."""
+    if gt is None:
+        exchange = _exchange
+    else:
+        def exchange(x, r0, r1, up):
+            _exchange_by(x, r0, r1, up, gt)
     W = words.shape[0]
     L = W.bit_length() - 1
     E = 1 << log_e
@@ -118,16 +140,16 @@ def _replay_k3(words: np.ndarray, log_e: int) -> np.ndarray:
             for r in range(E):
                 if not r & (1 << j):
                     up = (t & 1) == 0 if s + 1 == log_e else not (r >> (s + 1)) & 1
-                    _exchange(x, r, r | 1 << j, up)
+                    exchange(x, r, r | 1 << j, up)
     b_cur = 0
     for s in range(log_e, L):
         up = ((t >> (s + 1 - log_e)) & 1) == 0  # index bit s+1: t's bit s+1-e
         k_top = s // log_e
         for k in range(k_top, -1, -1):
             b = s - log_e + 1 if k == k_top else k * log_e
-            window = np.empty(W, np.uint64)  # the exchange through shared memory
+            window = np.empty(W, words.dtype)  # the exchange through shared memory
             src, dst = _layout(T, log_e, b_cur), _layout(T, log_e, b)
-            _check_slots(dst, log_e, W)
+            _check_slots(dst, log_e, W, banks=gt is None)
             if max(b_cur, b) <= 5:  # the kernel's warp barrier: words stay in a warp
                 owner = np.empty(W, np.int64)
                 owner[src] = np.arange(T)[:, None]
@@ -138,8 +160,8 @@ def _replay_k3(words: np.ndarray, log_e: int) -> np.ndarray:
             for lj in range(log_e - 1, (k * log_e - b if k == k_top else 0) - 1, -1):
                 for r in range(E):
                     if not r & (1 << lj):
-                        _exchange(x, r, r | 1 << lj, up)
-    out = np.empty(W, np.uint64)
+                        exchange(x, r, r | 1 << lj, up)
+    out = np.empty(W, words.dtype)
     out[_layout(T, log_e, 0)] = x
     return out
 
@@ -170,6 +192,60 @@ def test_k3_register_schedule_matches_the_reference(W, log_e):
                                       np.asarray(want_idx[w]))
         np.testing.assert_array_equal((out >> np.uint64(32 + L)).astype(np.int32),
                                       np.asarray(want_b[w]))
+
+
+@pytest.mark.parametrize("W,log_e", [(16, 3), (256, 3), (4096, 3), (8192, 4), (16384, 4),
+                                     (8, 3), (2, 1)])
+def test_k3_64bit_word_layout_matches_the_reference(W, log_e):
+    """The 64-bit form over the same network at its E (8 up to W = 4096, 16
+    above): up to W = 8192 each element a 64-bit key and a 32-bit word
+    (bucket << log2 W | idx), compared as ``Packed64::gt`` does (same
+    bucket: key, then the word; else the word); at W = 16384 the 96-bit
+    number (bucket, key, idx) as a high and a low word, compared as
+    ``Packed96::gt`` does.  Held bit for bit to the reference's stable
+    oracle on the keys' dense ranks, which order the window alike; the
+    keys span the int64 range, its extremes included, with heavy
+    duplicates."""
+    rng = np.random.default_rng(W + 64)
+    L = W.bit_length() - 1
+    mask32 = np.uint64(0xFFFFFFFF)
+    for w in range(2):
+        b = rng.integers(0, 9, W).astype(np.int32)
+        key = rng.integers(-3, 4, W).astype(np.int64)
+        key[: W // 4] += np.iinfo(np.int64).max - 3  # above every 32-bit value
+        key[W // 4: W // 2] = np.iinfo(np.int64).min + (key[W // 4: W // 2] + 3)
+        if w:
+            key = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, W,
+                               dtype=np.int64, endpoint=True)
+        if W < 16384:  # Packed64
+            word = (b.astype(np.uint32) << np.uint32(L)) | np.arange(W, dtype=np.uint32)
+
+            def gt(ia, ib):
+                same = ((word[ia] ^ word[ib]) >> np.uint32(L)) == 0
+                return np.where(same & (key[ia] != key[ib]), key[ia] > key[ib],
+                                word[ia] > word[ib])
+
+            def idx_bucket(x):
+                return word[x] & np.uint32(W - 1), word[x] >> np.uint32(L)
+        else:  # Packed96
+            u = key.view(np.uint64) ^ np.uint64(1 << 63)
+            hi = (b.astype(np.uint64) << np.uint64(32 + L)) | (u >> np.uint64(32 - L))
+            lo = (((u & mask32) << np.uint64(L)) & mask32) | np.arange(W, dtype=np.uint64)
+
+            def gt(ia, ib):
+                return (hi[ia] > hi[ib]) | ((hi[ia] == hi[ib]) & (lo[ia] > lo[ib]))
+
+            def idx_bucket(x):
+                return lo[x] & np.uint64(W - 1), hi[x] >> np.uint64(32 + L)
+
+        out = _replay_k3(np.arange(W, dtype=np.int64), log_e, gt)
+        rank = np.unique(key, return_inverse=True)[1].astype(np.int32)
+        want_b, _, want_idx = bitonic_sort_windows_ref(
+            jnp.asarray(b[None]), jnp.asarray(rank[None]),
+            jnp.asarray(np.arange(W, dtype=np.int32)[None]))
+        got_idx, got_b = idx_bucket(out)
+        np.testing.assert_array_equal(got_idx.astype(np.int32), np.asarray(want_idx[0]))
+        np.testing.assert_array_equal(got_b.astype(np.int32), np.asarray(want_b[0]))
 
 
 # ---- K11 float32 ------------------------------------------------------------
@@ -259,12 +335,18 @@ def _eytzinger(upper: np.ndarray, k: int) -> np.ndarray:
 def _replay_k1_tile(keys, upper, k, pad_from, shift):
     """K1's CTA over one tile of signed keys: (bucket, rank, hist).  Tree
     mode when ``upper`` is given, else radix at ``shift``; positions >=
-    ``pad_from`` are pads."""
+    ``pad_from`` are pads.  int64 keys take the 64-bit form: a warp per 256
+    positions, the digit of the 64-bit code, the sentinel LLONG_MAX."""
     length = keys.shape[0]
-    warps = max(1, -(-length // 512)) if length else 1
+    span = 256 if keys.dtype == np.int64 else 512
+    warps = max(1, -(-length // span)) if length else 1
     nb = 2 * k + 1
     key = keys.astype(np.int64)
-    if upper is None:
+    if upper is None and keys.dtype == np.int64:
+        code = keys.view(np.uint64) ^ np.uint64(1 << 63)
+        bits = ((code >> np.uint64(shift)).astype(np.uint32) & np.uint32(k - 1)).astype(np.int64)
+        ids = 2 * bits + (key == np.iinfo(np.int64).max)
+    elif upper is None:
         bits = ((keys.view(np.uint32) ^ SIGN).astype(np.int64) >> shift) & (k - 1)
         ids = 2 * bits + (key == INT_MAX)
     else:
@@ -275,14 +357,14 @@ def _replay_k1_tile(keys, upper, k, pad_from, shift):
         j -= k
         ids = 2 * j + (key == upper[j])
     ids[np.arange(length) >= pad_from] = 2 * k
-    return ids, *_replay_k1_ranks(ids, nb, warps)
+    return ids, *_replay_k1_ranks(ids, nb, warps, span)
 
 
-def _replay_k1_ranks(ids, nb, warps):
+def _replay_k1_ranks(ids, nb, warps, max_span=512):
     """The warps' spans of 32-wide chunks, the ranks in registers, the scan."""
     length = ids.shape[0]
     span = ((-(-length // warps)) + 31) // 32 * 32
-    assert span <= 512
+    assert span <= max_span
     cnt = np.zeros((warps, nb), np.int64)
     rank = np.zeros(length, np.int64)
     warp_of = np.zeros(length, np.int64)
@@ -376,6 +458,78 @@ def test_k1_replay_places_like_the_reference_kernel(classifier):
                                           interpret=True)
     np.testing.assert_array_equal(dest[0].numpy(), np.asarray(want_dest))
     np.testing.assert_array_equal(offsets[0].numpy(), np.asarray(want_off))
+
+
+K1_64_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import jax, jax.numpy as jnp, numpy as np
+import test_torch_kernel_schedules as S
+from repro_torch.classify import radix_shift
+
+assert jax.config.jax_enable_x64
+I64 = np.iinfo(np.int64)
+U64_SIGN = np.uint64(1 << 63)
+for classifier in ("tree", "radix"):
+    for k, n, n_real, tile in ((128, 20000, 19000, 4096), (16, 9000, 8990, 8192),
+                               (2, 600, 0, 512), (16, 1000, 990, 33)):
+        rng = np.random.default_rng(k + n + tile)
+        keys = rng.integers(I64.min, I64.max, n, dtype=np.int64, endpoint=True)
+        keys[rng.random(n) < 0.3] = keys[0]
+        keys[rng.random(n) < 0.05] = I64.max
+        keys[rng.random(n) < 0.02] = I64.min
+        spl = np.sort(rng.choice(keys[keys != I64.max], k - 1))
+        on_splitter = rng.random(n) < 0.3
+        keys[on_splitter] = rng.choice(spl, int(on_splitter.sum()))
+        u = keys.view(np.uint64) ^ U64_SIGN
+        rows = -(-n // 128)
+        padded = np.full(rows * 128, np.iinfo(np.uint64).max, np.uint64)
+        padded[:n] = u
+        for consumed in ((0, 5, 60) if classifier == "radix" else (0,)):
+            if classifier == "radix":
+                want = S.ref_radix_bucket_ids(jnp.asarray(padded), k, consumed)
+                upper = None
+            else:
+                ref_upper = np.append(spl.view(np.uint64) ^ U64_SIGN, np.iinfo(np.uint64).max)
+                want = S.ref_classify_tile(jnp.asarray(padded.reshape(rows, 128)),
+                                           jnp.asarray(ref_upper.reshape(1, k)), k=k,
+                                           classifier="tree", consumed=0)
+                upper = np.append(spl, I64.max)
+            want = np.where(np.arange(n) >= n_real, 2 * k, np.asarray(want).reshape(-1)[:n])
+            nb = 2 * k + 1
+            for col in range(0, n, tile):
+                length = min(tile, n - col)
+                ids, rank, hist = S._replay_k1_tile(keys[col:col + length], upper, k,
+                                                    n_real - col, radix_shift(k, consumed, 64))
+                np.testing.assert_array_equal(ids, want[col:col + length])
+                r = -(-length // 128)
+                pad_ids = np.full(r * 128, nb, np.int32)
+                pad_ids[:length] = want[col:col + length]
+                ref_rank, ref_hist = S.ref_rank_and_hist(jnp.asarray(pad_ids.reshape(r, 128)),
+                                                         nb, r)
+                np.testing.assert_array_equal(rank, np.asarray(ref_rank).reshape(-1)[:length])
+                np.testing.assert_array_equal(hist, np.asarray(ref_hist).reshape(-1))
+print("K1 64 replay OK")
+"""
+
+
+def test_k1_64bit_replay_matches_the_reference_in_x64():
+    """K1's and K1r's 64-bit form replayed per tile (a warp per 256
+    positions; the digit of the 64-bit code at shifts in [0, 64), level 2's
+    clamped one included; the sentinel LLONG_MAX), against the reference's
+    classification of the uint64 codes and its ``_rank_and_hist``, in a
+    child process with x64 enabled from startup."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.path.join(here, "..", "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", K1_64_CHILD, here], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-5000:]
+    assert "K1 64 replay OK" in proc.stdout
 
 
 def test_k1_eytzinger_descent_counts_the_splitters_below():

@@ -91,7 +91,7 @@ def test_distributions_copy_matches_reference():
 
 def test_entry_points_refuse_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.sort(torch.zeros(10, dtype=torch.float64), device="cpu")
+        ops.sort(torch.zeros(10, dtype=torch.complex64), device="cpu")
     with pytest.raises(ValueError, match="batched_argsort"):
         ops.argsort(torch.zeros((2, 10)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
