@@ -38,7 +38,9 @@ for the attention kernels and the serve path:
    and +-inf sprinkled in) and int64 TwoDup, K1r on int64 and uint64 over
    the whole range (level 1 and a level-2 shift), K4 ``level_fused_batched``
    at (64, 2^18) in both modes, K3 on 2048 windows of 8192, 65,536 of 256
-   and 1024 of 16384, heavy duplicates at the int64 extremes.
+   and 1024 of 16384, heavy duplicates at the int64 extremes, and at every
+   W from 2 to 16384 on 2049 windows (a partial last CTA), descending
+   windows among them.
    K9 is not stable, so each of its outputs is held to its plain twin (the
    replay of the reference's moves) by intact blocks and, per bucket, the
    blocks sorted by their tag; the twin is held to ``permute_blocks_ref``
@@ -131,7 +133,8 @@ for the attention kernels and the serve path:
    beside ``index_select``, and its teams (chains in flight);
    The 64-bit forms at the 64-bit paths' shapes (K1 on 2^24 doubles, K1r
    on 2^24 uint64, K4 on (64, 2^18) float64, K3 on 2048 windows of 8192),
-   K1's 64-bit launch, ``ops.sort`` of 2^24 and 2^27 doubles and of 2^24
+   K1's and K3's 64-bit launches (K3's at every W; a spill fails),
+   ``ops.sort`` of 2^24 and 2^27 doubles and of 2^24
    int64 beside ``torch.sort`` of the same keys, a profile of one double
    sort and its fallback share;
 5. a ``{"kernels": [...]}`` JSON line (22 entries: the four 64-bit forms
@@ -141,9 +144,10 @@ for the attention kernels and the serve path:
 
     python3 chip_smoke.py --parent DIR
 
-times K1 (tree, radix, batched), the 32-bit K3 and K5 of the CUDA sources
-under DIR (an earlier commit, unpacked by ``git archive``) beside this
-tree's, in turns,
+times K1 (tree, radix, batched, with 32- and 64-bit keys), the 32-bit K3,
+K3's 64-bit form (at every W from 16 to 16384 on 2^24 keys) and K5 of the
+CUDA sources under DIR (an earlier commit, unpacked by ``git archive``)
+beside this tree's, in turns,
 and checks that both give the same outputs; and K2 ``rank_hist``, K4
 ``rank_hist_batched`` and K6's three entry points (and ``dispatch_ranks``
 on the skewed routing) of DIR's sources through DIR's own wrappers (their
@@ -346,7 +350,10 @@ DEVICE_FUNCTIONS = {
     # the 64-bit forms: the same templates, instantiated for long long keys
     "level_fused64": ("level_fused_kernel",), "level_fused_radix64": ("level_fused_kernel",),
     "level_fused_batched64": ("level_fused_kernel",),
-    "sort_windows64": ("sort_windows_kernel", "sort_small_windows_kernel"),
+    # the merge sort from W = 16; the last name: the first design's bitonic
+    # network, which --parent times
+    "sort_windows64": ("merge_sort_windows_kernel", "sort_small_windows_kernel",
+                       "sort_windows_kernel"),
 }
 
 
@@ -826,16 +833,19 @@ def attention_phases(torch, dev) -> dict:
 
 
 def compare_with_parent(parent: Path) -> None:
-    """``--parent DIR``: K1 (tree, radix, batched), K3 and K5 of the CUDA
-    sources under DIR (a checkout of an earlier commit, unpacked by ``git
-    archive``) beside this tree's, through this tree's wrappers, on the same
-    inputs and card, in turns (earlier, this, this, earlier): CUDA events
-    around the wrapper's launch and the kernel's own device time
-    (torch.profiler), and whether both give the same outputs.  K1 at phase
-    4's shapes (n = 2^24, k = 128, tile 4096; (64, 2^18) for K4), K3 on
-    2048 duplicate-heavy windows of 8192 int32 keys, K5 on two
-    duplicate-heavy runs of 2^24.  The 32-bit C entry points of the three
-    kept their signatures (the 64-bit forms are new entry points)."""
+    """``--parent DIR``: K1 (tree, radix, batched; 32- and 64-bit keys), K3
+    and K5 of the CUDA sources under DIR (a checkout of an earlier commit,
+    unpacked by ``git archive``) beside this tree's, through this tree's
+    wrappers, on the same inputs and card, in turns (earlier, this, this,
+    earlier): CUDA events around the wrapper's launch and the kernel's own
+    device time (torch.profiler), and whether both give the same outputs.
+    K1 at phase 4's shapes (n = 2^24, k = 128, tile 4096; (64, 2^18) for
+    K4; float64 Uniform and int64 full-range codes for the 64-bit forms),
+    K3 on 2048 duplicate-heavy windows of 8192 int32 keys, its 64-bit form
+    on 2^24 duplicate-heavy int64 keys in windows of every W from 16 to
+    16384 (2048 of 8192 and 1024 of 16384 among them), K5 on two
+    duplicate-heavy runs of 2^24.  The C entry points of the four kept
+    their signatures."""
     import ctypes
 
     import numpy as np
@@ -884,6 +894,13 @@ def compare_with_parent(parent: Path) -> None:
     kb = keys.view(B_BULK, N_ROW)
     pos = torch.randint(0, N_ROW, (B_BULK, 4 * k), generator=gen, device=dev)
     spl_b = sampling.select_splitters(torch.sort(torch.gather(kb, 1, pos), dim=1).values, k)
+    keys64 = ops.keyspace.encode(torch.as_tensor(make_input("Uniform", N_BIG, np.float64, seed=1),
+                                                 device=dev))
+    spl64 = sampling.select_splitters(torch.sort(keys64[torch.randint(
+        0, N_BIG, (4 * k,), generator=gen, device=dev)]).values, k)
+    radix64 = torch.as_tensor(rng.integers(-2**63, 2**63 - 1, N_BIG, dtype=np.int64), device=dev)
+    kb64 = keys64.view(B_BULK, N_ROW)
+    spl_b64 = sampling.select_splitters(torch.sort(torch.gather(kb64, 1, pos), dim=1).values, k)
 
     def run(n, lo, hi):
         x = torch.sort(torch.randint(lo, hi, (n,), generator=gen, device=dev,
@@ -895,6 +912,16 @@ def compare_with_parent(parent: Path) -> None:
     wb = torch.sort(torch.randint(0, 64, (2048, 8192), generator=gen, device=dev,
                                   dtype=torch.int32), dim=1).values
     wk = torch.randint(-3, 4, (2048, 8192), generator=gen, device=dev, dtype=torch.int32)
+    wide = {}
+    for log2w in range(4, bitonic.MAX_W.bit_length()):
+        W = 1 << log2w
+        wb64 = torch.sort(torch.randint(0, 64, (N_BIG // W, W), generator=gen, device=dev,
+                                        dtype=torch.int32), dim=1).values
+        wk64 = torch.randint(-3, 4, (N_BIG // W, W), generator=gen, device=dev,
+                             dtype=torch.int64)
+        wk64[: N_BIG // W // 3] += torch.iinfo(torch.int64).max - 3
+        wide[f"sort_windows64 {N_BIG // W} x {W}"] = (
+            "bitonic", lambda wb64=wb64, wk64=wk64: bitonic.sort_windows(wb64, wk64, nb=64))
     cases = {
         "level_fused": ("level_fused", lambda: lf._level_tiles_kernel(
             keys[None], spl[None], k, N_BIG, lf.TILE)),
@@ -902,8 +929,15 @@ def compare_with_parent(parent: Path) -> None:
             radix_int[None], None, k, N_BIG, lf.TILE)),
         "level_fused_batched": ("level_fused", lambda: lf._level_tiles_kernel(
             kb, spl_b, k, N_ROW, lf.TILE, batched=True)),
+        "level_fused64": ("level_fused", lambda: lf._level_tiles_kernel(
+            keys64[None], spl64[None], k, N_BIG, lf.TILE)),
+        "level_fused_radix64": ("level_fused", lambda: lf._level_tiles_kernel(
+            radix64[None], None, k, N_BIG, lf.TILE)),
+        "level_fused_batched64": ("level_fused", lambda: lf._level_tiles_kernel(
+            kb64, spl_b64, k, N_ROW, lf.TILE, batched=True)),
         "merge_path": ("merge_path", lambda: mp.merge_path_perm(merge_a, merge_b)),
         "sort_windows": ("bitonic", lambda: bitonic.sort_windows(wb, wk, nb=64)),
+        **wide,
     }
     result = {}
     for name, (stem, call) in cases.items():
@@ -913,7 +947,7 @@ def compare_with_parent(parent: Path) -> None:
             _build._LIBS[stem] = libs[stem][side]
             outs[side] = call()
             times[side].append((cuda_ms(torch, call), device_ms(
-                torch, call, names=DEVICE_FUNCTIONS[name])))
+                torch, call, names=DEVICE_FUNCTIONS[name.split()[0]])))
         _build._LIBS[stem] = libs[stem]["this"]
         got, want = outs["this"], outs["parent"]
         same = all(torch.equal(g, w) for g, w in zip(got, want)) if isinstance(got, tuple) \
@@ -1335,6 +1369,16 @@ def main() -> None:
             check_equal("sort_windows64", bitonic.sort_windows(wb64, wk64, nb=64),
                         bitonic.sort_windows_plain(wb64, wk64, nb=64),
                         f"{num_w_} x {W_} int64 duplicate-heavy")
+        for log2w in range(1, bitonic.MAX_W.bit_length()):  # every W, a partial last CTA
+            W_ = 1 << log2w
+            wb64 = torch.randint(0, 64, (2049, W_), generator=gen, device=dev, dtype=torch.int32)
+            wk64 = torch.randint(-3, 4, (2049, W_), generator=gen, device=dev, dtype=torch.int64)
+            wk64[::2] += torch.iinfo(torch.int64).max - 3
+            wb64[1::3] = torch.sort(wb64[1::3], dim=1, descending=True).values
+            wk64[1::3] = torch.sort(wk64[1::3], dim=1, descending=True).values
+            check_equal("sort_windows64", bitonic.sort_windows(wb64, wk64, nb=64),
+                        bitonic.sort_windows_plain(wb64, wk64, nb=64),
+                        f"2049 x {W_} int64, a third descending")
         del wb64, wk64
         del keys64, kb64
 
@@ -2172,7 +2216,11 @@ def main() -> None:
         t = rows["sort_windows64"]
         kernel_ms(torch, "sort_windows64", t, lambda: bitonic.sort_windows(wb64, wk64, nb=64))
         t["plain_ms"] = cuda_ms(torch, lambda: bitonic.sort_windows_plain(wb64, wk64, nb=64))
-        t["bound_ms"], t["bound_by"] = bound_ms(num_w * W * 20, compare_exchanges * 9)
+        # the work itself, whatever sort does it: 20 B an element (8 B of key
+        # and 4 B of bucket in, 4 B of index and 4 B of bucket out) and
+        # log2 W compares an element of a comparison sort, ~9 operations
+        # each (a 96-bit compare and the select of three words)
+        t["bound_ms"], t["bound_by"] = bound_ms(num_w * W * 20, num_w * W * log_w * 9)
         t["library_ms"] = None
         k3_64_more = {f"{w_.shape[0]} x {w_.shape[1]}": cuda_ms(
             torch, lambda w_=w_, k_=k_: bitonic.sort_windows(w_, k_, nb=64))
@@ -2189,6 +2237,14 @@ def main() -> None:
                   f"static + {info['dynamic_smem']} dynamic B per CTA, {info['threads']} "
                   f"threads, {info['ctas_per_sm']} CTAs an SM at once, local memory "
                   f"{info['local_bytes']} B", flush=True)
+        for log2w in range(1, bitonic.MAX_W.bit_length()):
+            info = bitonic.launch_info(1 << log2w)
+            print(f"sort_windows64 launch (W={1 << log2w}; cudaFuncGetAttributes): registers "
+                  f"{info['registers']} per thread, shared memory {info['dynamic_smem']} dynamic "
+                  f"B per CTA, {info['threads']} threads, {info['ctas_per_sm']} CTAs an SM at "
+                  f"once, local memory {info['local_bytes']} B", flush=True)
+            if info["local_bytes"]:
+                fail(f"sort_windows64 spills at W={1 << log2w}: {info}")
         del keys64, radix64, kb64, wide_windows
 
         # K2 and K4: every kernel of one call (at most 5, no torch op over the

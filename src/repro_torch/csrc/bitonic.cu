@@ -57,26 +57,46 @@
 // windows of 8192, 6x the byte bound.  What is left is the integer pipe and
 // the exchanges' shared-memory traffic, which overlap only partly.
 //
-// 64-bit keys (`bitonic_sort_windows64`).  A 64-bit key leaves no room in a
-// 64-bit word, so an element is 12 B in two words, compared as (bucket,
-// key, idx).  The kernel is the same template over a word type (`Packed32`
-// is the one-word form above); the window lives in shared memory as two
-// arrays (8-byte and 4-byte words) at the same padded slots.  Two layouts,
-// picked per W by timing both on an H100 (their times in PERF.md):
-//   - `Packed64`, up to W = 8192: the key and (bucket << log2 W | idx); two
-//     elements of one bucket compare by key, then by the 32-bit word (the
-//     index), of two buckets by the 32-bit word, whose top bits are the
-//     bucket.  E = 8 a thread (W / 8 threads a window, CTAs of 512, two an
-//     SM) up to W = 4096; at W = 8192 E = 16, one window of 512 threads a
-//     CTA, 104,448 B and 92 registers, one CTA an SM (E = 8 in CTAs of 1024
-//     was slower);
-//   - `Packed96`, at W = 16384: the 96-bit number (bucket, key, idx) as a
-//     64-bit high word and a 32-bit low word, compared as (hi, lo); E = 16,
-//     1024 threads, 208,896 B.  At the 64-register cap of 1024 threads it
-//     spills 28 B a thread where `Packed64` spills 228 B.
+// 64-bit keys (`bitonic_sort_windows64`): a stable merge sort inside the
+// CTA.  A 64-bit key leaves no room in a 64-bit word, so an element is the
+// 96-bit number (bucket, key ^ sign bit, idx) as a 64-bit high word and a
+// 32-bit low word (`Packed96`), compared by a 96-bit subtraction chained
+// through the carry flag.  The index makes the words distinct, so their
+// order is a total order and it is the stable (bucket, key) order.  The
+// first design ran the network above on these 12-byte elements: 45.5
+// compare-exchanges an element at W = 8192, each a 96-bit compare and
+// three selects, and 24 window exchanges, ~840 integer instructions an
+// element (0.9952 ms at 2048 windows of 8192 on an H100, 10x the bound).
+// A merge sort makes ~log2 W compares an element instead:
+//   1. Load.  From E = 16 thread t takes the window's positions t + T r
+//      (T = W / E threads a window), so a warp's loads are contiguous; at
+//      E = 8 its E consecutive positions by 16-byte loads.
+//   2. Thread sort.  Batcher's odd-even network over the E words in
+//      registers (63 compare-exchanges at E = 16).
+//   3. log2(W / E) merge rounds through the window in shared memory: the
+//      high words and the low words in two arrays, padded by one slot per
+//      E (slot = i + i / E), so a thread's E consecutive writes meet no
+//      bank conflict across the warp.  In round k the 2R / E threads of a
+//      pair of runs of R = E 2^k find where their E outputs start on the
+//      merge path (a binary search on the diagonal, reading the low words
+//      only where the high words tie) and merge them serially into
+//      registers: a compare, three selects and one shared load an output.
+//      Rounds whose pairs lie within a warp sync the warp only.
+//   4. Store.  Perm = idx and the bucket: from E = 16 back through the
+//      window and out at positions t + T r; at E = 8 16-byte stores.
+// E is 8 up to W = 128, 16 up to 1024 and 32 above (the search and the
+// global accesses per element fall as E grows; at 32 the 128-register cap
+// of 512 threads an SM is reached), in CTAs of 128 threads, and of W / 32
+// threads at W = 8192 and 16384 (101 and 203 KB of shared memory, 2 and 1
+// CTAs an SM), all picked by timing on an H100 (PERF.md).  Staging the
+// next window by TMA (`cp.async.bulk`) in persistent CTAs was tried at W =
+// 8192 and gained nothing measurable: the load is a small share of the
+// time once warps' accesses are contiguous.  W = 2, 4 and 8 take one
+// thread a window (the bitonic network above on `Packed96` words).
 // Bound: 20 B an element (8 B of key and 4 B of bucket in, 4 B of index
-// and 4 B of bucket out), ~0.1 ms for 2^24 elements; a compare-exchange is
-// a 96-bit compare and the swap of three words, ~2x the one-word form's.
+// and 4 B of bucket out), and log2 W compares an element at ~9 operations
+// each (a 96-bit compare and the select of three words), whatever sort
+// does the work: bytes bound it, 0.1002 ms at 2048 windows of 8192.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,53 +132,28 @@ struct Packed32 {
   }
 };
 
-// 64-bit keys up to W = 8192: the key and (bucket << log2w | idx); (bucket,
-// key, idx) order
-struct Packed64 {
-  struct Word {
-    long long k;
-    unsigned w;
-  };
-  int log2w;
-  __device__ __forceinline__ bool gt(const Word& a, const Word& b) const {
-    const bool same_bucket = ((a.w ^ b.w) >> log2w) == 0u;
-    return same_bucket && a.k != b.k ? a.k > b.k : a.w > b.w;
-  }
-  __device__ __forceinline__ Word make(int bucket, long long key, int idx) const {
-    return Word{key, ((unsigned)bucket << log2w) | (unsigned)idx};
-  }
-  __device__ __forceinline__ Word zero() const { return Word{0, 0u}; }
-  __device__ __forceinline__ int idx(const Word& x) const {
-    return (int)(x.w & ((1u << log2w) - 1u));
-  }
-  __device__ __forceinline__ int bucket(const Word& x) const { return (int)(x.w >> log2w); }
-  static constexpr int kBytes = 12;
-  struct Window {
-    long long* k;
-    unsigned* w;
-    __device__ __forceinline__ void put(int i, const Word& x) const { k[i] = x.k, w[i] = x.w; }
-    __device__ __forceinline__ void get(int i, Word& x) const { x.k = k[i], x.w = w[i]; }
-  };
-  // the CTA's keys first (8-byte slots), then its words
-  __device__ __forceinline__ Window window(void* smem, int local_w, int per_cta,
-                                           int slots) const {
-    long long* keys = reinterpret_cast<long long*>(smem);
-    return Window{keys + local_w * slots,
-                  reinterpret_cast<unsigned*>(keys + per_cta * slots) + local_w * slots};
-  }
-};
-
-// 64-bit keys at W = 16384, as one 96-bit number (bucket, key ^ sign bit,
-// idx) in two words: hi = bucket << (32 + log2w) | key >> (32 - log2w), lo
-// = the key's low 32 - log2w bits, then idx; compared as (hi, lo)
+// 64-bit keys, as one 96-bit number (bucket, key ^ sign bit, idx) in two
+// words: hi = bucket << (32 + log2w) | key >> (32 - log2w), lo = the key's
+// low 32 - log2w bits, then idx; compared as (hi, lo)
 struct Packed96 {
   struct Word {
     u64 hi;
     unsigned lo;
   };
   int log2w;
+  // a > b: the borrow out of the 96-bit b - a, three subtractions chained
+  // by the carry flag (the compiler's (hi, lo) form takes more)
   __device__ __forceinline__ bool gt(const Word& a, const Word& b) const {
-    return a.hi > b.hi || (a.hi == b.hi && a.lo > b.lo);
+    unsigned borrow;
+    asm("{\n\t.reg .u32 t;\n\t"
+        "sub.cc.u32 t, %1, %2;\n\t"
+        "subc.cc.u32 t, %3, %4;\n\t"
+        "subc.cc.u32 t, %5, %6;\n\t"
+        "subc.u32 %0, 0, 0;\n\t}"
+        : "=r"(borrow)
+        : "r"(b.lo), "r"(a.lo), "r"((unsigned)b.hi), "r"((unsigned)a.hi),
+          "r"((unsigned)(b.hi >> 32)), "r"((unsigned)(a.hi >> 32)));
+    return borrow != 0u;
   }
   __device__ __forceinline__ Word make(int bucket, long long key, int idx) const {
     const u64 u = (u64)key ^ 0x8000000000000000ull;
@@ -272,22 +267,6 @@ __device__ __forceinline__ void load_words(const Packed32& pk, const int* bucket
     const int4 b4 = *reinterpret_cast<const int4*>(bucket + base + r4);
     const int4 k4 = *reinterpret_cast<const int4*>(keys + base + r4);
     const int bv[4] = {b4.x, b4.y, b4.z, b4.w}, kv[4] = {k4.x, k4.y, k4.z, k4.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[r4 + e] = pk.make(bv[e], kv[e], first + r4 + e);
-  }
-}
-
-template <int E>
-__device__ __forceinline__ void load_words(const Packed64& pk, const int* bucket,
-                                           const long long* keys, long long base, int first,
-                                           Packed64::Word (&x)[E]) {
-#pragma unroll
-  for (int r4 = 0; r4 < E; r4 += 4) {
-    const int4 b4 = *reinterpret_cast<const int4*>(bucket + base + r4);
-    const longlong2 k0 = *reinterpret_cast<const longlong2*>(keys + base + r4);
-    const longlong2 k1 = *reinterpret_cast<const longlong2*>(keys + base + r4 + 2);
-    const int bv[4] = {b4.x, b4.y, b4.z, b4.w};
-    const long long kv[4] = {k0.x, k0.y, k1.x, k1.y};
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[r4 + e] = pk.make(bv[e], kv[e], first + r4 + e);
   }
@@ -424,6 +403,211 @@ int launch_small(const void* bucket, const void* keys, int num_w, void* perm,
   return cudaGetLastError();
 }
 
+// ---- the 64-bit form: a stable merge sort inside the CTA ----
+
+// x ascending by pk.gt: Batcher's odd-even merge sort (63 compare-exchanges
+// at N = 16, 19 at 8).  Step (2^lp, 2^lk), lk <= lp, pairs a with a + 2^lk;
+// its pairs are disjoint.  Every loop has a constant trip count, so all
+// three unroll and x stays in registers (a trip count taken from an outer
+// loop's variable left x in local memory).
+template <class P, int LOG_N>
+__device__ __forceinline__ void network_sort(const P& pk, typename P::Word (&x)[1 << LOG_N]) {
+  constexpr int N = 1 << LOG_N;
+#pragma unroll
+  for (int lp = 0; lp < LOG_N; ++lp) {
+#pragma unroll
+    for (int lk = LOG_N - 1; lk >= 0; --lk) {
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        const int p = 1 << lp, k = 1 << lk, j0 = k % p;
+        if (lk <= lp && a + k < N && a >= j0 && ((a - j0) & (2 * k - 1)) < k &&
+            a / (2 * p) == (a + k) / (2 * p))
+          exchange(pk, x[a], x[a + k], true);
+      }
+    }
+  }
+}
+
+// a window's padded slots: W + T for its positions (slot = i + i / E) and
+// one more, the slot of position W, which the merge reads and never uses
+__host__ __device__ constexpr int merge_slots(int log_w, int log_e) {
+  return (1 << log_w) + (1 << (log_w - log_e)) + 1;
+}
+
+template <int LOG_E>
+__device__ __forceinline__ int padded(int i) {
+  return i + (i >> LOG_E);
+}
+
+// Barrier for an aligned group of `span` threads (a power of two) that
+// share slots: the warp's when the group lies in one warp.
+__device__ __forceinline__ void sync_span(int span) {
+  if (span <= 32) __syncwarp(); else __syncthreads();
+}
+
+// W = 2^LOG_W, E = 2^LOG_E elements a thread, T = W / E threads a window,
+// CTA / T windows a CTA; the element is the 96-bit number of `Packed96`.
+// W is a template argument, so shifts, slots and round bounds are
+// constants and hold no registers.
+template <int LOG_W, int LOG_E, int CTA, int MIN_CTAS>
+__global__ void __launch_bounds__(CTA, MIN_CTAS) merge_sort_windows_kernel(
+    const int* __restrict__ bucket, const long long* __restrict__ keys, int num_w,
+    int* __restrict__ perm, int* __restrict__ bucket_out) {
+  constexpr int E = 1 << LOG_E, LOG_T = LOG_W - LOG_E, T = 1 << LOG_T, PER_CTA = CTA / T;
+  // From E = 16 thread t loads and stores the window's positions t + T r,
+  // so a warp's accesses are contiguous; below, its E consecutive positions
+  // by 16-byte accesses (T is small, so a warp's span is contiguous too).
+  constexpr bool STRIPED = LOG_E >= 4;
+  typedef Packed96::Word Word;
+  extern __shared__ u64 smem[];
+  const Packed96 pk{LOG_W};
+  const int local_w = threadIdx.x >> LOG_T;
+  const int t = threadIdx.x & (T - 1);
+  const Packed96::Window sw = pk.window(smem, local_w, PER_CTA, merge_slots(LOG_W, LOG_E));
+  const long long w = (long long)blockIdx.x * PER_CTA + local_w;
+  const bool live = w < num_w;
+
+  Word x[E];
+  if (!live) {
+#pragma unroll
+    for (int r = 0; r < E; ++r) x[r] = pk.zero();
+  } else if (STRIPED) {
+    const long long base = w << LOG_W;
+#pragma unroll
+    for (int r = 0; r < E; ++r)
+      x[r] = pk.make(bucket[base + t + T * r], keys[base + t + T * r], t + T * r);
+  } else {
+    load_words<E>(pk, bucket, keys, (w << LOG_W) + (long long)t * E, t * E, x);
+  }
+  network_sort<Packed96, LOG_E>(pk, x);
+
+  // Round k merges runs of R = E 2^k into runs of 2R; 2R / E threads share
+  // a pair of runs.  The words are distinct (their low bits are the
+  // index), so their order is a total order, and it is the stable (bucket,
+  // key) order whichever positions a run holds.
+#pragma unroll 1
+  for (int k = 0; k < LOG_T; ++k) {
+    if (k > 0) sync_span(1 << k);  // round k-1's pair has read these slots
+#pragma unroll
+    for (int r = 0; r < E; ++r) sw.put(padded<LOG_E>(t * E + r), x[r]);
+    sync_span(2 << k);
+    const int R = E << k;
+    const int a0 = (t & ~((2 << k) - 1)) * E;  // the pair's first position
+    const int d = t * E - a0;                   // this thread's diagonal
+    // i: the left run's elements among the pair's first d outputs (the low
+    // words are read only where the high words tie)
+    int lo = max(0, d - R), hi = min(d, R);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const int pa = padded<LOG_E>(a0 + mid), pb = padded<LOG_E>(a0 + R + d - 1 - mid);
+      const u64 ah = sw.hi[pa], bh = sw.hi[pb];
+      bool a_gt = ah > bh;
+      if (ah == bh) a_gt = sw.lo[pa] > sw.lo[pb];
+      if (a_gt) hi = mid; else lo = mid + 1;
+    }
+    int ia = a0 + lo, ib = a0 + R + d - lo;
+    const int a_end = a0 + R, b_end = a0 + 2 * R;
+    Word av, bv;
+    sw.get(padded<LOG_E>(ia), av);
+    sw.get(padded<LOG_E>(ib), bv);
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      // both runs cannot be spent before the pair's 2R outputs
+      const bool take_b = ib < b_end && (ia >= a_end || pk.gt(av, bv));
+      x[r].hi = take_b ? bv.hi : av.hi;
+      x[r].lo = take_b ? bv.lo : av.lo;
+      if (r + 1 < E) {  // one load, its word to the spent run's head
+        ia += !take_b;
+        ib += take_b;
+        Word nv;
+        sw.get(padded<LOG_E>(take_b ? ib : ia), nv);
+        av.hi = take_b ? av.hi : nv.hi;
+        av.lo = take_b ? av.lo : nv.lo;
+        bv.hi = take_b ? nv.hi : bv.hi;
+        bv.lo = take_b ? nv.lo : bv.lo;
+      }
+    }
+  }
+
+  if (STRIPED) {  // back through the window, then out at positions t + T r
+    sync_span(T);  // the last round has read the window
+#pragma unroll
+    for (int r = 0; r < E; ++r) sw.put(padded<LOG_E>(t * E + r), x[r]);
+    sync_span(T);
+    if (!live) return;
+    const long long base = w << LOG_W;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      Word y;
+      sw.get(padded<LOG_E>(t + T * r), y);
+      perm[base + t + T * r] = pk.idx(y);
+      bucket_out[base + t + T * r] = pk.bucket(y);
+    }
+  } else if (live) {
+    const long long base = (w << LOG_W) + (long long)t * E;
+#pragma unroll
+    for (int r4 = 0; r4 < E; r4 += 4) {
+      int pv[4], bv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pv[e] = pk.idx(x[r4 + e]);
+        bv[e] = pk.bucket(x[r4 + e]);
+      }
+      *reinterpret_cast<int4*>(perm + base + r4) = make_int4(pv[0], pv[1], pv[2], pv[3]);
+      *reinterpret_cast<int4*>(bucket_out + base + r4) = make_int4(bv[0], bv[1], bv[2], bv[3]);
+    }
+  }
+}
+
+// One launch of the merge sort: its kernel, threads, windows a CTA and
+// dynamic shared memory (the attribute set for it)
+struct MergeLaunch {
+  const void* kernel;
+  int threads, per_cta, smem;
+};
+
+template <int LOG_W, int LOG_E, int CTA, int MIN_CTAS>
+cudaError_t merge_setup(MergeLaunch* m) {
+  static_assert(LOG_W >= LOG_E && (1 << (LOG_W - LOG_E)) <= CTA, "a window in one CTA");
+  m->kernel = (const void*)merge_sort_windows_kernel<LOG_W, LOG_E, CTA, MIN_CTAS>;
+  m->threads = CTA;
+  m->per_cta = CTA >> (LOG_W - LOG_E);
+  m->smem = m->per_cta * merge_slots(LOG_W, LOG_E) * Packed96::kBytes;
+  return cudaFuncSetAttribute(m->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, m->smem);
+}
+
+// The merge sort's shape at W = 2^log2w in [16, 16384], picked per W by
+// timing on an H100: E = 8 up to W = 128, 16 up to 1024, then 32 (the
+// search and the global accesses fall per element as E grows; registers
+// cap it at 32); CTAs of 128 threads (more CTAs an SM), one window of W / 32
+// threads from W = 8192 (2 and 1 CTAs an SM at the 128-register cap of E =
+// 32, 101 and 203 KB of shared memory)
+cudaError_t merge_config(int log2w, MergeLaunch* m) {
+  switch (log2w) {
+    case 4: return merge_setup<4, 3, 128, 8>(m);
+    case 5: return merge_setup<5, 3, 128, 8>(m);
+    case 6: return merge_setup<6, 3, 128, 8>(m);
+    case 7: return merge_setup<7, 3, 128, 8>(m);
+    case 8: return merge_setup<8, 4, 128, 7>(m);
+    case 9: return merge_setup<9, 4, 128, 7>(m);
+    case 10: return merge_setup<10, 4, 128, 7>(m);
+    case 11: return merge_setup<11, 5, 128, 4>(m);
+    case 12: return merge_setup<12, 5, 128, 4>(m);
+    case 13: return merge_setup<13, 5, 256, 2>(m);
+    case 14: return merge_setup<14, 5, 512, 1>(m);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Launch `m` over num_w windows, a CTA per m.per_cta of them
+cudaError_t merge_launch(const MergeLaunch& m, const void* bucket, const void* keys, int num_w,
+                         void* perm, void* bucket_out, cudaStream_t stream) {
+  void* args[] = {(void*)&bucket, (void*)&keys, (void*)&num_w, (void*)&perm, (void*)&bucket_out};
+  cudaError_t err = cudaLaunchKernel(m.kernel, dim3((num_w + m.per_cta - 1) / m.per_cta),
+                                     dim3(m.threads), args, m.smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -452,27 +636,49 @@ int bitonic_sort_windows(const void* bucket, const void* keys, int num_w, int W,
   }
 }
 
-// The same with int64 keys ((num_w, W) int64, 16-byte aligned): `Packed64`,
-// E = 8 and CTAs of 512 threads up to W = 4096, E = 16 and one window of
-// 512 threads a CTA at 8192; `Packed96`, E = 16 and 1024 threads at 16384
+// The same with int64 keys ((num_w, W) int64, 16-byte aligned): the merge
+// sort of `merge_config` from W = 16, one thread a window below
 int bitonic_sort_windows64(const void* bucket, const void* keys, int num_w, int W,
                            int log2w, void* perm, void* bucket_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (log2w) {
-    case 1: return launch_small<Packed64, long long, 1>(bucket, keys, num_w, perm, bucket_out, s);
-    case 2: return launch_small<Packed64, long long, 2>(bucket, keys, num_w, perm, bucket_out, s);
-    case 3: return launch_small<Packed64, long long, 3>(bucket, keys, num_w, perm, bucket_out, s);
-    case 13:
-      return launch_windows<Packed64, long long, 4, 512, 1>(bucket, keys, num_w, log2w, perm,
-                                                           bucket_out, s);
-    case 14:
-      return launch_windows<Packed96, long long, 4, 1024, 1>(bucket, keys, num_w, log2w, perm,
-                                                            bucket_out, s);
-    default:
-      if (log2w < 4 || log2w > 14 || W != 1 << log2w) return cudaErrorInvalidValue;
-      return launch_windows<Packed64, long long, 3, 512, 2>(bucket, keys, num_w, log2w, perm,
-                                                           bucket_out, s);
+    case 1: return launch_small<Packed96, long long, 1>(bucket, keys, num_w, perm, bucket_out, s);
+    case 2: return launch_small<Packed96, long long, 2>(bucket, keys, num_w, perm, bucket_out, s);
+    case 3: return launch_small<Packed96, long long, 3>(bucket, keys, num_w, perm, bucket_out, s);
   }
+  if (log2w < 4 || log2w > 14 || W != 1 << log2w) return cudaErrorInvalidValue;
+  MergeLaunch m;
+  cudaError_t err = merge_config(log2w, &m);
+  if (err != cudaSuccess || num_w == 0) return err;
+  return merge_launch(m, bucket, keys, num_w, perm, bucket_out, s);
+}
+
+// The 64-bit form's launch at W = 2^log2w, from the CUDA runtime: out[0..5]
+// = registers a thread, static and dynamic shared memory a CTA in bytes,
+// threads a CTA, CTAs an SM holds at once, local memory a thread in bytes
+int bitonic_sort_windows64_info(int log2w, int* out) {
+  MergeLaunch m{nullptr, kSmallCta, 0, 0};
+  cudaError_t err = cudaSuccess;
+  switch (log2w) {
+    case 1: m.kernel = (const void*)sort_small_windows_kernel<Packed96, long long, 1>; break;
+    case 2: m.kernel = (const void*)sort_small_windows_kernel<Packed96, long long, 2>; break;
+    case 3: m.kernel = (const void*)sort_small_windows_kernel<Packed96, long long, 3>; break;
+    default:
+      if (log2w < 4 || log2w > 14) return cudaErrorInvalidValue;
+      err = merge_config(log2w, &m);
+  }
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, m.kernel)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], m.kernel, m.threads,
+                                                           m.smem)) != cudaSuccess)
+    return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = m.smem;
+  out[3] = m.threads;
+  out[5] = (int)attr.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // extern "C"

@@ -12,9 +12,13 @@ passes).  The TPU network compares (bucket, key) only and is not stable;
 this one orders by (bucket, key, idx), so it equals the stable
 ``_window_perm`` that the reference's main path computes in XLA, which is
 its plain twin here.  int64 keys (64-bit key dtypes) take the kernel's
-64-bit form, counted under ``sort_windows64``: each element 12 B in two
-words compared as (bucket, key, idx), E = 8 elements a thread up to W =
-4096 and 16 above.
+64-bit form, counted under ``sort_windows64``: each element 12 B, the
+96-bit number (bucket, key, idx) as a high and a low word, sorted from W =
+16 by a stable merge sort inside the CTA (E = 8 elements a thread up to W
+= 128, 16 up to 1024 and 32 above, sorted in registers by an odd-even
+network, then log2(W / E) merge rounds through the window in shared
+memory, each thread finding its diagonal by a binary search and merging
+its E outputs serially), and by one thread a window below.
 
 The wrapper launches the kernel on a CUDA tensor and runs the plain twin
 only on a CPU tensor; there is no fallback from one to the other.  The
@@ -23,18 +27,21 @@ aligned is copied once.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["sort_windows", "sort_windows_plain", "window_perm_plain", "MAX_W"]
+__all__ = ["sort_windows", "sort_windows_plain", "window_perm_plain", "launch_info",
+           "MAX_W"]
 
 MAX_W = 16384  # W 8-byte words in shared memory
 _P, _I = _build.P, _build.I
 _SIGNATURES = {"bitonic_sort_windows": (_P, _P, _I, _I, _I, _P, _P, _P),
-               "bitonic_sort_windows64": (_P, _P, _I, _I, _I, _P, _P, _P)}
+               "bitonic_sort_windows64": (_P, _P, _I, _I, _I, _P, _P, _P),
+               "bitonic_sort_windows64_info": (_I, _P)}
 
 
 def window_perm_plain(bucket_w: torch.Tensor, keys_w: torch.Tensor) -> torch.Tensor:
@@ -63,6 +70,25 @@ def _check(bucket: torch.Tensor, keys: torch.Tensor, nb: int) -> None:
     bucket_bits = 32 - (W.bit_length() - 1)
     if nb > 1 << bucket_bits:
         raise ValueError(f"nb={nb} buckets do not fit {bucket_bits} bits at W={W}")
+
+
+def launch_info(W: int, key_bits: int = 64) -> dict:
+    """K3's launch at window size W for 64-bit keys, from the CUDA runtime
+    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    registers per thread, static and dynamic shared memory per CTA in
+    bytes, threads per CTA, CTAs an SM holds at once and local memory per
+    thread in bytes (spills).  Builds and loads the library; needs a card."""
+    if key_bits != 64:
+        raise ValueError(f"key_bits={key_bits}: only the 64-bit form reports its launch")
+    if W < 2 or W & (W - 1) or W > MAX_W:
+        raise ValueError(f"W={W} must be a power of two in [2, {MAX_W}]")
+    out = (ctypes.c_int * 6)()
+    lib = _build.library("bitonic", _SIGNATURES)
+    _build.check(lib, "bitonic", lib.bitonic_sort_windows64_info(W.bit_length() - 1,
+                                                                  ctypes.addressof(out)),
+                 "sort_windows64 kernel")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "threads", "ctas_per_sm",
+                     "local_bytes"), out))
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

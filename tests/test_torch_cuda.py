@@ -22,7 +22,8 @@ against their plain twins (|got - want| <= atol + rtol * |want|: 2e-5 + 2e-5 in 
 4e-3 + 2^-8 in bfloat16), a 2-layer yi-9b at full
 width served through K10, and the 64-bit forms of K1, K1r, K4
 ``level_fused_batched`` (the edge cases above, shifts up to level 2's
-clamp, no spills) and K3 (every W from 2 to 16384) against their twins,
+clamp, no spills) and K3 (every W from 2 to 16384, descending windows
+and equal keys across runs; no spill at any W) against their twins,
 and the sorts of every key dtype on the card against the CPU.
 
 Marked ``gpu``: every test skips (from its fixture) where no card is
@@ -201,7 +202,24 @@ def test_rank_hist_kernel_edges(dev, case, batched):
 
 
 SORT_WINDOWS_CASES = ["sorted ids", "any ids", "equal keys", "one window", "2049 windows",
-                      "run indices"]
+                      "descending", "ties across runs", "run indices"]
+
+
+def _window_case(case, b, k):
+    """The (bucket, key) windows of ``case`` from random ones: every key and
+    id equal; ids and keys both descending; or each 8 keys ending on the
+    key that starts the next 8 (at E = 8 a merge's left run ending on its
+    right run's head)."""
+    if case == "equal keys":
+        return torch.zeros_like(b), torch.full_like(k, -5)
+    if case == "descending":
+        return (torch.sort(b, dim=1, descending=True).values,
+                torch.sort(k, dim=1, descending=True).values)
+    if case == "ties across runs":
+        pos = torch.arange(k.shape[1], device=k.device)
+        tied = torch.where((pos // 8) % 2 == 1, -2, pos % 4 - 2).to(k.dtype)
+        return torch.zeros_like(b), tied.expand_as(k).contiguous()
+    return (b, k) if case == "any ids" else (torch.sort(b, dim=1).values, k)
 
 
 @pytest.mark.parametrize("case", SORT_WINDOWS_CASES)
@@ -210,18 +228,16 @@ def test_sort_windows_kernel(dev, W, case):
     """K3 bit for bit its plain twin: bucket ids nondecreasing (the sorts'
     windows) or in any order (the wrapper does not ask for sorted ids),
     every key and id equal, one window and 2049 (a partial last CTA at
-    every W), and the run-index route of ``base_case_windows`` for ids
-    above K3's bucket field."""
+    every W), descending windows, equal keys across runs, and the
+    run-index route of ``base_case_windows`` for ids above K3's bucket
+    field."""
     from repro_torch.kernels.ops import base_case_windows
 
     g = torch.Generator(device=dev).manual_seed(W)
     num_w = {"one window": 1, "2049 windows": 2049}.get(case, 5)
     b = torch.randint(0, 9, (num_w, W), generator=g, device=dev, dtype=torch.int32)
     k = torch.randint(-3, 4, (num_w, W), generator=g, device=dev, dtype=torch.int32)
-    if case == "equal keys":
-        b, k = torch.zeros_like(b), torch.full_like(k, -5)
-    elif case != "any ids":
-        b = torch.sort(b, dim=1).values
+    b, k = _window_case(case, b, k)
     if case == "run indices":  # nb = 2^31: past K3's field from W = 4 on, so K3
         # gets each window's run index (W = 2's 31-bit field takes any id)
         fb = (torch.arange(4 * W, device=dev, dtype=torch.int32) // 3) * 30011
@@ -945,24 +961,28 @@ def test_level_fused64_launch_does_not_spill(dev):
             assert info["local_bytes"] == 0 and info["threads"] == tile // 256 * 32
 
 
-@pytest.mark.parametrize("case", SORT_WINDOWS_CASES[:5])
+@pytest.mark.parametrize("case", SORT_WINDOWS_CASES[:-1])
 @pytest.mark.parametrize("W", [2, 8, 16, 32, 256, 1024, 4096, 8192, 16384])
 def test_sort_windows64_kernel(dev, W, case):
     """K3's 64-bit form bit for bit its plain twin, keys over the whole
-    int64 range with heavy duplicates and the extremes."""
+    int64 range with heavy duplicates and the extremes, descending windows
+    and equal keys across the merge's runs."""
     g = torch.Generator(device=dev).manual_seed(W + 64)
     num_w = {"one window": 1, "2049 windows": 2049}.get(case, 5)
     b = torch.randint(0, 9, (num_w, W), generator=g, device=dev, dtype=torch.int32)
     k = torch.randint(-3, 4, (num_w, W), generator=g, device=dev, dtype=torch.int64)
     k[:, : W // 4] += torch.iinfo(torch.int64).max - 3
     k[:, W // 4: W // 2] = torch.iinfo(torch.int64).min + (k[:, W // 4: W // 2] + 3)
-    if case == "equal keys":
-        b, k = torch.zeros_like(b), torch.full_like(k, -5)
-    elif case != "any ids":
-        b = torch.sort(b, dim=1).values
+    b, k = _window_case(case, b, k)
     before = kernels.launch_counts()["sort_windows64"]
     _equal(bitonic.sort_windows(b, k, nb=9), bitonic.sort_windows_plain(b, k, nb=9))
     assert kernels.launch_counts()["sort_windows64"] == before + 1
+
+
+def test_sort_windows64_launch_does_not_spill(dev):
+    for log2w in range(1, 15):
+        info = bitonic.launch_info(1 << log2w)
+        assert info["local_bytes"] == 0 and info["ctas_per_sm"] >= 1, (1 << log2w, info)
 
 
 ALL_DTYPES = [torch.int8, torch.uint8, torch.int16, torch.uint16, torch.float16, torch.bfloat16,

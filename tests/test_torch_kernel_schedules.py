@@ -194,58 +194,157 @@ def test_k3_register_schedule_matches_the_reference(W, log_e):
                                       np.asarray(want_b[w]))
 
 
-@pytest.mark.parametrize("W,log_e", [(16, 3), (256, 3), (4096, 3), (8192, 4), (16384, 4),
-                                     (8, 3), (2, 1)])
-def test_k3_64bit_word_layout_matches_the_reference(W, log_e):
-    """The 64-bit form over the same network at its E (8 up to W = 4096, 16
-    above): up to W = 8192 each element a 64-bit key and a 32-bit word
-    (bucket << log2 W | idx), compared as ``Packed64::gt`` does (same
-    bucket: key, then the word; else the word); at W = 16384 the 96-bit
-    number (bucket, key, idx) as a high and a low word, compared as
-    ``Packed96::gt`` does.  Held bit for bit to the reference's stable
-    oracle on the keys' dense ranks, which order the window alike; the
-    keys span the int64 range, its extremes included, with heavy
-    duplicates."""
-    rng = np.random.default_rng(W + 64)
+def _odd_even_network(n: int) -> list:
+    """Batcher's odd-even merge sort on n = 2^m inputs as (a, b) pairs, a < b,
+    in the order of ``network_sort``'s unrolled loops: step (2^lp, 2^lk)
+    pairs a with a + 2^lk."""
+    pairs = []
+    lp = 0
+    while 1 << lp < n:
+        for lk in range(lp, -1, -1):
+            p, k = 1 << lp, 1 << lk
+            j0 = k % p
+            pairs += [(a, a + k) for a in range(n - k)
+                      if a >= j0 and (a - j0) & (2 * k - 1) < k
+                      and a // (2 * p) == (a + k) // (2 * p)]
+        lp += 1
+    return pairs
+
+
+def _k3_merge_log_e(L: int) -> int:
+    """log2 E of the 64-bit form's merge sort at W = 2^L (``merge_config``
+    in csrc/bitonic.cu): E = 8 up to W = 128, 16 up to 1024, then 32."""
+    return 3 if L <= 7 else 4 if L <= 10 else 5
+
+
+def _replay_k3_merge(W: int, gt) -> np.ndarray:
+    """K3's 64-bit form over one window, as the kernel runs it: the window's
+    element ids in their sorted order, the elements compared by ``gt`` over
+    ids.  W <= 8: one thread's bitonic network (``sort_small_windows_kernel``).
+    From W = 16: E elements a thread (its E consecutive positions at E = 8,
+    positions t + T r from E = 16) sorted by the odd-even network in
+    registers, then log2(W / E) merge rounds through the padded window,
+    each thread finding its diagonal on its pair of runs by a binary search
+    and merging its E outputs serially, taking the right run's head only
+    when it is the smaller; from E = 16 the outputs go back through the
+    window and out at positions t + T r.  Checks that every slot the merge
+    uses was written in its round, and that the writes and the striped
+    reads of the high words fall on distinct bank pairs."""
     L = W.bit_length() - 1
-    mask32 = np.uint64(0xFFFFFFFF)
-    for w in range(2):
-        b = rng.integers(0, 9, W).astype(np.int32)
+    if W <= 8:
+        return _replay_k3(np.arange(W, dtype=np.int64), L, gt)
+    log_e = _k3_merge_log_e(L)
+    E = 1 << log_e
+    T = W // E
+    t = np.arange(T)
+    layout = _layout(T, log_e, 0)  # thread t's register r: position t * E + r
+    _check_slots(layout, log_e, W)
+    striped = (t[:, None] + T * np.arange(E)[None, :]) if log_e >= 4 else layout
+    x = striped.astype(np.int64).copy()  # the element ids it loads
+    for i, j in _odd_even_network(E):
+        _exchange_by(x, i, j, True, gt)
+
+    def padded(i):
+        return i + (i >> log_e)
+
+    for k in range(T.bit_length() - 1):
+        window = np.full(W + T + 1, -1, np.int64)  # -1: a slot not written
+        window[padded(layout)] = x
+        R = E << k
+        a0 = (t & ~((2 << k) - 1)) * E
+        d = t * E - a0
+        lo, hi = np.maximum(0, d - R), np.minimum(d, R)
+        while (lo < hi).any():
+            live = lo < hi
+            mid = (lo + hi) >> 1
+            av = window[padded(a0 + mid)]
+            bv = window[padded(a0 + R + d - 1 - mid)]
+            assert (av[live] >= 0).all() and (bv[live] >= 0).all()
+            g = gt(av, bv)
+            hi = np.where(live & g, mid, hi)
+            lo = np.where(live & ~g, mid + 1, lo)
+        ia, ib = a0 + lo, a0 + R + d - lo
+        a_end, b_end = a0 + R, a0 + 2 * R
+        av, bv = window[padded(ia)], window[padded(ib)]
+        for r in range(E):
+            a_in, b_in = ia < a_end, ib < b_end
+            assert (a_in | b_in).all()  # both runs are never spent
+            assert (av[a_in] >= 0).all() and (bv[b_in] >= 0).all()
+            take_b = b_in & (~a_in | gt(np.where(a_in, av, 0), np.where(b_in, bv, 0)))
+            x[:, r] = np.where(take_b, bv, av)
+            ia, ib = ia + ~take_b, ib + take_b
+            nv = window[padded(np.where(take_b, ib, ia))]
+            av, bv = np.where(take_b, av, nv), np.where(take_b, nv, bv)
+    out = np.empty(W, np.int64)
+    out[layout] = x
+    if log_e >= 4:  # the striped store's reads: a half-warp's high words on
+        # distinct bank pairs (16 consecutive positions lie in one run of E)
+        slots = padded(striped)
+        assert len(np.unique(slots)) == W
+        if T >= 16:
+            lanes = slots.reshape(T // 16, 16, E)
+            assert all(len(np.unique(lanes[g, :, r] % 16)) == 16
+                       for g in range(T // 16) for r in range(E))
+    return out
+
+
+def _k3_merge_input(case: str, W: int, rng):
+    """(bucket, key) of one window: heavy duplicates over the int64 range
+    with its extremes, the full range, all equal, descending, and equal
+    elements that span the runs of every merge round."""
+    b = rng.integers(0, 9, W).astype(np.int32)  # any order
+    if case == "full range":
+        key = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, W,
+                           dtype=np.int64, endpoint=True)
+    elif case == "all equal":
+        b, key = np.full(W, 5, np.int32), np.full(W, -5, np.int64)
+    elif case == "descending":
+        b = np.sort(b)[::-1].copy()
+        key = np.sort(rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, W,
+                                   dtype=np.int64))[::-1].copy()
+        key[W // 2:] = key[W // 2]  # and a run of equals
+    elif case == "ties across runs":  # a left run's tail equal to its right run's head
+        b = np.zeros(W, np.int32)
+        key = (np.arange(W, dtype=np.int64) % 4) - 2
+        key[(np.arange(W) // 8) % 2 == 1] = -2
+    else:  # duplicates
         key = rng.integers(-3, 4, W).astype(np.int64)
         key[: W // 4] += np.iinfo(np.int64).max - 3  # above every 32-bit value
         key[W // 4: W // 2] = np.iinfo(np.int64).min + (key[W // 4: W // 2] + 3)
-        if w:
-            key = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, W,
-                               dtype=np.int64, endpoint=True)
-        if W < 16384:  # Packed64
-            word = (b.astype(np.uint32) << np.uint32(L)) | np.arange(W, dtype=np.uint32)
+    return b, key
 
-            def gt(ia, ib):
-                same = ((word[ia] ^ word[ib]) >> np.uint32(L)) == 0
-                return np.where(same & (key[ia] != key[ib]), key[ia] > key[ib],
-                                word[ia] > word[ib])
 
-            def idx_bucket(x):
-                return word[x] & np.uint32(W - 1), word[x] >> np.uint32(L)
-        else:  # Packed96
-            u = key.view(np.uint64) ^ np.uint64(1 << 63)
-            hi = (b.astype(np.uint64) << np.uint64(32 + L)) | (u >> np.uint64(32 - L))
-            lo = (((u & mask32) << np.uint64(L)) & mask32) | np.arange(W, dtype=np.uint64)
+@pytest.mark.parametrize("case", ["duplicates", "full range", "all equal", "descending",
+                                  "ties across runs"])
+@pytest.mark.parametrize("W", [2, 8, 16, 128, 256, 1024, 4096, 8192, 16384])
+def test_k3_64bit_merge_schedule_matches_the_reference(W, case):
+    """The 64-bit form (``merge_sort_windows_kernel``; one thread a window up
+    to W = 8): each element the 96-bit number (bucket, key ^ sign bit, idx)
+    as a high and a low word, compared as ``Packed96::gt`` does (the index
+    makes the words distinct, so the search and the merge never meet a
+    tie), sorted by the replayed schedule and held bit for bit to the
+    reference's stable oracle on the keys' dense ranks, which order the
+    window alike."""
+    rng = np.random.default_rng(W + 64)
+    L = W.bit_length() - 1
+    mask32 = np.uint64(0xFFFFFFFF)
+    b, key = _k3_merge_input(case, W, rng)
+    u = key.view(np.uint64) ^ np.uint64(1 << 63)
+    hi = (b.astype(np.uint64) << np.uint64(32 + L)) | (u >> np.uint64(32 - L))
+    lo = (((u & mask32) << np.uint64(L)) & mask32) | np.arange(W, dtype=np.uint64)
 
-            def gt(ia, ib):
-                return (hi[ia] > hi[ib]) | ((hi[ia] == hi[ib]) & (lo[ia] > lo[ib]))
+    def gt(ia, ib):
+        return (hi[ia] > hi[ib]) | ((hi[ia] == hi[ib]) & (lo[ia] > lo[ib]))
 
-            def idx_bucket(x):
-                return lo[x] & np.uint64(W - 1), hi[x] >> np.uint64(32 + L)
-
-        out = _replay_k3(np.arange(W, dtype=np.int64), log_e, gt)
-        rank = np.unique(key, return_inverse=True)[1].astype(np.int32)
-        want_b, _, want_idx = bitonic_sort_windows_ref(
-            jnp.asarray(b[None]), jnp.asarray(rank[None]),
-            jnp.asarray(np.arange(W, dtype=np.int32)[None]))
-        got_idx, got_b = idx_bucket(out)
-        np.testing.assert_array_equal(got_idx.astype(np.int32), np.asarray(want_idx[0]))
-        np.testing.assert_array_equal(got_b.astype(np.int32), np.asarray(want_b[0]))
+    out = _replay_k3_merge(W, gt)
+    rank = np.unique(key, return_inverse=True)[1].astype(np.int32)
+    want_b, _, want_idx = bitonic_sort_windows_ref(
+        jnp.asarray(b[None]), jnp.asarray(rank[None]),
+        jnp.asarray(np.arange(W, dtype=np.int32)[None]))
+    np.testing.assert_array_equal((lo[out] & np.uint64(W - 1)).astype(np.int32),
+                                  np.asarray(want_idx[0]))
+    np.testing.assert_array_equal((hi[out] >> np.uint64(32 + L)).astype(np.int32),
+                                  np.asarray(want_b[0]))
 
 
 # ---- K11 float32 ------------------------------------------------------------
