@@ -86,7 +86,25 @@ for the attention kernels and the serve path:
    ``group_by``/``unique`` of 2^24 int64 RootDup, ``TPU_BIG_PAYLOAD`` on
    2^23 doubles, and ``ops.sort`` of 2^24 keys of each of int8, uint8,
    int16, uint16, float16, bfloat16 and uint32 with both classifiers; the
-   64-bit paths must launch the 64-bit forms.
+   64-bit paths must launch the 64-bit forms.  Payload pytrees: ``ops.sort``
+   of 2^24 float32 and ``batched_sort`` of (64, 2^18) with a payload of an
+   int64, an (n, 4) float32, a bfloat16 and a None leaf, and ``group_by``
+   (by sort and by partition, K6) with it, each leaf held to the gather by
+   the stable argsort.  Records: ``argsort_records`` and ``sort_records``
+   (with a payload) of SkySurvey and TenantTuples at 2^24 records (3 words)
+   and UrlPaths and RnaSequences at 2^20 clipped to 8 bytes, by the tree,
+   radix and auto classifiers, against an LSD cascade of
+   ``torch.sort(stable=True)`` over the encoded words (itself held to
+   ``oracle_argsort`` at 2^20), with the tie-break passes taken.  The
+   learned classifier: ``ops.sort``/``argsort`` at 2^24 float32 on Uniform
+   (the model kept, K2 at level 1, no K1) and Zipf (the fallback taken,
+   K1), and ``batched_sort``/``batched_argsort`` of (64, 2^18) (K4
+   ``rank_hist_batched`` at level 1), the level-1 picks and the K1/K2
+   kernels a call by the profiler's names.  The plan cache, at a temporary
+   path: ``classifier_for`` racing at 2^22, tuned ``sort`` and ``topk``
+   sorters at 2^22, and ``external_sort`` of 2^26 float32 in chunks of
+   2^22 with ``tune=True``; its winners printed, the JSON reloaded to the
+   same plans, the outputs against ``torch.sort``/``np.sort``.
    Every result is held to ``torch.sort(stable=True)`` of the port's
    encoded keys on the card (per row or per segment; of the raw keys for
    ``s3_sort``), the top/bottom-k to the sorted prefix, the group-by to
@@ -136,7 +154,10 @@ for the attention kernels and the serve path:
    K1's and K3's 64-bit launches (K3's at every W; a spill fails),
    ``ops.sort`` of 2^24 and 2^27 doubles and of 2^24
    int64 beside ``torch.sort`` of the same keys, a profile of one double
-   sort and its fallback share;
+   sort and its fallback share; ``argsort_records`` of SkySurvey at 2^24
+   beside the ``torch.sort`` cascade, ``ops.sort`` learned beside tree at
+   2^24 (Uniform and Zipf), and the stream with the planned merge tile
+   beside K5's default (the whole external sort and one merge);
 5. a ``{"kernels": [...]}`` JSON line (22 entries: the four 64-bit forms
    are rows of their own, ``level_fused64``, ``level_fused_radix64``,
    ``level_fused_batched64`` and ``sort_windows64``), then the last line
@@ -163,6 +184,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,6 +207,9 @@ TOP_K = 64
 N_STREAM, CHUNK = 1 << 28, 1 << 24
 STREAM_K = 1024
 N_GROUPS, CHUNK_GROUPS = 1 << 26, 1 << 22  # streaming_group_by, RootDup int32
+# the plan cache: races and sweeps at 2^22 float32, an external sort of 2^26
+# in chunks of 2^22 with the tuned chunk sorter and merge tile
+N_PLAN, N_PLAN_STREAM = 1 << 22, 1 << 26
 # MoE routing of deepseek-moe-16b: 64 routed experts, top-6, 2^21 tokens
 MOE_EXPERTS, MOE_TOP, MOE_TOKENS = 64, 6, 1 << 21
 MOE_LAYERS = 8  # per-layer routing rows for the batched placement
@@ -310,12 +335,17 @@ def device_ms(torch, fn, reps: int = 20, names=None, launches: int = 1) -> float
     launch of each kernel whose name holds one of them, at its mean over
     the launches the trace kept, summed over those kernels; each is
     launched ``launches`` times a call, and a line says when the trace kept
-    fewer (it does, more often the longer the kernel)."""
-    events = [e for e in device_events(torch, fn, reps)
-              if not e.key.startswith(("Memcpy", "Memset"))]
-    if names is None:
-        return sum(device_us(e) for e in events) / 1e3 / reps
-    own = [e for e in events if any(x in e.key for x in names)]
+    fewer (it does, more often the longer the kernel); a trace that kept
+    none of them is taken again, up to three times in all."""
+    for _ in range(3):
+        events = [e for e in device_events(torch, fn, reps)
+                  if not e.key.startswith(("Memcpy", "Memset"))]
+        if names is None:
+            return sum(device_us(e) for e in events) / 1e3 / reps
+        own = [e for e in events if any(x in e.key for x in names)]
+        if own:
+            break
+        print(f"device_ms: the trace kept no launch of {names}; profiling again", flush=True)
     if any(e.count != reps * launches for e in own):
         print(f"device_ms: the trace kept {[e.count for e in own]} of {reps * launches} launches "
               f"of {[e.key[:60] for e in own]}", flush=True)
@@ -1720,7 +1750,11 @@ def main() -> None:
                     fail(f"kernel {name} was not launched on the path {path}")
             for name, count in launches.items():
                 total_launches[name] += count
+            path_launches[path] = launches
             return results
+
+        path_launches = {}
+        launches_of = path_launches.__getitem__
 
         def verdict(path, name, ok):
             print(f"path {path}: {name} {'ok' if ok else 'WRONG'}", flush=True)
@@ -2037,6 +2071,213 @@ def main() -> None:
         verdict(path, "permute_blocks_inplace (per-bucket block multisets)", torch.equal(
             k9_canonical(got["permute_blocks_inplace"], d_uniform, nblocks), k9_want["uniform"]))
         del got, k9_want
+
+        # ---- the paths of payload pytrees, records, the learned classifier and
+        # the plan cache, each against an oracle of torch (or numpy) calls
+        from repro_torch.classify import classifier_for, learned
+        from repro_torch.data.datasets import make_dataset, oracle_argsort
+        from repro_torch.ops.plan import PlanCache
+
+        def payload_of(lead, seed):
+            """{"id": int64, "rows": (..., 4) f32, "tag": bf16, "none": None}."""
+            g = torch.Generator(device=dev).manual_seed(seed)
+            size = int(np.prod(lead))
+            return {"id": torch.arange(size, device=dev).view(lead),
+                    "rows": torch.randn(lead + (4,), generator=g, device=dev),
+                    "tag": torch.randn(lead, generator=g, device=dev).to(torch.bfloat16),
+                    "none": None}
+
+        def moved(got, vals, order):
+            """Each leaf of ``got`` is the leaf of ``vals`` gathered by the
+            stable argsort ``order`` (per row for 2-D), the None leaf None."""
+            if got["none"] is not None or set(got) != set(vals):
+                return False
+            for name in ("id", "rows", "tag"):
+                v = vals[name]
+                if order.dim() == 1:
+                    want_v = v[order]
+                else:
+                    idx = order.view(order.shape + (1,) * (v.dim() - 2)).expand(v.shape)
+                    want_v = torch.gather(v, 1, idx)
+                a, b = got[name], want_v
+                if a.dtype == torch.bfloat16:
+                    a, b = a.view(torch.int16), b.view(torch.int16)
+                if not torch.equal(a, b):
+                    return False
+            return True
+
+        x_pt = main_input("Uniform", N_BIG)
+        p_pt = payload_of((N_BIG,), 60)
+        rows_pt = bulk
+        prow_pt = payload_of((B_BULK, N_ROW), 61)
+        ids_pt = torch.randint(0, MOE_EXPERTS, (N_BIG,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        path = (f"pytree ({N_BIG} float32 and ({B_BULK}, {N_ROW}) rows with an int64, (n, 4) "
+                "float32, bfloat16 and None payload)")
+        got = drive(path, sort_kernels + ("level_fused_batched", "rank_hist_batched",
+                                          "partition_ranks"), {
+            "sort": lambda: ops.sort(x_pt, p_pt),
+            "batched_sort": lambda: ops.batched_sort(rows_pt, prow_pt),
+            "group_by sort": lambda: ops.group_by(x_pt, p_pt),
+            "group_by partition": lambda: ops.group_by(ids_pt, p_pt, num_groups=MOE_EXPERTS),
+        })
+        want_k, want_o = yardstick(x_pt)
+        k_, v_ = got["sort"]
+        verdict(path, "sort", same_keys(k_, want_k) and moved(v_, p_pt, want_o))
+        want_kb, want_ob = yardstick(rows_pt)
+        k_, v_ = got["batched_sort"]
+        verdict(path, "batched_sort", same_keys(k_, want_kb) and moved(v_, prow_pt, want_ob))
+        g_ = got["group_by sort"]
+        verdict(path, "group_by sort", torch.equal(g_.perm.to(torch.int64), want_o)
+                and moved(g_.values, p_pt, want_o))
+        want_og = torch.sort(ids_pt, stable=True).indices
+        g_ = got["group_by partition"]
+        verdict(path, "group_by partition", torch.equal(g_.perm.to(torch.int64), want_og)
+                and moved(g_.values, p_pt, want_og))
+        del got, p_pt, prow_pt, ids_pt, g_, k_, v_, want_k, want_o, want_kb, want_ob, want_og
+
+        def lsd_order(words):
+            """The oracle: an LSD cascade of torch.sort(stable=True) over the
+            encoded word columns, last word first, on the card."""
+            order = torch.arange(words.shape[0], device=dev)
+            for j in reversed(range(words.shape[1])):
+                col = ops.keyspace.encode(words[:, j].contiguous())[order]
+                order = order[torch.sort(col, stable=True).indices]
+            return order
+
+        def passes_taken(sorted_words):
+            """The tie-break passes a sorted record matrix needed: the words
+            l >= 1 at which some run of equal prefixes still tied."""
+            head = torch.zeros(sorted_words.shape[0], dtype=torch.bool, device=dev)
+            head[0] = True
+            taken = 0
+            for j in range(sorted_words.shape[1]):
+                col = sorted_words[:, j].view(torch.int32)
+                if j:
+                    taken += int(not bool(torch.all(head)))
+                head[1:] |= col[1:] != col[:-1]
+            return taken
+
+        record_sets = {}
+        t0 = time.time()
+        for name, n_rec, width in (("SkySurvey", N_BIG, None), ("TenantTuples", N_BIG, None),
+                                   ("UrlPaths", 1 << 20, 8), ("RnaSequences", 1 << 20, 8)):
+            ds = make_dataset(name, n_rec, seed=62, width=width)
+            words = torch.from_numpy(ds.words.view(np.int32)).to(dev).view(torch.uint32)
+            record_sets[name] = (words, ds if n_rec == 1 << 20 else None)
+        print(f"records input: {', '.join(f'{k} {tuple(w.shape)}' for k, (w, _) in record_sets.items())} "
+              f"uint32 words in {time.time() - t0:.1f} s", flush=True)
+        for name, (words, ds) in record_sets.items():
+            want_o = lsd_order(words)
+            if ds is not None:
+                verdict(f"records {name}", "the LSD oracle equals oracle_argsort",
+                        torch.equal(want_o.cpu(), torch.from_numpy(oracle_argsort(ds))))
+            for clf in ("tree", radix, "auto"):
+                path = f"records {name} {tuple(words.shape)}, {clf}"
+                needed = ("level_fused_radix" if clf == radix else "level_fused", "rank_hist",
+                          "sort_windows")
+                got = drive(path, needed, {
+                    "argsort_records": lambda: ops.argsort_records(words, classifier=clf),
+                    "sort_records": lambda: ops.sort_records(
+                        words, {"id": torch.arange(words.shape[0], device=dev)},
+                        classifier=clf),
+                })
+                out, vals = got["sort_records"]
+                verdict(path, "argsort_records", torch.equal(
+                    got["argsort_records"].to(torch.int64), want_o))
+                verdict(path, "sort_records", torch.equal(vals["id"], want_o) and torch.equal(
+                    out.view(torch.int32), words.view(torch.int32)[want_o]))
+            print(f"records {name}: tie-break passes taken {passes_taken(out)} of "
+                  f"{words.shape[1] - 1}", flush=True)
+        sky_words = record_sets["SkySurvey"][0]
+        del got, out, vals, record_sets, want_o
+
+        zipf = np.random.default_rng(63).zipf(1.3, N_BIG).astype(np.float32)
+        learned_inputs = {"Uniform": main_input("Uniform", N_BIG),
+                          "Zipf": torch.as_tensor(zipf, device=dev)}
+        for name, x in learned_inputs.items():
+            learned.ROUTES.clear()
+            model = name == "Uniform"
+            path = f"learned {name} ({N_BIG} float32)"
+            needed = ("rank_hist", "sort_windows") + (() if model else ("level_fused",))
+            got = drive(path, needed, {
+                "sort": lambda: ops.sort(x, classifier="learned"),
+                "argsort": lambda: ops.argsort(x, classifier="learned")})
+            print(f"path {path}: level 1 kept the model {learned.ROUTES['model']} times, "
+                  f"fell back {learned.ROUTES['fallback']} times", flush=True)
+            verdict(path, "fallback as expected (model kept on Uniform, taken on Zipf)",
+                    learned.ROUTES["model" if model else "fallback"] == 2
+                    and learned.ROUTES["fallback" if model else "model"] == 0)
+            if model and launches_of(path)["level_fused"]:
+                fail(f"path {path}: the tree's K1 ran though the model was kept")
+            want_k, want_o = yardstick(x)
+            verdict(path, "sort", same_keys(got["sort"], want_k))
+            verdict(path, "argsort", torch.equal(got["argsort"].to(torch.int64), want_o))
+        learned.ROUTES.clear()
+        path = f"learned batched ({B_BULK}, {N_ROW})"
+        got = drive(path, ("rank_hist_batched", "sort_windows"), {
+            "batched_sort": lambda: ops.batched_sort(bulk, classifier="learned"),
+            "batched_argsort": lambda: ops.batched_argsort(bulk, classifier="learned")})
+        print(f"path {path}: level 1 kept the model {learned.ROUTES['model']} times, fell back "
+              f"{learned.ROUTES['fallback']} times", flush=True)
+        want_kb, want_ob = yardstick(bulk)
+        verdict(path, "batched_sort", same_keys(got["batched_sort"], want_kb))
+        verdict(path, "batched_argsort",
+                torch.equal(got["batched_argsort"].to(torch.int64), want_ob))
+        if launches_of(path)["level_fused_batched"] and learned.ROUTES["model"]:
+            fail(f"path {path}: K4 level_fused_batched ran though the model was kept")
+        # level 1's placement by kernel name: K2's (K4's) kernels twice a
+        # learned two-level sort (level 1 and level 2), K1 none
+        x_l = learned_inputs["Uniform"]
+        for tag, fn in (("ops.sort learned", lambda: ops.sort(x_l, classifier="learned")),
+                        ("ops.sort tree", lambda: ops.sort(x_l)),
+                        ("ops.batched_sort learned",
+                         lambda: ops.batched_sort(bulk, classifier="learned"))):
+            names = {}
+            for e in device_events(torch, fn, 3):
+                for key_ in ("level_fused_kernel",) + K2_KERNELS:
+                    if key_ in e.key:
+                        names[key_] = names.get(key_, 0) + e.count / 3
+            print(f"kernels a call, {tag}: {names}", flush=True)
+        del got, want_kb, want_ob, zipf
+
+        plan_dir = tempfile.TemporaryDirectory()
+        pc = PlanCache(str(Path(plan_dir.name) / "plans.json"))
+        x_plan = torch.as_tensor(make_input("Uniform", N_PLAN, np.float32, seed=64), device=dev)
+        stream_plan_x = make_input("Uniform", N_PLAN_STREAM, np.float32, seed=65)
+        path = (f"plan (classifier race and tuned sorters at {N_PLAN} float32, external_sort "
+                f"of {N_PLAN_STREAM} in chunks of {N_PLAN})")
+        t0 = time.time()
+        got = drive(path, sort_kernels + ("merge_path",), {
+            "classifier_for": lambda: classifier_for(x_plan, cache=pc, tune=True),
+            "sort": lambda: pc.get_sorter(N_PLAN, torch.float32, "sort", tune=True)(x_plan),
+            "topk": lambda: pc.get_sorter(N_PLAN, torch.float32, "topk", k=STREAM_K,
+                                          tune=True)(x_plan),
+            "external_sort": lambda: stream.external_sort(stream_plan_x, chunk_size=N_PLAN,
+                                                          cache=pc, tune=True),
+        })
+        plan_tile = pc.stream_plan(N_PLAN, N_PLAN_STREAM // N_PLAN, torch.float32).merge_tile
+        print(f"path plan: winners: classifier {got['classifier_for']}, sort "
+              f"{pc.config_for('sort', N_PLAN, torch.float32)}, topk "
+              f"{pc.config_for('topk', N_PLAN, torch.float32, k=STREAM_K)}, stream merge tile "
+              f"{plan_tile} ({time.time() - t0:.1f} s with the sweeps)", flush=True)
+        print(f"path plan: entries {json.dumps(pc._plans, sort_keys=True)}", flush=True)
+        again = PlanCache(pc.path)
+        verdict(path, "the JSON reloads to the same plans", json.load(open(pc.path)) == pc._plans
+                and again.config_for("sort", N_PLAN, torch.float32)
+                == pc.config_for("sort", N_PLAN, torch.float32)
+                and again.classifier_hint(N_PLAN, torch.float32) == got["classifier_for"]
+                and again.stream_plan(N_PLAN, N_PLAN_STREAM // N_PLAN, torch.float32).merge_tile
+                == plan_tile)
+        want_k, _ = yardstick(x_plan)
+        verdict(path, "sort", same_keys(got["sort"], want_k))
+        tv, ti = got["topk"]
+        want_t = torch.sort(~ops.keyspace.encode(x_plan), stable=True).indices[:STREAM_K]
+        verdict(path, "topk", torch.equal(ti.to(torch.int64), want_t))
+        verdict(path, "external_sort", np.array_equal(
+            ops.keyspace.encode_np(got["external_sort"]),
+            np.sort(ops.keyspace.encode_np(stream_plan_x))))
+        del got, want_k, tv, ti, want_t
 
         # peak device memory per key, above the inputs: the in-place block move
         # against the out-of-place s3-sort and the port's ops.sort
@@ -2489,6 +2730,46 @@ def main() -> None:
         timed[f"s3-sort ({N_BIG} float32): ops.sort, the in-place IPS4o path"] = (
             cuda_ms(torch, lambda: ops.sort(s3_x), reps=5),
             cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5))
+        # this slice's entry points, each beside its yardstick (CUDA events,
+        # median of 5): records against the LSD cascade of torch.sort, the
+        # learned classifier against the tree, the planned merge tile against
+        # K5's default in the stream (whole external sort, and one merge of
+        # two chunks)
+        slice_times = [
+            (f"records SkySurvey {tuple(sky_words.shape)}: argsort_records",
+             cuda_ms(torch, lambda: ops.argsort_records(sky_words), reps=5),
+             "the torch.sort cascade", cuda_ms(torch, lambda: lsd_order(sky_words), reps=5)),
+            (f"ops.sort {N_BIG} float32 Uniform, learned",
+             cuda_ms(torch, lambda: ops.sort(x_l, classifier="learned"), reps=5),
+             "tree", cuda_ms(torch, lambda: ops.sort(x_l), reps=5)),
+            (f"ops.sort {N_BIG} float32 Zipf, learned (the fallback)",
+             cuda_ms(torch, lambda: ops.sort(learned_inputs["Zipf"], classifier="learned"),
+                     reps=5),
+             "tree", cuda_ms(torch, lambda: ops.sort(learned_inputs["Zipf"]), reps=5)),
+        ]
+        no_stream_plan = PlanCache(str(Path(plan_dir.name) / "no_stream_plan.json"))
+        no_stream_plan._plans.update({key: v for key, v in pc._plans.items()
+                                      if not key.startswith("stream:")})
+        slice_times.append((
+            f"external_sort {N_PLAN_STREAM} float32 in chunks of {N_PLAN}, planned tile "
+            f"{plan_tile}", cuda_ms(torch, lambda: stream.external_sort(
+                stream_plan_x, chunk_size=N_PLAN, cache=pc), warmup=1, reps=5),
+            f"K5's default tile {mp.TILE}", cuda_ms(torch, lambda: stream.external_sort(
+                stream_plan_x, chunk_size=N_PLAN, cache=no_stream_plan), warmup=1, reps=5)))
+        run_a, run_b = (torch.sort(x_plan[i::2]).values for i in (0, 1))
+        slice_times.append((
+            f"stream.merge of two {N_PLAN // 2}-key runs, planned tile {plan_tile}",
+            cuda_ms(torch, lambda: stream.merge([run_a, run_b], tile=plan_tile), reps=5),
+            f"K5's default tile {mp.TILE}",
+            cuda_ms(torch, lambda: stream.merge([run_a, run_b]), reps=5)))
+        plan_dir.cleanup()
+        # where the new paths' time goes: device time, launches and idle share
+        profile(torch, f"ops.sort learned n={N_BIG}", lambda: ops.sort(x_l, classifier="learned"),
+                show=DEVICE_FUNCTIONS["level_fused"] + DEVICE_FUNCTIONS["rank_hist"])
+        profile(torch, f"ops.argsort_records SkySurvey {tuple(sky_words.shape)}",
+                lambda: ops.argsort_records(sky_words),
+                show=DEVICE_FUNCTIONS["level_fused"] + DEVICE_FUNCTIONS["rank_hist"])
+        del sky_words, learned_inputs, x_l, run_a, run_b, stream_plan_x
         del pb_arrays, pb_keys, body
         torch.cuda.empty_cache()
         level_kernels = DEVICE_FUNCTIONS["level_fused"] + DEVICE_FUNCTIONS["rank_hist"]
@@ -2533,6 +2814,8 @@ def main() -> None:
                   f"{lib_ms:.4f} ms", flush=True)
         for name, (ms, library_ms) in timed.items():
             print(f"time whole {name}: {ms:.3f} ms, torch {library_ms:.3f} ms", flush=True)
+        for label, ms, yard, yard_ms in slice_times:
+            print(f"time {label}: {ms:.3f} ms, {yard} {yard_ms:.3f} ms", flush=True)
 
     sort_phases()
     torch.cuda.empty_cache()

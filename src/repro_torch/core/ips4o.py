@@ -8,7 +8,12 @@ Counterpart of ``repro.core.ips4o`` for 1-D keys and for (B, n) rows
     (``kernels.level_fused.level_fused``: tree classify, pad routing,
     stable in-tile rank and histogram) and a scatter by its destinations;
     with ``classifier="radix"`` it samples nothing and runs K1's radix
-    mode K1r, which buckets on the top log2(k) key bits;
+    mode K1r, which buckets on the top log2(k) key bits; with
+    ``classifier="learned"`` it fits the CDF model of ``classify.learned``
+    on the sample, classifies by the model in plain torch (XLA in the
+    reference) and places the ids with kernel K2 ``rank_hist``; a fit whose
+    sample-measured imbalance trips the threshold runs the tree (K1)
+    instead, one host read deciding;
   * level 2 (:func:`segmented_level_pass`) samples splitters per level-1
     segment (or, after a radix level 1, takes the next log2(k2) bits),
     classifies in plain torch (XLA in the reference) and runs kernel K2
@@ -26,7 +31,13 @@ Counterpart of ``repro.core.ips4o`` for 1-D keys and for (B, n) rows
     the window passes (the reference sorts everything there, batch-wide;
     the result is the same);
   * ``limit`` restricts the base case and the fallback to a prefix of each
-    row, for the partial sorts of ``ops.topk`` and ``ops.batched``.
+    row, for the partial sorts of ``ops.topk`` and ``ops.batched``;
+  * ``values`` is any pytree of tensors (``torch.utils._pytree``: dicts,
+    lists, tuples, NamedTuples) whose leaves have the keys' leading dims;
+    every leaf rides every pass as one more tensor of the arrays, and a
+    ``None`` leaf is an empty subtree, as in ``jax.tree``;
+  * :func:`tiebreak_passes` sorts multi-word keys word by word, re-sorting
+    only the runs that still tie (DESIGN.md §11).
 
 The port has no engine switch: on a CUDA tensor these passes launch the
 kernels, and only those; on a CPU tensor the kernels' plain twins run.
@@ -41,12 +52,18 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import obs
-from repro_torch.classify import classify_segmented, radix_bucket_ids, resolve_classifier
+from repro_torch.classify import (
+    classify_segmented,
+    learned_model_ids,
+    radix_bucket_ids,
+    resolve_classifier,
+)
 from repro_torch.core import sampling
 from repro_torch.kernels.bitonic import window_perm_plain
 from repro_torch.kernels.level_fused import (
@@ -74,6 +91,9 @@ __all__ = [
     "bucket_violations",
     "segment_ids",
     "stable_full_sort",
+    "signed_payload",
+    "tiebreak_passes",
+    "make_sorter",
     # the batch-axis pipeline, consumed by ``repro_torch.ops.batched``
     "ips4o_sort_batched",
     "batched_pad_with_sentinel",
@@ -102,7 +122,7 @@ class SortConfig:
     max_sample: int = 8192         # cap on the level-1 sample size
     seed: int = 0xC0FFEE           # seeds the torch.Generator of the samples
     fallback: bool = True          # robustness fallback (a host read here)
-    classifier: str = "tree"       # "tree" | "radix" ("learned", "auto" not ported)
+    classifier: str = "tree"       # "tree" | "radix" | "learned" | "auto"
 
 
 # reference fields with no meaning in the port: it has no engine switch (its
@@ -127,7 +147,7 @@ def config_from_reference(d: dict) -> SortConfig:
 
 
 def _check_config(cfg: SortConfig) -> None:
-    resolve_classifier(cfg.classifier)  # raises for the engines not ported
+    resolve_classifier(cfg.classifier)  # raises for an unknown classifier
 
 
 def plan_levels(n: int, cfg: SortConfig) -> List[int]:
@@ -239,6 +259,18 @@ def _level1_sample_size(n_real: int, k: int, cfg: SortConfig) -> int:
     return min(max(sampling.oversampling_factor(n_real) * k, k), cfg.max_sample, n_real)
 
 
+def _learned_ids(keys, sample, k, n_real) -> Optional[torch.Tensor]:
+    """Level 1's ids (n,) or (B, n) by the learned CDF model fitted on
+    ``sample``, pads (positions >= n_real) in bucket 2k; None when the fit
+    (of any row) trips the imbalance threshold and the tree must classify.
+    One host read of the sample's imbalance stands for the reference's
+    ``lax.cond``."""
+    ids = learned_model_ids(keys, sample, k)
+    if ids is not None:
+        ids[..., n_real:] = 2 * k
+    return ids
+
+
 def level_pass(
     arrays: Arrays,
     n_real: int,
@@ -252,8 +284,11 @@ def level_pass(
     -> scatter.  Pads (positions >= n_real) go to the dedicated bucket 2k.
     ``splitters`` (k-1,) replaces the sample when given.  With
     ``cfg.classifier == "radix"`` nothing is sampled and K1r buckets on
-    the log2(k) key bits past ``consumed_bits``.  Returns
-    (arrays, offsets, nb, pad_bucket) with nb = 2k + 1."""
+    the log2(k) key bits past ``consumed_bits``.  With "learned" the CDF
+    model fitted on the sample classifies in plain torch and K2
+    ``rank_hist`` places the ids; a fit that trips the imbalance threshold
+    runs the tree through K1, as the reference's ``lax.cond`` does.  Returns (arrays, offsets, nb,
+    pad_bucket) with nb = 2k + 1."""
     keys = arrays["k"]
     clf = resolve_classifier(cfg.classifier)
     if clf == "radix":
@@ -264,12 +299,24 @@ def level_pass(
             pos = torch.randint(0, n_real, (m1,), generator=gen, device=keys.device)
             sample = torch.sort(keys[pos]).values
             splitters = sampling.select_splitters(sample, k)
+    elif clf == "learned":
+        raise ValueError("the learned classifier fits its model on the drawn sample: "
+                         "pass no splitters")
     nb = 2 * k + 1  # +1: dedicated pad bucket (the overflow-block analogue)
-    with obs.trace("classify", fused=True, classifier=clf, k=k):
-        dest, off = level_fused(
-            keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
-            classifier=clf, consumed_bits=consumed_bits,
-        )
+    ids = None
+    if clf == "learned":
+        with obs.trace("classify", classifier="learned", k=k):
+            ids = _learned_ids(keys, sample, k, n_real)
+    if ids is not None:
+        with obs.trace("partition", nb=nb):
+            dest, off = rank_hist(ids, nb=nb, tile=_auto_tile(keys.shape[0], nb, cfg))
+    else:
+        clf = "tree" if clf == "learned" else clf
+        with obs.trace("classify", fused=True, classifier=clf, k=k):
+            dest, off = level_fused(
+                keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
+                classifier=clf, consumed_bits=consumed_bits,
+            )
     with obs.trace("partition", fused=True, nb=nb):
         arrays = _scatter(arrays, dest)
     return arrays, off, nb, 2 * k
@@ -371,6 +418,14 @@ def batched_composite_ids(
     return seg * (2 * k) + local
 
 
+def _level2_classifier(clf: str) -> str:
+    """Level 2's classifier: radix stays radix (its segments are bit-aligned
+    key ranges); "learned" maps to "tree", as in the reference (the CDF
+    model is global, and per-segment refits would cost more than the
+    per-segment tree they would replace)."""
+    return "radix" if clf == "radix" else "tree"
+
+
 def partition_passes(
     arrays: Arrays,
     n_real: int,
@@ -387,7 +442,8 @@ def partition_passes(
     splitters in place of the samples (the parity tests feed the
     reference's); the samples come from a ``torch.Generator`` seeded with
     ``cfg.seed`` on the keys' device.  Level 2 stays radix only when level 1
-    was radix, shifted past the ``log2(k1)`` bits level 1 fixed.
+    was radix, shifted past the ``log2(k1)`` bits level 1 fixed, and runs
+    the tree after a learned level 1.
     """
     clf = resolve_classifier(cfg.classifier)
     keys = arrays["k"]
@@ -402,7 +458,7 @@ def partition_passes(
     with obs.trace("level_pass", level=2, k=levels[1], segmented=True):
         arrays, offsets, nb = segmented_level_pass(
             arrays, off1, nb1, n_real, levels[1], cfg, gen, splitters=spl[1],
-            classifier=clf, consumed_bits=levels[0].bit_length() - 1,
+            classifier=_level2_classifier(clf), consumed_bits=levels[0].bit_length() - 1,
         )
     return arrays, offsets, nb, None  # pads now sit in an odd equality bucket
 
@@ -540,8 +596,11 @@ def batched_level_pass(
     """One global level pass per row: per-row sample -> K4
     ``level_fused_batched`` (classify + rank + histogram of all rows in one
     launch) -> per-row scatter.  "radix" samples nothing: the shift is
-    shared by the rows.  ``splitters`` (B, k-1) replaces the samples when
-    given.  Returns (arrays, offsets (B, nb+1), nb, pad_bucket), nb = 2k+1.
+    shared by the rows.  "learned" fits one CDF model per row and places
+    its ids with K4 ``rank_hist_batched``; when any row's fit trips the
+    imbalance threshold every row runs its tree through K4
+    ``level_fused_batched`` (batch-wide, as in the reference).
+    ``splitters`` (B, k-1) replaces the samples when given.  Returns (arrays, offsets (B, nb+1), nb, pad_bucket), nb = 2k+1.
     """
     keys = arrays["k"]
     B = keys.shape[0]
@@ -554,12 +613,24 @@ def batched_level_pass(
             pos = torch.randint(0, n_real, (B, m1), generator=gen, device=keys.device)
             sample = torch.sort(torch.gather(keys, 1, pos), dim=1).values
             splitters = sampling.select_splitters(sample, k)
+    elif clf == "learned":
+        raise ValueError("the learned classifier fits its model on the drawn sample: "
+                         "pass no splitters")
     nb = 2 * k + 1
-    with obs.trace("classify", batched=True, fused=True, classifier=clf, k=k):
-        dest, off = level_fused_batched(
-            keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
-            classifier=clf,
-        )
+    ids = None
+    if clf == "learned":
+        with obs.trace("classify", batched=True, classifier="learned", k=k):
+            ids = _learned_ids(keys, sample, k, n_real)
+    if ids is not None:
+        with obs.trace("partition", batched=True, nb=nb):
+            dest, off = rank_hist_batched(ids, nb=nb, tile=_auto_tile(keys.shape[1], nb, cfg))
+    else:
+        clf = "tree" if clf == "learned" else clf
+        with obs.trace("classify", batched=True, fused=True, classifier=clf, k=k):
+            dest, off = level_fused_batched(
+                keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
+                classifier=clf,
+            )
     with obs.trace("partition", batched=True, fused=True, nb=nb):
         arrays = _scatter(arrays, dest)
     return arrays, off, nb, 2 * k
@@ -621,7 +692,7 @@ def batched_partition_passes(
     with obs.trace("level_pass", level=2, k=levels[1], batched=True, segmented=True):
         arrays, offsets, nb = batched_segmented_level_pass(
             arrays, off1, nb1, n_real, levels[1], cfg, gen, splitters=spl[1],
-            classifier=clf, consumed_bits=levels[0].bit_length() - 1,
+            classifier=_level2_classifier(clf), consumed_bits=levels[0].bit_length() - 1,
         )
     return arrays, offsets, nb, None  # pads now sit in odd equality buckets
 
@@ -636,21 +707,13 @@ def _sort_padded_batched(
     return base_case_with_fallback(arrays, offsets, nb, pad_bucket, cfg)
 
 
-def _check_keys(keys: torch.Tensor, dim: int, values) -> None:
+def _check_keys(keys: torch.Tensor, dim: int) -> None:
     if keys.dim() != dim:
         raise ValueError(f"keys must be {'1-D' if dim == 1 else '2-D (B, n)'}")
     if keys.dtype not in (torch.int32, torch.int64):
         raise NotImplementedError(
             f"the sort takes keyspace-encoded int32 or int64 keys, got {keys.dtype} "
             f"({_ROADMAP} item 1)"
-        )
-    if values is not None and (
-        not isinstance(values, torch.Tensor) or values.dim() < dim
-        or values.shape[:dim] != keys.shape
-    ):
-        raise NotImplementedError(
-            f"values must be one tensor with leading dims {tuple(keys.shape)}; payload "
-            f"pytrees are not ported yet ({_ROADMAP} item 7)"
         )
 
 
@@ -666,60 +729,171 @@ def signed_payload(values: torch.Tensor) -> torch.Tensor:
     return values.view(_SIGNED_VIEW.get(values.dtype, values.dtype))
 
 
+def _payload(values: Any, keys: torch.Tensor) -> Tuple[Arrays, Callable[[Arrays, int], Any]]:
+    """Flatten a ``values`` pytree into the arrays' payload entries, one per
+    leaf ("v0", "v1", ...), each on the keys' device and viewed by
+    :func:`signed_payload`; returns them and the function that rebuilds the
+    pytree from the sorted arrays, cut to the first n positions of each row.
+
+    A ``None`` leaf is an empty subtree, as in ``jax.tree`` (torch's pytree
+    would take it for a leaf): it never reaches the passes and comes back
+    as ``None``."""
+    leaves, spec = pytree.tree_flatten(values)
+    lead = tuple(keys.shape)
+    arrays, dtypes = {}, {}
+    for i, leaf in enumerate(leaves):
+        if leaf is None:
+            continue
+        t = torch.as_tensor(leaf, device=keys.device)
+        if tuple(t.shape[:len(lead)]) != lead:
+            raise ValueError(f"payload leaf {i} has shape {tuple(t.shape)}; its leading "
+                             f"dims must be the keys' {lead}")
+        arrays[f"v{i}"], dtypes[i] = signed_payload(t), t.dtype
+
+    def rebuild(sorted_arrays: Arrays, n: int) -> Any:
+        out = [None] * len(leaves)
+        for i in dtypes:
+            a = sorted_arrays[f"v{i}"]
+            out[i] = a.narrow(len(lead) - 1, 0, n).view(dtypes[i])
+        return pytree.tree_unflatten(out, spec)
+
+    return arrays, rebuild
+
+
 def ips4o_sort_batched(
     keys: torch.Tensor,
-    values: Optional[torch.Tensor] = None,
+    values: Any = None,
     cfg: SortConfig = SortConfig(),
 ):
-    """Sort every row of encoded int32/int64 ``keys`` (B, n) ascending, stably and
-    independently, in one pipeline; optionally move a ``values`` tensor
-    (leading dims (B, n)) alongside, row by row.  Returns keys or (keys,
-    values) on the keys' device."""
+    """Sort every row of encoded int32/int64 ``keys`` (B, n) ascending, stably
+    and independently, in one pipeline; optionally move a ``values`` pytree
+    (leaves with leading dims (B, n), any dtype) alongside, row by row.
+    Returns keys or (keys, values) on the keys' device."""
     _check_config(cfg)
-    _check_keys(keys, 2, values)
+    _check_keys(keys, 2)
     B, n = keys.shape
     if n <= 1 or B == 0:
         return keys if values is None else (keys, values)
     arrays = {"k": keys}
     if values is not None:
-        arrays["v"] = signed_payload(values.to(keys.device))
+        payload, rebuild = _payload(values, keys)
+        arrays.update(payload)
     with obs.trace("ips4o_sort_batched", B=B, n=n, classifier=cfg.classifier):
         arrays = batched_pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
         levels = plan_levels(arrays["k"].shape[1], cfg)
         arrays = _sort_padded_batched(arrays, n, cfg, levels)
     out_k = arrays["k"][:, :n]
-    return out_k if values is None else (out_k, arrays["v"][:, :n].view(values.dtype))
+    return out_k if values is None else (out_k, rebuild(arrays, n))
 
 
 def ips4o_sort(
     keys: torch.Tensor,
-    values: Optional[torch.Tensor] = None,
+    values: Any = None,
     cfg: SortConfig = SortConfig(),
 ):
     """Sort encoded int32 or int64 ``keys`` (n,) ascending, stably;
-    optionally move a ``values`` tensor (leading dim n) alongside.  Returns
-    keys or (keys, values) on the keys' device.
+    optionally move a ``values`` pytree (leaves with leading dim n, any
+    dtype) alongside.  Returns keys or (keys, values) on the keys' device.
 
     The ``repro_torch.ops`` entry points encode keys of every dtype of
     ``ops.keyspace`` first.
     """
     _check_config(cfg)
-    _check_keys(keys, 1, values)
+    _check_keys(keys, 1)
     n = keys.shape[0]
     if n <= 1:
         return keys if values is None else (keys, values)
 
     arrays = {"k": keys}
     if values is not None:
-        arrays["v"] = signed_payload(values.to(keys.device))
+        payload, rebuild = _payload(values, keys)
+        arrays.update(payload)
     with obs.trace("ips4o_sort", n=n, classifier=cfg.classifier):
         arrays = pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
         levels = plan_levels(arrays["k"].shape[0], cfg)
         arrays = _sort_padded(arrays, n, cfg, levels)
     out_k = arrays["k"][:n]
-    return out_k if values is None else (out_k, arrays["v"][:n].view(values.dtype))
+    return out_k if values is None else (out_k, rebuild(arrays, n))
+
+
+def tiebreak_passes(
+    cols: Sequence[torch.Tensor],
+    values: Any = None,
+    cfg: SortConfig = SortConfig(),
+) -> Tuple[List[torch.Tensor], Any]:
+    """MSD tie-break schedule over multi-word keys (DESIGN.md §11).
+
+    ``cols`` is each row's key as words, most significant first: W encoded
+    int32 or int64 tensors of shape (n,) (the ``ops`` callers encode every
+    word column).  The rows end up in stable lexicographic order, the
+    permutation of ``np.lexsort`` over the columns, by the stability of
+    :func:`ips4o_sort`.
+
+    Level 0 sorts word 0.  Level l re-sorts the runs that still tie on
+    words 0..l-1 by two stable passes carrying a pytree payload: by word l,
+    then by run id, which restores each run's index range with word l
+    ordered inside it.  Run ids are nonnegative int32 (uint32 in the
+    reference; the order is the same).  Where the reference skips a level
+    with no ties by ``lax.cond``, one host read per word decides here.
+
+    Returns ``(sorted cols, values)``; ``values`` (a pytree of leaves with
+    leading dim n) is moved through every pass.
+    """
+    cols = list(cols)
+    if not cols:
+        raise ValueError("tiebreak_passes: need at least one word column")
+    n = cols[0].shape[0]
+    if any(tuple(c.shape) != (n,) for c in cols):
+        raise ValueError("tiebreak_passes: word columns must share shape (n,)")
+    if n <= 1:
+        return cols, values
+
+    key, state = ips4o_sort(cols[0], {"rest": cols[1:], "v": values}, cfg=cfg)
+    out: List[torch.Tensor] = [key]
+    boundary = _run_heads(key)
+    for _ in range(1, len(cols)):
+        col, rest, v = state["rest"][0], state["rest"][1:], state["v"]
+        if not bool(torch.all(boundary)):  # the host read: some run still ties
+            # tie-run ids of the sorted prefix: nondecreasing, one per run
+            seg = torch.cumsum(boundary, 0, dtype=torch.int32) - 1
+            col_a, st_a = ips4o_sort(col, {"seg": seg, "rest": rest, "v": v}, cfg=cfg)
+            _, st_b = ips4o_sort(st_a["seg"], {"col": col_a, "rest": st_a["rest"],
+                                               "v": st_a["v"]}, cfg=cfg)
+            col, rest, v = st_b["col"], st_b["rest"], st_b["v"]
+        state = {"rest": rest, "v": v}
+        out.append(col)
+        boundary |= _run_heads(col)
+    return out, state["v"]
+
+
+def _run_heads(col: torch.Tensor) -> torch.Tensor:
+    """True where a run of equal keys starts in a sorted column."""
+    head = torch.ones(col.shape, dtype=torch.bool, device=col.device)
+    head[1:] = col[1:] != col[:-1]
+    return head
 
 
 def is4o_sort(keys: torch.Tensor, values=None, cfg: SortConfig = SortConfig()):
     """IS4o, the sequential instantiation: the same pass pipeline."""
     return ips4o_sort(keys, values, cfg)
+
+
+def make_sorter(n: int, dtype: torch.dtype, cfg: SortConfig = SortConfig(),
+                donate: bool = True) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A sorter for keys of shape (n,) and ``dtype`` (any ``ops.keyspace``
+    dtype: the keys are encoded, sorted and decoded, NaNs last).  With
+    ``donate=True`` the sorted keys are written back into the caller's
+    tensor and it is returned: the in-place property the reference gets
+    from buffer donation, here a copy back (ROADMAP.md, queue 3)."""
+    from repro_torch.ops import keyspace  # lazy: ops layers on core
+
+    keyspace.encoded_dtype(dtype)  # raises for dtypes with no order-preserving code
+
+    def sorter(keys: torch.Tensor) -> torch.Tensor:
+        if tuple(keys.shape) != (n,) or keys.dtype != dtype:
+            raise ValueError(f"this sorter takes ({n},) {dtype} keys, got "
+                             f"{tuple(keys.shape)} {keys.dtype}")
+        out = keyspace.decode(ips4o_sort(keyspace.encode(keys), cfg=cfg), dtype)
+        return keys.copy_(out) if donate else out
+
+    return sorter

@@ -12,16 +12,18 @@ Keys are bijected through ``ops.keyspace`` first, so NaN and -0.0 are
 handled as by ``ops.sort``.  Every stage is stable, so ``batched_argsort``
 is the stable per-row argsort (the reference's pipeline is stable too,
 although its docstring promises less) and the top/bottom-k keep equal
-keys in input order.  ``device=None`` means ``"cuda"`` and raises without
-a card; ``device="cpu"`` runs the kernels' plain twins.
+keys in input order.  ``classifier="learned"`` runs K4
+``rank_hist_batched`` at level 1 over the model's ids; "auto" resolves
+against the caller's (B, n, dtype) (``with_engine_batched``).
+``device=None`` means ``"cuda"`` and raises without a card;
+``device="cpu"`` runs the kernels' plain twins.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.classify import resolve_classifier
 from repro_torch.core.ips4o import (
     SortConfig,
     base_case_with_fallback,
@@ -32,7 +34,7 @@ from repro_torch.core.ips4o import (
     plan_levels,
 )
 from repro_torch.ops import keyspace
-from repro_torch.ops.sort import Device, _device, _keys, _with_classifier
+from repro_torch.ops.sort import Device, _device, _keys, _override
 from repro_torch.ops.topk import _prefix_limit
 
 __all__ = [
@@ -44,40 +46,49 @@ __all__ = [
 ]
 
 
-def with_engine_batched(cfg: SortConfig, classifier: Optional[str] = None) -> SortConfig:
-    """``cfg`` with ``classifier`` ("tree" | "radix") in place of its own
-    (None keeps it), checked.  The reference's override also picks an
-    engine; the port has none, its kernels always run on the card.
+def with_engine_batched(
+    cfg: SortConfig,
+    engine: Optional[str] = None,
+    keys: Optional[torch.Tensor] = None,
+    classifier: Optional[str] = None,
+) -> SortConfig:
+    """The batched ``ops.sort.with_engine``: ``classifier`` in place of
+    ``cfg.classifier`` (None keeps it), and "auto" resolved against the
+    caller's (B, n, dtype) when ``keys`` is given, the shape the plan cache
+    keys batched races under.  ``engine`` must be None: the port has no
+    engine switch.
 
     >>> with_engine_batched(SortConfig(), classifier="radix").classifier
     'radix'
     """
-    cfg = _with_classifier(cfg, classifier)
-    resolve_classifier(cfg.classifier)
-    return cfg
+    if keys is None:
+        return _override(cfg, engine, classifier)
+    B, n = keys.shape
+    return _override(cfg, engine, classifier, n, keys.dtype, B)
 
 
 def batched_sort(
     keys,
-    values: Optional[torch.Tensor] = None,
+    values: Any = None,
     *,
     cfg: SortConfig = SortConfig(),
     classifier: Optional[str] = None,
     device: Device = None,
 ):
     """Sort each row of ``keys`` (B, n) ascending, NaN-safe, optionally
-    moving a ``values`` tensor (leading dims (B, n)) alongside, row by row.
+    moving a ``values`` pytree (leaves with leading dims (B, n)) alongside,
+    row by row.
 
     >>> batched_sort(torch.tensor([[3.0, 1.0, 2.0], [0.0, 5.0, -1.0]]), device="cpu").tolist()
     [[1.0, 2.0, 3.0], [-1.0, 0.0, 5.0]]
     """
     dev = _device(device)
     keys = _keys(keys, dev, dim=2)
-    cfg = with_engine_batched(cfg, classifier)
+    cfg = with_engine_batched(cfg, None, keys, classifier)
     enc = keyspace.encode(keys)
     if values is None:
         return keyspace.decode(ips4o_sort_batched(enc, cfg=cfg), keys.dtype)
-    out, vs = ips4o_sort_batched(enc, values.to(dev), cfg=cfg)
+    out, vs = ips4o_sort_batched(enc, values, cfg=cfg)
     return keyspace.decode(out, keys.dtype), vs
 
 
@@ -99,7 +110,7 @@ def batched_argsort(
     idx = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n).contiguous()
     if n <= 1:
         return idx
-    cfg = with_engine_batched(cfg, classifier)
+    cfg = with_engine_batched(cfg, None, keys, classifier)
     _, order = ips4o_sort_batched(keyspace.encode(keys), idx, cfg=cfg)
     return order
 
@@ -130,7 +141,7 @@ def _batched_partial(keys, k, cfg, classifier, device, largest: bool):
     keys = _keys(keys, dev, dim=2)
     B, n = keys.shape
     kk = max(0, min(int(k), n))
-    cfg = with_engine_batched(cfg, classifier)
+    cfg = with_engine_batched(cfg, None, keys, classifier)
     if kk == 0 or B == 0:
         return keys[:, :kk], torch.zeros((B, kk), dtype=torch.int32, device=dev)
     enc = keyspace.encode(keys)

@@ -24,9 +24,10 @@ Every function takes ``device=None`` (the card) like ``ops.sort``;
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.ips4o import SortConfig, ips4o_sort
 from repro_torch.core.partition import partition_ranks_kernel
@@ -43,7 +44,7 @@ class Groups(NamedTuple):
     """Result of :func:`group_by`; positions are grouped key-ascending."""
 
     keys: torch.Tensor                # (n,) grouped keys
-    values: Optional[torch.Tensor]    # grouped payload (None if not given)
+    values: Any                       # grouped payload pytree (None if not given)
     group_ids: torch.Tensor           # (n,) int32 group index of each grouped position
     counts: torch.Tensor              # (num_groups,) exact, or (n,) padded for "sort"
     num_groups: Union[int, torch.Tensor]  # int, or a 0-d int32 tensor for "sort"
@@ -91,9 +92,27 @@ def _int_group_perm(
     return perm, offsets
 
 
+def _gather_values(values: Any, perm: torch.Tensor, n: int, dev: torch.device) -> Any:
+    """Every leaf of a ``values`` pytree (leading dim n) gathered by
+    ``perm``; ``None`` leaves stay ``None`` (an empty subtree, as in
+    ``jax.tree``)."""
+    p64 = perm.to(torch.int64)
+
+    def take(leaf):
+        if leaf is None:
+            return None
+        t = torch.as_tensor(leaf, device=dev)
+        if t.shape[:1] != (n,):
+            raise ValueError(f"payload leaf of shape {tuple(t.shape)}: its leading dim "
+                             f"must be {n}")
+        return t[p64]
+
+    return pytree.tree_map(take, values, is_leaf=lambda x: x is None)
+
+
 def group_by(
     keys,
-    values: Optional[torch.Tensor] = None,
+    values: Any = None,
     *,
     num_groups: Optional[int] = None,
     method: str = "auto",
@@ -109,7 +128,7 @@ def group_by(
     result), and ``counts``/``num_groups`` are exact.  Without it, keys are
     of any ``ops.keyspace`` dtype (``method="sort"``): a NaN-safe sort groups equal keys,
     ``counts`` comes back (n,)-padded and ``num_groups`` is a 0-d tensor.
-    ``values`` (one tensor, leading dim n) is grouped alongside.
+    ``values`` (a pytree of leaves with leading dim n) is grouped alongside.
 
     >>> g = group_by(torch.tensor([2, 0, 2, 1]), num_groups=3, device="cpu")
     >>> g.keys.tolist(), g.counts.tolist(), g.perm.tolist()
@@ -128,10 +147,6 @@ def group_by(
             raise ValueError(f"method {method!r} takes 1-D integer keys in [0, num_groups)")
     else:
         keys = _keys(keys, dev)
-    if values is not None:
-        values = torch.as_tensor(values, device=dev)
-        if values.shape[:1] != keys.shape:
-            raise ValueError(f"values must have leading dim {keys.shape[0]}")
     n = keys.shape[0]
     empty = torch.zeros(0, dtype=torch.int32, device=dev)
     if method != "sort":
@@ -142,7 +157,8 @@ def group_by(
         perm, offsets = _int_group_perm(keys, num_groups, method, tile)
         p64 = perm.to(torch.int64)
         gk = keys[p64]
-        return Groups(keys=gk, values=None if values is None else values[p64],
+        return Groups(keys=gk, values=None if values is None else
+                      _gather_values(values, perm, n, dev),
                       group_ids=gk.to(torch.int32), counts=torch.diff(offsets),
                       num_groups=num_groups, perm=perm)
     if n == 0:
@@ -153,7 +169,7 @@ def group_by(
     gid, num = _boundaries(enc_sorted)
     _, counts = _compact(enc_sorted, gid)
     return Groups(keys=keyspace.decode(enc_sorted, keys.dtype),
-                  values=None if values is None else values[perm.to(torch.int64)],
+                  values=None if values is None else _gather_values(values, perm, n, dev),
                   group_ids=gid, counts=counts, num_groups=num, perm=perm)
 
 

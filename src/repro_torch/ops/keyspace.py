@@ -37,8 +37,19 @@ code to the reference's code for every dtype.
 ``encode_np``/``decode_np`` are numpy copies of the reference's unsigned
 mirror, kept for the tests and ``chip_smoke.py``, which must not import
 ``repro``.
+
+**Multi-word keys** (DESIGN.md §11).  :func:`encode_words` decomposes
+strings and composite records into a fixed-width (n, W) uint32 matrix,
+each record's bytes big-endian across the words, such that
+row-lexicographic order on the words is the record order;
+:func:`decode_words` inverts it.  Both run on the host in numpy, copies of
+the reference's, as the words are what goes to the card
+(``ops.sort_records``, which encodes each word column into int32 codes).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,6 +64,9 @@ __all__ = [
     "reference_code_np",
     "encode_np",
     "decode_np",
+    "WordSpec",
+    "encode_words",
+    "decode_words",
 ]
 
 # key dtype -> (its width in bits, the reference's unsigned dtype)
@@ -218,3 +232,147 @@ def decode_np(u: np.ndarray, dtype) -> np.ndarray:
     was_neg = (u & sign) == 0
     bits = np.where(was_neg, ~u, u ^ sign).astype(udtype)
     return bits.view(dtype)
+
+
+# ---------------------------------------------------------------------------
+# multi-word keys: a copy of the reference's host-side word codec
+
+_WORD_BYTES = 4  # uint32 words
+
+
+def _np_supported(dtype: np.dtype) -> bool:
+    """The reference's ``supported`` for a numpy column dtype: 8/16/32/64-bit
+    ints, uints and floats."""
+    return (dtype.kind in "iuf" or dtype.name == "bfloat16") and \
+        dtype.itemsize * 8 in _UINT_FOR_BITS
+
+
+@dataclass(frozen=True)
+class WordSpec:
+    """Layout of :func:`encode_words`' output, read by :func:`decode_words`:
+    ``kind`` "bytes" (strings padded with 0x00 to ``row_bytes``) or
+    "columns" (numeric columns of ``dtypes``, big-endian in order);
+    ``words`` is W, the uint32 words a row."""
+
+    kind: str
+    row_bytes: int
+    words: int
+    dtypes: Tuple[str, ...] = ()
+
+
+def _pack_rows(b: np.ndarray) -> np.ndarray:
+    """(n, L) uint8 byte rows -> (n, ceil(L/4)) big-endian uint32 words."""
+    n, L = b.shape
+    W = max(1, -(-L // _WORD_BYTES))
+    padded = np.zeros((n, W * _WORD_BYTES), np.uint8)
+    padded[:, :L] = b
+    q = padded.reshape(n, W, _WORD_BYTES).astype(np.uint32)
+    return (q[..., 0] << 24) | (q[..., 1] << 16) | (q[..., 2] << 8) | q[..., 3]
+
+
+def _unpack_rows(words: np.ndarray, row_bytes: int) -> np.ndarray:
+    """(n, W) uint32 words -> (n, row_bytes) uint8 byte rows."""
+    w = np.asarray(words, np.uint32)
+    n, W = w.shape
+    b = np.empty((n, W, _WORD_BYTES), np.uint8)
+    b[..., 0] = w >> 24
+    b[..., 1] = (w >> 16) & 0xFF
+    b[..., 2] = (w >> 8) & 0xFF
+    b[..., 3] = w & 0xFF
+    return b.reshape(n, W * _WORD_BYTES)[:, :row_bytes]
+
+
+def _is_strings(records: Any) -> bool:
+    if isinstance(records, np.ndarray):
+        return records.dtype.kind in "SU"
+    if isinstance(records, (list, tuple)):
+        return len(records) == 0 or isinstance(records[0], (bytes, bytearray, str))
+    return False
+
+
+def encode_words(
+    records: Union[Sequence[Union[bytes, str]], Sequence[np.ndarray]],
+    *,
+    width: int = None,
+) -> Tuple[np.ndarray, WordSpec]:
+    """Fixed-width big-endian word decomposition of records, on the host.
+
+    ``records`` is a sequence of strings / byte strings, or a tuple of
+    equal-length numeric column arrays (a composite record per row).
+    Returns ``(words, spec)``: ``words`` is (n, W) uint32, word 0 most
+    significant, and row-lexicographic order on the words is the record
+    order: bytes order for strings (a proper prefix first), tuple order for
+    columns (each in its keyspace order: NaNs last, -0.0 < +0.0).  Strings
+    must hold no NUL byte (the pad); ``width`` fixes their byte length.
+
+    >>> w, spec = encode_words([b"ab", b"abc", b""])
+    >>> w.shape, spec.words
+    ((3, 1), 1)
+    >>> bool(w[2, 0] < w[0, 0] < w[1, 0])  # "" < "ab" < "abc"
+    True
+    """
+    if _is_strings(records):
+        if isinstance(records, np.ndarray):
+            records = records.tolist()
+        bs: List[bytes] = [r.encode("utf-8") if isinstance(r, str) else bytes(r)
+                           for r in records]
+        n = len(bs)
+        maxlen = max((len(b) for b in bs), default=0)
+        if width is None:
+            width = maxlen
+        elif maxlen > width:
+            raise ValueError(f"encode_words: record of {maxlen} bytes exceeds width={width}")
+        mat = np.zeros((n, max(1, width)), np.uint8)
+        for i, b in enumerate(bs):
+            if b"\x00" in b:
+                raise ValueError("encode_words: NUL byte in record (0x00 is the pad code)")
+            mat[i, : len(b)] = np.frombuffer(b, np.uint8)
+        return _pack_rows(mat), WordSpec(
+            kind="bytes", row_bytes=width, words=max(1, -(-width // _WORD_BYTES)))
+    cols = [np.asarray(c) for c in records]
+    if not cols:
+        raise ValueError("encode_words: no columns")
+    n = cols[0].shape[0]
+    parts = []
+    for c in cols:
+        if c.shape != (n,):
+            raise ValueError("encode_words: columns must be equal-length 1-D")
+        if not _np_supported(c.dtype):
+            raise TypeError(f"encode_words: unsupported column dtype {c.dtype}")
+        u = encode_np(c)
+        be = np.ascontiguousarray(u.astype(u.dtype.newbyteorder(">")))
+        parts.append(be.view(np.uint8).reshape(n, c.dtype.itemsize))
+    row_bytes = sum(c.dtype.itemsize for c in cols)
+    rows = np.concatenate(parts, axis=1) if n else np.zeros((0, row_bytes), np.uint8)
+    return _pack_rows(rows), WordSpec(
+        kind="columns", row_bytes=row_bytes, words=max(1, -(-row_bytes // _WORD_BYTES)),
+        dtypes=tuple(str(c.dtype) for c in cols))
+
+
+def decode_words(words: np.ndarray, spec: WordSpec
+                 ) -> Union[List[bytes], Tuple[np.ndarray, ...]]:
+    """Inverse of :func:`encode_words`, on the host: byte strings with the
+    0x00 padding stripped, or the columns in their dtypes (bit-exact but
+    for NaN payloads).
+
+    >>> w, spec = encode_words([b"hi", b"there"])
+    >>> decode_words(w, spec)
+    [b'hi', b'there']
+    """
+    if isinstance(words, torch.Tensor):
+        words = words.cpu().numpy()
+    b = _unpack_rows(np.asarray(words), spec.row_bytes)
+    if spec.kind == "bytes":
+        return [bytes(row).rstrip(b"\x00") for row in b]
+    if spec.kind != "columns":
+        raise ValueError(f"decode_words: unknown spec kind {spec.kind!r}")
+    out = []
+    off = 0
+    for name in spec.dtypes:
+        dtype = np.dtype(name)
+        sz = dtype.itemsize
+        u = (np.ascontiguousarray(b[:, off: off + sz]).view(np.dtype(f">u{sz}"))
+             .reshape(-1).astype(np.dtype(f"u{sz}")))
+        out.append(decode_np(u, dtype))
+        off += sz
+    return tuple(out)

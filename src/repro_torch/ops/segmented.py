@@ -13,16 +13,16 @@ by (segment, key)); the result is the same.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.core.ips4o import (
     SortConfig,
+    _payload,
     base_case_with_fallback,
     pad_with_sentinel,
     segmented_level_pass,
-    signed_payload,
 )
 from repro_torch.ops import keyspace
 from repro_torch.ops.sort import Device, _device, _keys
@@ -41,7 +41,7 @@ def segmented_sort(
     keys,
     offsets,
     num_segments: int,
-    values: Optional[torch.Tensor] = None,
+    values: Any = None,
     *,
     k: Optional[int] = None,
     cfg: SortConfig = SortConfig(),
@@ -51,8 +51,8 @@ def segmented_sort(
     """Sort each segment of ``keys`` (n,) independently, ascending, NaN-safe.
 
     ``offsets`` (num_segments + 1,) are nondecreasing int segment boundaries
-    with offsets[0] == 0 and offsets[-1] == n; ``values`` (one tensor,
-    leading dim n) moves alongside, per segment.  ``k`` is the buckets per
+    with offsets[0] == 0 and offsets[-1] == n; ``values`` (a pytree of
+    leaves with leading dim n) moves alongside, per segment.  ``k`` is the buckets per
     segment (a power of two; by default sized to the average segment).
     ``classifier`` is accepted for symmetry with ``sort``, but every value
     maps to "tree", as in the reference: user segments are arbitrary key
@@ -71,10 +71,6 @@ def segmented_sort(
     keys = _keys(keys, dev)
     cfg = dataclasses.replace(cfg, classifier="tree")
     n = keys.shape[0]
-    if values is not None:
-        values = torch.as_tensor(values, device=dev)
-        if values.shape[:1] != keys.shape:
-            raise ValueError(f"values must have leading dim {n}")
     offsets = torch.as_tensor(offsets, device=dev).to(torch.int32)
     if offsets.shape != (num_segments + 1,):
         raise ValueError(f"offsets: expected ({num_segments + 1},), got {tuple(offsets.shape)}")
@@ -83,7 +79,8 @@ def segmented_sort(
 
     arrays = {"k": keyspace.encode(keys)}
     if values is not None:
-        arrays["v"] = signed_payload(values)
+        payload, rebuild = _payload(values, keys)
+        arrays.update(payload)
     W = cfg.base_case
     arrays = pad_with_sentinel(arrays, max(W, cfg.tile))
     n_pad = arrays["k"].shape[0]
@@ -98,4 +95,4 @@ def segmented_sort(
                                              gen)
     arrays = base_case_with_fallback(arrays, boffs, nb, None, cfg)
     out = keyspace.decode(arrays["k"][:n], keys.dtype)
-    return out if values is None else (out, arrays["v"][:n].view(values.dtype))
+    return out if values is None else (out, rebuild(arrays, n))

@@ -1,29 +1,35 @@
 """NaN-safe full sort and argsort on top of the IPS4o engine.
 
-Counterpart of ``repro.ops.sort``'s ``sort`` and ``argsort``: biject the
-keys into the ordered keyspace (``ops.keyspace``), run ``ips4o_sort``
-there, and decode.  NaNs sort last, -0.0 before +0.0, and equal keys keep
-their input order.  ``classifier`` ("tree" | "radix") overrides
-``cfg.classifier`` for one call.
+Counterpart of ``repro.ops.sort``: biject the keys into the ordered
+keyspace (``ops.keyspace``), run ``ips4o_sort`` there, and decode.  NaNs
+sort last, -0.0 before +0.0, and equal keys keep their input order.
+``classifier`` ("tree" | "radix" | "learned" | "auto") overrides
+``cfg.classifier`` for one call; "auto" is resolved here, against the
+caller's (n, dtype), by the plan cache's raced winners (``with_engine``).
 
-Both take ``device=None``, which means ``"cuda"``: the kernels run on the
-card.  ``device="cpu"`` runs the kernels' plain twins (the tests do).  With
-no card and no ``device="cpu"`` they raise; they never carry on quietly on
-the CPU.  The records entry points (``sort_records``, ``argsort_records``)
-and ``with_engine`` are not ported yet (ROADMAP.md, queue 1 item 7).
+``sort_records`` / ``argsort_records`` sort multi-word keys (strings and
+composite records as ``keyspace.encode_words`` words, or any (n, W) matrix
+of a keyspace dtype): each word column is encoded, word 0 is sorted and
+the runs that tie are re-sorted word by word (``core.ips4o.tiebreak_passes``).
+
+Every entry point takes ``device=None``, which means ``"cuda"``: the
+kernels run on the card.  ``device="cpu"`` runs the kernels' plain twins
+(the tests do).  With no card and no ``device="cpu"`` they raise; they
+never carry on quietly on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
 from repro_torch import obs
-from repro_torch.core.ips4o import SortConfig, ips4o_sort
+from repro_torch.classify import resolve_classifier
+from repro_torch.core.ips4o import SortConfig, ips4o_sort, signed_payload, tiebreak_passes
 from repro_torch.ops import keyspace
 
-__all__ = ["sort", "argsort"]
+__all__ = ["sort", "argsort", "sort_records", "argsort_records", "with_engine"]
 
 Device = Union[str, torch.device, None]
 
@@ -52,40 +58,68 @@ def _keys(keys, dev: torch.device, dim: int = 1) -> torch.Tensor:
     return keys
 
 
-def _with_classifier(cfg: SortConfig, classifier: Optional[str]) -> SortConfig:
+def _override(cfg: SortConfig, engine: Optional[str], classifier: Optional[str],
+              n: Optional[int] = None, dtype=None, batch: Optional[int] = None) -> SortConfig:
+    """``with_engine`` for 1-D and batched callers: ``classifier`` in place of
+    the config's, and "auto" resolved against (n, dtype[, batch]) if given."""
+    if engine is not None:
+        raise ValueError(f"engine={engine!r}: the port has no engine switch; its kernels "
+                         "always run on the card (pass engine=None)")
+    if classifier is not None:
+        cfg = dataclasses.replace(cfg, classifier=classifier)
+    if n is not None and cfg.classifier == "auto":
+        cfg = dataclasses.replace(cfg, classifier=resolve_classifier("auto", n, dtype, batch))
+    resolve_classifier(cfg.classifier)  # raises for an unknown classifier
+    return cfg
+
+
+def with_engine(
+    cfg: SortConfig,
+    engine: Optional[str] = None,
+    keys: Optional[torch.Tensor] = None,
+    classifier: Optional[str] = None,
+) -> SortConfig:
     """``cfg`` with ``classifier`` in place of ``cfg.classifier`` (None
-    keeps it): the classifier half of the reference's ``with_engine``; the
-    port has no engine to pick."""
-    return cfg if classifier is None else dataclasses.replace(cfg, classifier=classifier)
+    keeps it).  When ``keys`` is given, "auto" is resolved here, against
+    the caller's (n, dtype), which is what the plan cache keys its raced
+    winners under: deeper layers see the encoded dtype and the padded n.
+
+    ``engine`` must be None: the port has no engine switch, its kernels
+    always run on the card (ROADMAP.md, queue 3).
+
+    >>> with_engine(SortConfig(), None, classifier="radix").classifier
+    'radix'
+    """
+    if keys is None:
+        return _override(cfg, engine, classifier)
+    return _override(cfg, engine, classifier, keys.shape[-1], keys.dtype)
 
 
 def sort(
     keys,
-    values: Optional[torch.Tensor] = None,
+    values: Any = None,
     *,
     cfg: SortConfig = SortConfig(),
     classifier: Optional[str] = None,
     device: Device = None,
 ):
     """Sort ``keys`` ascending (NaNs last, -0.0 before +0.0), optionally
-    moving a ``values`` tensor (leading dim n) alongside.
+    moving a ``values`` pytree (leaves with leading dim n) alongside.
 
     >>> sort(torch.tensor([3.0, 1.0, 2.0]), device="cpu").tolist()
     [1.0, 2.0, 3.0]
+    >>> k, v = sort(torch.tensor([2, 1]), {"tag": torch.tensor([20, 10])}, device="cpu")
+    >>> (k.tolist(), v["tag"].tolist())
+    ([1, 2], [10, 20])
     """
     dev = _device(device)
     keys = _keys(keys, dev)
-    cfg = _with_classifier(cfg, classifier)
+    cfg = with_engine(cfg, None, keys, classifier)
     with obs.trace("ops.sort", n=keys.shape[0], dtype=str(keys.dtype)):
         enc = keyspace.encode(keys)
         if values is None:
             return keyspace.decode(ips4o_sort(enc, cfg=cfg), keys.dtype)
-        if not isinstance(values, torch.Tensor):
-            raise NotImplementedError(
-                "values must be one tensor with leading dim n (ROADMAP.md, "
-                "queue 1 item 7)"
-            )
-        k, vs = ips4o_sort(enc, values.to(dev), cfg=cfg)
+        k, vs = ips4o_sort(enc, values, cfg=cfg)
         return keyspace.decode(k, keys.dtype), vs
 
 
@@ -109,7 +143,83 @@ def argsort(
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     if n <= 1:
         return idx
-    cfg = _with_classifier(cfg, classifier)
+    cfg = with_engine(cfg, None, keys, classifier)
     with obs.trace("ops.argsort", n=n, dtype=str(keys.dtype)):
         _, order = ips4o_sort(keyspace.encode(keys), idx, cfg=cfg)
+    return order
+
+
+def _words(words, dev: torch.device) -> torch.Tensor:
+    words = torch.as_tensor(words, device=dev)
+    if words.dim() != 2:
+        raise ValueError("words must be 2-D (n, W)")
+    if words.shape[1] == 0:
+        raise ValueError("words must have at least one word column")
+    keyspace.encoded_dtype(words.dtype)  # raises for dtypes with no order-preserving code
+    return words
+
+
+def _record_cols(words: torch.Tensor):
+    return [keyspace.encode(words[:, j].contiguous()) for j in range(words.shape[1])]
+
+
+def sort_records(
+    words,
+    values: Any = None,
+    *,
+    cfg: SortConfig = SortConfig(),
+    classifier: Optional[str] = None,
+    device: Device = None,
+):
+    """Sort multi-word records (n, W) into row-lexicographic order, stably.
+
+    ``words`` is each record's fixed-width word decomposition, usually
+    ``keyspace.encode_words`` output (uint32, word 0 most significant), or
+    any keyspace dtype (each column is encoded, so float words order with
+    NaNs last and -0.0 before +0.0; 64-bit columns run the 64-bit
+    kernels).  The permutation is ``np.lexsort``'s over the columns.  A
+    ``values`` pytree (leaves with leading dim n) moves alongside;
+    ``classifier`` holds for every tie-break pass.
+
+    >>> w = torch.tensor([[1, 9], [0, 5], [1, 2]], dtype=torch.int32)
+    >>> sort_records(w, device="cpu").tolist()
+    [[0, 5], [1, 2], [1, 9]]
+    """
+    dev = _device(device)
+    words = _words(words, dev)
+    if words.shape[0] <= 1:
+        return words if values is None else (words, values)
+    cfg = with_engine(cfg, None, words[:, 0], classifier)
+    cols, vals = tiebreak_passes(_record_cols(words), values, cfg=cfg)
+    # stacked as the signed dtype of the words' width: torch's unsigned
+    # dtypes past 8 bits are not taken by every kernel
+    out = torch.stack([signed_payload(keyspace.decode(c, words.dtype)) for c in cols],
+                      dim=1).view(words.dtype)
+    return out if values is None else (out, vals)
+
+
+def argsort_records(
+    words,
+    *,
+    cfg: SortConfig = SortConfig(),
+    classifier: Optional[str] = None,
+    device: Device = None,
+) -> torch.Tensor:
+    """Stable lexicographic argsort (int32) of multi-word records (n, W):
+    ``words[argsort_records(words)]`` is row-sorted, ties keep their input
+    order, and the permutation is ``np.lexsort``'s over the word columns
+    (word 0 most significant).
+
+    >>> w = torch.tensor([[1, 9], [0, 5], [1, 2]], dtype=torch.int32)
+    >>> argsort_records(w, device="cpu").tolist()
+    [1, 2, 0]
+    """
+    dev = _device(device)
+    words = _words(words, dev)
+    n = words.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    if n <= 1:
+        return idx
+    cfg = with_engine(cfg, None, words[:, 0], classifier)
+    _, order = tiebreak_passes(_record_cols(words), idx, cfg=cfg)
     return order

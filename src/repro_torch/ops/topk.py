@@ -31,7 +31,7 @@ from repro_torch.core.ips4o import (
     stable_full_sort,
 )
 from repro_torch.ops import keyspace
-from repro_torch.ops.sort import Device, _device, _keys, _with_classifier
+from repro_torch.ops.sort import Device, _device, _keys, with_engine
 
 __all__ = ["topk", "bottomk", "smallest_encoded"]
 
@@ -71,7 +71,7 @@ def _partial(keys, k, cfg, classifier, device, largest: bool):
     enc = keyspace.encode(keys)
     with obs.trace("ops.topk" if largest else "ops.bottomk", n=n, k=kk):
         out, idx = smallest_encoded(~enc if largest else enc, kk,
-                                    _with_classifier(cfg, classifier))
+                                    with_engine(cfg, None, keys, classifier))
     return keyspace.decode(~out if largest else out, keys.dtype), idx
 
 

@@ -10,8 +10,8 @@ them), so a shorter second prompt never attends over the first call's
 keys.  Decoding runs through the K10 kernel under
 ``compute_policy(flash_decode=True)``.  ``make_prefill_step`` and
 ``make_decode_step`` (the dry-run's jitted, sharded steps) wait for the
-launch tooling, and ``serve/scheduler.py`` for the plan cache (ROADMAP.md
-queue 1 items 14 and 5).
+launch tooling, and ``serve/scheduler.py`` with the other callers of the
+sort (ROADMAP.md queue 1 items 14 and 12).
 """
 from __future__ import annotations
 

@@ -13,11 +13,12 @@ Counterpart of ``repro.stream.api``.  The common shape:
 they carry a bounded candidate / distinct-key buffer and refine it per
 chunk with ``ops.topk``/``bottomk`` or ``ops.unique`` and one 2-way merge.
 
-The reference's ``cache=``, ``tune=`` and ``engine=`` arguments, and with
-them the plan cache's ``stream:`` key family (``ops/plan.py:562``), are
-not ported yet (ROADMAP.md, queue 1 item 5): every chunk runs the default
-``SortConfig`` and every merge the default K5 tile.  The entry points run
-on the card unless ``device="cpu"`` is passed, and raise without a card.
+The plan cache (``cache=``, by default ``ops.plan.default_cache``) gives
+each chunk its sorter and each external sort its merge tile, from the
+``stream:`` key family at (chunk size, fan-in, dtype); ``tune=True`` sweeps
+and persists what is missing.  The reference's ``engine=`` has no
+counterpart: the port has no engine switch.  The entry points run on the
+card unless ``device="cpu"`` is passed, and raise without a card.
 The ``obs`` calls are the reference's (``stream.spill_bytes``,
 ``stream.tournament_rounds``, ``stream.chunks``); they record nothing
 until the observability layer is ported.
@@ -30,10 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.ops import keyspace
+from repro_torch.ops import keyspace, plan
 from repro_torch.ops.groupby import unique
 from repro_torch.ops.sort import Device, _device
-from repro_torch.ops.topk import bottomk, topk
 from repro_torch.stream.merge import merge
 from repro_torch.stream.runs import Source, device_chunks, form_argsort_runs, form_runs
 
@@ -56,17 +56,18 @@ def _to_host(x) -> np.ndarray:
     return x if isinstance(x, np.ndarray) else x.cpu().numpy()
 
 
-def _merge_pass(runs: List, dev: torch.device, payloads: Optional[List] = None):
+def _merge_pass(runs: List, dev: torch.device, tile: int, payloads: Optional[List] = None):
     """One tournament round over runs (device tensors in round 0, host arrays
-    after): merge adjacent pairs on the card, spill each result to host."""
+    after): merge adjacent pairs on the card with K5 at ``tile``, spill each
+    result to host."""
     out_k, out_v = [], []
     for i in range(0, len(runs) - 1, 2):
         a, b = (torch.as_tensor(r, device=dev) for r in runs[i : i + 2])
         if payloads is None:
-            out_k.append(_spill(merge([a, b])))
+            out_k.append(_spill(merge([a, b], tile=tile)))
         else:
             va, vb = (torch.as_tensor(v, device=dev) for v in payloads[i : i + 2])
-            k, v = merge([a, b], values=[va, vb])
+            k, v = merge([a, b], values=[va, vb], tile=tile)
             out_k.append(_spill(k))
             out_v.append(_spill(v))
     if len(runs) % 2:
@@ -81,66 +82,77 @@ def _empty(data: Source, dtype=np.float32) -> np.ndarray:
     return np.zeros((0,), data.dtype if isinstance(data, np.ndarray) else dtype)
 
 
-def external_sort(data: Source, *, chunk_size: int = 1 << 16, device: Device = None
-                  ) -> np.ndarray:
+def external_sort(data: Source, *, chunk_size: int = 1 << 16,
+                  cache: Optional[plan.PlanCache] = None, tune: bool = False,
+                  device: Device = None) -> np.ndarray:
     """Sort a host-resident (or generator-fed) keyset larger than one device
     allocation: IPS4o run formation + merge tournament with host spill
     between rounds.  Float32 or int32 keys.
 
     Equal to ``ops.sort`` of the concatenated stream: the keyspace total
-    order, NaNs last, -0.0 strictly before +0.0.
+    order, NaNs last, -0.0 strictly before +0.0.  ``tune=True`` autotunes
+    (and persists) the chunk sorter's plan and the ``stream:`` merge tile
+    for this chunk size x fan-in.
 
     >>> external_sort(np.asarray([5, 1, 4, 2, 3], np.int32), chunk_size=2,
     ...               device="cpu").tolist()
     [1, 2, 3, 4, 5]
     """
     dev = _device(device)
-    runs = form_runs(data, chunk_size, device=dev)
+    cache = plan.default_cache if cache is None else cache
+    runs = form_runs(data, chunk_size, cache=cache, tune=tune, device=dev)
     if not runs:
         return _empty(data)
     dtype = runs[0].dtype
+    cfg = cache.stream_plan(chunk_size, len(runs), dtype, tune=tune, device=dev)
     with obs.trace("stream.external_sort", chunks=len(runs), chunk_size=chunk_size):
         level = [keyspace.encode(r) for r in runs]  # int32: encode is then the identity
         rounds = 0
         while len(level) > 1:
             with obs.trace("stream.merge_round", fanin=len(level)):
-                level, _ = _merge_pass(level, dev)
+                level, _ = _merge_pass(level, dev, cfg.merge_tile)
             rounds += 1
         obs.count("stream.tournament_rounds", rounds)
         return keyspace.decode(torch.as_tensor(level[0]), dtype).cpu().numpy()
 
 
-def external_argsort(data: Source, *, chunk_size: int = 1 << 16, device: Device = None
-                     ) -> np.ndarray:
+def external_argsort(data: Source, *, chunk_size: int = 1 << 16,
+                     cache: Optional[plan.PlanCache] = None, tune: bool = False,
+                     device: Device = None) -> np.ndarray:
     """Indices (int32, into the concatenated stream) that sort it, stably:
     ``keys[idx]`` equals ``external_sort(keys)`` and equal keys keep their
-    stream order.  Raises for streams of 2^31 keys or more.
+    stream order.  Raises for streams of 2^31 keys or more.  ``cache`` and
+    ``tune`` as for :func:`external_sort`.
 
     >>> external_argsort(np.asarray([30, 10, 40, 20], np.int32), chunk_size=2,
     ...                  device="cpu").tolist()
     [1, 3, 0, 2]
     """
     dev = _device(device)
-    pairs = form_argsort_runs(data, chunk_size, device=dev)
+    cache = plan.default_cache if cache is None else cache
+    pairs = form_argsort_runs(data, chunk_size, cache=cache, tune=tune, device=dev)
     if not pairs:
         return np.zeros((0,), np.int32)
+    cfg = cache.stream_plan(chunk_size, len(pairs), pairs[0][0].dtype, tune=tune, device=dev)
     with obs.trace("stream.external_argsort", chunks=len(pairs), chunk_size=chunk_size):
         keys = [keyspace.encode(k) for k, _ in pairs]  # only indices come back out
         idxs = [i for _, i in pairs]
         rounds = 0
         while len(keys) > 1:
             with obs.trace("stream.merge_round", fanin=len(keys)):
-                keys, idxs = _merge_pass(keys, dev, idxs)
+                keys, idxs = _merge_pass(keys, dev, cfg.merge_tile, idxs)
             rounds += 1
         obs.count("stream.tournament_rounds", rounds)
         return _to_host(idxs[0])
 
 
 def streaming_topk(data: Source, k: int, *, chunk_size: int = 1 << 16, largest: bool = True,
+                   cache: Optional[plan.PlanCache] = None, tune: bool = False,
                    device: Device = None) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k (or bottom-k) of a stream with a bounded candidate buffer.
 
-    Per chunk, ``ops.topk``/``bottomk`` yields that chunk's candidates; one
+    Per chunk, the plan-cached ``ops.topk``/``bottomk`` (``tune=True``
+    sweeps its plan once) yields that chunk's candidates; one
     stable 2-way merge against the k-entry running buffer refines it.  The
     buffer lives in the *ascending encoded* keyspace, complemented for
     ``largest=True`` (``~`` reverses the signed int32 order of the codes),
@@ -156,7 +168,8 @@ def streaming_topk(data: Source, k: int, *, chunk_size: int = 1 << 16, largest: 
     ([9.0, 7.0], [1, 3])
     """
     dev = _device(device)
-    pick = topk if largest else bottomk
+    cache = plan.default_cache if cache is None else cache
+    op = "topk" if largest else "bottomk"
     buf_u = buf_i = None  # encoded-ascending candidates + global indices
     key_dtype = None
     with obs.trace("stream.topk", k=k, chunk_size=chunk_size, largest=largest):
@@ -166,7 +179,8 @@ def streaming_topk(data: Source, k: int, *, chunk_size: int = 1 << 16, largest: 
                 continue
             obs.count("stream.chunks", op="topk")
             key_dtype = x.dtype
-            vals, idx = pick(x, min(k, n), device=dev)
+            vals, idx = cache.get_sorter(n, x.dtype, op, k=min(k, n), tune=tune,
+                                         device=dev)(x)
             u = keyspace.encode(vals)
             u, gi = (~u if largest else u), idx + offset
             if buf_u is None:
@@ -180,10 +194,13 @@ def streaming_topk(data: Source, k: int, *, chunk_size: int = 1 << 16, largest: 
         return vals.cpu().numpy(), buf_i.cpu().numpy()
 
 
-def streaming_group_by(data: Source, *, chunk_size: int = 1 << 16, device: Device = None
-                       ) -> Tuple[np.ndarray, np.ndarray]:
+def streaming_group_by(data: Source, *, chunk_size: int = 1 << 16,
+                       cache: Optional[plan.PlanCache] = None, tune: bool = False,
+                       device: Device = None) -> Tuple[np.ndarray, np.ndarray]:
     """Global (distinct keys ascending, int64 counts) over a stream: per-chunk
-    ``ops.unique`` runs merge-joined into a bounded distinct-key buffer.
+    ``ops.unique`` runs (each sorting with the plan cache's "sort" config for
+    the chunk, ``tune=True`` sweeping it once) merge-joined into a bounded
+    distinct-key buffer.
 
     Each chunk contributes its sorted (unique values, counts) run; the
     buffer absorbs it with one stable 2-way merge on the card and a host
@@ -197,6 +214,7 @@ def streaming_group_by(data: Source, *, chunk_size: int = 1 << 16, device: Devic
     ([1, 3], [3, 3])
     """
     dev = _device(device)
+    cache = plan.default_cache if cache is None else cache
     buf_u = buf_c = None  # host: encoded distinct keys (ascending) + int64 counts
     key_dtype = None
     for x, _ in device_chunks(data, chunk_size, dev):
@@ -204,7 +222,8 @@ def streaming_group_by(data: Source, *, chunk_size: int = 1 << 16, device: Devic
             continue
         obs.count("stream.chunks", op="group_by")
         key_dtype = x.dtype
-        vals, counts, num = unique(x, device=dev)
+        cfg = cache.config_for("sort", x.shape[0], x.dtype, tune=tune, device=dev)
+        vals, counts, num = unique(x, cfg=cfg, device=dev)
         nu = int(num)
         cu = keyspace.encode(vals[:nu])
         cc = counts[:nu].to(torch.int64)

@@ -3,7 +3,9 @@
 
 Counterpart of ``repro.stream.runs``.  A host-resident (or generator-fed)
 keyset is split into device-sized chunks, and each chunk is sorted by the
-port's ``ops.sort`` / ``ops.argsort``.
+plan cache's sorter for its (n, dtype) (``ops.plan.PlanCache.get_sorter``),
+so a stream at a fixed chunk size picks up persisted tuned plans, and
+``tune=True`` sweeps a plan for the chunk shape once.
 
 **Double buffer.**  The reference enqueues ``jax.device_put`` of chunk i+1
 before it dispatches the sort of chunk i.  Here each chunk is copied into
@@ -21,8 +23,7 @@ that keep this safe, each of which only a card can show when broken:
     ``record_stream`` for the consumer's stream, so its memory is not
     reused while the sort still reads it.
 
-On the CPU the chunks are used as they are.  No plan cache is ported yet
-(ROADMAP.md, queue 1 item 5): every chunk runs the default ``SortConfig``.
+On the CPU the chunks are used as they are.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from typing import Iterable, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.ops.sort import Device, _device, argsort, sort
+from repro_torch.ops import plan
+from repro_torch.ops.sort import Device, _device
 
 __all__ = ["iter_chunks", "device_chunks", "form_runs", "form_argsort_runs",
            "check_stream_dtype"]
@@ -145,23 +147,29 @@ def _ready(x: torch.Tensor, event, offset: int) -> Tuple[torch.Tensor, int]:
     return x, offset
 
 
-def form_runs(data: Source, chunk_size: int, *, device: Device = None) -> List[torch.Tensor]:
-    """Sorted device runs, one per chunk, in stream order (``ops.sort`` of
-    each chunk: NaNs last, -0.0 before +0.0).
+def form_runs(data: Source, chunk_size: int, *, cache: Optional[plan.PlanCache] = None,
+              tune: bool = False, device: Device = None) -> List[torch.Tensor]:
+    """Sorted device runs, one per chunk, in stream order (the plan-cached
+    NaN-safe sort of each chunk: NaNs last, -0.0 before +0.0; ``cache``
+    defaults to ``ops.plan.default_cache``).
 
     >>> [r.tolist() for r in form_runs(np.asarray([3, 1, 2, 0], np.int32), 2, device="cpu")]
     [[1, 3], [0, 2]]
     """
-    return [sort(x, device=x.device) for x, _ in device_chunks(data, chunk_size, device)]
+    cache = plan.default_cache if cache is None else cache
+    return [cache.get_sorter(x.shape[0], x.dtype, "sort", tune=tune, device=x.device)(x)
+            for x, _ in device_chunks(data, chunk_size, device)]
 
 
-def form_argsort_runs(data: Source, chunk_size: int, *, device: Device = None
-                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+def form_argsort_runs(data: Source, chunk_size: int, *,
+                      cache: Optional[plan.PlanCache] = None, tune: bool = False,
+                      device: Device = None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """(sorted keys, global int32 source indices) device runs, one per chunk.
-    Each chunk's argsort is stable; the indices are offset into the
-    concatenated stream, so merged runs give a permutation of it."""
+    Each chunk's plan-cached argsort is stable; the indices are offset into
+    the concatenated stream, so merged runs give a permutation of it."""
+    cache = plan.default_cache if cache is None else cache
     runs = []
     for x, offset in device_chunks(data, chunk_size, device):
-        idx = argsort(x, device=x.device)
+        idx = cache.get_sorter(x.shape[0], x.dtype, "argsort", tune=tune, device=x.device)(x)
         runs.append((x[idx.to(torch.int64)], idx + offset))
     return runs

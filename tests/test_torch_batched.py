@@ -280,12 +280,15 @@ def test_batched_entry_points_check_their_inputs(monkeypatch):
         ops.batched_sort(torch.zeros(10), device="cpu")
     with pytest.raises(ValueError, match="2-D"):
         ops.batched_topk(torch.zeros(10), 2, device="cpu")
-    assert ops.with_engine_batched(ips4o.SortConfig(), "radix").classifier == "radix"
+    # the reference's signature (cfg, engine, keys, classifier); the port has
+    # no engine, so only None passes
+    assert ops.with_engine_batched(ips4o.SortConfig(), classifier="radix").classifier == "radix"
     assert ops.with_engine_batched(ips4o.SortConfig(classifier="radix")).classifier == "radix"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.with_engine_batched(ips4o.SortConfig(), "auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.batched_sort(x2, classifier="learned", device="cpu")
+    assert ops.with_engine_batched(ips4o.SortConfig(), None, x2, "auto").classifier == "tree"
+    with pytest.raises(ValueError, match="engine"):
+        ops.with_engine_batched(ips4o.SortConfig(), "pallas")
+    with pytest.raises(ValueError, match="classifier"):
+        ops.batched_sort(x2, classifier="neural", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.batched_sort(torch.zeros((2, 10), dtype=torch.complex64), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

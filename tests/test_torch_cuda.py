@@ -24,7 +24,12 @@ width served through K10, and the 64-bit forms of K1, K1r, K4
 ``level_fused_batched`` (the edge cases above, shifts up to level 2's
 clamp, no spills) and K3 (every W from 2 to 16384, descending windows
 and equal keys across runs; no spill at any W) against their twins,
-and the sorts of every key dtype on the card against the CPU.
+and the sorts of every key dtype on the card against the CPU; the learned
+classifier's sorts (1-D and batched, the model kept or the fallback
+taken) and its uint64 -> float32 cast against the CPU's, the records'
+tie-break passes, a payload pytree through the batched path, and the plan
+cache (a tuned sorter, a classifier race, a tuned stream) persisted and
+reloaded.
 
 Marked ``gpu``: every test skips (from its fixture) where no card is
 present, so the CPU suite collects the same tests on every worker.  On the
@@ -1020,3 +1025,121 @@ def test_every_key_dtype_on_the_card_matches_the_cpu(dev, dtype):
     after = kernels.launch_counts()
     for name in ("level_fused", "level_fused_radix", "level_fused_batched", "sort_windows"):
         assert after[name + ("64" if wide else "")] > before[name + ("64" if wide else "")]
+
+
+@pytest.mark.parametrize("dist", ["Uniform", "Exponential", "TwoDup", "Zipf"])
+def test_learned_sorts_on_the_card(dev, dist):
+    """``ops.sort``/``argsort`` and ``batched_sort`` with the learned
+    classifier equal ``torch.sort(stable=True)`` of the encoded keys; level
+    1 places the model's ids with K2 (K4 ``rank_hist_batched`` for rows), or
+    runs the tree through K1 when the fit falls back."""
+    from repro_torch.classify import learned
+
+    if dist == "Zipf":
+        raw = np.random.default_rng(4).zipf(1.3, 1 << 20).astype(np.float32)
+    else:
+        raw = make_input(dist, 1 << 20, np.float32, seed=4)
+    x = torch.as_tensor(raw, device=dev)
+    enc = ops.keyspace.encode(x)
+    want = torch.sort(enc, stable=True)
+    learned.ROUTES.clear()
+    before = dict(kernels.launch_counts())
+    assert torch.equal(ops.keyspace.encode(ops.sort(x, classifier="learned")), want.values)
+    assert torch.equal(ops.argsort(x, classifier="learned").to(torch.int64), want.indices)
+    after = kernels.launch_counts()
+    if learned.ROUTES["model"]:
+        assert after["rank_hist"] - before["rank_hist"] >= 4  # levels 1 and 2, twice
+    else:
+        assert after["level_fused"] > before["level_fused"]
+    rows = x.reshape(16, 1 << 16)
+    got = ops.batched_sort(rows, classifier="learned")
+    assert torch.equal(ops.keyspace.encode(got),
+                       torch.sort(ops.keyspace.encode(rows), dim=1, stable=True).values)
+    assert torch.equal(ops.batched_argsort(rows, classifier="learned").to(torch.int64),
+                       torch.sort(ops.keyspace.encode(rows), dim=1, stable=True).indices)
+
+
+def test_uint64_to_float32_cast_on_the_card(dev):
+    """The learned model's float map of 64-bit codes (a uint64 view cast to
+    float32) rounds on the card as on the CPU: the boundary codes, halfway
+    cases that round to even, and random codes."""
+    from repro_torch.classify.learned import _to_float
+
+    u = np.array([0, 1, 2**24 - 1, 2**24 + 1, 2**24 + 3, 2**40 + 2**16, 2**40 + 3 * 2**16,
+                  2**63 - 2**39, 2**63 - 1, 2**63, 2**63 + 1, 2**63 + 2**39, 2**64 - 2**39,
+                  2**64 - 1], np.uint64)
+    rand = np.random.default_rng(9).integers(0, 2**64 - 1, 1 << 16, dtype=np.uint64,
+                                             endpoint=True)
+    codes = torch.from_numpy(np.concatenate([u, rand]).view(np.int64).copy()) \
+        ^ torch.iinfo(torch.int64).min
+    want = _to_float(codes)
+    assert torch.equal(_to_float(codes.to(dev)).cpu().view(torch.int32), want.view(torch.int32))
+    # and the CPU's is numpy's correctly rounded cast
+    np.testing.assert_array_equal(want.numpy().view(np.uint32),
+                                  np.concatenate([u, rand]).astype(np.float32).view(np.uint32))
+
+
+def test_tiebreak_passes_on_the_card(dev):
+    """Tie-heavy three-word records (a few values a word): the card's
+    records argsort and sort with a payload equal the CPU's and
+    ``np.lexsort``."""
+    rng = np.random.default_rng(10)
+    words = rng.integers(0, 3, (1 << 20, 3)).astype(np.int32)
+    words[::7, 2] = np.iinfo(np.int32).max
+    w = torch.as_tensor(words, device=dev)
+    order = ops.argsort_records(w).cpu()
+    np.testing.assert_array_equal(order.numpy(), np.lexsort(words.T[::-1]))
+    for clf in ("tree", "radix", "learned"):
+        out, v = ops.sort_records(w, {"id": torch.arange(1 << 20, device=dev)}, classifier=clf)
+        assert torch.equal(v["id"].cpu(), order.to(torch.int64))
+        assert torch.equal(out.cpu(), torch.as_tensor(words)[order.to(torch.int64)])
+
+
+def test_pytree_payload_through_the_batched_path_on_the_card(dev):
+    """A nested payload (int64 ids, (n, 4) float32 rows, bfloat16, bool,
+    uint32 and a None leaf) through ``batched_sort`` on the card equals the
+    gather by the stable per-row argsort, and the CPU's run."""
+    B, n = 8, 1 << 16
+    x = torch.as_tensor(make_input("TwoDup", B * n, np.float32, seed=11), device=dev).view(B, n)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vals = {"id": torch.arange(B * n, device=dev).view(B, n),
+            "rows": torch.randn(B, n, 4, device=dev, generator=gen),
+            "more": (torch.randn(B, n, device=dev, generator=gen).to(torch.bfloat16),
+                     torch.rand(B, n, device=dev, generator=gen) < 0.5,
+                     torch.randint(0, 2**31, (B, n), device=dev, generator=gen,
+                                   dtype=torch.int32).view(torch.uint32)),
+            "none": None}
+    keys, got = ops.batched_sort(x, vals)
+    order = torch.sort(ops.keyspace.encode(x), dim=1, stable=True).indices
+    assert torch.equal(got["id"], torch.gather(vals["id"], 1, order))
+    assert torch.equal(got["rows"], torch.gather(vals["rows"], 1, order[..., None].expand(B, n, 4)))
+    for g, v in zip(got["more"], vals["more"]):
+        signed = {torch.uint32: torch.int32}.get(v.dtype, v.dtype)
+        assert g.dtype == v.dtype
+        assert torch.equal(g.view(signed), torch.gather(v.view(signed), 1, order))
+    assert got["none"] is None
+    cpu_keys, cpu_vals = ops.batched_sort(x.cpu(), {"id": vals["id"].cpu()}, device="cpu")
+    assert torch.equal(cpu_vals["id"], got["id"].cpu()) and torch.equal(cpu_keys, keys.cpu())
+
+
+def test_plan_cache_on_the_card(dev, tmp_path):
+    """A tuned plan, a classifier race and a tuned stream plan on the card,
+    persisted and reloaded; their sorters are right."""
+    from repro_torch.ops import plan
+
+    pc = plan.PlanCache(str(tmp_path / "plans.json"))
+    x = torch.rand(1 << 18, device=dev)
+    f = pc.get_sorter(1 << 18, torch.float32, tune=True, device=dev)
+    assert torch.equal(f(x), torch.sort(x).values)
+    from repro_torch.classify import classifier_for
+
+    clf = classifier_for(x, cache=pc)
+    tile = pc.stream_plan(1 << 16, 4, torch.float32, tune=True, device=dev).merge_tile
+    again = plan.PlanCache(pc.path)
+    assert again.config_for("sort", 1 << 18, torch.float32) == \
+        pc.config_for("sort", 1 << 18, torch.float32)
+    assert again.classifier_plan(1 << 18, torch.float32, dist="uniform") == clf
+    assert again.stream_plan(1 << 16, 4, torch.float32).merge_tile == tile
+    host = np.random.default_rng(12).standard_normal(1 << 18).astype(np.float32)
+    out = stream.external_sort(host, chunk_size=1 << 16, cache=pc, tune=True, device=dev)
+    np.testing.assert_array_equal(out, np.sort(host))

@@ -253,10 +253,11 @@ def test_config_from_reference_round_trip():
     radix = ips4o.config_from_reference(dataclasses.asdict(ref_ips4o.SortConfig(
         classifier="radix")))
     assert radix.classifier == "radix"
-    for name in ("learned", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ips4o.config_from_reference(dataclasses.asdict(ref_ips4o.SortConfig(
-                classifier=name)))
+    for name in ("learned", "auto"):  # ported since the learned classifier and router
+        assert ips4o.config_from_reference(dataclasses.asdict(ref_ips4o.SortConfig(
+            classifier=name))).classifier == name
+    with pytest.raises(ValueError, match="classifier"):
+        ips4o.config_from_reference({"classifier": "neural"})
     with pytest.raises(ValueError, match="unknown"):
         ips4o.config_from_reference({"bogus": 1})
 

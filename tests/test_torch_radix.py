@@ -154,9 +154,9 @@ def test_topk_bottomk_edges():
 
 def test_resolve_classifier():
     assert resolve_classifier("tree") == "tree" and resolve_classifier("radix") == "radix"
-    for name in ("learned", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_classifier(name)
+    # "learned" passes through; "auto" with nothing raced is the tree, as in
+    # the reference
+    assert resolve_classifier("learned") == "learned" and resolve_classifier("auto") == "tree"
     with pytest.raises(ValueError, match="unknown"):
         resolve_classifier("bogus")
     with pytest.raises(ValueError, match="splitters"):

@@ -94,11 +94,16 @@ def test_entry_points_refuse_what_is_not_ported(monkeypatch):
         ops.sort(torch.zeros(10, dtype=torch.complex64), device="cpu")
     with pytest.raises(ValueError, match="batched_argsort"):
         ops.argsort(torch.zeros((2, 10)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.sort(torch.zeros(10), cfg=dataclasses.replace(SortConfig(), classifier="learned"),
+    # the learned classifier and payload pytrees are ported; what stays
+    # refused: an engine (the port has none), unknown classifiers, and
+    # payload leaves whose leading dim is not the keys'
+    with pytest.raises(ValueError, match="engine"):
+        ops.with_engine(SortConfig(), "pallas")
+    with pytest.raises(ValueError, match="classifier"):
+        ops.sort(torch.zeros(10), cfg=dataclasses.replace(SortConfig(), classifier="neural"),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ips4o_sort(torch.zeros(10, dtype=torch.int32), {"v": torch.zeros(10)})
+    with pytest.raises(ValueError, match="leading dims"):
+        ips4o_sort(torch.zeros(10, dtype=torch.int32), {"v": torch.zeros(9)})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.sort(torch.zeros(10))
@@ -110,7 +115,9 @@ def test_port_imports_no_jax_or_reference():
         "import repro_torch, repro_torch.ops, repro_torch.core.ips4o\n"
         "import repro_torch.kernels.level_fused, repro_torch.kernels.bitonic\n"
         "import repro_torch.ops.batched, repro_torch.ops.topk, repro_torch.classify.radix\n"
-        "import repro_torch.data.distributions\n"
+        "import repro_torch.data.distributions, repro_torch.data.datasets\n"
+        "import repro_torch.ops.plan, repro_torch.classify.learned, repro_torch.classify.router\n"
+        "import repro_torch.stream\n"
         "import repro_torch.configs, repro_torch.serve, repro_torch.models.convert\n"
         "import repro_torch.kernels.flash_decode, repro_torch.kernels.flash_attention\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
