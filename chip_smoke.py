@@ -5,7 +5,8 @@
 
 Phases, each of which exits non-zero when it fails.  Phases 2-4 run first
 for the sort kernels and paths, then, after their tensors are freed, again
-for the attention kernels and the serve path:
+for the attention kernels and the serve path, and last (3 and 4) for the
+observability layer and the distributed sort:
 
 1. set-up: print the card's name and power limit, build every kernel from
    ``src/repro_torch/csrc`` with ``nvcc`` (into ``build/``);
@@ -110,7 +111,32 @@ for the attention kernels and the serve path:
    ``s3_sort``), the top/bottom-k to the sorted prefix, the group-by to
    ``torch.unique``, the block moves to the gather by the stable block
    order; then the peak device memory per key of ``partition_blocks``,
-   ``s3_sort`` and ``ops.sort``.  Last, with the card's memory emptied:
+   ``s3_sort`` and ``ops.sort``.  After the serve path (below), last of
+   all, the observability layer and the distributed sort: ``path obs`` (obs enabled, ``ops.sort`` of 2^24
+   float32 Uniform: the span tree ``ops.sort > ips4o_sort > level_pass(1) >
+   sample/classify/partition``, ``level_pass(2)``, ``base_case``, each span
+   with a ``device_ms`` no smaller than its children's sum, +1 us;
+   ``sort.bucket_imbalance`` and ``sort.largest_bucket`` equal to plain
+   torch's from the call's own offsets; ``sort.fallback_engaged`` equal to
+   the fallback's verdict; the JSONL and Chrome-trace exports parsed; the
+   span names in a torch.profiler trace; and, obs disabled, the call's
+   launch calls, device kernels and synchronizing calls, counted by the
+   profiler and ``torch.cuda.set_sync_debug_mode``, equal to those with the
+   hooks replaced by no-ops), ``path dist`` at world size 1 on NCCL
+   (``dist.sort``, ``argsort``, ``topk``/``bottomk`` at k = 1024 and
+   ``group_by`` of 2^24 float32 Uniform and int32 TwoDup, equal to ``ops.*``
+   and ``torch.sort(stable=True)``; one H100 takes NCCL at world size 1
+   only) and, in four ``gloo`` processes on the one card (spawned after the
+   kernels are built, a ``file://`` rendezvous), on the meshes (4,) and
+   (2, 2) with 2^22 keys a rank: Uniform, TwoDup and Zipf keys, a payload
+   pytree, the radix classifier on full-range int32 keys, overlap against
+   sync, ``order="auto"`` and a slack of 0.05 (the same flags and
+   truncation twice), each rank's valid range held to its slice of
+   ``torch.sort(stable=True)`` of the whole input, and rank 0's profile
+   showing K1, K2 and K3; ``path elastic``: ``sort_elastic`` at world size
+   1 (NCCL) and on the four ranks, killed after level 1 and restored in a
+   fresh process group, equal to the uninterrupted sort and to
+   ``dist.sort``.  Last, with the card's memory emptied:
    K11's entry point on layer 0's q, k, v of the served prompts (the
    prefill shape, 8 x 1024 tokens, through strides, in bfloat16 and in
    float32) against its twin, and
@@ -158,6 +184,10 @@ for the attention kernels and the serve path:
    beside the ``torch.sort`` cascade, ``ops.sort`` learned beside tree at
    2^24 (Uniform and Zipf), and the stream with the planned merge tile
    beside K5's default (the whole external sort and one merge);
+   and, for the paths above, ``ops.sort`` of 2^24 with obs disabled and
+   enabled, ``dist.sort`` at world size 1 beside ``ops.sort`` (median of 5
+   by CUDA events), and the four ``gloo`` ranks' host times of their sorts
+   (gloo's host copies, not the exchange's cost);
 5. a ``{"kernels": [...]}`` JSON line (22 entries: the four 64-bit forms
    are rows of their own, ``level_fused64``, ``level_fused_radix64``,
    ``level_fused_batched64`` and ``sort_windows64``), then the last line
@@ -180,7 +210,10 @@ It imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
@@ -210,6 +243,9 @@ N_GROUPS, CHUNK_GROUPS = 1 << 26, 1 << 22  # streaming_group_by, RootDup int32
 # the plan cache: races and sweeps at 2^22 float32, an external sort of 2^26
 # in chunks of 2^22 with the tuned chunk sorter and merge tile
 N_PLAN, N_PLAN_STREAM = 1 << 22, 1 << 26
+# the distributed sort: four ranks on the one card (gloo) with 2^22 float32
+# keys a rank (2^24 in all), world size 1 on NCCL at 2^24, rank-k at k = 1024
+DIST_WORLD, N_DIST_LOCAL, DIST_K = 4, 1 << 22, 1024
 # MoE routing of deepseek-moe-16b: 64 routed experts, top-6, 2^21 tokens
 MOE_EXPERTS, MOE_TOP, MOE_TOKENS = 64, 6, 1 << 21
 MOE_LAYERS = 8  # per-layer routing rows for the batched placement
@@ -1150,6 +1186,497 @@ def compare_entry_points_with_parent(torch, parent: Path, keys, dev) -> dict:
             child.kill()
             child.wait()
     return result
+
+
+def _zipf_keys(np, n: int, seed: int):
+    """Zipf(1.3) float32 keys capped at 2^30: a heavy skew of duplicates."""
+    return np.minimum(np.random.default_rng(seed).zipf(1.3, n), 1 << 30).astype(np.float32)
+
+
+def _dist_rank(rank: int, world: int, tmp: str, q) -> None:
+    """One of the four ranks of ``path dist`` and ``path elastic`` (spawned by
+    :func:`dist_phases`, all on ``cuda:0`` with the ``gloo`` backend): every
+    check made here, each rank's kernel launches, its times and what obs
+    recorded go back to the parent on ``q``."""
+    try:
+        import os
+
+        # order="auto" records its order in the plan cache: one file a rank,
+        # in the run's temporary directory
+        os.environ["REPRO_TORCH_OPS_PLAN_CACHE"] = f"{tmp}/plans{rank}.json"
+        import numpy as np
+        import torch
+        import torch.distributed as tdist
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        from repro_torch import dist, kernels, obs, ops
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.data.distributions import make_input
+        from repro_torch.dist.exchange import group_for
+
+        made = [0]
+
+        def new_group():
+            """A fresh process group (a restarted job) and its two meshes."""
+            if tdist.is_initialized():
+                tdist.destroy_process_group()
+            made[0] += 1
+            tdist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous{made[0]}",
+                                     rank=rank, world_size=world)
+            return {"(4,)": (init_device_mesh("cuda", (4,), mesh_dim_names=("data",)), "data"),
+                    "(2, 2)": (init_device_mesh("cuda", (2, 2), mesh_dim_names=("pod", "data")),
+                               ("pod", "data"))}
+
+        meshes = new_group()
+        n = N_DIST_LOCAL
+        full = {"Uniform": make_input("Uniform", n * world, np.float32, seed=80),
+                "TwoDup": make_input("TwoDup", n * world, np.int32, seed=81),
+                "Zipf": _zipf_keys(np, n * world, seed=82),
+                # radix destinations need key bits that vary at the top: on
+                # Uniform [0, 1) floats every key goes to one group at level 0
+                # and (2, 2)'s second level overflows, in the reference too
+                "int32 full range": np.random.default_rng(83).integers(
+                    -2**31, 2**31, n * world, dtype=np.int64).astype(np.int32)}
+        want = {}  # each input's stable sort of its codes, on the card
+        out = {"checks": [], "info": [], "times": []}
+        kernels.reset_launch_counts()
+
+        def check(what, ok):
+            out["checks"].append((what, bool(ok)))
+
+        def shard(x, pos):
+            return torch.as_tensor(x[pos * n:(pos + 1) * n], device=dev)
+
+        def range_ok(tag, res, mesh, axes):
+            """This rank's valid prefix is its slice of the stable sort of the
+            gathered input; the counts add up; no overflow."""
+            keys, counts, ovf = res[0], res[-2], res[-1]
+            grp = group_for(mesh, (axes,) if isinstance(axes, str) else axes)
+            all_c = grp.all_gather(counts.to(torch.int64))
+            c, start = int(counts[0]), int(all_c[:grp.index].sum())
+            if tag not in want:
+                want[tag] = torch.sort(ops.keyspace.encode(torch.as_tensor(full[tag], device=dev)),
+                                       stable=True).values
+            return (not bool(ovf[0]) and int(all_c.sum()) == n * world and torch.equal(
+                ops.keyspace.encode(keys[:c]), want[tag][start:start + c]))
+
+        def same(a, b):
+            return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                   y.view(torch.int32) if y.dtype == torch.float32 else y)
+                       for x, y in zip(a, b) if isinstance(x, torch.Tensor))
+
+        for mname, (mesh, axes) in meshes.items():
+            pos = group_for(mesh, (axes,) if isinstance(axes, str) else axes).index
+            for tag in ("Uniform", "TwoDup", "Zipf"):
+                xs = shard(full[tag], pos)
+                obs.enabled(tag == "Zipf")
+                obs.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = dist.sort(xs, mesh, axes)
+                torch.cuda.synchronize()
+                out["times"].append((f"{mname} {tag}", 1e3 * (time.perf_counter() - t0)))
+                check(f"{mname} {tag} sort", range_ok(tag, res, mesh, axes))
+                if tag == "Zipf":
+                    out["info"].append((f"{mname} Zipf obs", {
+                        "dist.resplit_rounds": obs.hist_values("dist.resplit_rounds"),
+                        "dist.collective_bytes": obs.hist_values("dist.collective_bytes")}))
+                    obs.enabled(False)
+                    obs.reset()
+                if tag == "Uniform":
+                    check(f"{mname} Uniform overlap bit-identical to sync",
+                          same(dist.sort(xs, mesh, axes, overlap=True), res))
+                    wide = "int32 full range"
+                    check(f"{mname} {wide} radix", range_ok(wide, dist.sort(
+                        shard(full[wide], pos), mesh, axes, classifier="radix"), mesh, axes))
+                    idx = torch.arange(pos * n, (pos + 1) * n, dtype=torch.int32, device=dev)
+                    keys, vals, counts, ovf = dist.sort(
+                        xs, mesh, axes, values={"idx": idx, "pair": (xs, idx.to(torch.int64) * 3)})
+                    c = int(counts[0])
+                    gidx = vals["idx"][:c].to(torch.int64)
+                    whole = torch.as_tensor(full[tag], device=dev)
+                    check(f"{mname} Uniform payload pytree", range_ok(
+                        tag, (keys, counts, ovf), mesh, axes) and torch.equal(
+                        whole[gidx].view(torch.int32), keys[:c].view(torch.int32))
+                        and torch.equal(vals["pair"][0][:c].view(torch.int32),
+                                        keys[:c].view(torch.int32))
+                        and torch.equal(vals["pair"][1][:c], gidx * 3))
+                    tight = [dist.sort(xs, mesh, axes, slack=0.05) for _ in range(2)]
+                    check(f"{mname} Uniform slack 0.05 flags overflow, twice the same",
+                          bool(tight[0][-1][0]) == bool(tight[1][-1][0]) and same(*tight)
+                          and int(tight[0][-2][0]) <= tight[0][0].shape[0])
+                    flags = group_for(mesh, (axes,) if isinstance(axes, str) else axes
+                                      ).all_gather(tight[0][-1].to(torch.int32))
+                    check(f"{mname} Uniform slack 0.05 overflow raised", int(flags.sum()) > 0)
+        # order="auto" on a mis-declared tuple: the slow axis first
+        mesh, _ = meshes["(2, 2)"]
+        pos = group_for(mesh, ("pod", "data")).index
+        res = dist.sort(shard(full["Uniform"], pos), mesh, ("data", "pod"), order="auto")
+        check("(2, 2) order='auto' from ('data', 'pod')", range_ok("Uniform", res, mesh,
+                                                                 ("pod", "data")))
+        # rank 0's profile of one sort: K1, K2 and K3 on the card
+        xs = shard(full["Uniform"], pos)
+        if rank == 0:
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                dist.sort(xs, mesh, ("pod", "data"))
+                torch.cuda.synchronize()
+            names = {e.key for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA}
+            for kernel, fns in (("K1", DEVICE_FUNCTIONS["level_fused"]),
+                                ("K2", DEVICE_FUNCTIONS["rank_hist"]),
+                                ("K3", DEVICE_FUNCTIONS["sort_windows"])):
+                check(f"rank 0's profile shows {kernel}",
+                      any(f in name for f in fns for name in names))
+        else:
+            dist.sort(xs, mesh, ("pod", "data"))
+        # path elastic: killed after level 1, restored in a fresh process group
+        ref = dist.sort(xs, mesh, ("pod", "data"))
+        try:
+            dist.sort_elastic(xs, mesh, ("pod", "data"), _fail_at_step=1,
+                              manager=CheckpointManager(f"{tmp}/elastic", keep=8))
+            killed = False
+        except RuntimeError as exc:
+            killed = "injected shard loss" in str(exc)
+        meshes = new_group()
+        mesh, _ = meshes["(2, 2)"]
+        survivor = CheckpointManager(f"{tmp}/elastic", keep=8)
+        resumed_from = survivor.latest_step()
+        got = dist.sort_elastic(xs, mesh, ("pod", "data"), manager=survivor)
+        whole = dist.sort_elastic(xs, mesh, ("pod", "data"),
+                                  manager=CheckpointManager(f"{tmp}/whole", keep=8))
+        check("elastic killed after level 1, restored from boundary 1",
+              killed and resumed_from == 1)
+        check("elastic restored == uninterrupted == dist.sort", same(got, whole) and same(whole, ref))
+        torch.cuda.synchronize()
+        out["launches"] = kernels.launch_counts()
+        q.put((rank, out))
+        tdist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def dist_phases(torch, dev, rows) -> None:
+    """Phases 3 and 4 of the observability layer (``path obs``), the
+    distributed sort (``path dist``: NCCL at world size 1 here, then four
+    ``gloo`` ranks on the one card) and the elastic sort (``path
+    elastic``).  Their launches of K1, K2 and K3 join the kernels line."""
+    import warnings
+
+    import numpy as np
+    import torch.distributed as tdist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repro_torch import dist, kernels, obs, ops
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import ips4o
+    from repro_torch.data.distributions import make_input
+
+    added = {}
+    sort_kernels = ("level_fused", "rank_hist", "sort_windows")
+
+    def drive(path, needed, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"path {path} launches: {({k: v for k, v in launches.items() if v})} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+        for name in needed:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the path {path}")
+        for name, count in launches.items():
+            added[name] = added.get(name, 0) + count
+        return res
+
+    def verdict(path, what, ok):
+        print(f"path {path}: {what} {'ok' if ok else 'WRONG'}", flush=True)
+        if not ok:
+            fail(f"path {path} wrong on {what}")
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    x = torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=70), device=dev)
+    xi = torch.as_tensor(make_input("TwoDup", N_BIG, np.int32, seed=71), device=dev)
+    enc = {"Uniform": ops.keyspace.encode(x), "TwoDup": ops.keyspace.encode(xi)}
+    order = {tag: torch.sort(e, stable=True).indices for tag, e in enc.items()}
+
+    # ---- path obs: the span tree, the sort's stats, the exports, the profile
+    path = f"obs (ops.sort of {N_BIG} float32 Uniform, tree, obs enabled)"
+    captured = []
+    level_stats = ips4o._obs_level_stats
+
+    def capture(offsets, nb, pad_bucket, level):  # the offsets each level's stats come from
+        captured.append((offsets.clone(), nb, pad_bucket, level))
+        level_stats(offsets, nb, pad_bucket, level)
+
+    ops.sort(x)  # warm: the spans below time the card's work, not first-call set-up
+    ips4o._obs_level_stats = capture
+    obs.enabled(True)
+    obs.reset()
+    try:
+        got = drive(path, sort_kernels, lambda: ops.sort(x))
+    finally:
+        ips4o._obs_level_stats = level_stats
+    verdict(path, "sort", torch.equal(bits(got), bits(ops.keyspace.decode(
+        enc["Uniform"][order["Uniform"]], torch.float32))))
+    stats = obs.span_stats()  # resolves every span's device_ms
+    spans = obs.recorder().spans
+
+    def kids(s):
+        return [c for c in spans if c["parent"] == s["id"]]
+
+    roots = [s for s in spans if s["parent"] is None]
+    tree_ok = [s["name"] for s in roots] == ["ops.sort"]
+    top = kids(roots[0]) if tree_ok else []
+    tree_ok &= [s["name"] for s in top] == ["ips4o_sort"]
+    passes = kids(top[0]) if tree_ok else []
+    tree_ok &= [(s["name"], s["attrs"].get("level")) for s in passes] == [
+        ("level_pass", 1), ("level_pass", 2), ("base_case", None)]
+    for s in passes[:2]:
+        tree_ok &= [c["name"] for c in kids(s)] == ["sample", "classify", "partition"]
+    verdict(path, "span tree ops.sort > ips4o_sort > level_pass(1) > sample/classify/"
+            "partition, level_pass(2), base_case", tree_ok)
+    timed = all("device_ms" in s for s in spans)
+    nested = timed and all(sum(c["device_ms"] for c in kids(s)) <= s["device_ms"] + 1e-3
+                           for s in spans if kids(s))
+    print(f"path obs: spans {len(spans)}; device ms: " + ", ".join(
+        f"{name} {a['device_ms']:.3f}" for name, a in stats.items() if "device_ms" in a),
+        flush=True)
+    verdict(path, "every span has device_ms, its children's sum <= its own (+1 us)", nested)
+    want_stats = {}
+    for offsets, nb, pad_bucket, level in captured:
+        sizes = (offsets[1:] - offsets[:-1]).to(torch.int64)
+        ids = torch.arange(nb, device=dev)
+        mask = (ids % 2 == 0) & (ids != (-1 if pad_bucket is None else pad_bucket))
+        szs = torch.where(mask, sizes, 0)
+        mean = torch.clamp(szs.sum().to(torch.float32) / int(mask.sum()), min=1.0)
+        want_stats[level] = ([float(szs.max().to(torch.float32) / mean)], [float(szs.max())])
+        if level == "2":  # the fallback's verdict: an even bucket above W/2
+            fallback = bool((mask & (sizes > ips4o.SortConfig().base_case // 2)).any())
+    got_stats = {lv: (obs.hist_values("sort.bucket_imbalance", level=lv),
+                      obs.hist_values("sort.largest_bucket", level=lv)) for lv in want_stats}
+    print(f"path obs: bucket_imbalance/largest_bucket {got_stats}, fallback_engaged "
+          f"{obs.counter_value('sort.fallback_engaged')}, base_case "
+          f"{obs.counter_value('sort.base_case')}", flush=True)
+    verdict(path, "sort.bucket_imbalance and sort.largest_bucket equal plain torch's from the "
+            "call's offsets", set(want_stats) == {"1", "2"} and got_stats == want_stats)
+    verdict(path, "sort.fallback_engaged equals the fallback's verdict",
+            obs.counter_value("sort.fallback_engaged") == int(fallback)
+            and obs.counter_value("sort.base_case") == 1 - int(fallback))
+    with tempfile.TemporaryDirectory() as tmp:
+        obs.export_jsonl(f"{tmp}/obs.jsonl")
+        obs.export_chrome_trace(f"{tmp}/obs.trace.json")
+        lines = [json.loads(line) for line in open(f"{tmp}/obs.jsonl")]
+        trace = json.load(open(f"{tmp}/obs.trace.json"))
+    verdict(path, "the JSONL and Chrome-trace exports parse", sum(
+        1 for line in lines if line["type"] == "span") == len(spans) and sum(
+        1 for e in trace["traceEvents"] if e["ph"] == "X") == len(spans))
+    obs.reset()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.sort(x)
+        torch.cuda.synchronize()
+    keys = {e.key for e in prof.key_averages()}
+    verdict(path, "the profiler's trace holds the span names", {
+        "ops.sort", "ips4o_sort", "level_pass", "sample", "classify", "partition",
+        "base_case"} <= keys)
+    obs.enabled(False)
+    obs.reset()
+
+    def launches_and_syncs(fn):
+        """(runtime launch calls on the host and device kernels, by one
+        torch.profiler trace (a trace can lose device kernels, never host
+        calls); synchronizing calls flagged by ``set_sync_debug_mode``) of
+        one call of ``fn``."""
+        fn()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        ev = p.key_averages()
+        calls = sum(e.count for e in ev if "LaunchKernel" in e.key
+                    and e.device_type != torch.autograd.DeviceType.CUDA)
+        device = sum(e.count for e in ev if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith(("Memcpy", "Memset")))
+        counted = []
+        for _ in range(2):  # the first call under the debug mode also flags a
+            # one-time sync of torch's own (torch/cuda/__init__.py): the second counts
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            counted.append(sum(1 for w in caught if "synchroniz" in str(w.message)))
+        return calls, device, counted[-1]
+
+    disabled = launches_and_syncs(lambda: ops.sort(x))
+    hooks = {name: getattr(obs, name) for name in (
+        "trace", "block", "enabled", "count", "gauge", "observe", "jit_count", "jit_observe",
+        "jit_event")}
+    null = contextlib.nullcontext()
+    try:
+        obs.trace = lambda *a, **k: null
+        obs.block = lambda v: v
+        obs.enabled = lambda *a: False
+        for name in ("count", "gauge", "observe", "jit_count", "jit_observe", "jit_event"):
+            setattr(obs, name, lambda *a, **k: None)
+        noop = launches_and_syncs(lambda: ops.sort(x))
+    finally:
+        for name, fn in hooks.items():
+            setattr(obs, name, fn)
+    print(f"path obs disabled: launch calls {disabled[0]}, synchronizing calls {disabled[2]} "
+          f"(device kernels kept by the trace {disabled[1]}); with no-op hooks: {noop[0]}, "
+          f"{noop[2]} ({noop[1]})", flush=True)
+    verdict(path, "obs disabled launches and syncs as the no-op hooks",
+            (disabled[0], disabled[2]) == (noop[0], noop[2]))
+
+    # ---- path dist at world size 1 on NCCL ------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    tdist.init_process_group("nccl", init_method=f"file://{tmp}/nccl1", rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    # one rank: slack 1 (the default 2 pads the range to 2^25 keys, past the
+    # two levels the default config plans with kmax = 128)
+    one = dict(slack=1.0)
+    path = f"dist world size 1 (NCCL; {N_BIG} float32 Uniform and int32 TwoDup)"
+
+    def world1():
+        res = {}
+        for tag, xx in (("Uniform", x), ("TwoDup", xi)):
+            res[tag, "sort"] = dist.sort(xx, mesh, **one)
+            res[tag, "argsort"] = dist.argsort(xx, mesh, **one)
+            res[tag, "bottomk"] = dist.bottomk(xx, DIST_K, mesh)
+            res[tag, "topk"] = dist.topk(xx, DIST_K, mesh)
+            res[tag, "group_by"] = dist.group_by(xx, mesh, **one)
+        return res
+
+    got = drive(path, sort_kernels, world1)
+    for tag, xx in (("Uniform", x), ("TwoDup", xi)):
+        e, o = enc[tag], order[tag]
+        keys, counts, ovf = got[tag, "sort"]
+        ok = int(counts[0]) == N_BIG and not bool(ovf[0])
+        verdict(path, f"{tag} sort == ops.sort == torch.sort(stable=True)", ok and torch.equal(
+            bits(keys[:N_BIG]), bits(ops.sort(xx))) and torch.equal(
+            ops.keyspace.encode(keys[:N_BIG]), e[o]))
+        idx = got[tag, "argsort"][0][:N_BIG].to(torch.int64)
+        verdict(path, f"{tag} argsort == ops.argsort == torch.sort(stable=True)", torch.equal(
+            idx, ops.argsort(xx).to(torch.int64)) and torch.equal(idx, o))
+        for kind, want_i in (("bottomk", o[:DIST_K]),
+                             ("topk", torch.sort(~e, stable=True).indices[:DIST_K])):
+            v, i = got[tag, kind]
+            wv, wi = getattr(ops, kind)(xx, DIST_K)
+            verdict(path, f"{tag} {kind} k={DIST_K} == ops.{kind}", torch.equal(
+                bits(v), bits(wv)) and torch.equal(i, wi) and torch.equal(i.to(torch.int64), want_i))
+        gk, starts, counts, _ = got[tag, "group_by"]
+        s = e[o]
+        want_starts = torch.ones_like(s, dtype=torch.bool)
+        want_starts[1:] = s[1:] != s[:-1]
+        verdict(path, f"{tag} group_by", torch.equal(ops.keyspace.encode(gk[:N_BIG]), s)
+                and torch.equal(starts[:N_BIG], want_starts) and not bool(starts[N_BIG:].any()))
+
+    path = f"elastic world size 1 (NCCL; {N_DIST_LOCAL} float32 Uniform)"
+    xe = x[:N_DIST_LOCAL].clone()
+
+    def elastic1():
+        ref = dist.sort(xe, mesh)
+        try:
+            dist.sort_elastic(xe, mesh, manager=CheckpointManager(f"{tmp}/ck1"), _fail_at_step=1)
+            killed = False
+        except RuntimeError as exc:
+            killed = "injected shard loss" in str(exc)
+        return ref, killed
+
+    ref, killed = drive(path, sort_kernels, elastic1)
+    tdist.destroy_process_group()
+    tdist.init_process_group("nccl", init_method=f"file://{tmp}/nccl2", rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    survivor = CheckpointManager(f"{tmp}/ck1")
+    resumed_from = survivor.latest_step()
+    got = dist.sort_elastic(xe, mesh, manager=survivor)
+    whole = dist.sort_elastic(xe, mesh, manager=CheckpointManager(f"{tmp}/ck_whole"))
+    verdict(path, "killed after level 1 (boundary 1), restored in a fresh process group",
+            killed and resumed_from == 1)
+    verdict(path, "restored == uninterrupted == dist.sort", all(
+        torch.equal(bits(a), bits(b)) and torch.equal(bits(b), bits(c))
+        for a, b, c in zip(got, whole, ref)))
+
+    # ---- phase 4 for these paths: the cost of obs; dist.sort at world size 1
+    t_off = cuda_ms(torch, lambda: ops.sort(x), reps=5)
+    obs.enabled(True)
+    t_on = cuda_ms(torch, lambda: (obs.reset(), ops.sort(x)), reps=5)
+    obs.enabled(False)
+    obs.reset()
+    t_dist = cuda_ms(torch, lambda: dist.sort(x, mesh, **one), reps=5)
+    t_ops = cuda_ms(torch, lambda: ops.sort(x), reps=5)
+    print(f"time ops.sort {N_BIG} float32 Uniform: obs disabled {t_off:.3f} ms, obs enabled "
+          f"{t_on:.3f} ms (median of 5, CUDA events)", flush=True)
+    print(f"time dist.sort world size 1 (NCCL) {N_BIG} float32 Uniform: {t_dist:.3f} ms, "
+          f"ops.sort {t_ops:.3f} ms (median of 5, CUDA events)", flush=True)
+    tdist.destroy_process_group()
+
+    # ---- path dist and path elastic on four gloo ranks on the one card --------
+    # the kernels were built before (phase 1), so four ranks never build at once
+    path = (f"dist {DIST_WORLD} gloo ranks on one card ((4,) and (2, 2) meshes, "
+            f"{N_DIST_LOCAL} keys a rank)")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_dist_rank, args=(r, DIST_WORLD, tmp, q))
+             for r in range(DIST_WORLD)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        while len(results) < DIST_WORLD:
+            try:
+                rank, res = q.get(timeout=5)
+            except queue.Empty:  # a rank that died without an answer fails the path now
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.time() - t0 > 600:
+                    fail(f"path {path}: ranks ended with {dead} before answering")
+                continue
+            if "error" in res:
+                fail(f"path {path}: rank {rank} failed:\n{res['error']}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    launches = {}
+    for res in results.values():
+        for name, count in res["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    print(f"path {path} launches (all ranks): {({k: v for k, v in launches.items() if v})} "
+          f"({time.time() - t0:.1f} s with the ranks' start)", flush=True)
+    for name in sort_kernels:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the path {path}")
+    for name, count in launches.items():
+        added[name] = added.get(name, 0) + count
+    for what, ok in results[0]["checks"]:
+        verdict(path, what, ok and all(dict(r["checks"]).get(what, True) for r in
+                                        results.values()))
+    for what, info in results[0]["info"]:
+        print(f"path {path}: rank 0 {what}: {info}", flush=True)
+    for what, ms in results[0]["times"]:
+        print(f"time dist.sort gloo 4 ranks {what}: {ms:.1f} ms on rank 0 (host clock; gloo "
+              f"moves CUDA tensors through host copies: not the exchange's cost)", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    for name, count in added.items():
+        if name in rows and count:
+            rows[name]["launches"] += count
 
 
 def main() -> None:
@@ -2820,6 +3347,10 @@ def main() -> None:
     sort_phases()
     torch.cuda.empty_cache()
     rows.update(attention_phases(torch, dev))
+    torch.cuda.empty_cache()
+    # last: its process groups (NCCL here, gloo in four spawned ranks) come
+    # after every profile of a kernel's launches above
+    dist_phases(torch, dev, rows)
 
     # ---- 5. the kernels line and the result ----------------------------------
     meta = {

@@ -12,6 +12,12 @@ radix classifiers, for keys of every dtype of ``ops.keyspace`` (8- to
 ``merge``), the in-place block moves (``core.partition.partition_blocks``,
 ``kernels.ops.sort_blocks``, ``kernels.ops.permute_blocks_inplace``), the
 classify + histogram entry points (``kernels.classify``) and the
-out-of-place baseline ``core.s3sort.s3_sort``; ROADMAP.md lists what is
-still to be ported.
+out-of-place baseline ``core.s3sort.s3_sort``.  Beside them: the
+observability layer ``obs`` (spans with CUDA-event device times, metrics,
+exporters; off unless ``REPRO_OBS=1`` or ``obs.enabled(True)``), the
+multi-level distributed sort ``dist`` over ``torch.distributed`` (per-rank
+``sort``/``argsort``/``topk``/``bottomk``/``group_by`` on a
+``DeviceMesh``, and the restorable ``sort_elastic``) and its sharded
+``checkpoint.CheckpointManager``.  ROADMAP.md lists what is still to be
+ported.
 """

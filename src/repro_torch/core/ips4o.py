@@ -49,6 +49,7 @@ equal the reference's bit for bit whatever splitters the sample gives.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -184,6 +185,41 @@ def _level_tile(keys: torch.Tensor, nb: int, cfg: SortConfig) -> int:
     return min(tile, MAX_TILE64) if keys.dtype == torch.int64 else tile
 
 
+def _obs_level_stats(offsets: torch.Tensor, nb: int, pad_bucket: Optional[int],
+                     level: str) -> None:
+    """Bucket-balance stats of one completed level pass, from its offsets
+    ((nb+1,) or (B, nb+1)): ``sort.bucket_imbalance`` (largest / mean
+    non-trivial bucket) and ``sort.largest_bucket``, over the even buckets
+    other than the pad bucket (odd ids are equality buckets, sized by the
+    data).  Nothing is computed or read unless obs is enabled."""
+    if not obs.enabled():
+        return
+    sizes = offsets[..., 1:] - offsets[..., :-1]
+    ids = torch.arange(nb)  # the mask is static: made on the host
+    mask = ids % 2 == 0
+    if pad_bucket is not None:
+        mask &= ids != pad_bucket
+    k_eff = int(mask.sum())
+    if k_eff == 0:
+        return
+    rows = math.prod(sizes.shape[:-1]) if sizes.dim() > 1 else 1
+    szs = torch.where(mask.to(offsets.device), sizes, 0)
+    largest = szs.max()
+    mean = torch.clamp(szs.sum().to(torch.float32) / (k_eff * max(rows, 1)), min=1.0)
+    obs.jit_observe("sort.bucket_imbalance", largest.to(torch.float32) / mean, level=level)
+    obs.jit_observe("sort.largest_bucket", largest, level=level)
+
+
+def _obs_base_stats(violated: Optional[bool]) -> None:
+    """Base case against robustness fallback: ``sort.fallback_engaged`` and
+    ``sort.base_case``, from the fallback's own verdict (the host read it
+    makes anyway); None when obs is disabled and nothing was read."""
+    if violated is None or not obs.enabled():
+        return
+    obs.count("sort.fallback_engaged", int(violated))
+    obs.count("sort.base_case", 1 - int(violated))
+
+
 def segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
     """Per-position bucket/segment id (n,) int32 from (nb+1,) offsets; for
     (B, nb+1) offsets, (B, n) ids per row."""
@@ -310,13 +346,13 @@ def level_pass(
     if ids is not None:
         with obs.trace("partition", nb=nb):
             dest, off = rank_hist(ids, nb=nb, tile=_auto_tile(keys.shape[0], nb, cfg))
-    else:
-        clf = "tree" if clf == "learned" else clf
-        with obs.trace("classify", fused=True, classifier=clf, k=k):
-            dest, off = level_fused(
-                keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
-                classifier=clf, consumed_bits=consumed_bits,
-            )
+            return _scatter(arrays, dest), off, nb, 2 * k
+    clf = "tree" if clf == "learned" else clf
+    with obs.trace("classify", fused=True, classifier=clf, k=k):
+        dest, off = level_fused(
+            keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
+            classifier=clf, consumed_bits=consumed_bits,
+        )
     with obs.trace("partition", fused=True, nb=nb):
         arrays = _scatter(arrays, dest)
     return arrays, off, nb, 2 * k
@@ -372,8 +408,15 @@ def composite_ids(
     ``classifier`` is "radix"."""
     return batched_composite_ids(
         keys[None], seg_offsets[None], num_seg, n_real, k, gen, sample_cap,
-        None if splitters is None else splitters[None], classifier, consumed_bits,
+        None if splitters is None else splitters[None], classifier, consumed_bits, spans=True,
     )[0]
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _no_span(name: str, **attrs) -> contextlib.nullcontext:
+    return _NO_SPAN
 
 
 def batched_composite_ids(
@@ -387,18 +430,23 @@ def batched_composite_ids(
     splitters: Optional[torch.Tensor] = None,
     classifier: str = "tree",
     consumed_bits: int = 0,
+    *,
+    spans: bool = False,
 ) -> torch.Tensor:
     """Row-local composite ids (B, n) int32 of (B, n) ``keys`` with
-    (B, num_seg+1) ``seg_offsets``; ``splitters`` is (B, num_seg, k-1)."""
+    (B, num_seg+1) ``seg_offsets``; ``splitters`` is (B, num_seg, k-1).
+    ``spans`` records the sample and classify spans of the 1-D level 2
+    (the reference's batched level 2 records none)."""
     B, n = keys.shape
     seg = segment_ids(seg_offsets, n)
+    trace = obs.trace if spans else _no_span
     if classifier == "radix":
         # no sample: within a radix-aligned segment the next bits are monotone
-        with obs.trace("classify", segmented=True, classifier="radix", k=k):
+        with trace("classify", segmented=True, classifier="radix", k=k):
             local = radix_bucket_ids(keys, k, consumed_bits)
         return seg * (2 * k) + local
     if splitters is None:
-        with obs.trace("sample", segmented=True, k=k, segments=num_seg):
+        with trace("sample", segmented=True, k=k, segments=num_seg):
             m = min(max(sampling.oversampling_factor(n_real) * k, k), sample_cap)
             pos = sampling.sample_indices(gen, m, seg_offsets[:, :-1], seg_offsets[:, 1:])
             # an empty last segment samples position n: clamp it (jnp.take
@@ -407,7 +455,7 @@ def batched_composite_ids(
             svals = torch.sort(torch.gather(keys, 1, pos).reshape(B, num_seg, m),
                                dim=-1).values
             splitters = sampling.select_splitters(svals, k)
-    with obs.trace("classify", segmented=True, classifier="tree", k=k):
+    with trace("classify", segmented=True, classifier="tree", k=k):
         # (row, segment) -> one global segment for the flattened classifier
         gseg = seg
         if B > 1:
@@ -453,6 +501,7 @@ def partition_passes(
         arrays, off1, nb1, pad_bucket = level_pass(
             arrays, n_real, levels[0], cfg, gen, spl[0]
         )
+    _obs_level_stats(off1, nb1, pad_bucket, level="1")
     if len(levels) == 1:
         return arrays, off1, nb1, pad_bucket
     with obs.trace("level_pass", level=2, k=levels[1], segmented=True):
@@ -460,6 +509,7 @@ def partition_passes(
             arrays, off1, nb1, n_real, levels[1], cfg, gen, splitters=spl[1],
             classifier=_level2_classifier(clf), consumed_bits=levels[0].bit_length() - 1,
         )
+    _obs_level_stats(offsets, nb, None, level="2")
     return arrays, offsets, nb, None  # pads now sit in an odd equality bucket
 
 
@@ -539,10 +589,15 @@ def base_case_with_fallback(
     n = arrays["k"].shape[-1]
     W = cfg.base_case
     fb = segment_ids(offsets, n)
-    with obs.trace("base_case", W=W, fallback=cfg.fallback):
-        # the reference picks its fallback branch on the device with
-        # lax.cond; here one host read of the verdict picks it
-        if cfg.fallback and bool(bucket_violations(offsets, nb, W, pad_bucket, limit)):
+    # the reference picks its fallback branch on the device with lax.cond;
+    # here one host read of the verdict picks it, and obs reads that verdict
+    violated = None
+    if cfg.fallback or obs.enabled():
+        violated = bool(bucket_violations(offsets, nb, W, pad_bucket, limit))
+    _obs_base_stats(violated)
+    attrs = {"batched": True} if offsets.dim() == 2 else {}
+    with obs.trace("base_case", W=W, fallback=cfg.fallback, **attrs):
+        if cfg.fallback and violated:
             arrays = _sort_oversized(arrays, fb, offsets, nb, W, pad_bucket, limit)
         return base_case(arrays, fb, W, nb, limit)
 
@@ -624,13 +679,13 @@ def batched_level_pass(
     if ids is not None:
         with obs.trace("partition", batched=True, nb=nb):
             dest, off = rank_hist_batched(ids, nb=nb, tile=_auto_tile(keys.shape[1], nb, cfg))
-    else:
-        clf = "tree" if clf == "learned" else clf
-        with obs.trace("classify", batched=True, fused=True, classifier=clf, k=k):
-            dest, off = level_fused_batched(
-                keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
-                classifier=clf,
-            )
+            return _scatter(arrays, dest), off, nb, 2 * k
+    clf = "tree" if clf == "learned" else clf
+    with obs.trace("classify", batched=True, fused=True, k=k):
+        dest, off = level_fused_batched(
+            keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
+            classifier=clf,
+        )
     with obs.trace("partition", batched=True, fused=True, nb=nb):
         arrays = _scatter(arrays, dest)
     return arrays, off, nb, 2 * k
@@ -659,13 +714,11 @@ def batched_segmented_level_pass(
     comp = batched_composite_ids(keys, seg_offsets, num_seg, n_real, k, gen, sample_cap,
                                  splitters, classifier, consumed_bits)
     nb = num_seg * 2 * k
-    with obs.trace("partition", batched=True, segmented=True, nb=nb):
-        dest, offsets = rank_hist_batched(
-            comp, nb=nb, seg_offsets=seg_offsets, seg_width=2 * k,
-            tile=_auto_tile(n, 2 * k, cfg),
-        )
-        arrays = _scatter(arrays, dest)
-    return arrays, offsets, nb
+    dest, offsets = rank_hist_batched(
+        comp, nb=nb, seg_offsets=seg_offsets, seg_width=2 * k,
+        tile=_auto_tile(n, 2 * k, cfg),
+    )
+    return _scatter(arrays, dest), offsets, nb
 
 
 def batched_partition_passes(
@@ -687,6 +740,7 @@ def batched_partition_passes(
         arrays, off1, nb1, pad_bucket = batched_level_pass(
             arrays, n_real, levels[0], cfg, gen, spl[0]
         )
+    _obs_level_stats(off1, nb1, pad_bucket, level="1")
     if len(levels) == 1:
         return arrays, off1, nb1, pad_bucket
     with obs.trace("level_pass", level=2, k=levels[1], batched=True, segmented=True):
@@ -694,6 +748,7 @@ def batched_partition_passes(
             arrays, off1, nb1, n_real, levels[1], cfg, gen, splitters=spl[1],
             classifier=_level2_classifier(clf), consumed_bits=levels[0].bit_length() - 1,
         )
+    _obs_level_stats(offsets, nb, None, level="2")
     return arrays, offsets, nb, None  # pads now sit in odd equality buckets
 
 
@@ -778,7 +833,7 @@ def ips4o_sort_batched(
     if values is not None:
         payload, rebuild = _payload(values, keys)
         arrays.update(payload)
-    with obs.trace("ips4o_sort_batched", B=B, n=n, classifier=cfg.classifier):
+    with obs.trace("ips4o_sort_batched", B=B, n=n):
         arrays = batched_pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
         levels = plan_levels(arrays["k"].shape[1], cfg)
         arrays = _sort_padded_batched(arrays, n, cfg, levels)

@@ -4,8 +4,9 @@ Counterpart of ``repro.core.sampling``.  The reference draws its sample
 positions with ``jax.random``; the port draws them from an explicit
 ``torch.Generator`` seeded from ``SortConfig.seed``.  The two give other
 bits from the same seed, so parity tests feed both sides the same
-splitters; the sorted output and the stable argsort are unique, so the
-end-to-end results agree whatever the sample.
+splitters (or, for ``repro_torch.dist``, the same sample positions); the
+sorted output and the stable argsort are unique, so the end-to-end results
+agree whatever the sample.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ __all__ = [
     "oversampling_factor",
     "sample_indices",
     "select_splitters",
+    "splitters_from_histogram",
 ]
 
 
@@ -85,3 +87,28 @@ def select_splitters(sorted_sample: torch.Tensor, k: int) -> torch.Tensor:
     return torch.index_select(
         sorted_sample, -1, torch.as_tensor(idx, device=sorted_sample.device)
     )
+
+
+def splitters_from_histogram(
+    candidates: torch.Tensor, cum_counts: torch.Tensor, k: int, total: torch.Tensor
+) -> torch.Tensor:
+    """Re-split rule (DESIGN.md §8): k-1 splitters from observed key ranks.
+
+    ``candidates`` is a sorted (m,) set of candidate splitter values and
+    ``cum_counts[j]`` the *observed* number of keys strictly below
+    ``candidates[j]`` (a global histogram, not a sample estimate).  The
+    returned splitters are the candidates whose observed ranks best match
+    the equidistant target ranks ``i * total / k``.  ``total`` is a 0-d
+    tensor; the target arithmetic never forms ``total * (k-1)``, which
+    overflows int32 in the reference, whose arithmetic this keeps.
+
+    >>> c = torch.tensor([10, 20, 30, 40])
+    >>> splitters_from_histogram(c, torch.tensor([0, 10, 80, 90]), 4, torch.tensor(100)).tolist()
+    [30, 30, 30]
+    """
+    i = torch.arange(1, k, dtype=torch.int64, device=candidates.device)
+    total = total.to(torch.int64)
+    target = (total // k) * i + ((total % k) * i) // k
+    j = torch.searchsorted(cum_counts.to(torch.int64).contiguous(), target, side="left")
+    j = torch.clamp(j, 0, candidates.shape[0] - 1)
+    return candidates[j]

@@ -23,15 +23,23 @@ slack depend on the problem size, so ``PlanCache`` owns that decision:
     consensus across labels;
   * the ``stream:`` key family records the merge tile of an external sort
     at (chunk, fan-in, dtype) (``stream_plan``), swept over K5's tiles on a
-    synthetic pairwise merge at the chunk shape.
+    synthetic pairwise merge at the chunk shape;
+  * the ``dist:`` key family plans the multi-level distributed sort
+    (``dist_plan``): ``dist:n_local=8192:d=8:dtype=float32`` records the
+    capacity factor (slack), the per-rank oversampling and, once
+    ``dist.sort(order="auto")`` has run, the topology-chosen axis order;
+    tuned by the reference's host-side *capacity simulation* (numpy; no
+    card needed), which keeps the cheapest candidate whose worst
+    simulated per-pair fill leaves headroom.
 
 The port has no engine switch, so no plan carries an engine and the sweep
-has no engine points (ROADMAP.md, queue 3).  The ``dist:`` key family comes
-with the distributed sort (ROADMAP.md, queue 1 item 11).  The ``obs``
-counters are the reference's (``plan_cache.hit``/``miss`` by family,
-``plan_cache.autotune_sweep``, ``plan_cache.compiled_hit``/``miss``,
-``classifier.race_winner``); they record nothing until the observability
-layer is ported.
+has no engine points (ROADMAP.md, queue 3); an entry the reference wrote
+loads with its ``engine`` dropped.  Every lookup is counted through
+``repro_torch.obs`` (off by default): ``plan_cache.hit``/``miss`` by
+family (``family="sort" | "clf" | "stream" | "dist"``),
+``plan_cache.autotune_sweep`` with a ``plan.autotune`` span,
+``plan_cache.compiled_hit``/``miss``, and a ``classifier.race`` span with a
+``classifier.race_winner`` counter.
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ import os
 import statistics
 import time
 from dataclasses import asdict
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +58,7 @@ from repro_torch import obs
 from repro_torch.core.ips4o import SortConfig, plan_levels
 from repro_torch.kernels.merge_path import MAX_TILE, TILE
 
-__all__ = ["PlanCache", "StreamPlan", "get_sorter", "default_cache"]
+__all__ = ["PlanCache", "StreamPlan", "DistPlan", "get_sorter", "default_cache"]
 
 _OPS = ("sort", "argsort", "topk", "bottomk")
 _CFG_FIELDS = frozenset(f.name for f in dataclasses.fields(SortConfig))
@@ -203,6 +211,30 @@ class StreamPlan:
     merge_tile: int = TILE
 
 
+@dataclasses.dataclass(frozen=True)
+class DistPlan:
+    """Tuned knobs for one distributed-sort family (DESIGN.md §8): the
+    capacity factor (slack over the balanced per-pair expectation), the
+    per-rank oversampling and, once ``dist.sort(order="auto")`` has run,
+    the topology-chosen level order (empty: no recorded preference).  The
+    reference's ``engine`` has no counterpart."""
+
+    n_local: int
+    d: int
+    slack: float = 2.0
+    oversample: int = 32
+    axis_order: Tuple[str, ...] = ()
+
+
+# capacity factors and oversample multipliers the dist: autotune sweeps,
+# ascending, so the first passing candidate is the cheapest (collective
+# volume scales linearly with slack); a candidate passes when the simulated
+# worst per-pair fill stays under this fraction of capacity
+_DIST_SLACKS = (1.5, 2.0, 2.5, 3.0)
+_DIST_OVERSAMPLE_MULS = (1, 2, 4)
+_DIST_FILL_MARGIN = 0.9
+
+
 def _valid_tile(tile) -> bool:
     return isinstance(tile, int) and 0 < tile <= MAX_TILE and not tile & (tile - 1)
 
@@ -259,7 +291,9 @@ class PlanCache:
         d = os.path.dirname(self.path)
         if d:
             os.makedirs(d, exist_ok=True)
-        tmp = self.path + ".tmp"
+        # a temporary file of this process's own: the ranks of a distributed
+        # sort may save one path at once, and the last atomic replace wins
+        tmp = f"{self.path}.{os.getpid()}.tmp"
         with open(tmp, "w") as fh:
             json.dump(self._plans, fh, indent=1, sort_keys=True)
         os.replace(tmp, self.path)
@@ -460,6 +494,143 @@ class PlanCache:
         self._plans[self._stream_key(chunk, fanin, dtype)] = {
             "config": {"merge_tile": best.merge_tile},
             "us": round(best_t * 1e6, 1),
+            "tuned_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+        }
+        self._save()
+        return best
+
+    # -- dist: key family (multi-level exchange geometry) ---------------------
+    @staticmethod
+    def _dist_key(n_local: int, d: int, dtype) -> str:
+        return f"dist:n_local={n_local}:d={d}:dtype={_dtype_name(dtype)}"
+
+    def dist_plan(self, n_local: int, d: int, dtype, *, tune: bool = False) -> DistPlan:
+        """Capacity factor and oversampling for a distributed sort at
+        (n_local, d, dtype): a persisted ``dist:`` plan wins (an ``engine``
+        in it, the reference's, is dropped); ``tune=True`` runs the
+        host-side capacity simulation and persists the winner; otherwise
+        the defaults.
+
+        >>> import os, tempfile
+        >>> pc = PlanCache(path=os.path.join(tempfile.mkdtemp(), "p.json"))
+        >>> pc.dist_plan(8192, 8, torch.float32).slack  # no plan: defaults
+        2.0
+        """
+        key = self._dist_key(n_local, d, dtype)
+        entry = self._plans.get(key)
+        cfg = entry.get("config") if isinstance(entry, dict) else None
+        axis_order = self._dist_axis_order(cfg)
+        if isinstance(cfg, dict):
+            slack, ovs = cfg.get("slack"), cfg.get("oversample")
+            if (isinstance(slack, (int, float)) and not isinstance(slack, bool)
+                    and isinstance(ovs, int) and not isinstance(ovs, bool)):
+                obs.count("plan_cache.hit", family="dist")
+                cfg.pop("engine", None)  # the reference's: migrated at the next save
+                entry.pop("engine", None)
+                return DistPlan(n_local, d, float(slack), ovs, axis_order)
+        obs.count("plan_cache.miss", family="dist")
+        if tune:
+            return dataclasses.replace(self._autotune_dist(n_local, d, dtype),
+                                       axis_order=axis_order)
+        from repro_torch.dist.levels import default_oversample  # lazy: dist layers on ops
+
+        return DistPlan(n_local, d, oversample=default_oversample(n_local * d),
+                        axis_order=axis_order)
+
+    @staticmethod
+    def _dist_axis_order(cfg: Any) -> Tuple[str, ...]:
+        if isinstance(cfg, dict):
+            ao = cfg.get("axis_order")
+            if isinstance(ao, list) and all(isinstance(a, str) for a in ao):
+                return tuple(ao)
+        return ()
+
+    def record_dist_axis_order(self, n_local: int, d: int, dtype,
+                               order: Tuple[str, ...]) -> None:
+        """Persist the topology-chosen level order as a dimension of the
+        ``dist:`` entry (DESIGN.md §13.4), for later
+        ``dist.sort(order="auto")`` calls at the same (n_local, d, dtype);
+        a later capacity autotune of the entry keeps it.
+
+        >>> import os, tempfile
+        >>> pc = PlanCache(path=os.path.join(tempfile.mkdtemp(), "p.json"))
+        >>> pc.record_dist_axis_order(8192, 8, torch.float32, ("pod", "data"))
+        >>> pc.dist_plan(8192, 8, torch.float32).axis_order
+        ('pod', 'data')
+        """
+        entry = self._plans.setdefault(self._dist_key(n_local, d, dtype), {})
+        entry.setdefault("config", {})["axis_order"] = [str(a) for a in order]
+        self._save()
+
+    def _autotune_dist(self, n_local: int, d: int, dtype) -> DistPlan:
+        """The reference's host-side capacity simulation: for ascending
+        (slack, oversample) candidates, replay the level-0 splitter
+        selection and equality-bucket striping on adversarial synthetic
+        draws (uniform / exponential / heavy-duplicate) and keep the
+        cheapest candidate whose worst per-pair fill stays under
+        ``_DIST_FILL_MARGIN`` of capacity.  numpy only: no card needed."""
+        from repro_torch.dist.levels import default_oversample, plan_schedule
+
+        key = self._dist_key(n_local, d, dtype)
+        floating = _torch_dtype(dtype).is_floating_point
+        base_ovs = default_oversample(n_local * d)
+
+        def draws(rng):
+            if floating:
+                yield rng.standard_normal(n_local).astype(np.float32)
+                yield rng.exponential(size=n_local).astype(np.float32)
+                yield rng.choice(97, size=n_local).astype(np.float32)  # dup-heavy
+            else:
+                yield rng.integers(0, 1 << 30, n_local, dtype=np.int64)
+                yield rng.integers(0, 97, n_local, dtype=np.int64)  # dup-heavy
+                yield (rng.exponential(size=n_local) * (1 << 20)).astype(np.int64)
+
+        def worst_fill(slack: float, oversample: int) -> float:
+            cap = plan_schedule({"x": d}, "x", n_local, slack=slack,
+                                oversample=oversample)[0].capacity
+            worst = 0.0
+            for seed in range(3):
+                rng = np.random.default_rng(seed)
+                for x in draws(rng):
+                    # one rank's stripe after the pre-exchange: representative
+                    # of the global distribution by construction
+                    sample = rng.choice(x, size=min(oversample * d, n_local))
+                    spl = np.sort(sample)[np.clip((np.arange(1, d) * len(sample)) // d,
+                                                  0, len(sample) - 1)]
+                    lo = np.searchsorted(spl, x, side="left")
+                    hi = np.searchsorted(spl, x, side="right")
+                    span = np.maximum(hi - lo + 1, 1)
+                    # the exchange's hashed equality striping (dist.exchange)
+                    pos = (np.arange(n_local, dtype=np.uint64) * 2654435761) & 0xFFFFFFFF
+                    stripe = (pos >> 16).astype(np.int64) % span
+                    dest = np.minimum(lo + stripe, d - 1)
+                    worst = max(worst, np.bincount(dest, minlength=d).max() / cap)
+            return worst
+
+        best = None
+        for slack in _DIST_SLACKS:
+            for mul in _DIST_OVERSAMPLE_MULS:
+                fill = worst_fill(slack, base_ovs * mul)
+                if fill <= _DIST_FILL_MARGIN:
+                    best = DistPlan(n_local, d, slack, base_ovs * mul)
+                    break
+            if best is not None:
+                break
+        if best is None:  # every candidate overflowed: the largest headroom
+            best = DistPlan(n_local, d, _DIST_SLACKS[-1],
+                            base_ovs * _DIST_OVERSAMPLE_MULS[-1])
+            fill = worst_fill(best.slack, best.oversample)
+        prev = self._plans.get(key)
+        prev_order = self._dist_axis_order(prev.get("config") if isinstance(prev, dict)
+                                           else None)
+        self._plans[key] = {
+            "config": {
+                "slack": best.slack,
+                "oversample": best.oversample,
+                # a recorded topology order survives a capacity re-tune
+                **({"axis_order": list(prev_order)} if prev_order else {}),
+            },
+            "sim_max_fill": round(float(fill), 3),
             "tuned_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
         }
         self._save()

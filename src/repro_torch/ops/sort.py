@@ -46,6 +46,11 @@ def _device(device: Device) -> torch.device:
     return dev
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The reference's spelling of a dtype in span attributes ("float32")."""
+    return str(dtype).removeprefix("torch.")
+
+
 def _keys(keys, dev: torch.device, dim: int = 1) -> torch.Tensor:
     keys = torch.as_tensor(keys, device=dev)
     if keys.dim() != dim:
@@ -115,12 +120,15 @@ def sort(
     dev = _device(device)
     keys = _keys(keys, dev)
     cfg = with_engine(cfg, None, keys, classifier)
-    with obs.trace("ops.sort", n=keys.shape[0], dtype=str(keys.dtype)):
+    with obs.trace("ops.sort", n=keys.shape[0], dtype=_dtype_name(keys.dtype)):
         enc = keyspace.encode(keys)
         if values is None:
-            return keyspace.decode(ips4o_sort(enc, cfg=cfg), keys.dtype)
-        k, vs = ips4o_sort(enc, values, cfg=cfg)
-        return keyspace.decode(k, keys.dtype), vs
+            out = keyspace.decode(ips4o_sort(enc, cfg=cfg), keys.dtype)
+        else:
+            k, vs = ips4o_sort(enc, values, cfg=cfg)
+            out = (keyspace.decode(k, keys.dtype), vs)
+        obs.block(out)  # obs enabled: the span's host time covers the card's work
+    return out
 
 
 def argsort(
@@ -144,8 +152,9 @@ def argsort(
     if n <= 1:
         return idx
     cfg = with_engine(cfg, None, keys, classifier)
-    with obs.trace("ops.argsort", n=n, dtype=str(keys.dtype)):
+    with obs.trace("ops.argsort", n=n, dtype=_dtype_name(keys.dtype)):
         _, order = ips4o_sort(keyspace.encode(keys), idx, cfg=cfg)
+        obs.block(order)
     return order
 
 

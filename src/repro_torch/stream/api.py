@@ -19,9 +19,11 @@ each chunk its sorter and each external sort its merge tile, from the
 and persists what is missing.  The reference's ``engine=`` has no
 counterpart: the port has no engine switch.  The entry points run on the
 card unless ``device="cpu"`` is passed, and raise without a card.
-The ``obs`` calls are the reference's (``stream.spill_bytes``,
-``stream.tournament_rounds``, ``stream.chunks``); they record nothing
-until the observability layer is ported.
+With ``repro_torch.obs`` enabled the tournament reports itself, with the
+reference's names: ``stream.external_sort`` / ``stream.external_argsort``
+spans with a ``stream.merge_round`` span per round, and the
+``stream.spill_bytes``, ``stream.tournament_rounds`` and ``stream.chunks``
+counters.
 """
 from __future__ import annotations
 

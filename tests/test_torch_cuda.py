@@ -29,7 +29,10 @@ classifier's sorts (1-D and batched, the model kept or the fallback
 taken) and its uint64 -> float32 cast against the CPU's, the records'
 tie-break passes, a payload pytree through the batched path, and the plan
 cache (a tuned sorter, a classifier race, a tuned stream) persisted and
-reloaded.
+reloaded; obs's span device times (present, nested) and, obs off, a
+sort's launches and synchronizing calls equal to no-op hooks'; ``dist.sort``
+at world size 1 on NCCL (the most one card takes) equal to ``ops.sort``;
+the exchange's placement launching K2.
 
 Marked ``gpu``: every test skips (from its fixture) where no card is
 present, so the CPU suite collects the same tests on every worker.  On the
@@ -1143,3 +1146,130 @@ def test_plan_cache_on_the_card(dev, tmp_path):
     host = np.random.default_rng(12).standard_normal(1 << 18).astype(np.float32)
     out = stream.external_sort(host, chunk_size=1 << 16, cache=pc, tune=True, device=dev)
     np.testing.assert_array_equal(out, np.sort(host))
+
+
+# -- observability and the distributed sort on the card ----------------------
+
+
+def _sorted_codes(x):
+    return torch.sort(ops.keyspace.encode(x), stable=True).values
+
+
+def test_obs_span_device_times_present_and_nested(dev):
+    """obs enabled: every span of ``ops.sort`` gets a ``device_ms`` (CUDA
+    events, read at ``span_stats``), and a span's children take no more
+    device time than the span (+1 us for the events' resolution)."""
+    from repro_torch import obs
+
+    x = torch.rand(1 << 20, device=dev)
+    obs.enabled(True)
+    obs.reset()
+    try:
+        out = ops.sort(x)
+        stats = obs.span_stats()
+        spans = list(obs.recorder().spans)
+    finally:
+        obs.enabled(False)
+        obs.reset()
+    assert torch.equal(ops.keyspace.encode(out), _sorted_codes(x))
+    assert {"ops.sort", "ips4o_sort", "level_pass", "base_case"} <= set(stats)
+    assert all("device_ms" in s for s in spans)
+    for s in spans:
+        kids = [c for c in spans if c["parent"] == s["id"]]
+        assert sum(c["device_ms"] for c in kids) <= s["device_ms"] + 1e-3
+
+
+def _launches_and_syncs(fn):
+    """(runtime launch calls by torch.profiler, synchronizing calls flagged by
+    ``torch.cuda.set_sync_debug_mode``) of one call of ``fn``."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key
+                and e.device_type != torch.autograd.DeviceType.CUDA)
+    counted = []
+    for _ in range(2):  # the first call under the debug mode also flags a
+        # one-time sync of torch's own (torch/cuda/__init__.py): the second counts
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counted.append(sum(1 for w in caught if "synchroniz" in str(w.message)))
+    return calls, counted[-1]
+
+
+def test_obs_disabled_launches_and_syncs_as_noop_hooks(dev, monkeypatch):
+    import contextlib
+
+    from repro_torch import obs
+
+    x = torch.rand(1 << 20, device=dev)
+    disabled = _launches_and_syncs(lambda: ops.sort(x))
+    monkeypatch.setattr(obs, "trace", lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(obs, "block", lambda v: v)
+    monkeypatch.setattr(obs, "enabled", lambda *a: False)
+    for name in ("count", "gauge", "observe", "jit_count", "jit_observe", "jit_event"):
+        monkeypatch.setattr(obs, name, lambda *a, **k: None)
+    assert disabled[0] > 0
+    assert _launches_and_syncs(lambda: ops.sort(x)) == disabled
+
+
+def test_dist_sort_world_size_1_on_nccl_equals_ops_sort(dev, tmp_path):
+    """NCCL reaches world size 1 only on one card."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dist
+
+    x = torch.rand(1 << 20, device=dev)
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                             world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        kernels.reset_launch_counts()
+        keys, counts, ovf = dist.sort(x, mesh)
+        order, _, _ = dist.argsort(x, mesh)
+        launches = kernels.launch_counts()
+    finally:
+        tdist.destroy_process_group()
+    n = x.shape[0]
+    assert int(counts[0]) == n and not bool(ovf[0])
+    assert torch.equal(keys[:n], ops.sort(x))
+    assert torch.equal(order[:n], ops.argsort(x))
+    assert all(launches[k] > 0 for k in ("level_fused", "rank_hist", "sort_windows"))
+
+
+def test_exchange_placement_launches_k2(dev):
+    """The exchange's (groups + 1)-bucket placement and its compaction run
+    K2 on a CUDA tensor (a one-rank group stands in for the collectives;
+    radix destinations, so no sample differs between the devices) and
+    equal the plain twin's on the CPU."""
+    from repro_torch.dist import exchange
+    from repro_torch.dist.levels import Level
+
+    n, g = 1 << 16, 4
+    level = Level(axis="data", domain=("data",), groups=g, n_in=n, capacity=n // 2,
+                  oversample=64)
+    one = exchange.Group(None, 1, 0)
+    keys = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32)
+    got = {}
+    for where in ("cuda", "cpu"):
+        arrays = {"k": keys.to(where), "v": torch.arange(n, device=where)}
+        kernels.reset_launch_counts()
+        out, m, ovf = exchange.exchange_level(arrays, torch.tensor(n - 100, device=where), level,
+                                              domain=one, axis=one, tile=4096, seed=1,
+                                              level_idx=0, classifier="radix")
+        got[where] = (out, int(m), bool(ovf), kernels.launch_counts()["rank_hist"])
+    assert got["cuda"][3] >= 2 and got["cpu"][3] == 0  # placement + compaction
+    assert got["cuda"][1:3] == got["cpu"][1:3]
+    for name in ("k", "v"):
+        assert torch.equal(got["cuda"][0][name].cpu(), got["cpu"][0][name])
