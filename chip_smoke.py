@@ -132,8 +132,12 @@ observability layer and the distributed sort:
    pytree, the radix classifier on full-range int32 keys, overlap against
    sync, ``order="auto"`` and a slack of 0.05 (the same flags and
    truncation twice), each rank's valid range held to its slice of
-   ``torch.sort(stable=True)`` of the whole input, and rank 0's profile
-   showing K1, K2 and K3; ``path elastic``: ``sort_elastic`` at world size
+   ``torch.sort(stable=True)`` of the whole input, rank 0's profile
+   showing K1, K2 and K3, and the scheduler's ``next_batch(mesh=)`` on a
+   queue of 65,536 (three admissions equal to the oracle on every rank)
+   and ``pack_by_length(mesh=)`` of 8192 documents (its length order
+   sorts them, its rows equal the single-device pack's); ``path
+   elastic``: ``sort_elastic`` at world size
    1 (NCCL) and on the four ranks, killed after level 1 and restored in a
    fresh process group, equal to the uninterrupted sort and to
    ``dist.sort``.  Last, with the card's memory emptied:
@@ -148,7 +152,34 @@ observability layer and the distributed sort:
    give equal tokens; teacher forced over the generated sequence, the K10
    decode logits against the eager decode on the same cache and prefill +
    decode against the full forward, each within 5% of the largest logit;
-   the greedy tokens of the K10 and eager paths compared as a measure;
+   the greedy tokens of the K10 and eager paths compared as a measure.
+   Then the scheduler and the data pipeline (``scheduler_phases``):
+   ``Scheduler.next_batch`` on a queue of 65,536 requests (remaining in
+   [1, 4096], batch 256, three admissions), ``admit_many`` over 64 queues
+   of 4096 (below W: one stable torch sort a row, no port kernel, as the
+   reference plans it) and of 16,384 (K4), ``attach_backlog`` of 16,384
+   requests and ``next_batch`` on the merged view (K5), each held to the
+   host oracle ``np.lexsort((arrival, remaining))``, backlog first on
+   ties; the length argsort of ``pack_by_length`` at 2^22 documents
+   against ``torch.sort(stable=True)`` and whole packs of 8192 documents
+   (1-D and ``chunk_size=2048``) against the CPU's.  Then the other served
+   families at full width (``family_phases``): K10 at deepseek-moe-16b's
+   (group 1, hd 128: the tensor-core kernel) and zamba2-2.7b's (group 1,
+   hd 80: the FMA kernel) decode shapes against its twin, the limit shown
+   to flag a dropped tile; deepseek-moe-16b (28 layers, 64 experts top-6,
+   2 shared), rwkv6-1.6b (24 layers) and zamba2-2.7b (54 Mamba2 layers,
+   shared attention every 6), bf16, random weights, each serving 8
+   requests admitted by ``next_batch`` from a queue of 65,536 (held to
+   the oracle), 1024 prompt tokens, 32 new, greedy, ``flash_decode``: K10
+   once per attention layer per decode step (896, 0, 288), K6
+   ``dispatch_ranks`` once per MoE layer per forward, two calls equal, K6's
+   dispatch bit for bit against the plain dispatch on every served MoE
+   layer call (the dropped entries printed); teacher forced, prefill +
+   decode (through K10) against the full forward within 5% of the
+   largest logit, in float32 (bf16 rounding alone moves these models):
+   rwkv6 whole over 1024 + 32 and zamba2 whole over 1024 + 128, their
+   bf16-stored states in float32 too, and the MoE on two of its layers at
+   full width at lossless capacity over 1 x (128 + 32);
 4. timing with CUDA events (median of several runs after warm-up): each
    kernel beside its plain twin, its bound and, where one exists, one
    torch call that computes the same function, and each kernel's own
@@ -184,6 +215,10 @@ observability layer and the distributed sort:
    beside the ``torch.sort`` cascade, ``ops.sort`` learned beside tree at
    2^24 (Uniform and Zipf), and the stream with the planned merge tile
    beside K5's default (the whole external sort and one merge);
+   the scheduler's admissions (host clock, queue to admitted list) and its
+   bottom-k alone beside ``torch.topk``, the pipeline's length argsort
+   beside ``torch.sort``; each served family's prefill ms, decode ms per
+   step and tokens/s, a profile of one prefill and of 8 decode steps;
    and, for the paths above, ``ops.sort`` of 2^24 with obs disabled and
    enabled, ``dist.sort`` at world size 1 beside ``ops.sort`` (median of 5
    by CUDA events), and the four ``gloo`` ranks' host times of their sorts
@@ -279,6 +314,22 @@ FAULT_KEYS = 64  # the fault each attention check must flag: one tile dropped
 # at other places (the eager path rounds the softmax weights to bf16, K10
 # keeps them f32; the full forward's products have other shapes)
 SERVE_TOL = 0.05
+# the other served families at full width (bf16, random weights): 8 requests
+# of 1024 prompt tokens admitted from a queue of 65,536, 32 new tokens each
+FAMILIES = ("deepseek-moe-16b", "rwkv6-1.6b", "zamba2-2.7b")
+# their caches hold 2048 slots: zamba2's shared attention takes a cache of
+# exactly HYBRID_ATTN_WINDOW = 4096 slots for its ring (the reference's rule),
+# and decodes on a ring without K10
+FAMILY_MAX_SEQ = 2048
+SCHED_QUEUE, SCHED_BATCH, SCHED_MAX_NEW = 1 << 16, 256, 4096  # the scheduler's queue
+SCHED_GROUPS, SCHED_GROUP_N, SCHED_WIDE_N = 64, 4096, 1 << 14  # admit_many fleets
+SCHED_BACKLOG = 1 << 14
+# the data pipeline: the length argsort at 2^22 documents, whole packs of 8192
+PACK_SORT_N, PACK_N, PACK_SEQ, PACK_CHUNK = 1 << 22, 8192, 1024, 2048
+# the MoE's teacher-forced check: 1 x (128 + 32) at lossless capacity, two layers
+MOE_TF_PROMPT, MOE_TF_LAYERS = 128, 2
+RWKV_PROFILE_TOKENS = 128  # rwkv6's prefill profile: its first 128 tokens
+HYBRID_TF_NEW = 128  # zamba2's: 1024 + 128 (its chunks of 128 must divide the length)
 
 
 def fail(msg: str) -> None:
@@ -454,15 +505,18 @@ def host_us(torch, fn, reps: int = 50) -> float:
     return us
 
 
-def profile(torch, name, fn, top: int = 14, show=()) -> None:
+def profile(torch, name, fn, top: int = 14, show=(), cpu: bool = True) -> None:
     """Where one call's time goes: device time per operation (torch.profiler)
     beside the host clock around the whole call; the ``top`` kernels, and
-    those whose name holds one of ``show`` wherever they rank."""
+    those whose name holds one of ``show`` wherever they rank.  ``cpu=False``
+    traces the card alone (no host op events): for a call of ~10^5 launches,
+    whose host events would take the profiler minutes to sort."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -898,6 +952,413 @@ def attention_phases(torch, dev) -> dict:
     return rows
 
 
+def _drive(torch, rows, path, needed, fn):
+    """Drive one path of the new phases: the launch counts set to 0 just
+    before ``fn`` and read just after, every kernel of ``needed`` required,
+    the launches added to the kernels line's rows.  Returns (what ``fn``
+    returned, the launches, ms on the host clock)."""
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    print(f"path {path} launches: {({k: v for k, v in launches.items() if v})} "
+          f"({ms:.3f} ms host clock)", flush=True)
+    for name in needed:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the path {path}")
+    for name, count in launches.items():
+        if name in rows:
+            rows[name]["launches"] += count
+    return res, launches, ms
+
+
+def _verdict(path, what, ok):
+    print(f"path {path}: {what} {'ok' if ok else 'WRONG'}", flush=True)
+    if not ok:
+        fail(f"path {path} wrong on {what}")
+
+
+def _sched_oracle(np, rem, k):
+    """The reference's admission order on the host: (remaining, arrival)."""
+    return np.lexsort((np.arange(len(rem)), rem))[:k]
+
+
+def scheduler_phases(torch, dev, rows) -> None:
+    """Phases 3 and 4 of the scheduler and the data pipeline at the sizes of a
+    serving queue and a corpus: ``Scheduler.next_batch`` on 65,536 requests
+    (three admissions of 256), ``admit_many`` over 64 queues of 4096 (rows
+    below W, one stable torch sort a row, as the reference plans them) and
+    of 16,384, ``attach_backlog`` of 16,384 requests and ``next_batch`` on the
+    merged view (K5), each held to the host oracle (``np.lexsort`` on
+    (remaining, arrival), the backlog first on ties); then the length
+    argsort of ``pack_by_length`` at 2^22 documents against
+    ``torch.sort(stable=True)``, and whole packs of 8192 documents (1-D and
+    chunked) against the CPU's.  Their launches join the kernels line."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import pack_by_length
+    from repro_torch.ops import get_sorter
+    from repro_torch.serve.scheduler import Request, Scheduler, admit_many
+
+    rng = np.random.default_rng(90)
+
+    def drive(path, needed, fn):
+        res, _, ms = _drive(torch, rows, path, needed, fn)
+        return res, ms
+
+    verdict = _verdict
+
+    def queue_of(n, start=0, batch=SCHED_BATCH):
+        s = Scheduler(batch_size=batch, device=dev)
+        rem = rng.integers(1, SCHED_MAX_NEW + 1, n)
+        for uid, m in enumerate(rem):
+            s.submit(Request(uid=start + uid, prompt_len=1024, max_new=int(m)))
+        return s
+
+    # next_batch on a queue of 65,536 (many ties: 4096 values)
+    sched = queue_of(SCHED_QUEUE)
+    admit_ms = []
+    for i in range(3):
+        rem = np.asarray([r.remaining for r in sched.queue])
+        uids = np.asarray([r.uid for r in sched.queue])
+        want = uids[_sched_oracle(np, rem, SCHED_BATCH)].tolist()
+        path = f"scheduler next_batch ({len(rem)} requests, batch {SCHED_BATCH}, admission {i})"
+        got, ms = drive(path, ("level_fused", "sort_windows"), sched.next_batch)
+        admit_ms.append(ms)
+        verdict(path, "admitted uids equal the host oracle", [r.uid for r in got] == want)
+
+    # admit_many: 64 queues of 4096 (below W: no level), then 64 of 16,384 (K4)
+    for n, needed in ((SCHED_GROUP_N, ()), (SCHED_WIDE_N, ("level_fused_batched", "sort_windows"))):
+        fleet = [queue_of(n, batch=8) for _ in range(SCHED_GROUPS)]
+        want = [[s.queue[i].uid for i in _sched_oracle(
+            np, np.asarray([r.remaining for r in s.queue]), 8)] for s in fleet]
+        path = f"scheduler admit_many ({SCHED_GROUPS} queues x {n}, batch 8)"
+        got, ms = drive(path, needed, lambda: admit_many(fleet))
+        admit_ms.append(ms)
+        verdict(path, "every queue's admitted uids equal the host oracle",
+                [[r.uid for r in b] for b in got] == want)
+        del fleet
+
+    # attach_backlog of 16,384, then next_batch on the merged view
+    back = [Request(uid=10_000_000 + i, prompt_len=1024, max_new=int(m))
+            for i, m in enumerate(rng.integers(1, SCHED_MAX_NEW + 1, SCHED_BACKLOG))]
+    path = f"scheduler attach_backlog ({SCHED_BACKLOG} requests)"
+    _, ms = drive(path, ("level_fused", "sort_windows"), lambda: sched.attach_backlog(back))
+    b_rem = np.asarray([r.remaining for r in back])
+    want_back = [back[i].uid for i in _sched_oracle(np, b_rem, len(back))]
+    verdict(path, "the backlog run equals the host oracle", [r.uid for r in sched.backlog]
+            == want_back)
+    l_rem = np.asarray([r.remaining for r in sched.queue])
+    l_order = _sched_oracle(np, l_rem, SCHED_BATCH)
+    cands = ([(int(b_rem[i]), 0, j, back[i].uid)
+              for j, i in enumerate(_sched_oracle(np, b_rem, SCHED_BATCH))]
+             + [(int(l_rem[i]), 1, j, sched.queue[i].uid) for j, i in enumerate(l_order)])
+    want = [c[3] for c in sorted(cands)[:SCHED_BATCH]]
+    path = f"scheduler next_batch on the merged view ({len(l_rem)} live + {SCHED_BACKLOG} backlog)"
+    got, ms = drive(path, ("level_fused", "sort_windows", "merge_path"), sched.next_batch)
+    admit_ms.append(ms)
+    verdict(path, "admitted uids equal the host oracle (backlog first on ties)",
+            [r.uid for r in got] == want)
+    print(f"time scheduler admissions (host clock, Python queue to admitted list): next_batch "
+          f"on {SCHED_QUEUE} {[round(m, 3) for m in admit_ms[:3]]} ms, admit_many "
+          f"{SCHED_GROUPS} x {SCHED_GROUP_N} {admit_ms[3]:.3f} ms, {SCHED_GROUPS} x "
+          f"{SCHED_WIDE_N} {admit_ms[4]:.3f} ms, merged view {admit_ms[5]:.3f} ms", flush=True)
+    q_keys = torch.as_tensor(rng.integers(0, 1 << 28, SCHED_QUEUE).astype(np.int32), device=dev)
+    f = get_sorter(SCHED_QUEUE, torch.int32, "bottomk", k=SCHED_BATCH, device=dev)
+    print(f"time scheduler bottomk alone ({SCHED_QUEUE} int32 composite keys, k {SCHED_BATCH}): "
+          f"{cuda_ms(torch, lambda: f(q_keys)):.3f} ms by events, torch.topk "
+          f"{cuda_ms(torch, lambda: torch.topk(q_keys, SCHED_BATCH, largest=False)):.3f} ms",
+          flush=True)
+    del sched, back, q_keys
+
+    # the data pipeline
+    lengths = torch.as_tensor(rng.integers(1, 4096, PACK_SORT_N).astype(np.int32), device=dev)
+    argsort = get_sorter(PACK_SORT_N, torch.int32, op="argsort", device=dev)
+    path = f"pipeline length argsort ({PACK_SORT_N} documents, pack_by_length's sorter)"
+    idx, _ = drive(path, ("level_fused", "rank_hist", "sort_windows"), lambda: argsort(lengths))
+    verdict(path, "equal to torch.sort(stable=True)",
+            torch.equal(idx.to(torch.int64), torch.sort(lengths, stable=True).indices))
+    sort_ms = cuda_ms(torch, lambda: argsort(lengths))
+    print(f"time pipeline length argsort {PACK_SORT_N}: {sort_ms:.3f} ms, torch.sort "
+          f"{cuda_ms(torch, lambda: torch.sort(lengths, stable=True)):.3f} ms (CUDA events)",
+          flush=True)
+    docs = rng.integers(1, 512, PACK_N).astype(np.int32)
+    want = pack_by_length(docs, PACK_SEQ, device="cpu")
+    for what, kw, needed in (("1-D", {}, ()), (f"chunk_size={PACK_CHUNK}",
+                                                {"chunk_size": PACK_CHUNK}, ("merge_path",))):
+        path = f"pipeline pack_by_length {what} ({PACK_N} documents, rows of {PACK_SEQ})"
+        got, ms = drive(path, needed, lambda: pack_by_length(docs, PACK_SEQ, device=dev, **kw))
+        verdict(path, f"{got[2]} rows, row ids and offsets equal the CPU's",
+                got[2] == want[2] and np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1]))
+    del lengths, idx
+
+
+def family_phases(torch, dev, rows) -> None:
+    """Phases 2-4 of the served families at full width: K10 at their two new
+    shapes (group 1, hd 128 and hd 80) against its twin, then for each of
+    deepseek-moe-16b, rwkv6-1.6b and zamba2-2.7b (bf16, random weights from a
+    seeded CUDA generator, published widths and depth) the admission of 8
+    requests from a queue of 65,536 and ``Engine.generate`` of 32 greedy tokens
+    after 1024-token prompts under ``flash_decode``: K6's dispatch bit for bit
+    against the plain dispatch on every served MoE layer (the dropped entries
+    printed), K10 once per attention layer per decode step, two calls equal,
+    the teacher-forced checks, prefill and decode times and profiles."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd, ref as kref
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.policy import compute_policy
+    from repro_torch.models.transformer import (
+        forward, init_decode_cache, init_model, reset_decode_cache,
+    )
+    from repro_torch.serve import Engine, Request, Scheduler, ServeConfig
+    import numpy as np
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, T = SERVE_BATCH, SERVE_MAX_SEQ
+    gen = torch.Generator(device=dev).manual_seed(777)
+    rng = np.random.default_rng(91)
+
+    def drive(path, needed, fn):
+        res, launches, _ = _drive(torch, rows, path, needed, fn)
+        return res, launches
+
+    verdict = _verdict
+
+    # ---- 2. K10 at the two new shapes, against its twin -------------------
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    short = torch.where(lengths == T, lengths - FAULT_KEYS, lengths)
+    for name in ("deepseek-moe-16b", "zamba2-2.7b"):
+        cfg = get_config(name)
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        for dtype in (f32, bf16):
+            q = torch.randn((B, h, hd), generator=gen, device=dev).to(dtype)
+            ck = torch.randn((B, T, kvh, hd), generator=gen, device=dev).to(dtype)
+            cv = torch.randn((B, T, kvh, hd), generator=gen, device=dev).to(dtype)
+
+            def twin(lens):
+                return kref.flash_decode_ref(q[:, :, None], ck.transpose(1, 2),
+                                             cv.transpose(1, 2), lens)[:, :, 0].float()
+
+            want, dropped = twin(lengths), twin(short)
+            got = fd.flash_decode_cache(q, ck, cv, lengths).float()
+            torch.cuda.synchronize()
+            atol, rtol = ATTN_TOL[str(dtype).split(".")[-1]]
+            limit = atol + rtol * want.abs()
+            diff = (got - want).abs()
+            err = float(diff.max())
+            ok = bool((diff <= limit).all())
+            caught = bool(((dropped - want).abs() > limit).any())
+            info = fd.launch_info(B, kvh, h // kvh, hd, dtype)
+            print(f"flash_decode {name} {dtype} cache (B, T, KVH, hd) = ({B}, {T}, {kvh}, {hd}), "
+                  f"group {h // kvh}, lengths {DECODE_LENGTHS}: max_abs_err={err:.3e} (limit "
+                  f"{atol} + {rtol} * |want|); a dropped tile of {FAULT_KEYS} keys "
+                  f"{'flagged' if caught else 'NOT flagged'}; "
+                  f"{'tensor-core' if info['tensor_cores'] else 'FMA'} kernel, registers "
+                  f"{info['registers']}, cluster {info['cluster']}, local memory "
+                  f"{info['local_bytes']} B {'ok' if ok and caught else 'WRONG'}", flush=True)
+            if not (ok and caught):
+                fail(f"flash_decode at {name}'s shape ({dtype}) differs from its twin or its "
+                     "limit does not flag a dropped tile")
+            rows["flash_decode"]["max_abs_err"] = max(rows["flash_decode"]["max_abs_err"], err)
+            del q, ck, cv, want, dropped, got
+    torch.cuda.empty_cache()
+
+    # ---- 3 and 4. each family served at full width --------------------------
+    for name in FAMILIES:
+        t_family = time.time()
+        cfg = get_config(name)
+        torch.cuda.empty_cache()
+        print(f"serve {name}: device memory allocated before the model "
+              f"{torch.cuda.memory_allocated()} B", flush=True)
+        t0 = time.time()
+        model = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        attn_layers = (cfg.num_layers // cfg.ssm.attn_every if cfg.family == "hybrid"
+                       else 0 if cfg.family == "ssm" else cfg.num_layers)
+        print(f"serve {name}: {cfg.num_layers} layers ({attn_layers} attention), {n_params} "
+              f"parameters, {weight_bytes} B, random from a seeded CUDA generator in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        engine = Engine(cfg, ServeConfig(max_seq=FAMILY_MAX_SEQ, batch_size=B), model,
+                        device=dev)
+        sched = Scheduler(batch_size=B, device=dev)
+        for uid, m in enumerate(rng.integers(SERVE_NEW, SCHED_MAX_NEW + 1, SCHED_QUEUE)):
+            sched.submit(Request(uid=uid, prompt_len=SERVE_PROMPT, max_new=int(m)))
+        rem = np.asarray([r.remaining for r in sched.queue])
+        want_wave = _sched_oracle(np, rem, B).tolist()
+        prompts = torch.randint(0, cfg.vocab_size, (B, SERVE_PROMPT), generator=gen, device=dev)
+
+        def serve(flash=True):
+            with compute_policy(flash_decode=flash):
+                return engine.generate(prompts, SERVE_NEW)
+
+        def admit_and_serve():
+            return sched.next_batch(), serve()
+
+        needed = ["level_fused", "sort_windows"]  # the admission's bottom-k
+        if attn_layers:
+            needed.append("flash_decode")
+        if cfg.family == "moe":
+            needed.append("dispatch_ranks")
+        path = (f"serve {name} ({cfg.num_layers} layers, bf16; {B} requests admitted from "
+                f"{SCHED_QUEUE} x {SERVE_PROMPT} prompt tokens, {SERVE_NEW} new, greedy, "
+                "flash_decode)")
+        (wave, tokens), launches = drive(path, needed, admit_and_serve)
+        verdict(path, "the wave equals the host oracle", [r.uid for r in wave] == want_wave)
+        verdict(path, f"K10 launched {launches['flash_decode']} times = {attn_layers} attention "
+                f"layers x {SERVE_NEW} decode steps",
+                launches["flash_decode"] == attn_layers * SERVE_NEW)
+        if cfg.family == "moe":
+            verdict(path, f"K6 dispatch_ranks launched {launches['dispatch_ranks']} times = "
+                    f"{cfg.num_layers} layers x {SERVE_NEW + 1} forwards",
+                    launches["dispatch_ranks"] == cfg.num_layers * (SERVE_NEW + 1))
+        verdict(path, f"tokens {tuple(tokens.shape)} in the vocabulary; first request "
+                f"{tokens[0, :12].tolist()}", tokens.shape == (B, SERVE_NEW)
+                and tokens.dtype == torch.int32 and int(tokens.min()) >= 0
+                and int(tokens.max()) < cfg.vocab_size)
+
+        # the same generate again; for the MoE every layer's served routing is
+        # recorded and K6's dispatch held to the plain one (the CPU's
+        # partition_permutation) bit for bit
+        routed = []
+        if cfg.family == "moe":
+            plain = moe_mod.sort_dispatch
+
+            def recording(expert_id, num_experts, capacity, **kw):
+                out = plain(expert_id, num_experts, capacity, **kw)
+                routed.append((expert_id.clone(), capacity, tuple(t.clone() for t in out)))
+                return out
+
+            moe_mod.sort_dispatch = recording
+        try:
+            again = serve()
+        finally:
+            if cfg.family == "moe":
+                moe_mod.sort_dispatch = plain
+        verdict(path, "two generate calls on one engine equal", torch.equal(tokens, again))
+        if cfg.family == "moe":
+            same, dropped = True, {}
+            for ids, cap, got in routed:
+                want = moe_mod.sort_dispatch(ids.cpu(), cfg.moe.num_experts, cap)
+                same = same and all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+                key = "prefill" if ids.shape[0] > B * cfg.moe.top_k else "decode"
+                dropped[key] = dropped.get(key, 0) + int((~got[1]).sum())
+            cap = moe_mod.expert_capacity(B * SERVE_PROMPT, cfg.moe.num_experts, cfg.moe.top_k,
+                                          cfg.moe.capacity_factor)
+            entries = cfg.num_layers * B * SERVE_PROMPT * cfg.moe.top_k
+            verdict(path, f"K6 dispatch equal to the plain dispatch bit for bit on all "
+                    f"{len(routed)} served MoE layer calls (dropped entries: prefill "
+                    f"{dropped.get('prefill', 0)} of {entries} at capacity {cap}, decode "
+                    f"{dropped.get('decode', 0)})", same)
+            del routed
+
+        # timing: prefill, then generate; decode per step = (generate - prefill) / 32
+        def prefill():
+            reset_decode_cache(engine.cache)
+            forward(model, cfg, prompts, cache=engine.cache)
+
+        reps = 1 if cfg.family == "ssm" else 2
+        prefill_ms = cuda_ms(torch, prefill, warmup=1, reps=reps)
+        gen_ms = cuda_ms(torch, serve, warmup=0, reps=reps)
+        step_ms = (gen_ms - prefill_ms) / SERVE_NEW
+        print(f"time serve {name}: generate {gen_ms:.3f} ms, prefill {prefill_ms:.3f} ms ({B} x "
+              f"{SERVE_PROMPT} tokens), decode {step_ms:.3f} ms per step, "
+              f"{B * 1e3 / step_ms:.1f} tokens/s", flush=True)
+        if cfg.family == "ssm":
+            # a loop over the tokens, ~170 launches each: the first 128 tokens
+            # alone, the card's events alone (10^5 launches' events would take
+            # the profiler minutes to sort; launches and kernel time scale
+            # with the tokens)
+            def prefill_head():
+                reset_decode_cache(engine.cache)
+                forward(model, cfg, prompts[:, :RWKV_PROFILE_TOKENS], cache=engine.cache)
+
+            profile(torch, f"prefill of {name} ({B} x {RWKV_PROFILE_TOKENS} of its {SERVE_PROMPT} "
+                    "tokens, the card's events alone)", prefill_head, top=8, cpu=False)
+        else:
+            profile(torch, f"prefill of {name} ({B} x {SERVE_PROMPT} tokens)", prefill, top=8)
+
+        prefill()
+        at = [SERVE_PROMPT]  # the decode steps go on from the prompt's end
+
+        def decode_steps(n):
+            with compute_policy(flash_decode=True):
+                for _ in range(n):
+                    forward(model, cfg, prompts[:, -1:], cache=engine.cache,
+                            positions=torch.full((B, 1), at[0], device=dev))
+                    at[0] += 1
+
+        profile(torch, f"8 decode steps of {name} ({B} requests, K10 path)",
+                lambda: decode_steps(8), top=10)
+        del engine, sched, tokens, again
+        torch.cuda.empty_cache()
+
+        # teacher forced: prefill + decode (K10 and, where the model has
+        # attention, eager) against the full forward at the same positions,
+        # in float32: in bf16 rounding alone moves these models (the MoE's
+        # top-k routing flips on near ties between the K10 path, with f32
+        # softmax weights, and the eager one; Mamba2's bf16 dt moves its
+        # cumulative decay; rwkv6 in bf16 moved 8.0% of its largest logit over
+        # 1024 + 32 on an H100, cuBLAS taking other kernels for 8448, 8192 and
+        # 8 rows).  The states the reference stores in bf16 (RWKV's shifts,
+        # Mamba2's conv) are f32 here too: stored in bf16, a decode step reads
+        # them rounded where the full forward reads them exact (5.5% of the
+        # largest logit over 64 steps of a reduced f32 zamba2 on the CPU;
+        # 1.8e-4 with f32 states)
+        tf_cfg, plen, new, bt = cfg, SERVE_PROMPT, SERVE_NEW, B
+        if cfg.family == "moe":  # two layers at full width, lossless capacity
+            del model
+            torch.cuda.empty_cache()
+            tf_cfg = dataclasses.replace(cfg, num_layers=MOE_TF_LAYERS, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+            tf_model = init_model(torch.Generator(device=dev).manual_seed(1), tf_cfg,
+                                  dtype=f32, device=dev)
+            plen, bt = MOE_TF_PROMPT, 1
+        else:  # the served model, whole, in f32
+            tf_model = model.float()
+            if cfg.family == "hybrid":  # a length that its chunks of 128 divide
+                new = HYBRID_TF_NEW
+        tf_dtype = tf_model.dtype
+        seq = torch.cat([prompts[:bt, :plen], torch.randint(
+            0, cfg.vocab_size, (bt, new), generator=gen, device=dev)], dim=1)
+        cache = init_decode_cache(tf_cfg, bt, FAMILY_MAX_SEQ, dtype=tf_dtype, device=dev)
+        for c in cache["layers"]:  # the states kept in bf16 by the reference, in f32
+            for state in ("tm_shift", "cm_shift", "conv"):
+                if state in c:
+                    c[state] = c[state].float()
+        with compute_policy(flash_decode=True):
+            forward(tf_model, tf_cfg, seq[:, :plen], cache=cache)
+            logits = torch.stack([forward(tf_model, tf_cfg, seq[:, i:i + 1], cache=cache,
+                                          positions=torch.full((bt, 1), i, device=dev))[0][:, 0]
+                                  for i in range(plen, plen + new)], 1).float()
+        full = forward(tf_model, tf_cfg, seq)[0][:, plen:].float()
+        err = float((logits - full).abs().max()) / float(full.abs().max())
+        verdict(f"serve {name}", f"teacher-forced {bt} x ({plen} + {new}), {tf_cfg.num_layers} "
+                f"layers, {str(tf_dtype).split('.')[-1]}"
+                + (", capacity factor 64" if cfg.family == "moe" else "")
+                + f", prefill + {'K10 ' if attn_layers else ''}decode against the full forward: "
+                f"max |diff| / max |logit| = {err:.4e} (tol {SERVE_TOL}; max |logit| "
+                f"{float(full.abs().max()):.3f})", err <= SERVE_TOL)
+        print(f"path serve {name}: argmax of the decode logits equal to the full forward's: "
+              f"{float((logits.argmax(-1) == full.argmax(-1)).float().mean()):.4f} "
+              "(measure only)", flush=True)
+        del logits, full, seq, cache, tf_model, prompts
+        if cfg.family != "moe":
+            del model
+        torch.cuda.empty_cache()
+        print(f"serve {name}: {time.time() - t_family:.1f} s for this family's checks, times "
+              "and profiles", flush=True)
+
+
 def compare_with_parent(parent: Path) -> None:
     """``--parent DIR``: K1 (tree, radix, batched; 32- and 64-bit keys), K3
     and K5 of the CUDA sources under DIR (a checkout of an earlier commit,
@@ -1241,7 +1702,7 @@ def _dist_rank(rank: int, world: int, tmp: str, q) -> None:
                 "int32 full range": np.random.default_rng(83).integers(
                     -2**31, 2**31, n * world, dtype=np.int64).astype(np.int32)}
         want = {}  # each input's stable sort of its codes, on the card
-        out = {"checks": [], "info": [], "times": []}
+        out = {"checks": [], "info": [], "times": [], "serve_times": []}
         kernels.reset_launch_counts()
 
         def check(what, ok):
@@ -1350,6 +1811,33 @@ def _dist_rank(rank: int, world: int, tmp: str, q) -> None:
         check("elastic killed after level 1, restored from boundary 1",
               killed and resumed_from == 1)
         check("elastic restored == uninterrupted == dist.sort", same(got, whole) and same(whole, ref))
+        # the scheduler's admission and the length packing across the ranks:
+        # every rank holds the queue (and the lengths) and gets the same answer
+        from repro_torch.data.pipeline import _dist_length_order, pack_by_length
+        from repro_torch.serve.scheduler import Request, Scheduler
+
+        rem = np.random.default_rng(84).integers(1, SCHED_MAX_NEW + 1, SCHED_QUEUE)
+        oracle = np.lexsort((np.arange(len(rem)), rem))
+        docs = np.random.default_rng(85).integers(1, 512, PACK_N).astype(np.int32)
+        rows_single = pack_by_length(docs, PACK_SEQ, device=dev)[2]
+        for mname, (mesh, axes) in meshes.items():
+            sched = Scheduler(batch_size=SCHED_BATCH, device=dev)
+            for uid, m in enumerate(rem):
+                sched.submit(Request(uid=uid, prompt_len=1024, max_new=int(m)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            waves = [[r.uid for r in sched.next_batch(mesh=mesh, axes=axes)] for _ in range(3)]
+            out["serve_times"].append((f"{mname} next_batch(mesh=) x3 on {SCHED_QUEUE}",
+                                       1e3 * (time.perf_counter() - t0)))
+            check(f"{mname} next_batch(mesh=) three admissions equal the host oracle",
+                  waves == [oracle[i * SCHED_BATCH:(i + 1) * SCHED_BATCH].tolist()
+                            for i in range(3)])
+            idx = _dist_length_order(docs, mesh, axes)
+            check(f"{mname} pack_by_length(mesh=)'s length order sorts the {PACK_N} lengths",
+                  idx is not None and np.array_equal(np.sort(idx), np.arange(PACK_N))
+                  and bool((np.diff(docs[idx]) >= 0).all()))
+            check(f"{mname} pack_by_length(mesh=) rows equal the single-device pack's",
+                  pack_by_length(docs, PACK_SEQ, mesh=mesh, axes=axes)[2] == rows_single)
         torch.cuda.synchronize()
         out["launches"] = kernels.launch_counts()
         q.put((rank, out))
@@ -1673,6 +2161,9 @@ def dist_phases(torch, dev, rows) -> None:
     for what, ms in results[0]["times"]:
         print(f"time dist.sort gloo 4 ranks {what}: {ms:.1f} ms on rank 0 (host clock; gloo "
               f"moves CUDA tensors through host copies: not the exchange's cost)", flush=True)
+    for what, ms in results[0]["serve_times"]:
+        print(f"time scheduler gloo 4 ranks {what}: {ms:.1f} ms on rank 0 (host clock, the "
+              f"queue's composite keys built on every rank)", flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
     for name, count in added.items():
         if name in rows and count:
@@ -3347,6 +3838,9 @@ def main() -> None:
     sort_phases()
     torch.cuda.empty_cache()
     rows.update(attention_phases(torch, dev))
+    torch.cuda.empty_cache()
+    scheduler_phases(torch, dev, rows)
+    family_phases(torch, dev, rows)
     torch.cuda.empty_cache()
     # last: its process groups (NCCL here, gloo in four spawned ranks) come
     # after every profile of a kernel's launches above

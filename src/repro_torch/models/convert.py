@@ -4,9 +4,13 @@
 ``repro.models.transformer.init_model`` with its leaves as numpy arrays
 (``jax.tree.map(np.asarray, params)``; bfloat16 leaves come as numpy's
 ``bfloat16`` extension dtype), unstacks the leading layer axis into one
-``Block`` per layer and copies every weight, so that both packages compute
+block per layer and copies every weight, so that both packages compute
 with the same numbers.  The layouts are the same: dense weights are
-(d_in, d_out) in both.
+(d_in, d_out) in both; MoE experts are stacked (E, D, F) / (E, F, D) in
+both.  The trees by family: attention layers ``layers.{ln1, attn, ln2,
+mlp}`` (``mlp`` a SwiGLU, a GELU MLP, or ``router``/``experts``/``shared``
+for MoE); RWKV layers ``layers.{ln1, mix.tm.*, mix.cm.*, ln2}``; hybrid
+layers ``layers.{ln1, mamba.*, ln2, mlp}`` with one ``shared_attn``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import Dense, GeluMLP, RMSNorm, SwiGLU
-from repro_torch.models.transformer import Block, Transformer, _check_family
+from repro_torch.models.moe import MoE, Experts
+from repro_torch.models.rwkv import RWKV6, ChannelMix, TimeMix
+from repro_torch.models.ssm import Mamba2
+from repro_torch.models.transformer import (
+    Block, MambaBlock, RwkvBlock, Transformer, _block_family,
+)
 from repro_torch.ops.sort import Device, _device
 
 __all__ = ["params_from_jax", "to_torch"]
@@ -38,35 +47,72 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device: Device = 
                     dtype: Optional[torch.dtype] = None) -> Transformer:
     """The reference's parameters (numpy leaves, stacked layers) as a
     ``Transformer`` on ``device``.  ``dtype`` casts the weights, embedding
-    and biases; the norm scales stay float32, as the reference keeps them."""
-    _check_family(cfg)
+    and biases; the leaves the reference keeps in float32 (norm scales, the
+    MoE router, RWKV's decay bias, bonus and ``ln_x``, Mamba2's ``A_log``,
+    ``dt_bias`` and ``D``) stay float32."""
     dev = _device(device)
 
     def w(a):
         return to_torch(a, dev, dtype)
 
-    def dense(p, i=None):
-        pick = (lambda a: a) if i is None else (lambda a: a[i])
-        return Dense(w(pick(p["w"])), w(pick(p["b"])) if "b" in p else None)
+    def f32(a):
+        return to_torch(a, dev, torch.float32)
+
+    def at(i):
+        return (lambda a: a) if i is None else (lambda a: a[i])
+
+    def dense(p, i=None, cast=w):
+        pick = at(i)
+        return Dense(cast(pick(p["w"])), cast(pick(p["b"])) if "b" in p else None)
 
     def norm(p, i=None):
-        scale = p["scale"] if i is None else p["scale"][i]
-        return RMSNorm(to_torch(scale, dev, torch.float32))
+        return RMSNorm(f32(at(i)(p["scale"])))
 
-    lt = tree["layers"]
-    layers = []
-    for i in range(cfg.num_layers):
+    def swiglu(m, i=None):
+        return SwiGLU(dense(m["gate"], i), dense(m["up"], i), dense(m["down"], i))
+
+    def mlp(m, i):
+        if cfg.family == "moe":
+            pick = at(i)
+            e = m["experts"]
+            experts = Experts(w(pick(e["gate"])), w(pick(e["up"])), w(pick(e["down"])))
+            shared = swiglu(m["shared"], i) if "shared" in m else None
+            return MoE(dense(m["router"], i, cast=f32), experts, shared)
+        if cfg.family == "audio":
+            return GeluMLP(dense(m["up"], i), dense(m["down"], i))
+        return swiglu(m, i)
+
+    def attn_block(lt, i=None):
         a = lt["attn"]
         attn = Attention(dense(a["wq"], i), dense(a["wk"], i), dense(a["wv"], i),
                          dense(a["wo"], i))
-        m = lt["mlp"]
-        if cfg.family == "audio":
-            mlp = GeluMLP(dense(m["up"], i), dense(m["down"], i))
-        else:
-            mlp = SwiGLU(dense(m["gate"], i), dense(m["up"], i), dense(m["down"], i))
-        layers.append(Block(norm(lt["ln1"], i), attn, norm(lt["ln2"], i), mlp))
+        return Block(norm(lt["ln1"], i), attn, norm(lt["ln2"], i), mlp(lt["mlp"], i))
+
+    def rwkv_block(lt, i):
+        pick = at(i)
+        tm, cm = lt["mix"]["tm"], lt["mix"]["cm"]
+        mix = RWKV6(
+            TimeMix(w(pick(tm["mu"])), *(dense(tm[n], i) for n in
+                                         ("wr", "wk", "wv", "wg", "wo", "w_lora_a", "w_lora_b")),
+                    f32(pick(tm["w_bias"])), f32(pick(tm["bonus"])), f32(pick(tm["ln_x"]))),
+            ChannelMix(w(pick(cm["mu"])), dense(cm["wk"], i), dense(cm["wv"], i),
+                       dense(cm["wr"], i)))
+        return RwkvBlock(norm(lt["ln1"], i), mix, norm(lt["ln2"], i))
+
+    def mamba_block(lt, i):
+        pick = at(i)
+        m = lt["mamba"]
+        mamba = Mamba2(dense(m["in_proj"], i), w(pick(m["conv_w"])), w(pick(m["conv_b"])),
+                       f32(pick(m["A_log"])), f32(pick(m["dt_bias"])), f32(pick(m["D"])),
+                       w(pick(m["norm_z"])), dense(m["out_proj"], i))
+        return MambaBlock(norm(lt["ln1"], i), mamba, norm(lt["ln2"], i), swiglu(lt["mlp"], i))
+
+    fam = _block_family(cfg)
+    make = {"attn": attn_block, "rwkv": rwkv_block, "hybrid": mamba_block}[fam]
+    layers = [make(tree["layers"], i) for i in range(cfg.num_layers)]
     return Transformer(
         layers, norm(tree["final_norm"]),
         embed=w(tree["embed"]) if "embed" in tree else None,
         lm_head=dense(tree["lm_head"]) if "lm_head" in tree else None,
+        shared_attn=attn_block(tree["shared_attn"]) if fam == "hybrid" else None,
     )

@@ -1,0 +1,222 @@
+"""Mixture-of-Experts layer with sort-based token dispatch.
+
+Counterpart of ``repro.models.moe`` (``expert_capacity``, ``init_moe``,
+``sort_dispatch``, ``moe_ffn``).  Routing n tokens to E experts is the
+paper's distribution problem with the router's expert id as the
+classifier: a stable counting placement groups the (token, k) entries
+into contiguous per-expert runs, and the entries an expert ranks beyond
+its capacity land in a trash slot (the overflow block).
+
+On the card the stable ranks come from kernel K6: ``dispatch_ranks`` for
+one routing problem, ``partition_ranks_batched`` for (L, n*k) rows (every
+MoE layer of a step at once).  On the CPU they come from the plain
+``core.partition.partition_permutation``, the reference's own formula, so
+``slot``, ``kept`` and ``counts`` are bit-identical to the reference's.
+
+``moe_ffn`` follows the reference's flow: a float32 router softmax, top-k
+and renormalisation, a scatter into the (E*cap + 1, D) buffer, the grouped
+SwiGLU as batched matrix products (``torch.bmm``; a plain product outside
+any kernel in the reference too), the gather back and a float32
+combine (the reference's scatter-add over tokens as a sum over each
+token's k adjacent entries: no float atomics, so two calls agree bit for
+bit on the card), plus the shared experts.  The reference's explicit
+expert parallelism (``ComputePolicy.explicit_ep`` with a ``model`` mesh
+axis) needs several ranks and is not ported (ROADMAP.md queue 1 item 14);
+on one card the reference takes this baseline path too.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.partition import partition_permutation
+from repro_torch.kernels import dispatch_rank
+from repro_torch.models.layers import (
+    Dense, SwiGLU, dense, frozen, init_dense, init_device, swiglu,
+)
+from repro_torch.ops.sort import Device
+
+__all__ = ["Experts", "MoE", "init_moe", "moe_ffn", "sort_dispatch", "expert_capacity"]
+
+
+class Experts(nn.Module):
+    """The stacked expert weights: gate and up (E, D, F), down (E, F, D)."""
+
+    def __init__(self, gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor):
+        super().__init__()
+        self.gate, self.up, self.down = frozen(gate), frozen(up), frozen(down)
+
+
+class MoE(nn.Module):
+    """A float32 ``router`` (D, E), the ``experts`` and, when the config has
+    shared experts, one ``shared`` SwiGLU."""
+
+    def __init__(self, router: Dense, experts: Experts, shared: Optional[SwiGLU] = None):
+        super().__init__()
+        self.router, self.experts, self.shared = router, experts, shared
+
+
+def expert_capacity(num_tokens: int, num_experts: int, top_k: int,
+                    capacity_factor: float) -> int:
+    cap = int(math.ceil(num_tokens * top_k / num_experts * capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def init_moe(
+    gen: torch.Generator,
+    d_model: int,
+    *,
+    num_experts: int,
+    d_ff_expert: int,
+    top_k: int,
+    num_shared: int = 0,
+    d_ff_shared: int = 0,
+    dtype=torch.bfloat16,
+    device: Device = None,
+) -> MoE:
+    """The reference's distributions: a float32 router, experts ~ N(0, 1/D)
+    (down ~ N(0, 1/F)) in ``dtype``, shared experts of ``d_ff_shared`` (or
+    ``d_ff_expert * num_shared``) hidden units."""
+    device = init_device(gen, device)
+    scale = 1.0 / math.sqrt(d_model)
+    router = init_dense(gen, d_model, num_experts, dtype=torch.float32, device=device)
+
+    def normal(shape, s):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+                * s).to(dtype)
+
+    experts = Experts(normal((num_experts, d_model, d_ff_expert), scale),
+                      normal((num_experts, d_model, d_ff_expert), scale),
+                      normal((num_experts, d_ff_expert, d_model), 1.0 / math.sqrt(d_ff_expert)))
+    shared = None
+    if num_shared:
+        dff = d_ff_shared or d_ff_expert * num_shared
+        kw = dict(dtype=dtype, device=device)
+        shared = SwiGLU(init_dense(gen, d_model, dff, **kw), init_dense(gen, d_model, dff, **kw),
+                        init_dense(gen, dff, d_model, **kw))
+    return MoE(router, experts, shared)
+
+
+def _stable_dest(expert_id: torch.Tensor, num_experts: int, tile: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dest (L, m) int32, offsets (L, E+1) int32): each entry's position in
+    its row's stable expert-major order, and the rows' expert boundaries."""
+    L, m = expert_id.shape
+    dev = expert_id.device
+    if dev.type == "cpu":
+        t = min(tile, m)
+        if m % t:
+            t = m
+        dest = torch.empty((L, m), dtype=torch.int32)
+        offsets = []
+        for row in range(L):
+            perm, off = partition_permutation(expert_id[row], num_experts, t)
+            dest[row, perm] = torch.arange(m, dtype=torch.int32)
+            offsets.append(off)
+        return dest, torch.stack(offsets)
+    counts = torch.zeros((L, num_experts), dtype=torch.int32, device=dev)
+    counts.scatter_add_(1, expert_id.to(torch.int64), torch.ones_like(expert_id))
+    offsets = torch.zeros((L, num_experts + 1), dtype=torch.int32, device=dev)
+    offsets[:, 1:] = torch.cumsum(counts, 1, dtype=torch.int32)
+    start = offsets[:, :-1].contiguous()
+    if L == 1:  # K6 in its one-problem form
+        dest = dispatch_rank.dispatch_ranks(expert_id[0].contiguous(), start[0],
+                                            num_experts=num_experts)[None]
+    else:
+        dest = dispatch_rank.partition_ranks_batched(expert_id.contiguous(), start,
+                                                     nb=num_experts)
+    return dest, offsets
+
+
+def sort_dispatch(
+    expert_id: torch.Tensor,   # (n*k,) or (L, n*k) int32 expert assignment
+    num_experts: int,
+    capacity: int,
+    *,
+    tile: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The paper's partition machinery applied to MoE routing.
+
+    Returns (slot, kept, counts): ``slot`` (n*k,) int32 is the entry's slot
+    in the (E*capacity,) grouped buffer, E*capacity (the trash slot) for
+    an entry its expert ranks at ``capacity`` or beyond; ``kept`` (n*k,)
+    bool; ``counts`` (E,) int32 entries per expert before the clamp.  A
+    2-D ``expert_id`` (L, n*k) dispatches L independent problems at once,
+    each output gaining the leading L.  ``tile`` is the plain twin's tile
+    (the reference's signature); the placement does not depend on it.
+    """
+    if expert_id.dim() not in (1, 2):
+        raise ValueError(f"expert_id must be (n*k,) or (L, n*k), got {tuple(expert_id.shape)}")
+    ids = expert_id.to(torch.int32)
+    rows = ids if ids.dim() == 2 else ids[None]
+    dest, offsets = _stable_dest(rows, num_experts, tile)
+    rank = dest - torch.gather(offsets[:, :-1], 1, rows.to(torch.int64))
+    kept = rank < capacity
+    slot = torch.where(kept, rows * capacity + rank,
+                       torch.full_like(rank, num_experts * capacity))
+    counts = offsets[:, 1:] - offsets[:, :-1]
+    if ids.dim() == 1:
+        return slot[0], kept[0], counts[0]
+    return slot, kept, counts
+
+
+def _expert_mlp(experts: Experts, xg: torch.Tensor) -> torch.Tensor:
+    """xg: (E, cap, D) -> (E, cap, D); the grouped SwiGLU."""
+    g = torch.bmm(xg, experts.gate)
+    u = torch.bmm(xg, experts.up)
+    return torch.bmm(F.silu(g) * u, experts.down)
+
+
+def moe_ffn(
+    p: MoE,
+    x: torch.Tensor,   # (B, S, D)
+    *,
+    num_experts: int,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    router_softmax_after: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (output (B, S, D) in x's dtype, aux): ``aux`` holds the
+    Switch-style ``lb_loss`` (float32), ``dropped`` (int32, the entries
+    beyond capacity) and ``max_load`` (int32, the largest count)."""
+    b, s, d = x.shape
+    n = b * s
+    xf = x.reshape(n, d)
+    logits = dense(p.router, xf.to(torch.float32))  # (n, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, eids = torch.topk(probs, top_k, dim=-1)  # (n, k)
+    if router_softmax_after:
+        gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
+
+    cap = expert_capacity(n, num_experts, top_k, capacity_factor)
+    flat_e = eids.reshape(n * top_k).to(torch.int32)
+    slot, kept, counts = sort_dispatch(flat_e, num_experts, cap)
+    slot64 = slot.to(torch.int64)
+
+    # scatter tokens into the grouped (E, cap) buffer (trash slot at the end)
+    buf = torch.zeros((num_experts * cap + 1, d), dtype=x.dtype, device=x.device)
+    tok_idx = torch.arange(n, device=x.device).repeat_interleave(top_k)
+    buf[slot64] = xf[tok_idx]
+    yg = _expert_mlp(p.experts, buf[:-1].reshape(num_experts, cap, d))
+    yg = torch.cat([yg.reshape(num_experts * cap, d), yg.new_zeros((1, d))])
+
+    # combine: gather back and weight; dropped entries read the zero trash
+    # slot.  A token's k entries are adjacent, so the reference's scatter-add
+    # over tok_idx is a sum over k: no float atomics, one order every call
+    wts = (gate_vals.reshape(n * top_k) * kept).to(torch.float32)
+    y = (yg[slot64].to(torch.float32) * wts[:, None]).reshape(n, top_k, d).sum(dim=1)
+    if p.shared is not None:
+        y = y + swiglu(p.shared, xf).to(torch.float32)
+
+    me = probs.mean(dim=0)                              # (E,)
+    ce = counts.to(torch.float32) / (n * top_k)
+    aux = {
+        "lb_loss": num_experts * torch.sum(me * ce),
+        "dropped": torch.sum(~kept).to(torch.int32),
+        "max_load": counts.max(),
+    }
+    return y.reshape(b, s, d).to(x.dtype), aux

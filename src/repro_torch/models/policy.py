@@ -1,8 +1,7 @@
 """Compute policy: the ambient optimization knobs of the model code.
 
-Counterpart of ``repro.models.policy``, with the same stack and defaults;
-its ``explicit_ep`` (the expert-parallel MoE switch) comes with MoE
-(ROADMAP.md queue 1 item 13).
+Counterpart of ``repro.models.policy``, with the same stack, fields and
+defaults.
 The policy is ambient (a module-level stack read when a layer runs), so a
 caller flips a regime without threading arguments through every model
 signature:
@@ -10,6 +9,11 @@ signature:
   * ``flash_block``: 0 = eager full-score SDPA (materializes (B,H,S,T)
     scores); >0 = KV-chunked online-softmax attention over chunks of that
     many keys, never materializing the score matrix;
+  * ``explicit_ep``: the reference's switch to expert parallelism over a
+    ``model`` mesh axis.  The reference takes its baseline MoE path when
+    no such mesh is ambient, which on one card is always; so does the
+    port, which has no expert-parallel path yet (ROADMAP.md queue 1 item
+    14): ``moe_ffn`` runs the baseline dispatch whatever the flag;
   * ``flash_decode``: decode on a linear cache through the K10 kernel
     (``kernels.flash_decode``), reading the cache in place.
 
@@ -30,6 +34,7 @@ __all__ = ["ComputePolicy", "compute_policy", "current_policy"]
 @dataclass(frozen=True)
 class ComputePolicy:
     flash_block: int = 0
+    explicit_ep: bool = False
     flash_decode: bool = False   # K10 fused decode kernel (linear cache)
 
 

@@ -2,16 +2,19 @@
 
 Counterpart of ``repro.serve.engine``'s ``ServeConfig`` and ``Engine``, on
 one card: the engine takes a device where the reference takes a mesh, and
-runs ``models.transformer.forward`` eagerly (there is no jit).  Its KV cache
-is allocated once, in the weights' dtype, and updated in place; every
-``generate`` call starts from a fresh cache all the same, because its
-prefill rewrites every slot (the prompt's keys and values, zeros after
-them), so a shorter second prompt never attends over the first call's
-keys.  Decoding runs through the K10 kernel under
-``compute_policy(flash_decode=True)``.  ``make_prefill_step`` and
-``make_decode_step`` (the dry-run's jitted, sharded steps) wait for the
-launch tooling, and ``serve/scheduler.py`` with the other callers of the
-sort (ROADMAP.md queue 1 items 14 and 12).
+runs ``models.transformer.forward`` eagerly (there is no jit).  It serves
+every family of the reference (dense, moe, vlm, audio, ssm and hybrid),
+with the family's cache from ``init_decode_cache``, allocated once (KV
+caches in the weights' dtype) and updated in place.  Every ``generate``
+call starts from a fresh cache all the same: its recurrent states are
+zeroed (``reset_decode_cache``) and its prefill rewrites every KV slot
+(the prompt's keys and values, zeros after them), so a shorter second
+prompt never attends over the first call's keys.  Decoding runs through
+the K10 kernel under ``compute_policy(flash_decode=True)`` wherever the
+model has attention on a linear cache.  Requests are admitted by
+``serve.scheduler``.  ``make_prefill_step`` and ``make_decode_step`` (the
+dry-run's jitted, sharded steps) wait for the launch tooling (ROADMAP.md
+queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Cache, Transformer, forward, init_decode_cache
+from repro_torch.models.transformer import (
+    Cache, Transformer, forward, init_decode_cache, reset_decode_cache,
+)
 from repro_torch.ops.sort import Device, _device
 
 __all__ = ["ServeConfig", "Engine"]
@@ -73,6 +78,8 @@ class Engine:
         if self.cache is None:
             self.cache = init_decode_cache(self.cfg, b, self.scfg.max_seq,
                                            dtype=self.params.dtype, device=self.device)
+        else:
+            reset_decode_cache(self.cache)
         logits, self.cache, _ = forward(self.params, self.cfg, prompts, cache=self.cache)
         gen = torch.Generator(device="cpu").manual_seed(seed)
         toks = []

@@ -12,8 +12,9 @@ device-sized chunks plus a stable k-way merge.  Three layers:
             ``streaming_topk`` and ``streaming_group_by``, whose device
             footprint is bounded by the chunk or pair being processed.
 
-The reference's production callers (``data.pipeline.pack_by_length``,
-``serve.scheduler``) are not ported yet (ROADMAP.md, queue 1 item 12).
+Its callers in the port: ``data.pipeline.pack_by_length(chunk_size=)``
+(``external_argsort``) and ``serve.scheduler``'s merged backlog view
+(``merge``).
 """
 from repro_torch.stream.api import (
     external_argsort,

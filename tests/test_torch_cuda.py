@@ -32,7 +32,12 @@ cache (a tuned sorter, a classifier race, a tuned stream) persisted and
 reloaded; obs's span device times (present, nested) and, obs off, a
 sort's launches and synchronizing calls equal to no-op hooks'; ``dist.sort``
 at world size 1 on NCCL (the most one card takes) equal to ``ops.sort``;
-the exchange's placement launching K2.
+the exchange's placement launching K2; the MoE dispatch through K6
+(``dispatch_ranks`` and ``partition_ranks_batched``) equal to the plain
+dispatch bit for bit, K10 at group 1 with hd 128 (the tensor-core
+kernel) and hd 80 (the FMA kernel), the scheduler's admissions against
+the host oracle, and reduced MoE, RWKV-6 and zamba2 models on the card
+against the CPU (float32, 1e-3 on the logits).
 
 Marked ``gpu``: every test skips (from its fixture) where no card is
 present, so the CPU suite collects the same tests on every worker.  On the
@@ -1273,3 +1278,127 @@ def test_exchange_placement_launches_k2(dev):
     assert got["cuda"][1:3] == got["cpu"][1:3]
     for name in ("k", "v"):
         assert torch.equal(got["cuda"][0][name].cpu(), got["cpu"][0][name])
+
+
+# ---------------------------------------------------------------------------
+# the MoE dispatch (K6), K10 at the new families' shapes, the scheduler and
+# the new families on the card
+
+
+@pytest.mark.parametrize("rows,m,experts,cap", [
+    (1, 8192 * 6, 64, 960),    # deepseek-moe-16b's prefill routing (drops at cap 960)
+    (1, 48, 64, 8),            # its decode step (8 tokens x top-6)
+    (28, 1024 * 6, 64, 120),   # every layer of a step in one call
+    (3, 5000, 128, 40),        # qwen3-moe's 128 experts, a ragged m
+])
+def test_sort_dispatch_k6_matches_the_plain_dispatch(dev, rows, m, experts, cap):
+    from repro_torch.models.moe import sort_dispatch
+
+    rng = np.random.default_rng(m + rows)
+    e = rng.integers(0, experts, (rows, m)).astype(np.int32)
+    e[:, ::5] = 3  # skew: expert 3 overflows its capacity
+    ids = torch.as_tensor(e if rows > 1 else e[0])
+    name = "partition_ranks_batched" if rows > 1 else "dispatch_ranks"
+    before = kernels.launch_counts()[name]
+    got = sort_dispatch(ids.to(dev), experts, cap)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    want = sort_dispatch(ids, experts, cap)  # the plain twin: partition_permutation
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.cpu(), w_)
+    assert int((~got[1]).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,hd,lengths", [
+    (8, 16, 4096, 128, (1056,) * 8),            # deepseek-moe-16b: group 1, mma.sync
+    (8, 32, 4096, 80, (1056,) * 8),             # zamba2-2.7b: group 1, hd 80, FMA
+    (3, 32, 1024, 80, (1, 513, 1024)),
+])
+def test_flash_decode_kernel_group_one(dev, b, h, t, hd, lengths, dtype):
+    g = torch.Generator(device=dev).manual_seed(hd + b)
+    q = torch.randn((b, h, hd), generator=g, device=dev).to(dtype)
+    ck = torch.randn((b, t, h, hd), generator=g, device=dev).to(dtype)
+    cv = torch.randn((b, t, h, hd), generator=g, device=dev).to(dtype)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = flash_decode.flash_decode_cache(q, ck, cv, length)
+    want = ref.flash_decode_ref(q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
+                                length)[:, :, 0]
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    info = flash_decode.launch_info(b, h, 1, hd, dtype)
+    assert bool(info["tensor_cores"]) == (dtype == torch.bfloat16 and hd == 128)
+
+
+def test_scheduler_on_the_card_matches_the_host_oracle(dev):
+    from repro_torch.serve.scheduler import Request, Scheduler, admit_many
+
+    rng = np.random.default_rng(9)
+    rem = rng.integers(1, 64, 4096)
+    s = Scheduler(batch_size=256, device=dev)
+    for uid, m in enumerate(rem):
+        s.submit(Request(uid=uid, prompt_len=1, max_new=int(m)))
+    order = list(np.lexsort((np.arange(len(rem)), rem)))
+    for i in range(3):
+        assert [r.uid for r in s.next_batch()] == order[i * 256:(i + 1) * 256]
+    back = rng.integers(1, 64, 1000)
+    s.attach_backlog([Request(uid=10_000 + i, prompt_len=1, max_new=int(m))
+                      for i, m in enumerate(back)])
+    live = np.asarray([r.remaining for r in s.queue])
+    both = np.concatenate([back[np.lexsort((np.arange(len(back)), back))],
+                           np.sort(live, kind="stable")])
+    want_rem = np.sort(both, kind="stable")[:256]
+    got = s.next_batch()
+    assert [r.remaining for r in got] == want_rem.tolist()
+    fleet = [Scheduler(batch_size=8, device=dev) for _ in range(5)]
+    for j, f in enumerate(fleet):
+        for uid, m in enumerate(rng.integers(1, 5, 30 + 17 * j)):
+            f.submit(Request(uid=uid, prompt_len=1, max_new=int(m)))
+    want = []
+    for f in fleet:
+        r = np.asarray([q.remaining for q in f.queue])
+        want.append(list(np.lexsort((np.arange(len(r)), r))[:8]))
+    assert [[r.uid for r in b] for b in admit_many(fleet)] == want
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-1.6b", "zamba2-2.7b"])
+def test_reduced_family_on_the_card_matches_the_cpu(dev, arch):
+    """The reduced model's forward and prefill + K10 decode on the card
+    against the same model on the CPU (float32: cuBLAS and the CPU's
+    products in other summation orders; 1e-3 on logits of ~4), and two
+    greedy ``generate`` calls equal.  The states the reference keeps in
+    bfloat16 (RWKV's shifts, Mamba2's conv) are made float32 on both sides
+    here, so that a last-bit difference cannot round a state entry to a
+    neighbouring bfloat16 value (2.5e-3 seen on rwkv6 with them, on an H100)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.policy import compute_policy
+    from repro_torch.models.transformer import forward, init_decode_cache, init_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_reduced(arch)
+    cpu = init_model(torch.Generator().manual_seed(0), cfg, dtype=torch.float32, device="cpu")
+    card = init_model(torch.Generator().manual_seed(0), cfg, dtype=torch.float32,
+                      device="cpu").to(dev)
+    x = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    want, _, _ = forward(cpu, cfg, x)
+    got, _, _ = forward(card, cfg, x.to(dev))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+    caches = [init_decode_cache(cfg, 2, 64, dtype=torch.float32, device=d)
+              for d in ("cpu", dev)]
+    for c in (c for cache in caches for c in cache["layers"]):
+        for name in ("tm_shift", "cm_shift", "conv"):
+            if name in c:
+                c[name] = c[name].float()
+    with compute_policy(flash_decode=True):
+        for m, c, d in ((cpu, caches[0], "cpu"), (card, caches[1], dev)):
+            forward(m, cfg, x[:, :16].to(d), cache=c)
+        for i in range(16, 24):
+            pos = torch.full((2, 1), i)
+            w, _, _ = forward(cpu, cfg, x[:, i:i + 1], positions=pos, cache=caches[0])
+            g_, _, _ = forward(card, cfg, x[:, i:i + 1].to(dev), positions=pos.to(dev),
+                               cache=caches[1])
+            torch.testing.assert_close(g_.cpu(), w, atol=1e-3, rtol=1e-3)
+        engine = Engine(cfg, ServeConfig(max_seq=64, batch_size=2), card, device=dev)
+        a = engine.generate(x[:, :16].to(dev), 6)
+        b = engine.generate(x[:, :16].to(dev), 6)
+    assert torch.equal(a, b)

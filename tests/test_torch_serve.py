@@ -3,7 +3,10 @@
 Greedy ``generate`` tokens equal the reference engine's, token for token,
 in float32 with the same parameters (``models.convert.params_from_jax``),
 for reduced yi-9b with GQA and codeqwen1.5-7b, under both
-``flash_decode`` settings.  The reference engine runs on a one-device mesh
+``flash_decode`` settings, and for reduced deepseek-moe-16b, qwen3-moe,
+rwkv6 and zamba2 under ``flash_decode`` (K10's twin where the model has
+attention; zamba2 also with ``max_seq`` above the hybrid's window, where
+its shared attention decodes on rings without K10).  The reference engine runs on a one-device mesh
 with Auto axes (with Explicit ones its ``shard_hint`` raises under this
 container's jax 0.9.0, which is why the reference's own
 ``tests/test_serve_engine.py`` fails here).  Then the port's copies of
@@ -31,6 +34,8 @@ from repro_torch.serve import Engine, ServeConfig
 
 HEADS = {"yi-9b": dict(num_heads=8, num_kv_heads=2),
          "codeqwen1.5-7b": dict(num_heads=8, num_kv_heads=8)}
+FAMILIES = [("deepseek-moe-16b", 32), ("qwen3-moe-235b-a22b", 32), ("rwkv6-1.6b", 32),
+            ("zamba2-2.7b", 32), ("zamba2-2.7b", 4100)]
 
 
 def _prompts(cfg, b, plen, seed):
@@ -55,6 +60,24 @@ def test_greedy_tokens_match_reference_engine(arch, flash_decode):
         got = engine.generate(prompts, 8)
     assert got.dtype == torch.int32 and got.shape == (2, 8)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch,max_seq", FAMILIES)
+def test_family_greedy_tokens_match_reference_engine(arch, max_seq):
+    ref_cfg, cfg = ref_get_reduced(arch), get_reduced(arch)
+    params = ref_init_model(jax.random.PRNGKey(1), ref_cfg, dtype=jnp.float32)
+    model = params_from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    mesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    prompts = _prompts(cfg, 2, 12, seed=2)
+    ref_engine = RefEngine(ref_cfg, RefServeConfig(max_seq=max_seq, batch_size=2), mesh, params)
+    engine = Engine(cfg, ServeConfig(max_seq=max_seq, batch_size=2), model, device="cpu")
+    with ref_policy(flash_decode=True), compute_policy(flash_decode=True):
+        with mesh:
+            want = np.asarray(ref_engine.generate(jnp.asarray(prompts), 8))
+        got = engine.generate(prompts, 8)
+        again = engine.generate(prompts, 8)  # the recurrent states start afresh
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, again)
 
 
 @pytest.fixture(scope="module")
