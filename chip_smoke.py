@@ -179,7 +179,19 @@ observability layer and the distributed sort:
    largest logit, in float32 (bf16 rounding alone moves these models):
    rwkv6 whole over 1024 + 32 and zamba2 whole over 1024 + 128, their
    bf16-stored states in float32 too, and the MoE on two of its layers at
-   full width at lossless capacity over 1 x (128 + 32);
+   full width at lossless capacity over 1 x (128 + 32).  Then training
+   (``train_phases``, before the distributed sort): deepseek-moe-16b at
+   published width, 4 of its 28 layers (2.771 B parameters, bf16, remat),
+   eight ``Trainer.run`` steps of 4 x 4096 tokens in microbatches of 2 on one
+   fixed batch: every loss finite and the last below the first, K6
+   ``dispatch_ranks`` launched 16 times a step (4 layers x 2 microbatches x
+   forward and recompute), every dispatch's ``dest`` bit for bit the plain
+   ``partition_permutation``'s; reduced deepseek-moe-16b and yi-9b in
+   float32: ``train_loss`` and every gradient on the card against the
+   CPU's, two ``make_train_step`` steps with and without
+   ``compress_grads`` against the CPU's, two ``Trainer`` runs from one seed
+   bitwise equal, and a restart (3 steps, a checkpoint, a restore in a
+   fresh ``Trainer``, 3 more) bitwise equal to 6 straight steps;
 4. timing with CUDA events (median of several runs after warm-up): each
    kernel beside its plain twin, its bound and, where one exists, one
    torch call that computes the same function, and each kernel's own
@@ -219,6 +231,9 @@ observability layer and the distributed sort:
    bottom-k alone beside ``torch.topk``, the pipeline's length argsort
    beside ``torch.sort``; each served family's prefill ms, decode ms per
    step and tokens/s, a profile of one prefill and of 8 decode steps;
+   the training step of deepseek-moe-16b (median of steps 2-8 on the host
+   clock, tokens/s, peak memory, its gradients and AdamW timed apart, and a
+   profile of one step: device ms, launches, idle share, K6's share);
    and, for the paths above, ``ops.sort`` of 2^24 with obs disabled and
    enabled, ``dist.sort`` at world size 1 beside ``ops.sort`` (median of 5
    by CUDA events), and the four ``gloo`` ranks' host times of their sorts
@@ -330,6 +345,20 @@ PACK_SORT_N, PACK_N, PACK_SEQ, PACK_CHUNK = 1 << 22, 8192, 1024, 2048
 MOE_TF_PROMPT, MOE_TF_LAYERS = 128, 2
 RWKV_PROFILE_TOKENS = 128  # rwkv6's prefill profile: its first 128 tokens
 HYBRID_TF_NEW = 128  # zamba2's: 1024 + 128 (its chunks of 128 must divide the length)
+# training deepseek-moe-16b at its published width, 4 of its 28 layers: 2.771 B
+# parameters, whose bf16 weights and grads, float32 accumulators and float32
+# AdamW moments take ~44 GB of the 80 before activations (six layers would
+# take ~63 GB of state alone); the registry's train_4k sequence at global
+# batch 4 in microbatches of 2, eight Trainer.run steps on one fixed batch
+TRAIN_ARCH, TRAIN_LAYERS = "deepseek-moe-16b", 4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 8
+# the reduced models (float32) on the card against the CPU: every gradient
+# within TRAIN_TOL * max |CPU's| per leaf, the loss to TRAIN_TOL relative
+# (the same float32 math summed in other orders by cuBLAS and the CPU's
+# kernels), the parameters after a step that moves them to TRAIN_TOL absolute
+TRAIN_REDUCED = ("deepseek-moe-16b", "yi-9b")
+TRAIN_TOL = 1e-4
+TRAIN_REDUCED_SEQ = 64
 
 
 def fail(msg: str) -> None:
@@ -505,12 +534,13 @@ def host_us(torch, fn, reps: int = 50) -> float:
     return us
 
 
-def profile(torch, name, fn, top: int = 14, show=(), cpu: bool = True) -> None:
+def profile(torch, name, fn, top: int = 14, show=(), cpu: bool = True) -> dict:
     """Where one call's time goes: device time per operation (torch.profiler)
     beside the host clock around the whole call; the ``top`` kernels, and
     those whose name holds one of ``show`` wherever they rank.  ``cpu=False``
     traces the card alone (no host op events): for a call of ~10^5 launches,
-    whose host events would take the profiler minutes to sort."""
+    whose host events would take the profiler minutes to sort.  Returns the
+    wall and kernel ms, the launches and the kernels' events."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -539,6 +569,8 @@ def profile(torch, name, fn, top: int = 14, show=(), cpu: bool = True) -> None:
     for rank_, e in enumerate(events):
         if rank_ < top or any(x in e.key for x in show):
             print(f"  {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms,
+            "launches": sum(e.count for e in kernel_events), "kernels": kernel_events}
 
 
 def attention_phases(torch, dev) -> dict:
@@ -1357,6 +1389,260 @@ def family_phases(torch, dev, rows) -> None:
         torch.cuda.empty_cache()
         print(f"serve {name}: {time.time() - t_family:.1f} s for this family's checks, times "
               "and profiles", flush=True)
+
+
+def train_phases(torch, dev, rows) -> None:
+    """Phases 3 and 4 of training.  ``path train deepseek-moe-16b``: 4 of its
+    28 layers at published width (bf16, random weights from a seeded CUDA
+    generator, ``cfg.remat`` on) through ``train.Trainer`` with the reference's
+    ``TrainConfig`` defaults and microbatches of 2, eight ``run`` steps on one
+    fixed batch of 4 x 4096 tokens (``data.pipeline.SyntheticLM``): every
+    loss finite, the last below the first, K6 ``dispatch_ranks`` launched 4
+    layers x 2 microbatches x 2 (forward and recompute) = 16 times a step,
+    and every dispatch's ``dest`` (a hook on ``models.moe._stable_dest``)
+    bit for bit the plain ``partition_permutation``'s on the CPU.  ``path
+    train reduced``: reduced deepseek-moe-16b and yi-9b in float32, the
+    card's ``train_loss`` and every gradient against the CPU's (the plain
+    twins), two ``make_train_step`` steps with and without
+    ``compress_grads`` against the CPU's, two ``Trainer`` runs from one seed
+    bitwise equal, and 3 steps, a checkpoint, a restore in a fresh
+    ``Trainer`` and 3 more steps bitwise equal to 6 straight.  ``time train``:
+    eight more steps of the full-width case, the median step of steps 2-8,
+    tokens/s, peak memory, the gradients and the optimizer timed apart, and
+    a profile of one step (device ms, launches, idle share, K6's share)."""
+    import copy
+    import dataclasses
+    import itertools
+    import math
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import init_model, param_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, init_error_feedback
+    from repro_torch.train import TrainConfig, Trainer, make_train_step
+    from repro_torch.train.trainer import _accumulate_grads
+    from torch.utils import _pytree as pytree
+
+    f32 = torch.float32
+
+    def drive(path, needed, fn):
+        res, launches, _ = _drive(torch, rows, path, needed, fn)
+        return res, launches
+
+    verdict = _verdict
+
+    def parts(leaves):
+        return [t for v in leaves.values() for t in (v if isinstance(v, tuple) else (v,))]
+
+    def quiet_run(trainer, it, n):
+        return trainer.run(it, n, ckpt_every=10 ** 9, log_every=10 ** 9, log=lambda *_: None)
+
+    # ---- 3. the full-width case ----------------------------------------------
+    t_train = time.time()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(microbatch=TRAIN_MICRO)  # the reference's defaults otherwise
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    trainer = Trainer(cfg, tcfg, seed=0, device=dev)
+    trainer.init_state()
+    torch.cuda.synchronize()
+    model = trainer.state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    print(f"train {TRAIN_ARCH}: {TRAIN_LAYERS} of {get_config(TRAIN_ARCH).num_layers} layers at "
+          f"published width, {n_params} parameters, remat {cfg.remat}, state (bf16 weights, "
+          f"float32 moments) {state_bytes} B on the card, made in {time.time() - t0:.1f} s",
+          flush=True)
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0)
+    cap = moe_mod.expert_capacity(TRAIN_MICRO * TRAIN_SEQ, cfg.moe.num_experts, cfg.moe.top_k,
+                                  cfg.moe.capacity_factor)
+    dests = []
+    plain_dest = moe_mod._stable_dest
+
+    def recording(expert_id, num_experts, tile):
+        dest, offsets = plain_dest(expert_id, num_experts, tile)
+        dests.append((expert_id.clone(), num_experts, tile, dest.clone(), offsets.clone()))
+        return dest, offsets
+
+    def eight_steps():
+        it = itertools.repeat(batch)  # one fixed batch: the loss must fall
+        return [quiet_run(trainer, it, 1)["loss"] for _ in range(TRAIN_STEPS)]
+
+    per_step = TRAIN_LAYERS * (TRAIN_BATCH // TRAIN_MICRO) * 2
+    path = (f"train {TRAIN_ARCH} ({TRAIN_LAYERS} layers, bf16, {TRAIN_STEPS} steps of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in microbatches of {TRAIN_MICRO}, capacity {cap})")
+    moe_mod._stable_dest = recording
+    try:
+        losses, launches = drive(path, ["dispatch_ranks"], eight_steps)
+    finally:
+        moe_mod._stable_dest = plain_dest
+    verdict(path, f"losses {[round(x, 4) for x in losses]} finite",
+            all(math.isfinite(x) for x in losses))
+    verdict(path, f"the loss falls on the repeated batch ({losses[0]:.4f} -> {losses[-1]:.4f})",
+            losses[-1] < losses[0])
+    verdict(path, f"K6 dispatch_ranks launched {launches['dispatch_ranks']} times = {per_step} a "
+            f"step ({TRAIN_LAYERS} layers x {TRAIN_BATCH // TRAIN_MICRO} microbatches x forward "
+            f"and recompute) x {TRAIN_STEPS} steps",
+            launches["dispatch_ranks"] == per_step * TRAIN_STEPS)
+    same, dropped = True, 0
+    for ids, num_experts, tile, dest, offsets in dests:
+        want_dest, want_off = plain_dest(ids.cpu(), num_experts, tile)
+        same = same and torch.equal(dest.cpu(), want_dest) and torch.equal(offsets.cpu(), want_off)
+        counts = (offsets[:, 1:] - offsets[:, :-1]).cpu()
+        dropped += int(torch.clamp(counts - cap, min=0).sum())
+    entries = TRAIN_MICRO * TRAIN_SEQ * cfg.moe.top_k
+    verdict(path, f"K6's dest bit for bit the plain partition_permutation's on all {len(dests)} "
+            f"dispatches ({dropped} of {len(dests) * entries} entries beyond capacity)",
+            same and len(dests) == per_step * TRAIN_STEPS)
+    del dests
+
+    # ---- 4. its times ----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    first = len(trainer.step_times)
+    quiet_run(trainer, itertools.repeat(batch), TRAIN_STEPS)
+    times = trainer.step_times[first:]
+    step_ms = 1e3 * statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"time train {TRAIN_ARCH}: step {step_ms:.3f} ms (median of steps 2-{TRAIN_STEPS}, host "
+          f"clock, one loss read a step; steps {[round(1e3 * t, 3) for t in times]}), "
+          f"{tokens * 1e3 / step_ms:.1f} tokens/s, peak memory {peak} B "
+          f"({peak / 1e9:.3f} GB)", flush=True)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    held = {}
+
+    def grads_only():
+        held["grads"] = _accumulate_grads(cfg, tcfg, model, tb)[2]
+
+    grads_ms = cuda_ms(torch, grads_only, warmup=0, reps=1)
+    opt = trainer.state["opt"]
+    opt_ms = cuda_ms(torch, lambda: adamw_update(param_leaves(model), held["grads"], opt,
+                                                 tcfg.adamw, 0.5), warmup=1, reps=3)
+    print(f"time train {TRAIN_ARCH}: loss and gradients of {TRAIN_BATCH // TRAIN_MICRO} "
+          f"microbatches {grads_ms:.3f} ms, AdamW alone {opt_ms:.3f} ms (CUDA events): the "
+          f"optimizer's share of a step {opt_ms / step_ms:.4f}", flush=True)
+    del held
+    torch.cuda.empty_cache()
+    prof = profile(torch, f"one train step of {TRAIN_ARCH} ({TRAIN_LAYERS} layers, "
+                   f"{TRAIN_BATCH} x {TRAIN_SEQ})",
+                   lambda: quiet_run(trainer, itertools.repeat(batch), 1), top=12,
+                   show=DEVICE_FUNCTIONS["dispatch_ranks"])
+    k6 = [e for e in prof["kernels"] if "dispatch_rank_kernel" in e.key]
+    k6_ms = sum(device_us(e) for e in k6) / 1e3
+    print(f"profile one train step: K6 {k6_ms:.4f} ms in {sum(e.count for e in k6)} launches, "
+          f"{k6_ms / prof['kernel_ms']:.6f} of the step's kernel time", flush=True)
+    del trainer, model, opt, tb
+    torch.cuda.empty_cache()
+
+    # ---- 3. the reduced models in float32 against the CPU ---------------------
+    print(f"train reduced: torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    for arch in TRAIN_REDUCED:
+        rcfg = get_reduced(arch)
+        needed = ["dispatch_ranks"] if rcfg.family == "moe" else []
+        path = f"train reduced {arch} (float32)"
+        cpu_model = init_model(torch.Generator().manual_seed(5), rcfg, dtype=f32, device="cpu")
+        data = SyntheticLM(rcfg.vocab_size, TRAIN_REDUCED_SEQ, TRAIN_BATCH, seed=3)
+        b = data.batch(0)
+
+        def loss_grads(m, where):
+            m = copy.deepcopy(m).to(where).requires_grad_(True)
+            loss, metrics, grads = _accumulate_grads(
+                rcfg, TrainConfig(), m, {k: torch.as_tensor(v, device=where) for k, v in b.items()})
+            return float(loss), {k: float(v) for k, v in metrics.items()}, parts(grads)
+
+        (loss, metrics, grads), _ = drive(path, needed, lambda: loss_grads(cpu_model, dev))
+        want_loss, want_metrics, want_grads = loss_grads(cpu_model, "cpu")
+        err = max(float((g.cpu() - w).abs().max()) / (float(w.abs().max()) + 1e-30)
+                  for g, w in zip(grads, want_grads))
+        verdict(path, f"train_loss {loss:.6f} (CPU {want_loss:.6f}) and every gradient against "
+                f"the CPU's: max |diff| / max |CPU| per leaf {err:.3e} (tol {TRAIN_TOL})",
+                abs(loss - want_loss) <= TRAIN_TOL * abs(want_loss) and err <= TRAIN_TOL
+                and all(abs(metrics[k] - want_metrics[k]) <= TRAIN_TOL * max(1, abs(
+                    want_metrics[k])) for k in want_metrics))
+        del grads, want_grads
+
+        for compress in (False, True):
+            tc = TrainConfig(microbatch=2, warmup_steps=1, total_steps=6, compress_grads=compress,
+                             adamw=AdamWConfig(lr=1e-3))
+
+            def two_steps(where):
+                m = copy.deepcopy(cpu_model).to(where)
+                leaves = param_leaves(m)
+                st = {"params": m, "opt": adamw_init(leaves, tc.adamw)}
+                if compress:
+                    st["eff"] = init_error_feedback(leaves)
+                step = make_train_step(rcfg, tc, device=where)
+                out = []
+                for i in range(2):  # the first step's learning rate is 0
+                    st, mt = step(st, data.batch(i))
+                    out.append({k: float(v) for k, v in mt.items()})
+                return out, [t.detach().cpu() for t in parts(param_leaves(m))]
+
+            (got_m, got_p), _ = drive(f"{path} make_train_step compress={compress}", needed,
+                                      lambda: two_steps(dev))
+            want_m, want_p = two_steps("cpu")
+            diff = torch.cat([(a - w).abs().flatten() for a, w in zip(got_p, want_p)])
+            metrics_ok = all(abs(g[k] - w[k]) <= TRAIN_TOL * max(1.0, abs(w[k]))
+                             for g, w in zip(got_m, want_m) for k in w)
+            if compress:  # a gradient code may round the other way: ~2 lr moves
+                params_ok = (float((diff > TRAIN_TOL).float().mean()) <= 1e-3
+                             and float(diff.max()) <= 4 * tc.adamw.lr)
+            else:
+                params_ok = float(diff.max()) <= TRAIN_TOL
+            verdict(path, f"two make_train_step steps (microbatches of 2, compress_grads="
+                    f"{compress}) against the CPU's: losses {[round(m['loss'], 6) for m in got_m]}"
+                    f", parameters max |diff| {float(diff.max()):.3e}, "
+                    f"{int((diff > TRAIN_TOL).sum())} of {diff.numel()} beyond {TRAIN_TOL}",
+                    metrics_ok and params_ok)
+
+        # two runs from one seed, and a restart, bit for bit (float32, with the
+        # int8 moments and compression on the MoE)
+        moe = rcfg.family == "moe"
+        tc = TrainConfig(microbatch=2, warmup_steps=2, total_steps=6, compress_grads=moe,
+                         adamw=AdamWConfig(lr=1e-3, m_dtype="int8" if moe else "float32"))
+
+        def fresh(ckpt=None):
+            t = Trainer(rcfg, tc, ckpt_dir=ckpt, seed=0, device=dev)
+            t.init_state()
+            t.state["params"].float()  # float32 in place: the leaves stay the same objects
+            leaves = param_leaves(t.state["params"])
+            t.state["opt"] = adamw_init(leaves, tc.adamw)
+            if moe:
+                t.state["eff"] = init_error_feedback(leaves)
+            return t
+
+        def flat_state(t):
+            return [x.detach().cpu() for x in pytree.tree_leaves(t._tree())]
+
+        def runs():
+            a, b_ = fresh(), fresh()
+            quiet_run(a, iter(data), 6)
+            quiet_run(b_, iter(data), 6)
+            with tempfile.TemporaryDirectory() as ck:
+                c = fresh(ck)
+                quiet_run(c, iter(data), 3)
+                del c
+                d = fresh(ck)
+                restored = d.maybe_restore()
+                it = iter(data)
+                for _ in range(d.step_num):
+                    next(it)
+                quiet_run(d, it, 3)
+            return flat_state(a), flat_state(b_), flat_state(d), restored, d.step_num
+
+        (sa, sb, sd, restored, steps), _ = drive(f"{path} Trainer", needed, runs)
+        verdict(path, f"two Trainer runs of 6 steps from seed 0 bitwise equal ({len(sa)} tensors: "
+                "parameters, moments" + (", error feedback" if moe else "") + ", counter)",
+                all(torch.equal(x, y) for x, y in zip(sa, sb)))
+        verdict(path, "3 steps, a checkpoint, a restore in a fresh Trainer and 3 more bitwise "
+                "equal to 6 straight", restored and steps == 6
+                and all(torch.equal(x, y) for x, y in zip(sa, sd)))
+        del cpu_model
+    torch.cuda.empty_cache()
+    print(f"train: {time.time() - t_train:.1f} s for the training checks, times and profile",
+          flush=True)
 
 
 def compare_with_parent(parent: Path) -> None:
@@ -3841,6 +4127,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     scheduler_phases(torch, dev, rows)
     family_phases(torch, dev, rows)
+    torch.cuda.empty_cache()
+    train_phases(torch, dev, rows)
     torch.cuda.empty_cache()
     # last: its process groups (NCCL here, gloo in four spawned ranks) come
     # after every profile of a kernel's launches above

@@ -72,7 +72,8 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 
 def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    # np.ascontiguousarray makes a 0-d array 1-d: keep the saved shape
+    t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
     return t.view(torch.bfloat16) if dtype == "bfloat16" else t
 
 

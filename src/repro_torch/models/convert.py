@@ -11,10 +11,18 @@ both.  The trees by family: attention layers ``layers.{ln1, attn, ln2,
 mlp}`` (``mlp`` a SwiGLU, a GELU MLP, or ``router``/``experts``/``shared``
 for MoE); RWKV layers ``layers.{ln1, mix.tm.*, mix.cm.*, ln2}``; hybrid
 layers ``layers.{ln1, mamba.*, ln2, mlp}`` with one ``shared_attn``.
+
+``train_state_from_jax(state, cfg, device)`` carries a whole training
+state of the reference's trainer across (``{"params", "opt", "eff"}``,
+numpy leaves): the parameters as above, and the optimizer's trees keyed
+like ``models.transformer.param_leaves``: the moments ``m`` and ``v`` in
+their tiers (float32, bfloat16, or int8 ``{"q", "scale"}``, a stacked
+``q`` split into its layers under the one scale), the step counter, and
+the error feedback ``eff``.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -30,7 +38,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.ops.sort import Device, _device
 
-__all__ = ["params_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "to_torch", "leaves_from_jax", "train_state_from_jax"]
 
 
 def to_torch(a: Any, device: Device = "cpu", dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -116,3 +124,53 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device: Device = 
         lm_head=dense(tree["lm_head"]) if "lm_head" in tree else None,
         shared_attn=attn_block(tree["shared_attn"]) if fam == "hybrid" else None,
     )
+
+
+def _is_q(node: Any) -> bool:
+    return isinstance(node, Mapping) and set(node) == {"q", "scale"}
+
+
+def leaves_from_jax(tree: Mapping[str, Any], device: Device = None) -> Dict[str, Any]:
+    """A parameter-shaped tree of the reference (parameters, gradients, a
+    moment tree, the error feedback; numpy leaves) keyed like
+    ``models.transformer.param_leaves``: a leaf under ``layers`` (stacked
+    over layers) becomes the tuple of its layers' tensors, and an int8
+    ``{"q", "scale"}`` leaf keeps its one scale.  Leaves keep their dtypes."""
+    dev = _device(device)
+    out: Dict[str, Any] = {}
+
+    def split(a, stacked):
+        t = to_torch(a, dev)
+        return tuple(x.clone() for x in t.unbind(0)) if stacked else t
+
+    def walk(node, path):
+        if isinstance(node, Mapping) and not _is_q(node):
+            for k in sorted(node):
+                walk(node[k], path + [k])
+            return
+        stacked = path[0] == "layers"
+        name = "/".join(path)
+        if _is_q(node):
+            out[name] = {"q": split(node["q"], stacked), "scale": to_torch(node["scale"], dev)}
+        else:
+            out[name] = split(node, stacked)
+
+    walk(tree, [])
+    return out
+
+
+def train_state_from_jax(state: Mapping[str, Any], cfg: ModelConfig,
+                         device: Device = None) -> Dict[str, Any]:
+    """The reference trainer's state (numpy leaves) as the port trainer's:
+    ``{"params": Transformer, "opt": {"m", "v", "step"}, "eff"?}``.  The
+    parameters keep their dtypes."""
+    dev = _device(device)
+    opt = state["opt"]
+    out = {
+        "params": params_from_jax(state["params"], cfg, device=dev),
+        "opt": {"m": leaves_from_jax(opt["m"], dev), "v": leaves_from_jax(opt["v"], dev),
+                "step": to_torch(opt["step"], dev, torch.int32)},
+    }
+    if "eff" in state:
+        out["eff"] = leaves_from_jax(state["eff"], dev)
+    return out

@@ -14,6 +14,7 @@ activation with a float32 weight, JAX promotes both to float32, and so does
 port runs on one card.  Parameters are made from an explicit
 ``torch.Generator`` with the reference's distributions (not its numbers:
 ``jax.random`` bits differ; ``models.convert`` copies them instead).
+``cross_entropy`` is the training loss's token term.
 """
 from __future__ import annotations
 
@@ -41,11 +42,14 @@ __all__ = [
     "init_norm",
     "frozen",
     "init_device",
+    "cross_entropy",
 ]
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter the port only reads (inference: no gradients kept)."""
+    """A parameter made with ``requires_grad=False``: serving reads it and
+    records no graph.  The trainer turns gradients on for its own model
+    (``requires_grad_(True)`` on every parameter)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -145,3 +149,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in float32: logsumexp minus the label's
+    logit.  logits (..., V), labels (...) ints."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(lse - ll)

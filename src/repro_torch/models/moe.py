@@ -19,7 +19,12 @@ SwiGLU as batched matrix products (``torch.bmm``; a plain product outside
 any kernel in the reference too), the gather back and a float32
 combine (the reference's scatter-add over tokens as a sum over each
 token's k adjacent entries: no float atomics, so two calls agree bit for
-bit on the card), plus the shared experts.  The reference's explicit
+bit on the card), plus the shared experts.  Under autograd the gradients
+flow through the scatter into the grouped buffer, the gather back, the
+k-sum, the renormalised gates and ``lb_loss`` (through the router's mean
+probabilities); ``slot``, ``kept`` and ``counts`` are integers and carry
+none.  K6 runs in every forward, and again in every recompute when the
+model rematerialises its layers for the backward.  The reference's explicit
 expert parallelism (``ComputePolicy.explicit_ep`` with a ``model`` mesh
 axis) needs several ranks and is not ported (ROADMAP.md queue 1 item 14);
 on one card the reference takes this baseline path too.
@@ -198,9 +203,11 @@ def moe_ffn(
     slot64 = slot.to(torch.int64)
 
     # scatter tokens into the grouped (E, cap) buffer (trash slot at the end)
+    # entry j is token j // top_k: the reference's xf[tok_idx] as a
+    # broadcast, whose gradient sums each token's k entries in one order
+    # (the gather's transpose accumulates rows, by float atomics on a CPU)
     buf = torch.zeros((num_experts * cap + 1, d), dtype=x.dtype, device=x.device)
-    tok_idx = torch.arange(n, device=x.device).repeat_interleave(top_k)
-    buf[slot64] = xf[tok_idx]
+    buf[slot64] = xf[:, None, :].expand(n, top_k, d).reshape(n * top_k, d)
     yg = _expert_mlp(p.experts, buf[:-1].reshape(num_experts, cap, d))
     yg = torch.cat([yg.reshape(num_experts * cap, d), yg.new_zeros((1, d))])
 

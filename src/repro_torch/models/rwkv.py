@@ -11,7 +11,8 @@ whatever the model's dtype, and the per-head group norm uses eps 64e-5, as
 in the reference.
 
 A given state dict is updated in place (``copy_`` into its tensors), the
-port's form of the reference's returned state.
+port's form of the reference's returned state; without one (training) the
+forward is stateless and differentiable.
 """
 from __future__ import annotations
 

@@ -12,7 +12,8 @@ as in the reference; a sequence that is not a multiple of ``min(chunk, S)``
 raises, as the reference does.
 
 A given state dict is updated in place (``copy_`` into its tensors, in
-their dtypes: a conv state made float32 by the caller stays float32).
+their dtypes: a conv state made float32 by the caller stays float32);
+without one (training) the forward is stateless and differentiable.
 """
 from __future__ import annotations
 
@@ -117,9 +118,13 @@ def _ssd_chunked(
 
     cum = torch.cumsum(dtc * A, dim=2)              # (b, nc, c, h), inclusive
     # within a chunk: y_i += C_i . sum_{j<=i} exp(cum_i - cum_j) dt_j B_j x_j
-    gate = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (b, nc, c, c, h)
+    # the mask goes in before the exp: above the diagonal cum_i - cum_j > 0
+    # can overflow to inf, and where(mask, inf, 0) passes 0 * inf = NaN back
+    # to the exp under autograd (the forward is the reference's exactly)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
-    gate = torch.where(causal[None, None, :, :, None], gate, 0.0)
+    gate = torch.exp(torch.where(causal[None, None, :, :, None],
+                                 cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                                 float("-inf")))  # (b, nc, c, c, h)
     cb = torch.einsum("bzin,bzjn->bzij", Cc, Bc)    # (b, nc, c, c)
     xdt = xc * dtc[..., None]                       # (b, nc, c, h, hd)
     y_intra = torch.einsum("bzijh,bzjhd->bzihd", cb[..., None] * gate, xdt)

@@ -7,7 +7,10 @@ Counterpart of ``repro.models.transformer``:
   ``init_model(gen, cfg, device=...)``          a ``Transformer`` module
   ``init_decode_cache(cfg, batch, max_seq)``    the family's cache (below)
 
-Both build on ``device``: the card by default (raising without one), the
+  ``train_loss(model, cfg, batch, lb_coef)``    (loss, metrics), differentiable
+  ``param_leaves(model)``                       the reference's parameter tree
+
+Both builders work on ``device``: the card by default (raising without one), the
 CPU when the caller asks for it.  Three block families, as in the
 reference:
 
@@ -23,19 +26,22 @@ reference:
     block (a single parameter set) with a KV cache per group, a ring of
     ``HYBRID_ATTN_WINDOW`` slots when ``max_seq`` exceeds it.
 
-The layers run as a loop over an ``nn.ModuleList``: the reference's
-``lax.scan`` over stacked layers and its remat have no counterpart here
-(inference only).  A cache is a dict of per-layer caches (``"layers"``,
+The layers run as a loop over an ``nn.ModuleList`` where the reference
+scans its stacked layers.  Its per-layer remat (``jax.checkpoint`` of the
+scan body when ``cfg.remat``) is ``torch.utils.checkpoint`` around each
+block while gradients are recorded: each attention or RWKV block, and each
+Mamba2 block of the hybrid (its shared attention is not rematerialised, as
+in the reference).  A cache is a dict of per-layer caches (``"layers"``,
 and ``"attn"`` per group for the hybrid), each updated in place.
-``train_loss`` raises ``NotImplementedError``: training waits for
-ROADMAP.md queue 1 item 13.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -43,13 +49,14 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    Dense, GeluMLP, RMSNorm, SwiGLU, dense, frozen, gelu_mlp, init_dense, init_device,
-    init_norm, linear, rms_norm, swiglu,
+    Dense, GeluMLP, RMSNorm, SwiGLU, cross_entropy, dense, frozen, gelu_mlp, init_dense,
+    init_device, init_norm, linear, rms_norm, swiglu,
 )
 from repro_torch.ops.sort import Device, _device
 
 __all__ = ["Block", "RwkvBlock", "MambaBlock", "Transformer", "init_model", "forward",
-           "train_loss", "init_decode_cache", "reset_decode_cache", "HYBRID_ATTN_WINDOW"]
+           "train_loss", "param_leaves", "init_decode_cache", "reset_decode_cache",
+           "HYBRID_ATTN_WINDOW"]
 
 Cache = Dict[str, List[Dict[str, Any]]]
 
@@ -268,6 +275,16 @@ def _sum_aux(total, a):
 # forward
 # --------------------------------------------------------------------------
 
+def _maybe_remat(f, cfg: ModelConfig, cache):
+    """``f`` rematerialised for the backward (its activations dropped after
+    the forward and recomputed) when the config asks for it and a graph is
+    being recorded: the reference's ``jax.checkpoint`` of a layer."""
+    if not (cfg.remat and cache is None and torch.is_grad_enabled()):
+        return f
+    # the forward draws no random numbers: no RNG state to stash
+    return lambda *args: checkpoint(f, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def forward(
     model: Transformer,
     cfg: ModelConfig,
@@ -283,21 +300,27 @@ def forward(
         b, s = x.shape[:2]
     else:
         b, s = inputs.shape
-        x = model.embed[inputs.to(torch.int64)]
+        # F.embedding, not embed[inputs]: the index's backward adds rows by
+        # float atomics on a CPU (float32, many threads); the embedding's
+        # backward adds them in one order on the CPU and on the card
+        x = F.embedding(inputs.to(torch.int64), model.embed)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     fam = _block_family(cfg)
     caches = cache["layers"] if cache is not None else [None] * len(model.layers)
     aux = None
     if fam == "attn":
+        block = _maybe_remat(_attn_block, cfg, cache)
         for blk, c in zip(model.layers, caches):
-            x, a = _attn_block(blk, cfg, x, positions, c)
+            x, a = block(blk, cfg, x, positions, c)
             if a is not None:
                 aux = _sum_aux(aux, a)
     elif fam == "rwkv":
+        block = _maybe_remat(_rwkv_block, cfg, cache)
         for blk, st in zip(model.layers, caches):
-            x = _rwkv_block(blk, cfg, x, st)
+            x = block(blk, cfg, x, st)
     else:
+        block = _maybe_remat(_mamba_block, cfg, cache)
         g = cfg.ssm.attn_every
         window = 0
         if cache is not None:
@@ -306,7 +329,7 @@ def forward(
             window = HYBRID_ATTN_WINDOW if slots == HYBRID_ATTN_WINDOW else 0
         for grp in range(len(model.layers) // g):
             for i in range(grp * g, (grp + 1) * g):
-                x = _mamba_block(model.layers[i], cfg, x, caches[i])
+                x = block(model.layers[i], cfg, x, caches[i])
             ac = cache["attn"][grp] if cache is not None else None
             x, _ = _attn_block(model.shared_attn, cfg, x, positions, ac, window=window)
     x = rms_norm(model.final_norm, x, cfg.norm_eps)
@@ -317,7 +340,35 @@ def forward(
     return logits, cache, aux
 
 
-def train_loss(model: Transformer, cfg: ModelConfig, batch, lb_coef: float = 0.01):
-    raise NotImplementedError(
-        "training is not ported yet (ROADMAP.md queue 1 item 13)"
-    )
+def train_loss(model: Transformer, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+               lb_coef: float = 0.01):
+    """batch: {"inputs": (B,S) int | (B,S,D), "labels": (B,S) int}.  Returns
+    (loss, metrics): the token cross-entropy ``ce``, plus ``lb_coef`` times
+    the MoE's load-balance loss averaged over layers (``lb_loss``, with
+    ``dropped`` as float32), and ``loss``."""
+    logits, _, aux = forward(model, cfg, batch["inputs"])
+    loss = cross_entropy(logits, batch["labels"])
+    metrics = {"ce": loss}
+    if aux is not None:
+        loss = loss + lb_coef * aux["lb_loss"] / cfg.num_layers
+        metrics["lb_loss"] = aux["lb_loss"] / cfg.num_layers
+        metrics["dropped"] = aux["dropped"].to(torch.float32)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def param_leaves(model: Transformer) -> Dict[str, Any]:
+    """The reference's parameter tree over the port's tensors: a dict from
+    the reference's leaf path ("layers/attn/wq/w", "embed", ...) to the
+    parameter, in the reference's leaf order (its dict keys sorted at each
+    level).  A leaf the reference stacks over layers is the tuple of the
+    layers' parameters, so that the optimizer sees the reference's leaves
+    (one int8 scale per stacked leaf; decay by the stacked ndim)."""
+    leaves: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            leaves.setdefault("/".join(["layers"] + parts[2:]), []).append(p)
+        else:
+            leaves["/".join(parts)] = p
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in sorted(leaves.items())}

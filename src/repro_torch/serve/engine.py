@@ -68,9 +68,12 @@ class Engine:
         scaled = logits.to(torch.float32) / self.scfg.temperature
         return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
 
+    @torch.no_grad()
     def generate(self, prompts, max_new: int, seed: int = 0) -> torch.Tensor:
         """prompts: (B, P) int tokens.  Returns (B, max_new) int32 tokens:
-        the prefill's sample, then one per decode step at pos = P + i."""
+        the prefill's sample, then one per decode step at pos = P + i.  Runs
+        under ``torch.no_grad()``: a model whose gradients a trainer turned
+        on serves without recording a graph."""
         prompts = torch.as_tensor(prompts, device=self.device)
         b, plen = prompts.shape
         if b != self.scfg.batch_size:

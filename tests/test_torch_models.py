@@ -361,9 +361,24 @@ def test_decode_matches_full_forward():
                 close(got[:, 0], full[:, i].numpy(), 1e-4)
 
 
-def test_train_loss_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.train_loss(None, get_reduced("yi-9b"), {})
+@pytest.mark.parametrize("arch,dtype,tol", CASES)
+def test_train_loss_matches_reference(arch, dtype, tol):
+    """The training loss and its metrics against the reference's
+    ``train_loss`` (gradients: ``tests/test_torch_train.py``); float32 to
+    1e-6 relative, bfloat16 to 1e-2 (its logits within ``tol``)."""
+    from repro.models.transformer import train_loss as ref_train_loss
+
+    ref_cfg, cfg, params, model = _models(arch, dtype)
+    x = _inputs(cfg, 13)
+    labels = np.random.default_rng(14).integers(0, cfg.vocab_size, x.shape[:2]).astype(np.int32)
+    want, want_m = ref_train_loss(params, ref_cfg, {"inputs": jnp.asarray(x),
+                                                    "labels": jnp.asarray(labels)})
+    got, metrics = transformer.train_loss(model, cfg, {"inputs": torch.as_tensor(x),
+                                                       "labels": torch.as_tensor(labels)})
+    assert sorted(metrics) == sorted(want_m) == ["ce", "loss"]
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), float(want),
+                               rtol=1e-6 if dtype == jnp.float32 else 1e-2)
 
 
 # --------------------------------------------------------------------------

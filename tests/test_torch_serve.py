@@ -130,3 +130,23 @@ def test_engine_checks(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, ServeConfig(max_seq=32, batch_size=2), model)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "deepseek-moe-16b", "rwkv6-1.6b", "zamba2-2.7b"])
+def test_trainable_model_serves_without_a_graph(arch):
+    """A model whose gradients a trainer turned on gives the tokens it gave
+    frozen, and ``generate`` records no graph: no output or cache tensor
+    requires grad or hangs on a backward node."""
+    cfg = get_reduced(arch)
+    model = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    scfg = ServeConfig(max_seq=32, batch_size=2)
+    prompts = _prompts(cfg, 2, 8, seed=5)
+    want = Engine(cfg, scfg, model, device="cpu").generate(prompts, 6)
+    model.requires_grad_(True)
+    engine = Engine(cfg, scfg, model, device="cpu")
+    got = engine.generate(prompts, 6)
+    assert torch.equal(got, want)
+    assert not got.requires_grad
+    cached = [t for group in engine.cache.values() for c in group for t in c.values()
+              if isinstance(t, torch.Tensor)]
+    assert cached and all(not t.requires_grad and t.grad_fn is None for t in cached)

@@ -3,7 +3,8 @@ NaN, signed zeros, infinities, empty, one key, all-equal, one window and n
 not a multiple of W against ``repro.ops`` (exact equality, with a payload);
 ``core.ref`` against ``repro.core.ref``; the port's own copy of the input
 generators; what the entry points refuse; and no ``jax`` or ``repro``
-import anywhere in the package or in ``chip_smoke.py``.
+import anywhere in the package, in ``chip_smoke.py`` or in the port's
+examples (``examples/torch_*.py``).
 """
 import ast
 import dataclasses
@@ -120,6 +121,7 @@ def test_port_imports_no_jax_or_reference():
         "import repro_torch.stream\n"
         "import repro_torch.configs, repro_torch.serve, repro_torch.models.convert\n"
         "import repro_torch.kernels.flash_decode, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.optim, repro_torch.train, repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -137,7 +139,8 @@ def _imported_modules(path):
 
 
 def test_no_jax_or_reference_import_in_port_sources():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py")))
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):
