@@ -191,7 +191,16 @@ observability layer and the distributed sort:
    CPU's, two ``make_train_step`` steps with and without
    ``compress_grads`` against the CPU's, two ``Trainer`` runs from one seed
    bitwise equal, and a restart (3 steps, a checkpoint, a restore in a
-   fresh ``Trainer``, 3 more) bitwise equal to 6 straight steps;
+   fresh ``Trainer``, 3 more) bitwise equal to 6 straight steps.  Last, the
+   launch tooling (``launch_phases``): ``path ep`` (one deepseek-moe-16b
+   MoE layer at published width, float32, 8 x 1024 tokens, expert parallel
+   on a (1, 1) NCCL mesh bit for bit the baseline's, then on four gloo
+   ranks sharing the card within 2e-5 + 2e-5, one K6 launch a rank with
+   ``dest`` equal to the plain one), ``path train sharded`` (the reduced
+   models' steps over the (1, 1) mesh bit for bit those without; the
+   full-width training case over it with ``explicit_ep``) and ``path
+   dryrun`` (the dry run of eight cells in a child process, no row an
+   error, and ``launch.report``'s table);
 4. timing with CUDA events (median of several runs after warm-up): each
    kernel beside its plain twin, its bound and, where one exists, one
    torch call that computes the same function, and each kernel's own
@@ -237,7 +246,11 @@ observability layer and the distributed sort:
    and, for the paths above, ``ops.sort`` of 2^24 with obs disabled and
    enabled, ``dist.sort`` at world size 1 beside ``ops.sort`` (median of 5
    by CUDA events), and the four ``gloo`` ranks' host times of their sorts
-   (gloo's host copies, not the exchange's cost);
+   (gloo's host copies, not the exchange's cost); the full-width training
+   step over the (1, 1) mesh with ``explicit_ep`` beside the unsharded one
+   (medians of 3 steps, peak memory, DTensor's host cost a step) and ``time
+   roofline``: the dry run's modelled row of that step (t_compute,
+   t_memory, model_flops) beside the measured step;
 5. a ``{"kernels": [...]}`` JSON line (22 entries: the four 64-bit forms
    are rows of their own, ``level_fused64``, ``level_fused_radix64``,
    ``level_fused_batched64`` and ``sort_windows64``), then the last line
@@ -262,6 +275,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import queue
 import shutil
 import statistics
@@ -273,12 +287,28 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
+
+
+def _card_table() -> dict:
+    """The card's rated figures from the port's one table
+    (``repro_torch.launch.roofline.HW``), so that the kernels' bounds and
+    the dry run's roofline cannot drift apart; empty where the port is not
+    beside this script (``main`` then refuses to run)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.launch.roofline import HW
+    except ImportError:
+        return {}
+    return HW
+
+
 # H100 SXM data-sheet peaks (dense, at the 700 W limit).  The kernels do
 # 32-bit integer work outside the tensor cores; the data sheet gives no
 # integer rate there, so the bound takes its 32-bit float rate, which no
 # integer instruction mix exceeds: the bound stays a least time.
-HBM_BYTES_PER_S = 3.35e12
-OPS_32BIT_PER_S = 67e12
+HW = _card_table()
+HBM_BYTES_PER_S = HW.get("hbm_bw")
+OPS_32BIT_PER_S = HW.get("fp32_flops")
 
 N_BIG = 1 << 24
 N_SMALL = 1 << 17
@@ -315,8 +345,8 @@ BLOCK16 = 4096  # K8 also at blocks of 16 KB (a CTA team of 4 warps)
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 8, 1024, 32, 4096
 DECODE_LENGTHS = (1, 1, 17, 1024, 1025, 2048, 4095, 4096)  # K10's ragged check
 ATTN_S = 4096  # K11's check and timing: (1, 32, 4096, 128)
-BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
-TF32_FLOPS_PER_S = 494.7e12  # dense tf32 on the tensor cores
+BF16_FLOPS_PER_S = HW.get("peak_flops")  # dense bf16 on the tensor cores
+TF32_FLOPS_PER_S = HW.get("tf32_flops")  # dense tf32 on the tensor cores
 # |got - want| <= atol + rtol * |want| for the attention kernels against
 # their twins: f32 is the same math in another summation order; bf16 is the
 # output's rounding, one step of 2^-8 relative, above an absolute floor of
@@ -359,6 +389,30 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 8
 TRAIN_REDUCED = ("deepseek-moe-16b", "yi-9b")
 TRAIN_TOL = 1e-4
 TRAIN_REDUCED_SEQ = 64
+# the launch tooling (launch_phases): one deepseek-moe-16b MoE layer at
+# published width (64 routed experts, top-6, d 2048, d_ff_expert 1408, two
+# shared experts), float32, over 8 x 1024 tokens, expert parallel on a (1, 1)
+# NCCL mesh and on four gloo ranks on the card (a (1, 4) mesh, 16 experts a
+# rank), its output and expert gradients held to the baseline within EP_TOL
+# (atol, rtol: the reference's own bound for its column), the router's and
+# the shared experts' gradients (sums over every token, added in another
+# order) within EP_TOL's rtol of each leaf's largest, and its dropped entries
+# and counts exactly
+EP_WORLD, EP_TOKENS, EP_DEVICE = 4, (8, 1024), "cuda"
+EP_TOL = (2e-5, 2e-5)
+SHARDED_STEPS = 3  # steps of the full-width case timed over the (1, 1) mesh
+# the dry-run cells the smoke traces (the whole table of 40 takes minutes of
+# the host's time: ``python -m repro_torch.launch.dryrun --all``): every family
+# and every shape kind once, the skip of a full-attention long_500k cell,
+# rwkv6's decode on the two-pod mesh and deepseek-moe-16b's train step with
+# and without expert parallelism
+DRYRUN_CELLS = (
+    ("yi-9b", "prefill_32k", ()), ("internvl2-76b", "prefill_32k", ()),
+    ("musicgen-medium", "decode_32k", ()), ("zamba2-2.7b", "long_500k", ()),
+    ("llama3-405b", "long_500k", ()), ("rwkv6-1.6b", "decode_32k", ("--multi-pod",)),
+    ("deepseek-moe-16b", "train_4k", ()),
+    ("deepseek-moe-16b", "train_4k", ("--explicit-ep", "--tag", "ep")),
+)
 
 
 def fail(msg: str) -> None:
@@ -405,11 +459,20 @@ def device_us(e) -> float:
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
 
+# cycles of torch.cuda._sleep's ``spin_kernel``, the sentinel launched at each
+# end of a profiled window (tens of us)
+SENTINEL_CYCLES = 100_000
+
+
 def device_events(torch, fn, reps: int):
     """The device-side events (kernels, copies, memsets) of ``reps`` calls of
     ``fn``, by torch.profiler.  The calls are profiled twice, a warm-up
     window and an active one, and only the active window counts: the first
-    launches of a window can go missing from the trace."""
+    launches of a window can go missing from the trace (the trace has kept
+    9 of 10 launches in every try on some machines).  So each window waits
+    2 ms on the host and opens and closes with a sentinel launch,
+    ``torch.cuda._sleep``'s ``spin_kernel``, left out of the events: a
+    launch lost at either end of the window is a sentinel."""
     from torch.profiler import ProfilerActivity, profile as torch_profile, schedule
 
     active = []
@@ -419,12 +482,16 @@ def device_events(torch, fn, reps: int):
                        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                        on_trace_ready=lambda p: active.extend(p.key_averages())) as prof:
         for _ in range(2):
+            time.sleep(0.002)
+            torch.cuda._sleep(SENTINEL_CYCLES)
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(SENTINEL_CYCLES)
             torch.cuda.synchronize()
             prof.step()
     return [e for e in active if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]  # the step's own span
+            and not e.key.startswith("ProfilerStep")  # the step's own span
+            and "spin_kernel" not in e.key]
 
 
 def one_kernel_a_call(torch, name, fn, counted, reps: int = 10, tries: int = 5):
@@ -1642,6 +1709,412 @@ def train_phases(torch, dev, rows) -> None:
         del cpu_model
     torch.cuda.empty_cache()
     print(f"train: {time.time() - t_train:.1f} s for the training checks, times and profile",
+          flush=True)
+
+
+def _ep_layer(torch, dev):
+    """deepseek-moe-16b's MoE layer at published width in float32 and its
+    8 x 1024 tokens, from seed 0 on ``dev`` (every rank makes the same)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe
+
+    cfg = get_config(TRAIN_ARCH)
+    m = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = init_moe(gen, cfg.d_model, num_experts=m.num_experts, d_ff_expert=m.d_ff_expert,
+                 top_k=m.top_k, num_shared=m.num_shared, d_ff_shared=m.d_ff_shared,
+                 dtype=torch.float32, device=dev)
+    x = torch.randn((*EP_TOKENS, cfg.d_model), generator=gen, device=dev)
+    return p, x, m
+
+
+def _ep_place(torch, p, x, mesh):
+    """The layer's parameters as DTensors over ``mesh`` (the experts' E over
+    ``model``, the rest replicated) and the tokens replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tp = mesh.size(1)
+    j = mesh.get_local_rank(1)
+    for name, t in list(p.named_parameters()):
+        *owner, attr = name.split(".")
+        if ".experts." in f".{name}.":
+            dt = DTensor.from_local(t.detach().chunk(tp)[j].contiguous(), mesh,
+                                    [Replicate(), Shard(0)])
+        else:
+            dt = DTensor.from_local(t.detach(), mesh, [Replicate(), Replicate()])
+        setattr(p.get_submodule(".".join(owner)), attr, torch.nn.Parameter(dt))
+    return DTensor.from_local(x, mesh, [Replicate(), Replicate()])
+
+
+def _ep_run(torch, p, x, m, mesh=None):
+    """One forward of ``moe_ffn`` and the backward of sum(y^2): (y, aux, the
+    dispatches K6 made as (ids, nb, tile, dest, offsets)); expert parallel
+    over ``mesh`` when one is given."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import ambient_mesh
+    from repro_torch.models.policy import compute_policy
+
+    seen = []
+    plain = moe_mod._stable_dest
+
+    def recording(ids, nb, tile):
+        dest, off = plain(ids, nb, tile)
+        seen.append((ids.clone(), nb, tile, dest.clone(), off.clone()))
+        return dest, off
+
+    for t in p.parameters():
+        t.requires_grad_(True)
+        t.grad = None
+    moe_mod._stable_dest = recording
+    try:
+        with contextlib.ExitStack() as ctx:
+            if mesh is not None:
+                ctx.enter_context(ambient_mesh(mesh))
+                ctx.enter_context(implicit_replication())
+                ctx.enter_context(compute_policy(explicit_ep=True))
+            y, aux = moe_mod.moe_ffn(p, x, num_experts=m.num_experts, top_k=m.top_k,
+                                     capacity_factor=m.capacity_factor)
+            (y * y).sum().backward()
+    finally:
+        moe_mod._stable_dest = plain
+    return y, aux, seen
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _ep_rank(rank: int, tmp: str, q) -> None:
+    """One of the four gloo ranks of ``path ep``: the baseline on this rank,
+    then the expert-parallel column on the (1, 4) mesh; returns the
+    differences and the checks, not the tensors."""
+    try:
+        import torch
+        import torch.distributed as tdist
+        from torch.distributed.device_mesh import init_device_mesh
+
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch import kernels
+        from repro_torch.models import moe as moe_mod
+
+        tdist.init_process_group("gloo", init_method=f"file://{tmp}/ep_rdv", rank=rank,
+                                 world_size=EP_WORLD)
+        dev = torch.device(EP_DEVICE, 0)
+        mesh = init_device_mesh(EP_DEVICE, (1, EP_WORLD), mesh_dim_names=("data", "model"))
+        p, x, m = _ep_layer(torch, dev)
+        y0, aux0, seen0 = _ep_run(torch, p, x, m)
+        g0 = {k: t.grad.detach().clone() for k, t in p.named_parameters()}
+        base_counts = (seen0[0][4][:, 1:] - seen0[0][4][:, :-1])[0]
+        e_loc = m.num_experts // EP_WORLD
+        xd = _ep_place(torch, p, x, mesh)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        y1, aux1, seen1 = _ep_run(torch, p, xd, m, mesh)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["dispatch_ranks"]
+        atol, rtol = EP_TOL
+
+        def excess(got, want):  # > 0 where |got - want| > atol + rtol |want|
+            return float(((got - want).abs() - atol - rtol * want.abs()).max())
+
+        res = {"y": excess(_whole(y1).detach(), y0.detach()),
+               "y_max_diff": float((_whole(y1).detach() - y0.detach()).abs().max()),
+               "dropped": (int(_whole(aux1["dropped"])), int(aux0["dropped"])),
+               "max_load": (int(_whole(aux1["max_load"])), int(aux0["max_load"])),
+               "launches": launches, "dispatches": len(seen1)}
+        for k, t in p.named_parameters():
+            if ".experts." in f".{k}.":  # this rank's experts: the reference's own bound
+                res["grad " + k] = excess(t.grad.to_local(), g0[k].chunk(EP_WORLD)[rank])
+            else:  # sums over every token, added in another order: to the leaf's largest
+                got, want = _whole(t.grad), g0[k]
+                res["leaf " + k] = float((got - want).abs().max() / want.abs().max())
+        ids, nb, tile, dest, off = seen1[0]
+        want_dest, want_off = moe_mod._stable_dest(ids.cpu(), nb, tile)
+        res["dest_equal"] = torch.equal(dest.cpu(), want_dest) and torch.equal(off.cpu(),
+                                                                               want_off)
+        counts = (off[:, 1:] - off[:, :-1])[0][:e_loc]
+        res["counts_equal"] = torch.equal(counts.cpu(),
+                                          base_counts[rank * e_loc:(rank + 1) * e_loc].cpu())
+        q.put((rank, res))
+        tdist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        q.put((rank, {"__error__": traceback.format_exc()}))
+
+
+_DRYRUN_CHILD = r"""
+import dataclasses, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+out_dir, cells, arch, layers, seq, batch, micro = sys.argv[2:9]
+from repro_torch.launch import dryrun, report
+t0 = time.time()
+rcs = [dryrun.main(["--arch", a, "--shape", s, "--out", out_dir] + list(extra))
+       for a, s, extra in json.loads(cells)]
+t_cells = time.time() - t0
+print("TABLE")
+print(report.table(report.load(out_dir)))
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.configs.registry import Shape
+from repro_torch.launch.mesh import fake_group
+from repro_torch.launch.roofline import model_flops, roofline_terms
+from repro_torch.launch.shardings import ShardingStrategy
+from repro_torch.train.trainer import TrainConfig
+cfg = dataclasses.replace(get_config(arch), num_layers=int(layers))
+shape = Shape("smoke_train", int(seq), int(batch), "train")
+strat, tcfg = ShardingStrategy(), TrainConfig(microbatch=int(micro))
+t0 = time.time()
+with fake_group(1):
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    cost, raw, peak, trips = dryrun.trace_cost("train", cfg, shape, mesh, strat, tcfg, "cuda",
+                                               steps=int(batch) // int(micro))
+    args = dryrun.argument_bytes(cfg, shape, mesh, strat, tcfg)
+cost.bytes_min += args
+rep = roofline_terms(arch=arch, shape=shape.name, mesh_name="1x1", chips=1, cost=cost,
+                     model_fl=model_flops(cfg, shape), axis_bw={}, peak_mem=args + peak,
+                     note=f"trips {json.dumps(trips)}", raw=raw)
+print("ROOFLINE " + rep.to_json())
+print("RESULT " + json.dumps({"rcs": rcs, "t_cells": t_cells, "t_step_trace": time.time() - t0}))
+"""
+
+
+def launch_phases(torch, dev, rows) -> None:
+    """Phases 3 and 4 of the launch tooling (last, after the distributed
+    sort).  ``path ep deepseek-moe-16b``: the expert-parallel MoE column
+    (``compute_policy(explicit_ep=True)`` under a ``DeviceMesh``) on one MoE
+    layer at published width in float32 over 8 x 1024 tokens: on a (1, 1)
+    NCCL mesh its output, ``dropped`` and counts bit for bit the baseline
+    ``moe_ffn``'s; on four gloo ranks on the card (a (1, 4) mesh, 16 experts
+    a rank) its output and expert gradients within EP_TOL of the
+    baseline's, the router's and shared experts' gradients within EP_TOL's
+    rtol of each leaf's largest, ``dropped``, ``max_load`` and counts exact,
+    K6 launched once a rank a
+    call with ``dest`` bit for bit the plain one.  ``path train sharded``:
+    ``make_train_step`` over the (1, 1) NCCL mesh (DTensor parameters and
+    moments) for reduced deepseek-moe-16b and yi-9b in float32, two steps
+    bit for bit those without a mesh; then the full-width training case
+    (4 of deepseek-moe-16b's 28 layers, 4 x 4096 tokens in microbatches of
+    2) through ``Trainer`` over that mesh with ``explicit_ep``, its step
+    time and peak memory beside the unsharded step's in this run.  ``path
+    dryrun`` (a child process from the start, on the host's CPU: the fake
+    process group is global to its process): ``launch.dryrun`` on
+    DRYRUN_CELLS, no row an error, and ``launch.report``'s table.  ``time roofline``: the counter's modelled
+    row of the full-width one-card step beside the measured step."""
+    import copy
+    import dataclasses
+    import itertools
+    import math
+
+    import torch.distributed as tdist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.registry import Shape
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.launch.shardings import distribute_model
+    from repro_torch.models.policy import compute_policy
+    from repro_torch.models.transformer import init_model, param_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig, Trainer, make_train_step
+
+    t_launch = time.time()
+    f32 = torch.float32
+    verdict = _verdict
+
+    def drive(path, needed, fn):
+        res, launches, _ = _drive(torch, rows, path, needed, fn)
+        return res, launches
+
+    def parts(leaves):
+        return [t for v in leaves.values() for t in (v if isinstance(v, tuple) else (v,))]
+
+    # path dryrun runs on the host's CPU in a child from the start (the fake
+    # group is global to its process); its result is read at the end
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    logs = tempfile.mkdtemp(prefix="chip_smoke_dryrun_logs_")
+    # files, not pipes: a full pipe would stall the child until it is read
+    child_out = open(os.path.join(logs, "out"), "w+")
+    child_err = open(os.path.join(logs, "err"), "w+")
+    child = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CHILD, str(ROOT / "src"), out_dir,
+         json.dumps(DRYRUN_CELLS), TRAIN_ARCH, str(TRAIN_LAYERS), str(TRAIN_SEQ),
+         str(TRAIN_BATCH), str(TRAIN_MICRO)], stdout=child_out, stderr=child_err, text=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    tdist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+    # ---- path ep on the (1, 1) mesh ---------------------------------------------
+    p, x, m = _ep_layer(torch, dev)
+    y0, aux0, seen0 = _ep_run(torch, p, x, m)
+    g0 = {k: t.grad.detach().clone() for k, t in p.named_parameters()}
+    path = (f"ep {TRAIN_ARCH} (1, 1) NCCL mesh: one MoE layer at published width, float32, "
+            f"{EP_TOKENS[0]} x {EP_TOKENS[1]} tokens")
+    xd = _ep_place(torch, p, x, mesh)
+    (y1, aux1, seen1), launches = drive(path, ["dispatch_ranks"],
+                                        lambda: _ep_run(torch, p, xd, m, mesh))
+    counts0 = (seen0[0][4][:, 1:] - seen0[0][4][:, :-1])[0]
+    counts1 = (seen1[0][4][:, 1:] - seen1[0][4][:, :-1])[0][:m.num_experts]
+    verdict(path, f"output bit for bit the baseline moe_ffn's, dropped "
+            f"{int(_whole(aux1['dropped']))} == {int(aux0['dropped'])}, counts equal, one K6 launch "
+            f"({launches['dispatch_ranks']})",
+            torch.equal(_whole(y1).detach(), y0.detach())
+            and int(_whole(aux1["dropped"])) == int(aux0["dropped"])
+            and torch.equal(counts1, counts0) and launches["dispatch_ranks"] == 1)
+    gdiff = max(float((_whole(t.grad) - g0[k]).abs().max()) for k, t in p.named_parameters())
+    print(f"path {path}: gradients max |diff| against the baseline's {gdiff:.3e}", flush=True)
+    del p, x, xd, y0, y1, g0, seen0, seen1
+    torch.cuda.empty_cache()
+
+    # ---- path train sharded: reduced models bit for bit ---------------------------
+    for arch in TRAIN_REDUCED:
+        rcfg = get_reduced(arch)
+        needed = ["dispatch_ranks"] if rcfg.family == "moe" else []
+        path = f"train sharded reduced {arch} (float32, (1, 1) NCCL mesh)"
+        data = SyntheticLM(rcfg.vocab_size, TRAIN_REDUCED_SEQ, TRAIN_BATCH, seed=3)
+        tc = TrainConfig(microbatch=2, warmup_steps=1, total_steps=6,
+                         adamw=AdamWConfig(lr=1e-3))
+        base = init_model(torch.Generator(device=dev).manual_seed(5), rcfg, dtype=f32,
+                          device=dev)
+
+        def two_steps(over):
+            mdl = copy.deepcopy(base)
+            if over is None:
+                step = make_train_step(rcfg, tc, device=dev)
+            else:
+                step, _, _ = make_train_step(rcfg, tc, over)
+                distribute_model(mdl, rcfg, over)
+            mdl.requires_grad_(True)
+            st = {"params": mdl, "opt": adamw_init(param_leaves(mdl), tc.adamw)}
+            out = []
+            for i in range(2):
+                st, mt = step(st, data.batch(i))
+                out.append({k: float(_whole(v)) for k, v in mt.items()})
+            return out, [_whole(t).detach().clone() for t in parts(param_leaves(mdl))]
+
+        (got_m, got_p), _ = drive(path, needed, lambda: two_steps(mesh))
+        want_m, want_p = two_steps(None)
+        verdict(path, f"two make_train_step steps over the mesh bit for bit those without "
+                f"(losses {[m_['loss'] for m_ in got_m]})",
+                got_m == want_m and all(torch.equal(a, b) for a, b in zip(got_p, want_p)))
+        del base, got_p, want_p
+    torch.cuda.empty_cache()
+
+    # ---- path train sharded: the full-width case, and its times -----------------
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(microbatch=TRAIN_MICRO)
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0)
+
+    def timed(trainer):
+        run = lambda n: trainer.run(itertools.repeat(batch), n, ckpt_every=10 ** 9,  # noqa: E731
+                                    log_every=10 ** 9, log=lambda *_: None)
+        first_loss = run(1)["loss"]
+        torch.cuda.reset_peak_memory_stats()
+        k = len(trainer.step_times)
+        run(SHARDED_STEPS)
+        return (first_loss, 1e3 * statistics.median(trainer.step_times[k:]),
+                torch.cuda.max_memory_allocated())
+
+    trainer = Trainer(cfg, tcfg, seed=0, device=dev)
+    trainer.init_state()
+    loss0, ms0, peak0 = timed(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    path = (f"train sharded {TRAIN_ARCH} ({TRAIN_LAYERS} layers, bf16, {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} tokens in microbatches of {TRAIN_MICRO}, (1, 1) NCCL mesh, explicit_ep)")
+    with compute_policy(explicit_ep=True):
+        trainer = Trainer(cfg, tcfg, mesh=mesh, seed=0)
+        trainer.init_state()
+        (loss1, ms1, peak1), launches = drive(path, ["dispatch_ranks"], lambda: timed(trainer))
+    per_step = TRAIN_LAYERS * (TRAIN_BATCH // TRAIN_MICRO) * 2
+    verdict(path, f"first loss {loss1:.6f} finite and equal to the unsharded step's "
+            f"{loss0:.6f}", math.isfinite(loss1) and abs(loss1 - loss0) <= 1e-6 * abs(loss0))
+    verdict(path, f"K6 dispatch_ranks launched {launches['dispatch_ranks']} times = {per_step} "
+            f"a step x {SHARDED_STEPS + 1} steps",
+            launches["dispatch_ranks"] == per_step * (SHARDED_STEPS + 1))
+    print(f"time train sharded {TRAIN_ARCH}: step {ms1:.3f} ms over the (1, 1) mesh with "
+          f"explicit_ep, {ms0:.3f} ms unsharded (medians of {SHARDED_STEPS} steps after one, "
+          f"host clock); their difference {ms1 - ms0:.3f} ms a step (not profiled); peak "
+          f"memory {peak1} B "
+          f"sharded, {peak0} B unsharded", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    tdist.destroy_process_group()
+
+    # ---- path ep on four gloo ranks ------------------------------------------------
+    t0 = time.time()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_ep_rank, args=(r, tmp, q)) for r in range(EP_WORLD)]
+    for pr in procs:
+        pr.start()
+    got = {}
+    try:
+        for _ in procs:
+            r, res = q.get(timeout=600)
+            if "__error__" in res:
+                fail(f"path ep rank {r}:\n{res['__error__']}")
+            got[r] = res
+    except queue.Empty:
+        fail("path ep: the ranks gave no result within 600 s")
+    finally:
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.is_alive():
+                pr.kill()
+    path = (f"ep {TRAIN_ARCH} four gloo ranks on the card ((1, {EP_WORLD}) mesh, "
+            f"{64 // EP_WORLD} experts a rank)")
+    print(f"path {path}: {time.time() - t0:.1f} s; rank 0 {got[0]}", flush=True)
+    rows["dispatch_ranks"]["launches"] += sum(g["launches"] for g in got.values())
+    excess = max(v for g in got.values() for k, v in g.items()
+                 if k == "y" or k.startswith("grad "))
+    verdict(path, f"output and expert gradients within {EP_TOL[0]} + {EP_TOL[1]} |baseline| "
+            f"(largest excess {excess:.3e}; output max |diff| "
+            f"{max(g['y_max_diff'] for g in got.values()):.3e})", excess <= 0)
+    leaf = max(v for g in got.values() for k, v in g.items() if k.startswith("leaf "))
+    verdict(path, f"router and shared-expert gradients within {EP_TOL[1]} of each leaf's "
+            f"largest ({leaf:.3e}; each a sum over every token, added in another order)",
+            leaf <= EP_TOL[1])
+    verdict(path, "dropped and max_load equal to the baseline's, counts exact",
+            all(g["dropped"][0] == g["dropped"][1] and g["max_load"][0] == g["max_load"][1]
+                and g["counts_equal"] for g in got.values()))
+    verdict(path, "K6 launched once a rank a call, dest bit for bit the plain one",
+            all(g["launches"] == 1 and g["dispatches"] == 1 and g["dest_equal"]
+                for g in got.values()))
+
+    child.wait(timeout=900)
+    out, err = (open(f.name).read() for f in (child_out, child_err))
+    child_out.close()
+    child_err.close()
+    if child.returncode != 0:
+        fail(f"path dryrun: the child exited {child.returncode}:\n{err[-4000:]}")
+    res = json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:])
+    roof = json.loads([ln for ln in out.splitlines() if ln.startswith("ROOFLINE ")][-1][9:])
+    table = out.split("TABLE\n", 1)[1].split("ROOFLINE ", 1)[0].rstrip()
+    print(table, flush=True)
+    statuses = [json.load(open(os.path.join(out_dir, f)))["status"]
+                for f in sorted(os.listdir(out_dir))]
+    print(f"path dryrun: {len(statuses)} rows in {res['t_cells']:.1f} s of the host's time",
+          flush=True)
+    verdict("dryrun", f"no row an error ({statuses}), every run exited 0 ({res['rcs']})",
+            "error" not in statuses and all(rc == 0 for rc in res["rcs"])
+            and len(statuses) == len(DRYRUN_CELLS))
+    shape = Shape("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mf = model_flops(cfg, shape)
+    for label, ms in (("this run's unsharded step", ms0),):
+        print(f"time roofline {TRAIN_ARCH} ({TRAIN_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ}): "
+              f"{label} {ms:.3f} ms; model_flops {mf:.6e} -> model_flops / (step s x peak) "
+              f"{mf / (ms / 1e3 * HW['peak_flops']):.6f}; modelled t_compute "
+              f"{1e3 * roof['t_compute']:.3f} ms, t_memory {1e3 * roof['t_memory']:.3f} ms, "
+              f"t_memory_min {1e3 * roof['t_memory_min']:.3f} ms (counted flops "
+              f"{roof['flops_per_dev']:.6e}, bytes {roof['bytes_per_dev']:.6e}, useful "
+              f"{roof['useful_ratio']:.4f}); measured / max(modelled) "
+              f"{ms / 1e3 / max(roof['t_compute'], roof['t_memory_min']):.3f}", flush=True)
+    print(f"launch: {time.time() - t_launch:.1f} s for the launch tooling's checks and times",
           flush=True)
 
 
@@ -4133,6 +4606,8 @@ def main() -> None:
     # last: its process groups (NCCL here, gloo in four spawned ranks) come
     # after every profile of a kernel's launches above
     dist_phases(torch, dev, rows)
+    torch.cuda.empty_cache()
+    launch_phases(torch, dev, rows)
 
     # ---- 5. the kernels line and the result ----------------------------------
     meta = {

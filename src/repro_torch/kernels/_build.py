@@ -14,6 +14,12 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0.  Each wrapper counts its launches in
 :data:`LAUNCHES`, a plain integer per kernel, so a run can show that its
 main path went through the kernels.
+
+A wrapper given fake tensors (``torch._subclasses.FakeTensor``, the dry
+run's) builds and launches nothing: it returns fake outputs of the right
+shapes and reports the launch it stands for to the hooks in
+:data:`FAKE_HOOKS` (``launch.op_cost`` adds its bytes), never to
+:data:`LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 __all__ = [
     "LAUNCHES",
@@ -33,6 +39,9 @@ __all__ = [
     "library",
     "check",
     "stream_handle",
+    "is_fake",
+    "note_fake",
+    "FAKE_HOOKS",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -61,6 +70,9 @@ LAUNCHES: Dict[str, int] = {
     "level_fused64": 0, "level_fused_radix64": 0, "level_fused_batched64": 0,
     "sort_windows64": 0,
 }
+
+# callables (name, flops, bytes) told of each launch a wrapper stands in for
+FAKE_HOOKS: List[Callable[[str, float, float], None]] = []
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 P = ctypes.c_void_p
@@ -148,3 +160,17 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (shapes and dtypes, no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def note_fake(name: str, flops: float, nbytes: float) -> None:
+    """Report a launch of kernel ``name`` made on fake tensors, with the
+    operations and bytes it would do, to every hook of :data:`FAKE_HOOKS`."""
+    for hook in FAKE_HOOKS:
+        hook(name, flops, nbytes)

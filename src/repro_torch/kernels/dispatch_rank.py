@@ -124,6 +124,11 @@ def _place_kernel(ids: torch.Tensor, start: torch.Tensor, nb: int, tile: int,
 def _place(ids, start, nb, tile, name, plain):
     dim = 2 if name == "partition_ranks_batched" else 1
     _check(ids, start, nb, tile, dim)
+    if _build.is_fake(ids):
+        # the dry run: a dest of the right shape, and the bytes the kernel
+        # moves (an id read and a dest written, 8 B an id, plus the starts)
+        _build.note_fake(name, 0.0, 8.0 * ids.numel() + 4.0 * start.numel())
+        return torch.empty_like(ids)
     ids2, start2 = (ids, start) if dim == 2 else (ids[None], start[None])
     if plain or ids.device.type == "cpu":
         dest = _place_plain(ids2, start2, nb)

@@ -1,11 +1,20 @@
-"""End-to-end training launcher on one card.
+"""End-to-end training launcher, on one card or over several.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --reduced \
       --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
 
 Counterpart of ``repro.launch.train`` with its flags, plus ``--device``
-(the card by default; ``cpu`` runs the kernels' plain twins).  The port
-trains on one card: no mesh.  Demonstrates the data pipeline, seeded init,
+(the card by default; ``cpu`` runs the kernels' plain twins).  Over the
+ranks ``torchrun`` starts (its ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
+and ``MASTER_PORT``; NCCL on the card, gloo on the CPU) it trains, as the
+reference does, over a ``(ranks, 1)`` mesh with axes ("data", "model"),
+each rank checkpointing its own shards:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch yi-9b --reduced
+
+One process alone takes the one-device step, which the reference's
+``(1, 1)`` mesh amounts to, without DTensor's host work.
+Demonstrates the data pipeline, seeded init,
 the step with accumulation, checkpoint/restart (kill it mid-run and launch
 it again: it resumes from the newest complete checkpoint and fast-forwards
 the data stream) and the straggler ledger's log.
@@ -48,7 +57,11 @@ def main(argv=None) -> int:
         seed=args.seed, embed_dim=cfg.d_model if cfg.takes_embeds else 0,
     )
 
-    trainer = Trainer(cfg, tcfg, ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device)
+    import os
+
+    mesh = _mesh(args.device) if int(os.environ.get("WORLD_SIZE", "1")) > 1 else None
+    trainer = Trainer(cfg, tcfg, mesh=mesh, ckpt_dir=args.ckpt_dir, seed=args.seed,
+                      device=args.device)
     trainer.init_state()
     if trainer.maybe_restore():
         print(f"resumed from step {trainer.step_num}")
@@ -58,7 +71,29 @@ def main(argv=None) -> int:
         next(it)
     metrics = trainer.run(it, args.steps - trainer.step_num, ckpt_every=args.ckpt_every)
     print("final:", metrics)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
+
+
+def _mesh(device: str):
+    """The reference's (ranks, 1) mesh over torchrun's ranks."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ops.sort import _device
+
+    dev = _device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    world = int(os.environ["WORLD_SIZE"])
+    return init_device_mesh(dev.type, (world, 1), mesh_dim_names=("data", "model"))
 
 
 if __name__ == "__main__":

@@ -24,10 +24,20 @@ flow through the scatter into the grouped buffer, the gather back, the
 k-sum, the renormalised gates and ``lb_loss`` (through the router's mean
 probabilities); ``slot``, ``kept`` and ``counts`` are integers and carry
 none.  K6 runs in every forward, and again in every recompute when the
-model rematerialises its layers for the backward.  The reference's explicit
-expert parallelism (``ComputePolicy.explicit_ep`` with a ``model`` mesh
-axis) needs several ranks and is not ported (ROADMAP.md queue 1 item 14);
-on one card the reference takes this baseline path too.
+model rematerialises its layers for the backward.
+
+Under an ambient ``DeviceMesh`` (``layers.ambient_mesh``) the activations
+are DTensors, and the routed experts run as per-rank code over the mesh's
+``model`` group (``_routed_mesh``): the expert banks stay E-sharded over
+``model``, each rank runs its E/TP local experts with the foreign entries
+in a trash bucket ranked by K6, and one sum all-reduce over ``model`` adds
+the columns.  The baseline ranks every token of the batch (a global
+capacity: the tokens are gathered over the dp axes, as the reference's
+hint on the grouped buffer has it); with ``ComputePolicy.explicit_ep`` and
+a ``model`` axis dividing E, ``moe_ffn`` takes the reference's
+expert-parallel column, whose capacity is per dp shard and whose tokens
+stay where they are.  Without a mesh the flag changes nothing, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -39,10 +49,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.partition import partition_permutation
-from repro_torch.kernels import dispatch_rank
+from repro_torch.kernels import _build, dispatch_rank
 from repro_torch.models.layers import (
-    Dense, SwiGLU, dense, frozen, init_dense, init_device, swiglu,
+    Dense, SwiGLU, current_mesh, dense, frozen, init_dense, init_device, shard_hint, swiglu,
 )
+from repro_torch.models.policy import current_policy
 from repro_torch.ops.sort import Device
 
 __all__ = ["Experts", "MoE", "init_moe", "moe_ffn", "sort_dispatch", "expert_capacity"]
@@ -112,7 +123,7 @@ def _stable_dest(expert_id: torch.Tensor, num_experts: int, tile: int
     its row's stable expert-major order, and the rows' expert boundaries."""
     L, m = expert_id.shape
     dev = expert_id.device
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not _build.is_fake(expert_id):
         t = min(tile, m)
         if m % t:
             t = m
@@ -169,11 +180,169 @@ def sort_dispatch(
     return slot, kept, counts
 
 
-def _expert_mlp(experts: Experts, xg: torch.Tensor) -> torch.Tensor:
+def _expert_mlp(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
+                xg: torch.Tensor) -> torch.Tensor:
     """xg: (E, cap, D) -> (E, cap, D); the grouped SwiGLU."""
-    g = torch.bmm(xg, experts.gate)
-    u = torch.bmm(xg, experts.up)
-    return torch.bmm(F.silu(g) * u, experts.down)
+    g = torch.bmm(xg, gate)
+    u = torch.bmm(xg, up)
+    return torch.bmm(F.silu(g) * u, down)
+
+
+def _routed(xf, gate_vals, eids, gate, up, down, *, num_experts, top_k, cap):
+    """The baseline's routed experts on plain tensors, without a mesh: (y
+    (n, D) float32, dropped, counts (E,))."""
+    n, d = xf.shape
+    flat_e = eids.reshape(n * top_k).to(torch.int32)
+    slot, kept, counts = sort_dispatch(flat_e, num_experts, cap)
+    slot64 = slot.to(torch.int64)
+
+    # scatter tokens into the grouped (E, cap) buffer (trash slot at the end)
+    # entry j is token j // top_k: the reference's xf[tok_idx] as a
+    # broadcast, whose gradient sums each token's k entries in one order
+    # (the gather's transpose accumulates rows, by float atomics on a CPU)
+    buf = torch.zeros((num_experts * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf[slot64] = xf[:, None, :].expand(n, top_k, d).reshape(n * top_k, d)
+    yg = _expert_mlp(gate, up, down, buf[:-1].reshape(num_experts, cap, d))
+    yg = torch.cat([yg.reshape(num_experts * cap, d), yg.new_zeros((1, d))])
+
+    # combine: gather back and weight; dropped entries read the zero trash
+    # slot.  A token's k entries are adjacent, so the reference's scatter-add
+    # over tok_idx is a sum over k: no float atomics, one order every call
+    wts = (gate_vals.reshape(n * top_k) * kept).to(torch.float32)
+    y = (yg[slot64].to(torch.float32) * wts[:, None]).reshape(n, top_k, d).sum(dim=1)
+    return y, torch.sum(~kept).to(torch.int32), counts
+
+
+def _column(xf, gate_vals, eids, gate, up, down, *, top_k, cap, e_loc, lo, num_experts):
+    """One model column of the routed experts on plain tensors: the (token,
+    k) entries routed to the column's ``e_loc`` local experts (those from
+    ``lo`` on) are ranked by K6 among the others, which all go to the trash
+    bucket ``e_loc``; returns the column's partial (y (n, D) float32,
+    dropped, counts (num_experts,), zero but for its experts').  An
+    expert's entries keep their order, so their ranks, and the slots they
+    keep below ``cap``, are those of the one-bucket-per-expert dispatch."""
+    nl, d = xf.shape
+    flat_e = eids.reshape(nl * top_k).to(torch.int32)
+    local_e = flat_e - lo
+    mine = (local_e >= 0) & (local_e < e_loc)
+    # foreign entries land in pseudo-bucket e_loc; its slots are never fed
+    # to an expert (the trash region of the buffer)
+    bucket = torch.where(mine, local_e, torch.full_like(local_e, e_loc))
+    slot, kept, counts = sort_dispatch(bucket, e_loc + 1, cap)
+    kept = kept & mine
+    slot64 = slot.to(torch.int64)
+    buf = torch.zeros(((e_loc + 1) * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf[slot64] = xf[:, None, :].expand(nl, top_k, d).reshape(nl * top_k, d)
+    yg = _expert_mlp(gate, up, down, buf[:e_loc * cap].reshape(e_loc, cap, d))
+    yg = torch.cat([yg.reshape(e_loc * cap, d), yg.new_zeros((cap + 1, d))])  # trash reads 0
+    wts = (gate_vals.reshape(nl * top_k) * kept).to(torch.float32)
+    y = (yg[slot64].to(torch.float32) * wts[:, None]).reshape(nl, top_k, d).sum(dim=1)
+    full = torch.zeros(num_experts, dtype=counts.dtype, device=counts.device)
+    full[lo:lo + e_loc] = counts[:e_loc]
+    return y, torch.sum(mine & ~kept).to(torch.int32), full
+
+
+def _routed_mesh(p: MoE, xf, gate_vals, eids, *, num_experts, top_k, capacity_factor,
+                 mesh, per_dp_shard: bool):
+    """The routed experts over a ``DeviceMesh``, as per-rank code
+    (``_column``) over its ``model`` group, with the expert banks left
+    E-sharded over ``model`` (``launch.shardings``' EP rule).  Each rank
+    runs its column's E/TP experts and returns a partial sum over
+    ``model``; one sum all-reduce adds the columns (an autograd-aware
+    redistribution, so the backward passes through it), and ``dropped``
+    and ``counts`` are summed over the columns (each holds its experts'
+    entries and its slice of the counts), so both equal the baseline's.
+
+    * ``per_dp_shard`` (``ComputePolicy.explicit_ep``, the reference's
+      ``_moe_ep_shard_map``): the Megatron-TP contract makes activations
+      entering the FFN replicated over ``model``, so every column already
+      holds its dp shard's tokens: no dispatch all-to-all.  The capacity is
+      per dp shard, and ``dropped`` and ``counts`` are also summed over the
+      dp axes.  ``dropped`` counts the entries every column dropped (the
+      reference returns one column's as if replicated), so it equals the
+      baseline's.
+    * otherwise the baseline: the capacity is global, so every rank ranks
+      every token of the batch (the tokens, gates and ids gathered over the
+      dp axes: activations, not expert banks) and runs its column's experts
+      on the whole grouped buffer, replicated over the dp axes.  That is
+      the reference's program, whose hint keeps the grouped buffer
+      expert-major over ``model`` and replicated over the rest.
+
+    Where the mesh has no ``model`` axis, or it does not divide E, the
+    one column is every expert and the banks are gathered whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = tuple(mesh.mesh_dim_names)
+    tp = names.index("model") if "model" in names else None
+    if tp is not None and num_experts % mesh.size(tp):
+        tp = None
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    n, d = xf.shape
+    if per_dp_shard:
+        dp_total = 1
+        for i in dp:
+            dp_total *= mesh.size(i)
+        # each column only ever sees n/dp tokens
+        cap = expert_capacity(n // dp_total, num_experts, top_k, capacity_factor)
+    else:
+        cap = expert_capacity(n, num_experts, top_k, capacity_factor)
+    e_loc = num_experts if tp is None else num_experts // mesh.size(tp)
+    lo = 0 if tp is None else mesh.get_local_rank(tp) * e_loc
+
+    def per_dim(on_tp, on_dp, other=Replicate()):
+        # without a model column (tp None) ``on_tp`` goes nowhere: whole
+        # outputs and whole banks
+        return tuple(on_tp if i == tp else on_dp if i in dp else other
+                     for i in range(mesh.ndim))
+
+    tok_dp = Shard(0) if per_dp_shard else Replicate()
+    tok = per_dim(Replicate(), tok_dp)
+    exp = per_dim(Shard(0), Replicate())
+    # a column's outputs are partial sums over the model columns; over the
+    # dp axes the EP column's tokens are its shard's (its counts a part of
+    # the sum), the baseline's every rank's alike
+    y_pl = per_dim(Partial(), tok_dp)
+    summed = per_dim(Partial(), Partial() if per_dp_shard else Replicate())
+    # a column's input gradients: the tokens' are partial over the model
+    # columns (each holds its own experts' part); the experts' partial over
+    # the EP column's dp shards (each holds its own tokens' part), whole on
+    # every baseline rank
+    tok_grad = per_dim(Partial(), tok_dp)
+    exp_grad = per_dim(Shard(0), Partial() if per_dp_shard else Replicate())
+
+    def as_dt(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim)
+
+    ex = p.experts
+    column = local_map(
+        lambda *a: _column(*a, top_k=top_k, cap=cap, e_loc=e_loc, lo=lo,
+                           num_experts=num_experts),
+        out_placements=(y_pl, summed, summed),
+        in_placements=(tok, tok, tok, exp, exp, exp),
+        in_grad_placements=(tok_grad, tok_grad, tok, exp_grad, exp_grad, exp_grad),
+        redistribute_inputs=True, device_mesh=mesh)
+    y, dropped, counts = column(*(as_dt(t) for t in (xf, gate_vals, eids, ex.gate, ex.up,
+                                                   ex.down)))
+    # the Megatron row-parallel reduce (the one collective of the EP path),
+    # back to the tokens' own placements
+    back = tuple(Replicate() if pl.is_partial() else pl for pl in as_dt(xf).placements)
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    return (y.redistribute(mesh, back), dropped.redistribute(mesh, rep),
+            counts.redistribute(mesh, rep))
+
+
+def _ep_applies(num_experts: int):
+    """The ambient mesh when the expert-parallel column runs (the policy
+    asks for it, the mesh has a ``model`` axis and that axis divides E)."""
+    mesh = current_mesh()
+    if not current_policy().explicit_ep or mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names or num_experts % mesh.size(names.index("model")):
+        return None
+    return mesh
 
 
 def moe_ffn(
@@ -188,6 +357,8 @@ def moe_ffn(
     """Returns (output (B, S, D) in x's dtype, aux): ``aux`` holds the
     Switch-style ``lb_loss`` (float32), ``dropped`` (int32, the entries
     beyond capacity) and ``max_load`` (int32, the largest count)."""
+    from torch.distributed.tensor import DTensor
+
     b, s, d = x.shape
     n = b * s
     xf = x.reshape(n, d)
@@ -197,25 +368,17 @@ def moe_ffn(
     if router_softmax_after:
         gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
 
-    cap = expert_capacity(n, num_experts, top_k, capacity_factor)
-    flat_e = eids.reshape(n * top_k).to(torch.int32)
-    slot, kept, counts = sort_dispatch(flat_e, num_experts, cap)
-    slot64 = slot.to(torch.int64)
-
-    # scatter tokens into the grouped (E, cap) buffer (trash slot at the end)
-    # entry j is token j // top_k: the reference's xf[tok_idx] as a
-    # broadcast, whose gradient sums each token's k entries in one order
-    # (the gather's transpose accumulates rows, by float atomics on a CPU)
-    buf = torch.zeros((num_experts * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot64] = xf[:, None, :].expand(n, top_k, d).reshape(n * top_k, d)
-    yg = _expert_mlp(p.experts, buf[:-1].reshape(num_experts, cap, d))
-    yg = torch.cat([yg.reshape(num_experts * cap, d), yg.new_zeros((1, d))])
-
-    # combine: gather back and weight; dropped entries read the zero trash
-    # slot.  A token's k entries are adjacent, so the reference's scatter-add
-    # over tok_idx is a sum over k: no float atomics, one order every call
-    wts = (gate_vals.reshape(n * top_k) * kept).to(torch.float32)
-    y = (yg[slot64].to(torch.float32) * wts[:, None]).reshape(n, top_k, d).sum(dim=1)
+    ex = p.experts
+    ep_mesh = _ep_applies(num_experts)
+    if ep_mesh is not None or isinstance(xf, DTensor):
+        y, dropped, counts = _routed_mesh(
+            p, xf, gate_vals, eids, num_experts=num_experts, top_k=top_k,
+            capacity_factor=capacity_factor, mesh=ep_mesh or xf.device_mesh,
+            per_dp_shard=ep_mesh is not None)
+    else:
+        cap = expert_capacity(n, num_experts, top_k, capacity_factor)
+        y, dropped, counts = _routed(xf, gate_vals, eids, ex.gate, ex.up, ex.down,
+                                     num_experts=num_experts, top_k=top_k, cap=cap)
     if p.shared is not None:
         y = y + swiglu(p.shared, xf).to(torch.float32)
 
@@ -223,7 +386,7 @@ def moe_ffn(
     ce = counts.to(torch.float32) / (n * top_k)
     aux = {
         "lb_loss": num_experts * torch.sum(me * ce),
-        "dropped": torch.sum(~kept).to(torch.int32),
+        "dropped": dropped,
         "max_load": counts.max(),
     }
     return y.reshape(b, s, d).to(x.dtype), aux

@@ -9,11 +9,13 @@ signature:
   * ``flash_block``: 0 = eager full-score SDPA (materializes (B,H,S,T)
     scores); >0 = KV-chunked online-softmax attention over chunks of that
     many keys, never materializing the score matrix;
-  * ``explicit_ep``: the reference's switch to expert parallelism over a
-    ``model`` mesh axis.  The reference takes its baseline MoE path when
-    no such mesh is ambient, which on one card is always; so does the
-    port, which has no expert-parallel path yet (ROADMAP.md queue 1 item
-    14): ``moe_ffn`` runs the baseline dispatch whatever the flag;
+  * ``explicit_ep``: expert parallelism over the ambient mesh's ``model``
+    axis (``models.moe._routed_mesh``: each model column routes its dp shard's
+    tokens to its E/TP local experts, K6 ranking the foreign ones into a
+    trash bucket, and one sum all-reduce over ``model`` adds the columns);
+    without a mesh (``layers.ambient_mesh``), or where ``model`` does not
+    divide E, ``moe_ffn`` takes the baseline dispatch, as the reference
+    does;
   * ``flash_decode``: decode on a linear cache through the K10 kernel
     (``kernels.flash_decode``), reading the cache in place.
 

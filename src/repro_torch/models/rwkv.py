@@ -22,8 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Dense, dense, frozen, init_dense, init_device
-from repro_torch.ops.sort import Device, _device
+from repro_torch.models.layers import (
+    Dense, dense, frozen, head_layout, init_dense, init_device, model_device, split_heads,
+)
+from repro_torch.ops.sort import Device
 
 __all__ = ["TimeMix", "ChannelMix", "RWKV6", "init_rwkv6", "rwkv6_timemix",
            "rwkv6_channelmix", "init_rwkv_state"]
@@ -85,7 +87,7 @@ def init_rwkv6(gen: torch.Generator, d_model: int, *, head_dim: int, d_ff: int,
 
 def init_rwkv_state(batch: int, d_model: int, *, head_dim: int, dtype=torch.float32,
                     device: Device = None) -> State:
-    device = _device(device)
+    device = model_device(device)
     h = d_model // head_dim
     return {
         "tm_shift": torch.zeros((batch, d_model), dtype=torch.bfloat16, device=device),
@@ -102,6 +104,43 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([first, x[:, :-1, :]], dim=1)
 
 
+def _wkv_local(rf, kf, vf, w, u, st):
+    ys = []
+    for t in range(rf.shape[1]):  # s == 1 with a state is the decode step, closed form
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (b, h, hd, hd)
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], st + u * kv))
+        st = st * w[:, t, :, :, None] + kv
+    return torch.stack(ys, dim=1), st
+
+
+def _wkv(rf, kf, vf, w, u, st):
+    """The WKV recurrence over (B, S, h, hd) inputs from state ``st`` (B, h,
+    hd, hd): (outputs, the final state).  On DTensors it runs as per-rank
+    code over the heads (each head's recurrence is its own), the batch over
+    the dp axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(rf, DTensor):
+        return _wkv_local(rf, kf, vf, w, u, st)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = rf.device_mesh
+    h = rf.shape[2]
+    batch = [i for i, p in enumerate(rf.placements) if p == Shard(0)]
+    seq = head_layout(mesh, batch, h, 2)        # (B, S, h, hd)
+    state = head_layout(mesh, batch, h, 1)      # (B, h, hd, hd)
+    bonus = tuple(Replicate() if p == Shard(0) else p for p in state)   # (1, h, hd, 1)
+    bonus_grad = tuple(Partial() if p == Shard(0) else p for p in state)
+    st = st if isinstance(st, DTensor) else DTensor.from_local(
+        st, mesh, [Replicate()] * mesh.ndim)
+    u = u if isinstance(u, DTensor) else DTensor.from_local(u, mesh, [Replicate()] * mesh.ndim)
+    f = local_map(_wkv_local, out_placements=(seq, state),
+                  in_placements=(seq, seq, seq, seq, bonus, state),
+                  in_grad_placements=(seq, seq, seq, seq, bonus_grad, state),
+                  redistribute_inputs=True, device_mesh=mesh)
+    return f(rf, kf, vf, w, u, st)
+
+
 def rwkv6_timemix(p: RWKV6, x: torch.Tensor, *, head_dim: int,
                   state: Optional[State] = None) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D).  With ``state`` the recurrence starts from
@@ -116,25 +155,20 @@ def rwkv6_timemix(p: RWKV6, x: torch.Tensor, *, head_dim: int,
     def lerp(i):
         return x + (xp - x) * mu[i]
 
-    r = dense(tm.wr, lerp(0)).reshape(b, s, h, head_dim)
-    k = dense(tm.wk, lerp(1)).reshape(b, s, h, head_dim)
-    v = dense(tm.wv, lerp(2)).reshape(b, s, h, head_dim)
+    r = split_heads(dense(tm.wr, lerp(0)), h, head_dim)
+    k = split_heads(dense(tm.wk, lerp(1)), h, head_dim)
+    v = split_heads(dense(tm.wv, lerp(2)), h, head_dim)
     # data-dependent decay (Finch): w = exp(-exp(bias + lora(x_lerped)))
     wlog = dense(tm.w_lora_b, torch.tanh(dense(tm.w_lora_a, lerp(3))))
     wlog = tm.w_bias + wlog.to(torch.float32)
-    w = torch.exp(-torch.exp(wlog)).reshape(b, s, h, head_dim)  # in (0, 1)
+    w = split_heads(torch.exp(-torch.exp(wlog)), h, head_dim)  # in (0, 1)
     g = F.silu(dense(tm.wg, lerp(4)))
 
     rf, kf, vf = (a.to(torch.float32) for a in (r, k, v))
     u = tm.bonus[None, :, :, None]  # (1, h, hd, 1)
     st = (state["wkv"] if state is not None
           else torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32, device=x.device))
-    ys = []
-    for t in range(s):  # s == 1 with a state is the decode step, closed form
-        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (b, h, hd, hd)
-        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], st + u * kv))
-        st = st * w[:, t, :, :, None] + kv
-    out = torch.stack(ys, dim=1)  # (B, S, h, hd)
+    out, st = _wkv(rf, kf, vf, w, u, st)  # (B, S, h, hd)
 
     # group norm per head, then the output gate and projection
     mean = out.mean(dim=-1, keepdim=True)

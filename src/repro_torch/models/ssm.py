@@ -24,8 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Dense, dense, frozen, init_dense, init_device
-from repro_torch.ops.sort import Device, _device
+from repro_torch.models.layers import (
+    Dense, dense, frozen, head_layout, init_dense, init_device, model_device, split_heads,
+)
+from repro_torch.ops.sort import Device
 
 __all__ = ["Mamba2", "init_mamba2", "mamba2", "init_ssm_state"]
 
@@ -65,7 +67,7 @@ def init_mamba2(gen: torch.Generator, d_model: int, *, d_state: int, d_conv: int
 
 def init_ssm_state(batch: int, d_model: int, *, d_state: int, d_conv: int, expand: int,
                    head_dim: int, dtype=torch.float32, device: Device = None) -> State:
-    device = _device(device)
+    device = model_device(device)
     d_in = expand * d_model
     nheads = d_in // head_dim
     return {
@@ -144,6 +146,54 @@ def _ssd_chunked(
     return y.reshape(b, s, h, hd), st
 
 
+def _scan_local(xh, dtp, A, B_, C_, state0, chunk: int, step: bool):
+    """The SSD scan on plain tensors: the decode step's closed form for one
+    token against a state (``step``), else the chunked scan."""
+    if step and xh.shape[1] == 1:
+        dA = torch.exp(dtp[:, 0, :] * A)                    # (B, H)
+        dBx = torch.einsum("bh,bhd,bn->bhdn", dtp[:, 0], xh[:, 0].to(torch.float32),
+                           B_[:, 0].to(torch.float32))
+        stateF = state0 * dA[:, :, None, None] + dBx
+        y = torch.einsum("bhdn,bn->bhd", stateF, C_[:, 0].to(torch.float32))[:, None]
+        return y, stateF
+    return _ssd_chunked(xh, dtp, A, B_, C_, state0, chunk)
+
+
+def _scan(xh, dtp, A, B_, C_, state0, chunk: int, step: bool):
+    """``_scan_local``, on DTensors as per-rank code over the heads (each
+    head's scan is its own; B and C are shared by all heads, so their
+    gradients sum over the head shards), the batch over the dp axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(xh, DTensor):
+        return _scan_local(xh, dtp, A, B_, C_, state0, chunk, step)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xh.device_mesh
+    h = xh.shape[2]
+    batch = [i for i, pl in enumerate(xh.placements) if pl == Shard(0)]
+    seq = head_layout(mesh, batch, h, 2)            # (B, S, H, hd)
+    per_t = head_layout(mesh, batch, h, 2)          # (B, S, H): heads at dim 2 too
+    heads = tuple(Replicate() if pl == Shard(0) else Shard(0) if pl.is_shard() else pl
+                  for pl in seq)                    # (H,)
+    heads_grad = tuple(Partial() if pl == Shard(0) else Shard(0) if pl.is_shard() else pl
+                       for pl in seq)
+    shared = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in seq)  # (B, S, N)
+    shared_grad = tuple(Shard(0) if pl == Shard(0) else Partial() if pl.is_shard()
+                        else Replicate() for pl in seq)
+    state = head_layout(mesh, batch, h, 1)          # (B, H, hd, N)
+
+    def dt(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim)
+
+    f = local_map(lambda *a: _scan_local(*a, chunk, step), out_placements=(seq, state),
+                  in_placements=(seq, per_t, heads, shared, shared, state),
+                  in_grad_placements=(seq, per_t, heads_grad, shared_grad, shared_grad, state),
+                  redistribute_inputs=True, device_mesh=mesh)
+    return f(*(dt(t) for t in (xh, dtp, A, B_, C_, state0)))
+
+
 def mamba2(p: Mamba2, x: torch.Tensor, *, d_state: int, expand: int, head_dim: int,
            chunk: int = 128, state: Optional[State] = None) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D).  With ``state`` the conv and the scan start
@@ -157,21 +207,13 @@ def mamba2(p: Mamba2, x: torch.Tensor, *, d_state: int, expand: int, head_dim: i
 
     A = -torch.exp(p.A_log)
     dtp = F.softplus(dt.to(torch.float32) + p.dt_bias)  # (B, S, H)
-    xh = xs.reshape(b, s, nheads, head_dim)
+    xh = split_heads(xs, nheads, head_dim)
     state0 = (state["ssm"] if state is not None
               else torch.zeros((b, nheads, head_dim, d_state), dtype=torch.float32,
                                device=x.device))
-    if s == 1 and state is not None:
-        dA = torch.exp(dtp[:, 0, :] * A)                    # (B, H)
-        dBx = torch.einsum("bh,bhd,bn->bhdn", dtp[:, 0], xh[:, 0].to(torch.float32),
-                           B_[:, 0].to(torch.float32))
-        stateF = state0 * dA[:, :, None, None] + dBx
-        y = torch.einsum("bhdn,bn->bhd", stateF, C_[:, 0].to(torch.float32))[:, None]
-    else:
-        cs = min(chunk, s)
-        if s % cs:
-            raise ValueError(f"seq {s} not divisible by chunk {cs}")
-        y, stateF = _ssd_chunked(xh, dtp, A, B_, C_, state0, cs)
+    if s % min(chunk, s):
+        raise ValueError(f"seq {s} not divisible by chunk {min(chunk, s)}")
+    y, stateF = _scan(xh, dtp, A, B_, C_, state0, min(chunk, s), state is not None)
 
     y = y + xh.to(torch.float32) * p.D[:, None]
     y = y.reshape(b, s, d_in).to(x.dtype)

@@ -49,10 +49,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    Dense, GeluMLP, RMSNorm, SwiGLU, cross_entropy, dense, frozen, gelu_mlp, init_dense,
-    init_device, init_norm, linear, rms_norm, swiglu,
+    DP, Dense, GeluMLP, RMSNorm, SwiGLU, cross_entropy, dense, frozen, gelu_mlp, init_dense,
+    init_device, init_norm, linear, model_device, rms_norm, shard_hint, swiglu,
 )
-from repro_torch.ops.sort import Device, _device
+from repro_torch.ops.sort import Device
 
 __all__ = ["Block", "RwkvBlock", "MambaBlock", "Transformer", "init_model", "forward",
            "train_loss", "param_leaves", "init_decode_cache", "reset_decode_cache",
@@ -193,7 +193,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bf
     recurrent states keep the reference's dtypes (float32 state, bfloat16
     shifts and conv); the KV caches take ``dtype``."""
     fam = _block_family(cfg)
-    dev = _device(device)
+    dev = model_device(device)
     L = cfg.num_layers
     if fam == "attn":
         return {"layers": [
@@ -229,13 +229,21 @@ def reset_decode_cache(cache: Cache) -> Cache:
 # blocks
 # --------------------------------------------------------------------------
 
+def _stream(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout under a mesh: batch over the dp axes,
+    whole over ``model`` (the Megatron contract: each block's row-parallel
+    partial sums are reduced here, and every model column holds its dp
+    shard's tokens).  The identity without a mesh."""
+    return shard_hint(x, DP, None, None)
+
+
 def _attn_block(blk: Block, cfg: ModelConfig, x, positions, cache, window: int = 0):
     h, _ = attn_mod.attention(
         blk.attn, rms_norm(blk.ln1, x, cfg.norm_eps), positions,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, window=window, cache=cache,
     )
-    x = x + h
+    x = _stream(x + h)
     y = rms_norm(blk.ln2, x, cfg.norm_eps)
     aux = None
     if cfg.family == "moe":
@@ -246,21 +254,67 @@ def _attn_block(blk: Block, cfg: ModelConfig, x, positions, cache, window: int =
         y = gelu_mlp(blk.mlp, y)
     else:
         y = swiglu(blk.mlp, y)
-    return x + y, aux
+    return _stream(x + y), aux
 
 
 def _rwkv_block(blk: RwkvBlock, cfg: ModelConfig, x, state):
-    x = x + rwkv_mod.rwkv6_timemix(blk.mix, rms_norm(blk.ln1, x, cfg.norm_eps),
-                                   head_dim=cfg.ssm.head_dim, state=state)
-    return x + rwkv_mod.rwkv6_channelmix(blk.mix, rms_norm(blk.ln2, x, cfg.norm_eps),
-                                         state=state)
+    x = _stream(x + rwkv_mod.rwkv6_timemix(blk.mix, rms_norm(blk.ln1, x, cfg.norm_eps),
+                                           head_dim=cfg.ssm.head_dim, state=state))
+    return _stream(x + rwkv_mod.rwkv6_channelmix(blk.mix, rms_norm(blk.ln2, x, cfg.norm_eps),
+                                                 state=state))
 
 
 def _mamba_block(blk: MambaBlock, cfg: ModelConfig, x, state):
     s = cfg.ssm
-    x = x + ssm_mod.mamba2(blk.mamba, rms_norm(blk.ln1, x, cfg.norm_eps), d_state=s.d_state,
-                           expand=s.expand, head_dim=s.head_dim, state=state)
-    return x + swiglu(blk.mlp, rms_norm(blk.ln2, x, cfg.norm_eps))
+    x = _stream(x + ssm_mod.mamba2(blk.mamba, rms_norm(blk.ln1, x, cfg.norm_eps),
+                                   d_state=s.d_state, expand=s.expand, head_dim=s.head_dim,
+                                   state=state))
+    return _stream(x + swiglu(blk.mlp, rms_norm(blk.ln2, x, cfg.norm_eps)))
+
+
+def _embedding(inputs: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding`` of int ids, on a DTensor table too: its model
+    dimension is gathered (the FSDP all-gather over the dp axes), and rows
+    sharded over ``model`` are looked up where they lie: each rank takes
+    the ids in its vocab range and the sum over the ranks (a partial sum,
+    reduced by the caller's ``shard_hint``) holds every row.  Rows "sharded"
+    over a mesh dimension of size 1 are whole: the plain lookup."""
+    ids = inputs.to(torch.int64)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(table, DTensor):
+        return F.embedding(ids, table)
+    mesh = table.device_mesh
+    rows = [i for i, p in enumerate(table.placements) if p == Shard(0) and mesh.size(i) > 1]
+    want = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    table = table.redistribute(mesh, want)
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim)
+    if not rows:
+        return F.embedding(ids, table)
+    if len(rows) > 1:
+        raise NotImplementedError("embedding rows sharded over several mesh axes")
+    (vdim,) = rows
+    v0 = mesh.get_local_rank(vdim) * -(-table.shape[0] // mesh.size(vdim))
+    id_pl = tuple(Replicate() if i == vdim else p for i, p in enumerate(ids.placements))
+    ids = ids.redistribute(mesh, id_pl)
+
+    def lookup(tab, idx):
+        idx = idx - v0
+        hit = (idx >= 0) & (idx < tab.shape[0])
+        x = F.embedding(idx.clamp(0, max(tab.shape[0] - 1, 0)), tab)
+        return x * hit[..., None].to(x.dtype)
+
+    out_pl = tuple(Partial() if i == vdim else p for i, p in enumerate(id_pl))
+    from torch.distributed.tensor.experimental import local_map
+
+    # each rank's table gradient holds its own tokens' rows: a partial sum
+    # over the mesh dimensions that shard the tokens
+    tab_grad = tuple(Shard(0) if i == vdim else Partial() if p.is_shard() else Replicate()
+                     for i, p in enumerate(id_pl))
+    return local_map(lookup, out_placements=(out_pl,), in_placements=(tuple(want), id_pl),
+                     in_grad_placements=(tab_grad, id_pl),
+                     redistribute_inputs=False, device_mesh=mesh)(table, ids)
 
 
 def _sum_aux(total, a):
@@ -303,7 +357,8 @@ def forward(
         # F.embedding, not embed[inputs]: the index's backward adds rows by
         # float atomics on a CPU (float32, many threads); the embedding's
         # backward adds them in one order on the CPU and on the card
-        x = F.embedding(inputs.to(torch.int64), model.embed)
+        x = _embedding(inputs, model.embed)
+    x = shard_hint(x, DP, None, None)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     fam = _block_family(cfg)
@@ -333,10 +388,13 @@ def forward(
             ac = cache["attn"][grp] if cache is not None else None
             x, _ = _attn_block(model.shared_attn, cfg, x, positions, ac, window=window)
     x = rms_norm(model.final_norm, x, cfg.norm_eps)
+    x = shard_hint(x, DP, None, None)
     if cfg.tie_embeddings:
         logits = linear(x, model.embed.T)
     else:
         logits = dense(model.lm_head, x)
+    # vocab-sharded logits: the (B, S, V) tensor is never replicated
+    logits = shard_hint(logits, DP, None, "model")
     return logits, cache, aux
 
 

@@ -17,7 +17,10 @@ its own ndim is at least 2.  ``grads`` has the structure of ``params``.
 The update is elementwise per leaf in float32: the global-norm clip, bias
 correction and the step's learning rate are float32 0-d tensors on the
 parameters' device (no host read), and the parameters and the moments are
-written back in place under ``torch.no_grad()``.
+written back in place under ``torch.no_grad()``.  DTensor parameters (the
+sharded train step's) get moments of their placements, a replicated int8
+scale and step; the int8 scale's max over a sharded leaf is reduced over
+its shards (DTensor's max all-reduce), so the codes equal the reference's.
 """
 from __future__ import annotations
 
@@ -61,13 +64,23 @@ def _quantize(xs: Sequence[torch.Tensor]) -> Tuple[list, torch.Tensor]:
     return [torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8) for x in xs], scale
 
 
+def scalar_like(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A 0-d zero of ``dtype`` where ``t`` lies: replicated over ``t``'s
+    mesh when ``t`` is a DTensor."""
+    z = torch.zeros((), dtype=dtype, device=t.device)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor):
+        return DTensor.from_local(z, t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    return z
+
+
 def _q_init(p: Leaf, dtype: str):
+    # zeros_like: a DTensor parameter's moments take its placements
     if dtype == "int8":
-        return {"q": _like(p, [torch.zeros(t.shape, dtype=torch.int8, device=t.device)
-                               for t in _parts(p)]),
-                "scale": torch.zeros((), dtype=torch.float32, device=_parts(p)[0].device)}
-    return _like(p, [torch.zeros(t.shape, dtype=_DTYPES[dtype], device=t.device)
-                     for t in _parts(p)])
+        return {"q": _like(p, [torch.zeros_like(t, dtype=torch.int8) for t in _parts(p)]),
+                "scale": scalar_like(_parts(p)[0], torch.float32)}
+    return _like(p, [torch.zeros_like(t, dtype=_DTYPES[dtype]) for t in _parts(p)])
 
 
 def _q_read(s, dtype: str) -> list:
@@ -91,20 +104,28 @@ def _q_write(s, xs: list, dtype: str) -> None:
 def adamw_init(params: Mapping[str, Leaf], cfg: AdamWConfig) -> Dict[str, Any]:
     """Zero moments in the configured tiers, congruent to ``params``, and
     the int32 step counter."""
-    dev = _parts(next(iter(params.values())))[0].device
+    first = _parts(next(iter(params.values())))[0]
     return {
         "m": {k: _q_init(p, cfg.m_dtype) for k, p in params.items()},
         "v": {k: _q_init(p, cfg.v_dtype) for k, p in params.items()},
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "step": scalar_like(first, torch.int32),
     }
 
 
 def _global_norm(grads: Mapping[str, Leaf]) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every leaf, summed leaf by
     leaf in the tree's order."""
+    def sq(t):
+        return torch.sum(torch.square(t.to(torch.float32)))
+
     total = None
     for leaf in grads.values():
-        s = sum(torch.sum(torch.square(t.to(torch.float32))) for t in _parts(leaf))
+        # from the first part, not from 0: a DTensor's partial sums stay
+        # partial (one reduction at the sqrt), and a leaf of L parts adds L - 1
+        first, *rest = _parts(leaf)
+        s = sq(first)
+        for t in rest:
+            s = s + sq(t)
         total = s if total is None else total + s
     return torch.sqrt(total)
 

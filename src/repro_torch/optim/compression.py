@@ -24,8 +24,8 @@ __all__ = ["init_error_feedback", "compress_grads", "decompress_grads"]
 
 def init_error_feedback(grads: Mapping[str, Leaf]) -> Dict[str, Leaf]:
     """Float32 zeros congruent to ``grads``."""
-    return {k: _like(g, [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-                         for t in _parts(g)]) for k, g in grads.items()}
+    return {k: _like(g, [torch.zeros_like(t, dtype=torch.float32) for t in _parts(g)])
+            for k, g in grads.items()}
 
 
 @torch.no_grad()

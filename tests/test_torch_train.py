@@ -275,13 +275,23 @@ def test_train_step_matches_reference(arch, compress, tol):
 
 
 def test_train_step_refuses_a_mesh():
+    """A mesh whose axes are not the reference's (pod, data and model, model
+    among them) is refused; a mesh of any size is taken (the sharded step,
+    tests/test_torch_sharded.py), and no mesh gives the one-device step."""
     class Mesh:  # a DeviceMesh of four devices, as far as the step asks
+        mesh_dim_names = ("rows", "cols")
+        shape = (2, 2)
+        device_type = "cpu"
+
         def size(self):
             return 4
 
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="pod, data and model"):
         make_train_step(get_reduced("yi-9b"), TrainConfig(), Mesh(), device="cpu")
-    make_train_step(get_reduced("yi-9b"), TrainConfig(), None, device="cpu")
+    Mesh.mesh_dim_names = ("data", "expert")
+    with pytest.raises(ValueError, match="model included"):
+        make_train_step(get_reduced("yi-9b"), TrainConfig(), Mesh(), device="cpu")
+    assert callable(make_train_step(get_reduced("yi-9b"), TrainConfig(), None, device="cpu"))
 
 
 @pytest.mark.parametrize("arch,compress", [("yi-9b", False), ("deepseek-moe-16b", True),
