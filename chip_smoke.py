@@ -111,7 +111,18 @@ observability layer and the distributed sort:
    ``s3_sort``), the top/bottom-k to the sorted prefix, the group-by to
    ``torch.unique``, the block moves to the gather by the stable block
    order; then the peak device memory per key of ``partition_blocks``,
-   ``s3_sort`` and ``ops.sort``.  After the serve path (below), last of
+   ``s3_sort`` and ``ops.sort``.  Then the key dtypes that the stream,
+   K7, ``s3_sort`` and the block path take since K5's int64 form and K7's
+   key kinds (``dtype_phases``): K5 on int64 codes (2^24 + 2^24
+   duplicate-heavy, LLONG_MAX tails, ragged sizes) and K7 on raw float64,
+   int64, uint64, uint32, float16, uint16, int16, int8 and uint8 keys at
+   2^24, k = 128, batched on (64, 2^18) float64 and in radix mode on int64
+   codes, each bit for bit its plain twin and driven once per key kind;
+   ``external_sort``/``external_argsort`` of 2^27 float64 in chunks of
+   2^23, ``streaming_topk`` both ways of 2^28 bfloat16 keys from a CPU
+   tensor in chunks of 2^24, ``streaming_group_by`` of 2^26 RootDup uint16,
+   ``s3_sort`` of 2^24 float64 with an int64 payload and ``sort_blocks`` of
+   2^27 int64 keys in place by K8 (~30 s).  After the serve path (below), last of
    all, the observability layer and the distributed sort: ``path obs`` (obs enabled, ``ops.sort`` of 2^24
    float32 Uniform: the span tree ``ops.sort > ips4o_sort > level_pass(1) >
    sample/classify/partition``, ``level_pass(2)``, ``base_case``, each span
@@ -251,10 +262,14 @@ observability layer and the distributed sort:
    (medians of 3 steps, peak memory, DTensor's host cost a step) and ``time
    roofline``: the dry run's modelled row of that step (t_compute,
    t_memory, model_flops) beside the measured step;
-5. a ``{"kernels": [...]}`` JSON line (22 entries: the four 64-bit forms
+5. a ``{"kernels": [...]}`` JSON line (28 entries: the four 64-bit forms
    are rows of their own, ``level_fused64``, ``level_fused_radix64``,
-   ``level_fused_batched64`` and ``sort_windows64``), then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``level_fused_batched64`` and ``sort_windows64``, and so are K5's int64
+   form, ``merge_path64``, and K7 by key width, ``classify_histogram8``,
+   ``classify_histogram16``, ``classify_histogram64``,
+   ``classify_histogram_batched64`` and ``radix_histogram64``, whose rows
+   add ``launches_by_kind``, the launches of each key kind's path), then
+   the last line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --parent DIR
 
@@ -567,6 +582,13 @@ DEVICE_FUNCTIONS = {
     # network, which --parent times
     "sort_windows64": ("merge_sort_windows_kernel", "sort_small_windows_kernel",
                        "sort_windows_kernel"),
+    # K5's int64 form and K7 by key width: the same templates
+    "merge_path64": ("merge_kernel<",),
+    "classify_histogram8": ("classify_hist_kernel",),
+    "classify_histogram16": ("classify_hist_kernel",),
+    "classify_histogram64": ("classify_hist_kernel",),
+    "classify_histogram_batched64": ("classify_hist_kernel",),
+    "radix_histogram64": ("classify_hist_kernel",),
 }
 
 
@@ -1085,6 +1107,356 @@ def _verdict(path, what, ok):
 def _sched_oracle(np, rem, k):
     """The reference's admission order on the host: (remaining, arrival)."""
     return np.lexsort((np.arange(len(rem)), rem))[:k]
+
+
+def dtype_phases(torch, dev, rows) -> None:
+    """Phases 2-4 of the key dtypes that the stream, K7, ``s3_sort`` and the
+    block path take since the 64-bit form of K5 and K7's key kinds: K5 on
+    int64 codes (two duplicate-heavy runs of 2^24 with LLONG_MAX tails, and
+    ragged sizes) against its plain twin and as the stable merge
+    permutation; K7 on raw keys of float64 and int64 at 2^24 (NaN, +-0.0,
+    +-inf, the dtype's max; the integer extremes) and of uint64, uint32,
+    float16, uint16, int16, int8 and uint8 (and float32, int32 and bfloat16)
+    at 2^24, k = 128 against sampled splitters, its batched form at (64,
+    2^18) float64 and its radix mode on
+    int64 codes at k = 256 (consumed 0 and 8), each against its plain twin
+    and driven once per key kind; then the paths: the stream at its full
+    size for each dtype (``external_sort`` and ``external_argsort`` of 2^27
+    float64 in 16 chunks of 2^23, ``streaming_topk`` both ways, k = 1024, of
+    2^28 bfloat16 keys from a CPU tensor in chunks of 2^24 (the float64 sort
+    profiled once more),
+    ``streaming_group_by`` of 2^26 RootDup uint16 in chunks of 2^22), each
+    against ``torch.sort(stable=True)`` of the encoded keys on the card;
+    ``s3_sort`` of 2^24 float64 with an int64 payload against
+    ``torch.sort(stable=True)``; ``sort_blocks`` of 2^27 int64 keys in blocks
+    of 1024 over 256 buckets, in place by K8.  Last, the new kernel rows'
+    times and bounds.  Their launches join the kernels line."""
+    import numpy as np
+
+    from repro_torch import ops, stream
+    from repro_torch.core import sampling
+    from repro_torch.core.s3sort import s3_sort
+    from repro_torch.data.distributions import make_input
+    from repro_torch.kernels import block_permute as bp, classify as cl, merge_path as mp
+    from repro_torch.kernels.ops import sort_blocks
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    encode = ops.keyspace.encode
+    signed_of = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    k = 128
+    t_phase = time.time()
+
+    def bits(t):
+        return t.view(signed_of[t.element_size()])
+
+    def check_equal(name, got, want, what):
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        print(f"{name} {what}: max_abs_err={err}", flush=True)
+        if err != 0:
+            fail(f"{name} differs from its plain twin on {what}")
+        rows.setdefault(name, {"max_abs_err": 0, "launches": 0})
+
+    def drive(path, needed, fn):
+        res, launches, _ = _drive(torch, rows, path, needed, fn)
+        return res, launches
+
+    verdict = _verdict
+
+    # ---- 2. K5 on int64 codes: duplicate-heavy runs (each value ~8,400 times
+    # in both runs, spread over the high bits), the codes of NaN at the tails
+    def sorted_run64(n, lo, hi):
+        run = torch.sort(torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                       dtype=torch.int64) << 40).values
+        run[-max(1, n // 1000):] = torch.iinfo(torch.int64).max
+        return run
+
+    merge_a, merge_b = sorted_run64(N_BIG, -1000, 1000), sorted_run64(N_BIG, -1000, 1000)
+    k5_cases = ((merge_a, merge_b), (sorted_run64(1_000_003, -50, 50), sorted_run64(77, -50, 50)),
+                (sorted_run64(1000, 0, 10), merge_b[:0]))
+    for a, b in k5_cases:
+        got = mp.merge_path_perm(a, b)
+        check_equal("merge_path64", got, mp.merge_path_perm_plain(a, b),
+                    f"int64 {a.shape[0]} + {b.shape[0]}")
+        if not torch.equal(got.to(torch.int64), torch.sort(torch.cat([a, b]),
+                                                           stable=True).indices):
+            fail("K5's int64 form is not the stable merge permutation")
+    for tile in (mp.TILE, mp.MAX_TILE64):
+        info = mp.launch_info(tile, key_bytes=8)
+        print(f"merge_path64 launch (tile={tile}; cudaFuncGetAttributes): registers "
+              f"{info['registers']} per thread, shared memory {info['static_smem']} static + "
+              f"{info['dynamic_smem']} dynamic B per CTA, {info['threads']} threads, "
+              f"{info['ctas_per_sm']} CTAs an SM at once, local memory {info['local_bytes']} B",
+              flush=True)
+        if info["local_bytes"]:
+            fail(f"merge_path64 spills at tile {tile}")
+
+    # ---- K7 on raw keys of every new key kind at 2^24, k = 128
+    def full_bits(dtype, n):
+        """Keys of dtype: random bits over the whole range, a heavy duplicate."""
+        signed = signed_of[torch.empty((), dtype=dtype).element_size()]
+        info = torch.iinfo(signed)
+        x = torch.randint(info.min, info.max, (n,), generator=gen, device=dev, dtype=signed)
+        x[::3] = x[1]
+        return x.view(dtype)
+
+    def extremes(x):
+        s = bits(x)
+        unsigned = x.dtype in (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+        info = torch.iinfo(s.dtype)
+        s[::1009] = -1 if unsigned else info.max  # the dtype's max
+        s[1::1013] = 0 if unsigned else info.min  # its min
+        return x
+
+    def float_specials(x):
+        x[::1009] = float("nan")
+        x[1::1013] = -0.0
+        x[2::1019] = 0.0
+        x[3::1021] = float("inf")
+        x[4::1031] = float("-inf")
+        x[5::1033] = torch.finfo(x.dtype).max
+        return x
+
+    def sorted_splitters(x, k_):
+        """k_-1 keys of a sorted sample (keyspace order: NaN last), picked on
+        the keys' signed view (torch's unsigned dtypes lack most ops)."""
+        pos = torch.randint(0, x.shape[-1], x.shape[:-1] + (4 * k_,), generator=gen, device=dev)
+        sample = torch.gather(bits(x), -1, pos)
+        order = torch.sort(encode(sample.view(x.dtype)), dim=-1, stable=True).indices
+        sample = torch.gather(sample, -1, order)
+        return sampling.select_splitters(sample, k_).contiguous().view(x.dtype)
+
+    normal64 = torch.randn(N_BIG, generator=gen, device=dev, dtype=torch.float64)
+    normal64[3::3] *= 1e300  # the float64 range beyond float32's
+    k7_in = {
+        "float64": float_specials(normal64),
+        "int64": extremes(full_bits(torch.int64, N_BIG)),
+        "uint64": extremes(full_bits(torch.uint64, N_BIG)),
+        "uint32": extremes(full_bits(torch.uint32, N_BIG)),
+        "float16": float_specials(torch.randn(N_BIG, generator=gen, device=dev).to(torch.float16)),
+        "uint16": extremes(full_bits(torch.uint16, N_BIG)),
+        "int16": extremes(full_bits(torch.int16, N_BIG)),
+        "int8": extremes(full_bits(torch.int8, N_BIG)),
+        "uint8": extremes(full_bits(torch.uint8, N_BIG)),
+        # the kinds of phase 2's K7 check, driven here by kind too
+        "float32": float_specials(torch.randn(N_BIG, generator=gen, device=dev)),
+        "int32": extremes(full_bits(torch.int32, N_BIG)),
+        "bfloat16": float_specials(torch.randn(N_BIG, generator=gen, device=dev).to(
+            torch.bfloat16)),
+    }
+    k7_spl = {tag: sorted_splitters(x, k) for tag, x in k7_in.items()}
+    k7_want = {}
+    for tag, x in k7_in.items():
+        k7_want[tag] = cl.classify_histogram_plain(x, k7_spl[tag], k=k)
+        check_equal(cl.launch_name("classify_histogram", x.dtype),
+                    cl.classify_histogram(x, k7_spl[tag], k=k), k7_want[tag],
+                    f"{tag} n={N_BIG} k={k}")
+    k7_rows = float_specials(torch.randn((B_BULK, N_ROW), generator=gen, device=dev,
+                                         dtype=torch.float64))
+    k7_rows_spl = sorted_splitters(k7_rows, k)
+    k7_want["batched"] = cl.classify_histogram_batched_plain(k7_rows, k7_rows_spl, k=k)
+    check_equal("classify_histogram_batched64",
+                cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k), k7_want["batched"],
+                f"float64 ({B_BULK}, {N_ROW}) per-row splitters k={k}")
+    radix64 = full_bits(torch.int64, N_BIG).clone()
+    radix64[::1009] = torch.iinfo(torch.int64).max  # the code of NaN
+    for consumed in (0, 8):
+        k7_want[f"radix {consumed}"] = cl.radix_histogram_plain(radix64, k=K_RADIX,
+                                                                consumed_bits=consumed)
+        check_equal("radix_histogram64", cl.radix_histogram(radix64, k=K_RADIX,
+                                                            consumed_bits=consumed),
+                    k7_want[f"radix {consumed}"],
+                    f"int64 codes n={N_BIG} k={K_RADIX} consumed={consumed}")
+
+    # ---- 3. the paths: K5 64-bit, K7 once per key kind
+    got, _ = drive(f"K5 int64 ({N_BIG} + {N_BIG})", ("merge_path64",),
+                   lambda: mp.merge_path_perm(merge_a, merge_b))
+    verdict("K5 int64", "merge_path_perm", torch.equal(got, mp.merge_path_perm_plain(merge_a,
+                                                                                    merge_b)))
+    for tag, x in k7_in.items():
+        name = cl.launch_name("classify_histogram", x.dtype)
+        got, launches = drive(f"K7 {tag} ({N_BIG} keys, k={k})", (name,),
+                              lambda x=x, tag=tag: cl.classify_histogram(x, k7_spl[tag], k=k))
+        verdict(f"K7 {tag}", name, all(torch.equal(g, w) for g, w in zip(got, k7_want[tag])))
+        rows[name].setdefault("kinds", {})[tag] = launches[name]
+    got, launches = drive(f"K7 float64 batched ({B_BULK}, {N_ROW})",
+                          ("classify_histogram_batched64",),
+                          lambda: cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k))
+    verdict("K7 float64 batched", "classify_histogram_batched",
+            all(torch.equal(g, w) for g, w in zip(got, k7_want["batched"])))
+    rows["classify_histogram_batched64"]["kinds"] = {"float64": launches[
+        "classify_histogram_batched64"]}
+    got, launches = drive(f"K7 int64 radix ({N_BIG} codes, k={K_RADIX})", ("radix_histogram64",),
+                          lambda: [cl.radix_histogram(radix64, k=K_RADIX, consumed_bits=c)
+                                   for c in (0, 8)])
+    verdict("K7 int64 radix", "radix_histogram", all(
+        torch.equal(g, w) for c, pair in zip((0, 8), got)
+        for g, w in zip(pair, k7_want[f"radix {c}"])))
+    rows["radix_histogram64"]["kinds"] = {"int64 codes": launches["radix_histogram64"]}
+    print(f"dtype phases: kernels checked and driven in {time.time() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- the stream at full size for each dtype
+    sort64 = ("level_fused64", "rank_hist", "sort_windows64")
+    sort32 = ("level_fused", "rank_hist", "sort_windows")
+    t0 = time.time()
+    x64 = make_input("Uniform", N_STREAM // 2, np.float64, seed=41)
+    x64[3::3] *= -1
+    x64[::1009] = np.nan
+    x64[1::1013] = -0.0
+    x64[2::1019] = 0.0
+    x64[4::1021] = np.inf
+    x64[5::1031] = -np.inf
+    print(f"stream input: {x64.shape[0]} float64 keys on the host in {time.time() - t0:.1f} s",
+          flush=True)
+    path = f"stream sort ({x64.shape[0]} float64 keys, chunks of {CHUNK // 2})"
+    got, _ = drive(path, sort64 + ("merge_path64",), lambda: {
+        "external_sort": stream.external_sort(x64, chunk_size=CHUNK // 2),
+        "external_argsort": stream.external_argsort(x64, chunk_size=CHUNK // 2)})
+    enc = encode(torch.as_tensor(x64, device=dev))
+    want = torch.sort(enc, stable=True)
+    verdict(path, "external_sort", got["external_sort"].dtype == np.float64 and torch.equal(
+        encode(torch.as_tensor(got["external_sort"], device=dev)), want.values))
+    verdict(path, "external_argsort", torch.equal(
+        torch.as_tensor(got["external_argsort"], device=dev).to(torch.int64), want.indices))
+    del got, enc, want
+    stream_profile = profile(torch, f"stream.external_sort {x64.shape[0]} float64 keys, chunks "
+                             f"of {CHUNK // 2}", lambda: stream.external_sort(
+                                 x64, chunk_size=CHUNK // 2), top=10, show=("merge_kernel<",))
+    del x64, stream_profile
+
+    bf = torch.randn(N_STREAM, generator=gen, device=dev).to(torch.bfloat16)
+    bf[3::3] *= -1
+    bf[::1009] = float("nan")
+    bf[1::1013] = -0.0
+    bf[2::1019] = 0.0
+    bf[4::1021] = float("inf")
+    bf_host = bf.cpu()  # the host form of bfloat16 keys without ml_dtypes
+    path = f"stream top-k ({N_STREAM} bfloat16 keys from a CPU tensor, k={STREAM_K})"
+    got, _ = drive(path, sort32 + ("merge_path",), lambda: {
+        "streaming_topk": stream.streaming_topk(bf_host, STREAM_K, chunk_size=CHUNK),
+        "streaming_bottomk": stream.streaming_topk(bf_host, STREAM_K, chunk_size=CHUNK,
+                                                   largest=False)})
+    codes = encode(bf)
+    for name, c in (("streaming_topk", ~codes), ("streaming_bottomk", codes)):
+        order = torch.sort(c, stable=True).indices[:STREAM_K]
+        vals, idx = got[name]
+        verdict(path, name, vals.dtype == torch.bfloat16
+                and torch.equal(torch.as_tensor(idx, device=dev).to(torch.int64), order)
+                and torch.equal(encode(vals.to(dev)), codes[order]))
+    del got, codes, bf, bf_host
+
+    group16 = make_input("RootDup", N_GROUPS, np.uint16, seed=43)
+    path = f"stream group-by ({N_GROUPS} RootDup uint16, chunks of {CHUNK_GROUPS})"
+    got, _ = drive(path, sort32 + ("merge_path",), lambda: stream.streaming_group_by(
+        group16, chunk_size=CHUNK_GROUPS))
+    vals, counts = got
+    want_v, want_c = torch.unique(encode(torch.as_tensor(group16.view(np.int16), device=dev)
+                                         .view(torch.uint16)), return_counts=True)
+    verdict(path, f"streaming_group_by ({vals.shape[0]} groups)", vals.dtype == np.uint16
+            and torch.equal(encode(torch.as_tensor(vals.view(np.int16), device=dev)
+                                   .view(torch.uint16)), want_v)
+            and torch.equal(torch.as_tensor(counts, device=dev), want_c))
+    del got, group16
+
+    # ---- s3_sort of 2^24 float64 with an int64 payload, and sort_blocks of
+    # 2^27 int64 keys in place by K8
+    s3_x = float_specials(torch.randn(N_BIG, generator=gen, device=dev, dtype=torch.float64))
+    s3_v = torch.arange(N_BIG, device=dev, dtype=torch.int64)
+    path = f"s3-sort ({N_BIG} float64 with NaN/+-0.0/+-inf, int64 payload)"
+    got, _ = drive(path, (), lambda: s3_sort(s3_x, s3_v))
+    want = torch.sort(s3_x, stable=True)
+    verdict(path, "s3_sort", torch.equal(bits(got[0]), bits(want.values))
+            and torch.equal(got[1], want.indices))
+    print(f"time whole s3_sort {N_BIG} float64 with int64 payload: "
+          f"{cuda_ms(torch, lambda: s3_sort(s3_x, s3_v), reps=5):.3f} ms, torch.sort(stable) "
+          f"{cuda_ms(torch, lambda: torch.sort(s3_x, stable=True), reps=5):.3f} ms", flush=True)
+    del got, want, s3_x, s3_v
+
+    n_blocks64 = N_STREAM // 2 // BLOCK
+    bb64 = torch.randint(0, N_BUCKETS, (n_blocks64,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    keys64 = (torch.arange(n_blocks64, device=dev, dtype=torch.int64)[:, None] * (1 << 32)
+              + torch.arange(BLOCK, device=dev, dtype=torch.int64)).reshape(-1)
+    before64 = keys64.clone()
+    order64 = torch.sort(bb64, stable=True).indices
+    want_d = torch.zeros(N_BUCKETS + 1, dtype=torch.int32, device=dev)
+    want_d[1:] = torch.cumsum(torch.bincount(bb64, minlength=N_BUCKETS), 0)
+    ptr = keys64.data_ptr()
+    path = f"sort_blocks ({keys64.shape[0]} int64 keys, blocks of {BLOCK}, {N_BUCKETS} buckets)"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, _ = drive(path, ("permute_blocks_by_dest",),
+                   lambda: sort_blocks(keys64, bb64, k=N_BUCKETS, block_elems=BLOCK))
+    rise = torch.cuda.max_memory_allocated() - base
+    out, d = got
+    print(f"sort_blocks int64 in place: data_ptr kept {out.data_ptr() == ptr}, peak rise "
+          f"{rise} B of {keys64.numel() * 8} B of data", flush=True)
+    verdict(path, "sort_blocks", out.data_ptr() == ptr and rise <= keys64.numel() * 8 // 4
+            and torch.equal(d, want_d)
+            and torch.equal(out.view(n_blocks64, BLOCK), before64.view(n_blocks64, BLOCK)[order64]))
+    body64 = before64.view(n_blocks64, BLOCK)
+    print(f"time whole sort_blocks {keys64.shape[0]} int64: "
+          f"{cuda_ms(torch, lambda: sort_blocks(keys64, bb64, k=N_BUCKETS, block_elems=BLOCK), warmup=1, reps=3):.3f} ms, "
+          f"index_select of the blocks {cuda_ms(torch, lambda: body64.index_select(0, order64), warmup=1, reps=3):.3f} ms",
+          flush=True)
+    del got, out, before64, keys64, body64
+    torch.cuda.empty_cache()
+    print(f"dtype phases: paths in {time.time() - t_phase:.1f} s", flush=True)
+
+    # ---- 4. the new kernel rows: device time, bound, plain twin and library
+    def time_row(name, call, plain, nbytes, ops, library=None):
+        t = rows[name]
+        kernel_ms(torch, name, t, call)
+        t["plain_ms"] = cuda_ms(torch, plain, reps=3)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops)
+        t["library_ms"] = cuda_ms(torch, library, reps=5) if library else None
+
+    # K5: a key read (8 B) and a source written (4 B) per output; ~6 ops
+    merge_cat = torch.cat([merge_a, merge_b])
+    time_row("merge_path64", lambda: mp.merge_path_perm(merge_a, merge_b),
+             lambda: mp.merge_path_perm_plain(merge_a, merge_b), 2 * N_BIG * 12, 2 * N_BIG * 6,
+             lambda: torch.sort(merge_cat, stable=True))
+    work = {e.key: e.count for e in one_kernel_a_call(
+        torch, "merge_path64", lambda: mp.merge_path_perm(merge_a, merge_b),
+        lambda e: any(f in e.key for f in DEVICE_FUNCTIONS["merge_path64"]))}
+    print(f"merge_path64 device work in 10 calls (torch.profiler): {work}", flush=True)
+    # K7: a key read and an id written per key, the uppers and the (tiles, 2k)
+    # histogram; tree ~3 ops a search step plus ~6, radix ~8
+    log_k = k.bit_length() - 1
+    for name, tag in (("classify_histogram64", "float64"), ("classify_histogram16", "float16"),
+                      ("classify_histogram8", "uint8")):
+        x, s = k7_in[tag], k7_spl[tag]
+        kb = x.element_size()
+        tiles = N_BIG // (cl.default_rows(N_BIG, kb, k) * cl.LANES)
+        time_row(name, lambda x=x, s=s: cl.classify_histogram(x, s, k=k),
+                 lambda x=x, s=s: cl.classify_histogram_plain(x, s, k=k),
+                 N_BIG * (kb + 4) + k * kb + tiles * 2 * k * 4, N_BIG * (3 * log_k + 6))
+    tiles = B_BULK * (N_ROW // (cl.default_rows(N_ROW, 8, k) * cl.LANES))
+    time_row("classify_histogram_batched64",
+             lambda: cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k),
+             lambda: cl.classify_histogram_batched_plain(k7_rows, k7_rows_spl, k=k),
+             B_BULK * N_ROW * 12 + B_BULK * k * 8 + tiles * 2 * k * 4,
+             B_BULK * N_ROW * (3 * log_k + 6))
+    tiles = N_BIG // (cl.default_rows(N_BIG, 8, K_RADIX) * cl.LANES)
+    time_row("radix_histogram64", lambda: cl.radix_histogram(radix64, k=K_RADIX),
+             lambda: cl.radix_histogram_plain(radix64, k=K_RADIX),
+             N_BIG * 12 + tiles * 2 * K_RADIX * 4, N_BIG * 8)
+    for tag in ("int64", "uint64", "uint32", "uint16", "int16", "int8"):
+        x, s = k7_in[tag], k7_spl[tag]
+        print(f"time classify_histogram {tag} (n={N_BIG}, k={k}): kernel "
+              f"{cuda_ms(torch, lambda: cl.classify_histogram(x, s, k=k)):.4f} ms, device "
+              f"{device_ms(torch, lambda: cl.classify_histogram(x, s, k=k), names=DEVICE_FUNCTIONS['classify_histogram']):.4f} ms",
+              flush=True)
+    for name in ("merge_path64", "classify_histogram64", "classify_histogram16",
+                 "classify_histogram8", "classify_histogram_batched64", "radix_histogram64"):
+        r = rows[name]
+        print(f"time {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+              f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}, "
+              f"launches {r['launches']} {r.get('kinds', '')}", flush=True)
+    print(f"dtype phases: {time.time() - t_phase:.1f} s in all", flush=True)
 
 
 def scheduler_phases(torch, dev, rows) -> None:
@@ -4596,6 +4968,8 @@ def main() -> None:
 
     sort_phases()
     torch.cuda.empty_cache()
+    dtype_phases(torch, dev, rows)
+    torch.cuda.empty_cache()
     rows.update(attention_phases(torch, dev))
     torch.cuda.empty_cache()
     scheduler_phases(torch, dev, rows)
@@ -4655,6 +5029,18 @@ def main() -> None:
                                   "src/repro/kernels/level_fused.py:240"),
         "sort_windows64": ("src/repro_torch/csrc/bitonic.cu",
                            "src/repro/kernels/bitonic.py:72"),
+        "merge_path64": ("src/repro_torch/csrc/merge_path.cu",
+                         "src/repro/kernels/merge_path.py:157"),
+        "classify_histogram8": ("src/repro_torch/csrc/classify.cu",
+                                "src/repro/kernels/classify.py:100"),
+        "classify_histogram16": ("src/repro_torch/csrc/classify.cu",
+                                 "src/repro/kernels/classify.py:100"),
+        "classify_histogram64": ("src/repro_torch/csrc/classify.cu",
+                                 "src/repro/kernels/classify.py:100"),
+        "classify_histogram_batched64": ("src/repro_torch/csrc/classify.cu",
+                                         "src/repro/kernels/classify.py:153"),
+        "radix_histogram64": ("src/repro_torch/csrc/classify.cu",
+                              "src/repro/kernels/classify.py:222"),
     }
     line = []
     for name, (source, replaces) in meta.items():
@@ -4665,6 +5051,7 @@ def main() -> None:
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"launches_by_kind": r["kinds"]} if "kinds" in r else {}),
         })
     print(f"total {time.time() - t_start:.1f} s")
     print(f"card: {card}")

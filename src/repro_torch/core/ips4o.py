@@ -66,6 +66,7 @@ from repro_torch.classify import (
     resolve_classifier,
 )
 from repro_torch.core import sampling
+from repro_torch.core.sampling import signed_payload
 from repro_torch.kernels.bitonic import window_perm_plain
 from repro_torch.kernels.level_fused import (
     MAX_TILE64,
@@ -770,18 +771,6 @@ def _check_keys(keys: torch.Tensor, dim: int) -> None:
             f"the sort takes keyspace-encoded int32 or int64 keys, got {keys.dtype} "
             f"({_ROADMAP} item 1)"
         )
-
-
-# torch's unsigned dtypes past 8 bits lack index_put: a payload of them
-# moves as the signed dtype of its width and comes back viewed as it was
-_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
-                torch.uint64: torch.int64}
-
-
-def signed_payload(values: torch.Tensor) -> torch.Tensor:
-    """``values`` viewed as a dtype the passes can scatter (the bits as
-    they are); ``values.view(dtype)`` restores it."""
-    return values.view(_SIGNED_VIEW.get(values.dtype, values.dtype))
 
 
 def _payload(values: Any, keys: torch.Tensor) -> Tuple[Arrays, Callable[[Arrays, int], Any]]:

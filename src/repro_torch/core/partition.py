@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.sampling import signed_payload
 from repro_torch.kernels import dispatch_rank
 from repro_torch.kernels.block_permute import permute_blocks_by_dest, stable_block_dest
 
@@ -182,9 +183,6 @@ def _two_pass_ranks(bucket: torch.Tensor, start: torch.Tensor, nb: int,
     return torch.where(valid, start[b64] + (pos - first[b64]).to(torch.int32), none)
 
 
-BLOCK_DTYPES = (torch.float32, torch.int32)  # the block path's keys and payload
-
-
 def partition_blocks(
     arrays: Arrays, block_bucket: torch.Tensor, nb: int, block_elems: int
 ) -> Tuple[Arrays, torch.Tensor]:
@@ -202,14 +200,11 @@ def partition_blocks(
     does; both branches give the same stable grouping.
 
     Returns (grouped arrays, (nb+1,) int32 block-boundary offsets d, the
-    exclusive prefix of the block counts).  The tensors hold float32 or
-    int32 elements (``BLOCK_DTYPES``); other dtypes raise.
+    exclusive prefix of the block counts).  The tensors may hold any
+    element type: K8 moves bytes (a block of 128 one-byte elements is eight
+    of its 16-byte words), and the gather moves the bits of unsigned ints
+    as the signed int of their width.
     """
-    for name, a in arrays.items():
-        if a.dtype not in BLOCK_DTYPES:
-            raise NotImplementedError(
-                f"partition_blocks: {name} is {a.dtype}; the block path takes float32 and "
-                "int32 tensors (ROADMAP.md, queue 1 item 1, what stays open)")
     hist = torch.bincount(block_bucket.to(torch.int64), minlength=nb)
     d = torch.zeros(nb + 1, dtype=torch.int32, device=block_bucket.device)
     d[1:] = torch.cumsum(hist, 0)
@@ -223,8 +218,8 @@ def partition_blocks(
     order = torch.sort(block_bucket, stable=True).indices
     nblocks = block_bucket.shape[0]
 
-    def move(a):
-        blocks = a.reshape((nblocks, block_elems) + a.shape[1:])
-        return blocks[order].reshape(a.shape)
+    def move(a):  # the gather on the signed view (no unsigned gather on a card)
+        blocks = signed_payload(a).reshape((nblocks, block_elems) + a.shape[1:])
+        return blocks[order].reshape(a.shape).view(a.dtype)
 
     return {name: move(a) for name, a in arrays.items()}, d

@@ -12,7 +12,11 @@ the paper criticizes (§4.5, Appendix B):
   * each bucket is then finished by a stable (bucket, key) sort, two stable
     ``torch.sort`` calls, as the reference uses XLA's sort there.
 
-It runs no kernel of its own.  The output is the stable sort of the raw
+It runs no kernel of its own, and takes keys of every dtype of the
+keyspace (8/16/32/64-bit ints and uints, float16, bfloat16, float32,
+float64); uint16, uint32 and uint64 keys, whose torch dtypes lack ``>``
+and ``searchsorted``, run as their order-preserving signed views
+(``sampling.ordered_view``).  The output is the stable sort of the raw
 keys (``torch.sort(stable=True)``): NaN last, -0.0 and +0.0 tied in input
 order.  The reference's classification sends NaN to bucket 0 and +inf
 below a key equal to ``finfo.max``, so with NaN or infinite keys its output
@@ -33,9 +37,6 @@ from repro_torch.core.ref import ref_partition
 
 __all__ = ["s3_sort"]
 
-S3_DTYPES = (torch.float32, torch.int32, torch.bfloat16)  # K7's raw keys
-
-
 def _oracle(keys: torch.Tensor, splitters: torch.Tensor, k: int) -> torch.Tensor:
     """Tree ids 2j + eq of raw keys against sorted splitters (NaN last),
     monotone in ``torch.sort``'s order: NaN keys take the top id 2k-1."""
@@ -52,25 +53,26 @@ def _oracle(keys: torch.Tensor, splitters: torch.Tensor, k: int) -> torch.Tensor
 
 def s3_sort(keys: torch.Tensor, values: Optional[torch.Tensor] = None,
             cfg: SortConfig = SortConfig()):
-    """Out-of-place samplesort baseline of ``keys`` (n,): one distribution
-    level, then a stable (bucket, key) sort.  ``values`` (n, ...) moves with
-    the keys.  Returns the sorted keys, or (keys, values).
+    """Out-of-place samplesort baseline of ``keys`` (n,) of any keyspace
+    dtype: one distribution level, then a stable (bucket, key) sort.
+    ``values`` (n, ...) moves with the keys.  Returns the sorted keys, or
+    (keys, values).
     """
-    if keys.dtype not in S3_DTYPES:
-        raise NotImplementedError(
-            f"s3_sort takes raw {list(S3_DTYPES)} keys, as K7 does, got {keys.dtype} "
-            "(ROADMAP.md, queue 1 item 1, what stays open)")
+    from repro_torch.ops import keyspace  # lazy: ops layers on core
+
+    keyspace.key_bits(keys.dtype)  # raises for dtypes with no order (the reference's too)
     n = keys.shape[0]
     if n <= 1:
         return keys if values is None else (keys, values)
+    dtype = keys.dtype
+    keys = sampling.ordered_view(keys)
     arrays = {"k": keys}
-    if values is not None:
-        arrays["v"] = values
+    if values is not None:  # moved as the signed int of its width
+        arrays["v"] = sampling.signed_payload(values)
     levels = plan_levels(n, cfg)
     if not levels:
         order = torch.sort(keys, stable=True).indices
-        out = {name: a[order] for name, a in arrays.items()}
-        return out["k"] if values is None else (out["k"], out["v"])
+        return _result({name: a[order] for name, a in arrays.items()}, dtype, values)
 
     k = levels[0]
     m = min(max(sampling.oversampling_factor(n) * k, k), cfg.max_sample, n)
@@ -84,5 +86,9 @@ def s3_sort(keys: torch.Tensor, values: Optional[torch.Tensor] = None,
     o1 = torch.sort(out["k"], stable=True).indices
     o2 = torch.sort(seg[o1], stable=True).indices
     order = o1[o2]
-    final = {name: a[order] for name, a in out.items()}
-    return final["k"] if values is None else (final["k"], final["v"])
+    return _result({name: a[order] for name, a in out.items()}, dtype, values)
+
+
+def _result(out, dtype, values):
+    keys = sampling.from_ordered_view(out["k"], dtype)
+    return keys if values is None else (keys, out["v"].view(values.dtype))

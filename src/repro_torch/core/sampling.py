@@ -20,6 +20,9 @@ __all__ = [
     "tree_permutation",
     "build_tree",
     "sentinel_for",
+    "ordered_view",
+    "from_ordered_view",
+    "signed_payload",
     "oversampling_factor",
     "sample_indices",
     "select_splitters",
@@ -60,6 +63,41 @@ def sentinel_for(dtype: torch.dtype) -> int:
     if dtype.is_floating_point:
         return torch.finfo(dtype).max
     return torch.iinfo(dtype).max
+
+
+_FLIPPED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def ordered_view(keys: torch.Tensor) -> torch.Tensor:
+    """Raw keys as a tensor torch can compare and search in their order:
+    uint16, uint32 and uint64 keys (whose torch dtypes lack ``>`` and
+    ``searchsorted``) as their signed view with the sign bit flipped, an
+    order-preserving bijection that maps the dtype's max to the signed max
+    (so :func:`sentinel_for` of the view is the view of the key's);
+    :func:`from_ordered_view` undoes it.  Other keys as they are.
+
+    >>> ordered_view(torch.tensor([0, 65535], dtype=torch.uint16)).tolist()
+    [-32768, 32767]
+    """
+    signed = _FLIPPED.get(keys.dtype)
+    if signed is None:
+        return keys
+    return keys.view(signed) ^ torch.iinfo(signed).min
+
+
+def signed_payload(values: torch.Tensor) -> torch.Tensor:
+    """``values`` viewed as a dtype torch can gather and scatter on every
+    device (the bits as they are): torch's unsigned dtypes past 8 bits lack
+    ``index_put`` everywhere and gathers on a card, so uint16/32/64 move as
+    the signed int of their width; ``values.view(dtype)`` restores them."""
+    return values.view(_FLIPPED.get(values.dtype, values.dtype))
+
+
+def from_ordered_view(view: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The keys of ``dtype`` whose :func:`ordered_view` is ``view``."""
+    if dtype not in _FLIPPED:
+        return view
+    return (view ^ torch.iinfo(view.dtype).min).view(dtype)
 
 
 def oversampling_factor(n: int) -> int:

@@ -69,6 +69,11 @@ LAUNCHES: Dict[str, int] = {
     # the 64-bit forms of K1, K1r, K4 level_fused_batched and K3
     "level_fused64": 0, "level_fused_radix64": 0, "level_fused_batched64": 0,
     "sort_windows64": 0,
+    # the 64-bit form of K5, and K7 by key width (the names above: 32-bit keys)
+    "merge_path64": 0,
+    "classify_histogram8": 0, "classify_histogram16": 0, "classify_histogram64": 0,
+    "classify_histogram_batched8": 0, "classify_histogram_batched16": 0,
+    "classify_histogram_batched64": 0, "radix_histogram64": 0,
 }
 
 # callables (name, flops, bytes) told of each launch a wrapper stands in for

@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.sampling import signed_payload
 from repro_torch.kernels import _build
 from repro_torch.kernels.level_fused import _device_kind
 
@@ -120,7 +121,8 @@ def _move_plain(a: torch.Tensor, dst: torch.Tensor, nblocks: int, block_elems: i
     """Gather the N full blocks by the inverse of dst, written back into a."""
     src = torch.empty(nblocks, dtype=torch.int64, device=a.device)
     src[dst.to(torch.int64)] = torch.arange(nblocks, device=a.device)
-    body = a[: nblocks * block_elems].view(nblocks, block_elems)
+    # the signed view: torch's unsigned dtypes have no gather on a card
+    body = signed_payload(a)[: nblocks * block_elems].view(nblocks, block_elems)
     body.copy_(body[src])
 
 

@@ -11,15 +11,22 @@ a CUDA tensor, under its own key of ``_build.LAUNCHES``, and runs the plain
 twin (``*_plain``, same outputs bit for bit) only on a CPU tensor; there is
 no fallback from one to the other.
 
-Tree mode classifies *raw* keys (float32, int32 or bfloat16) against k-1
-splitters sorted ascending (any NaN last, as ``torch.sort`` leaves them)
-and the dtype's max as the last upper: j counts the splitters below the
-key, eq says whether the key equals one of the k uppers, and the id is
-2j + eq in [0, 2k).  So NaN gets 0, -0.0 equals a +0.0 splitter, +inf gets
+Tree mode classifies *raw* keys of any of the reference's twelve key
+dtypes (8/16/32/64-bit ints and uints, float16, bfloat16, float32,
+float64; ``ops.keyspace``) against k-1 splitters sorted ascending (any NaN
+last, as ``torch.sort`` leaves them) and the dtype's max as the last
+upper: j counts the splitters below the key, eq says whether the key
+equals one of the k uppers, and the id is 2j + eq in [0, 2k), each key
+compared in its own dtype (unsigned ints as unsigned) as the reference's
+dense compare does.  So NaN gets 0, -0.0 equals a +0.0 splitter, +inf gets
 2(k-1) and a key equal to the dtype's max 2k-1.  Radix mode takes the
-port's signed codes (``ops.keyspace.encode``) by K1r's rule
-(``classify.radix_bucket_ids``).  The ids and the (tiles, 2k) histogram of
-every tile of ``rows * 128`` keys are returned.
+port's signed int32 or int64 codes (``ops.keyspace.encode``) by K1r's
+rule (``classify.radix_bucket_ids``).  The ids and the (tiles, 2k)
+histogram of every tile of ``rows * 128`` keys are returned.
+
+Each entry point counts its launches by key width: its own name for 32-bit
+keys, the name with 8, 16 or 64 appended for the others
+(``classify_histogram16``, ``radix_histogram64``, ...).
 
 ``rows=None`` resolves through :func:`default_rows`, a copy of the
 reference's TPU tile model: it is the shape contract of the histogram, not
@@ -32,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.classify import radix_bucket_ids, radix_shift
-from repro_torch.core.sampling import sentinel_for
+from repro_torch.core.sampling import from_ordered_view, ordered_view, sentinel_for
 from repro_torch.kernels import _build
 from repro_torch.kernels.level_fused import _device_kind
 
@@ -46,11 +53,18 @@ __all__ = [
     "radix_histogram_batched",
     "radix_histogram_batched_plain",
     "default_rows",
+    "launch_name",
     "LANES",
 ]
 
 LANES = 128
-_KEY_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+# the kernel's key kinds (csrc/classify.cu, enum Kind)
+_KEY_KINDS = {
+    torch.int32: 0, torch.float32: 1, torch.bfloat16: 2, torch.int8: 3, torch.uint8: 4,
+    torch.int16: 5, torch.uint16: 6, torch.float16: 7, torch.uint32: 8, torch.int64: 9,
+    torch.uint64: 10, torch.float64: 11,
+}
+_RADIX_CODES = (torch.int32, torch.int64)
 
 # The reference's tile model (``repro/launch/roofline.py:148`` launch_spec ->
 # spec_candidates, ``_bytes_per_row`` at :81): a third of a 16 MiB TPU VMEM
@@ -64,6 +78,7 @@ _P, _I = _build.P, _build.I
 _SIGNATURES = {
     "classify_histogram_tree": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "classify_histogram_radix": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "classify_histogram_radix64": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -101,12 +116,12 @@ def _check_keys(keys: torch.Tensor, dim: int, radix: bool) -> None:
     if keys.dim() != dim or not keys.is_contiguous():
         raise ValueError(f"keys: expected a contiguous {dim}-D tensor, got "
                          f"{tuple(keys.shape)}")
-    if radix and keys.dtype != torch.int32:
-        raise ValueError(f"radix mode takes encoded int32 keys, got {keys.dtype}")
+    if radix and keys.dtype not in _RADIX_CODES:
+        raise ValueError(f"radix mode takes encoded int32 or int64 keys, got {keys.dtype}")
     if keys.dtype not in _KEY_KINDS:
         raise NotImplementedError(
-            f"keys: K7 takes raw {list(_KEY_KINDS)} keys, got {keys.dtype} (ROADMAP.md, "
-            "queue 1 item 1, what stays open)")
+            f"keys: K7 takes raw keys of the keyspace's dtypes {list(_KEY_KINDS)}, got "
+            f"{keys.dtype}, which the reference refuses too")
     if keys.numel() >= 2**31:
         raise ValueError(f"{keys.numel()} keys exceed int32 positions")
 
@@ -119,15 +134,49 @@ def _uppers(keys: torch.Tensor, splitters: torch.Tensor, k: int) -> torch.Tensor
                          f"{tuple(splitters.shape)} {splitters.dtype}")
     if splitters.device != keys.device:
         raise ValueError("keys and splitters must share a device")
-    spl = splitters.reshape(-1, k - 1)
+    # in the ordered view, where torch's unsigned dtypes have every op: the
+    # view's max is the view of the dtype's max
+    spl = ordered_view(splitters.reshape(-1, k - 1))
     sent = torch.full((spl.shape[0], 1), sentinel_for(spl.dtype), dtype=spl.dtype,
                       device=spl.device)
-    return torch.cat([spl, sent], 1)
+    return from_ordered_view(torch.cat([spl, sent], 1), splitters.dtype)
 
 
 def _widen(x: torch.Tensor) -> torch.Tensor:
-    """bfloat16 -> float32 (exact); float32 and int32 as they are."""
-    return x.float() if x.dtype == torch.bfloat16 else x
+    """Keys in a dtype whose torch compares give the key order: bfloat16 and
+    float16 -> float32 (exact), uint16, uint32 and uint64 as their signed
+    views with the sign bit flipped (``sampling.ordered_view``: torch's
+    unsigned dtypes lack ``>``); the other dtypes as they are."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.float()
+    return ordered_view(x)
+
+
+def _kernel_uppers(upper: torch.Tensor) -> torch.Tensor:
+    """The uppers in the kernel's compare type for their key kind: float32
+    for the floats of 32 bits or fewer, int32 for the 8- and 16-bit ints,
+    the raw bits (a signed view) of uint32 and uint64, the rest as they
+    are."""
+    if upper.dtype in (torch.bfloat16, torch.float16):
+        return upper.float()
+    if upper.dtype in (torch.int8, torch.uint8, torch.int16, torch.uint16):
+        return upper.to(torch.int32)
+    if upper.dtype == torch.uint32:
+        return upper.view(torch.int32)
+    if upper.dtype == torch.uint64:
+        return upper.view(torch.int64)
+    return upper
+
+
+def launch_name(name: str, dtype: torch.dtype) -> str:
+    """The ``_build.LAUNCHES`` key of entry point ``name`` on keys of
+    ``dtype``: the name for 32-bit keys, the name and the width otherwise.
+
+    >>> launch_name("classify_histogram", torch.float64)
+    'classify_histogram64'
+    """
+    bits = 8 * torch.empty((), dtype=dtype).element_size()
+    return name if bits == 32 else f"{name}{bits}"
 
 
 # ---------------------------------------------------------------------------
@@ -169,13 +218,16 @@ def _run_kernel(keys, upper, k, shift, tile, name):
     lib = _build.library("classify", _SIGNATURES)
     stream = _build.stream_handle(keys.device)
     if upper is None:
-        err = lib.classify_histogram_radix(keys.data_ptr(), B, n, k, shift, tile,
-                                           bucket.data_ptr(), hist.data_ptr(), stream)
+        radix = (lib.classify_histogram_radix64 if keys.dtype == torch.int64
+                 else lib.classify_histogram_radix)
+        err = radix(keys.data_ptr(), B, n, k, shift, tile, bucket.data_ptr(), hist.data_ptr(),
+                    stream)
     else:
-        upper = _widen(upper).contiguous()
+        upper = _kernel_uppers(upper).contiguous()
         err = lib.classify_histogram_tree(keys.data_ptr(), upper.data_ptr(),
                                           _KEY_KINDS[keys.dtype], B, n, k, tile,
                                           bucket.data_ptr(), hist.data_ptr(), stream)
+    name = launch_name(name, keys.dtype)
     _build.check(lib, "classify", err, f"{name} kernel")
     _build.LAUNCHES[name] += 1
     return bucket, hist
@@ -199,8 +251,8 @@ def _classify(keys, splitters, k, rows, plain, batched):
 
 def _radix(keys, k, consumed_bits, rows, plain):
     _check_keys(keys, 1, radix=True)
-    shift = radix_shift(k, consumed_bits)
-    tile = _tile(keys.shape[0], 4, k, rows)
+    shift = radix_shift(k, consumed_bits, 8 * keys.element_size())
+    tile = _tile(keys.shape[0], keys.element_size(), k, rows)
     if plain:
         bucket = radix_bucket_ids(keys, k, consumed_bits)[None]
         hist = _hist_plain(bucket, 2 * k, tile)
@@ -213,14 +265,14 @@ def _radix_batched(keys, k, consumed_bits, rows, plain):
     """Flatten the rows into one radix call; tiles never straddle rows."""
     _check_keys(keys, 2, radix=True)
     B, n = keys.shape
-    tile = _tile(n, 4, k, rows)
+    tile = _tile(n, keys.element_size(), k, rows)
     bucket, hist = _radix(keys.reshape(B * n), k, consumed_bits, tile // LANES, plain)
     return bucket.reshape(B, n), hist.reshape(B, n // tile, 2 * k)
 
 
 def classify_histogram(keys: torch.Tensor, splitters: torch.Tensor, *, k: int,
                        rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Classify raw ``keys`` (n,) float32/int32/bfloat16 against sorted
+    """Classify raw ``keys`` (n,) of any keyspace dtype against sorted
     ``splitters`` (k-1,) of the same dtype: the K7 kernel on a CUDA tensor,
     its plain twin on a CPU tensor.
 
@@ -256,8 +308,9 @@ def classify_histogram_batched_plain(keys: torch.Tensor, splitters: torch.Tensor
 
 def radix_histogram(keys: torch.Tensor, *, k: int, consumed_bits: int = 0,
                     rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Radix ids and per-tile histogram of encoded int32 ``keys`` (n,): the
-    next log2(k) bits past ``consumed_bits``, 2 * bits + (key == sentinel).
+    """Radix ids and per-tile histogram of encoded int32 or int64 ``keys``
+    (n,): the next log2(k) bits past ``consumed_bits``, 2 * bits + (key ==
+    sentinel).
     The K7 kernel in radix mode on a CUDA tensor, its plain twin on a CPU
     tensor.  Returns (ids (n,) int32, histogram (num_tiles, 2k) int32)."""
     return _radix(keys, k, consumed_bits, rows, _device_kind(keys) == "cpu")

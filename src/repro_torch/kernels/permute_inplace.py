@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sampling import signed_payload
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_permute import LANES
 from repro_torch.kernels.level_fused import _device_kind
@@ -89,7 +90,7 @@ def replay_moves(block_bucket, d, k: int) -> list:
 def _move_plain(a, block_bucket, d, k, nblocks, block_elems) -> None:
     src = torch.as_tensor(replay_moves(block_bucket.tolist(), d.tolist(), k),
                           dtype=torch.int64, device=a.device)
-    blocks = a.view(nblocks, block_elems)
+    blocks = signed_payload(a).view(nblocks, block_elems)  # no unsigned gather on a card
     blocks.copy_(blocks[src])
 
 

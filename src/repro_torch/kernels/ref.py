@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.classify import classify
+from repro_torch.core.sampling import ordered_view
 
 __all__ = ["classify_histogram_ref", "permute_blocks_ref", "flash_attention_ref",
            "flash_decode_ref", "flash_decode_split_ref"]
@@ -33,8 +34,10 @@ __all__ = ["classify_histogram_ref", "permute_blocks_ref", "flash_attention_ref"
 def classify_histogram_ref(keys: torch.Tensor, splitters: torch.Tensor, *, k: int,
                            rows: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
     """Oracle: the tree classifier (``classify.classify``) + a per-tile
-    bincount over tiles of rows * 128 keys."""
-    bucket = classify(keys, splitters, k)
+    bincount over tiles of rows * 128 keys.  Keys of any keyspace dtype:
+    uint16, uint32 and uint64 keys and splitters classify as their
+    order-preserving signed views (``sampling.ordered_view``)."""
+    bucket = classify(ordered_view(keys), ordered_view(splitters), k)
     tile = rows * 128
     tiles = bucket.shape[0] // tile
     slot = (torch.arange(tiles, dtype=torch.int64, device=keys.device).repeat_interleave(tile)

@@ -100,7 +100,7 @@ def _shape(kind: str, key_bytes: int, k: Optional[int], tile: int):
     if kind == "merge":  # K5: 256 threads, 8 outputs each a step
         from repro_torch.kernels import merge_path as mp
 
-        if tile > mp.MAX_TILE or tile < 256:
+        if tile > mp.max_tile(key_bytes) or tile < 256:
             return None
         return _WARP, 256, 0
     if kind == "classify":  # K7: rows of 128 lanes, keys + a (128, 2k) compare + ids

@@ -56,7 +56,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.ips4o import SortConfig, plan_levels
-from repro_torch.kernels.merge_path import MAX_TILE, TILE
+from repro_torch.kernels.merge_path import TILE, max_tile
+from repro_torch.ops import keyspace
 
 __all__ = ["PlanCache", "StreamPlan", "DistPlan", "get_sorter", "default_cache"]
 
@@ -66,9 +67,18 @@ _CFG_FIELDS = frozenset(f.name for f in dataclasses.fields(SortConfig))
 # vocabulary of ``classify.router.distribution_moments``)
 _CLASSIFIER_RACERS = ("tree", "radix", "learned")
 _CLF_DISTS = ("uniform", "dup", "sorted", "skew")
-# the merge tiles the stream: sweep times: K5's tiles from the reference's
-# smallest (128) up to K5's largest
-_STREAM_TILES = tuple(1 << e for e in range(7, MAX_TILE.bit_length()))
+
+
+def _stream_tiles(dtype: torch.dtype) -> tuple:
+    """The merge tiles the stream: sweep times for keys of ``dtype``: K5's
+    tiles from the reference's smallest (128) up to K5's largest for the
+    keys' codes (int32 codes up to 16384, int64 codes up to 8192).
+
+    >>> _stream_tiles(torch.float64)[-1], _stream_tiles(torch.uint16)[-1]
+    (8192, 16384)
+    """
+    top = max_tile(keyspace.encoded_dtype(dtype).itemsize)
+    return tuple(1 << e for e in range(7, top.bit_length()))
 
 
 def _dtype_name(dtype) -> str:
@@ -235,8 +245,10 @@ _DIST_OVERSAMPLE_MULS = (1, 2, 4)
 _DIST_FILL_MARGIN = 0.9
 
 
-def _valid_tile(tile) -> bool:
-    return isinstance(tile, int) and 0 < tile <= MAX_TILE and not tile & (tile - 1)
+def _valid_tile(tile, dtype) -> bool:
+    """Whether K5 takes ``tile`` for the codes of keys of ``dtype``."""
+    top = max_tile(keyspace.encoded_dtype(_torch_dtype(dtype)).itemsize)
+    return isinstance(tile, int) and 0 < tile <= top and not tile & (tile - 1)
 
 
 class PlanCache:
@@ -470,7 +482,7 @@ class PlanCache:
         """
         entry = self._plans.get(self._stream_key(chunk, fanin, dtype))
         cfg = entry.get("config") if isinstance(entry, dict) else None
-        if isinstance(cfg, dict) and _valid_tile(cfg.get("merge_tile")):
+        if isinstance(cfg, dict) and _valid_tile(cfg.get("merge_tile"), dtype):
             obs.count("plan_cache.hit", family="stream")
             return StreamPlan(chunk, fanin, cfg["merge_tile"])
         obs.count("plan_cache.miss", family="stream")
@@ -487,7 +499,7 @@ class PlanCache:
         a = _on_device(np.sort(draw[:chunk]), (chunk,), tdtype, dev)
         b = _on_device(np.sort(draw[chunk:]), (chunk,), tdtype, dev)
         best, best_t = StreamPlan(chunk, fanin), float("inf")
-        for tile in _STREAM_TILES:
+        for tile in _stream_tiles(tdtype):
             t = _bench(lambda x, tile=tile: merge([x, b], tile=tile), a)
             if t < best_t:
                 best, best_t = StreamPlan(chunk, fanin, tile), t

@@ -27,7 +27,8 @@ counters.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import itertools
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,7 +38,8 @@ from repro_torch.ops import keyspace, plan
 from repro_torch.ops.groupby import unique
 from repro_torch.ops.sort import Device, _device
 from repro_torch.stream.merge import merge
-from repro_torch.stream.runs import Source, device_chunks, form_argsort_runs, form_runs
+from repro_torch.stream.runs import (Source, device_chunks, form_argsort_runs, form_runs,
+                                     host_array)
 
 __all__ = [
     "external_sort",
@@ -80,8 +82,25 @@ def _merge_pass(runs: List, dev: torch.device, tile: int, payloads: Optional[Lis
     return out_k, (out_v if payloads is not None else None)
 
 
-def _empty(data: Source, dtype=np.float32) -> np.ndarray:
-    return np.zeros((0,), data.dtype if isinstance(data, np.ndarray) else dtype)
+def _peek(data: Source) -> Tuple[Source, Union[np.dtype, torch.dtype]]:
+    """The source, none of it consumed, and its keys' host dtype (a numpy
+    dtype, or a torch dtype for CPU tensors): the array's, or a
+    generator's first chunk's (float32 for an empty one)."""
+    if isinstance(data, (np.ndarray, torch.Tensor)):
+        return data, data.dtype
+    chunks = iter(data)
+    first = next(chunks, None)
+    if first is None:
+        return iter(()), np.dtype(np.float32)
+    if not isinstance(first, torch.Tensor):
+        first = np.asarray(first)
+    return itertools.chain([first], chunks), first.dtype
+
+
+def _empty(dtype) -> Union[np.ndarray, torch.Tensor]:
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype)
+    return np.zeros((0,), dtype)
 
 
 def external_sort(data: Source, *, chunk_size: int = 1 << 16,
@@ -89,7 +108,8 @@ def external_sort(data: Source, *, chunk_size: int = 1 << 16,
                   device: Device = None) -> np.ndarray:
     """Sort a host-resident (or generator-fed) keyset larger than one device
     allocation: IPS4o run formation + merge tournament with host spill
-    between rounds.  Float32 or int32 keys.
+    between rounds.  Keys of any keyspace dtype; the result has the
+    source's numpy dtype.
 
     Equal to ``ops.sort`` of the concatenated stream: the keyspace total
     order, NaNs last, -0.0 strictly before +0.0.  ``tune=True`` autotunes
@@ -102,20 +122,22 @@ def external_sort(data: Source, *, chunk_size: int = 1 << 16,
     """
     dev = _device(device)
     cache = plan.default_cache if cache is None else cache
+    data, host_dtype = _peek(data)
     runs = form_runs(data, chunk_size, cache=cache, tune=tune, device=dev)
     if not runs:
-        return _empty(data)
+        return _empty(host_dtype)
     dtype = runs[0].dtype
     cfg = cache.stream_plan(chunk_size, len(runs), dtype, tune=tune, device=dev)
     with obs.trace("stream.external_sort", chunks=len(runs), chunk_size=chunk_size):
-        level = [keyspace.encode(r) for r in runs]  # int32: encode is then the identity
+        # int32 or int64 codes: merge's own encode is then the identity
+        level = [keyspace.encode(r) for r in runs]
         rounds = 0
         while len(level) > 1:
             with obs.trace("stream.merge_round", fanin=len(level)):
                 level, _ = _merge_pass(level, dev, cfg.merge_tile)
             rounds += 1
         obs.count("stream.tournament_rounds", rounds)
-        return keyspace.decode(torch.as_tensor(level[0]), dtype).cpu().numpy()
+        return host_array(keyspace.decode(torch.as_tensor(level[0]), dtype), host_dtype)
 
 
 def external_argsort(data: Source, *, chunk_size: int = 1 << 16,
@@ -161,8 +183,9 @@ def streaming_topk(data: Source, k: int, *, chunk_size: int = 1 << 16, largest: 
     so one merge serves both directions.  Device footprint: one chunk plus
     2k candidates.
 
-    Returns (values, global int32 indices) in rank order (descending for
-    ``largest=True``); ties prefer earlier positions.
+    Returns (values in the source's numpy dtype, global int32 indices) in
+    rank order (descending for ``largest=True``); ties prefer earlier
+    positions.
 
     >>> v, i = streaming_topk(np.asarray([1.0, 9.0, 3.0, 7.0], np.float32), 2,
     ...                       chunk_size=2, device="cpu")
@@ -171,6 +194,7 @@ def streaming_topk(data: Source, k: int, *, chunk_size: int = 1 << 16, largest: 
     """
     dev = _device(device)
     cache = plan.default_cache if cache is None else cache
+    data, host_dtype = _peek(data)
     op = "topk" if largest else "bottomk"
     buf_u = buf_i = None  # encoded-ascending candidates + global indices
     key_dtype = None
@@ -193,13 +217,14 @@ def streaming_topk(data: Source, k: int, *, chunk_size: int = 1 << 16, largest: 
         if buf_u is None:
             raise ValueError("streaming_topk over an empty stream")
         vals = keyspace.decode(~buf_u if largest else buf_u, key_dtype)
-        return vals.cpu().numpy(), buf_i.cpu().numpy()
+        return host_array(vals, host_dtype), buf_i.cpu().numpy()
 
 
 def streaming_group_by(data: Source, *, chunk_size: int = 1 << 16,
                        cache: Optional[plan.PlanCache] = None, tune: bool = False,
                        device: Device = None) -> Tuple[np.ndarray, np.ndarray]:
-    """Global (distinct keys ascending, int64 counts) over a stream: per-chunk
+    """Global (distinct keys ascending in the source's numpy dtype, int64
+    counts) over a stream: per-chunk
     ``ops.unique`` runs (each sorting with the plan cache's "sort" config for
     the chunk, ``tune=True`` sweeping it once) merge-joined into a bounded
     distinct-key buffer.
@@ -217,6 +242,7 @@ def streaming_group_by(data: Source, *, chunk_size: int = 1 << 16,
     """
     dev = _device(device)
     cache = plan.default_cache if cache is None else cache
+    data, host_dtype = _peek(data)
     buf_u = buf_c = None  # host: encoded distinct keys (ascending) + int64 counts
     key_dtype = None
     for x, _ in device_chunks(data, chunk_size, dev):
@@ -241,4 +267,4 @@ def streaming_group_by(data: Source, *, chunk_size: int = 1 << 16,
         buf_c = np.bincount(gid, weights=mc).astype(np.int64)
     if buf_u is None:
         raise ValueError("streaming_group_by over an empty stream")
-    return keyspace.decode(torch.as_tensor(buf_u), key_dtype).numpy(), buf_c
+    return host_array(keyspace.decode(torch.as_tensor(buf_u), key_dtype), host_dtype), buf_c

@@ -1,8 +1,10 @@
 """Stable k-way merge of sorted runs (DESIGN.md §7.2).
 
-Counterpart of ``repro.stream.merge``.  Keys biject through
-``ops.keyspace`` first, so the merge is NaN-safe (NaNs last, -0.0 before
-+0.0) with the total order of ``ops.sort``; k runs reduce through a
+Counterpart of ``repro.stream.merge``.  Keys of every keyspace dtype biject
+through ``ops.keyspace`` first, so the merge is NaN-safe (NaNs last, -0.0
+before +0.0) with the total order of ``ops.sort``: runs of keys of 32 bits
+or fewer merge as left-aligned int32 codes, as the sort does, and 64-bit
+runs as int64 codes through K5's 64-bit form.  k runs reduce through a
 tournament of pairwise merges, each the K5 merge-path permutation
 (``kernels.merge_path.merge_path_perm``) with the payload tensors gathered
 through it.  Adjacent pairs merge each round, so ties keep (run, position)
@@ -15,9 +17,10 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.core.sampling import signed_payload
 from repro_torch.kernels.merge_path import TILE, merge_path_perm
 from repro_torch.ops import keyspace
-from repro_torch.stream.runs import check_stream_dtype
+from repro_torch.stream.runs import key_dtype
 
 __all__ = ["merge", "merge_perm", "merge_runs_encoded"]
 
@@ -26,7 +29,7 @@ Item = Dict[str, torch.Tensor]
 
 def merge_perm(a: torch.Tensor, b: torch.Tensor, *, tile: int = TILE) -> torch.Tensor:
     """Stable-merge permutation (int32) of two sorted runs of encoded int32
-    keys: ``cat(a, b)[perm]`` is the stable merge, ties to ``a``."""
+    or int64 keys: ``cat(a, b)[perm]`` is the stable merge, ties to ``a``."""
     return merge_path_perm(a, b, tile=tile)
 
 
@@ -60,8 +63,8 @@ def merge(
     *,
     tile: int = TILE,
 ):
-    """Stable k-way merge of sorted 1-D runs of one dtype (float32 or int32),
-    sorted in the keyspace order as ``ops.sort`` leaves them (NaNs last,
+    """Stable k-way merge of sorted 1-D runs of one keyspace dtype, sorted
+    in the keyspace order as ``ops.sort`` leaves them (NaNs last,
     -0.0 before +0.0); ragged lengths, empty runs and k = 1 are fine.
     ``values`` gives one payload tensor per run (leading dim = the run's
     length), merged alongside.  ``tile`` is K5's outputs per CTA (a power of
@@ -84,7 +87,7 @@ def merge(
     if values is not None and len(values) != len(runs):
         raise ValueError(f"{len(runs)} runs but {len(values)} payload tensors")
     dtype, dev = runs[0].dtype, runs[0].device
-    check_stream_dtype(dtype)
+    key_dtype(dtype)  # raises for dtypes with no order (the reference's too)
     for r in runs:
         if r.dim() != 1:
             raise ValueError("runs must be 1-D")
@@ -99,8 +102,8 @@ def merge(
             if values[i].shape[:1] != r.shape:
                 raise ValueError(f"payload {i} has leading dim {values[i].shape[:1]}, "
                                  f"run {i} has {r.shape[0]} keys")
-            item["v"] = values[i].to(dev)
+            item["v"] = signed_payload(values[i]).to(dev)  # gathered on a card too
         items.append(item)
     out = merge_runs_encoded(items, tile=tile)
     keys = keyspace.decode(out["k"], dtype)
-    return keys if values is None else (keys, out["v"])
+    return keys if values is None else (keys, out["v"].view(values[0].dtype))

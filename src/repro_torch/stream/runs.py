@@ -24,6 +24,18 @@ that keep this safe, each of which only a card can show when broken:
     reused while the sort still reads it.
 
 On the CPU the chunks are used as they are.
+
+**Key dtypes.**  Every dtype of ``ops.keyspace`` streams (8/16/32/64-bit
+ints and uints, float16, bfloat16, float32, float64); complex and bool
+keys are refused, as the reference refuses them.  numpy's uint16, uint32
+and uint64 chunks become torch's unsigned dtypes, which lack ``>``,
+``searchsorted`` and ``index_put``, and an ml_dtypes ``bfloat16`` array
+cannot pass through ``torch.from_numpy`` at all: such chunks move as the
+signed int of their width (the bits as they are) and are viewed back as
+their key dtype on the device.  The bfloat16 array is known by its dtype's
+name; nothing here imports ml_dtypes.  A CPU tensor (or an iterable of
+CPU tensors) is a source too, the only host form of bfloat16 keys where
+ml_dtypes is absent; the entry points then return CPU tensors.
 """
 from __future__ import annotations
 
@@ -32,51 +44,82 @@ from typing import Iterable, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.ops import plan
+from repro_torch.ops import keyspace, plan
 from repro_torch.ops.sort import Device, _device
 
-__all__ = ["iter_chunks", "device_chunks", "form_runs", "form_argsort_runs",
-           "check_stream_dtype"]
+__all__ = ["iter_chunks", "device_chunks", "form_runs", "form_argsort_runs", "key_dtype",
+           "host_array"]
 
-Source = Union[np.ndarray, Iterable[np.ndarray]]
+Source = Union[np.ndarray, torch.Tensor, Iterable[Union[np.ndarray, torch.Tensor]]]
+Chunk = Union[np.ndarray, torch.Tensor]
 MAX_INDEX = 2**31 - 1  # global indices are int32, as in the reference
-# the keys the stream takes: K5 merges int32 codes (kernels/merge_path.py)
-STREAM_DTYPES = (torch.float32, torch.int32, np.float32, np.int32)
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
-def check_stream_dtype(dtype) -> None:
-    """Raise for keys the stream does not take yet (a numpy or torch dtype):
-    its merge, kernel K5, compares int32 codes, so only float32 and int32
-    keys stream; the other dtypes of ``ops.keyspace`` would reach K5 as
-    codes it cannot take."""
-    if dtype not in STREAM_DTYPES:
+def key_dtype(dtype) -> torch.dtype:
+    """The torch key dtype of a numpy (or torch) key dtype; raises for
+    dtypes the keyspace does not take (complex, bool, ...), which the
+    reference refuses too.
+
+    >>> key_dtype(np.dtype(np.uint16))
+    torch.uint16
+    """
+    tdtype = dtype if isinstance(dtype, torch.dtype) else getattr(torch, np.dtype(dtype).name,
+                                                                      None)
+    if not isinstance(tdtype, torch.dtype) or not keyspace.supported(tdtype):
         raise NotImplementedError(
-            f"the stream takes float32 and int32 keys, got {dtype}: its merge K5 compares "
-            "int32 codes (ROADMAP.md, queue 1 item 1, what stays open)"
-        )
+            f"the stream takes the keyspace's key dtypes, got {dtype}; the reference "
+            "refuses it too")
+    return tdtype
 
 
-def iter_chunks(data: Source, chunk_size: int) -> Iterator[np.ndarray]:
+def _host_tensor(chunk: Chunk) -> Tuple[torch.Tensor, torch.dtype]:
+    """(a CPU tensor of ``chunk``'s bits that torch can copy, its key dtype):
+    the chunk itself, or its bits as the signed int of its width for
+    uint16/32/64 and bfloat16 chunks (view it as the key dtype on the
+    device)."""
+    dtype = key_dtype(chunk.dtype)
+    if isinstance(chunk, torch.Tensor):
+        if chunk.device.type != "cpu":
+            raise ValueError(f"a stream's chunks live on the host, got one on {chunk.device}")
+        return chunk.contiguous().view(_SIGNED[chunk.element_size()]), dtype
+    chunk = np.ascontiguousarray(chunk)
+    if dtype in (torch.uint16, torch.uint32, torch.uint64, torch.bfloat16):
+        chunk = chunk.view(f"int{8 * chunk.dtype.itemsize}")
+    return torch.from_numpy(chunk), dtype
+
+
+def host_array(x: torch.Tensor, dtype) -> Union[np.ndarray, torch.Tensor]:
+    """``x``'s keys on the host in the source's ``dtype``: a numpy array
+    (an ml_dtypes bfloat16 included: ``x``'s bits as the signed int of their
+    width, viewed as ``dtype``), or a CPU tensor for a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return x.cpu()
+    return x.view(_SIGNED[x.element_size()]).cpu().numpy().view(dtype)
+
+
+def iter_chunks(data: Source, chunk_size: int) -> Iterator[Chunk]:
     """Normalize a source into host chunk views.
 
-    A 1-D array yields ``chunk_size`` slices (views, no copies; the tail
-    may be ragged); any other iterable is treated as generator-fed and
-    passed through (each element must be a 1-D array the caller already
-    sized to the device).
+    A 1-D array (or CPU tensor) yields ``chunk_size`` slices (views, no
+    copies; the tail may be ragged); any other iterable is treated as
+    generator-fed and passed through (each element must be a 1-D array or
+    CPU tensor the caller already sized to the device).
 
     >>> [c.tolist() for c in iter_chunks(np.arange(5), 2)]
     [[0, 1], [2, 3], [4]]
     """
     if chunk_size <= 0:
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
-    if isinstance(data, np.ndarray):
+    if isinstance(data, (np.ndarray, torch.Tensor)):
         if data.ndim != 1:
             raise ValueError("array source must be 1-D")
         for lo in range(0, data.shape[0], chunk_size):
             yield data[lo : lo + chunk_size]
         return
     for chunk in data:
-        chunk = np.asarray(chunk)
+        if not isinstance(chunk, torch.Tensor):
+            chunk = np.asarray(chunk)
         if chunk.ndim != 1:
             raise ValueError("generator-fed chunks must be 1-D")
         yield chunk
@@ -92,13 +135,12 @@ class _Staging:
         self.done: List[Optional[torch.cuda.Event]] = [None, None]
         self.turn = 0
 
-    def put(self, chunk: np.ndarray) -> Tuple[torch.Tensor, torch.cuda.Event]:
-        """Enqueue the copy of ``chunk`` to the card; returns the device
-        tensor and the event its consumer must wait on."""
+    def put(self, src: torch.Tensor) -> Tuple[torch.Tensor, torch.cuda.Event]:
+        """Enqueue the copy of the CPU tensor ``src`` to the card; returns the
+        device tensor and the event its consumer must wait on."""
         slot, self.turn = self.turn, 1 - self.turn
         if self.done[slot] is not None:
             self.done[slot].synchronize()  # its previous copy has left the buffer
-        src = torch.from_numpy(np.ascontiguousarray(chunk))
         nbytes = src.numel() * src.element_size()
         buf = self.buffers[slot]
         if buf is None or buf.numel() < nbytes:
@@ -124,13 +166,14 @@ def device_chunks(data: Source, chunk_size: int, device: Device = None
     pending = None
     offset = 0
     for chunk in iter_chunks(data, chunk_size):
-        check_stream_dtype(chunk.dtype)
+        src, dtype = _host_tensor(chunk)
         if offset + chunk.shape[0] > MAX_INDEX:
             raise ValueError("stream longer than 2^31 - 1 keys: global indices are int32")
         if staging is None:
-            nxt = (torch.from_numpy(np.ascontiguousarray(chunk)), None, offset)
+            nxt = (src.view(dtype), None, offset)
         else:
-            nxt = (*staging.put(chunk), offset)
+            x, event = staging.put(src)
+            nxt = (x.view(dtype), event, offset)
         if pending is not None:
             yield _ready(*pending)
         pending = nxt
@@ -171,5 +214,8 @@ def form_argsort_runs(data: Source, chunk_size: int, *,
     runs = []
     for x, offset in device_chunks(data, chunk_size, device):
         idx = cache.get_sorter(x.shape[0], x.dtype, "argsort", tune=tune, device=x.device)(x)
-        runs.append((x[idx.to(torch.int64)], idx + offset))
+        # gathered as the signed int of their width: torch's unsigned dtypes
+        # have no gather on a card
+        keys = x.view(_SIGNED[x.element_size()])[idx.to(torch.int64)].view(x.dtype)
+        runs.append((keys, idx + offset))
     return runs

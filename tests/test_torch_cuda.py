@@ -10,7 +10,11 @@ starts) and
 K6 (``dispatch_ranks``, ``partition_ranks``, ``partition_ranks_batched``;
 also at 65,536 tiles, one id, all trash, rows whose first tile is all
 trash, nb = 4096 at tile 16384 and (8, 2^20) rows, each twice),
-K7 (``classify_histogram`` and its batched and radix forms), K8
+K7 (``classify_histogram`` and its batched and radix forms, on raw keys
+of all twelve keyspace dtypes and on int64 radix codes, each launch under
+its key width's name), K5's int64 form (ragged, unaligned, at its largest
+tile), the stream, ``s3_sort`` and ``sort_blocks`` on float64, uint16 and
+narrow keys against the CPU, K8
 ``permute_blocks_by_dest`` (every team size, 20 runs in a row, and a ``dst``
 that is not a permutation) and K9 ``permute_blocks_inplace`` (in place: same
 ``data_ptr``, a peak-memory rise of at most a quarter of the data), and the
@@ -58,6 +62,8 @@ from repro_torch.data.distributions import make_input
 from repro_torch.kernels import bitonic, dispatch_rank, merge_path, level_fused as lf
 from repro_torch.kernels import block_permute, classify, permute_inplace
 from repro_torch.kernels import flash_attention, flash_decode, ref
+from repro_torch.core.s3sort import s3_sort as ops_s3_sort
+from repro_torch.kernels.ops import sort_blocks as ops_sort_blocks
 
 pytestmark = pytest.mark.gpu
 
@@ -531,10 +537,11 @@ def test_classify_histogram_kernel(dev, dtype, k, n, rows):
         x[3::37] = torch.finfo(dtype).max
     sample = torch.sort(x[torch.randint(0, n, (4 * k,), device=dev, generator=g)]).values
     spl = sample[torch.linspace(0, 4 * k - 1, k - 1, device=dev).long()].contiguous()
-    before = kernels.launch_counts()["classify_histogram"]
+    name = classify.launch_name("classify_histogram", dtype)  # by key width
+    before = kernels.launch_counts()[name]
     _equal(classify.classify_histogram(x, spl, k=k, rows=rows),
            classify.classify_histogram_plain(x, spl, k=k, rows=rows))
-    assert kernels.launch_counts()["classify_histogram"] == before + 1
+    assert kernels.launch_counts()[name] == before + 1
 
 
 @pytest.mark.parametrize("B,n,k", [(1, 1024, 4), (7, 3 * 4096, 64)])
@@ -559,6 +566,198 @@ def test_radix_histogram_kernel(dev, k, consumed):
     _equal(classify.radix_histogram_batched(x, k=k, consumed_bits=consumed),
            classify.radix_histogram_batched_plain(x, k=k, consumed_bits=consumed))
     assert kernels.launch_counts()["radix_histogram"] == before + 2
+
+
+# ---- K7 on every key kind, its int64 radix form, and K5's int64 form ---------
+
+K7_KINDS = [torch.int8, torch.uint8, torch.int16, torch.uint16, torch.float16, torch.bfloat16,
+            torch.int32, torch.uint32, torch.float32, torch.int64, torch.uint64, torch.float64]
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _raw_keys(dtype, n, g, dev):
+    """Keys of ``dtype`` on the card: random bits with a heavy duplicate and
+    the dtype's extremes; floats with NaN, +-0.0, +-inf and the max."""
+    signed = _SIGNED[torch.empty((), dtype=dtype).element_size()]
+    info = torch.iinfo(signed)
+    x = torch.randint(info.min, info.max, (n,), generator=g, device=dev, dtype=signed)
+    x[::3] = x[0]
+    x = x.view(dtype).clone()
+    if dtype.is_floating_point:
+        x[torch.isnan(x)] = 1.5
+        x[::37] = float("nan")
+        x[1::37] = -0.0
+        x[2::37] = 0.0
+        x[3::37] = float("inf")
+        x[4::37] = float("-inf")
+        x[5::37] = torch.finfo(dtype).max
+    else:
+        x.view(signed)[5::37] = -1 if dtype in (torch.uint8, torch.uint16, torch.uint32,
+                                                 torch.uint64) else info.max
+        x.view(signed)[6::37] = 0 if dtype in (torch.uint8, torch.uint16, torch.uint32,
+                                                torch.uint64) else info.min
+    return x
+
+
+def _sorted_splitters(x, k, g):
+    """k-1 keys of each row of x sorted in the keyspace order (NaN last),
+    picked on the signed view (torch's unsigned dtypes have no gather on a
+    card)."""
+    signed = _SIGNED[x.element_size()]
+    pos = torch.randint(0, x.shape[-1], x.shape[:-1] + (k - 1,), generator=g, device=x.device)
+    pick = torch.gather(x.view(signed), -1, pos)
+    order = torch.sort(ops.keyspace.encode(pick.view(x.dtype)), dim=-1, stable=True).indices
+    return torch.gather(pick, -1, order).contiguous().view(x.dtype)
+
+
+@pytest.mark.parametrize("k,n,rows", [(2, 1024, 8), (128, 77 * 4096, 32), (256, 40 * 2048, None)])
+@pytest.mark.parametrize("dtype", K7_KINDS)
+def test_classify_histogram_kernel_key_kinds(dev, dtype, k, n, rows):
+    """K7's tree mode on raw keys of every keyspace dtype bit for bit its
+    plain twin, one launch under the key width's name; rows=None takes
+    the key width's tile."""
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x = _raw_keys(dtype, n, g, dev)
+    spl = _sorted_splitters(x, k, g)
+    name = classify.launch_name("classify_histogram", dtype)
+    before = kernels.launch_counts()[name]
+    got = classify.classify_histogram(x, spl, k=k, rows=rows)
+    assert kernels.launch_counts()[name] == before + 1
+    _equal(got, classify.classify_histogram_plain(x, spl, k=k, rows=rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint16, torch.float16, torch.uint32,
+                                   torch.int64, torch.uint64, torch.float64])
+def test_classify_histogram_batched_kernel_key_kinds(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _raw_keys(dtype, 7 * 3 * 4096, g, dev).view(7, 3 * 4096)
+    spl = _sorted_splitters(x, 64, g)
+    name = classify.launch_name("classify_histogram_batched", dtype)
+    before = kernels.launch_counts()[name]
+    got = classify.classify_histogram_batched(x, spl, k=64)
+    assert kernels.launch_counts()[name] == before + 1
+    _equal(got, classify.classify_histogram_batched_plain(x, spl, k=64))
+
+
+@pytest.mark.parametrize("k,consumed", [(2, 0), (256, 0), (256, 8), (32, 59), (16, 60)])
+def test_radix_histogram64_kernel(dev, k, consumed):
+    """K7's radix mode on int64 codes over the whole range, the NaN code
+    among them, at shifts up to 0."""
+    g = torch.Generator(device=dev).manual_seed(k + consumed)
+    info = torch.iinfo(torch.int64)
+    x = torch.randint(info.min, info.max, (3, 5 * 4096), device=dev, generator=g,
+                      dtype=torch.int64)
+    x[:, ::97] = info.max
+    before = kernels.launch_counts()["radix_histogram64"]
+    _equal(classify.radix_histogram(x[0], k=k, consumed_bits=consumed),
+           classify.radix_histogram_plain(x[0], k=k, consumed_bits=consumed))
+    _equal(classify.radix_histogram_batched(x, k=k, consumed_bits=consumed),
+           classify.radix_histogram_batched_plain(x, k=k, consumed_bits=consumed))
+    assert kernels.launch_counts()["radix_histogram64"] == before + 2
+
+
+def _sorted_run64(n, lo, hi, g, dev):
+    run = torch.sort(torch.randint(lo, hi, (n,), generator=g, device=dev,
+                                   dtype=torch.int64) * (2**60)).values
+    run[-max(1, n // 1000):] = torch.iinfo(torch.int64).max  # the code of NaN
+    return run
+
+
+@pytest.mark.parametrize("na,nb,tile", [(1, 1, 2048), (1000, 77, 2048), (1_000_003, 77, 2048),
+                                        (300_000, 200_000, 256), (5000, 3000, 8),
+                                        (70_000, 0, 2048), (200_003, 150_001, 4096),
+                                        (200_003, 150_001, merge_path.MAX_TILE64)])
+def test_merge_path64_kernel(dev, na, nb, tile):
+    """K5's int64 form bit for bit its plain twin and the stable merge, one
+    launch under ``merge_path64`` (none with an empty run)."""
+    g = torch.Generator(device=dev).manual_seed(na + nb + tile)
+    a, b = _sorted_run64(na, -7, 7, g, dev), _sorted_run64(nb, -7, 7, g, dev)[:nb]
+    before = kernels.launch_counts()["merge_path64"]
+    got = merge_path.merge_path_perm(a, b, tile=tile)
+    assert kernels.launch_counts()["merge_path64"] == before + (1 if na and nb else 0)
+    assert torch.equal(got, merge_path.merge_path_perm_plain(a, b, tile=tile))
+    assert torch.equal(got.to(torch.int64), torch.sort(torch.cat([a, b]), stable=True).indices)
+
+
+@pytest.mark.parametrize("tile", [1, merge_path.TILE, merge_path.MAX_TILE64])
+def test_merge_path64_kernel_unaligned(dev, tile):
+    """Runs whose first keys sit 0 or 8 bytes past a 16-byte boundary
+    (views into a larger tensor): one key of a run in a window's first
+    16-byte piece."""
+    g = torch.Generator(device=dev).manual_seed(tile)
+    na, nb = (3000, 2000) if tile == 1 else (200_003, 150_001)
+    for off_a, off_b in ((0, 1), (1, 0), (1, 1)):
+        base = torch.empty(na + nb + 4, dtype=torch.int64, device=dev)
+        a = base[off_a:off_a + na]
+        b = base[na + 2 + off_b:na + 2 + off_b + nb]
+        a.copy_(_sorted_run64(na, -3, 3, g, dev))
+        b.copy_(_sorted_run64(nb, -3, 3, g, dev))
+        got = merge_path.merge_path_perm(a, b, tile=tile)
+        assert torch.equal(got, merge_path.merge_path_perm_plain(a, b, tile=tile))
+        assert torch.equal(got.to(torch.int64),
+                           torch.sort(torch.cat([a, b]), stable=True).indices)
+
+
+def test_merge_path64_launch_info(dev):
+    """The int64 form's largest step fits a CTA's shared memory, two stages
+    and the transpose, without spills."""
+    for tile in (merge_path.TILE, merge_path.MAX_TILE64):
+        info = merge_path.launch_info(tile, key_bytes=8)
+        assert info["dynamic_smem"] <= 232_448 and info["ctas_per_sm"] >= 1
+        assert info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("name", ["float64", "uint16", "bfloat16"])
+def test_stream_of_new_dtypes_on_the_card(dev, name):
+    """The stream's entry points on the card equal to the CPU's on keys
+    that were refused before: numpy float64 and uint16 sources, and a CPU
+    tensor of bfloat16 keys (no ml_dtypes on the card's machine); the
+    64-bit merges launch ``merge_path64``."""
+    dtype = getattr(torch, name)
+    g = torch.Generator(device=dev).manual_seed(9)
+    t = _raw_keys(dtype, 50 * 1031, g, dev).cpu()
+    src = t if name == "bfloat16" else t.view(_SIGNED[t.element_size()]).numpy().view(
+        {"float64": np.float64, "uint16": np.uint16}[name])
+
+    def same(a, b):
+        a, b = (torch.as_tensor(np.ascontiguousarray(v).view(f"i{v.itemsize}"))
+                if isinstance(v, np.ndarray) else v.view(_SIGNED[v.element_size()])
+                for v in (a, b))
+        return torch.equal(a, b)
+
+    key = "merge_path64" if name == "float64" else "merge_path"
+    before = kernels.launch_counts()[key]
+    assert same(stream.external_sort(src, chunk_size=1031),
+                stream.external_sort(src, chunk_size=1031, device="cpu"))
+    assert np.array_equal(stream.external_argsort(src, chunk_size=1031),
+                          stream.external_argsort(src, chunk_size=1031, device="cpu"))
+    for largest in (True, False):
+        v, i = stream.streaming_topk(src, 100, chunk_size=1031, largest=largest)
+        wv, wi = stream.streaming_topk(src, 100, chunk_size=1031, largest=largest, device="cpu")
+        assert np.array_equal(i, wi) and same(v, wv)
+    v, c = stream.streaming_group_by(src, chunk_size=1031)
+    wv, wc = stream.streaming_group_by(src, chunk_size=1031, device="cpu")
+    assert same(v, wv) and np.array_equal(c, wc)
+    assert kernels.launch_counts()[key] > before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.uint16, torch.int8])
+def test_s3_sort_and_sort_blocks_of_new_dtypes_on_the_card(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = _raw_keys(dtype, 1 << 16, g, dev)
+    ks, vs = ops_s3_sort(x, torch.arange(x.shape[0], device=dev))
+    wk, wv = ops_s3_sort(x.cpu(), torch.arange(x.shape[0]))
+    signed = _SIGNED[x.element_size()]
+    assert torch.equal(ks.cpu().view(signed), wk.view(signed)) and torch.equal(vs.cpu(), wv)
+    bb = torch.randint(0, 16, (x.shape[0] // 1024,), generator=g, device=dev,
+                       dtype=torch.int32)
+    a = x.clone()
+    before = kernels.launch_counts()["permute_blocks_by_dest"]
+    out, d = ops_sort_blocks(a, bb, k=16, block_elems=1024)
+    assert kernels.launch_counts()["permute_blocks_by_dest"] == before + 1
+    want, want_d = ops_sort_blocks(x.cpu().clone(), bb.cpu(), k=16, block_elems=1024)
+    assert out.data_ptr() == a.data_ptr()
+    assert torch.equal(out.cpu().view(signed), want.view(signed)) and torch.equal(d.cpu(), want_d)
 
 
 def _in_place_bound(a):

@@ -12,7 +12,11 @@ jax's x64 mode from startup, so they run in one child process (the
 reference's idiom, ``tests/test_classify.py``): the same ops, and the
 64-bit forms' plain twins of K1, K1r, K4 ``level_fused_batched`` and K3
 against the reference's Pallas kernels in interpret mode and its jnp
-oracle.
+oracle; then, in the same child, the stream's entry points and
+``stream.merge``, K5's plain twin on int64 codes, K7's on raw 64-bit keys
+and int64 radix codes, ``s3_sort`` and the block path.  (The narrower keys
+of those last entry points are held in ``tests/test_torch_stream_dtypes.py``
+and ``tests/test_torch_classify_dtypes.py``.)
 
 Inputs are made with numpy from a seed, with NaN of both signs, signed
 zeros, infinities and the integer extremes.  Every comparison is exact,
@@ -189,53 +193,6 @@ def test_level1_radix_ids_of_narrow_keys(name, k):
     np.testing.assert_array_equal(bucket[0].numpy(), np.asarray(want))
 
 
-# ---------------------------------------------------------------------------
-# the entry points outside this slice refuse the new dtypes by name
-
-
-def test_stream_refuses_the_new_dtypes():
-    """The stream's merge K5 compares int32 codes: every stream entry point
-    and ``merge`` refuse other keys before any kernel sees them."""
-    from repro_torch import stream
-
-    x = np.arange(10, dtype=np.float64)
-    for call in (lambda: stream.external_sort(x, chunk_size=4, **CPU),
-                 lambda: stream.external_argsort(x.astype(np.int16), chunk_size=4, **CPU),
-                 lambda: stream.streaming_topk(x.astype(np.uint8), 3, chunk_size=4, **CPU),
-                 lambda: stream.streaming_group_by(x.astype(np.int64), chunk_size=4, **CPU),
-                 lambda: stream.merge([torch.arange(3), torch.arange(3)])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-
-
-def test_k7_and_s3_sort_refuse_the_new_dtypes():
-    """K7's entry points and ``s3_sort`` take raw float32, int32 and
-    bfloat16 keys."""
-    from repro_torch.core.s3sort import s3_sort
-    from repro_torch.kernels import classify
-
-    keys = torch.zeros(1024, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        classify.classify_histogram(keys, torch.zeros(7, dtype=torch.float64), k=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        classify.classify_histogram_batched(keys.view(2, 512), torch.zeros((2, 7),
-                                            dtype=torch.float64), k=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s3_sort(torch.arange(100, dtype=torch.int64))
-
-
-def test_block_path_refuses_the_new_dtypes():
-    """``partition_blocks`` and ``sort_blocks`` take float32 and int32."""
-    from repro_torch.core.partition import partition_blocks
-    from repro_torch.kernels.ops import sort_blocks
-
-    bb = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partition_blocks({"k": torch.zeros(256, dtype=torch.int64)}, bb, 1, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sort_blocks(torch.zeros(256, dtype=torch.float64), bb, k=1, block_elems=128)
-
-
 def test_paper_presets_match_the_reference():
     from repro.configs import ips4o_paper as ref_paper
     from repro_torch.configs import ips4o_paper
@@ -395,17 +352,195 @@ for W in (8, 256, 16384):
     eq(perm.numpy(), np.asarray(want_idx), f"K3 64 W={W} perm")
     eq(bucket_out.numpy(), np.asarray(want_b), f"K3 64 W={W} bucket")
 print("x64 parity OK")
+
+# ---- the stream, K5, K7, s3_sort and the block path on 64-bit keys
+import os, tempfile
+from repro import stream as ref_stream
+from repro.core.partition import partition_blocks as ref_partition_blocks
+from repro.core.s3sort import s3_sort as ref_s3_sort
+from repro.kernels import classify as ref_classify, ops as ref_kernel_ops
+from repro.kernels.merge_path import merge_path_partition as ref_merge_path_partition
+from repro.kernels.merge_path import merge_path_perm as ref_merge_path_perm
+from repro.kernels.ref import merge_path_perm_ref
+from repro.ops import PlanCache
+from repro_torch import stream
+from repro_torch.core.partition import partition_blocks
+from repro_torch.core.s3sort import s3_sort
+from repro_torch.kernels import classify, merge_path
+from repro_torch.kernels.ops import sort_blocks
+
+cache = PlanCache(path=os.path.join(tempfile.mkdtemp(), "p.json"))
+ROWS = 8
+TINY = np.finfo(np.float64).tiny
+
+
+def tame(x, nan_inf=True):
+    # the reference's float compares on the CPU flush subnormals to zero:
+    # float64 keys for them are normal, and without NaN and inf for s3_sort
+    if x.dtype == np.float64:
+        x = x.copy()
+        x[(x != 0) & (np.abs(x) < TINY)] = 1.5
+        if not nan_inf:
+            x[~np.isfinite(x)] = -2.5
+    return x
+
+
+def spl_of(x, k, seed):
+    s = np.random.default_rng(seed).choice(x, k - 1, replace=False)
+    return s[np.argsort(ops.keyspace.encode_np(s), kind="stable")]
+
+
+def check(got, want, what):
+    for g, w in zip(got, want):
+        eq(g.numpy(), np.asarray(w), what)
+
+
+for name in ("int64", "uint64", "float64"):
+    x = keys(name, 4096, 11)
+    got = stream.external_sort(x, chunk_size=1024, **CPU)
+    assert got.dtype == x.dtype, name
+    eq(ub(got), ub(ref_stream.external_sort(x, chunk_size=1024, cache=cache)),
+       f"{name} external_sort")
+    eq(stream.external_argsort(x[:3000], chunk_size=1024, **CPU),
+       np.asarray(ref_stream.external_argsort(x[:3000], chunk_size=1024, cache=cache)),
+       f"{name} external_argsort")
+    for largest in (True, False):
+        gv, gi = stream.streaming_topk(x, 300, chunk_size=1024, largest=largest, **CPU)
+        wv, wi = ref_stream.streaming_topk(x, 300, chunk_size=1024, largest=largest,
+                                           cache=cache)
+        assert gv.dtype == x.dtype, name
+        eq(ub(gv), ub(wv), f"{name} streaming_topk {largest}")
+        eq(gi, np.asarray(wi), f"{name} streaming_topk {largest} idx")
+    chunks = lambda: (x[lo:hi] for lo, hi in ((0, 1000), (1000, 2500), (2500, 4096)))
+    gv, gc = stream.streaming_group_by(chunks(), chunk_size=1024, **CPU)
+    wv, wc = ref_stream.streaming_group_by(chunks(), chunk_size=1024, cache=cache)
+    assert gv.dtype == x.dtype, name
+    eq(ub(gv), ub(wv), f"{name} streaming_group_by")
+    eq(gc, np.asarray(wc), f"{name} streaming_group_by counts")
+    runs, vals = [], []
+    for lo, hi in ((0, 300), (300, 300), (300, 650), (650, 900)):
+        order = np.argsort(ops.keyspace.encode_np(x[lo:hi]), kind="stable")
+        runs.append(x[lo:hi][order])
+        vals.append((lo + order).astype(np.int32))
+    gk, gv = stream.merge([tt(r) for r in runs], values=[torch.as_tensor(v) for v in vals],
+                          tile=64)
+    wk, wv = ref_stream.merge([jnp.asarray(r) for r in runs],
+                              values=[jnp.asarray(v) for v in vals], engine="xla")
+    eq(ub(gk), ub(wk), f"{name} merge keys")
+    eq(gv.numpy(), np.asarray(wv), f"{name} merge values")
+print("x64 stream OK")
+
+# K5's plain twin on int64 codes against the reference's Pallas kernel on its
+# uint64 codes (the same keys), duplicate-heavy, the codes of NaN at the ends
+for name, na, nb in (("float64", 3000, 2000), ("uint64", 257, 1300), ("int64", 1, 399)):
+    x = keys(name, na + nb, 12)
+    x[np.random.default_rng(13).random(na + nb) < 0.5] = x[7]
+    code = ops.keyspace.encode(tt(x))
+    a, b = torch.sort(code[:na]).values, torch.sort(code[na:]).values
+    if name == "float64":
+        a[-3:] = torch.iinfo(torch.int64).max
+        b[-1:] = torch.iinfo(torch.int64).max
+    ua = ops.keyspace.reference_code_np(a.numpy(), torch.float64)
+    ubb = ops.keyspace.reference_code_np(b.numpy(), torch.float64)
+    got = merge_path.merge_path_perm(a, b)
+    eq(got.numpy(), np.asarray(merge_path_perm_ref(jnp.asarray(ua), jnp.asarray(ubb))),
+       f"K5 64 {name} ref")
+    eq(got.numpy(), np.asarray(ref_merge_path_perm(jnp.asarray(ua), jnp.asarray(ubb), tile=256,
+                                                   interpret=True)), f"K5 64 {name} kernel")
+    d = np.arange(0, na + nb + 1, 97, dtype=np.int32)
+    eq(merge_path.merge_path_partition(a, b, torch.as_tensor(d)).numpy(),
+       np.asarray(ref_merge_path_partition(jnp.asarray(ua), jnp.asarray(ubb), jnp.asarray(d))),
+       f"K5 64 {name} partition")
+print("x64 K5 OK")
+
+# K7's plain twins on raw 64-bit keys (NaN, +-0.0, +-inf, the extremes) and
+# on int64 radix codes against the reference's Pallas kernels in interpret mode
+for name in ("int64", "uint64", "float64"):
+    x = tame(keys(name, 3 * ROWS * 128, 14))
+    t = tt(x)
+    for k in (16, 128):
+        spl = spl_of(x, k, k)
+        check(classify.classify_histogram(t, tt(spl), k=k, rows=ROWS),
+              ref_classify.classify_histogram(jnp.asarray(x), jnp.asarray(spl), k=k, rows=ROWS,
+                                              interpret=True), f"K7 64 {name} k={k}")
+    xb = x[: 2 * ROWS * 128].reshape(2, -1)
+    sb = np.stack([spl_of(r, 16, 20 + i) for i, r in enumerate(xb)])
+    check(classify.classify_histogram_batched(tt(xb), tt(sb), k=16, rows=ROWS),
+          ref_classify.classify_histogram_batched(jnp.asarray(xb), jnp.asarray(sb), k=16,
+                                                  rows=ROWS, interpret=True),
+          f"K7 64 {name} batched")
+    x = tame(keys(name, 1 << 14, 15))
+    spl = spl_of(x, 32, 16)
+    check(classify.classify_histogram(tt(x), tt(spl), k=32),
+          ref_classify.classify_histogram(jnp.asarray(x), jnp.asarray(spl), k=32,
+                                          interpret=True), f"K7 64 {name} rows=None")
+    code = ops.keyspace.encode(tt(x))
+    u = jnp.asarray(ops.keyspace.reference_code_np(code.numpy(), tt(x).dtype))
+    for consumed in (0, 8, 56):
+        check(classify.radix_histogram(code, k=256, consumed_bits=consumed, rows=ROWS),
+              ref_classify.radix_histogram(u, k=256, consumed_bits=consumed, rows=ROWS,
+                                           interpret=True), f"K7 64 {name} radix {consumed}")
+    check(classify.radix_histogram_batched(code.reshape(4, -1), k=16, consumed_bits=4),
+          ref_classify.radix_histogram_batched(u.reshape(4, -1), k=16, consumed_bits=4,
+                                               interpret=True), f"K7 64 {name} radix batched")
+print("x64 K7 OK")
+
+# s3_sort without NaN and inf (the reference's caveat), and the block path
+for name in ("int64", "uint64", "float64"):
+    x = tame(keys(name, 30000, 17), nan_inf=False)
+    v = np.arange(x.shape[0], dtype=np.int32)
+    ks, vs = s3_sort(tt(x), torch.from_numpy(v))
+    rk, rv = ref_s3_sort(jnp.asarray(x), jnp.asarray(v))
+    assert ks.dtype == tt(x).dtype, name
+    eq(ub(ks), ub(rk), f"{name} s3_sort keys")
+    eq(vs.numpy(), np.asarray(rv), f"{name} s3_sort values")
+    k, nblocks, be = 4, 24, 128
+    x = keys(name, nblocks * be, 18)
+    bb = np.random.default_rng(19).integers(0, k, nblocks).astype(np.int32)
+    t = tt(x)
+    got, d = sort_blocks(t, torch.from_numpy(bb), k=k, block_elems=be)
+    want, want_d = ref_kernel_ops.sort_blocks(jnp.asarray(x), jnp.asarray(bb), k=k,
+                                              block_elems=be)
+    assert got.data_ptr() == t.data_ptr()
+    eq(ub(got), ub(want), f"{name} sort_blocks")
+    eq(d.numpy(), np.asarray(want_d), f"{name} sort_blocks offsets")
+    pay = np.random.default_rng(20).integers(0, 1 << 62, (nblocks * be, 3), dtype=np.uint64)
+    got, d = partition_blocks({"k": tt(x), "v": torch.from_numpy(pay)}, torch.from_numpy(bb),
+                              k, be)
+    want, want_d = ref_partition_blocks({"k": jnp.asarray(x), "v": jnp.asarray(pay)},
+                                        jnp.asarray(bb), k, be)
+    eq(ub(got["k"]), ub(want["k"]), f"{name} partition_blocks keys")
+    eq(ub(got["v"]), np.asarray(want["v"]), f"{name} partition_blocks payload")
+    eq(d.numpy(), np.asarray(want_d), f"{name} partition_blocks offsets")
+print("x64 s3 and blocks OK")
 """
 
 
-def test_64bit_dtypes_in_an_x64_child():
-    """int64, uint64 and float64 keys: the ops against the reference, and
-    the 64-bit plain twins of K1, K1r, K4 and K3 against its kernels, in a
-    child process with x64 enabled from startup."""
+@pytest.fixture(scope="module")
+def x64_child():
+    """One child process with x64 enabled from startup, run once for the
+    module's 64-bit tests."""
     env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = (os.path.join(os.path.dirname(__file__), "..", "src") + os.pathsep
                          + env.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-c", X64_CHILD], env=env, capture_output=True,
+    return subprocess.run([sys.executable, "-c", X64_CHILD], env=env, capture_output=True,
                           text=True, timeout=600)
-    assert proc.returncode == 0, proc.stdout + proc.stderr[-5000:]
-    assert "ops OK" in proc.stdout and "x64 parity OK" in proc.stdout
+
+
+def test_64bit_dtypes_in_an_x64_child(x64_child):
+    """int64, uint64 and float64 keys: the ops against the reference, and
+    the 64-bit plain twins of K1, K1r, K4 and K3 against its kernels, in a
+    child process with x64 enabled from startup."""
+    out = x64_child.stdout
+    assert "ops OK" in out and "x64 parity OK" in out, out + x64_child.stderr[-5000:]
+
+
+def test_64bit_stream_k5_k7_s3_and_blocks_in_the_x64_child(x64_child):
+    """int64, uint64 and float64 keys in the same child: every stream entry
+    point and ``stream.merge``, K5's plain twin on int64 codes against the
+    reference's ``merge_path_perm`` on uint64 codes, K7's plain twins on raw
+    keys and int64 radix codes against its Pallas kernels in interpret
+    mode, ``s3_sort``, ``sort_blocks`` and ``partition_blocks``."""
+    assert x64_child.returncode == 0, x64_child.stdout + x64_child.stderr[-5000:]
+    for part in ("x64 stream OK", "x64 K5 OK", "x64 K7 OK", "x64 s3 and blocks OK"):
+        assert part in x64_child.stdout, part

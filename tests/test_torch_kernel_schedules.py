@@ -686,41 +686,46 @@ def _replay_warp_cut(a, b, d, s):
     return int(cut[0]), coarse, fine
 
 
-def _window(x_off, start, length):
-    """The 16-byte pieces of a window of int32 keys at element offset
-    ``start`` of a run whose first key sits x_off bytes past a 16-byte
-    boundary: (first piece's byte address, pieces, keys skipped)."""
-    lo = x_off + 4 * start
+def _window(x_off, start, length, kb=4):
+    """The 16-byte pieces of a window of keys of ``kb`` bytes at element
+    offset ``start`` of a run whose first key sits x_off bytes past a
+    16-byte boundary: (first piece's byte address, pieces, keys skipped)."""
+    lo = x_off + kb * start
     first = lo & ~15
-    pieces = ((lo + 4 * length + 15) & ~15) - first >> 4 if length > 0 else 0
-    return first, pieces, (lo - first) >> 2
+    pieces = ((lo + kb * length + 15) & ~15) - first >> 4 if length > 0 else 0
+    return first, pieces, (lo - first) // kb
 
 
-def _copy_window(x, x_off, start, length):
-    """What the bulk copy brings: memory words around the run are -1 (never
-    read as keys); each piece must hold at least one key of the run."""
-    first, pieces, skip = _window(x_off, start, length)
-    words = np.full(4 * pieces, -1, np.int64)
-    for w in range(4 * pieces):
-        e = (first + 4 * w - x_off) // 4  # element index of this word
+def _copy_window(x, x_off, start, length, kb=4):
+    """What the bulk copy brings, as keys of ``kb`` bytes (16 // kb a
+    piece): memory keys around the run are -1 (never read as keys); each
+    piece must hold at least one key of the run."""
+    first, pieces, skip = _window(x_off, start, length, kb)
+    per_piece = 16 // kb
+    words = np.full(per_piece * pieces, -1, np.int64)
+    for w in range(per_piece * pieces):
+        e = (first + kb * w - x_off) // kb  # element index of this key slot
         if 0 <= e < x.shape[0]:
             words[w] = x[e]
     for c in range(pieces):  # inside the allocation: a key of the run in every piece
-        e0 = (first + 16 * c - x_off) // 4
-        assert e0 + 3 >= 0 and e0 < x.shape[0]
+        e0 = (first + 16 * c - x_off) // kb
+        assert e0 + per_piece - 1 >= 0 and e0 < x.shape[0]
     return words, pieces, skip
 
 
 def _replay_k5(a, b, tile, grid, a_off=0, b_off=0):
-    """The merge kernel over ``grid`` CTAs, each a contiguous run of steps:
-    (perm, {step: cut at its start}, the most warp-search steps a cut took
-    in shared memory)."""
+    """The merge kernel over ``grid`` CTAs, each a contiguous run of steps,
+    for int32 or int64 keys (a's dtype; steps of at most 8192 or 4096
+    outputs): (perm, {step: cut at its start}, the most warp-search steps
+    a cut took in shared memory)."""
     na, nb = a.shape[0], b.shape[0]
     n = na + nb
-    step = min(tile, 8192)
+    key_bytes = a.dtype.itemsize
+    step = min(tile, 8192 if key_bytes == 4 else 4096)
+    per_piece = 16 // key_bytes
     per = step // 256 if step >= 2048 else min(step, 8)
     threads = max(32, step // per)  # a whole warp at least: the cut searches are a warp's
-    stage_words = 2 * ((step + 3) & ~3) + 16
+    stage_bytes = 2 * ((step * key_bytes + 15) & ~15) + 64
     num_tiles = -(-n // step)
     grid = min(grid, num_tiles)
     share, extra = divmod(num_tiles, grid)
@@ -736,11 +741,12 @@ def _replay_k5(a, b, tile, grid, a_off=0, b_off=0):
             d0 = t * step
             length = min(step, n - d0)
             la, lb = min(step, na - ia), min(step, nb - ja)  # the stage's keys
-            wa, ca, sa_skip = _copy_window(a, a_off, ia, la)
-            wb, cb, sb_skip = _copy_window(b, b_off, ja, lb)
-            assert 4 * (ca + cb) <= stage_words
+            wa, ca, sa_skip = _copy_window(a, a_off, ia, la, key_bytes)
+            wb, cb, sb_skip = _copy_window(b, b_off, ja, lb, key_bytes)
+            assert 16 * (ca + cb) <= stage_bytes
             stage = np.concatenate([wa, wb])
-            sa, sb = stage[sa_skip:sa_skip + la], stage[4 * ca + sb_skip:4 * ca + sb_skip + lb]
+            sb0 = per_piece * ca + sb_skip
+            sa, sb = stage[sa_skip:sa_skip + la], stage[sb0:sb0 + lb]
             np.testing.assert_array_equal(sa, a[ia:ia + la])
             np.testing.assert_array_equal(sb, b[ja:ja + lb])
             # the step's end cut, by one warp in the stage
@@ -813,6 +819,42 @@ def test_k5_cuts_and_thread_merge_match_the_reference(na, nb, lo_hi, tile):
     for t in range(0, d.shape[0], max(1, d.shape[0] // 5)):  # a CTA's first cut
         cut, coarse, fine = _replay_warp_cut(a, b, int(d[t]), step)
         assert cut == want_cuts[t] and fine <= (3 if step > 32 else 1)
+
+
+@pytest.mark.parametrize("na,nb,tile", [
+    (50_000, 30_000, 2048),  # a partial last step
+    (100, 30_000, 8192),  # steps of 4096 (the 64-bit form's largest), 16 outputs a thread
+    (20_001, 20_000, 512),  # 64 threads of 8
+    (300, 211, 8),  # one warp
+])
+def test_k5_64bit_cuts_and_thread_merge(na, nb, tile):
+    """K5's int64 form: two keys a 16-byte piece, steps of at most 4096 and
+    stages of 2 x roundup16(8 T) + 64 bytes; the replayed cuts equal the
+    plain diagonal search and the replayed merge the stable argsort, with
+    LLONG_MAX (the code of NaN) at the runs' ends and duplicates at the
+    int64 extremes, at every 8-byte alignment of the runs' first keys.
+    (The plain twins are held to the reference's kernel on uint64 codes in
+    the x64 child of ``tests/test_torch_dtypes.py``.)"""
+    from repro_torch.kernels import merge_path
+
+    rng = np.random.default_rng(na + nb + tile)
+    top = np.iinfo(np.int64).max
+    a = np.sort(rng.integers(-3, 4, na).astype(np.int64) * (top // 4))
+    b = np.sort(rng.integers(-3, 4, nb).astype(np.int64) * (top // 4))
+    a[-2:], b[-1:] = top, top
+    n = na + nb
+    step = min(tile, 4096)
+    d = np.arange(-(-n // step), dtype=np.int64) * step
+    want_cuts = merge_path.merge_path_partition(torch.as_tensor(a), torch.as_tensor(b),
+                                                torch.as_tensor(d)).numpy()
+    want = np.argsort(np.concatenate([a, b]), kind="stable")
+    np.testing.assert_array_equal(
+        merge_path.merge_path_perm_plain(torch.as_tensor(a), torch.as_tensor(b)).numpy(), want)
+    for grid, (a_off, b_off) in ((1, (0, 0)), (3, (8, 0)), (2, (0, 8))):
+        perm, cuts, stage_steps = _replay_k5(a, b, tile, grid, a_off, b_off)
+        np.testing.assert_array_equal(np.array([cuts[t] for t in range(d.shape[0])]), want_cuts)
+        np.testing.assert_array_equal(perm, want)
+        assert stage_steps <= 3
 
 
 @pytest.mark.parametrize("per", [8, 16, 32])

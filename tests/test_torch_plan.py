@@ -261,4 +261,4 @@ def test_stream_takes_the_plan_cache(tmp_path):
     saved = set(json.loads(open(pc.path).read()))
     assert {"sort:n=1024:dtype=int32", "sort:n=904:dtype=int32", "argsort:n=1024:dtype=int32",
             "topk:n=1024:dtype=int32:k=10", "stream:chunk=1024:fanin=5:dtype=int32"} <= saved
-    assert pc.stream_plan(1024, 5, torch.int32).merge_tile in plan._STREAM_TILES
+    assert pc.stream_plan(1024, 5, torch.int32).merge_tile in plan._stream_tiles(torch.int32)

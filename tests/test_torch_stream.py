@@ -262,9 +262,13 @@ def test_merge_path_limits():
     big = torch.empty(1 << 29, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="2\\^30"):
         merge_path.merge_path_perm_plain(big, big)
-    with pytest.raises(ValueError):
-        merge_path.merge_path_perm(torch.zeros(2, dtype=torch.int64),
-                                   torch.zeros(2, dtype=torch.int64))
+    for a, b in ((torch.zeros(2, dtype=torch.int16), torch.zeros(2, dtype=torch.int16)),
+                 (torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.int32))):
+        with pytest.raises(ValueError):  # codes are int32 or int64, one dtype
+            merge_path.merge_path_perm(a, b)
+    wide = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="8192"):  # int64 steps are half as long
+        merge_path.merge_path_perm(wide, wide, tile=merge_path.MAX_TILE)
     empty = torch.zeros(0, dtype=torch.int32)
     np.testing.assert_array_equal(merge_path.merge_path_perm(empty, torch.arange(
         3, dtype=torch.int32)).numpy(), [0, 1, 2])
