@@ -25,9 +25,10 @@ observability layer and the distributed sort:
    (non-prefix starts, trash ids) and ``partition_ranks_batched`` at
    (64, 2^18), nb = 257, K7 ``classify_histogram`` on raw float32 (NaN,
    +-0.0, +-inf, finfo.max sprinkled in), int32 TwoDup and bfloat16 keys at
-   n = 2^24, k = 128, ``classify_histogram_batched`` at (64, 2^18) with
-   per-row splitters and ``radix_histogram`` (and its batched form) at k =
-   256, K8 ``permute_blocks_by_dest`` on 2^28 + 1000 int32 keys (262,144
+   n = 2^24, k = 128, and on skewed float32 keys (all equal, all on one
+   splitter, 70% NaN, sorted, Zipf), ``classify_histogram_batched`` at
+   (64, 2^18) with per-row splitters and ``radix_histogram`` (and its
+   batched form) at k = 256, K8 ``permute_blocks_by_dest`` on 2^28 + 1000 int32 keys (262,144
    blocks of 1024 and a partial tail; block buckets uniform over 256 and
    half in one bucket, and one cycle through every block; and 65,536 blocks
    of 4096, 16 KB each, taken by a CTA team) and K9
@@ -221,7 +222,8 @@ observability layer and the distributed sort:
    from ``cudaFuncGetAttributes``); K2's and K4 ``rank_hist_batched``'s
    kernels per call (at most 5; the four kernels' device times) and their
    rank kernel's launch; K6's kernels per call (one) and its launch, and
-   the memset of its scratch; each entry point beside
+   the memset of its scratch; K7's launch by key width against
+   ``classify.schedule`` and its skewed keys beside uniform ones; each entry point beside
    ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and K8/K9 beside
    the out-of-place ``index_select`` of the blocks; profiles of
    three sorts and of one ``external_sort`` (device time, idle share,
@@ -274,7 +276,9 @@ observability layer and the distributed sort:
     python3 chip_smoke.py --parent DIR
 
 times K1 (tree, radix, batched, with 32- and 64-bit keys), the 32-bit K3,
-K3's 64-bit form (at every W from 16 to 16384 on 2^24 keys) and K5 of the
+K3's 64-bit form (at every W from 16 to 16384 on 2^24 keys), K5 and K7
+(tree mode on 8-, 16-, 32- and 64-bit keys and on equal float32 keys,
+batched on 32- and 64-bit rows, radix mode on int32 and int64 codes) of the
 CUDA sources under DIR (an earlier commit, unpacked by ``git archive``)
 beside this tree's, in turns,
 and checks that both give the same outputs; and K2 ``rank_hist``, K4
@@ -2491,8 +2495,8 @@ def launch_phases(torch, dev, rows) -> None:
 
 
 def compare_with_parent(parent: Path) -> None:
-    """``--parent DIR``: K1 (tree, radix, batched; 32- and 64-bit keys), K3
-    and K5 of the CUDA sources under DIR (a checkout of an earlier commit,
+    """``--parent DIR``: K1 (tree, radix, batched; 32- and 64-bit keys), K3,
+    K5 and K7 of the CUDA sources under DIR (a checkout of an earlier commit,
     unpacked by ``git archive``) beside this tree's, through this tree's
     wrappers, on the same inputs and card, in turns (earlier, this, this,
     earlier): CUDA events around the wrapper's launch and the kernel's own
@@ -2502,8 +2506,11 @@ def compare_with_parent(parent: Path) -> None:
     K3 on 2048 duplicate-heavy windows of 8192 int32 keys, its 64-bit form
     on 2^24 duplicate-heavy int64 keys in windows of every W from 16 to
     16384 (2048 of 8192 and 1024 of 16384 among them), K5 on two
-    duplicate-heavy runs of 2^24.  The C entry points of the four kept
-    their signatures."""
+    duplicate-heavy runs of 2^24, K7 in tree mode on 2^24 uint8, float16,
+    float32 and float64 keys and on 2^24 equal float32 keys at k = 128,
+    batched on (64, 2^18) float32 and float64, in radix mode on 2^24 int32
+    and int64 codes at k = 256 (the default tiles).  The C entry points of
+    the five kept their signatures."""
     import ctypes
 
     import numpy as np
@@ -2515,7 +2522,8 @@ def compare_with_parent(parent: Path) -> None:
     from repro_torch import ops
     from repro_torch.core import sampling
     from repro_torch.data.distributions import make_input
-    from repro_torch.kernels import _build, bitonic, level_fused as lf, merge_path as mp
+    from repro_torch.kernels import _build, bitonic, classify as cl, level_fused as lf
+    from repro_torch.kernels import merge_path as mp
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -2524,7 +2532,7 @@ def compare_with_parent(parent: Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {}
     for stem, sigs in (("level_fused", lf._SIGNATURES), ("merge_path", mp._SIGNATURES),
-                       ("bitonic", bitonic._SIGNATURES)):
+                       ("bitonic", bitonic._SIGNATURES), ("classify", cl._SIGNATURES)):
         so = out_dir / f"lib{stem}.so"
         built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                                 str(parent / "src" / "repro_torch" / "csrc" / f"{stem}.cu")],
@@ -2580,6 +2588,42 @@ def compare_with_parent(parent: Path) -> None:
         wk64[: N_BIG // W // 3] += torch.iinfo(torch.int64).max - 3
         wide[f"sort_windows64 {N_BIG // W} x {W}"] = (
             "bitonic", lambda wb64=wb64, wk64=wk64: bitonic.sort_windows(wb64, wk64, nb=64))
+    # K7 at phase 4's shapes: raw keys of 8, 16, 32 and 64 bits at k = 128
+    # (NaN, +-0.0, +-inf and the max among the floats), (64, 2^18) rows of 32
+    # and 64 bits, radix codes at k = 256, and all-equal float32 keys
+    def k7_keys(x):
+        if x.dtype.is_floating_point:
+            x[::1009] = float("nan")
+            x[1::1013] = -0.0
+            x[2::1019] = float("inf")
+            x[3::1021] = torch.finfo(x.dtype).max
+        return x
+
+    def k7_spl(x):
+        pos = torch.randint(0, x.shape[-1], x.shape[:-1] + (4 * k,), generator=gen, device=dev)
+        sample = torch.sort(torch.gather(x, -1, pos), dim=-1).values
+        return sampling.select_splitters(sample, k).contiguous()
+
+    k7 = {"classify_histogram8 uint8": torch.randint(0, 256, (N_BIG,), generator=gen, device=dev,
+                                                      dtype=torch.uint8),
+          "classify_histogram16 float16": k7_keys(torch.randn(N_BIG, generator=gen, device=dev)
+                                                  .to(torch.float16)),
+          "classify_histogram float32": k7_keys(torch.randn(N_BIG, generator=gen, device=dev)),
+          "classify_histogram64 float64": k7_keys(torch.randn(N_BIG, generator=gen, device=dev,
+                                                              dtype=torch.float64)),
+          "classify_histogram float32 all equal": torch.full((N_BIG,), 0.25, device=dev)}
+    k7_rows = {"classify_histogram_batched float32": k7_keys(torch.randn(
+                   (B_BULK, N_ROW), generator=gen, device=dev)),
+               "classify_histogram_batched64 float64": k7_keys(torch.randn(
+                   (B_BULK, N_ROW), generator=gen, device=dev, dtype=torch.float64))}
+    k7_calls = {name: ("classify", lambda x=x, s_=k7_spl(x): cl.classify_histogram(x, s_, k=k))
+                for name, x in k7.items()}
+    k7_calls.update({name: ("classify", lambda x=x, s_=k7_spl(x): cl.classify_histogram_batched(
+        x, s_, k=k)) for name, x in k7_rows.items()})
+    k7_calls["radix_histogram int32"] = ("classify", lambda: cl.radix_histogram(
+        radix_int, k=K_RADIX))
+    k7_calls["radix_histogram64 int64"] = ("classify", lambda: cl.radix_histogram(
+        radix64, k=K_RADIX))
     cases = {
         "level_fused": ("level_fused", lambda: lf._level_tiles_kernel(
             keys[None], spl[None], k, N_BIG, lf.TILE)),
@@ -2596,6 +2640,7 @@ def compare_with_parent(parent: Path) -> None:
         "merge_path": ("merge_path", lambda: mp.merge_path_perm(merge_a, merge_b)),
         "sort_windows": ("bitonic", lambda: bitonic.sort_windows(wb, wk, nb=64)),
         **wide,
+        **k7_calls,
     }
     result = {}
     for name, (stem, call) in cases.items():
@@ -3655,6 +3700,20 @@ def main() -> None:
         check_equal("classify_histogram_batched",
                     cl.classify_histogram_batched(k7_rows, k7_rows_spl, k=k), k7_want["batched"],
                     f"({B_BULK}, {N_ROW}) per-row splitters k={k}")
+        # skewed float32 keys (the histogram's one-slot warps and run merging):
+        # all one value, all equal to a splitter, 70% NaN, already sorted, Zipf
+        k7_skews = {"all equal": torch.full((N_BIG,), 0.25, device=dev)}
+        k7_skews["one splitter"] = k7_spl["float32 Uniform+specials"][k // 2].expand(
+            N_BIG).contiguous()
+        nan_heavy = k7_in["float32 Uniform+specials"].clone()
+        nan_heavy[torch.rand(N_BIG, generator=gen, device=dev) < 0.7] = float("nan")
+        k7_skews["NaN-heavy"] = nan_heavy
+        k7_skews["sorted"] = torch.sort(k7_in["float32 Uniform+specials"]).values
+        k7_skews["zipf"] = torch.as_tensor(_zipf_keys(np, N_BIG, seed=19), device=dev)
+        for tag, x in k7_skews.items():
+            check_equal("classify_histogram", cl.classify_histogram(
+                x, k7_spl["float32 Uniform+specials"], k=k), cl.classify_histogram_plain(
+                x, k7_spl["float32 Uniform+specials"], k=k), f"float32 {tag} n={N_BIG} k={k}")
         radix7 = full_range((N_BIG,), seed=17)
         radix7[::1009] = torch.iinfo(torch.int32).max  # the NaN / pad code
         for consumed in (0, 8):
@@ -4753,6 +4812,24 @@ def main() -> None:
                 n_keys * (key_bytes + 4) + uppers * 4 + tiles * 2 * k_ * 4, n_keys * ops_per_key)
             t["library_ms"] = None
 
+        # K7's launch by key width (registers, shared memory, CTAs an SM, spills)
+        # against classify.schedule
+        k7_code = {torch.float32: torch.int32, torch.float64: torch.int64}
+        for dtype_ in (torch.uint8, torch.float16, torch.float32, torch.float64):
+            for mode in ("tree", "radix") if dtype_ in k7_code else ("tree",):
+                k_ = k if mode == "tree" else K_RADIX
+                info = cl.launch_info(k7_code[dtype_] if mode == "radix" else dtype_, k_,
+                                      mode == "radix")
+                sch = cl.schedule(dtype_.itemsize, k_, mode == "radix")
+                print(f"K7 launch {mode} {str(dtype_).split('.')[-1]} k={k_}: "
+                      f"{info['registers']} registers, {info['dynamic_smem']} dynamic B per CTA, "
+                      f"{info['threads']} threads, {info['ctas_per_sm']} CTAs an SM at once, "
+                      f"{info['warp_step']} keys a warp step, at most {info['tiles']} tiles a "
+                      f"CTA, local memory {info['local_bytes']} B", flush=True)
+                if (info["dynamic_smem"], info["threads"], info["warp_step"], info["tiles"]) \
+                        != (sch.smem_bytes, sch.threads, sch.warp_step, sch.tiles):
+                    fail(f"K7's launch {info} is not classify.schedule's {sch}")
+
         xf, sf = k7_in["float32 Uniform+specials"], k7_spl["float32 Uniform+specials"]
         tile7 = cl.default_rows(N_BIG, 4, k) * cl.LANES
         time_k7("classify_histogram", lambda: cl.classify_histogram(xf, sf, k=k),
@@ -4772,6 +4849,13 @@ def main() -> None:
         }
         k7_more["radix_histogram_batched"] = cuda_ms(
             torch, lambda: cl.radix_histogram_batched(radix7_rows, k=K_RADIX))
+        # the skewed keys of phase 2 beside uniform ones: the histogram's atomics
+        # on one address (all equal, one splitter) and the descents' paths
+        for tag, x in {"Uniform+specials": xf, **k7_skews}.items():
+            skew_ms = device_ms(torch, lambda x=x: cl.classify_histogram(x, sf, k=k),
+                                names=DEVICE_FUNCTIONS["classify_histogram"])
+            print(f"time classify_histogram float32 {tag} (n={N_BIG}, k={k}): device "
+                  f"{skew_ms:.4f} ms", flush=True)
 
         # K8 and K9 at 2^28 int32 keys, uniform block buckets: every block read
         # once and written once (2 GiB), the dst or the block buckets read; a

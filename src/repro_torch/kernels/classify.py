@@ -6,10 +6,11 @@ Counterpart of ``repro.kernels.classify`` (the Pallas TPU kernels
 at ``:153`` and ``radix_histogram`` at ``:222``; ``radix_histogram_batched``
 at ``:271`` flattens its rows into the last).  The three are one CUDA kernel
 with a row dimension and a tree/radix mode here, in ``csrc/classify.cu``,
-whose header note gives its bound and design.  Each wrapper launches it on
-a CUDA tensor, under its own key of ``_build.LAUNCHES``, and runs the plain
-twin (``*_plain``, same outputs bit for bit) only on a CPU tensor; there is
-no fallback from one to the other.
+whose header note gives its bound and design; :func:`schedule` gives its
+CTA, its steps and its shared memory (``launch.roofline`` reports them).
+Each wrapper launches it on a CUDA tensor, under its own key of
+``_build.LAUNCHES``, and runs the plain twin (``*_plain``, same outputs bit
+for bit) only on a CPU tensor; there is no fallback from one to the other.
 
 Tree mode classifies *raw* keys of any of the reference's twelve key
 dtypes (8/16/32/64-bit ints and uints, float16, bfloat16, float32,
@@ -30,11 +31,15 @@ keys, the name with 8, 16 or 64 appended for the others
 
 ``rows=None`` resolves through :func:`default_rows`, a copy of the
 reference's TPU tile model: it is the shape contract of the histogram, not
-a launch model of the H100.
+a launch model of the H100.  Any tile of ``rows * 128`` keys is launched,
+at any k whose splitter tree, uppers and one tile's histogram fit a CTA's
+shared memory (k up to 8192 for every key width).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,7 +59,11 @@ __all__ = [
     "radix_histogram_batched_plain",
     "default_rows",
     "launch_name",
+    "launch_info",
+    "schedule",
+    "Schedule",
     "LANES",
+    "THREADS",
 ]
 
 LANES = 128
@@ -79,7 +88,49 @@ _SIGNATURES = {
     "classify_histogram_tree": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "classify_histogram_radix": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
     "classify_histogram_radix64": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "classify_info": (_I, _I, _I, _P),
 }
+
+# The kernel's CTA (csrc/classify.cu): 256 threads, each lane 4 pieces of
+# ids a warp step (a piece: 4 keys, 2 of 64 bits), the histograms of at most
+# 32 KB of tiles (one tile's at least) beside the splitter tree.
+THREADS = 256
+_PIECES = 4
+_HIST_BUDGET = 32 * 1024
+
+
+class Schedule(NamedTuple):
+    """The K7 launch's CTA at (key bytes, k): ``threads``, the keys a warp
+    takes a step (``warp_step``), the most tiles a CTA takes
+    (``tiles``: their histograms stay in shared memory until its end), and
+    the CTA's dynamic shared memory in bytes (in tree mode the padded tree
+    and the uppers, k' + k entries of the compare type, and for 8-bit keys
+    a table of 256 ids; then ``tiles`` histograms of 2k int32 counters).
+    A launch gives each CTA ceil(tiles / (4 x SMs x CTAs an SM holds))
+    tiles of one row, at most ``tiles``."""
+
+    threads: int
+    warp_step: int
+    tiles: int
+    smem_bytes: int
+
+
+def schedule(key_bytes: int, k: int, radix: bool = False) -> Schedule:
+    """K7's launch at (key bytes, k, mode), as ``csrc/classify.cu``
+    ``schedule`` computes it; any tile of 128-key rows.
+
+    >>> schedule(4, 128)
+    Schedule(threads=256, warp_step=512, tiles=32, smem_bytes=33792)
+    >>> schedule(8, 100, radix=True)
+    Schedule(threads=256, warp_step=256, tiles=40, smem_bytes=32000)
+    """
+    nb = 2 * k
+    kp = 1 << (k - 1).bit_length()
+    tiles = max(1, _HIST_BUDGET // (4 * nb))
+    tree = 0 if radix else ((kp + k) * (8 if key_bytes == 8 else 4)
+                            + (1024 if key_bytes == 1 else 0))
+    return Schedule(THREADS, 32 * _PIECES * (2 if key_bytes == 8 else 4), tiles,
+                    tree + tiles * nb * 4)
 
 
 def default_rows(n: int, key_bytes: int, k: int) -> int:
@@ -136,7 +187,7 @@ def _uppers(keys: torch.Tensor, splitters: torch.Tensor, k: int) -> torch.Tensor
         raise ValueError("keys and splitters must share a device")
     # in the ordered view, where torch's unsigned dtypes have every op: the
     # view's max is the view of the dtype's max
-    spl = ordered_view(splitters.reshape(-1, k - 1))
+    spl = ordered_view(splitters.reshape(math.prod(keys.shape[:-1]), k - 1))
     sent = torch.full((spl.shape[0], 1), sentinel_for(spl.dtype), dtype=spl.dtype,
                       device=spl.device)
     return from_ordered_view(torch.cat([spl, sent], 1), splitters.dtype)
@@ -177,6 +228,22 @@ def launch_name(name: str, dtype: torch.dtype) -> str:
     """
     bits = 8 * torch.empty((), dtype=dtype).element_size()
     return name if bits == 32 else f"{name}{bits}"
+
+
+def launch_info(dtype: torch.dtype, k: int, radix: bool = False) -> dict:
+    """The K7 kernel's 16-byte-aligned launch on keys of ``dtype`` (radix:
+    int32 or int64 codes) at k, from the CUDA runtime
+    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    registers per thread, static and dynamic shared memory per CTA in bytes,
+    threads per CTA, CTAs an SM holds at once, local memory per thread in
+    bytes (spills), keys a warp step and the most tiles a CTA takes.  Builds
+    and loads the library; needs a card."""
+    out = (ctypes.c_int * 8)()
+    lib = _build.library("classify", _SIGNATURES)
+    _build.check(lib, "classify", lib.classify_info(_KEY_KINDS[dtype], int(radix), k,
+                                                    ctypes.addressof(out)), "classify_info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "threads", "ctas_per_sm",
+                     "local_bytes", "warp_step", "tiles"), out))
 
 
 # ---------------------------------------------------------------------------

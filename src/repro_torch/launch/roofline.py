@@ -25,7 +25,7 @@ counterpart: the counter counts the collectives as they run.
 ``classify_tile_rows`` describe the port's real launches: the tile and the
 CTA (threads, shared bytes) that its kernels' own schedules give (K6's
 ``dispatch_rank.schedule``, K1's warp per 512 positions, K5's 256 threads
-a CTA, K7's 128-lane rows), and count the reference's ``launch.spec``
+a CTA, K7's ``classify.schedule``), and count the reference's ``launch.spec``
 obs counter.  They choose nothing: no tile a kernel launches depends on
 them, and only the tests read them (the reference's kernels call
 ``launch_spec`` for their tiles; the port's keep their own schedules).
@@ -103,14 +103,13 @@ def _shape(kind: str, key_bytes: int, k: Optional[int], tile: int):
         if tile > mp.max_tile(key_bytes) or tile < 256:
             return None
         return _WARP, 256, 0
-    if kind == "classify":  # K7: rows of 128 lanes, keys + a (128, 2k) compare + ids
+    if kind == "classify":  # K7: its own schedule, any tile of 128-lane rows
         from repro_torch.kernels import classify as cl
 
-        per_row = cl.LANES * (key_bytes + 4 * (2 * (k or 1)) + 4)
-        rows = tile // cl.LANES
-        if tile % cl.LANES or rows > 128:
+        if tile % cl.LANES:
             return None
-        return cl.LANES, cl.LANES, rows * per_row
+        sch = cl.schedule(key_bytes, k or 1)
+        return cl.LANES, sch.threads, sch.smem_bytes
     if kind == "permute":  # K8: whole blocks of 128-lane rows
         from repro_torch.kernels import block_permute as bp
 
@@ -140,9 +139,14 @@ def launch_spec(kind: str, key_bytes: int, k: Optional[int] = None, *,
                 n: Optional[int] = None, rows: Optional[int] = None,
                 smem_bytes: Optional[int] = None) -> KernelLaunchSpec:
     """The launch of kernel ``kind``: ``rows`` pinned, or the largest
-    candidate whose tile divides ``n`` (``rows == 0`` when none does).
+    candidate whose tile divides ``n`` (``rows == 0`` when none does; K7's
+    wrapper takes ``classify.default_rows`` there, the histogram's shape).
     Counts ``launch.spec`` in ``obs`` as the reference does."""
     lanes = _lanes(kind)
+    if rows is None and kind == "classify" and n is not None:
+        from repro_torch.kernels import classify as cl
+
+        rows = cl.default_rows(n, key_bytes, k or 1)
     if rows is None:
         rows = 0
         for cand in spec_candidates(kind, key_bytes, k, smem_bytes=smem_bytes):

@@ -114,7 +114,7 @@ def check(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("k", [2, 16, 128])
+@pytest.mark.parametrize("k", [1, 2, 3, 16, 100, 128])
 @pytest.mark.parametrize("name", NAMES)
 def test_classify_histogram_matches_reference(name, k):
     x = make_keys(name, 3 * ROWS * 128, k)

@@ -51,7 +51,7 @@ def keys_and_splitters(k, dtype, n, seed):
     return keys, spl
 
 
-@pytest.mark.parametrize("k", [2, 4, 32, 128])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 32, 100, 128])
 @pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
 @pytest.mark.parametrize("tiles,rows", [(1, 8), (3, 32)])
 def test_classify_histogram_matches_reference(k, dtype, tiles, rows):
@@ -60,10 +60,11 @@ def test_classify_histogram_matches_reference(k, dtype, tiles, rows):
     got = classify.classify_histogram(to_port(keys, bf16), to_port(spl, bf16), k=k, rows=rows)
     check(got, ref_classify.classify_histogram(to_ref(keys, bf16), to_ref(spl, bf16), k=k,
                                                rows=rows))
-    check(got, ref_oracles.classify_histogram_ref(to_ref(keys, bf16), to_ref(spl, bf16), k=k,
-                                                  rows=rows))
-    check(ref.classify_histogram_ref(to_port(keys, bf16), to_port(spl, bf16), k=k, rows=rows),
-          got)
+    if k >= 2 and k & (k - 1) == 0:  # the oracles' tree classifier takes powers of two
+        check(got, ref_oracles.classify_histogram_ref(to_ref(keys, bf16), to_ref(spl, bf16),
+                                                      k=k, rows=rows))
+        check(ref.classify_histogram_ref(to_port(keys, bf16), to_port(spl, bf16), k=k,
+                                         rows=rows), got)
 
 
 def special_keys(n, seed, dtype):
@@ -131,10 +132,11 @@ def test_classify_histogram_refuses_untiled_n():
         classify.classify_histogram(torch.zeros(1024), torch.zeros(7), k=8, rows=3)
 
 
+@pytest.mark.parametrize("k", [3, 16, 100])
 @pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
-def test_classify_histogram_batched_matches_unbatched(dtype):
+def test_classify_histogram_batched_matches_unbatched(dtype, k):
     rng = np.random.default_rng(0)
-    B, n, k = 3, 2048, 16
+    B, n = 3, 2048
     if dtype == "int32":
         keys = rng.integers(-500, 500, (B, n)).astype(np.int32)
         spl = np.sort(rng.integers(-500, 500, (B, k - 1)).astype(np.int32), axis=1)

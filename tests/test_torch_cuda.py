@@ -12,7 +12,9 @@ also at 65,536 tiles, one id, all trash, rows whose first tile is all
 trash, nb = 4096 at tile 16384 and (8, 2^20) rows, each twice),
 K7 (``classify_histogram`` and its batched and radix forms, on raw keys
 of all twelve keyspace dtypes and on int64 radix codes, each launch under
-its key width's name), K5's int64 form (ragged, unaligned, at its largest
+its key width's name; at k = 1 .. 256 and tiles of 128 to 16384 on
+all-equal, one-splitter, NaN-heavy, sorted and Zipf keys, at an offset
+of one key, and its launch against ``classify.schedule``), K5's int64 form (ragged, unaligned, at its largest
 tile), the stream, ``s3_sort`` and ``sort_blocks`` on float64, uint16 and
 narrow keys against the CPU, K8
 ``permute_blocks_by_dest`` (every team size, 20 runs in a row, and a ``dst``
@@ -637,6 +639,109 @@ def test_classify_histogram_batched_kernel_key_kinds(dev, dtype):
     got = classify.classify_histogram_batched(x, spl, k=64)
     assert kernels.launch_counts()[name] == before + 1
     _equal(got, classify.classify_histogram_batched_plain(x, spl, k=64))
+
+
+K7_SKEWS = ["all equal", "one splitter", "NaN-heavy", "sorted", "zipf"]
+K7_WIDTHS = [torch.uint8, torch.int16, torch.float16, torch.float32, torch.uint32, torch.float64,
+             torch.int64]
+
+
+def _skewed_keys(dtype, skew, n, g, dev):
+    """Keys of ``dtype`` on the card, with their splitters drawn per k: all
+    one value, all equal to a splitter (set by the caller), NaN-heavy (the
+    dtype's max for the ints), already sorted, or Zipf(1.3) ranks."""
+    x = _raw_keys(dtype, n, g, dev)
+    signed = _SIGNED[x.element_size()]
+    if skew == "all equal":
+        x.view(signed).fill_(int(x.view(signed)[7]))
+    elif skew == "NaN-heavy":
+        nan = torch.rand(n, generator=g, device=dev) < 0.7
+        if dtype.is_floating_point:
+            x[nan] = float("nan")
+        else:
+            x.view(signed)[nan] = -1 if dtype in (torch.uint8, torch.uint32) else \
+                torch.iinfo(signed).max
+    elif skew == "sorted":
+        order = torch.sort(ops.keyspace.encode(x), stable=True).indices
+        x = x.view(signed)[order].view(dtype).contiguous()
+    elif skew == "zipf":
+        z = np.minimum(np.random.default_rng(n).zipf(1.3, n), 100).astype(np.int64)
+        x = torch.as_tensor(z, device=dev).to(signed).view(dtype) if not dtype.is_floating_point \
+            else torch.as_tensor(z, device=dev).to(dtype)
+    return x
+
+
+@pytest.mark.parametrize("skew", K7_SKEWS)
+@pytest.mark.parametrize("dtype", K7_WIDTHS)
+def test_classify_histogram_kernel_skewed(dev, dtype, skew):
+    """K7's tree mode at k = 1, 3, 100, 128 and 256 and tiles of 128, 4096
+    and 16384 keys (steps of several tiles, one tile, several steps a
+    tile) on skewed keys of each key width, bit for bit its plain twin:
+    the run-merged atomics (random keys), the one atomic of a warp whose
+    keys share a slot (equal, sorted and one-splitter keys), and the scalar
+    loads and stores of keys at an offset of one element."""
+    g = torch.Generator(device=dev).manual_seed(len(skew))
+    n = 3 * 16384
+    base = _skewed_keys(dtype, skew, n + 1, g, dev)
+    for k in (1, 3, 100, 128, 256):
+        for rows in (1, 32, 128):
+            for x in (base[:n], base[1:]):  # 16-byte aligned, and one key on
+                spl = _sorted_splitters(x, k, g)
+                if skew == "one splitter" and k > 1:
+                    x = spl[(k - 1) // 2].expand(n).contiguous()
+                got = classify.classify_histogram(x, spl, k=k, rows=rows)
+                want = classify.classify_histogram_plain(x, spl, k=k, rows=rows)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (k, rows,
+                                                                           x.data_ptr() % 16)
+
+
+@pytest.mark.parametrize("dtype", K7_WIDTHS)
+def test_classify_histogram_batched_kernel_skewed(dev, dtype):
+    """Three rows, each against its own splitters (a CTA never straddles two
+    rows), at k = 3 and 100, tiles of 128 and 4096, random and all-equal
+    rows side by side."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    n = 3 * 4096
+    x = _raw_keys(dtype, 3 * n, g, dev).view(3, n)
+    signed = _SIGNED[x.element_size()]
+    x[1].view(signed).fill_(int(x[1].view(signed)[0]))
+    for k in (3, 100):
+        spl = _sorted_splitters(x, k, g)
+        for rows in (1, 32):
+            _equal(classify.classify_histogram_batched(x, spl, k=k, rows=rows),
+                   classify.classify_histogram_batched_plain(x, spl, k=k, rows=rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_radix_histogram_kernel_skewed(dev, dtype):
+    """Radix mode at tiles of 128, 4096 and 16384 on all-equal, sorted and
+    full-range codes, aligned and at an offset of one code."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    info = torch.iinfo(dtype)
+    n = 3 * 16384
+    full = torch.randint(info.min, info.max, (n + 1,), device=dev, generator=g, dtype=dtype)
+    bits = 8 * full.element_size()
+    for x in (full, torch.sort(full).values, torch.full_like(full, 12345)):
+        for rows in (1, 32, 128):
+            for view in (x[:n], x[1:]):
+                for k, consumed in ((2, 0), (256, 8), (16, bits - 4)):
+                    _equal(classify.radix_histogram(view, k=k, consumed_bits=consumed, rows=rows),
+                           classify.radix_histogram_plain(view, k=k, consumed_bits=consumed,
+                                                          rows=rows))
+
+
+def test_classify_launch_follows_the_schedule(dev):
+    """The kernel's launch (shared bytes, threads, warp step, tiles a CTA)
+    from the CUDA runtime equals ``classify.schedule``, with no spills."""
+    code = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for dtype in (torch.uint8, torch.float16, torch.float32, torch.float64):
+        for k in (1, 3, 100, 128, 256):
+            for radix in ((False, True) if dtype in code and k > 1 else (False,)):
+                info = classify.launch_info(code[dtype] if radix else dtype, k, radix)
+                sch = classify.schedule(dtype.itemsize, k, radix)
+                assert (info["dynamic_smem"], info["threads"], info["warp_step"],
+                        info["tiles"]) == (sch.smem_bytes, sch.threads, sch.warp_step, sch.tiles)
+                assert info["local_bytes"] == 0 and info["ctas_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("k,consumed", [(2, 0), (256, 0), (256, 8), (32, 59), (16, 60)])

@@ -1,5 +1,5 @@
-"""The arithmetic of six of the port's CUDA kernels, replayed on the CPU and
-held to the reference's oracles.
+"""The arithmetic of seven of the port's CUDA kernels, replayed on the CPU
+and held to the reference's oracles.
 
 The kernels run only on a card; their plain twins compute the same
 functions by other means.  These tests replay what the kernels do step for
@@ -59,15 +59,29 @@ step, so that their schedules are checked where there is no card:
   in shuffled orders.  Held bit for bit to the reference's three Pallas
   kernels in interpret mode and to the plain twins; the status word is
   shown to keep counts past 2^30.
+- K7 ``classify_histogram``, ``classify_histogram_batched`` and
+  ``radix_histogram`` (``csrc/classify.cu``): CTAs over runs of whole
+  tiles of one row, each warp its own steps of 16-byte loads, the shuffle
+  transpose of 8- and 16-bit pieces (so that id stores are 16 bytes,
+  consecutive lanes on consecutive pieces), the splitters in a padded
+  Eytzinger tree per compare type (the max for the ints, NaN for the
+  floats), descents of 8 keys interleaved with eq against the uppers, the
+  8-bit id table, the exact division by the tile and a shared atomic a
+  key.  Held bit for bit to the reference's Pallas kernels in interpret
+  mode for all twelve key kinds at k = 1 .. 256 (the 64-bit kinds in an x64
+  child), batched and in radix mode; the walk is shown to take every tile
+  and key once, and the shared bytes to fit a CTA.
 """
 import math
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
 from repro.classify.radix import radix_bucket_ids as ref_radix_bucket_ids
+from repro.kernels import classify as ref_classify
 from repro.kernels.level_fused import _classify_tile as ref_classify_tile
 from repro.kernels.level_fused import _rank_and_hist as ref_rank_and_hist
 from repro.kernels.level_fused import level_fused as ref_level_fused
@@ -76,7 +90,9 @@ from repro.kernels.level_fused import rank_hist_batched as ref_rank_hist_batched
 from repro.kernels.merge_path import merge_path_partition as ref_merge_path_partition
 from repro.kernels.ref import bitonic_sort_windows_ref, merge_path_perm_ref
 from repro.kernels.ref import flash_attention_ref as ref_attention_oracle
+from repro.ops.keyspace import encode_np
 from repro_torch.classify import radix_shift
+from repro_torch.kernels import classify
 from repro_torch.kernels.level_fused import MAX_NB, MAX_TILE, _close_placement, _items
 from repro_torch.kernels.level_fused import rank_hist_batched_plain, rank_hist_plain
 from repro_torch.kernels.level_fused import segment_schedule
@@ -1472,3 +1488,498 @@ def test_k6_schedule_and_shared_memory():
         for tile in (1, 256, 4096, 8192, 16384, 60000):
             warps, t = dr.schedule(nb, tile)
             assert dr._smem_bytes(nb, warps) <= 232_448 and 1 <= t <= min(tile, warps * 512)
+
+
+# ---- K7 -------------------------------------------------------------------
+
+K7_WARPS = 8  # warps of K7's CTA (classify.THREADS / 32)
+# kind -> (stored numpy dtype, compare numpy dtype): 8- and 16-bit ints
+# widened to int, bfloat16 and float16 to float, the rest as they are
+K7_KINDS = {
+    "int8": (np.int8, np.int32), "uint8": (np.uint8, np.int32),
+    "int16": (np.int16, np.int32), "uint16": (np.uint16, np.int32),
+    "float16": (np.float16, np.float32), "bfloat16": (ml_dtypes.bfloat16, np.float32),
+    "int32": (np.int32, np.int32), "uint32": (np.uint32, np.uint32),
+    "float32": (np.float32, np.float32), "int64": (np.int64, np.int64),
+    "uint64": (np.uint64, np.uint64), "float64": (np.float64, np.float64),
+}
+K7_KS = (1, 2, 3, 16, 100, 128, 256)
+
+
+def _k7_compare(raw: np.ndarray, name: str) -> np.ndarray:
+    """Stored keys in the kernel's compare type (bfloat16 by its bits)."""
+    if name == "bfloat16":
+        return (raw.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return raw.astype(K7_KINDS[name][1])
+
+
+def _k7_pad(ctype) -> np.ndarray:
+    """The tree's pad: NaN for the floats, the compare type's max else."""
+    ctype = np.dtype(ctype)
+    return ctype.type(np.nan) if ctype.kind == "f" else ctype.type(np.iinfo(ctype).max)
+
+
+def _k7_tree(upper: np.ndarray, k: int) -> np.ndarray:
+    """The padded Eytzinger tree of K7's CTA: node i at depth h, p-th of its
+    depth, holds sorted index (2p + 1) k' / 2^(h+1) - 1 of the k-1
+    splitters, the pad past them (node 0 unused)."""
+    kp = 1 << (k - 1).bit_length()
+    tree = np.full(kp, _k7_pad(upper.dtype), upper.dtype)
+    for i in range(1, kp):
+        h = i.bit_length() - 1
+        at = (2 * (i - (1 << h)) + 1) * (kp >> (h + 1)) - 1
+        if at < k - 1:
+            tree[i] = upper[at]
+    return tree
+
+
+def _k7_grid(rows: int, tiles_per_row: int, cap: int, wave: int):
+    """The launch's CTAs as (row, first tile, end tile): one wave of
+    ``wave`` CTAs where ``cap`` tiles' histograms allow, each a run of tiles
+    of one row."""
+    per_cta = min(-(-(rows * tiles_per_row) // wave), cap, tiles_per_row)
+    ctas_per_row = -(-tiles_per_row // per_cta)
+    return [(r, c * per_cta, min(c * per_cta + per_cta, tiles_per_row))
+            for r in range(rows) for c in range(ctas_per_row)]
+
+
+def _k7_tile_div(tile: int):
+    """(magic, shift) of the kernel's division by the tile (``TileDiv``):
+    x // tile == (x * magic >> 32) >> shift for every x < 2^31."""
+    lg = (tile - 1).bit_length()
+    return -(-(1 << (31 + lg)) // tile), lg - 1
+
+
+def _k7_warp_steps(keys: int, warp_step: int):
+    """The first keys of each warp's steps over a CTA's ``keys``: warp w
+    takes steps w, w + 8, ... (as (warps, steps) with -1 past the end)."""
+    rounds = -(-keys // (K7_WARPS * warp_step))
+    at0 = (np.arange(rounds)[None, :] * K7_WARPS + np.arange(K7_WARPS)[:, None]) * warp_step
+    return np.where(at0 < keys, at0, -1)
+
+
+def _k7_rotate(w: np.ndarray, by: np.ndarray, P: int) -> np.ndarray:
+    """``rotate_pieces``: the P pieces of 4 / P words along the last axis,
+    piece i <- piece (i - by) mod P, by selects per bit of ``by``."""
+    PW = 4 // P
+    bit = 1
+    while bit < P:
+        take = (by & bit) != 0
+        w = np.where(take[..., None], w[..., [(i + 4 - bit * PW) & 3 for i in range(4)]], w)
+        bit <<= 1
+    return w
+
+
+def _k7_to_pieces(words: np.ndarray, P: int) -> np.ndarray:
+    """``to_pieces`` for every warp: (warps, 32 lanes, 4 words) of the
+    lanes' 16-byte loads -> each lane's pieces 32q + lane of its warp's
+    block, by the rotations and P shuffle rounds."""
+    if P == 1:
+        return words
+    PW, span = 4 // P, 32 // P
+    lane = np.arange(32)
+    w = _k7_rotate(words, np.broadcast_to(lane // span, words.shape[:2]), P)
+    s = lane & (P - 1)
+    out = np.empty_like(w)
+    for r in range(P):
+        src = ((r - s) & (P - 1)) * span + lane // P
+        out[..., r * PW:(r + 1) * PW] = w[:, src, r * PW:(r + 1) * PW]
+    return _k7_rotate(out, np.broadcast_to((P - s) & (P - 1), words.shape[:2]), P)
+
+
+def _replay_k7(raw: np.ndarray, name: str, upper, k: int, tile: int, wave: int = 7,
+               shift: int = 0):
+    """K7 over (B, n) stored keys of kind ``name``: tree mode against (B, k)
+    uppers in the compare type, or radix mode at ``shift`` (``upper`` None,
+    int32 or int64 codes).  Returns (ids, hist, stats): stats counts the
+    shared atomics, each position's stores and each tile's flushes."""
+    B, n = raw.shape
+    KB = raw.dtype.itemsize
+    KP = 2 if KB == 8 else 4  # keys a piece of ids
+    PW = 4 if KB == 8 else KB  # words a piece
+    P, KV = 4 // PW, 16 // KB  # pieces and keys a 16-byte load
+    U = 4 // P  # loads a lane a warp step
+    GP = 4 if KB == 8 else 2  # pieces a group of interleaved descents
+    nb, kp = 2 * k, 1 << (k - 1).bit_length()
+    depth = kp.bit_length() - 1
+    sch = classify.schedule(KB, k, radix=upper is None)
+    assert sch.warp_step == 32 * U * KV
+    magic, dshift = _k7_tile_div(tile)
+    lane = np.arange(32)
+    load_at = (np.arange(U)[:, None] * 32 + lane) * KV  # (U, lanes), from the step's start
+    piece_at = np.array([(i // P * 32 * P + 32 * (i % P) + lane) * KP for i in range(4)])
+    ids = np.full((B, n), -1, np.int64)
+    hist = np.full((B, n // tile, nb), -1, np.int64)
+    stats = {"atomics": 0, "stores": np.zeros((B, n), np.int64),
+             "flushes": np.zeros((B, n // tile), np.int64)}
+    sentinel = np.iinfo(raw.dtype).max if upper is None else None
+
+    def descend(key):  # Tree::classify: levels 0 and 1 from registers, then byte offsets
+        j = np.ones(key.shape, np.int64)
+        if depth >= 1:
+            j = np.where(key > tree[1], 3, 2)
+        if depth >= 2:
+            j = 2 * j + (key > np.where(j == 3, tree[3], tree[2]))
+        at = j * key.dtype.itemsize
+        for _ in range(2, depth):
+            node = tree.view(np.uint8)[at[..., None] + np.arange(key.dtype.itemsize)]
+            at = 2 * at + (key > np.ascontiguousarray(node).view(key.dtype)[..., 0]) \
+                * key.dtype.itemsize
+        j = at // key.dtype.itemsize - kp
+        return 2 * j + ((key == upper_row[j]) | (key == upper_row[-1]))
+
+    def classify_keys(keys):
+        if upper is None:
+            ucode = keys.view(f"uint{8 * KB}")
+            code = ucode ^ ucode.dtype.type(1 << (8 * KB - 1))
+            bits = (code >> code.dtype.type(shift)) & code.dtype.type(k - 1)
+            return 2 * bits.astype(np.int64) + (keys == sentinel)
+        if KB == 1:  # the CTA's table of the 256 key values' ids
+            return table[keys.view(np.uint8)]
+        return descend(_k7_compare(keys, name))
+
+    for row, t_begin, t_end in _k7_grid(B, n // tile, sch.tiles, wave):
+        assert 0 <= t_begin < t_end <= n // tile  # the CTA's tiles lie in its row
+        assert t_end - t_begin <= sch.tiles
+        first = t_begin * tile
+        size = (t_end - t_begin) * tile
+        cta_bytes = raw[row, first:first + size].view(np.uint8)
+        if upper is not None:
+            tree, upper_row = _k7_tree(upper[row], k), upper[row]
+            if KB == 1:
+                values = np.arange(256, dtype=np.uint8).view(raw.dtype)
+                table = descend(_k7_compare(values, name))
+        s_hist = np.zeros((t_end - t_begin) * nb, np.int64)
+        run = np.full((K7_WARPS, 32), -1, np.int64)
+        count = np.zeros((K7_WARPS, 32), np.int64)
+        for w, steps in enumerate(_k7_warp_steps(size, sch.warp_step)):
+            for at0 in steps[steps >= 0]:  # the next step's loads are issued first
+                at = at0 + load_at
+                byte = at[..., None] * KB + np.arange(16)
+                got = cta_bytes[np.minimum(byte, size * KB - 1)] * (at < size)[..., None]
+                words = np.ascontiguousarray(got.astype(np.uint8)).view(np.uint32)
+                pieces = np.concatenate([_k7_to_pieces(words[u][None], P)[0] for u in range(U)],
+                                        -1)  # (lanes, 16 words)
+                for g in range(4 // GP):
+                    group = np.ascontiguousarray(pieces[:, g * GP * PW:(g + 1) * GP * PW])
+                    bid = classify_keys(group.view(raw.dtype))  # (lanes, GP * KP)
+                    for i in range(GP):
+                        pos = at0 + piece_at[g * GP + i]  # (lanes,)
+                        valid = pos < size
+                        for e in range(KP):
+                            ids[row, first + pos[valid] + e] = bid[valid, i * KP + e]
+                            stats["stores"][row, first + pos[valid] + e] += 1
+                        base = ((pos.astype(np.uint64) * np.uint64(magic)) >> np.uint64(32)
+                                ) >> np.uint64(dshift)
+                        assert (base[valid] == pos[valid] // tile).all()
+                        for e in range(KP):
+                            slot = base.astype(np.int64) * nb + bid[:, i * KP + e]
+                            change = valid & (slot != run[w])
+                            flush = change & (count[w] > 0)
+                            np.add.at(s_hist, run[w][flush], count[w][flush])
+                            stats["atomics"] += int(flush.sum())
+                            run[w] = np.where(change, slot, run[w])
+                            count[w] = np.where(change, 0, count[w]) + valid
+        for w in range(K7_WARPS):  # the end of the warp's walk
+            if (run[w] == run[w, 0]).all():  # one slot for the warp
+                if count[w].sum():
+                    s_hist[run[w, 0]] += count[w].sum()
+                    stats["atomics"] += 1
+            else:
+                has = count[w] > 0
+                np.add.at(s_hist, run[w][has], count[w][has])
+                stats["atomics"] += int(has.sum())
+        hist[row, t_begin:t_end] = s_hist.reshape(t_end - t_begin, nb)
+        stats["flushes"][row, t_begin:t_end] += 1
+    assert (stats["stores"] == 1).all() and (stats["flushes"] == 1).all()
+    return ids.astype(np.int32), hist.astype(np.int32), stats
+
+
+def _k7_keys(name: str, n: int, seed: int) -> np.ndarray:
+    """Keys of kind ``name``: random bits with a heavy duplicate and the
+    extremes; floats normal (the reference's CPU compares flush subnormals)
+    with NaN, +-0.0, +-inf and the dtype's max."""
+    np_dtype = np.dtype(K7_KINDS[name][0])
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 1 << 63, n, dtype=np.uint64, endpoint=True).astype(
+        f"uint{8 * np_dtype.itemsize}")
+    raw[rng.random(n) < 0.3] = raw[0]
+    x = raw.view(np_dtype).copy()
+    if np_dtype.kind == "f" or name == "bfloat16":
+        with np.errstate(invalid="ignore"):  # NaN payloads
+            f = x.astype(np.float64)
+        tiny = float(ml_dtypes.finfo(np_dtype).tiny)
+        odd = ~np.isfinite(f) | ((f != 0) & (np.abs(f) < tiny))
+        x[odd] = rng.standard_normal(int(odd.sum())).astype(np_dtype)
+        top = ml_dtypes.finfo(np_dtype).max
+        x[::97], x[1::89], x[2::83] = np.nan, 0.0, -np.array(0.0, np_dtype)
+        x[3::79], x[4::73], x[5::71] = np.inf, -np.inf, top
+    else:
+        info = np.iinfo(np_dtype)
+        x[::97], x[1::89] = info.max, info.min
+    return x
+
+
+def _k7_splitters(x: np.ndarray, k: int, seed: int) -> np.ndarray:
+    """k-1 keys of x in the keyspace order (NaN last), some repeated."""
+    s = np.random.default_rng(seed).choice(x, k - 1)
+    return s[np.argsort(encode_np(s), kind="stable")]
+
+
+def _k7_upper(spl: np.ndarray, name: str) -> np.ndarray:
+    """(B, k-1) splitters -> (B, k) uppers in the compare type."""
+    np_dtype = np.dtype(K7_KINDS[name][0])
+    top = ml_dtypes.finfo(np_dtype).max if (np_dtype.kind == "f" or name == "bfloat16") \
+        else np.iinfo(np_dtype).max
+    full = np.concatenate([spl, np.full(spl.shape[:-1] + (1,), top, np_dtype)], -1)
+    return _k7_compare(full, name)
+
+
+# k -> (rows of 128 keys a tile, tiles a row, CTAs a wave): tiles below,
+# at and above a step, a masked last step (rows = 48), one and many tiles a CTA
+K7_CASES = {1: (3, 5, 2), 2: (1, 9, 3), 3: (128, 2, 5), 16: (32, 3, 1), 100: (5, 7, 4),
+            128: (48, 2, 3), 256: (8, 6, 2)}
+
+
+def _k7_check_tree(name: str, k: int, batched: bool = False) -> None:
+    """The replay against the reference's ``classify_histogram`` (or its
+    batched form over 3 rows) in interpret mode, bit for bit."""
+    rows, tiles, wave = K7_CASES[k]
+    tile = rows * 128
+    B = 3 if batched else 1
+    x = np.stack([_k7_keys(name, tiles * tile, 31 * k + b) for b in range(B)])
+    spl = np.stack([_k7_splitters(x[b], k, k + b) for b in range(B)])
+    ids, hist, _ = _replay_k7(x, name, _k7_upper(spl, name), k, tile, wave=wave)
+    if batched:
+        want = ref_classify.classify_histogram_batched(jnp.asarray(x), jnp.asarray(spl), k=k,
+                                                       rows=rows, interpret=True)
+    else:
+        want = ref_classify.classify_histogram(jnp.asarray(x[0]), jnp.asarray(spl[0]), k=k,
+                                               rows=rows, interpret=True)
+        ids, hist = ids[0], hist[0]
+    np.testing.assert_array_equal(ids, np.asarray(want[0]), err_msg=f"{name} k={k}")
+    np.testing.assert_array_equal(hist, np.asarray(want[1]), err_msg=f"{name} k={k}")
+
+
+def _k7_check_radix(bits: int, k: int, consumed: int, tile: int) -> None:
+    """The replay in radix mode on the port's signed codes against the
+    reference's ``radix_histogram`` on its unsigned ones."""
+    rng = np.random.default_rng(k + consumed)
+    signed, unsigned = np.dtype(f"int{bits}"), np.dtype(f"uint{bits}")
+    code = rng.integers(np.iinfo(signed).min, np.iinfo(signed).max, 3 * tile, dtype=signed,
+                        endpoint=True)
+    code[::13] = np.iinfo(signed).max
+    code[rng.random(code.shape[0]) < 0.3] = code[1]
+    ids, hist, _ = _replay_k7(code[None], f"int{bits}", None, k, tile,
+                              shift=radix_shift(k, consumed, bits))
+    ref_code = code.view(unsigned) ^ unsigned.type(1 << (bits - 1))
+    want = ref_classify.radix_histogram(jnp.asarray(ref_code), k=k, consumed_bits=consumed,
+                                        rows=tile // 128, interpret=True)
+    np.testing.assert_array_equal(ids[0], np.asarray(want[0]))
+    np.testing.assert_array_equal(hist[0], np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("k", K7_KS)
+@pytest.mark.parametrize("name", [n for n in K7_KINDS if np.dtype(K7_KINDS[n][0]).itemsize < 8])
+def test_k7_replay_matches_the_reference(name, k):
+    """K7's schedule replayed (16-byte loads, the shuffle transpose of 8-
+    and 16-bit pieces, the padded Eytzinger tree and the interleaved
+    descent keeping c, the run-merged histogram, the tile walk) on raw keys
+    of the nine kinds of 32 bits or fewer, bit for bit the reference's
+    ``classify_histogram`` in interpret mode at k = 1 .. 256, tiles of 128
+    to 16384 keys; the 64-bit kinds in the x64 child below."""
+    _k7_check_tree(name, k)
+
+
+@pytest.mark.parametrize("name", ["uint8", "bfloat16", "uint32", "float32"])
+def test_k7_batched_replay_matches_the_reference(name):
+    """Three rows, each against its own splitters, every CTA in one row."""
+    for k in (3, 100):
+        _k7_check_tree(name, k, batched=True)
+
+
+@pytest.mark.parametrize("k,consumed,tile", [(2, 0, 128), (16, 3, 6144), (128, 0, 4096),
+                                             (256, 8, 16384)])
+def test_k7_radix_replay_matches_the_reference(k, consumed, tile):
+    _k7_check_radix(32, k, consumed, tile)
+
+
+K7_64_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import jax
+import test_torch_kernel_schedules as S
+
+assert jax.config.jax_enable_x64
+for name in ("int64", "uint64", "float64"):
+    for k in S.K7_KS:
+        S._k7_check_tree(name, k)
+    S._k7_check_tree(name, 100, batched=True)
+for k, consumed, tile in ((2, 0, 128), (16, 60, 6144), (128, 0, 4096), (256, 8, 16384)):
+    S._k7_check_radix(64, k, consumed, tile)
+print("K7 64 replay OK")
+"""
+
+
+def test_k7_64bit_replay_matches_the_reference_in_x64():
+    """K7's 64-bit form replayed (2 keys a 16-byte load and a piece, 8-byte
+    id stores, 8-byte tree nodes): int64, uint64 and float64 keys at every
+    k of the tree tests, batched, and radix mode on int64 codes, against
+    the reference's kernels on the raw keys and uint64 codes in a child
+    process with x64 enabled from startup."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.path.join(here, "..", "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", K7_64_CHILD, here], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-5000:]
+    assert "K7 64 replay OK" in proc.stdout
+
+
+@pytest.mark.parametrize("ctype", [np.int32, np.uint32, np.int64, np.uint64, np.float32,
+                                   np.float64])
+def test_k7_padded_tree_counts_the_splitters_below(ctype):
+    """The padded descent's j, and eq against upper[j] and the last upper,
+    give the dense compare's id for every key around every splitter at
+    every k, padded or not: unsigned compared as unsigned, NaN splitters
+    last, -0.0 against +0.0, +-inf, the max."""
+    rng = np.random.default_rng(3)
+    ctype = np.dtype(ctype)
+    if ctype.kind == "f":
+        pool = np.array([-np.inf, -1.5, -0.0, 0.0, 2.0, 7.0, np.finfo(ctype).max, np.inf, np.nan],
+                        ctype)
+        top = np.finfo(ctype).max
+    else:
+        info = np.iinfo(ctype)
+        pool = np.array([info.min, info.min + 1, 0, 1, 5, info.max - 1, info.max], ctype)
+        top = info.max
+    for k in K7_KS:
+        spl = np.sort(rng.choice(pool, k - 1))  # numpy sorts NaN last
+        upper = np.append(spl, top).astype(ctype)
+        tree, kp = _k7_tree(upper, k), 1 << (k - 1).bit_length()
+        keys = np.concatenate([pool, upper])
+        j = np.ones(keys.shape, np.int64)
+        for _ in range(kp.bit_length() - 1):
+            j = 2 * j + (keys > tree[j])
+        dense_j = (keys[:, None] > upper[None, :-1]).sum(1)
+        dense_eq = (keys[:, None] == upper[None, :]).any(1)
+        np.testing.assert_array_equal(j - kp, dense_j)
+        np.testing.assert_array_equal((keys == upper[j - kp]) | (keys == upper[-1]), dense_eq)
+
+
+def test_k7_shuffle_transpose_puts_consecutive_pieces_on_consecutive_lanes():
+    """After ``to_pieces`` lane l of a warp holds pieces l, 32 + l, ... of
+    its block: the warp's stores of piece q cover 32 consecutive pieces."""
+    for P in (1, 2, 4):
+        words = np.arange(8 * 32 * 4, dtype=np.uint32).reshape(8, 32, 4)  # word = its index
+        got = _k7_to_pieces(words, P)
+        PW = 4 // P
+        for q in range(P):
+            piece = 32 * q + np.arange(32)  # of the warp's block
+            first_word = (np.arange(8)[:, None] * 128 + piece[None, :] * PW)
+            for e in range(PW):
+                np.testing.assert_array_equal(got[..., q * PW + e], first_word + e)
+
+
+@pytest.mark.parametrize("B", [1, 3, 64])
+def test_k7_tile_walk_takes_every_tile_once(B):
+    """Every tile of every row is taken by exactly one CTA, in one row, and
+    its keys by exactly one warp step, at every key width, k = 3 and 256
+    (4096 and 32 tiles' histograms a CTA), tiles of 128 to 16384 keys and
+    waves of 1 to 396 CTAs; a CTA never holds more tiles than its
+    histograms, and the division by the tile is exact."""
+    for key_bytes in (1, 2, 4, 8):
+        for k in (3, 256):
+            sch = classify.schedule(key_bytes, k)
+            for tile in (128, 384, 4096, 6144, 16384):
+                magic, shift = _k7_tile_div(tile)
+                tiles = 5
+                for wave in (1, 7, 132 * 3):
+                    seen = np.zeros((B, tiles * tile), np.int64)
+                    ctas = np.zeros((B, tiles), np.int64)
+                    for row, t_begin, t_end in _k7_grid(B, tiles, sch.tiles, wave):
+                        assert 0 <= t_begin < t_end <= tiles and t_end - t_begin <= sch.tiles
+                        ctas[row, t_begin:t_end] += 1
+                        size = (t_end - t_begin) * tile
+                        for at0 in _k7_warp_steps(size, sch.warp_step).ravel():
+                            if at0 >= 0:
+                                end = min(at0 + sch.warp_step, size)
+                                seen[row, t_begin * tile + at0:t_begin * tile + end] += 1
+                        x = np.arange(0, size, 4, dtype=np.uint64)
+                        np.testing.assert_array_equal(
+                            ((x * np.uint64(magic)) >> np.uint64(32)) >> np.uint64(shift),
+                            x // np.uint64(tile))
+                    assert (seen == 1).all() and (ctas == 1).all()
+
+
+def test_k7_tile_division_is_exact():
+    """The kernel's division by the tile (a multiple of 128 keys) is exact
+    for every position of a row: at the tiles' edges and up to 2^31 - 1."""
+    rng = np.random.default_rng(1)
+    for rows in list(range(1, 300)) + [1000, 4096, (1 << 16) - 1, (1 << 24) - 1]:
+        tile = rows * 128
+        magic, shift = _k7_tile_div(tile)
+        assert 0 < magic < 1 << 32
+        edges = np.arange(1, (2**31 - 1) // tile + 1, max(1, (2**31 // tile) // 64)) * tile
+        x = np.concatenate([edges - 1, edges, [0, 1, 2**31 - 1],
+                            rng.integers(0, 2**31, 256)]).astype(np.uint64)
+        got = ((x * np.uint64(magic)) >> np.uint64(32)) >> np.uint64(shift)
+        np.testing.assert_array_equal(got, x // np.uint64(tile))
+
+
+@pytest.mark.parametrize("case", ["all equal", "sorted", "one splitter", "random"])
+def test_k7_histogram_merges_runs(case):
+    """The histogram's atomics: runs of one (tile, id) merge in each lane's
+    registers from step to step, so all-equal keys, or keys equal to one
+    splitter, take one atomic a tile a lane (a run ends where the tile
+    does) and one a warp at its end (its one slot); sorted keys at most one
+    a piece of 4, random keys about one a key.  The counts stay the
+    reference's."""
+    k, tile, n = 128, 4096, 3 * 4096
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(n).astype(np.float32)
+    spl = np.sort(rng.choice(x, k - 1))
+    if case == "all equal":
+        x[:] = 0.25
+    elif case == "sorted":
+        x = np.sort(x)
+    elif case == "one splitter":
+        x[:] = spl[k // 2]
+    ids, hist, stats = _replay_k7(x[None], "float32", _k7_upper(spl[None], "float32"), k, tile)
+    want = ref_classify.classify_histogram(jnp.asarray(x), jnp.asarray(spl), k=k,
+                                           rows=tile // 128, interpret=True)
+    np.testing.assert_array_equal(ids[0], np.asarray(want[0]))
+    np.testing.assert_array_equal(hist[0], np.asarray(want[1]))
+    if case == "random":
+        assert stats["atomics"] > n // 2
+    elif case == "sorted":  # at most one a piece of 4 keys, and one a bucket's edge
+        assert stats["atomics"] <= n // 4 + 2 * k
+    else:  # 3 tiles, 1 CTA: runs end at the tiles' edges, one warp atomic at the end
+        assert stats["atomics"] <= 2 * K7_WARPS * 32 + K7_WARPS
+
+
+def test_k7_schedule_and_shared_memory():
+    """K7's CTA at every key width and k: 256 threads, a warp step of 512
+    keys (256 of 64 bits), the histograms of as many tiles as 32 KB hold
+    (one at least) beside the padded tree, the k uppers and, for 8-bit
+    keys, the table of the 256 key values' ids; within a CTA's 227 KB up
+    to k = 8192."""
+    assert classify.schedule(4, 128) == (256, 512, 32, (128 + 128) * 4 + 32 * 256 * 4)
+    assert classify.schedule(8, 3) == (256, 256, 1365, (4 + 3) * 8 + 1365 * 6 * 4)
+    assert classify.schedule(1, 3).smem_bytes == (4 + 3) * 4 + 1024 + 1365 * 6 * 4
+    assert classify.schedule(1, 8192).tiles == 1
+    assert classify.schedule(4, 100, radix=True).smem_bytes == 40 * 200 * 4
+    for key_bytes in (1, 2, 4, 8):
+        for k in (1, 2, 3, 16, 100, 128, 256, 1000, 4096, 8192):
+            sch = classify.schedule(key_bytes, k)
+            assert sch.threads == classify.THREADS == 32 * K7_WARPS
+            assert sch.warp_step == 32 * 4 * (2 if key_bytes == 8 else 4)
+            assert sch.tiles == max(1, 32 * 1024 // (8 * k))
+            kp = 1 << (k - 1).bit_length()
+            want = ((kp + k) * (8 if key_bytes == 8 else 4) + (1024 if key_bytes == 1 else 0)
+                    + sch.tiles * 2 * k * 4)
+            assert sch.smem_bytes == want <= 232_448

@@ -190,7 +190,15 @@ def test_launch_spec_follows_the_kernels_schedules():
     assert spec.smem_bytes == dispatch_rank._smem_bytes(64, warps) <= roofline.HW["smem_per_block"]
     assert roofline.launch_spec("level_fused", 4, 128, n=1000).rows == 0
     assert roofline.launch_spec("merge", 4).threads == 256
-    assert roofline.classify_tile_rows(4, 128)[0] == 1
+    from repro_torch.kernels import classify
+
+    for key_bytes, k, n in ((4, 128, 1 << 24), (1, 3, 1 << 20), (8, 256, 1 << 18)):
+        spec = roofline.launch_spec("classify", key_bytes, k, n=n)
+        sch = classify.schedule(key_bytes, k)
+        assert spec.rows == classify.default_rows(n, key_bytes, k)
+        assert spec.threads == sch.threads and spec.smem_bytes == sch.smem_bytes
+        assert spec.smem_bytes <= roofline.HW["smem_per_block"]
+    assert roofline.classify_tile_rows(4, 128) == (128, 64, 32, 16, 8, 4, 2, 1)
 
 
 # --------------------------------------------------------------------------
