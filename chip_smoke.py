@@ -43,6 +43,16 @@ observability layer and the distributed sort:
    and 1024 of 16384, heavy duplicates at the int64 extremes, and at every
    W from 2 to 16384 on 2049 windows (a partial last CTA), descending
    windows among them.
+   The glue kernels (``csrc/glue.cu``, no TPU kernel's counterpart: the
+   XLA the reference runs between its kernels) bit for bit: G1
+   ``close_placement`` on K1's tile histograms at 2^24 with pads, on K4's
+   (64, 2^18) rows and with all keys in one bucket; G2 ``segment_ids`` on
+   level 1's offsets (nb 257), level 2's (nb 65,792), 64 rows and one
+   bucket; G3 ``composite_ids`` on the 1-D and batched level 2, int64 codes
+   (``composite_ids64``), radix mode and 4097 segments; G4 ``scatter_rows``
+   of payload rows of 1, 2, 4, 8, 12 and 16 bytes by the level-1 and
+   level-2 placements (staged by bucket) and by a permutation (row by row),
+   and ``gather_windows`` of the same rows, into a new tensor and in place.
    K9 is not stable, so each of its outputs is held to its plain twin (the
    replay of the reference's moves) by intact blocks and, per bucket, the
    blocks sorted by their tag; the twin is held to ``permute_blocks_ref``
@@ -61,7 +71,8 @@ observability layer and the distributed sort:
    ``flash_attention``; float32 the 3xTF32 ``wgmma`` kernel, row
    ``flash_attention_f32``);
 3. the paths, each driven with the launch counts set to 0 just before it
-   and read just after, every kernel of the path required to be > 0:
+   and read just after, every kernel of the path required to be > 0
+   (the two-level sorts' glue kernels G1-G4 among them):
    the 1-D tree sort (``ops.sort``/``argsort`` at n = 2^24 and 2^17), the
    1-D radix sort (n = 2^24 int32 full range and float32 Uniform), the
    batched tree sort (bulk (64, 2^18) float32 with ``batched_sort``,
@@ -227,7 +238,9 @@ observability layer and the distributed sort:
    ``torch.sort`` (per row: ``dim=1``) and ``torch.topk``, and K8/K9 beside
    the out-of-place ``index_select`` of the blocks; profiles of
    three sorts and of one ``external_sort`` (device time, idle share,
-   host <-> device copies); the serve path's prefill ms and decode ms per
+   host <-> device copies), the 1-D tree sort's with every kernel listed,
+   which fails the run if it still launches a ``searchsorted`` kernel or
+   more ``index_put`` launches than the robustness fallback's own; the serve path's prefill ms and decode ms per
    step and tokens/s on the K10 and the eager path, K10 (at the last
    step's length, 1056) and K11 (at (1, 32, 4096, 128), bf16 and f32,
    causal, window 1024 and non-causal, and the f32 kernel's launch:
@@ -264,7 +277,10 @@ observability layer and the distributed sort:
    (medians of 3 steps, peak memory, DTensor's host cost a step) and ``time
    roofline``: the dry run's modelled row of that step (t_compute,
    t_memory, model_flops) beside the measured step;
-5. a ``{"kernels": [...]}`` JSON line (28 entries: the four 64-bit forms
+5. a ``{"kernels": [...]}`` JSON line (34 entries: the six glue rows
+   ``close_placement``, ``segment_ids``, ``composite_ids``,
+   ``composite_ids64``, ``scatter_rows`` and ``gather_windows``, whose
+   ``replaces`` names the reference's XLA code they stand for; the four 64-bit forms
    are rows of their own, ``level_fused64``, ``level_fused_radix64``,
    ``level_fused_batched64`` and ``sort_windows64``, and so are K5's int64
    form, ``merge_path64``, and K7 by key width, ``classify_histogram8``,
@@ -286,7 +302,12 @@ and checks that both give the same outputs; and K2 ``rank_hist``, K4
 on the skewed routing) of DIR's sources through DIR's own wrappers (their
 C entry points differ), in a child process with ``DIR/src`` on its path:
 entry point by events, device time and kernels of a call, the earlier
-tree's device time per kernel, and equal outputs.
+tree's device time per kernel, and equal outputs; and, the same way, the
+sort's seven entry points whose glue G1-G4 took over (``ops.sort`` of 2^24
+float32 by the tree, ``argsort``, the radix sort of full-range int32,
+double, ``batched_sort`` of (64, 2^18), ``argsort_records`` of SkySurvey
+(2^24 records of 3 words) and ``segmented_sort`` of 4096 segments): events,
+device time, kernels a call and idle share.
 
 It imports nothing of JAX or of the ``repro`` package.
 """
@@ -467,6 +488,14 @@ def max_abs_err(torch, got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def moved_bits(torch, arrays) -> tuple:
+    """Every tensor of a dict as signed ints of its element's width (bool as
+    uint8), so that ``max_abs_err`` compares the bits a move left."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return tuple((a.to(torch.uint8) if a.dtype == torch.bool else a.view(ints[a.element_size()]))
+                 for a in arrays.values())
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = OPS_32BIT_PER_S):
     """The least time for the work: the larger of the byte and op times."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
@@ -554,6 +583,14 @@ def device_ms(torch, fn, reps: int = 20, names=None, launches: int = 1) -> float
     return sum(device_us(e) / e.count for e in own) / 1e3
 
 
+# the glue kernels a sort of two levels launches (G1-G4), by launch count
+GLUE_LAUNCHES = ("close_placement", "segment_ids", "composite_ids", "scatter_rows",
+                 "gather_windows")
+# and their device functions (csrc/glue.cu)
+GLUE_KERNELS = ("close_sums_kernel", "close_scan_kernel", "close_place_kernel",
+                "segment_ids_kernel", "composite_ids_kernel", "scatter_kernel",
+                "scatter_staged_kernel", "gather_windows_kernel")
+
 K2_KERNELS = ("segment_items_kernel", "segment_count_kernel", "segment_tiny_count_kernel",
               "segment_small_kernel", "segment_scan_kernel", "segment_rank_kernel",
               "rank_hist_kernel")
@@ -593,6 +630,13 @@ DEVICE_FUNCTIONS = {
     "classify_histogram64": ("classify_hist_kernel",),
     "classify_histogram_batched64": ("classify_hist_kernel",),
     "radix_histogram64": ("classify_hist_kernel",),
+    # G1-G4 (csrc/glue.cu): G1's three kernels, G4's scatter row by row or
+    # staged by bucket, its window gather direct or staged
+    "close_placement": ("close_sums_kernel", "close_scan_kernel", "close_place_kernel"),
+    "segment_ids": ("segment_ids_kernel",),
+    "composite_ids": ("composite_ids_kernel",), "composite_ids64": ("composite_ids_kernel",),
+    "scatter_rows": ("scatter_kernel", "scatter_staged_kernel"),
+    "gather_windows": ("gather_windows_kernel",),
 }
 
 
@@ -2687,6 +2731,56 @@ def entry_calls(torch, x):
         "partition_ranks": lambda: dr.partition_ranks(x["part"], x["part_start"], nb=NB_PART),
         "partition_ranks_batched": lambda: dr.partition_ranks_batched(
             x["rows"], x["rows_start"], nb=NB_PART),
+        # the sort's entry points, whose glue G1-G4 took over from torch chains
+        **entry_point_calls(x),
+    }
+
+
+def entry_point_calls(x):
+    """The seven entry points ``--parent`` times whole (through whichever
+    tree's ``repro_torch`` is imported) on the inputs of ``entry_inputs``."""
+    import torch
+
+    from repro_torch import ops
+
+    return {
+        f"ops.sort {N_BIG} float32 tree": lambda: ops.sort(x["sort_x"]),
+        f"ops.argsort {N_BIG} float32 tree": lambda: ops.argsort(x["sort_x"]),
+        f"ops.sort {N_BIG} int32 full range radix": lambda: ops.sort(x["radix_x"],
+                                                                     classifier="radix"),
+        f"ops.sort {N_BIG} double": lambda: ops.sort(x["double_x"]),
+        f"ops.batched_sort ({B_BULK}, {N_ROW}) float32": lambda: ops.batched_sort(x["bulk_x"]),
+        f"ops.argsort_records SkySurvey ({N_BIG}, 3)": lambda: ops.argsort_records(
+            x["sky"].view(torch.uint32)),
+        f"ops.segmented_sort ({SEGMENTS} segments of {N_BIG})": lambda: ops.segmented_sort(
+            x["sort_x"], x["seg_off"], SEGMENTS),
+    }
+
+
+def entry_inputs(torch, dev) -> dict:
+    """The entry points' inputs, made on the host from seeds: 2^24 float32
+    Uniform, int32 over the whole range, float64 Uniform, (64, 2^18)
+    float32 Uniform rows, 2^24 SkySurvey records (three words, as int32) and
+    4096 ragged segments."""
+    import numpy as np
+
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.distributions import make_input
+
+    rng = np.random.default_rng(31)
+    cuts = np.sort(rng.integers(0, N_BIG, SEGMENTS - 1))
+    return {
+        "sort_x": torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=1), device=dev),
+        "radix_x": torch.as_tensor(rng.integers(-2**31, 2**31, N_BIG, dtype=np.int64)
+                                   .astype(np.int32), device=dev),
+        "double_x": torch.as_tensor(make_input("Uniform", N_BIG, np.float64, seed=2),
+                                    device=dev),
+        "bulk_x": torch.as_tensor(make_input("Uniform", B_BULK * N_ROW, np.float32, seed=3)
+                                  .reshape(B_BULK, N_ROW), device=dev),
+        "sky": torch.from_numpy(make_dataset("SkySurvey", N_BIG, seed=62).words.view(
+            np.int32)).to(dev),
+        "seg_off": torch.as_tensor(np.concatenate([[0], cuts, [N_BIG]]).astype(np.int32),
+                                   device=dev),
     }
 
 
@@ -2703,6 +2797,8 @@ import json, sys, torch
 from pathlib import Path
 root, parent_src, inputs = sys.argv[1:4]
 sys.path[:0] = [parent_src, root]
+import repro_torch  # the earlier tree's package: imported before chip_smoke puts this tree's first
+assert Path(repro_torch.__file__).resolve().is_relative_to(Path(parent_src).resolve())
 import chip_smoke as cs
 dev = torch.device("cuda", 0)
 x = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in torch.load(inputs).items()}
@@ -2769,6 +2865,7 @@ def compare_entry_points_with_parent(torch, parent: Path, keys, dev) -> dict:
     x["rows"] = torch.randint(0, NB_PART, (B_BULK, N_ROW), generator=gen, device=dev,
                               dtype=torch.int32)
     x["rows_start"] = torch.stack([prefix(r, NB_PART) for r in x["rows"]])
+    x.update(entry_inputs(torch, dev))
     inputs = ROOT / "build" / "parent" / "entry_inputs.pt"
     torch.save({k: v.cpu() if torch.is_tensor(v) else v for k, v in x.items()}, inputs)
     calls = entry_calls(torch, x)
@@ -2807,9 +2904,14 @@ def compare_entry_points_with_parent(torch, parent: Path, keys, dev) -> dict:
 
             split = {k: sum(t["kernels"].get(k, 0.0) for t in times["parent"]) / 2
                      for k in times["parent"][0]["kernels"]}
+            idle = {side: [1 - t["device_ms"] / t["ms"] for t in ts]
+                    for side, ts in times.items()}
+            for side in idle:
+                result[name][side]["idle_share"] = idle[side]
             print(f"before/after {name} entry point: " + "; ".join(
                 f"{side} events {turns(ts, 'ms')} ms, device (all kernels of a call) "
-                f"{turns(ts, 'device_ms')} ms, kernels a call {turns(ts, 'launches', 'g')}"
+                f"{turns(ts, 'device_ms')} ms, kernels a call {turns(ts, 'launches', 'g')}, "
+                f"idle share {' '.join(f'{v:.3f}' for v in idle[side])}"
                 for side, ts in times.items()) + f"; same outputs: {same}; the earlier "
                 f"tree's device ms per kernel: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
@@ -3361,7 +3463,7 @@ def main() -> None:
         from repro_torch.core.s3sort import s3_sort
         from repro_torch.configs.ips4o_paper import TPU_BIG_PAYLOAD
         from repro_torch.data.distributions import ELEMENT_TYPES, make_input, make_payload
-        from repro_torch.kernels import bitonic, dispatch_rank as dr, level_fused as lf
+        from repro_torch.kernels import bitonic, dispatch_rank as dr, glue, level_fused as lf
         from repro_torch.kernels import block_permute as bp, classify as cl
         from repro_torch.kernels import merge_path as mp, permute_inplace as pi, ref as kref
         from repro_torch.kernels.ops import moe_group_tokens, sort_blocks
@@ -3540,6 +3642,120 @@ def main() -> None:
         if not torch.equal(torch.gather(got[0], 1, yard).to(torch.int64),
                            torch.arange(N_ROW, device=dev).expand(B_BULK, N_ROW)):
             fail("K4 rank_hist_batched is not the inverse of the per-row stable argsort")
+
+        # ---- the glue kernels G1-G4 (csrc/glue.cu) against their plain twins,
+        # bit for bit: G1 on K1's and K4's tile histograms with pads (n_real <
+        # n), 1 and 64 rows, all keys in one bucket; G2 on level 1's offsets
+        # (nb 257), level 2's (nb 65,792), 64 rows and one bucket; G3 on the
+        # 1-D and batched level 2, int64 codes, radix mode and 4097 segments;
+        # G4's scatter of payload rows of 1-16 B by the level placements (with
+        # their offsets: the staged path) and a permutation (row by row), and
+        # its window gathers, direct and in place
+        glue_keys = ips4o.pad_with_sentinel(
+            {"k": encoded("Uniform", n_real, np.float32, seed=21)}, N_BIG)["k"]
+        glue_spl = sampling.select_splitters(torch.sort(glue_keys[torch.randint(
+            0, n_real, (4 * k,), generator=gen, device=dev)]).values, k)
+        glue_rows = ips4o.batched_pad_with_sentinel(
+            {"k": encoded("Uniform", B_BULK * N_ROW, np.float32, seed=22).view(
+                B_BULK, N_ROW)[:, :row_real].contiguous()}, N_ROW)["k"]
+        glue_rows_spl = sampling.select_splitters(torch.sort(glue_rows[:, : 8 * k], dim=1).values,
+                                                  k).contiguous()
+        for tag, (rk, rs, real) in {
+                f"n={N_BIG} n_real={n_real} k={k}": (glue_keys[None], glue_spl[None], n_real),
+                f"all keys in one bucket n={N_BIG}": (
+                    torch.zeros((1, N_BIG), dtype=torch.int32, device=dev), glue_spl[None], N_BIG),
+                f"({B_BULK}, {N_ROW}) n_real={row_real}": (glue_rows, glue_rows_spl, row_real),
+        }.items():
+            b_, r_, h_ = lf._level_tiles_kernel(rk, rs, k, real, lf.TILE, batched=True)
+            check_equal("close_placement", glue.close_placement(b_, r_, h_, 2 * k + 1, lf.TILE),
+                        glue.close_placement_plain(b_, r_, h_, 2 * k + 1, lf.TILE), tag)
+        glue_d1, glue_o1 = lf.level_fused(glue_keys, glue_spl, k=k, n_real=n_real)
+        glue_db, glue_ob = lf.level_fused_batched(glue_rows, glue_rows_spl, k=k, n_real=row_real)
+        glue_d2, glue_o2 = lf.rank_hist(comp, tile=k2_tile, **k2_args)
+        one_off = torch.full((2 * k + 2,), N_BIG, dtype=torch.int32, device=dev)
+        one_off[: k + 1] = 0  # every position in bucket k
+        for tag, off_, n_ in ((f"level 1 nb={2 * k + 1}", glue_o1, N_BIG),
+                              (f"level 2 nb={nb2}", glue_o2, N_BIG),
+                              (f"({B_BULK}, {N_ROW}) nb={2 * k + 1}", glue_ob, N_ROW),
+                              (f"one bucket nb={2 * k + 1}", one_off, N_BIG)):
+            check_equal("segment_ids", glue.segment_ids(off_, n_), glue.segment_ids_plain(off_, n_),
+                        tag)
+
+        def segment_splitters(rows_keys, off_, k_, seed):
+            """Sorted splitters (rows, num_seg, k-1) a segment, from a sample of
+            its keys, as level 2 draws them."""
+            g_ = torch.Generator(device=dev).manual_seed(seed)
+            B_, n_ = rows_keys.shape
+            pos_ = sampling.sample_indices(g_, 4 * k_, off_[:, :-1], off_[:, 1:])
+            pos_ = pos_.reshape(B_, -1).clamp_(max=n_ - 1)
+            sample = torch.gather(rows_keys, 1, pos_).reshape(B_, off_.shape[1] - 1, 4 * k_)
+            return sampling.select_splitters(torch.sort(sample, dim=-1).values, k_).contiguous()
+
+        level_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        keys64_l = ops.keyspace.encode(wide_input("float64", N_BIG, seed=31))
+        arrays64, off64, nb64, _ = ips4o.level_pass({"k": keys64_l}, N_BIG, k, cfg, level_gen)
+        radix_l = full_range((N_BIG,), seed=23)
+        arrays_r, off_r, nb_r, _ = ips4o.level_pass(
+            {"k": radix_l}, N_BIG, k, ips4o.SortConfig(classifier="radix"), level_gen)
+        seg_cuts = np.sort(np.random.default_rng(24).integers(0, N_BIG, SEGMENTS))
+        seg_offs = torch.as_tensor(np.concatenate([[0], seg_cuts, [N_BIG]]).astype(np.int32),
+                                   device=dev)[None]
+        for tag, (rk, off_, ns, k_, radix_mode) in {
+                f"level 2 n={N_BIG} segments={nb1} k={k2}": (arrays["k"][None], off1[None], nb1,
+                                                             k2, False),
+                f"level 2 ({B_BULK}, {N_ROW}) segments={nb1_b} k={k2b}": (
+                    arrays_b["k"], off1_b, nb1_b, k2b, False),
+                f"level 2 int64 codes n={N_BIG} segments={nb64} k={k2}": (
+                    arrays64["k"][None], off64[None], nb64, k2, False),
+                f"level 2 radix n={N_BIG} k={k2} consumed=7": (arrays_r["k"][None], off_r[None],
+                                                              nb_r, k2, True),
+                f"{SEGMENTS + 1} segments n={N_BIG} k=16": (glue_keys[None], seg_offs,
+                                                            SEGMENTS + 1, 16, False),
+        }.items():
+            s_ = None if radix_mode else segment_splitters(rk, off_, k_, seed=ns)
+            name = "composite_ids" + ("64" if rk.dtype == torch.int64 else "")
+            check_equal(name, glue.composite_ids(rk, off_, ns, k_, s_, 7 if radix_mode else 0),
+                        glue.composite_ids_plain(rk, off_, ns, k_, s_, 7 if radix_mode else 0), tag)
+        del arrays64, keys64_l, arrays_r, radix_l
+
+        def payload_leaves(lead, seed):
+            """Leaves of 1, 2, 4, 8, 12 and 16 bytes a row."""
+            g_ = torch.Generator(device=dev).manual_seed(seed)
+            return {"bool": torch.rand(lead, generator=g_, device=dev) < 0.5,
+                    "bfloat16": torch.randn(lead, generator=g_, device=dev).to(torch.bfloat16),
+                    "int32": torch.randint(-9, 9, lead, generator=g_, device=dev,
+                                           dtype=torch.int32),
+                    "int64": torch.randint(-9, 9, lead, generator=g_, device=dev,
+                                           dtype=torch.int64),
+                    "(n, 3) float32": torch.randn(lead + (3,), generator=g_, device=dev),
+                    "(n, 4) float32": torch.randn(lead + (4,), generator=g_, device=dev)}
+
+        leaves = payload_leaves((N_BIG,), 25)
+        perm_ = torch.randperm(N_BIG, generator=gen, device=dev).to(torch.int32)
+        for tag, dest_, off_ in (("level 1 placement", glue_d1, glue_o1),
+                                 ("level 2 placement", glue_d2, glue_o2),
+                                 ("a permutation", perm_, None)):
+            check_equal("scatter_rows", moved_bits(torch, glue.scatter_rows(leaves, dest_, off_)),
+                        moved_bits(torch, glue.scatter_rows_plain(leaves, dest_)),
+                        f"{tag} n={N_BIG}, rows of 1-16 B")
+        rows_leaves = payload_leaves((B_BULK, N_ROW), 26)
+        check_equal("scatter_rows",
+                    moved_bits(torch, glue.scatter_rows(rows_leaves, glue_db, glue_ob)),
+                    moved_bits(torch, glue.scatter_rows_plain(rows_leaves, glue_db)),
+                    f"({B_BULK}, {N_ROW}) level 1 placement, rows of 1-16 B")
+        del perm_, rows_leaves
+        W_g, wperm = cfg.base_case, bitonic.sort_windows(wb, wk, nb=64)[0]
+        for name_, leaf in leaves.items():
+            a_ = leaf[None]
+            check_equal("gather_windows", moved_bits(torch, {0: glue.gather_windows(a_, wperm, 0)}),
+                        moved_bits(torch, {0: glue.gather_windows_plain(a_, wperm, 0)}),
+                        f"{name_} 2048 windows of {W_g}, a new tensor")
+            inplace = a_.clone()
+            glue.gather_windows(inplace, wperm[:-1], W_g // 2, inplace)
+            check_equal("gather_windows", moved_bits(torch, {0: inplace}), moved_bits(
+                torch, {0: glue.gather_windows_plain(a_, wperm[:-1], W_g // 2, a_.clone())}),
+                        f"{name_} 2047 windows at {W_g // 2}, in place")
+        del leaves, inplace, a_
 
         # ---- the 64-bit forms (the 64-bit key dtypes' int64 codes) against
         # their plain twins: K1 on float64 Uniform and int64 TwoDup, K1r on
@@ -3887,17 +4103,18 @@ def main() -> None:
                     (f"{tag} argsort", x, call_argsort, "argsort")]
 
         paths = {
-            "1-D tree": (("level_fused", "rank_hist", "sort_windows"), [
+            "1-D tree": (("level_fused", "rank_hist", "sort_windows") + GLUE_LAUNCHES, [
                 c for n in (N_BIG, N_SMALL) for dist in ("Uniform", "TwoDup")
                 for c in sort_cases(f"{dist} n={n}", main_input(dist, n), ops.sort, ops.argsort)
             ]),
-            "1-D radix": (("level_fused_radix", "rank_hist", "sort_windows"), [
+            "1-D radix": (("level_fused_radix", "rank_hist", "sort_windows") + GLUE_LAUNCHES, [
                 c for tag, x in ((f"int32 full range n={N_BIG}", radix_int),
                                  (f"float32 Uniform n={N_BIG}", radix_float))
                 for c in sort_cases(tag, x, lambda x: ops.sort(x, classifier=radix),
                                     lambda x: ops.argsort(x, classifier=radix))
             ]),
-            "batched tree": (("level_fused_batched", "rank_hist_batched", "sort_windows"), [
+            "batched tree": (("level_fused_batched", "rank_hist_batched", "sort_windows")
+                             + GLUE_LAUNCHES, [
                 *sort_cases(f"bulk ({B_BULK}, {N_ROW})", bulk, ops.batched_sort,
                             ops.batched_argsort),
                 (f"bulk ({B_BULK}, {N_ROW}) topk k={TOP_K}", bulk,
@@ -3908,7 +4125,8 @@ def main() -> None:
                             lambda x: ops.batched_sort(x, cfg=sched_cfg),
                             lambda x: ops.batched_argsort(x, cfg=sched_cfg)),
             ]),
-            "batched radix": (("level_fused_batched", "rank_hist_batched", "sort_windows"), [
+            "batched radix": (("level_fused_batched", "rank_hist_batched", "sort_windows")
+                              + GLUE_LAUNCHES, [
                 *sort_cases(f"int32 full range ({B_BULK}, {N_ROW})", bulk_radix,
                             lambda x: ops.batched_sort(x, classifier=radix),
                             lambda x: ops.batched_argsort(x, classifier=radix)),
@@ -4053,7 +4271,7 @@ def main() -> None:
         cuts = np.sort(np.random.default_rng(14).integers(0, N_BIG, SEGMENTS - 1))
         seg_off = torch.as_tensor(np.concatenate([[0], cuts, [N_BIG]]).astype(np.int32), device=dev)
         path = f"segmented ({SEGMENTS} segments over {N_BIG} keys)"
-        got = drive(path, ("rank_hist", "sort_windows"), {
+        got = drive(path, ("rank_hist", "sort_windows") + GLUE_LAUNCHES[1:], {
             "segmented_sort": lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS),
         })
         seg = ips4o.segment_ids(seg_off, N_BIG).to(torch.int64)
@@ -4086,7 +4304,8 @@ def main() -> None:
                     want.indices])
             return ok
 
-        wide64 = ("level_fused64", "rank_hist", "sort_windows64")
+        wide64 = ("level_fused64", "rank_hist", "sort_windows64", "close_placement",
+                  "segment_ids", "composite_ids64", "scatter_rows", "gather_windows")
         huge_cfg = ips4o.SortConfig(kmax=HUGE_KMAX, slack=HUGE_SLACK)
         narrow_dtypes = (torch.int8, torch.uint8, torch.int16, torch.uint16, torch.float16,
                          torch.bfloat16, torch.uint32)
@@ -4435,7 +4654,8 @@ def main() -> None:
         if launches_of(path)["level_fused_batched"] and learned.ROUTES["model"]:
             fail(f"path {path}: K4 level_fused_batched ran though the model was kept")
         # level 1's placement by kernel name: K2's (K4's) kernels twice a
-        # learned two-level sort (level 1 and level 2), K1 none
+        # learned two-level sort (level 1 and level 2), K1 none; and the glue
+        # kernels (G1-G4) a call
         x_l = learned_inputs["Uniform"]
         for tag, fn in (("ops.sort learned", lambda: ops.sort(x_l, classifier="learned")),
                         ("ops.sort tree", lambda: ops.sort(x_l)),
@@ -4443,7 +4663,7 @@ def main() -> None:
                          lambda: ops.batched_sort(bulk, classifier="learned"))):
             names = {}
             for e in device_events(torch, fn, 3):
-                for key_ in ("level_fused_kernel",) + K2_KERNELS:
+                for key_ in ("level_fused_kernel",) + K2_KERNELS + GLUE_KERNELS:
                     if key_ in e.key:
                         names[key_] = names.get(key_, 0) + e.count / 3
             print(f"kernels a call, {tag}: {names}", flush=True)
@@ -4613,6 +4833,87 @@ def main() -> None:
         t["library_ms"] = cuda_ms(torch, lambda: torch.sort(comp_b, dim=1, stable=True), reps=5)
         t["wrapper_ms"] = cuda_ms(torch, lambda: lf.rank_hist_batched(comp_b, tile=k4_tile,
                                                                       **k4_args))
+        # G1-G4 at the 1-D main path's shapes: n = 2^24 float32 Uniform, k =
+        # 128, level 2 over 257 segments at k2 = 128 (nb 65,792); G4's gather
+        # at pass two's 2047 windows of 8192, in place.  Bytes, each input read
+        # once and each output written once: G1 bucket and rank in, dest out
+        # (12 B a key), the histogram in and the offsets out; G2 the ids out
+        # (4 B a key) and the offsets in; G3 the key in and the id out (8 B a
+        # key, 12 B for int64 codes), the offsets and splitters in; G4 the
+        # position and the row in, the row out (12 B a 4-byte key).  Ops, far
+        # below: ~10 a key for G1, ~4 a search step for G2 and G3 (log2 of a
+        # span's offsets, log2 k2 for G3's descent), ~6 for G4.  The library
+        # calls (timed here, used nowhere in the port): G4's scatter as
+        # index_copy_ by int64 positions, its gather as one index gather by
+        # int64 sources, G2 as one searchsorted, G3 as one searchsorted over
+        # the packed (segment, key) pairs (int32 codes; no single call for
+        # int64 codes); G1 has none
+        b_m, r_m, h_m = k1_call()
+        t = rows["close_placement"]
+        kernel_ms(torch, "close_placement", t, lambda: glue.close_placement(
+            b_m, r_m, h_m, 2 * k + 1, lf.TILE))
+        t["plain_ms"] = cuda_ms(torch, lambda: glue.close_placement_plain(
+            b_m, r_m, h_m, 2 * k + 1, lf.TILE), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 12 + h_m.numel() * 4 + (2 * k + 2) * 4,
+                                                N_BIG * 10)
+        t["library_ms"] = None
+        d_m, o_m = (x_[0] for x_ in glue.close_placement(b_m, r_m, h_m, 2 * k + 1, lf.TILE))
+        d2_m, o2_m = lf.rank_hist(comp, tile=k2_tile, **k2_args)
+        t = rows["segment_ids"]
+        kernel_ms(torch, "segment_ids", t, lambda: glue.segment_ids(o2_m, N_BIG))
+        t["plain_ms"] = cuda_ms(torch, lambda: glue.segment_ids_plain(o2_m, N_BIG), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 4 + o2_m.numel() * 4, N_BIG * 4 * 5)
+        pos_m = torch.arange(N_BIG, dtype=torch.int32, device=dev)
+        t["library_ms"] = cuda_ms(torch, lambda: torch.searchsorted(o2_m, pos_m, right=True),
+                                  reps=5)
+        t["wrapper_ms"] = t["ms"]
+        log_k2 = k2.bit_length() - 1
+        spl_m = segment_splitters(arrays["k"][None], off1[None], k2, seed=7)
+        t = rows["composite_ids"]
+        kernel_ms(torch, "composite_ids", t, lambda: glue.composite_ids(
+            arrays["k"][None], off1[None], nb1, k2, spl_m))
+        t["plain_ms"] = cuda_ms(torch, lambda: glue.composite_ids_plain(
+            arrays["k"][None], off1[None], nb1, k2, spl_m), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            N_BIG * 8 + off1.numel() * 4 + spl_m.numel() * 4, N_BIG * 4 * (log_k2 + 2))
+        seg_m = glue.segment_ids(off1, N_BIG).to(torch.int64)
+        packed_k = (seg_m << 32) + (arrays["k"].to(torch.int64) + (1 << 31))
+        packed_s = ((torch.arange(nb1, dtype=torch.int64, device=dev) << 32)[:, None]
+                    + (spl_m[0].to(torch.int64) + (1 << 31))).reshape(-1)
+        t["library_ms"] = cuda_ms(torch, lambda: torch.searchsorted(packed_s, packed_k), reps=5)
+        del seg_m, packed_k, packed_s, pos_m
+        t = rows["scatter_rows"]
+        kernel_ms(torch, "scatter_rows", t, lambda: glue.scatter_rows({"k": keys1}, d_m, o_m))
+        t["plain_ms"] = cuda_ms(torch, lambda: glue.scatter_rows_plain({"k": keys1}, d_m),
+                                reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 12 + o_m.numel() * 4, N_BIG * 6)
+        d_m64 = d_m.to(torch.int64)
+        out_m = torch.empty_like(keys1)
+        t["library_ms"] = cuda_ms(torch, lambda: out_m.index_copy_(0, d_m64, keys1), reps=5)
+        glue_more = {
+            "scatter_rows level 1, row by row (no offsets)": cuda_ms(
+                torch, lambda: glue.scatter_rows({"k": keys1}, d_m)),
+            f"scatter_rows level 2 (nb {nb2}), staged": cuda_ms(
+                torch, lambda: glue.scatter_rows({"k": keys1}, d2_m, o2_m)),
+            "scatter_rows level 1, int64 rows, staged": cuda_ms(
+                torch, lambda: glue.scatter_rows({"k": d_m64}, d_m, o_m)),
+        }
+        del d_m64
+        perm_m = bitonic.sort_windows(wb, wk, nb=64)[0]
+        buf_m = keys1[None].clone()
+        t = rows["gather_windows"]
+        kernel_ms(torch, "gather_windows", t, lambda: glue.gather_windows(
+            buf_m, perm_m[:-1], W // 2, buf_m))
+        t["plain_ms"] = cuda_ms(torch, lambda: glue.gather_windows_plain(
+            buf_m, perm_m[:-1], W // 2, buf_m), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms((num_w - 1) * W * 12, (num_w - 1) * W * 6)
+        src_m = (perm_m[:-1].to(torch.int64) + torch.arange(
+            W // 2, N_BIG - W // 2, W, dtype=torch.int64, device=dev)[:, None]).reshape(-1)
+        t["library_ms"] = cuda_ms(torch, lambda: keys1[src_m], reps=5)
+        glue_more["gather_windows pass one (2048 windows into a new tensor)"] = cuda_ms(
+            torch, lambda: glue.gather_windows(keys1[None], perm_m, 0))
+        del buf_m, src_m, out_m
+
         # the 64-bit forms at the 64-bit paths' shapes: K1 on double (float64
         # Uniform) at n = 2^24, k = 128; K1r on uint64 over the whole range;
         # K4 on (64, 2^18) float64 rows; K3 on 2048 windows of 8192.  Bytes:
@@ -4671,6 +4972,20 @@ def main() -> None:
         # each (a 96-bit compare and the select of three words)
         t["bound_ms"], t["bound_by"] = bound_ms(num_w * W * 20, num_w * W * log_w * 9)
         t["library_ms"] = None
+        # G3's int64 form at double's level 2 (n = 2^24, 257 segments, k2 =
+        # 128): 12 B a key
+        gen64 = torch.Generator(device=dev).manual_seed(cfg.seed)
+        a64_m, o64_m, nb64_m, _ = ips4o.level_pass({"k": keys64}, N_BIG, k, cfg, gen64)
+        spl64_m = segment_splitters(a64_m["k"][None], o64_m[None], k2, seed=8)
+        t = rows["composite_ids64"]
+        kernel_ms(torch, "composite_ids64", t, lambda: glue.composite_ids(
+            a64_m["k"][None], o64_m[None], nb64_m, k2, spl64_m))
+        t["plain_ms"] = cuda_ms(torch, lambda: glue.composite_ids_plain(
+            a64_m["k"][None], o64_m[None], nb64_m, k2, spl64_m), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            N_BIG * 12 + o64_m.numel() * 4 + spl64_m.numel() * 8, N_BIG * 4 * (log_k2 + 2))
+        t["library_ms"] = None
+        del a64_m, spl64_m
         k3_64_more = {f"{w_.shape[0]} x {w_.shape[1]}": cuda_ms(
             torch, lambda w_=w_, k_=k_: bitonic.sort_windows(w_, k_, nb=64))
             for W_, (w_, k_) in wide_windows.items() if W_ != W}
@@ -5017,8 +5332,24 @@ def main() -> None:
               f"then the spilled runs of rounds 2-{rounds}), D2H {4 * N_STREAM * rounds} B "
               f"({rounds} spills of {4 * N_STREAM} B; {chunks} chunks, {rounds} rounds)",
               flush=True)
-        profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(paths["1-D tree"][1][0][1]),
-                show=level_kernels)
+        # the main path's profile, every kernel listed; it must run no
+        # searchsorted (G2 and G3 took their place) and no index_put but the
+        # robustness fallback's own (G4 took the scatters')
+        x_main = paths["1-D tree"][1][0][1]
+        main_prof = profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(x_main), top=80)
+        _, off_m, nb_m, pad_m = ips4o.partition_passes({"k": ops.keyspace.encode(x_main)}, N_BIG,
+                                                       cfg, levels)
+        engaged = bool(ips4o.bucket_violations(off_m, nb_m, cfg.base_case, pad_m))
+        searches = [e.key for e in main_prof["kernels"] if "searchsorted" in e.key]
+        puts = sum(e.count for e in main_prof["kernels"] if "index_put" in e.key)
+        print(f"profile ops.sort n={N_BIG}: searchsorted kernels {len(searches)}, index_put "
+              f"launches {puts} (the fallback engaged: {engaged}, its own: {int(engaged)})",
+              flush=True)
+        if searches:
+            fail(f"ops.sort n={N_BIG} still runs searchsorted: {searches}")
+        if puts > int(engaged):
+            fail(f"ops.sort n={N_BIG} runs {puts} index_put launches, the fallback "
+                 f"{int(engaged)}")
         profile(torch, f"ops.sort radix int32 n={N_BIG}",
                 lambda: ops.sort(radix_int, classifier=radix), show=level_kernels)
         profile(torch, f"ops.sort double n={N_BIG}", lambda: ops.sort(double1),
@@ -5032,6 +5363,8 @@ def main() -> None:
                   f"{r['library_ms']}", flush=True)
         print(f"time level_fused_batched radix ({B_BULK}, {N_ROW}): kernel {radix_k4_ms:.4f} ms",
               flush=True)
+        for what, ms_ in glue_more.items():
+            print(f"time {what}: {ms_:.4f} ms (CUDA events around the wrapper)", flush=True)
         print(f"time level_fused_batched64 radix ({B_BULK}, {N_ROW}): kernel "
               f"{radix_k4_64_ms:.4f} ms", flush=True)
         for what, ms_ in k3_64_more.items():
@@ -5125,6 +5458,15 @@ def main() -> None:
                                          "src/repro/kernels/classify.py:153"),
         "radix_histogram64": ("src/repro_torch/csrc/classify.cu",
                               "src/repro/kernels/classify.py:222"),
+        # G1-G4 replace no Pallas kernel: the XLA code of the reference they
+        # stand for
+        "close_placement": ("src/repro_torch/csrc/glue.cu",
+                            "src/repro/kernels/level_fused.py:136"),
+        "segment_ids": ("src/repro_torch/csrc/glue.cu", "src/repro/core/ips4o.py:229"),
+        "composite_ids": ("src/repro_torch/csrc/glue.cu", "src/repro/classify/tree.py:83"),
+        "composite_ids64": ("src/repro_torch/csrc/glue.cu", "src/repro/classify/tree.py:83"),
+        "scatter_rows": ("src/repro_torch/csrc/glue.cu", "src/repro/core/ips4o.py:376"),
+        "gather_windows": ("src/repro_torch/csrc/glue.cu", "src/repro/core/ips4o.py:246"),
     }
     line = []
     for name, (source, replaces) in meta.items():

@@ -8,8 +8,9 @@ splitters below each key with ``torch.searchsorted``, which gives the same
 j, and needs no tree at all.  This is plain torch on both devices: the
 level-1 classification inside kernels K1 and K4 (``kernels.level_fused``)
 is held to :func:`classify_batched` (:func:`classify` is its one-row
-form), and level 2's :func:`classify_segmented` stays plain, as it is XLA
-in the reference.
+form), and level 2's :func:`classify_segmented` (XLA in the reference) is
+the plain twin of the G3 kernel ``kernels.glue.composite_ids``, which the
+sort runs on the card.
 """
 from __future__ import annotations
 

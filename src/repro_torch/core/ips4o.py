@@ -16,7 +16,7 @@ Counterpart of ``repro.core.ips4o`` for 1-D keys and for (B, n) rows
     instead, one host read deciding;
   * level 2 (:func:`segmented_level_pass`) samples splitters per level-1
     segment (or, after a radix level 1, takes the next log2(k2) bits),
-    classifies in plain torch (XLA in the reference) and runs kernel K2
+    classifies by the G3 kernel (XLA in the reference) and runs kernel K2
     (``kernels.level_fused.rank_hist``) over the composite ids at any
     number of buckets;
   * the batched pipeline (:func:`ips4o_sort_batched`) runs the same passes
@@ -41,6 +41,10 @@ Counterpart of ``repro.core.ips4o`` for 1-D keys and for (B, n) rows
 
 The port has no engine switch: on a CUDA tensor these passes launch the
 kernels, and only those; on a CPU tensor the kernels' plain twins run.
+What the reference leaves to XLA between its kernels runs on the card as
+the glue kernels of ``kernels.glue``: K1's placement close (G1), the
+segment ids (G2), level 2's composite ids (G3) and the level scatters and
+the base case's window gathers (G4).
 Keys are the keyspace-encoded int32 or int64 codes of ``ops.keyspace``
 (signed ``<`` is the key order, the sentinel is the code dtype's max); K1,
 K4 ``level_fused_batched`` and K3 have a 32-bit and a 64-bit form each, K2
@@ -59,14 +63,10 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import obs
-from repro_torch.classify import (
-    classify_segmented,
-    learned_model_ids,
-    radix_bucket_ids,
-    resolve_classifier,
-)
+from repro_torch.classify import learned_model_ids, resolve_classifier
 from repro_torch.core import sampling
 from repro_torch.core.sampling import signed_payload
+from repro_torch.kernels import glue
 from repro_torch.kernels.bitonic import window_perm_plain
 from repro_torch.kernels.level_fused import (
     MAX_TILE64,
@@ -223,28 +223,19 @@ def _obs_base_stats(violated: Optional[bool]) -> None:
 
 def segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
     """Per-position bucket/segment id (n,) int32 from (nb+1,) offsets; for
-    (B, nb+1) offsets, (B, n) ids per row."""
-    pos = torch.arange(n, dtype=torch.int32, device=offsets.device)
-    if offsets.dim() == 2:
-        pos = pos.expand(offsets.shape[0], n).contiguous()
-    return (torch.searchsorted(offsets, pos, right=True) - 1).to(torch.int32)
+    (B, nb+1) offsets, (B, n) ids per row.  The G2 kernel
+    (``kernels.glue.segment_ids``) on a CUDA tensor."""
+    return glue.segment_ids(offsets, n)
 
 
-def _scatter(arrays: Arrays, dest: torch.Tensor) -> Arrays:
+def _scatter(arrays: Arrays, dest: torch.Tensor,
+             offsets: Optional[torch.Tensor] = None) -> Arrays:
     """Move every tensor by the destinations: out[dest[i]] = a[i].  With
-    (B, n) row-local ``dest`` each row moves within itself."""
-    lead = dest.dim()
-    d = dest.to(torch.int64)
-    if lead == 2:
-        B, n = d.shape
-        d = (d + torch.arange(B, dtype=torch.int64, device=d.device)[:, None] * n).reshape(-1)
-    out = {}
-    for name, a in arrays.items():
-        flat = a.reshape((-1,) + tuple(a.shape[lead:]))
-        o = torch.empty_like(flat)
-        o[d] = flat
-        out[name] = o.view(a.shape)
-    return out
+    (B, n) row-local ``dest`` each row moves within itself.  G4's scatter
+    (``kernels.glue.scatter_rows``) on a CUDA tensor; a level pass hands
+    it its placement's ``offsets``, with which the kernel writes runs of
+    consecutive destinations."""
+    return glue.scatter_rows(arrays, dest, offsets)
 
 
 def _window_perm(keys_w: torch.Tensor, fb_w: torch.Tensor) -> torch.Tensor:
@@ -347,7 +338,7 @@ def level_pass(
     if ids is not None:
         with obs.trace("partition", nb=nb):
             dest, off = rank_hist(ids, nb=nb, tile=_auto_tile(keys.shape[0], nb, cfg))
-            return _scatter(arrays, dest), off, nb, 2 * k
+            return _scatter(arrays, dest, off), off, nb, 2 * k
     clf = "tree" if clf == "learned" else clf
     with obs.trace("classify", fused=True, classifier=clf, k=k):
         dest, off = level_fused(
@@ -355,7 +346,7 @@ def level_pass(
             classifier=clf, consumed_bits=consumed_bits,
         )
     with obs.trace("partition", fused=True, nb=nb):
-        arrays = _scatter(arrays, dest)
+        arrays = _scatter(arrays, dest, off)
     return arrays, off, nb, 2 * k
 
 
@@ -374,9 +365,8 @@ def segmented_level_pass(
 ) -> Tuple[Arrays, torch.Tensor, int]:
     """One *segmented* level pass (recursion level 2): per-segment
     splitters (or the radix bits past ``consumed_bits``, valid only after a
-    radix level 1), plain flattened classification, then K2 over the
-    composite ids ``seg * 2k + local`` with the segments' offsets, and a
-    scatter.  ``splitters`` (num_seg, k-1) replaces the sample when given.
+    radix level 1), the composite ids ``seg * 2k + local`` (the G3 kernel),
+    then K2 over them with the segments' offsets, and a scatter.  ``splitters`` (num_seg, k-1) replaces the sample when given.
     Returns (arrays, offsets, nb) with nb = num_seg * 2k."""
     keys = arrays["k"]
     n = keys.shape[0]
@@ -388,7 +378,7 @@ def segmented_level_pass(
             comp, nb=nb, seg_offsets=seg_offsets, seg_width=2 * k,
             tile=_auto_tile(n, 2 * k, cfg),
         )
-        arrays = _scatter(arrays, dest)
+        arrays = _scatter(arrays, dest, offsets)
     return arrays, offsets, nb
 
 
@@ -436,16 +426,19 @@ def batched_composite_ids(
 ) -> torch.Tensor:
     """Row-local composite ids (B, n) int32 of (B, n) ``keys`` with
     (B, num_seg+1) ``seg_offsets``; ``splitters`` is (B, num_seg, k-1).
+    The sample stays in torch; the ids come from the G3 kernel
+    (``kernels.glue.composite_ids``: the segments, the classification and
+    ``seg * 2k + local`` in one pass) on a CUDA tensor, from its plain twin
+    (``segment_ids``, then ``classify_segmented`` flattened over the (row,
+    segment) pairs, or the radix bits) on a CPU tensor.
     ``spans`` records the sample and classify spans of the 1-D level 2
     (the reference's batched level 2 records none)."""
     B, n = keys.shape
-    seg = segment_ids(seg_offsets, n)
     trace = obs.trace if spans else _no_span
     if classifier == "radix":
         # no sample: within a radix-aligned segment the next bits are monotone
         with trace("classify", segmented=True, classifier="radix", k=k):
-            local = radix_bucket_ids(keys, k, consumed_bits)
-        return seg * (2 * k) + local
+            return glue.composite_ids(keys, seg_offsets, num_seg, k, None, consumed_bits)
     if splitters is None:
         with trace("sample", segmented=True, k=k, segments=num_seg):
             m = min(max(sampling.oversampling_factor(n_real) * k, k), sample_cap)
@@ -457,14 +450,7 @@ def batched_composite_ids(
                                dim=-1).values
             splitters = sampling.select_splitters(svals, k)
     with trace("classify", segmented=True, classifier="tree", k=k):
-        # (row, segment) -> one global segment for the flattened classifier
-        gseg = seg
-        if B > 1:
-            gseg = seg + torch.arange(B, dtype=torch.int32, device=keys.device)[:, None] * num_seg
-        local = classify_segmented(
-            keys.reshape(-1), gseg.reshape(-1), splitters.reshape(B * num_seg, k - 1), k,
-        ).reshape(B, n)
-    return seg * (2 * k) + local
+        return glue.composite_ids(keys, seg_offsets, num_seg, k, splitters)
 
 
 def _level2_classifier(clf: str) -> str:
@@ -680,7 +666,7 @@ def batched_level_pass(
     if ids is not None:
         with obs.trace("partition", batched=True, nb=nb):
             dest, off = rank_hist_batched(ids, nb=nb, tile=_auto_tile(keys.shape[1], nb, cfg))
-            return _scatter(arrays, dest), off, nb, 2 * k
+            return _scatter(arrays, dest, off), off, nb, 2 * k
     clf = "tree" if clf == "learned" else clf
     with obs.trace("classify", batched=True, fused=True, k=k):
         dest, off = level_fused_batched(
@@ -688,7 +674,7 @@ def batched_level_pass(
             classifier=clf,
         )
     with obs.trace("partition", batched=True, fused=True, nb=nb):
-        arrays = _scatter(arrays, dest)
+        arrays = _scatter(arrays, dest, off)
     return arrays, off, nb, 2 * k
 
 
@@ -719,7 +705,7 @@ def batched_segmented_level_pass(
         comp, nb=nb, seg_offsets=seg_offsets, seg_width=2 * k,
         tile=_auto_tile(n, 2 * k, cfg),
     )
-    return _scatter(arrays, dest), offsets, nb
+    return _scatter(arrays, dest, offsets), offsets, nb
 
 
 def batched_partition_passes(

@@ -20,8 +20,8 @@
 //      `rank_hist_batched` places each row of (B, n) ids, dest and offsets
 //      row-local.
 // K1's global placement dest = offsets[b] + tile_off[t, b] + rank is closed
-// by a plain torch epilogue, as the reference closes it in XLA.  K2 closes
-// its own on the device (four launches, below).
+// by the G1 kernels of csrc/glue.cu, where the reference closes it in XLA.
+// K2 closes its own on the device (four launches, below).
 //
 // Bound: bytes.  K1 reads 4 B of key and writes 4 B of bucket and 4 B of
 // rank per element: 12 B, ~60 us for 2^24 elements at 3.35 TB/s.  K2 must
@@ -149,27 +149,11 @@
 
 namespace {
 
+#include "sort_device.cuh"  // the scans and KeyBits, shared with csrc/glue.cu
+
 constexpr int kChunks32 = 16;           // 32-position chunks a warp of K1 holds (int keys)
 constexpr int kChunks64 = 8;            // the same for 64-bit keys
 constexpr int kLevelMaxThreads = 1024;  // 16384 positions a CTA (8192 with 64-bit keys)
-
-// The key type's sentinel and its reference code's digits at `shift`.
-template <typename Key>
-struct KeyBits;
-template <>
-struct KeyBits<int> {
-  static constexpr int kMax = INT_MAX;
-  __device__ static unsigned digits(int key, int shift) {
-    return ((unsigned)key ^ 0x80000000u) >> shift;
-  }
-};
-template <>
-struct KeyBits<long long> {
-  static constexpr long long kMax = LLONG_MAX;
-  __device__ static unsigned digits(long long key, int shift) {
-    return (unsigned)(((unsigned long long)key ^ 0x8000000000000000ull) >> shift);
-  }
-};
 
 // K1, K1r and K4: one CTA per (row, tile) over `rows` rows of n keys; the
 // CTAs are numbered row-major, so hist is (rows, tiles_per_row, 2k+1).
@@ -365,44 +349,6 @@ constexpr int kRankChunks = 16;      // 32-position chunks a lane holds at once
 constexpr int kRankMaxWarps = 8;     // warps of a count or rank CTA
 constexpr int kItemsThreads = 1024;  // threads of the items kernel (one row)
 constexpr int kItemsCache = 96 * 1024;  // its segments in shared memory up to this
-constexpr unsigned kFull = 0xffffffffu;
-
-// Exclusive scan of v over the warp; *total gets the warp's sum.
-__device__ int warp_exclusive_scan(int v, int* total) {
-  const int lane = threadIdx.x & 31;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
-  }
-  *total = __shfl_sync(kFull, x, 31);
-  return x - v;
-}
-
-// Exclusive scan of v over the CTA (whole warps); *total gets the CTA's
-// sum.  warp_sums: 33 ints of shared memory, free again on return.
-__device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  int warp_total;
-  const int excl = warp_exclusive_scan(v, &warp_total);
-  if (lane == 0) warp_sums[warp] = warp_total;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < warps ? warp_sums[lane] : 0;
-    int all;
-    const int before = warp_exclusive_scan(w, &all);
-    if (lane < warps) warp_sums[lane] = before;
-    if (lane == 0) warp_sums[32] = all;
-  }
-  __syncthreads();
-  const int out = excl + warp_sums[warp];
-  *total = warp_sums[32];
-  __syncthreads();
-  return out;
-}
 
 // A call's segments and scratch, as its kernels share them: rows of n ids,
 // num_seg segments a row (seg_off (rows, num_seg + 1), or null: one segment

@@ -19,6 +19,10 @@
 | K9 | ``permute_inplace.permute_blocks_inplace`` | ``csrc/permute_inplace.cu`` | ``repro/kernels/permute_inplace.py:148`` |
 | K10 | ``flash_decode.flash_decode`` (and ``flash_decode_cache``) | ``csrc/flash_decode.cu`` | ``repro/kernels/flash_decode.py:70`` |
 | K11 | ``flash_attention.flash_attention`` (bf16: TMA + ``wgmma``; f32: FMA) | ``csrc/flash_attention.cu`` | ``repro/kernels/flash_attention.py:102`` |
+| G1 | ``glue.close_placement`` (K1/K1r/K4's placement close) | ``csrc/glue.cu`` | no kernel: XLA's ``_close_placement``, ``repro/kernels/level_fused.py:136`` |
+| G2 | ``glue.segment_ids`` | ``csrc/glue.cu`` | no kernel: XLA's ``segment_ids``, ``repro/core/ips4o.py:229`` |
+| G3 | ``glue.composite_ids`` (level 2's ids, tree or radix; int32 and int64 keys) | ``csrc/glue.cu`` | no kernel: XLA's ``classify_segmented``, ``repro/classify/tree.py:83`` |
+| G4 | ``glue.scatter_rows`` and ``glue.gather_windows`` (one move kernel) | ``csrc/glue.cu`` | no kernel: XLA's ``.at[dest].set`` and ``_apply_window_perm``, ``repro/core/ips4o.py:376``, ``:246`` |
 
 K1, K1r, K4 ``level_fused_batched`` and K3 take int32 or int64 codes: each
 has a 64-bit form for the 64-bit key dtypes, launched by the same wrapper
@@ -30,7 +34,12 @@ close their placement on the card in four launches (items, count,
 per-segment scan, rank); K6 closes it in one, carrying the earlier tiles'
 counts by decoupled look-back.
 K8 and K9 move blocks in the caller's tensor and return it.  K10 reads the
-decode cache in place, through strides.
+decode cache in place, through strides.  G1-G4 are the sort's glue, which
+the reference leaves to XLA between its kernels: K1's placement close, the
+segment ids, level 2's composite ids, and one move kernel for the level
+scatters (staged by bucket when the placement's offsets are given) and the
+base case's window gathers (in place for pass two); G3's int64 form counts
+under ``composite_ids64``.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
 plain torch twin only on a CPU tensor.  The kernels are built with ``nvcc``

@@ -47,7 +47,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("level_fused", "bitonic", "merge_path", "dispatch_rank", "classify",
-           "block_permute", "permute_inplace", "flash_decode", "flash_attention")
+           "block_permute", "permute_inplace", "flash_decode", "flash_attention", "glue")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -74,6 +74,9 @@ LAUNCHES: Dict[str, int] = {
     "classify_histogram8": 0, "classify_histogram16": 0, "classify_histogram64": 0,
     "classify_histogram_batched8": 0, "classify_histogram_batched16": 0,
     "classify_histogram_batched64": 0, "radix_histogram64": 0,
+    # the one-device sort's glue (G1-G4, csrc/glue.cu); G3's int64 form apart
+    "close_placement": 0, "segment_ids": 0, "composite_ids": 0, "composite_ids64": 0,
+    "scatter_rows": 0, "gather_windows": 0,
 }
 
 # callables (name, flops, bytes) told of each launch a wrapper stands in for

@@ -13,9 +13,9 @@ K1 ``level_fused``: classify each key against the k-1 sorted splitters
 (tree mode, key ``level_fused``) or by its next log2(k) bits (radix mode,
 K1r, key ``level_fused_radix``), route positions >= n_real to the pad
 bucket 2k, and rank each key stably within its tile; the epilogue
-:func:`_close_placement` (plain torch, as XLA runs it in the reference)
-turns the per-tile ranks and histogram into the global destinations and
-bucket offsets.  K4 ``level_fused_batched`` (key ``level_fused_batched``)
+``kernels.glue.close_placement`` (XLA in the reference; the G1 kernels here,
+its torch chain their plain twin) turns the per-tile ranks and histogram
+into the global destinations and bucket offsets.  K4 ``level_fused_batched`` (key ``level_fused_batched``)
 is the same over (B, n) rows, each row with its own splitters or the shared
 radix shift, its own pads and its own placement.  The three take int32 or
 int64 codes (``ops.keyspace``): the CUDA kernel is templated on the key
@@ -50,6 +50,7 @@ import torch
 from repro_torch.classify import CLASSIFIERS, classify_batched, radix_bucket_ids, radix_shift
 from repro_torch.core.sampling import sentinel_for
 from repro_torch.kernels import _build
+from repro_torch.kernels.glue import close_placement, cumsum_rows as _cumsum_rows
 
 __all__ = [
     "launch_info",
@@ -131,32 +132,6 @@ def _slot_rank_hist(slot: torch.Tensor, num_slots: int) -> Tuple[torch.Tensor, t
     pos = torch.arange(n, dtype=torch.int32, device=slot.device)
     rank[order] = pos - starts[s64[order]]
     return rank, counts
-
-
-def _cumsum_rows(hist: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 cumsum of a (..., rows, nb) histogram down its rows.
-    Taken along the inner dim of a transposed copy: PyTorch's int32 scan
-    along the outer dim took 1.1 ms at (4096, 257) on the H100 (PERF.md)."""
-    return torch.cumsum(hist.transpose(-1, -2).contiguous(), -1,
-                        dtype=torch.int32).transpose(-1, -2)
-
-
-def _close_placement(
-    bucket: torch.Tensor, rank: torch.Tensor, hist: torch.Tensor, nb: int, tile: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's and K4's epilogue, per row: prefix-sum the (B, tiles, nb)
-    histograms and place every element of the (B, n) rows,
-    dest = offsets[row, b] + tile_off[row, t, b] + rank (row-local)."""
-    B, n = bucket.shape
-    tiles = hist.shape[1]
-    dev = bucket.device
-    offsets = torch.zeros((B, nb + 1), dtype=torch.int32, device=dev)
-    offsets[:, 1:] = torch.cumsum(hist.sum(1, dtype=torch.int32), 1, dtype=torch.int32)
-    tile_off = _cumsum_rows(hist) - hist
-    base = (offsets[:, None, :-1] + tile_off).reshape(B, tiles * nb)
-    t_idx = torch.arange(n, dtype=torch.int64, device=dev) // tile
-    dest = torch.gather(base, 1, t_idx * nb + bucket.to(torch.int64)) + rank
-    return dest, offsets
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +252,7 @@ def _level(keys, splitters, k, n_real, tile, classifier, consumed_bits, plain, b
     else:
         bucket, rank, hist = _level_tiles_kernel(rows, spl, k, n_real, tile,
                                                  consumed_bits, batched)
-    dest, offsets = _close_placement(bucket, rank, hist, 2 * k + 1, tile)
+    dest, offsets = close_placement(bucket, rank, hist, 2 * k + 1, tile)
     return (dest, offsets) if batched else (dest[0], offsets[0])
 
 

@@ -20,6 +20,7 @@ from repro_torch.kernels.bitonic import sort_windows
 from repro_torch.kernels.classify import classify_histogram
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.glue import gather_windows
 from repro_torch.kernels.permute_inplace import permute_blocks_inplace
 
 __all__ = [
@@ -66,8 +67,10 @@ def base_case_windows(
     offset 0, pass two those at W/2 over the n - W positions between (per
     row).  ``limit`` (a multiple of W) restricts both passes to the
     positions [0, limit) of each row; the rest is left as it was.  K3 gives
-    each window's permutation; every tensor is gathered by it in torch.
-    Returns new tensors: the inputs are left as they were.
+    each window's permutation; every tensor is gathered by it with G4's
+    window gather (``kernels.glue.gather_windows``, one launch a tensor a
+    pass; pass two in place, each window staged in shared memory before it
+    is written).  Returns new tensors: the inputs are left as they were.
 
     K3 packs (bucket, key, idx) into 64 bits, so it takes ids below
     2^(32 - log2 W).  Above that (a segmented sort of many segments), it is
@@ -84,26 +87,16 @@ def base_case_windows(
     fits = nb <= 1 << (32 - (W.bit_length() - 1))  # K3's bucket field
 
     def one_pass(arrays, lo, hi, out):
-        m = hi - lo
-        per_row = m // W
+        per_row = (hi - lo) // W
         fb_w = fb[:, lo:hi].reshape(B * per_row, W)
         perm, _ = sort_windows(
             fb_w.contiguous() if fits else _window_runs(fb_w),
             arrays["k"][:, lo:hi].reshape(B * per_row, W).contiguous(), nb if fits else W,
         )
-        starts = torch.arange(lo, hi, W, dtype=torch.int64, device=fb.device)
-        if B > 1:  # row r's windows start r * n further on
-            starts = (torch.arange(0, B * n, n, dtype=torch.int64, device=fb.device)[:, None]
-                      + starts).reshape(-1)
-        src = (perm.to(torch.int64) + starts[:, None]).reshape(-1)
-
-        def gather(a):
-            return a.reshape((B * n,) + a.shape[2:])[src].reshape((B, m) + a.shape[2:])
-
         if out is None:  # a first pass over all of [0, n) makes the copies
-            return {name: gather(a) for name, a in arrays.items()}
+            return {name: gather_windows(a, perm, lo) for name, a in arrays.items()}
         for name, a in arrays.items():
-            out[name][:, lo:hi] = gather(a)
+            gather_windows(a, perm, lo, out[name])
         return out
 
     # a window's sort leaves its (nondecreasing) bucket ids where they were

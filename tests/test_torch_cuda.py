@@ -42,7 +42,12 @@ the exchange's placement launching K2; the MoE dispatch through K6
 (``dispatch_ranks`` and ``partition_ranks_batched``) equal to the plain
 dispatch bit for bit, K10 at group 1 with hd 128 (the tensor-core
 kernel) and hd 80 (the FMA kernel), the scheduler's admissions against
-the host oracle, and reduced MoE, RWKV-6 and zamba2 models on the card
+the host oracle, the glue kernels G1-G4 (``kernels.glue``: the placement
+close on K4's tile histograms, the segment ids with empty and leading
+buckets, the composite ids of both modes on int32 and int64 keys, the
+scatter of payload rows of 1-16 bytes by a permutation, K1's, K4's and
+K2's placements, and the window gather direct and in place at every W)
+and ``ops.sort``'s profile without ``searchsorted``, and reduced MoE, RWKV-6 and zamba2 models on the card
 against the CPU (float32, 1e-3 on the logits); training: the reduced
 models' loss and gradients on the card against the CPU (float32, 1e-4 of
 each leaf's largest gradient, 5e-4 for rwkv6 and zamba2) and bitwise on a second call, K6 twice per
@@ -1791,3 +1796,193 @@ def test_trainer_on_the_card_restarts_bitwise(dev, tmp_path):
     t2.run(it, 3, ckpt_every=100, **quiet)
     a, b = pytree.tree_leaves(t0._tree()), pytree.tree_leaves(t2._tree())
     assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---- G1-G4: the sort's glue (csrc/glue.cu) against its plain twins ---------
+
+def _glue_offsets(g, rows, nb, n, case, dev):
+    """(rows, nb+1) int32 offsets from 0 to n: random cuts, runs of empty
+    buckets, or every bucket empty but one."""
+    cuts = torch.sort(torch.randint(0, n + 1, (rows, nb - 1), generator=g, device=dev,
+                                    dtype=torch.int32), dim=1).values
+    if case == "empty runs":
+        cuts[:, : nb // 3] = 0
+        cuts[:, -(nb // 3):] = n
+    elif case == "one bucket":
+        cuts[:] = n // 2
+    return torch.cat([torch.zeros((rows, 1), dtype=torch.int32, device=dev), cuts,
+                      torch.full((rows, 1), n, dtype=torch.int32, device=dev)], 1)
+
+
+@pytest.mark.parametrize("B,n,tile,k", [(1, 70000, 1024, 128), (3, 10000, 33, 2),
+                                        (2, 4096 * 40 + 1, 4096, 256), (1, 5, 4096, 4)])
+def test_close_placement_kernel(dev, B, n, tile, k):
+    """G1 on K4's tile histograms: runs past 32 stretches, nb above a pass
+    of the offsets' scan, a ragged last tile, one tile."""
+    from repro_torch.kernels import glue
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    keys = torch.randint(-1000, 1000, (B, n), generator=g, device=dev, dtype=torch.int32)
+    spl = torch.sort(torch.randint(-1000, 1000, (B, k - 1), generator=g, device=dev,
+                                   dtype=torch.int32), dim=1).values
+    bucket, rank, hist = lf._level_tiles_kernel(keys, spl, k, max(1, n - 7), tile, batched=True)
+    before = kernels.launch_counts()["close_placement"]
+    got = glue.close_placement(bucket, rank, hist, 2 * k + 1, tile)
+    assert kernels.launch_counts()["close_placement"] == before + 1
+    _equal(got, glue.close_placement_plain(bucket, rank, hist, 2 * k + 1, tile))
+
+
+@pytest.mark.parametrize("rows,nb,n,case", [(1, 257, 1 << 20, "random"),
+                                            (1, 65792, 1 << 20, "random"),
+                                            (4, 3000, 5000, "empty runs"),
+                                            (2, 9, 4096 * 3 + 5, "one bucket"),
+                                            (1, 100000, 100000, "random")])
+def test_segment_ids_kernel(dev, rows, nb, n, case):
+    """G2 with empty buckets at both ends, spans holding more bucket starts
+    than its stage, one bucket, B rows, and one row's (nb+1,) form."""
+    from repro_torch.kernels import glue
+
+    g = torch.Generator(device=dev).manual_seed(nb)
+    off = _glue_offsets(g, rows, nb, n, case, dev)
+    before = kernels.launch_counts()["segment_ids"]
+    _equal(glue.segment_ids(off, n), glue.segment_ids_plain(off, n))
+    _equal(glue.segment_ids(off[0], n), glue.segment_ids_plain(off[0], n))
+    assert kernels.launch_counts()["segment_ids"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows,num_seg,n,k,radix", [(1, 257, 1 << 20, 128, False),
+                                                    (8, 257, 1 << 14, 2, False),
+                                                    (1, 257, 1 << 20, 128, True),
+                                                    (2, 5000, 6000, 4, False),
+                                                    (1, 1, 100, 2, False)])
+def test_composite_ids_kernel(dev, dtype, rows, num_seg, n, k, radix):
+    """G3 in both modes on int32 and int64 keys: keys on the splitters, at
+    the extremes and on the sentinel, an empty last segment, spans whose
+    segments' splitters do not fit its stage (5000 segments)."""
+    from repro_torch.kernels import glue
+
+    g = torch.Generator(device=dev).manual_seed(num_seg + n)
+    info = torch.iinfo(dtype)
+    keys = torch.randint(-50, 50, (rows, n), generator=g, device=dev, dtype=dtype)
+    if radix:
+        keys = torch.randint(info.min, info.max, (rows, n), generator=g, device=dev, dtype=dtype)
+    keys[:, ::7] = info.max
+    keys[:, 1::11] = info.min
+    off = _glue_offsets(g, rows, num_seg, n, "random", dev)
+    if num_seg > 1:
+        off[:, -2] = n  # an empty last segment
+    spl = None
+    if not radix:
+        spl = torch.sort(torch.randint(-50, 50, (rows, num_seg, k - 1), generator=g, device=dev,
+                                       dtype=dtype), dim=-1).values
+        keys[:, 2::13] = spl.reshape(rows, -1)[:, :1]
+    name = "composite_ids" + ("64" if dtype == torch.int64 else "")
+    for consumed in ((0, 7) if radix else (0,)):
+        before = kernels.launch_counts()[name]
+        got = glue.composite_ids(keys, off, num_seg, k, spl, consumed)
+        assert kernels.launch_counts()[name] == before + 1
+        _equal(got, glue.composite_ids_plain(keys, off, num_seg, k, spl, consumed))
+
+
+def _glue_leaves(g, lead, dev):
+    """Payload leaves of 1, 2, 4, 8, 12 and 16 bytes a row and a 3-byte one."""
+    return {
+        "b": torch.rand(lead, generator=g, device=dev) < 0.5,
+        "h": torch.randn(lead, generator=g, device=dev).to(torch.bfloat16),
+        "k": torch.randint(-9, 9, lead, generator=g, device=dev, dtype=torch.int32),
+        "q": torch.randint(-9, 9, lead, generator=g, device=dev, dtype=torch.int64),
+        "w3": torch.randn(lead + (3,), generator=g, device=dev),
+        "c4": torch.randn(lead + (4,), generator=g, device=dev),
+        "u3": torch.randint(0, 200, lead + (3,), generator=g, device=dev, dtype=torch.uint8),
+    }
+
+
+@pytest.mark.parametrize("lead", [(1 << 20,), (8, 1 << 16), (3, 1000)])
+def test_scatter_rows_kernel(dev, lead):
+    """G4's scatter on payload rows of 1-16 bytes: a random permutation
+    (row by row), K1's and K4's placements with their offsets (the staged
+    path), and offsets the permutation is no placement of (the check)."""
+    from repro_torch.kernels import glue
+
+    g = torch.Generator(device=dev).manual_seed(len(lead))
+    arrays = _glue_leaves(g, lead, dev)
+    dest = torch.argsort(torch.rand(lead, generator=g, device=dev), dim=-1).to(torch.int32)
+
+    def same(got, want):
+        _equal(tuple(got.values()), tuple(want.values()))
+
+    same(glue.scatter_rows(arrays, dest), glue.scatter_rows_plain(arrays, dest))
+    n = lead[-1]
+    off = torch.tensor([0, n // 2, n], dtype=torch.int32, device=dev).expand(
+        lead[:-1] + (3,)).contiguous()
+    same(glue.scatter_rows(arrays, dest, off), glue.scatter_rows_plain(arrays, dest))
+    k = 16
+    keys = torch.randint(-2**31, 2**31 - 1, lead, generator=g, device=dev, dtype=torch.int32)
+    rows = keys if keys.dim() == 2 else keys[None]
+    spl = torch.sort(rows[:, : 4 * k], dim=1).values[:, torch.arange(1, k, device=dev) * 4]
+    place, offsets = lf.level_fused_batched(rows, spl.contiguous(), k=k)
+    if keys.dim() == 1:
+        place, offsets = place[0], offsets[0]
+    before = kernels.launch_counts()["scatter_rows"]
+    same(glue.scatter_rows(arrays, place, offsets), glue.scatter_rows_plain(arrays, place))
+    assert kernels.launch_counts()["scatter_rows"] == before + len(arrays)
+    # K2's placement over 17 segments x 128 local ids (more buckets than a
+    # span stages whole: each span's buckets found by the warp search)
+    ids = torch.sort(torch.randint(0, 17, lead[-1:], generator=g, device=dev,
+                                   dtype=torch.int32)).values
+    seg_off = torch.searchsorted(ids, torch.arange(18, device=dev, dtype=torch.int32)).to(
+        torch.int32)
+    comp = ids * 128 + torch.randint(0, 128, lead[-1:], generator=g, device=dev,
+                                     dtype=torch.int32)
+    place2, offsets2 = lf.rank_hist(comp, nb=17 * 128, seg_offsets=seg_off, seg_width=128)
+    flat = {name: a.reshape((-1,) + tuple(a.shape[len(lead):]))[: lead[-1]]
+            for name, a in arrays.items()}
+    same(glue.scatter_rows(flat, place2, offsets2), glue.scatter_rows_plain(flat, place2))
+
+
+@pytest.mark.parametrize("W", [2, 8, 256, 8192, 16384])
+def test_gather_windows_kernel(dev, W):
+    """G4's window gather: direct into a new tensor and a copy, and in place
+    (pass two at W/2, each window staged), over one row and 4 rows, on
+    rows of 1-16 bytes."""
+    from repro_torch.kernels import glue
+
+    g = torch.Generator(device=dev).manual_seed(W)
+    for B in (1, 4):
+        n = 4 * max(W, 256)
+        arrays = _glue_leaves(g, (B, n), dev)
+        for lo, per in ((0, n // W), (W // 2, n // W - 1), (0, n // W // 2)):
+            perm = torch.argsort(torch.rand((B * per, W), generator=g, device=dev),
+                                 dim=1).to(torch.int32)
+            for a in arrays.values():
+                want = glue.gather_windows_plain(a, perm, lo, a.clone())
+                _equal(glue.gather_windows(a, perm, lo, a.clone()), want)
+                inplace = a.clone()
+                before = kernels.launch_counts()["gather_windows"]
+                glue.gather_windows(inplace, perm, lo, inplace)
+                assert kernels.launch_counts()["gather_windows"] == before + 1
+                _equal(inplace, want)
+                if lo == 0 and per * W == n:
+                    _equal(glue.gather_windows(a, perm, 0), glue.gather_windows_plain(a, perm, 0))
+
+
+def test_sort_runs_the_glue_kernels(dev):
+    """ops.sort on the card launches G1-G4 and no torch chain of theirs: no
+    searchsorted, and no index_put but the robustness fallback's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(1 << 22, device=dev)
+    kernels.reset_launch_counts()
+    y = ops.sort(x)
+    counts = kernels.launch_counts()
+    for name in ("close_placement", "segment_ids", "composite_ids", "scatter_rows",
+                 "gather_windows"):
+        assert counts[name] > 0, name
+    assert torch.equal(y, torch.sort(x).values)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.sort(x)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [k_ for k_ in names if "searchsorted" in k_]
+    assert sum(e.count for e in prof.key_averages() if "index_put" in e.key) <= 1

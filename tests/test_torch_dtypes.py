@@ -513,6 +513,42 @@ for name in ("int64", "uint64", "float64"):
     eq(ub(got["v"]), np.asarray(want["v"]), f"{name} partition_blocks payload")
     eq(d.numpy(), np.asarray(want_d), f"{name} partition_blocks offsets")
 print("x64 s3 and blocks OK")
+
+# ---- the glue's int64 forms: G3's twin on int64 codes (both modes) against
+# seg * 2k + the reference's classify_segmented / radix ids on uint64
+# codes, G4's scatter of 8-byte rows against .at[dest].set
+from repro.classify.radix import radix_bucket_ids as ref_radix_bucket_ids
+from repro.classify.tree import classify_segmented as ref_classify_segmented
+from repro.core.ips4o import segment_ids as ref_segment_ids
+from repro_torch.kernels import glue
+n = 5000
+for k, num_seg in ((2, 1), (16, 40), (128, 7)):
+    rng = np.random.default_rng(k + num_seg)
+    x = keys("int64", n, k)
+    code = ops.keyspace.encode(tt(x))
+    u = ops.keyspace.reference_code_np(code.numpy(), torch.int64)
+    off = np.concatenate([[0], np.sort(rng.integers(0, n + 1, num_seg - 1)), [n]]).astype(np.int32)
+    if num_seg > 1:
+        off[-2] = n  # an empty last segment
+    spl = torch.sort(code[torch.as_tensor(rng.integers(0, n, (num_seg, k - 1)))], dim=1).values
+    code[1::7] = spl.reshape(-1)[torch.arange(len(code[1::7])) % spl.numel()]
+    u = ops.keyspace.reference_code_np(code.numpy(), torch.int64)
+    seg = np.asarray(ref_segment_ids(jnp.asarray(off), n))
+    got = glue.composite_ids(code[None], torch.as_tensor(off)[None], num_seg, k, spl[None])
+    ref_spl = ops.keyspace.reference_code_np(spl.numpy(), torch.int64)
+    want = seg * 2 * k + np.asarray(ref_classify_segmented(jnp.asarray(u), jnp.asarray(seg),
+                                                           jnp.asarray(ref_spl), k))
+    eq(got[0].numpy(), want, f"G3 64 k={k} segments={num_seg}")
+    for consumed in (0, 9):
+        got = glue.composite_ids(code[None], torch.as_tensor(off)[None], num_seg, k, None,
+                                 consumed)
+        want = seg * 2 * k + np.asarray(ref_radix_bucket_ids(jnp.asarray(u), k, consumed))
+        eq(got[0].numpy(), want, f"G3 64 radix k={k} consumed={consumed}")
+    dest = rng.permutation(n).astype(np.int32)
+    got = ips4o._scatter({"v": code}, torch.as_tensor(dest))["v"]
+    eq(got.numpy(), np.asarray(jnp.zeros(n, jnp.int64).at[dest].set(jnp.asarray(code.numpy()))),
+       f"G4 scatter of int64 rows k={k}")
+print("x64 glue OK")
 """
 
 
@@ -533,6 +569,14 @@ def test_64bit_dtypes_in_an_x64_child(x64_child):
     child process with x64 enabled from startup."""
     out = x64_child.stdout
     assert "ops OK" in out and "x64 parity OK" in out, out + x64_child.stderr[-5000:]
+
+
+def test_64bit_glue_in_the_x64_child(x64_child):
+    """The glue's int64 forms in the same child: G3's plain twin on int64
+    codes, tree and radix, against ``seg * 2k`` + the reference's
+    ``classify_segmented`` and radix ids on uint64 codes, and G4's scatter
+    of int64 rows against ``.at[dest].set``."""
+    assert "x64 glue OK" in x64_child.stdout, x64_child.stdout + x64_child.stderr[-5000:]
 
 
 def test_64bit_stream_k5_k7_s3_and_blocks_in_the_x64_child(x64_child):

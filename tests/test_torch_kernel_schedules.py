@@ -93,7 +93,8 @@ from repro.kernels.ref import flash_attention_ref as ref_attention_oracle
 from repro.ops.keyspace import encode_np
 from repro_torch.classify import radix_shift
 from repro_torch.kernels import classify
-from repro_torch.kernels.level_fused import MAX_NB, MAX_TILE, _close_placement, _items
+from repro_torch.kernels.glue import close_placement
+from repro_torch.kernels.level_fused import MAX_NB, MAX_TILE, _items
 from repro_torch.kernels.level_fused import rank_hist_batched_plain, rank_hist_plain
 from repro_torch.kernels.level_fused import segment_schedule
 
@@ -566,7 +567,7 @@ def test_k1_replay_places_like_the_reference_kernel(classifier):
     bucket = torch.as_tensor(np.concatenate([o[0] for o in outs]).astype(np.int32))[None]
     rank = torch.as_tensor(np.concatenate([o[1] for o in outs]).astype(np.int32))[None]
     hist = torch.as_tensor(np.stack([o[2] for o in outs]).astype(np.int32))[None]
-    dest, offsets = _close_placement(bucket, rank, hist, 2 * k + 1, tile)
+    dest, offsets = close_placement(bucket, rank, hist, 2 * k + 1, tile)
     ref_spl = None if classifier == "radix" else jnp.asarray(spl.view(np.uint32) ^ SIGN)
     want_dest, want_off = ref_level_fused(jnp.asarray(u), ref_spl, k=k, n_real=n_real,
                                           classifier=classifier, rows=tile // 128,
@@ -1983,3 +1984,384 @@ def test_k7_schedule_and_shared_memory():
             want = ((kp + k) * (8 if key_bytes == 8 else 4) + (1024 if key_bytes == 1 else 0)
                     + sch.tiles * 2 * k * 4)
             assert sch.smem_bytes == want <= 232_448
+
+
+# ---- G1-G4, the sort's glue (csrc/glue.cu) ----------------------------------
+
+G_THREADS, G_PER = 256, 16  # a CTA of G2/G3: 256 threads of 16 positions (G4's scatter: 512 of 8)
+G_SPAN = G_THREADS * G_PER
+G_STAGE_OFFSETS, G_STAGE_SPLIT_BYTES, G_GROUPS = 2048, 16384, 1024
+
+
+def _g_warp_count_le(off, p):
+    """The glue kernels' warp search: the count of the nondecreasing off
+    that are <= p, 32 probes a step, the gap between the last true and the
+    first false probe kept (4 steps at 65,793 offsets).  Returns (count,
+    steps)."""
+    lo, hi, steps = 0, off.shape[0], 0
+    lanes = np.arange(32)
+    while hi - lo > 32:
+        step = (hi - lo + 31) >> 5
+        idx = lo + lanes * step
+        le = (idx < hi) & (off[np.minimum(idx, off.shape[0] - 1)] <= p)
+        c = int(le.sum())
+        assert (le == (lanes < c)).all()  # the ballot is a prefix
+        steps += 1
+        if c == 0:
+            return lo, steps
+        lo, hi = lo + (c - 1) * step + 1, min(hi, lo + c * step)
+    idx = lo + lanes
+    le = (idx < hi) & (off[np.minimum(idx, off.shape[0] - 1)] <= p)
+    return lo + int(le.sum()), steps + 1
+
+
+def _g_counts(slice_, targets):
+    """Each target's count of the nondecreasing slice that are <= it, by the
+    kernels' branchless search from the largest power of two down."""
+    n_ = slice_.shape[0]
+    c = np.zeros(targets.shape, np.int64)
+    step = 1 << (n_.bit_length() - 1) if n_ else 0
+    while step:
+        q = c + step
+        ok = q <= n_
+        c = np.where(ok & (slice_[np.clip(q - 1, 0, max(n_ - 1, 0))] <= targets), q, c)
+        step >>= 1
+    return c
+
+
+def _replay_g_span(off, n, p0):
+    """A G2/G3 CTA's view of its span [p0, p1) of a row: the row's offsets
+    staged whole when they fit (two searches there), else the two warps'
+    counts; the slice between; each position's segment."""
+    p1 = min(p0 + G_SPAN, n)
+    if off.shape[0] <= G_STAGE_OFFSETS:
+        c_lo, c_hi, s1, s2 = int(np.sum(off <= p0)), int(np.sum(off <= p1 - 1)), 0, 0
+    else:
+        c_lo, s1 = _g_warp_count_le(off, p0)
+        c_hi, s2 = _g_warp_count_le(off, p1 - 1)
+    slice_ = off[c_lo:c_hi]  # staged up to G_STAGE_OFFSETS; else read in place, the same values
+    p = np.arange(p0, p1)
+    return p, c_lo + _g_counts(slice_, p) - 1, c_lo, len(slice_), max(s1, s2)
+
+
+def _replay_g2(off, n):
+    out, longest, most = np.empty(n, np.int64), 0, 0
+    for p0 in range(0, n, G_SPAN):
+        p, seg, _, len_, steps = _replay_g_span(off, n, p0)
+        out[p] = seg
+        longest, most = max(longest, len_), max(most, steps)
+    return out, longest, most
+
+
+def _g_offsets(rng, n, nb, case):
+    cuts = np.sort(rng.integers(0, n + 1, nb - 1))
+    if case == "span edges":  # buckets ending exactly on the spans' edges
+        cuts[: min(nb - 1, n // G_SPAN)] = np.arange(1, min(nb - 1, n // G_SPAN) + 1) * G_SPAN
+        cuts = np.sort(cuts)
+    elif case == "many empty":  # more starts in one span than the stage holds
+        cuts[: 3000] = G_SPAN + 7
+        cuts = np.sort(cuts)
+    elif case == "empty ends":
+        cuts[: nb // 4] = 0
+        cuts[-(nb // 4):] = n
+    return np.concatenate([[0], cuts, [n]]).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,nb,case", [(3 * G_SPAN + 77, 257, "random"),
+                                       (5 * G_SPAN, 65_792, "random"),
+                                       (4 * G_SPAN, 9, "span edges"),
+                                       (3 * G_SPAN, 5000, "many empty"),
+                                       (2 * G_SPAN + 1, 40, "empty ends"),
+                                       (100, 1, "random")])
+def test_g2_span_search_matches_the_reference(n, nb, case):
+    """G2's spans: the warp's counts (at most 4 steps at level 2's 65,793
+    offsets), the slice between them (staged up to 2048, past it read in
+    place) and each position's branchless count, against the reference's
+    ``segment_ids``: spans crossing bucket edges, ending on them, and
+    holding more bucket starts than the stage."""
+    from repro.core.ips4o import segment_ids as ref_segment_ids
+
+    off = _g_offsets(np.random.default_rng(nb), n, nb, case)
+    got, longest, steps = _replay_g2(off, n)
+    np.testing.assert_array_equal(got, np.asarray(ref_segment_ids(jnp.asarray(off), n)))
+    assert steps <= (4 if nb + 1 <= 65_793 else 5)
+    if case == "many empty":
+        assert longest > G_STAGE_OFFSETS  # the span that searches in device memory
+
+
+def _replay_g3(keys, off, spl, k, shift=None, bits=32):
+    """G3 over one row: the span's segments, their splitters staged when they
+    fit 16 KB, each key's branchless count below its segment's sorted
+    splitters, eq against the upper (the sentinel last); or the radix bits
+    at ``shift``.  Returns (ids, whether every span staged its splitters)."""
+    n = keys.shape[0]
+    num_seg = off.shape[0] - 1
+    per = k - 1
+    out = np.empty(n, np.int64)
+    all_staged = True
+    kmax = np.iinfo(keys.dtype).max
+    for p0 in range(0, n, G_SPAN):
+        p, seg, c_lo, len_, _ = _replay_g_span(off, n, p0)
+        key = keys[p]
+        if shift is not None:
+            code = key.astype(np.int64).view(np.uint64) ^ np.uint64(1 << (bits - 1)) \
+                if bits == 64 else (key.view(np.uint32) ^ np.uint32(1 << 31)).astype(np.uint64)
+            local = 2 * ((code >> np.uint64(shift)) & np.uint64(k - 1)).astype(np.int64) + \
+                (key == kmax)
+        else:
+            g_lo = min(max(c_lo - 1, 0), num_seg - 1)
+            g_hi = min(max(c_lo + len_ - 1, 0), num_seg - 1)
+            staged = (g_hi - g_lo + 1) * per * keys.itemsize <= G_STAGE_SPLIT_BYTES
+            all_staged &= staged
+            flat = spl.reshape(-1)
+            at = (np.clip(seg, 0, num_seg - 1)) * per  # staged: the same entries, rebased
+            j = np.zeros(len(p), np.int64)
+            step = k >> 1
+            while step:
+                j += np.where(flat[at + j + step - 1] < key, step, 0)
+                step >>= 1
+            up = np.where(j < per, flat[np.minimum(at + j, flat.shape[0] - 1)], kmax)
+            local = 2 * j + (key == up)
+        out[p] = seg * 2 * k + local
+    return out, all_staged
+
+
+@pytest.mark.parametrize("k,num_seg,n,staged", [(2, 3, 9000, True),
+                                                (16, 300, 3 * G_SPAN + 5, True),
+                                                (128, 33, 2 * G_SPAN, True),
+                                                (128, 400, G_SPAN, False)])
+def test_g3_replay_matches_the_reference(k, num_seg, n, staged):
+    """G3's descent per segment, the splitters staged per span (or read in
+    place where a span's segments hold more than 16 KB of them), keys on
+    the splitters and the sentinel, an empty last segment, against
+    ``seg * 2k + classify_segmented``."""
+    from repro.classify.tree import classify_segmented as ref_classify_segmented
+    from repro.core.ips4o import segment_ids as ref_segment_ids
+
+    rng = np.random.default_rng(k + num_seg)
+    off = _g_offsets(rng, n, num_seg, "random")
+    off[-2] = n
+    u = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    spl = np.sort(rng.choice(u, (num_seg, k - 1)).astype(np.uint32), axis=1)
+    u[1::7] = spl.reshape(-1)[np.arange(len(u[1::7])) % spl.size]
+    u[2::11] = np.uint32(0xFFFFFFFF)
+    keys = (u ^ SIGN).view(np.int32)
+    got, all_staged = _replay_g3(keys, off, (spl ^ SIGN).view(np.int32), k)
+    seg = np.asarray(ref_segment_ids(jnp.asarray(off), n))
+    want = seg * 2 * k + np.asarray(ref_classify_segmented(jnp.asarray(u), jnp.asarray(seg),
+                                                           jnp.asarray(spl), k))
+    np.testing.assert_array_equal(got, want)
+    assert all_staged == staged  # 400 segments of 127 splitters in one span: read in place
+
+
+@pytest.mark.parametrize("k,consumed", [(2, 0), (128, 7)])
+def test_g3_radix_replay_matches_the_reference(k, consumed):
+    rng = np.random.default_rng(k)
+    n = 2 * G_SPAN + 3
+    off = _g_offsets(rng, n, 9, "random")
+    u = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    u[::13] = np.uint32(0xFFFFFFFF)
+    keys = (u ^ SIGN).view(np.int32)
+    got, _ = _replay_g3(keys, off, None, k, shift=radix_shift(k, consumed))
+    seg = (np.searchsorted(off, np.arange(n), side="right") - 1)
+    want = seg * 2 * k + np.asarray(ref_radix_bucket_ids(jnp.asarray(u), k, consumed))
+    np.testing.assert_array_equal(got, want)
+
+
+def _replay_g1(bucket, rank, hist, nb, tile, run_tiles=16):
+    """G1's three kernels over (B, n): each run's column sums (its block of
+    the histogram read flat, a bucket by f % nb), the scan down the runs by
+    (32 buckets, 32 stretches) teams, and the place per tile (the offsets by
+    a scan of the totals in passes of 256, the base row from the run's
+    prefix and the run's earlier tiles)."""
+    B, n = bucket.shape
+    tiles = -(-n // tile)
+    runs = -(-tiles // run_tiles)
+    part = np.zeros((B, runs, nb), np.int64)
+    for r in range(runs):
+        block = hist[:, r * run_tiles:(r + 1) * run_tiles].reshape(B, -1)
+        f = np.arange(block.shape[1])
+        for row in range(B):
+            np.add.at(part[row, r], f % nb, block[row])
+    totals = np.zeros((B, nb), np.int64)
+    per = -(-runs // 32)
+    for row in range(B):
+        for b in range(nb):
+            acc = [part[row, y * per:(y + 1) * per, b].sum() for y in range(32)]
+            pre = np.concatenate([[0], np.cumsum(acc)[:-1]])
+            totals[row, b] = sum(acc)
+            for y in range(32):
+                run = pre[y]
+                for r in range(y * per, min((y + 1) * per, runs)):
+                    part[row, r, b], run = run, run + part[row, r, b]
+    dest = np.empty((B, n), np.int64)
+    offsets = np.empty((B, nb + 1), np.int64)
+    for row in range(B):
+        off = np.empty(nb + 1, np.int64)
+        carry = 0
+        for b0 in range(0, nb, G_THREADS):
+            t_ = totals[row, b0:b0 + G_THREADS]
+            off[b0:b0 + len(t_)] = carry + np.cumsum(t_) - t_
+            carry += t_.sum()
+        off[nb] = carry
+        offsets[row] = off
+        for t in range(tiles):
+            r = t // run_tiles
+            base = off[:nb] + part[row, r] + hist[row, r * run_tiles:t].sum(0)
+            sl = slice(t * tile, min((t + 1) * tile, n))
+            dest[row, sl] = base[bucket[row, sl]] + rank[row, sl]
+    return dest, offsets
+
+
+@pytest.mark.parametrize("B,n,tile,nb", [(1, 70 * 64, 64, 9), (2, 40 * 33 + 5, 33, 300),
+                                         (3, 1000, 1000, 3)])
+def test_g1_replay_matches_the_reference(B, n, tile, nb):
+    """G1 on tile histograms with runs past 32 stretches (70 tiles), nb above
+    a pass of the scan (300 buckets), a ragged last tile and one tile,
+    against the reference's ``_close_placement`` per row."""
+    from repro.kernels.level_fused import _close_placement as ref_close_placement
+
+    rng = np.random.default_rng(n)
+    bucket = rng.integers(0, nb, (B, n))
+    bucket[:, : n // 3] = nb // 2
+    tiles = -(-n // tile)
+    rank = np.zeros((B, n), np.int64)
+    hist = np.zeros((B, tiles, nb), np.int64)
+    for row in range(B):
+        for t in range(tiles):
+            seg = bucket[row, t * tile:(t + 1) * tile]
+            for b in np.unique(seg):
+                sel = np.nonzero(seg == b)[0]
+                rank[row, t * tile + sel] = np.arange(len(sel))
+                hist[row, t, b] = len(sel)
+    dest, offsets = _replay_g1(bucket, rank, hist, nb, tile)
+    for row in range(B):
+        want_dest, want_off = ref_close_placement(
+            jnp.asarray(bucket[row], jnp.int32), jnp.asarray(rank[row], jnp.int32),
+            jnp.asarray(hist[row], jnp.int32), nb, tile)
+        np.testing.assert_array_equal(dest[row], np.asarray(want_dest))
+        np.testing.assert_array_equal(offsets[row], np.asarray(want_off))
+
+
+def _replay_g4_staged_scatter(vals, dest, offsets):
+    """G4's staged scatter over one row: per span its least and greatest
+    destination, the buckets between (by the warp's counts), each row's
+    bucket, the counts and least destinations, the exact runs check, the
+    slots and the stage written in slot order.  Returns (out, spans staged,
+    the runs of consecutive destinations a span's writes make)."""
+    n = dest.shape[0]
+    out = np.zeros_like(vals)
+    staged_spans, runs = 0, []
+    offsets = offsets.astype(np.int64)
+    for p0 in range(0, n, G_SPAN):
+        d = dest[p0:p0 + G_SPAN].astype(np.int64)
+        v = vals[p0:p0 + G_SPAN]
+        lo, hi = int(d.min()), int(d.max())
+        if offsets.shape[0] <= G_GROUPS:  # every bucket a group
+            c_lo, len_ = 0, offsets.shape[0] - 1
+        else:
+            c_lo, _ = _g_warp_count_le(offsets, lo)
+            c_hi, _ = _g_warp_count_le(offsets, hi)
+            len_ = c_hi - c_lo
+        staged = 0 <= lo and hi < n and len_ < G_GROUPS
+        if staged:
+            g = _g_counts(offsets[c_lo:c_lo + len_], d)
+            cnt = np.bincount(g, minlength=len_ + 1)
+            gmin = np.full(len_ + 1, np.iinfo(np.int32).max, np.int64)
+            np.minimum.at(gmin, g, d)
+            staged = bool((d - gmin[g] < cnt[g]).all())
+        if not staged:
+            out[d] = v
+            continue
+        staged_spans += 1
+        first = np.cumsum(cnt) - cnt - gmin
+        slot = first[g] + d
+        assert sorted(slot) == list(range(len(d)))  # a bijection onto the stage
+        s_dest, s_val = np.empty_like(d), np.empty_like(v)
+        s_dest[slot], s_val[slot] = d, v
+        out[s_dest] = s_val
+        runs.append(1 + int((np.diff(s_dest) != 1).sum()))
+    return out, staged_spans, runs
+
+
+def test_g4_staged_scatter_replay_matches_the_reference():
+    """The staged scatter on K1's placement of 2^16 keys (one span a tile
+    of runs, one run a bucket of the span), on K2's level-2 placement (the
+    span's level-1 segment's buckets), and on a permutation that is no
+    stable placement of the offsets it is given (every span scattered row
+    by row), against ``.at[dest].set``."""
+    from repro_torch.kernels.level_fused import level_fused_plain
+
+    rng = np.random.default_rng(3)
+    n, k = 1 << 16, 16
+    u = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    keys = torch.as_tensor((u ^ SIGN).view(np.int32))
+    spl = torch.sort(keys[torch.as_tensor(rng.integers(0, n, 256))]).values[
+        torch.arange(1, k) * 256 // k]
+    d1, off1 = level_fused_plain(keys, spl, k=k)
+    moved = (u ^ SIGN).view(np.int32)
+    ids = np.arange(n, dtype=np.int32)
+    for dest, off in ((d1.numpy(), off1.numpy()),):
+        got, staged, runs = _replay_g4_staged_scatter(ids, dest, off)
+        np.testing.assert_array_equal(got, np.asarray(jnp.zeros(n, jnp.int32).at[dest].set(ids)))
+        assert staged == n // G_SPAN and max(runs) <= 2 * k + 1
+    # level 2: K2's placement by composite ids within the level-1 buckets
+    seg = np.searchsorted(off1.numpy(), np.arange(n), side="right") - 1
+    after1 = np.empty(n, np.int32)
+    after1[d1.numpy()] = moved
+    comp = torch.as_tensor(seg * 64 + (after1 & 63), dtype=torch.int32)  # 2112 buckets: searched
+    d2, off2 = rank_hist_plain(comp, nb=(2 * k + 1) * 64, seg_offsets=off1, seg_width=64)
+    got, staged, runs = _replay_g4_staged_scatter(ids, d2.numpy(), off2.numpy())
+    np.testing.assert_array_equal(got, np.asarray(jnp.zeros(n, jnp.int32).at[d2.numpy()].set(ids)))
+    assert staged == n // G_SPAN
+    perm = rng.permutation(n).astype(np.int32)
+    got, staged, _ = _replay_g4_staged_scatter(ids, perm, off1.numpy())
+    np.testing.assert_array_equal(got, np.asarray(jnp.zeros(n, jnp.int32).at[perm].set(ids)))
+    assert staged == 0
+
+
+def _replay_g4_gather(buf, perm, lo, W, unit, chunk, staged):
+    """The window gather over one row of rows of ``buf.shape[1]`` bytes, as
+    CTAs of one window each: direct, each unit read from the source; staged
+    (in place), ``chunk`` units of every row of the window copied into the
+    stage, then written out by the permutation, chunk by chunk."""
+    w = buf.shape[1] // unit
+    units = buf.view(np.dtype(f"V{unit}")).reshape(buf.shape[0], w)
+    src = units.copy() if not staged else units
+    for q in range(perm.shape[0]):
+        first = lo + q * W
+        if not staged:
+            units[first:first + W] = src[first + perm[q]]
+            continue
+        for c0 in range(0, w, chunk):
+            cw = min(chunk, w - c0)
+            stage = units[first:first + W, c0:c0 + cw].copy()  # every read before a write
+            assert stage.nbytes <= 65536
+            units[first:first + W, c0:c0 + cw] = stage[perm[q]]
+    return buf
+
+
+@pytest.mark.parametrize("row_bytes,W", [(4, 8192), (16, 8192), (16, 16384), (12, 256),
+                                         (1, 16384), (100, 8192)])
+def test_g4_window_gather_staging_matches_the_reference(row_bytes, W):
+    """The window gather's plan (unit, chunk) at the base case's W and rows
+    of 1 to 100 bytes, and its two passes, pass two in place through the
+    stage, against the reference's ``_apply_window_perm``: the stage never
+    exceeds 64 KB and every row's bytes move."""
+    from repro.core.ips4o import _apply_window_perm as ref_apply_window_perm
+    from repro_torch.kernels.glue import gather_plan
+
+    rng = np.random.default_rng(row_bytes + W)
+    n = 3 * W
+    buf = rng.integers(0, 256, (n, row_bytes), dtype=np.uint8)
+    for lo, per in ((0, 3), (W // 2, 2)):
+        perm = np.stack([rng.permutation(W) for _ in range(per)]).astype(np.int32)
+        want = buf.copy()
+        windows = want[lo:lo + per * W].reshape(per, W, row_bytes)
+        want[lo:lo + per * W] = np.asarray(ref_apply_window_perm(
+            jnp.asarray(perm), jnp.asarray(windows))).reshape(per * W, row_bytes)
+        for staged in (False, True):
+            unit, chunk = gather_plan(row_bytes, W, staged, 0, 0)
+            assert row_bytes % unit == 0 and (not staged or W * chunk * unit <= 65536)
+            got = _replay_g4_gather(buf.copy(), perm, lo, W, unit, chunk, staged)
+            np.testing.assert_array_equal(got, want)
