@@ -52,7 +52,19 @@ observability layer and the distributed sort:
    (``composite_ids64``), radix mode and 4097 segments; G4 ``scatter_rows``
    of payload rows of 1, 2, 4, 8, 12 and 16 bytes by the level-1 and
    level-2 placements (staged by bucket) and by a permutation (row by row),
-   and ``gather_windows`` of the same rows, into a new tensor and in place.
+   and ``gather_windows`` of the same rows, into a new tensor and in place;
+   G5 ``codec_encode``/``codec_decode`` on the twelve key dtypes (NaN,
+   -NaN, +-0.0, +-inf, a subnormal) at 2^20 + 3 keys and (64, 2^14) rows,
+   padded with and without the index and the complement, and on the main
+   path's 2^24 float32; G6 ``sample_splitters`` at level 1 ((1, 2^24), m =
+   512, k = 128 with the upper form; (64, 2^18); int64 codes at m = 8192)
+   and level 2 (the real level-1 offsets; crafted ones with empty segments,
+   an empty last one, a uniform just below 1); G7 ``fallback_list`` and
+   ``fallback_sort`` (two launches a call) on the main path's real buckets
+   (1-D with and without ``limit``, batched, double) and on crafted offsets
+   (a bucket holding the whole row of 2^24, buckets of W/2+1, C-1, C, C+1 and
+   3C+5 keys, rows of other counts with equal keys, ``limit``, an empty
+   list), int32 and int64 codes, with an index and payload rows of 1-16 B.
    K9 is not stable, so each of its outputs is held to its plain twin (the
    replay of the reference's moves) by intact blocks and, per bucket, the
    blocks sorted by their tag; the twin is held to ``permute_blocks_ref``
@@ -72,7 +84,7 @@ observability layer and the distributed sort:
    ``flash_attention_f32``);
 3. the paths, each driven with the launch counts set to 0 just before it
    and read just after, every kernel of the path required to be > 0
-   (the two-level sorts' glue kernels G1-G4 among them):
+   (the two-level sorts' glue kernels G1-G7 among them):
    the 1-D tree sort (``ops.sort``/``argsort`` at n = 2^24 and 2^17), the
    1-D radix sort (n = 2^24 int32 full range and float32 Uniform), the
    batched tree sort (bulk (64, 2^18) float32 with ``batched_sort``,
@@ -89,6 +101,10 @@ observability layer and the distributed sort:
    block path (``partition_blocks`` of 2^28 int32 keys and an int32 payload
    in place by K8, and ``sort_blocks``), ``s3_sort`` (the out-of-place
    baseline, 2^24 float32 with a payload) and the K7 and K9 entry points;
+   the seven calls ``ops.sort``, ``argsort``, ``topk`` (k = 1024),
+   ``batched_sort`` (64, 2^18), double, radix and ``segmented_sort`` at 2^24
+   under ``torch.cuda.set_sync_debug_mode("error")`` with obs off (a
+   synchronizing call fails the run);
    every key dtype: ``ops.sort`` and ``argsort`` on the paper's element
    types at 2^24 (double, Pair, Quartet, 100Bytes: float64 or uint64 keys
    with 0, 1, 3 or 12 uint64 payload words), double once at 2^27 (kmax =
@@ -239,8 +255,10 @@ observability layer and the distributed sort:
    the out-of-place ``index_select`` of the blocks; profiles of
    three sorts and of one ``external_sort`` (device time, idle share,
    host <-> device copies), the 1-D tree sort's with every kernel listed,
-   which fails the run if it still launches a ``searchsorted`` kernel or
-   more ``index_put`` launches than the robustness fallback's own; the serve path's prefill ms and decode ms per
+   which fails the run if it launches a ``searchsorted``, ``index_put`` or
+   ``nonzero`` kernel, copies from the host, or makes more than 40 kernel
+   launches; G5-G7 at the main path's shapes (G7 also at its empty list and
+   at one bucket of 2^24) and G7's launch; the serve path's prefill ms and decode ms per
    step and tokens/s on the K10 and the eager path, K10 (at the last
    step's length, 1056) and K11 (at (1, 32, 4096, 128), bf16 and f32,
    causal, window 1024 and non-causal, and the f32 kernel's launch:
@@ -277,9 +295,11 @@ observability layer and the distributed sort:
    (medians of 3 steps, peak memory, DTensor's host cost a step) and ``time
    roofline``: the dry run's modelled row of that step (t_compute,
    t_memory, model_flops) beside the measured step;
-5. a ``{"kernels": [...]}`` JSON line (34 entries: the six glue rows
+5. a ``{"kernels": [...]}`` JSON line (39 entries: the eleven glue rows
    ``close_placement``, ``segment_ids``, ``composite_ids``,
-   ``composite_ids64``, ``scatter_rows`` and ``gather_windows``, whose
+   ``composite_ids64``, ``scatter_rows``, ``gather_windows``,
+   ``codec_encode``, ``codec_decode``, ``sample_splitters``,
+   ``fallback_list`` and ``fallback_sort``, whose
    ``replaces`` names the reference's XLA code they stand for; the four 64-bit forms
    are rows of their own, ``level_fused64``, ``level_fused_radix64``,
    ``level_fused_batched64`` and ``sort_windows64``, and so are K5's int64
@@ -307,7 +327,7 @@ sort's seven entry points whose glue G1-G4 took over (``ops.sort`` of 2^24
 float32 by the tree, ``argsort``, the radix sort of full-range int32,
 double, ``batched_sort`` of (64, 2^18), ``argsort_records`` of SkySurvey
 (2^24 records of 3 words) and ``segmented_sort`` of 4096 segments): events,
-device time, kernels a call and idle share.
+device time, kernels a call, idle share and synchronizing calls a call.
 
 It imports nothing of JAX or of the ``repro`` package.
 """
@@ -586,10 +606,23 @@ def device_ms(torch, fn, reps: int = 20, names=None, launches: int = 1) -> float
 # the glue kernels a sort of two levels launches (G1-G4), by launch count
 GLUE_LAUNCHES = ("close_placement", "segment_ids", "composite_ids", "scatter_rows",
                  "gather_windows")
+# and those of every sort entry point (G5's encode, G7's two): G6 runs where a
+# level samples (not radix), G5's decode where the keys are not int32/int64
+TAIL_LAUNCHES = ("codec_encode", "fallback_list", "fallback_sort")
+TAIL_DTYPES = ("int8", "uint8", "int16", "uint16", "float16", "bfloat16", "int32", "uint32",
+               "float32", "int64", "uint64", "float64")
+# the signed int of each element width (views for bitwise compares)
+SIGNED_NAMES = {1: "int8", 2: "int16", 4: "int32", 8: "int64"}
+# the seven calls that must make no synchronizing call (obs off)
+SYNC_FREE_CALLS = ("ops.sort", "ops.argsort", "ops.topk", "ops.batched_sort", "double",
+                   "radix", "ops.segmented_sort")
+MAIN_PATH_MAX_LAUNCHES = 40  # the profiled 1-D tree sort of 2^24 float32, at most
 # and their device functions (csrc/glue.cu)
 GLUE_KERNELS = ("close_sums_kernel", "close_scan_kernel", "close_place_kernel",
                 "segment_ids_kernel", "composite_ids_kernel", "scatter_kernel",
-                "scatter_staged_kernel", "gather_windows_kernel")
+                "scatter_staged_kernel", "gather_windows_kernel", "encode_kernel",
+                "decode_kernel", "sample_splitters_kernel", "list_kernel(", "sort_kernel<",
+                "sort_keys_kernel<")
 
 K2_KERNELS = ("segment_items_kernel", "segment_count_kernel", "segment_tiny_count_kernel",
               "segment_small_kernel", "segment_scan_kernel", "segment_rank_kernel",
@@ -637,6 +670,10 @@ DEVICE_FUNCTIONS = {
     "composite_ids": ("composite_ids_kernel",), "composite_ids64": ("composite_ids_kernel",),
     "scatter_rows": ("scatter_kernel", "scatter_staged_kernel"),
     "gather_windows": ("gather_windows_kernel",),
+    # G5 (csrc/codec.cu), G6 (csrc/glue.cu), G7 (csrc/fallback.cu)
+    "codec_encode": ("encode_kernel",), "codec_decode": ("decode_kernel",),
+    "sample_splitters": ("sample_splitters_kernel",),
+    "fallback_list": ("list_kernel(",), "fallback_sort": ("sort_kernel<", "sort_keys_kernel<"),
 }
 
 
@@ -656,6 +693,42 @@ def call_kernels(torch, fn, reps: int = 10):
               if not e.key.startswith(("Memcpy", "Memset"))]
     return (sum(e.count for e in events) / reps, sum(device_us(e) for e in events) / 1e3 / reps,
             {e.key: device_us(e) / e.count / 1e3 for e in events})
+
+
+def sync_calls(torch, fn) -> int:
+    """The synchronizing calls one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` flags them: the second of two
+    calls under the mode counts (the first can flag a one-time sync of
+    torch's own)."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    counted = []
+    for _ in range(2):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        counted.append(sum("synchroniz" in str(w.message) for w in seen))
+    return counted[-1]
+
+
+def peak_rise(torch, fn) -> int:
+    """Device bytes one call of ``fn`` holds at its peak above what was
+    allocated before it (its outputs included)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    rise_ = torch.cuda.max_memory_allocated() - base
+    del out
+    return rise_
 
 
 def host_us(torch, fn, reps: int = 50) -> float:
@@ -2754,6 +2827,11 @@ def entry_point_calls(x):
             x["sky"].view(torch.uint32)),
         f"ops.segmented_sort ({SEGMENTS} segments of {N_BIG})": lambda: ops.segmented_sort(
             x["sort_x"], x["seg_off"], SEGMENTS),
+        # beyond the seven: the top-k, and the fallback's heaviest case (radix
+        # on floats in [0, 1) leaves most keys in buckets over W/2)
+        f"ops.topk {N_BIG} float32 k={STREAM_K}": lambda: ops.topk(x["sort_x"], STREAM_K),
+        f"ops.sort {N_BIG} float32 [0, 1) radix": lambda: ops.sort(x["sort_x"],
+                                                                  classifier="radix"),
     }
 
 
@@ -2811,7 +2889,8 @@ for line in sys.stdin:
     torch.save(tuple(o.cpu() for o in out), str(Path(inputs).with_name(f"parent_{name}.pt")))
     launches, device, kernels = cs.call_kernels(torch, calls[name])
     print(json.dumps({"ms": cs.cuda_ms(torch, calls[name]), "device_ms": device,
-                      "launches": launches,
+                      "launches": launches, "syncs": cs.sync_calls(torch, calls[name]),
+                      "peak": cs.peak_rise(torch, calls[name]),
                       "kernels": {cs.short_kernel(k): v for k, v in kernels.items()}}), flush=True)
 """
 
@@ -2887,15 +2966,17 @@ def compare_entry_points_with_parent(torch, parent: Path, keys, dev) -> dict:
                 else:
                     launches, device, kernels = call_kernels(torch, call)
                     times[side].append({"ms": cuda_ms(torch, call), "device_ms": device,
-                                        "launches": launches,
+                                        "launches": launches, "syncs": sync_calls(torch, call),
+                                        "peak": peak_rise(torch, call),
                                         "kernels": {short_kernel(k): v
                                                     for k, v in kernels.items()}})
             got = call()
             got = got if isinstance(got, tuple) else (got,)
             want = torch.load(inputs.with_name(f"parent_{name}.pt"))
             same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
-            result[name] = {side: {key: [t[key] for t in ts] for key in ("ms", "device_ms",
-                                                                         "launches", "kernels")}
+            result[name] = {side: {key: [t.get(key) for t in ts]
+                                   for key in ("ms", "device_ms", "launches", "syncs", "peak",
+                                               "kernels")}
                             for side, ts in times.items()}
             result[name]["same_outputs"] = same
 
@@ -2911,7 +2992,9 @@ def compare_entry_points_with_parent(torch, parent: Path, keys, dev) -> dict:
             print(f"before/after {name} entry point: " + "; ".join(
                 f"{side} events {turns(ts, 'ms')} ms, device (all kernels of a call) "
                 f"{turns(ts, 'device_ms')} ms, kernels a call {turns(ts, 'launches', 'g')}, "
-                f"idle share {' '.join(f'{v:.3f}' for v in idle[side])}"
+                f"idle share {' '.join(f'{v:.3f}' for v in idle[side])}, synchronizing calls "
+                f"{' '.join(str(t.get('syncs')) for t in ts)}, peak bytes above the inputs "
+                f"{' '.join(str(t.get('peak')) for t in ts)}"
                 for side, ts in times.items()) + f"; same outputs: {same}; the earlier "
                 f"tree's device ms per kernel: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
@@ -3457,7 +3540,7 @@ def main() -> None:
     try:
         import numpy as np
 
-        from repro_torch import kernels, ops, stream
+        from repro_torch import kernels, obs, ops, stream
         from repro_torch.core import ips4o, sampling
         from repro_torch.core.partition import partition_blocks, partition_ranks_kernel
         from repro_torch.core.s3sort import s3_sort
@@ -3756,6 +3839,165 @@ def main() -> None:
                 torch, {0: glue.gather_windows_plain(a_, wperm[:-1], W_g // 2, a_.clone())}),
                         f"{name_} 2047 windows at {W_g // 2}, in place")
         del leaves, inplace, a_
+
+        # ---- G5-G7 (csrc/codec.cu, G6 in csrc/glue.cu, csrc/fallback.cu)
+        # against their plain twins, bit for bit.  G5: the twelve key dtypes
+        # (random bits, NaN, -NaN, +-0.0, +-inf, a subnormal) at 2^20 + 3 keys,
+        # padded with and without the index and the complement, one row and
+        # (64, 2^14) rows, and the main path's 2^24 float32 with its index;
+        # each decode of the first n codes.  G6: level 1 at the main path's
+        # (1, 2^24), m = 512, k = 128 with the upper form, batched (64, 2^18),
+        # m = 384, int64 codes; level 2 over the real level-1 offsets (257
+        # segments, m = 512, k = 128; batched m = 6, k = 2) and over crafted
+        # ones (empty segments, an empty last one, a uniform just below 1).
+        # G7: the main path's real buckets after both levels (1-D, batched,
+        # double), and crafted offsets: one bucket a whole row of 2^24, buckets
+        # of W/2+1, C-1, C, C+1 and 3C+5 keys (W = 256), equal keys, rows of
+        # other counts, ``limit``, no bucket over W/2; int32 and int64 codes;
+        # keys, an int32 index and payload rows moved; two launches a call.
+        from repro_torch.kernels import codec, fallback
+
+        SIGNED = {w: getattr(torch, name_) for w, name_ in SIGNED_NAMES.items()}
+
+        def raw_keys(dtype, shape, seed):
+            width = torch.empty(0, dtype=dtype).element_size()
+            g_ = torch.Generator(device=dev).manual_seed(seed)
+            raw = torch.randint(-2**62, 2**62, shape, generator=g_, device=dev).to(SIGNED[width])
+            x_ = raw.view(dtype)
+            if dtype.is_floating_point:
+                sp = torch.tensor([float("nan"), -float("nan"), 0.0, -0.0, float("inf"),
+                                   -float("inf"), torch.finfo(dtype).tiny / 2])
+                x_.view(-1)[:len(sp)] = sp.to(dtype).to(dev)
+            return x_
+
+        def bits(t):
+            return t.to(torch.uint8) if t.dtype == torch.bool else t.view(SIGNED[t.element_size()])
+
+        n5 = (1 << 20) + 3
+        for dt in (getattr(torch, name_) for name_ in TAIL_DTYPES):
+            for shape, n_pad in (((n5,), None), ((n5,), 1 << 21), ((B_BULK, 1 << 14), 1 << 15)):
+                x_ = raw_keys(dt, shape, seed=len(shape))
+                for index, comp_ in ((False, False), (True, False), (True, True)):
+                    got = codec.encode_padded(x_, n_pad, index, comp_)
+                    want = codec.encode_padded_plain(x_, n_pad, index, comp_)
+                    tag = f"{dt} {shape} n_pad={n_pad} index={index} complement={comp_}"
+                    check_equal("codec_encode", got[:1 + index], want[:1 + index], tag)
+                    check_equal("codec_decode", bits(codec.decode(got[0], dt, shape[-1], comp_)),
+                                bits(codec.decode_plain(want[0], dt, shape[-1], comp_)), tag)
+        x_main5 = torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=27), device=dev)
+        got = codec.encode_padded(x_main5, N_BIG, True)
+        check_equal("codec_encode", got, codec.encode_padded_plain(x_main5, N_BIG, True),
+                    f"float32 n={N_BIG} with the index (argsort's)")
+        sorted5 = torch.sort(got[0]).values
+        check_equal("codec_decode", bits(codec.decode(sorted5, torch.float32)),
+                    bits(codec.decode_plain(sorted5, torch.float32)), f"float32 n={N_BIG}")
+        del x_main5, sorted5
+
+        k1_b = levels_b[0]
+        m1_b = ips4o._level1_sample_size(N_ROW, k1_b, cfg)
+        keys64_6 = ops.keyspace.encode(wide_input("float64", 1 << 22, seed=32))[None]
+        for tag, (rk, m_, k_) in {
+                f"level 1 (1, {N_BIG}) m=512 k={k}": (glue_keys[None], 512, k),
+                f"level 1 ({B_BULK}, {N_ROW}) m={m1_b} k={k1_b}": (glue_rows, m1_b, k1_b),
+                f"level 1 int64 codes (1, {1 << 22}) m=8192 k=256": (keys64_6, 8192, 256),
+        }.items():
+            pos6 = torch.randint(0, rk.shape[1], (rk.shape[0], m_), generator=gen, device=dev)
+            check_equal("sample_splitters", glue.sample_splitters(rk, pos6, k_, upper=True),
+                        glue.sample_splitters_plain(rk, pos6, k_, upper=True), tag)
+        crafted6 = torch.tensor([[0, 0, 1000, 1000, 5000, 1 << 22, 1 << 22]], dtype=torch.int32,
+                                device=dev)
+        m2_b = min(max(sampling.oversampling_factor(N_ROW) * k2b, k2b), 2048)
+        for tag, (rk, off_, m_, k_) in {
+                f"level 2 (1, {N_BIG}) {nb1} segments m=512 k={k2}": (
+                    arrays["k"][None], off1[None], 512, k2),
+                f"level 2 ({B_BULK}, {N_ROW}) {nb1_b} segments m={m2_b} k={k2b}": (
+                    arrays_b["k"], off1_b, m2_b, k2b),
+                "level 2 int64 codes, empty segments, an empty last one": (
+                    keys64_6, crafted6, 100, 16),
+        }.items():
+            u6 = torch.rand((rk.shape[0], off_.shape[1] - 1, m_), generator=gen, device=dev)
+            u6[..., 0] = 0.99999994  # the largest float32 below 1
+            check_equal("sample_splitters", glue.sample_splitters(rk, u6, k_, seg_offsets=off_),
+                        glue.sample_splitters_plain(rk, u6, k_, seg_offsets=off_), tag)
+        del keys64_6, pos6, u6
+
+        def fallback_check(tag, arrays_, off_, nb_, W_, pad_, limit_=None):
+            """G7's two launches against the plain twin on copies of arrays_,
+            and on the keys alone (the kernel that merges the keys)."""
+            lead = arrays_["k"].dim()
+            fb_ = glue.segment_ids(off_, arrays_["k"].shape[-1])
+            for what, names in (("", list(arrays_)), (", the keys alone", ["k"])):
+                a1 = {name_: arrays_[name_].clone() for name_ in names}
+                a2 = {name_: arrays_[name_].clone() for name_ in names}
+                before = (kernels.launch_counts()["fallback_list"],
+                          kernels.launch_counts()["fallback_sort"])
+                meta_ = fallback.oversized_list(off_, nb_, W_, pad_, limit_,
+                                                arrays_["k"].shape[-1])
+                fallback.sort_listed(a1, meta_, lead)
+                after = (kernels.launch_counts()["fallback_list"],
+                         kernels.launch_counts()["fallback_sort"])
+                if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+                    fail(f"fallback on {tag}: {after} launches after {before}, not one of each")
+                fallback.sort_oversized_plain(a2, fb_, off_, nb_, W_, pad_, limit_)
+                check_equal("fallback_sort", moved_bits(torch, a1), moved_bits(torch, a2),
+                            tag + what)
+            summary = meta_[:4].tolist()
+            rows_ = off_.numel() // (nb_ + 1)
+            head = 4 + (rows_ + 1) + 2 * rows_  # the summary and the rows' words
+            plain_meta = fallback.oversized_list_plain(off_.cpu(), nb_, W_, pad_, limit_,
+                                                       arrays_["k"].shape[-1])
+            check_equal("fallback_list", meta_[:head].cpu(), plain_meta[:head],
+                        f"{tag}: {summary[1]} buckets listed, the largest {summary[2]}, "
+                        f"{summary[3]} chunks")
+            return summary
+
+        idx5 = torch.arange(N_BIG, dtype=torch.int32, device=dev)
+        a7, o7, nb7, pad7 = ips4o.partition_passes({"k": glue_keys, "v": idx5}, n_real, cfg,
+                                                   levels)
+        fallback_check(f"the main path's buckets n={N_BIG}", a7, o7, nb7, cfg.base_case, pad7)
+        fallback_check(f"the main path's buckets n={N_BIG}, limit 9216", a7, o7, nb7,
+                       cfg.base_case, pad7, 9216)
+        a7, o7, nb7, pad7 = ips4o.batched_partition_passes(
+            {"k": glue_rows, "v": torch.arange(N_ROW, dtype=torch.int32, device=dev).expand(
+                B_BULK, N_ROW).contiguous()}, row_real, cfg, levels_b)
+        fallback_check(f"the main path's buckets ({B_BULK}, {N_ROW})", a7, o7, nb7,
+                       cfg.base_case, pad7)
+        keys64_7 = ops.keyspace.encode(wide_input("float64", N_BIG, seed=33))
+        a7, o7, nb7, pad7 = ips4o.partition_passes({"k": keys64_7, "v": idx5}, N_BIG, cfg, levels)
+        fallback_check(f"double's buckets n={N_BIG}", a7, o7, nb7, cfg.base_case, pad7)
+        del a7, o7, keys64_7
+
+        def crafted_offsets(sizes, n_):
+            offs_ = [np.append(np.concatenate([[0], np.cumsum(s)]), n_) for s in sizes]
+            nb_ = max(len(o) for o in offs_) - 1
+            return torch.as_tensor(np.stack([np.append(o, [n_] * (nb_ + 1 - len(o)))
+                                             for o in offs_]).astype(np.int32), device=dev), nb_
+
+        C7 = fallback.CHUNK
+        for key_dtype in (torch.int32, torch.int64):
+            for tag, (sizes, n_, W_, limit_) in {
+                    f"one bucket holding the whole row of {N_BIG}": ([[N_BIG]], N_BIG, 8192, None),
+                    "buckets of W/2+1, C-1, C, C+1 and 3C+5 keys (W 256)": (
+                        [[129, 1, C7 - 1, 1, C7, 1, C7 + 1, 1, 3 * C7 + 5]], 1 << 16, 256, None),
+                    "the same, limit 4000": ([[129, 1, C7 - 1, 1, C7, 1, C7 + 1, 1, 3 * C7 + 5]],
+                                             1 << 16, 256, 4000),
+                    "rows of other counts, equal keys": ([[5000, 1, 300], [10, 20], [4097]],
+                                                         1 << 14, 8192, None),
+                    "no bucket over W/2 (an empty list)": ([[100, 200, 300, 400]], 1000, 8192,
+                                                           None),
+            }.items():
+                off_, nb_ = crafted_offsets(sizes, n_)
+                B_ = off_.shape[0]
+                keys_ = torch.randint(-2**31, 2**31, (B_, n_), generator=gen, device=dev).to(
+                    key_dtype)
+                if "equal" in tag:
+                    keys_[:] = 7
+                arrays_ = {"k": keys_, "v": torch.arange(B_ * n_, dtype=torch.int32,
+                                                         device=dev).reshape(B_, n_)}
+                if n_ < N_BIG:
+                    arrays_.update(payload_leaves((B_, n_), 28))
+                fallback_check(f"{tag}, {key_dtype}", arrays_, off_, nb_, W_, None, limit_)
+        del arrays_, keys_
 
         # ---- the 64-bit forms (the 64-bit key dtypes' int64 codes) against
         # their plain twins: K1 on float64 Uniform and int64 TwoDup, K1r on
@@ -4103,18 +4345,21 @@ def main() -> None:
                     (f"{tag} argsort", x, call_argsort, "argsort")]
 
         paths = {
-            "1-D tree": (("level_fused", "rank_hist", "sort_windows") + GLUE_LAUNCHES, [
+            "1-D tree": (("level_fused", "rank_hist", "sort_windows") + GLUE_LAUNCHES
+                         + TAIL_LAUNCHES + ("sample_splitters", "codec_decode"), [
                 c for n in (N_BIG, N_SMALL) for dist in ("Uniform", "TwoDup")
                 for c in sort_cases(f"{dist} n={n}", main_input(dist, n), ops.sort, ops.argsort)
             ]),
-            "1-D radix": (("level_fused_radix", "rank_hist", "sort_windows") + GLUE_LAUNCHES, [
+            "1-D radix": (("level_fused_radix", "rank_hist", "sort_windows") + GLUE_LAUNCHES
+                          + TAIL_LAUNCHES + ("codec_decode",), [
                 c for tag, x in ((f"int32 full range n={N_BIG}", radix_int),
                                  (f"float32 Uniform n={N_BIG}", radix_float))
                 for c in sort_cases(tag, x, lambda x: ops.sort(x, classifier=radix),
                                     lambda x: ops.argsort(x, classifier=radix))
             ]),
             "batched tree": (("level_fused_batched", "rank_hist_batched", "sort_windows")
-                             + GLUE_LAUNCHES, [
+                             + GLUE_LAUNCHES + TAIL_LAUNCHES
+                             + ("sample_splitters", "codec_decode"), [
                 *sort_cases(f"bulk ({B_BULK}, {N_ROW})", bulk, ops.batched_sort,
                             ops.batched_argsort),
                 (f"bulk ({B_BULK}, {N_ROW}) topk k={TOP_K}", bulk,
@@ -4126,7 +4371,7 @@ def main() -> None:
                             lambda x: ops.batched_argsort(x, cfg=sched_cfg)),
             ]),
             "batched radix": (("level_fused_batched", "rank_hist_batched", "sort_windows")
-                              + GLUE_LAUNCHES, [
+                              + GLUE_LAUNCHES + TAIL_LAUNCHES, [
                 *sort_cases(f"int32 full range ({B_BULK}, {N_ROW})", bulk_radix,
                             lambda x: ops.batched_sort(x, classifier=radix),
                             lambda x: ops.batched_argsort(x, classifier=radix)),
@@ -4271,7 +4516,8 @@ def main() -> None:
         cuts = np.sort(np.random.default_rng(14).integers(0, N_BIG, SEGMENTS - 1))
         seg_off = torch.as_tensor(np.concatenate([[0], cuts, [N_BIG]]).astype(np.int32), device=dev)
         path = f"segmented ({SEGMENTS} segments over {N_BIG} keys)"
-        got = drive(path, ("rank_hist", "sort_windows") + GLUE_LAUNCHES[1:], {
+        got = drive(path, ("rank_hist", "sort_windows") + GLUE_LAUNCHES[1:] + TAIL_LAUNCHES
+                    + ("sample_splitters", "codec_decode"), {
             "segmented_sort": lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS),
         })
         seg = ips4o.segment_ids(seg_off, N_BIG).to(torch.int64)
@@ -4279,6 +4525,33 @@ def main() -> None:
         want = ((torch.sort(packed).values & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
         verdict(path, "segmented_sort", torch.equal(ops.keyspace.encode(got["segmented_sort"]), want))
         del got, packed, want
+
+        # no host read from entry to return (obs off): the seven calls under
+        # torch.cuda.set_sync_debug_mode("error"), each once before to warm up
+        sync_x = main_input("Uniform", N_BIG)
+        sync_double = wide_input("float64", N_BIG, seed=51)
+        sync_free = dict(zip(SYNC_FREE_CALLS, (
+            lambda: ops.sort(sync_x), lambda: ops.argsort(sync_x),
+            lambda: ops.topk(sync_x, STREAM_K), lambda: ops.batched_sort(bulk),
+            lambda: ops.sort(sync_double), lambda: ops.sort(radix_int, classifier=radix),
+            lambda: ops.segmented_sort(seg_x, seg_off, SEGMENTS))))
+        was_enabled = obs.enabled()
+        obs.enabled(False)
+        for name, call in sync_free.items():
+            if sync_calls(torch, call):  # warm, and torch's one-time sync absorbed
+                fail(f"{name} made a synchronizing call (set_sync_debug_mode warn)")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                call()
+            except RuntimeError as exc:
+                fail(f"{name} made a synchronizing call: {exc}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"path sync-free {name}: no synchronizing call (set_sync_debug_mode error, "
+                  f"obs off)", flush=True)
+        obs.enabled(was_enabled)
+        del sync_x, sync_double
 
         # ---- every key dtype: the 64-bit paths run the 64-bit kernels, the
         # narrow keys the 32-bit ones; each result held to torch.sort(stable)
@@ -4722,7 +4995,7 @@ def main() -> None:
         # buckets above W/2 at n = 2^24; radix on float Uniform keys leaves most)
         def fallback_share(tag, passes, arrays, n_real, cfg_, levels_):
             _, off, nb, pad_bucket = passes(arrays, n_real, cfg_, levels_)
-            big = ips4o._oversized(off, nb, cfg_.base_case, pad_bucket)
+            big = fallback.oversized_mask(off, nb, cfg_.base_case, pad_bucket)
             sizes = off[..., 1:] - off[..., :-1]
             keys_big = int(sizes[big].sum())
             total = arrays["k"].numel()
@@ -4913,6 +5186,116 @@ def main() -> None:
         glue_more["gather_windows pass one (2048 windows into a new tensor)"] = cuda_ms(
             torch, lambda: glue.gather_windows(keys1[None], perm_m, 0))
         del buf_m, src_m, out_m
+
+        # G5-G7 at the main path's shapes (2^24 float32, the tree's two
+        # levels).  Bytes, each input read once and each output written once:
+        # G5's encode the key in and the code out (8 B a key; the index, 4 B
+        # more, is argsort's), its decode the code in and the key out; G6 the
+        # drawn uniform and the gathered key in (8 B a sample), the offsets in
+        # and the splitters out; G7's list the offsets in and the list out,
+        # its sort the listed keys in and each array's listed rows in and out
+        # (a key and an int32 index: 4 + 2 * (4 + 4) B a listed position, the
+        # data this run holds).  Ops: G5 ~6 a key; G6 a bitonic network of
+        # P/2 log2 P (log2 P + 1) / 2 compare-exchanges a segment, ~4 ops
+        # each; G7's sort ~4 ops a compare, C log2^2 C / 4 compares a chunk
+        # and one a merged output a round.  Library calls (timed here, used
+        # nowhere in the port): G6 ``torch.sort`` of the gathered samples,
+        # G7 the parent's stable sort of the oversized keys (packed with their
+        # bucket into int64, as the plain twin packs them); G5 none (the
+        # encode is a few elementwise ops, not one call)
+        x_t = torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=1), device=dev)
+        t = rows["codec_encode"]
+        kernel_ms(torch, "codec_encode", t, lambda: codec.encode_padded(x_t, N_BIG))
+        t["plain_ms"] = cuda_ms(torch, lambda: codec.encode_padded_plain(x_t, N_BIG), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 8, N_BIG * 6)
+        t["library_ms"] = None
+        glue_more["codec_encode with argsort's index"] = cuda_ms(
+            torch, lambda: codec.encode_padded(x_t, N_BIG, True))
+        codes_t = torch.sort(codec.encode_padded(x_t, N_BIG)[0]).values
+        t = rows["codec_decode"]
+        kernel_ms(torch, "codec_decode", t, lambda: codec.decode(codes_t, torch.float32))
+        t["plain_ms"] = cuda_ms(torch, lambda: codec.decode_plain(codes_t, torch.float32), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(N_BIG * 8, N_BIG * 6)
+        t["library_ms"] = None
+        del codes_t
+        m_t = 512
+        u_t = torch.rand((1, nb1, m_t), generator=gen, device=dev)
+        keys_l2 = arrays["k"][None]
+        t = rows["sample_splitters"]
+        kernel_ms(torch, "sample_splitters", t, lambda: glue.sample_splitters(
+            keys_l2, u_t, k2, seg_offsets=off1[None]))
+        t["plain_ms"] = cuda_ms(torch, lambda: glue.sample_splitters_plain(
+            keys_l2, u_t, k2, seg_offsets=off1[None]), reps=5)
+        log_p = (m_t - 1).bit_length()
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            nb1 * m_t * 8 + off1.numel() * 4 + nb1 * (k2 - 1) * 4,
+            nb1 * (1 << log_p) // 2 * log_p * (log_p + 1) // 2 * 4)
+        pos_t = sampling.positions_from_uniform(u_t, off1[None, :-1], off1[None, 1:]).reshape(
+            1, -1).clamp_(max=N_BIG - 1)
+        gathered_t = torch.gather(keys_l2, 1, pos_t).reshape(1, nb1, m_t)
+        t["library_ms"] = cuda_ms(torch, lambda: torch.sort(gathered_t, dim=-1), reps=5)
+        pos1_t = torch.randint(0, N_BIG, (1, m_t), generator=gen, device=dev)
+        glue_more[f"sample_splitters level 1 (m {m_t}, k {k}, the upper form)"] = cuda_ms(
+            torch, lambda: glue.sample_splitters(keys1[None], pos1_t, k, upper=True))
+        del u_t, pos_t, gathered_t, pos1_t
+        idx_t = torch.arange(N_BIG, dtype=torch.int32, device=dev)
+        arrays_t, off_t, nb_t, pad_t = ips4o.partition_passes({"k": keys1, "v": idx_t}, N_BIG,
+                                                              cfg, levels)
+        W = cfg.base_case
+        meta_t = fallback.oversized_list(off_t, nb_t, W, pad_t, None, N_BIG)
+        listed, largest_t = int(meta_t[1]), int(meta_t[2])
+        fb_t = glue.segment_ids(off_t, N_BIG)
+        big_t = fallback.oversized_mask(off_t, nb_t, W, pad_t)
+        pos_big = torch.nonzero(big_t[fb_t.to(torch.int64)]).squeeze(1)
+        held = int(pos_big.numel())
+        print(f"fallback_sort main path: {listed} buckets listed of {nb_t}, {held} keys, the "
+              f"largest {largest_t}", flush=True)
+        t = rows["fallback_list"]
+        kernel_ms(torch, "fallback_list", t, lambda: fallback.oversized_list(
+            off_t, nb_t, W, pad_t, None, N_BIG))
+        # the chain it replaced: the verdict's torch ops and its host read
+        t["plain_ms"] = cuda_ms(torch, lambda: bool(torch.any(fallback.oversized_mask(
+            off_t, nb_t, W, pad_t))), reps=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(off_t.numel() * 4 + meta_t.numel() * 4,
+                                                nb_t * 6)
+        t["library_ms"] = None
+        # the row: ops.sort's case, the keys alone (merged themselves): each
+        # listed key read once and written once; argsort's (the keys and the
+        # index moved by the order) printed beside it
+        keys_only_t = {"k": arrays_t["k"]}
+        t = rows["fallback_sort"]
+        kernel_ms(torch, "fallback_sort", t, lambda: fallback.sort_listed(keys_only_t, meta_t, 1))
+        t["plain_ms"] = cuda_ms(torch, lambda: fallback.sort_oversized_plain(
+            keys_only_t, fb_t, off_t, nb_t, W, pad_t), reps=5)
+        log_c = fallback.CHUNK.bit_length() - 1
+        t["bound_ms"], t["bound_by"] = bound_ms(held * 8, held * (log_c * log_c // 4 + 8) * 4)
+        glue_more["fallback_sort with argsort's index (the order moves keys and index)"] = \
+            cuda_ms(torch, lambda: fallback.sort_listed(arrays_t, meta_t, 1))
+        packed_t = (fb_t[pos_big].to(torch.int64) << 32) + (
+            arrays_t["k"][pos_big].to(torch.int64) + (1 << 31))
+        t["library_ms"] = cuda_ms(torch, lambda: torch.sort(packed_t, stable=True), reps=5)
+        # the empty list (every bucket of W/2: nothing to sort) and a bucket
+        # that holds the whole row, list and sort together
+        even_off = torch.arange(0, N_BIG + 1, W // 2, dtype=torch.int32, device=dev)
+        whole = {"k": keys1.clone(), "v": idx_t.clone()}
+        whole_off = torch.tensor([0, N_BIG], dtype=torch.int32, device=dev)
+        glue_more["fallback_list + fallback_sort, an empty list (2^24 keys in buckets of W/2)"] = \
+            cuda_ms(torch, lambda: fallback.sort_oversized(
+                {"k": keys1, "v": idx_t}, None, even_off, even_off.numel() - 1, W, None))
+        glue_more[f"fallback_list + fallback_sort, one bucket of {N_BIG} keys and an index"] = \
+            cuda_ms(torch, lambda: fallback.sort_oversized(whole, None, whole_off, 1, W, None),
+                    warmup=1, reps=3)
+        whole_k = {"k": keys1.clone()}
+        glue_more[f"fallback_list + fallback_sort, one bucket of {N_BIG} keys alone"] = \
+            cuda_ms(torch, lambda: fallback.sort_oversized(whole_k, None, whole_off, 1, W, None),
+                    warmup=1, reps=3)
+        del whole_k
+        for bits_ in (32, 64):
+            info = fallback.launch_info(bits_)
+            print(f"launch fallback_sort {bits_}-bit keys: {info}", flush=True)
+            if info["local_bytes"]:
+                fail(f"fallback_sort spills at {bits_}-bit keys: {info['local_bytes']} B")
+        del arrays_t, fb_t, big_t, pos_big, packed_t, whole, x_t
 
         # the 64-bit forms at the 64-bit paths' shapes: K1 on double (float64
         # Uniform) at n = 2^24, k = 128; K1r on uint64 over the whole range;
@@ -5333,23 +5716,32 @@ def main() -> None:
               f"({rounds} spills of {4 * N_STREAM} B; {chunks} chunks, {rounds} rounds)",
               flush=True)
         # the main path's profile, every kernel listed; it must run no
-        # searchsorted (G2 and G3 took their place) and no index_put but the
-        # robustness fallback's own (G4 took the scatters')
+        # searchsorted (G2 and G3 took their place), no index_put and no
+        # nonzero (G4 took the scatters', G7 the fallback's), copy nothing from
+        # the host, and make at most MAIN_PATH_MAX_LAUNCHES kernel launches
+        # (counted over ten calls in the active window of ``device_events``: a
+        # single trace can drop a call's first launches)
         x_main = paths["1-D tree"][1][0][1]
-        main_prof = profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(x_main), top=80)
+        profile(torch, f"ops.sort n={N_BIG}", lambda: ops.sort(x_main), top=80)
         _, off_m, nb_m, pad_m = ips4o.partition_passes({"k": ops.keyspace.encode(x_main)}, N_BIG,
                                                        cfg, levels)
         engaged = bool(ips4o.bucket_violations(off_m, nb_m, cfg.base_case, pad_m))
-        searches = [e.key for e in main_prof["kernels"] if "searchsorted" in e.key]
-        puts = sum(e.count for e in main_prof["kernels"] if "index_put" in e.key)
-        print(f"profile ops.sort n={N_BIG}: searchsorted kernels {len(searches)}, index_put "
-              f"launches {puts} (the fallback engaged: {engaged}, its own: {int(engaged)})",
-              flush=True)
-        if searches:
-            fail(f"ops.sort n={N_BIG} still runs searchsorted: {searches}")
-        if puts > int(engaged):
-            fail(f"ops.sort n={N_BIG} runs {puts} index_put launches, the fallback "
-                 f"{int(engaged)}")
+        main_events = device_events(torch, lambda: ops.sort(x_main), reps=10)
+        main_kernels = [e for e in main_events if not e.key.startswith(("Memcpy", "Memset"))]
+        main_launches = sum(e.count for e in main_kernels) / 10
+        banned = {op: sum(e.count for e in main_kernels if op in e.key)
+                  for op in ("searchsorted", "index_put", "nonzero")}
+        banned["Memcpy HtoD"] = sum(e.count for e in main_events if "Memcpy HtoD" in e.key)
+        print(f"profile ops.sort n={N_BIG}: {main_launches:g} kernel launches a call over 10 "
+              f"calls (at most {MAIN_PATH_MAX_LAUNCHES}), {banned} (the fallback engaged: "
+              f"{engaged})", flush=True)
+        for e in sorted(main_kernels, key=device_us, reverse=True):
+            print(f"  {device_us(e) / 1e3 / 10:9.4f} ms a call x{e.count / 10:g} {e.key[:100]}")
+        if any(banned.values()):
+            fail(f"ops.sort n={N_BIG} still runs {banned}")
+        if main_launches > MAIN_PATH_MAX_LAUNCHES:
+            fail(f"ops.sort n={N_BIG} makes {main_launches:g} kernel launches, more than "
+                 f"{MAIN_PATH_MAX_LAUNCHES}")
         profile(torch, f"ops.sort radix int32 n={N_BIG}",
                 lambda: ops.sort(radix_int, classifier=radix), show=level_kernels)
         profile(torch, f"ops.sort double n={N_BIG}", lambda: ops.sort(double1),
@@ -5467,6 +5859,13 @@ def main() -> None:
         "composite_ids64": ("src/repro_torch/csrc/glue.cu", "src/repro/classify/tree.py:83"),
         "scatter_rows": ("src/repro_torch/csrc/glue.cu", "src/repro/core/ips4o.py:376"),
         "gather_windows": ("src/repro_torch/csrc/glue.cu", "src/repro/core/ips4o.py:246"),
+        # G5-G7 replace no Pallas kernel either: the keyspace codec with the
+        # pad, the levels' samples, the fallback's verdict and its sort
+        "codec_encode": ("src/repro_torch/csrc/codec.cu", "src/repro/ops/keyspace.py:94"),
+        "codec_decode": ("src/repro_torch/csrc/codec.cu", "src/repro/ops/keyspace.py:118"),
+        "sample_splitters": ("src/repro_torch/csrc/glue.cu", "src/repro/core/ips4o.py:442"),
+        "fallback_list": ("src/repro_torch/csrc/fallback.cu", "src/repro/core/ips4o.py:499"),
+        "fallback_sort": ("src/repro_torch/csrc/fallback.cu", "src/repro/core/ips4o.py:540"),
     }
     line = []
     for name, (source, replaces) in meta.items():

@@ -27,9 +27,10 @@ Counterpart of ``repro.core.ips4o`` for 1-D keys and for (B, n) rows
     (``kernels.bitonic.sort_windows``), the stable (bucket, key) window
     sort, at window offsets 0 and W/2;
   * the robustness fallback, when a non-trivial bucket exceeds W/2,
-    stably sorts those buckets (of every row) with ``torch.sort`` before
-    the window passes (the reference sorts everything there, batch-wide;
-    the result is the same);
+    stably sorts those buckets (of every row) before the window passes
+    (the reference sorts everything there, batch-wide; the result is the
+    same): on the card the G7 kernels list them and sort them with no
+    host read, as the reference's ``lax.cond`` decides on the device;
   * ``limit`` restricts the base case and the fallback to a prefix of each
     row, for the partial sorts of ``ops.topk`` and ``ops.batched``;
   * ``values`` is any pytree of tensors (``torch.utils._pytree``: dicts,
@@ -42,9 +43,13 @@ Counterpart of ``repro.core.ips4o`` for 1-D keys and for (B, n) rows
 The port has no engine switch: on a CUDA tensor these passes launch the
 kernels, and only those; on a CPU tensor the kernels' plain twins run.
 What the reference leaves to XLA between its kernels runs on the card as
-the glue kernels of ``kernels.glue``: K1's placement close (G1), the
-segment ids (G2), level 2's composite ids (G3) and the level scatters and
-the base case's window gathers (G4).
+the glue kernels: K1's placement close (G1), the segment ids (G2), level
+2's composite ids (G3), the level scatters and the base case's window
+gathers (G4), the levels' samples (G6, ``kernels.glue``), the keyspace
+codec with the pad (G5, ``kernels.codec``, at the ``ops`` entry points,
+which hand :func:`sort_padded` arrays already padded) and the robustness
+fallback (G7, ``kernels.fallback``).  From the entry point to its return
+the host reads nothing from the card (obs disabled).
 Keys are the keyspace-encoded int32 or int64 codes of ``ops.keyspace``
 (signed ``<`` is the key order, the sentinel is the code dtype's max); K1,
 K4 ``level_fused_batched`` and K3 have a 32-bit and a 64-bit form each, K2
@@ -66,7 +71,7 @@ from repro_torch import obs
 from repro_torch.classify import learned_model_ids, resolve_classifier
 from repro_torch.core import sampling
 from repro_torch.core.sampling import signed_payload
-from repro_torch.kernels import glue
+from repro_torch.kernels import fallback, glue
 from repro_torch.kernels.bitonic import window_perm_plain
 from repro_torch.kernels.level_fused import (
     MAX_TILE64,
@@ -81,6 +86,7 @@ __all__ = [
     "SortConfig",
     "config_from_reference",
     "ips4o_sort",
+    "sort_padded",
     "is4o_sort",
     "plan_levels",
     "pad_with_sentinel",
@@ -98,6 +104,7 @@ __all__ = [
     "make_sorter",
     # the batch-axis pipeline, consumed by ``repro_torch.ops.batched``
     "ips4o_sort_batched",
+    "sort_padded_batched",
     "batched_pad_with_sentinel",
     "batched_level_pass",
     "batched_segmented_level_pass",
@@ -123,7 +130,7 @@ class SortConfig:
     slack: int = 8                 # target expected bucket size = W / slack
     max_sample: int = 8192         # cap on the level-1 sample size
     seed: int = 0xC0FFEE           # seeds the torch.Generator of the samples
-    fallback: bool = True          # robustness fallback (a host read here)
+    fallback: bool = True          # robustness fallback (on the card: no host read)
     classifier: str = "tree"       # "tree" | "radix" | "learned" | "auto"
 
 
@@ -213,8 +220,9 @@ def _obs_level_stats(offsets: torch.Tensor, nb: int, pad_bucket: Optional[int],
 
 def _obs_base_stats(violated: Optional[bool]) -> None:
     """Base case against robustness fallback: ``sort.fallback_engaged`` and
-    ``sort.base_case``, from the fallback's own verdict (the host read it
-    makes anyway); None when obs is disabled and nothing was read."""
+    ``sort.base_case``, from the fallback's own verdict (read to the host
+    only when obs is enabled); None when obs is disabled and nothing was
+    read."""
     if violated is None or not obs.enabled():
         return
     obs.count("sort.fallback_engaged", int(violated))
@@ -269,17 +277,30 @@ def pad_with_sentinel(arrays: Arrays, unit: int) -> Arrays:
 
 def _pad(arrays: Arrays, unit: int, dim: int) -> Arrays:
     n = arrays["k"].shape[dim]
-    n_pad = -(-n // unit) * unit
-    if n_pad == n:
-        return arrays
+    return _pad_to(arrays, padded_length(n, unit), dim)
+
+
+def padded_length(n: int, unit: int) -> int:
+    """n rounded up to a multiple of ``unit``: the pipeline's padded length."""
+    return -(-n // unit) * unit
+
+
+def _pad_to(arrays: Arrays, n_pad: int, dim: int) -> Arrays:
+    """Every tensor shorter than ``n_pad`` along ``dim`` padded to it, with
+    zeros, and the keys ("k") with the sentinel; the others as they are."""
     out = {}
     for name, a in arrays.items():
+        n = a.shape[dim]
+        if n == n_pad:
+            out[name] = a
+            continue
         shape = list(a.shape)
         shape[dim] = n_pad
         o = torch.zeros(shape, dtype=a.dtype, device=a.device)
         o.narrow(dim, 0, n).copy_(a)
+        if name == "k":
+            o.narrow(dim, n, n_pad - n).fill_(sampling.sentinel_for(a.dtype))
         out[name] = o
-    out["k"].narrow(dim, n, n_pad - n).fill_(sampling.sentinel_for(out["k"].dtype))
     return out
 
 
@@ -319,14 +340,19 @@ def level_pass(
     pad_bucket) with nb = 2k + 1."""
     keys = arrays["k"]
     clf = resolve_classifier(cfg.classifier)
+    upper = None  # the splitters' upper form, when G6 wrote it beside them
     if clf == "radix":
         splitters = None
     elif splitters is None:
         with obs.trace("sample", k=k, n=n_real):
             m1 = _level1_sample_size(n_real, k, cfg)
             pos = torch.randint(0, n_real, (m1,), generator=gen, device=keys.device)
-            sample = torch.sort(keys[pos]).values
-            splitters = sampling.select_splitters(sample, k)
+            if clf == "learned":  # the model is fitted on the sorted sample itself
+                sample = torch.sort(keys[pos]).values
+                splitters = sampling.select_splitters(sample, k)
+            else:  # G6: the gather, the sort and the pick in one launch
+                splitters, upper = glue.sample_splitters(keys[None], pos[None], k, upper=True)
+                splitters = splitters[0]
     elif clf == "learned":
         raise ValueError("the learned classifier fits its model on the drawn sample: "
                          "pass no splitters")
@@ -343,7 +369,7 @@ def level_pass(
     with obs.trace("classify", fused=True, classifier=clf, k=k):
         dest, off = level_fused(
             keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
-            classifier=clf, consumed_bits=consumed_bits,
+            classifier=clf, consumed_bits=consumed_bits, upper=upper,
         )
     with obs.trace("partition", fused=True, nb=nb):
         arrays = _scatter(arrays, dest, off)
@@ -426,7 +452,8 @@ def batched_composite_ids(
 ) -> torch.Tensor:
     """Row-local composite ids (B, n) int32 of (B, n) ``keys`` with
     (B, num_seg+1) ``seg_offsets``; ``splitters`` is (B, num_seg, k-1).
-    The sample stays in torch; the ids come from the G3 kernel
+    The sample's draw stays in torch, its splitters come from the G6 kernel
+    (``kernels.glue.sample_splitters``); the ids come from the G3 kernel
     (``kernels.glue.composite_ids``: the segments, the classification and
     ``seg * 2k + local`` in one pass) on a CUDA tensor, from its plain twin
     (``segment_ids``, then ``classify_segmented`` flattened over the (row,
@@ -442,13 +469,12 @@ def batched_composite_ids(
     if splitters is None:
         with trace("sample", segmented=True, k=k, segments=num_seg):
             m = min(max(sampling.oversampling_factor(n_real) * k, k), sample_cap)
-            pos = sampling.sample_indices(gen, m, seg_offsets[:, :-1], seg_offsets[:, 1:])
-            # an empty last segment samples position n: clamp it (jnp.take
-            # clamps in the reference), no element classifies into it anyway
-            pos = pos.reshape(B, num_seg * m).clamp_(max=n - 1)
-            svals = torch.sort(torch.gather(keys, 1, pos).reshape(B, num_seg, m),
-                               dim=-1).values
-            splitters = sampling.select_splitters(svals, k)
+            # sampling.sample_indices' draw; G6 maps it into each segment (an
+            # empty last segment samples position n, clamped as jnp.take
+            # clamps in the reference: no element classifies into it anyway),
+            # gathers, sorts and picks each segment's splitters in one launch
+            u = torch.rand((B, num_seg, m), generator=gen, device=keys.device)
+            splitters = glue.sample_splitters(keys, u, k, seg_offsets=seg_offsets)
     with trace("classify", segmented=True, classifier="tree", k=k):
         return glue.composite_ids(keys, seg_offsets, num_seg, k, splitters)
 
@@ -500,71 +526,17 @@ def partition_passes(
     return arrays, offsets, nb, None  # pads now sit in an odd equality bucket
 
 
-def _oversized(
-    offsets: torch.Tensor, nb: int, W: int, pad_bucket: Optional[int],
-    limit: Optional[int] = None,
-) -> torch.Tensor:
-    """(..., nb) mask of the non-trivial buckets larger than W/2 (per row
-    for (B, nb+1) offsets); odd ids are equality buckets (and the pad
-    bucket holds sentinels), which never need sorting.  ``limit`` keeps
-    only the buckets that start below it."""
-    sizes = offsets[..., 1:] - offsets[..., :-1]
-    ids = torch.arange(nb, device=offsets.device)
-    nontrivial = (ids % 2) == 0
-    if pad_bucket is not None:
-        nontrivial &= ids != pad_bucket
-    big = nontrivial & (sizes > W // 2)
-    if limit is not None:
-        big &= offsets[..., :-1] < limit
-    return big
-
-
 def bucket_violations(
     offsets: torch.Tensor, nb: int, W: int, pad_bucket: Optional[int] = None,
     limit: Optional[int] = None,
 ) -> torch.Tensor:
     """True iff some non-trivial bucket (of any row) exceeds W/2 (the
     base-case precondition); ``limit`` restricts the check to the buckets
-    that start below it."""
-    return torch.any(_oversized(offsets, nb, W, pad_bucket, limit))
-
-
-def _sort_oversized(
-    arrays: Arrays, fb: torch.Tensor, offsets: torch.Tensor, nb: int, W: int,
-    pad_bucket: Optional[int], limit: Optional[int] = None,
-) -> Arrays:
-    """Stably sort, in place, the keys of every bucket larger than W/2 (that
-    starts below ``limit``), in one row (n,) or in each of B rows (B, n).
-
-    The robustness fallback.  The reference sorts the whole array (every
-    row, batch-wide) instead (``lax.cond`` into ``stable_full_sort``).
-    Sorting only the oversized buckets gives the same result: a window pass
-    re-sorts a piece of a sorted bucket into itself, so the two window
-    passes that follow still finish every other bucket, stably.  At the
-    default config and n = 2^24 some buckets exceeded W/2 in every run
-    measured (PERF.md), so this is on the main path there.  The picked
-    positions are sorted by (row, bucket, key): packed into one int64 for
-    int32 keys; for int64 keys, which leave no room beside them, by two
-    stable sorts (key, then row and bucket).
-    """
-    fb2 = fb if fb.dim() == 2 else fb[None]
-    B, n = fb2.shape
-    big_rows = _oversized(offsets.reshape(B, nb + 1), nb, W, pad_bucket, limit)
-    pos = torch.nonzero(torch.gather(big_rows, 1, fb2.to(torch.int64)).reshape(-1)).squeeze(1)
-    gid = fb2.reshape(-1)[pos].to(torch.int64)
-    if B > 1:  # (row, bucket) < B * nb < B * n < 2^31: it fits above the key
-        gid += (pos // n) * nb
-    keys = arrays["k"].reshape(-1)
-    if keys.dtype == torch.int64:
-        by_key = torch.sort(keys[pos], stable=True).indices
-        src = pos[by_key[torch.sort(gid[by_key], stable=True).indices]]
-    else:
-        packed = (gid << 32) + (keys[pos].to(torch.int64) + (1 << 31))
-        src = pos[torch.sort(packed, stable=True).indices]
-    for a in arrays.values():
-        flat = a.view((B * n,) + tuple(a.shape[fb.dim():]))
-        flat[pos] = flat[src]
-    return arrays
+    that start below it.  A 0-d bool tensor on the offsets' device: on a
+    CUDA tensor the G7 list kernel's verdict, read by nobody here."""
+    if offsets.device.type == "cuda":
+        return fallback.verdict(fallback.oversized_list(offsets, nb, W, pad_bucket, limit, None))
+    return torch.any(fallback.oversized_mask(offsets, nb, W, pad_bucket, limit))
 
 
 def base_case_with_fallback(
@@ -572,20 +544,39 @@ def base_case_with_fallback(
     cfg: SortConfig, limit: Optional[int] = None,
 ) -> Arrays:
     """After the level passes: the fallback where it is needed, then the
-    base case, over one row or B rows, on [0, limit) of each row."""
+    base case, over one row or B rows, on [0, limit) of each row.
+
+    The fallback stably sorts, in place, the keys of every bucket larger
+    than W/2 (that starts below ``limit``): ``kernels.fallback``.  The
+    reference sorts the whole array (every row, batch-wide) instead
+    (``lax.cond`` into ``stable_full_sort``).  Sorting only the oversized
+    buckets gives the same result: a window pass re-sorts a piece of a
+    sorted bucket into itself, so the two window passes that follow still
+    finish every other bucket, stably.  At the default config and n = 2^24
+    some buckets exceeded W/2 in every run measured (PERF.md), so this is
+    on the main path there."""
     n = arrays["k"].shape[-1]
     W = cfg.base_case
     fb = segment_ids(offsets, n)
     # the reference picks its fallback branch on the device with lax.cond;
-    # here one host read of the verdict picks it, and obs reads that verdict
+    # on the card the G7 kernels list the oversized buckets and sort them
+    # with no host read (an empty list sorts nothing); obs, when enabled,
+    # reads the list's verdict once.  On the CPU the plain twin reads it.
+    meta = None
+    if offsets.device.type == "cuda" and (cfg.fallback or obs.enabled()):
+        meta = fallback.oversized_list(offsets, nb, W, pad_bucket, limit, n)
     violated = None
-    if cfg.fallback or obs.enabled():
-        violated = bool(bucket_violations(offsets, nb, W, pad_bucket, limit))
+    if obs.enabled():
+        verdict = fallback.verdict(meta) if meta is not None else \
+            bucket_violations(offsets, nb, W, pad_bucket, limit)
+        violated = bool(verdict)
     _obs_base_stats(violated)
     attrs = {"batched": True} if offsets.dim() == 2 else {}
     with obs.trace("base_case", W=W, fallback=cfg.fallback, **attrs):
-        if cfg.fallback and violated:
-            arrays = _sort_oversized(arrays, fb, offsets, nb, W, pad_bucket, limit)
+        if cfg.fallback:
+            arrays = fallback.sort_oversized(arrays, fb, offsets, nb, W, pad_bucket, limit,
+                                             meta=meta)
+        del meta  # held through the window passes, the list would raise their peak
         return base_case(arrays, fb, W, nb, limit)
 
 
@@ -647,14 +638,18 @@ def batched_level_pass(
     keys = arrays["k"]
     B = keys.shape[0]
     clf = resolve_classifier(cfg.classifier)
+    upper = None  # the splitters' upper form, when G6 wrote it beside them
     if clf == "radix":
         splitters = None
     elif splitters is None:
         with obs.trace("sample", batched=True, k=k, n=n_real):
             m1 = _level1_sample_size(n_real, k, cfg)
             pos = torch.randint(0, n_real, (B, m1), generator=gen, device=keys.device)
-            sample = torch.sort(torch.gather(keys, 1, pos), dim=1).values
-            splitters = sampling.select_splitters(sample, k)
+            if clf == "learned":  # the model is fitted on the sorted samples themselves
+                sample = torch.sort(torch.gather(keys, 1, pos), dim=1).values
+                splitters = sampling.select_splitters(sample, k)
+            else:  # G6: the gathers, the sorts and the picks in one launch
+                splitters, upper = glue.sample_splitters(keys, pos, k, upper=True)
     elif clf == "learned":
         raise ValueError("the learned classifier fits its model on the drawn sample: "
                          "pass no splitters")
@@ -671,7 +666,7 @@ def batched_level_pass(
     with obs.trace("classify", batched=True, fused=True, k=k):
         dest, off = level_fused_batched(
             keys, splitters, k=k, n_real=n_real, tile=_level_tile(keys, nb, cfg),
-            classifier=clf,
+            classifier=clf, upper=upper,
         )
     with obs.trace("partition", batched=True, fused=True, nb=nb):
         arrays = _scatter(arrays, dest, off)
@@ -810,10 +805,34 @@ def ips4o_sort_batched(
         arrays.update(payload)
     with obs.trace("ips4o_sort_batched", B=B, n=n):
         arrays = batched_pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
-        levels = plan_levels(arrays["k"].shape[1], cfg)
-        arrays = _sort_padded_batched(arrays, n, cfg, levels)
+        arrays = _sort_levels_batched(arrays, n, cfg)
     out_k = arrays["k"][:, :n]
     return out_k if values is None else (out_k, rebuild(arrays, n))
+
+
+def _sort_levels_batched(arrays: Arrays, n_real: int, cfg: SortConfig) -> Arrays:
+    return _sort_padded_batched(arrays, n_real, cfg, plan_levels(arrays["k"].shape[1], cfg))
+
+
+def _check_padded(arrays: Arrays, n_real: int, cfg: SortConfig, dim: int) -> None:
+    _check_config(cfg)
+    keys = arrays["k"]
+    _check_keys(keys, dim)
+    n_pad = keys.shape[-1]
+    if n_pad != padded_length(n_real, max(cfg.base_case, cfg.tile)) or n_real < 2:
+        raise ValueError(f"sort_padded: {n_pad} positions are not {n_real} > 1 real ones padded "
+                         f"to a multiple of max(base_case, tile)")
+
+
+def sort_padded_batched(arrays: Arrays, n_real: int, cfg: SortConfig = SortConfig()) -> Arrays:
+    """:func:`sort_padded` over (B, n_pad, ...) rows: the pipeline of
+    :func:`ips4o_sort_batched` after its pad, each row on its own."""
+    _check_padded(arrays, n_real, cfg, 2)
+    B = arrays["k"].shape[0]
+    if B == 0:
+        return arrays
+    with obs.trace("ips4o_sort_batched", B=B, n=n_real):
+        return _sort_levels_batched(arrays, n_real, cfg)
 
 
 def ips4o_sort(
@@ -840,10 +859,26 @@ def ips4o_sort(
         arrays.update(payload)
     with obs.trace("ips4o_sort", n=n, classifier=cfg.classifier):
         arrays = pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
-        levels = plan_levels(arrays["k"].shape[0], cfg)
-        arrays = _sort_padded(arrays, n, cfg, levels)
+        arrays = _sort_levels(arrays, n, cfg)
     out_k = arrays["k"][:n]
     return out_k if values is None else (out_k, rebuild(arrays, n))
+
+
+def _sort_levels(arrays: Arrays, n_real: int, cfg: SortConfig) -> Arrays:
+    return _sort_padded(arrays, n_real, cfg, plan_levels(arrays["k"].shape[0], cfg))
+
+
+def sort_padded(arrays: Arrays, n_real: int, cfg: SortConfig = SortConfig()) -> Arrays:
+    """The pipeline of :func:`ips4o_sort` after its pad, for arrays that
+    come padded: ``arrays["k"]`` (n_pad,) encoded int32/int64 keys whose
+    first ``n_real`` > 1 are real and the rest the sentinel, n_pad the
+    multiple of max(base_case, tile) that :func:`pad_with_sentinel` gives,
+    every other tensor (n_pad, ...).  Returns the padded arrays, sorted.
+    The ``ops`` entry points hand it the codes and index that the G5 kernel
+    wrote padded (``kernels.codec.encode_padded``)."""
+    _check_padded(arrays, n_real, cfg, 1)
+    with obs.trace("ips4o_sort", n=n_real, classifier=cfg.classifier):
+        return _sort_levels(arrays, n_real, cfg)
 
 
 def tiebreak_passes(

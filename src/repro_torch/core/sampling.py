@@ -25,6 +25,8 @@ __all__ = [
     "signed_payload",
     "oversampling_factor",
     "sample_indices",
+    "positions_from_uniform",
+    "tree_permutation_on",
     "select_splitters",
     "splitters_from_histogram",
 ]
@@ -50,10 +52,22 @@ def tree_permutation(k: int) -> np.ndarray:
     return perm
 
 
+def tree_permutation_on(k: int, device) -> torch.Tensor:
+    """:func:`tree_permutation` (k,) int64, made on ``device`` with no copy
+    from the host.  BFS slot ``2^L + p`` (level L of the d = log2(k) levels)
+    holds sorted index ``(2p + 1) 2^(d-1-L) - 1``: for sorted index j, the
+    lowest set bit v of j + 1 gives the slot ``(k/2) / v + (j + 1) / (2v)``."""
+    if k & (k - 1) or k < 2:
+        raise ValueError(f"k must be a power of two >= 2, got {k}")
+    j = torch.arange(k - 1, dtype=torch.int64, device=device)
+    v = (j + 1) & -(j + 1)
+    slot = (k // 2) // v + (j + 1) // (2 * v)
+    return torch.zeros(k, dtype=torch.int64, device=device).scatter_(0, slot, j)
+
+
 def build_tree(splitters: torch.Tensor, k: int) -> torch.Tensor:
     """Lay out sorted splitters (..., k-1) into BFS tree slots (..., k)."""
-    perm = torch.as_tensor(tree_permutation(k), device=splitters.device)
-    return torch.index_select(splitters, -1, perm)
+    return torch.index_select(splitters, -1, tree_permutation_on(k, splitters.device))
 
 
 def sentinel_for(dtype: torch.dtype) -> int:
@@ -111,6 +125,15 @@ def sample_indices(
     """Uniform sample positions (..., num) in [lo, hi) for each (lo, hi);
     an empty range clamps to ``lo``, which no element classifies into."""
     u = torch.rand(lo.shape + (num,), generator=gen, device=lo.device)
+    return positions_from_uniform(u, lo, hi)
+
+
+def positions_from_uniform(u: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The positions (..., num) int64 of :func:`sample_indices` from its
+    drawn float32 uniforms ``u`` (..., num): ``lo + floor(u * size)`` in
+    float32 (size = max(hi - lo, 1), rounded to float32 as torch's mul
+    rounds it), clamped to [lo, max(hi - 1, lo)].  The G6 kernel maps its
+    uniforms by the same arithmetic."""
     lo64 = lo.to(torch.int64).unsqueeze(-1)
     hi64 = hi.to(torch.int64).unsqueeze(-1)
     size = torch.clamp(hi64 - lo64, min=1)
@@ -119,12 +142,12 @@ def sample_indices(
 
 
 def select_splitters(sorted_sample: torch.Tensor, k: int) -> torch.Tensor:
-    """Pick k-1 equidistant splitters from a sorted sample (..., m)."""
+    """Pick k-1 equidistant splitters from a sorted sample (..., m): the
+    ``clip(j m // k, 0, m-1)``-th values, j = 1..k-1, the index made on the
+    sample's device."""
     m = sorted_sample.shape[-1]
-    idx = np.clip((np.arange(1, k) * m) // k, 0, m - 1)
-    return torch.index_select(
-        sorted_sample, -1, torch.as_tensor(idx, device=sorted_sample.device)
-    )
+    idx = torch.arange(1, k, dtype=torch.int64, device=sorted_sample.device) * m // k
+    return torch.index_select(sorted_sample, -1, idx.clamp_(0, m - 1))
 
 
 def splitters_from_histogram(

@@ -1,5 +1,5 @@
-// G1-G4: the one-device sort's glue between its kernels, by hand for Hopper
-// (sm_90a).
+// G1-G4 and G6: the one-device sort's glue between its kernels, by hand for
+// Hopper (sm_90a).
 //
 // These replace no Pallas TPU kernel.  The reference runs this work as XLA
 // around its Pallas kernels, and XLA fuses it on the TPU; the port ran it
@@ -27,6 +27,15 @@
 //      (src/repro/core/ips4o.py:376, `.at[dest].set`) and the base case's
 //      window gathers (`_apply_window_perm`, :246): rows of any byte width
 //      moved by int32 row-local positions.
+//   G6 samples           -- the level passes' samples (src/repro/core/ips4o.py
+//      :356-360 and :442-449, `sampling.sample_indices` and
+//      `select_splitters`): from the drawn positions (level 1) or uniforms
+//      (level 2, mapped into each segment in float32 as torch maps them) to
+//      the sorted splitters of each (row, segment), and level 1's upper form
+//      with its sentinel.  One CTA a (row, segment) gathers its m keys into
+//      shared memory (padded to a power of two with the max), sorts them by
+//      a bitonic network and writes the picks.  Latency, not bytes, bounds
+//      it: a few hundred bytes a segment against a network of log^2 m steps.
 //
 // Bound: bytes, every one of them.  G1 reads bucket and rank and writes
 // dest, 12 B a key (~60 us at 2^24 and 3.35 TB/s; the histogram, 4 MB at
@@ -105,6 +114,7 @@ constexpr int kScanThreads = 1024;     // G1's scan CTA
 constexpr int kMoveUnroll = 4;         // G4: units in flight a thread
 constexpr int kGatherThreads = 512;
 constexpr int kScatterGroups = 1024;   // G4's staged scatter: buckets a span, at most
+constexpr int kSampleThreads = 512;    // G6's CTA, at most
 
 // ---- G1: the placement close of K1, K1r and K4 ----
 
@@ -693,6 +703,98 @@ cudaError_t launch_gather(const void* src, void* dst, const int* perm, int windo
   return cudaGetLastError();
 }
 
+// ---- G6: the level passes' samples ----
+
+// One CTA a (row, segment): the segment's m sample positions (level 1: the
+// drawn int64 positions; level 2: from the drawn float32 uniforms, as
+// `sampling.positions_from_uniform` maps them), the keys there gathered into
+// shared memory, padded to P (a power of two) with the key dtype's max,
+// sorted by a bitonic network, and the k-1 splitters at clip(j m // k, 0,
+// m-1) written out; with `upper`, also the (k,) upper form, the sentinel
+// last.  Equal keys are the same bits, so any sort of the values gives the
+// plain twin's sorted sample.
+template <typename Key, bool kUniform>
+__global__ void __launch_bounds__(kSampleThreads)
+    sample_splitters_kernel(const Key* __restrict__ keys, int n, const long long* __restrict__ pos,
+                            const float* __restrict__ uni, const int* __restrict__ seg_off,
+                            int num_seg, int m, int P, int k, Key* __restrict__ spl,
+                            Key* __restrict__ upper) {
+  extern __shared__ __align__(16) unsigned char sample_smem[];
+  Key* s = reinterpret_cast<Key*>(sample_smem);
+  const int rs = blockIdx.x;  // row * num_seg + segment
+  const int row = rs / num_seg;
+  const Key* rk = keys + (long long)row * n;
+  long long lo = 0, hi = 0;
+  float fsize = 0.f;
+  if (kUniform) {
+    const int* so = seg_off + (long long)row * (num_seg + 1) + (rs - row * num_seg);
+    lo = so[0];
+    hi = so[1];
+    fsize = __ll2float_rn(max(hi - lo, 1ll));  // int64 -> float32, to nearest, as torch's mul
+  }
+  for (int j = threadIdx.x; j < P; j += blockDim.x) {
+    Key v = KeyBits<Key>::kMax;
+    if (j < m) {
+      long long p;
+      if (kUniform) {
+        const float f = __fmul_rn(__ldg(uni + (long long)rs * m + j), fsize);
+        p = lo + (long long)floorf(f);
+        p = min(max(p, lo), max(hi - 1, lo));
+        p = min(p, (long long)n - 1);  // an empty last segment: its lo is n
+      } else {
+        p = __ldg(pos + (long long)row * m + j);
+      }
+      v = rk[p];
+    }
+    s[j] = v;
+  }
+  __syncthreads();
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < (P >> 1); t += blockDim.x) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const Key a = s[i], b = s[j];
+        if ((a > b) == ((i & size) == 0)) s[i] = b, s[j] = a;
+      }
+      __syncthreads();
+    }
+  }
+  for (int j = threadIdx.x; j < k - 1; j += blockDim.x) {
+    const long long at = min((long long)(j + 1) * m / k, (long long)m - 1);
+    const Key v = s[at];
+    spl[(long long)rs * (k - 1) + j] = v;
+    if (upper != nullptr) upper[(long long)rs * k + j] = v;
+  }
+  if (upper != nullptr && threadIdx.x == 0) upper[(long long)rs * k + k - 1] = KeyBits<Key>::kMax;
+}
+
+template <typename Key>
+cudaError_t launch_samples(const void* keys, int n, const void* pos, const void* uni,
+                           const int* seg_off, int rows, int num_seg, int m, int k, void* spl,
+                           void* upper, cudaStream_t s) {
+  int P = 1;
+  while (P < m) P <<= 1;
+  const int smem = P * (int)sizeof(Key);
+  const int threads = P / 2 > kSampleThreads ? kSampleThreads : (P / 2 < 32 ? 32 : P / 2);
+  const bool uniform = uni != nullptr;
+  const void* fn = uniform ? (const void*)&sample_splitters_kernel<Key, true>
+                           : (const void*)&sample_splitters_kernel<Key, false>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned ctas = (unsigned)(rows * num_seg);
+  if (uniform) {
+    sample_splitters_kernel<Key, true><<<ctas, threads, smem, s>>>(
+        (const Key*)keys, n, nullptr, (const float*)uni, seg_off, num_seg, m, P, k, (Key*)spl,
+        (Key*)upper);
+  } else {
+    sample_splitters_kernel<Key, false><<<ctas, threads, smem, s>>>(
+        (const Key*)keys, n, (const long long*)pos, nullptr, nullptr, num_seg, m, P, k,
+        (Key*)spl, (Key*)upper);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -824,6 +926,27 @@ int glue_gather_windows(const void* src, void* dst, const void* perm, int window
                                                staged != 0, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// G6: the splitters (rows, num_seg, k-1) of keys (rows, n) int32 (key_bits
+// 32) or int64 (64) from m samples a (row, segment): level 1 (num_seg 1)
+// gathers at the drawn int64 positions pos (rows, m); level 2 maps the drawn
+// float32 uniforms uni (rows, num_seg, m) into each segment of seg_off
+// (rows, num_seg + 1) first.  upper (rows, num_seg, k) or null: the upper
+// form, the sentinel last.  One launch.
+int glue_sample_splitters(const void* keys, int key_bits, int n, const void* pos, const void* uni,
+                          const void* seg_off, int rows, int num_seg, int m, int k, void* spl,
+                          void* upper, void* stream) {
+  if (m < 1 || m > 16384 || k < 2 || num_seg < 1 || n < 1 || (pos == nullptr) == (uni == nullptr))
+    return cudaErrorInvalidValue;
+  if ((long long)rows * num_seg > INT_MAX) return cudaErrorInvalidConfiguration;
+  if (rows == 0) return cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (key_bits == 64)
+    return launch_samples<long long>(keys, n, pos, uni, (const int*)seg_off, rows, num_seg, m, k,
+                                     spl, upper, s);
+  return launch_samples<int>(keys, n, pos, uni, (const int*)seg_off, rows, num_seg, m, k, spl,
+                             upper, s);
 }
 
 }  // extern "C"

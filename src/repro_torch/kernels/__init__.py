@@ -23,6 +23,9 @@
 | G2 | ``glue.segment_ids`` | ``csrc/glue.cu`` | no kernel: XLA's ``segment_ids``, ``repro/core/ips4o.py:229`` |
 | G3 | ``glue.composite_ids`` (level 2's ids, tree or radix; int32 and int64 keys) | ``csrc/glue.cu`` | no kernel: XLA's ``classify_segmented``, ``repro/classify/tree.py:83`` |
 | G4 | ``glue.scatter_rows`` and ``glue.gather_windows`` (one move kernel) | ``csrc/glue.cu`` | no kernel: XLA's ``.at[dest].set`` and ``_apply_window_perm``, ``repro/core/ips4o.py:376``, ``:246`` |
+| G5 | ``codec.encode_padded`` and ``codec.decode`` (``ops.keyspace`` on the card) | ``csrc/codec.cu`` | no kernel: XLA's ``encode``/``decode``, ``repro/ops/keyspace.py:94``, ``:118``, and the pad, ``repro/core/ips4o.py:289`` |
+| G6 | ``glue.sample_splitters`` (both levels' samples to splitters) | ``csrc/glue.cu`` | no kernel: XLA's samples, ``repro/core/ips4o.py:356``, ``:442``, ``repro/core/sampling.py:76``, ``:88`` |
+| G7 | ``fallback.oversized_list`` and ``fallback.sort_listed`` (the robustness fallback) | ``csrc/fallback.cu`` | no kernel: XLA's ``bucket_violations`` and ``lax.cond`` sort, ``repro/core/ips4o.py:499``, ``:540`` |
 
 K1, K1r, K4 ``level_fused_batched`` and K3 take int32 or int64 codes: each
 has a 64-bit form for the 64-bit key dtypes, launched by the same wrapper
@@ -39,7 +42,10 @@ the reference leaves to XLA between its kernels: K1's placement close, the
 segment ids, level 2's composite ids, and one move kernel for the level
 scatters (staged by bucket when the placement's offsets are given) and the
 base case's window gathers (in place for pass two); G3's int64 form counts
-under ``composite_ids64``.
+under ``composite_ids64``.  G5-G7 finish the one-device sort's glue: the
+keyspace codec with the pad (``codec_encode``, ``codec_decode``), the level
+passes' samples (``sample_splitters``) and the robustness fallback with no
+host read (``fallback_list``, ``fallback_sort``: a cooperative launch).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
 plain torch twin only on a CPU tensor.  The kernels are built with ``nvcc``

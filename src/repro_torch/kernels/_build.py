@@ -47,7 +47,8 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("level_fused", "bitonic", "merge_path", "dispatch_rank", "classify",
-           "block_permute", "permute_inplace", "flash_decode", "flash_attention", "glue")
+           "block_permute", "permute_inplace", "flash_decode", "flash_attention", "glue",
+           "codec", "fallback")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -77,6 +78,9 @@ LAUNCHES: Dict[str, int] = {
     # the one-device sort's glue (G1-G4, csrc/glue.cu); G3's int64 form apart
     "close_placement": 0, "segment_ids": 0, "composite_ids": 0, "composite_ids64": 0,
     "scatter_rows": 0, "gather_windows": 0,
+    # G5 (csrc/codec.cu), G6 (csrc/glue.cu) and G7 (csrc/fallback.cu)
+    "codec_encode": 0, "codec_decode": 0, "sample_splitters": 0,
+    "fallback_list": 0, "fallback_sort": 0,
 }
 
 # callables (name, flops, bytes) told of each launch a wrapper stands in for

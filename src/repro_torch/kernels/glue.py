@@ -19,6 +19,11 @@ under its own key of ``_build.LAUNCHES``.
   int64 keys): level 2's ids ``seg * 2k + local``, the segment of G2 and
   the local id of ``classify.tree.classify_segmented`` or
   ``classify.radix.radix_bucket_ids``, in one pass.
+- G6 :func:`sample_splitters` (``sample_splitters``): the level passes'
+  samples, from the drawn positions (level 1) or uniforms (level 2) to the
+  sorted splitters of each (row, segment), and level 1's upper form with
+  its sentinel (``src/repro/core/ips4o.py:356-360``, ``:442-449``, batched
+  ``:679-684``, ``:758-768``).  One launch a call.
 - G4, one move kernel with two entry points: :func:`scatter_rows`
   (``scatter_rows``, one launch a tensor), ``out[dest[i]] = a[i]`` by
   row-local int32 positions (the level passes' ``.at[dest].set``), and
@@ -34,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.classify import classify_segmented, radix_bucket_ids, radix_shift
+from repro_torch.core import sampling
 from repro_torch.kernels import _build
 
 __all__ = [
@@ -47,6 +53,8 @@ __all__ = [
     "scatter_rows_plain",
     "gather_windows",
     "gather_windows_plain",
+    "sample_splitters",
+    "sample_splitters_plain",
     "move_unit",
     "gather_plan",
     "RUN_TILES",
@@ -64,7 +72,9 @@ _SIGNATURES = {
     "glue_scatter": (_P, _P, _P, _I, _I, _I, _I, _P),
     "glue_scatter_staged": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "glue_gather_windows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "glue_sample_splitters": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
+MAX_SAMPLE = 16384  # G6: the largest sample a (row, segment) it sorts in shared memory
 Arrays = Dict[str, torch.Tensor]
 
 
@@ -451,3 +461,84 @@ def gather_windows(src: torch.Tensor, perm: torch.Tensor, lo: int,
             unit, row // unit, chunk, int(staged), _build.stream_handle(src.device))
         _launch("gather_windows", err)
     return dst
+
+
+# ---------------------------------------------------------------------------
+# G6: the level passes' samples
+
+
+def _upper_plain(spl: torch.Tensor) -> torch.Tensor:
+    sent = torch.full(spl.shape[:-1] + (1,), sampling.sentinel_for(spl.dtype),
+                      dtype=spl.dtype, device=spl.device)
+    return torch.cat([spl, sent], -1)
+
+
+def sample_splitters_plain(keys: torch.Tensor, draw: torch.Tensor, k: int,
+                           seg_offsets: Optional[torch.Tensor] = None, upper: bool = False):
+    """G6's plain torch twin on any device: the gather of the sample, a
+    ``torch.sort`` and ``sampling.select_splitters``; at level 2 the
+    positions from ``sampling.positions_from_uniform`` first, clamped to
+    the row (an empty last segment's lo is n); the upper form by a fill and
+    a ``cat``."""
+    B, n = keys.shape
+    if seg_offsets is None:
+        sample = torch.sort(torch.gather(keys, 1, draw), dim=1).values
+    else:
+        S, m = draw.shape[1:]
+        pos = sampling.positions_from_uniform(draw, seg_offsets[:, :-1], seg_offsets[:, 1:])
+        pos = pos.reshape(B, S * m).clamp_(max=n - 1)
+        sample = torch.sort(torch.gather(keys, 1, pos).reshape(B, S, m), dim=-1).values
+    spl = sampling.select_splitters(sample, k)
+    return (spl, _upper_plain(spl)) if upper else spl
+
+
+def sample_splitters(keys: torch.Tensor, draw: torch.Tensor, k: int,
+                     seg_offsets: Optional[torch.Tensor] = None, upper: bool = False):
+    """The sorted splitters of each row of encoded int32 or int64 ``keys``
+    (B, n) from a drawn sample: level 1 (``seg_offsets`` None) takes
+    ``draw`` (B, m) int64 positions and returns (B, k-1) splitters; level 2
+    takes ``draw`` (B, S, m) float32 uniforms in [0, 1), maps them into each
+    of the S segments of ``seg_offsets`` (B, S+1) int32 as
+    ``sampling.sample_indices`` does, and returns (B, S, k-1).  The
+    splitters are the sorted sample's ``clip(j m // k, 0, m-1)``-th values
+    (``sampling.select_splitters``).  ``upper`` also returns the (B, k)
+    upper form (level 1), the sentinel last, as K1 and K4 take it.  The G6
+    kernel on a CUDA tensor (one launch), :func:`sample_splitters_plain` on
+    a CPU tensor."""
+    B, n = keys.shape
+    level2 = seg_offsets is not None
+    S = draw.shape[1] if level2 else 1
+    m = draw.shape[-1]
+    out_shape = (B, S, k - 1) if level2 else (B, k - 1)
+    if upper and level2:
+        raise ValueError("sample_splitters: the upper form is level 1's")
+    if _build.is_fake(keys):
+        _build.note_fake("sample_splitters", 0.0, draw.numel() * (keys.element_size()
+                                                                  + draw.element_size()))
+        spl = keys.new_empty(out_shape)
+        return (spl, keys.new_empty((B, k))) if upper else spl
+    if not _on_card(keys):
+        return sample_splitters_plain(keys, draw, k, seg_offsets, upper)
+    _need(keys, "sample_splitters keys", (torch.int32, torch.int64), 2)
+    if k < 2 or m < 1 or m > MAX_SAMPLE or n < 1:
+        raise ValueError(f"sample_splitters: k={k}, m={m} (at most {MAX_SAMPLE}), n={n}")
+    draw = draw.contiguous()
+    if level2:
+        seg_offsets = seg_offsets.contiguous()
+        _need(seg_offsets, "sample_splitters seg_offsets", dim=2)
+        if draw.dtype != torch.float32 or draw.shape != (B, S, m) or \
+                seg_offsets.shape != (B, S + 1):
+            raise ValueError(f"sample_splitters: uniforms {tuple(draw.shape)} {draw.dtype} and "
+                             f"offsets {tuple(seg_offsets.shape)} do not fit ({B}, S, m)")
+    elif draw.dtype != torch.int64 or draw.shape != (B, m):
+        raise ValueError(f"sample_splitters: positions {tuple(draw.shape)} {draw.dtype}, "
+                         f"expected ({B}, m) int64")
+    spl = torch.empty(out_shape, dtype=keys.dtype, device=keys.device)
+    up = torch.empty((B, k), dtype=keys.dtype, device=keys.device) if upper else None
+    err = _lib().glue_sample_splitters(
+        keys.data_ptr(), 64 if keys.dtype == torch.int64 else 32, n,
+        None if level2 else draw.data_ptr(), draw.data_ptr() if level2 else None,
+        seg_offsets.data_ptr() if level2 else None, B, S, m, k, spl.data_ptr(),
+        None if up is None else up.data_ptr(), _build.stream_handle(keys.device))
+    _launch("sample_splitters", err)
+    return (spl, up) if upper else spl

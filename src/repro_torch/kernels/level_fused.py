@@ -163,7 +163,8 @@ def _level_tiles_plain(keys, splitters, k, n_real, tile, consumed_bits=0):
     return bucket, rank.reshape(B, n), counts.reshape(B, tiles, nb)
 
 
-def _level_tiles_kernel(keys, splitters, k, n_real, tile, consumed_bits=0, batched=False):
+def _level_tiles_kernel(keys, splitters, k, n_real, tile, consumed_bits=0, batched=False,
+                        upper=None):
     """The same three outputs from the CUDA kernel: K4 when ``batched``,
     else K1 (tree) or K1r (radix) on the one row of ``keys`` (1, n); the
     kernel's 64-bit form for int64 keys."""
@@ -173,7 +174,8 @@ def _level_tiles_kernel(keys, splitters, k, n_real, tile, consumed_bits=0, batch
     radix = splitters is None
     wide = "64" if keys.dtype == torch.int64 else ""
     shift = radix_shift(k, consumed_bits, 64 if wide else 32) if radix else 0
-    upper = None if radix else _upper(splitters)
+    if not radix and upper is None:
+        upper = _upper(splitters)
     bucket = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
     rank = torch.empty_like(bucket)
     hist = torch.empty((B, tiles, nb), dtype=torch.int32, device=keys.device)
@@ -243,15 +245,20 @@ def _level_args(keys, splitters, k, n_real, tile, classifier, dim):
     return n_real, splitters.reshape(-1, k - 1).contiguous()
 
 
-def _level(keys, splitters, k, n_real, tile, classifier, consumed_bits, plain, batched):
+def _level(keys, splitters, k, n_real, tile, classifier, consumed_bits, plain, batched,
+           upper=None):
     n_real, spl = _level_args(keys, splitters, k, n_real, tile, classifier,
                               2 if batched else 1)
     rows = keys if batched else keys[None]
     if plain:
         bucket, rank, hist = _level_tiles_plain(rows, spl, k, n_real, tile, consumed_bits)
     else:
+        if upper is not None and (spl is None or upper.shape != (rows.shape[0], k)
+                                  or upper.dtype != keys.dtype or not upper.is_contiguous()):
+            raise ValueError(f"upper: expected a contiguous ({rows.shape[0]}, {k}) "
+                             f"{keys.dtype} tensor beside the splitters")
         bucket, rank, hist = _level_tiles_kernel(rows, spl, k, n_real, tile,
-                                                 consumed_bits, batched)
+                                                 consumed_bits, batched, upper)
     dest, offsets = close_placement(bucket, rank, hist, 2 * k + 1, tile)
     return (dest, offsets) if batched else (dest[0], offsets[0])
 
@@ -265,6 +272,7 @@ def level_fused(
     tile: int = TILE,
     classifier: str = "tree",
     consumed_bits: int = 0,
+    upper: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused level pass over encoded ``keys`` (n,) int32 or int64: the K1
     kernel (tree mode, sorted ``splitters`` (k-1,) of the keys' dtype) or K1r
@@ -272,10 +280,13 @@ def level_fused(
     tensor, its plain twin on a CPU tensor.  Positions >= ``n_real`` go to
     the pad bucket 2k.  int64 keys take tiles up to ``MAX_TILE64``.
 
+    ``upper`` (1, k), the splitters' upper form with the sentinel last as
+    ``glue.sample_splitters`` writes it, spares the kernel path making it.
+
     Returns (dest (n,) int32, offsets (2k+2,) int32).
     """
     return _level(keys, splitters, k, n_real, tile, classifier, consumed_bits,
-                  plain=_device_kind(keys) == "cpu", batched=False)
+                  plain=_device_kind(keys) == "cpu", batched=False, upper=upper)
 
 
 def level_fused_plain(
@@ -303,6 +314,7 @@ def level_fused_batched(
     tile: int = TILE,
     classifier: str = "tree",
     consumed_bits: int = 0,
+    upper: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused level pass per row of ``keys`` (B, n) int32 or int64: the K4 kernel
     on a CUDA tensor, its plain twin on a CPU tensor.  Row r classifies
@@ -310,10 +322,12 @@ def level_fused_batched(
     radix shift (radix mode); positions >= ``n_real`` of every row go to
     its pad bucket 2k.
 
+    ``upper`` (B, k) as in :func:`level_fused`.
+
     Returns (dest (B, n) int32 within each row, offsets (B, 2k+2) int32).
     """
     return _level(keys, splitters, k, n_real, tile, classifier, consumed_bits,
-                  plain=_device_kind(keys) == "cpu", batched=True)
+                  plain=_device_kind(keys) == "cpu", batched=True, upper=upper)
 
 
 def level_fused_batched_plain(
@@ -494,7 +508,8 @@ def _rank_hist(ids, nb, seg_offsets, seg_width, tile, plain):
             tile, "rank_hist")
         return dest[0], offsets[0]
     if seg_offsets is None:
-        seg_offsets = torch.tensor([0, n], dtype=torch.int32, device=ids.device)
+        seg_offsets = torch.zeros(2, dtype=torch.int32, device=ids.device)
+        seg_offsets[1] = n
     item_start, item_len, item_seg, first, per_seg = _items(seg_offsets, n, tile)
     rank, slot, hist = _rank_hist_slots_plain(ids, seg_width, item_start, item_seg)
     return _close_segments(rank, slot, hist, seg_offsets, item_seg, first, per_seg, n)
@@ -576,7 +591,8 @@ def _rank_hist_batched(ids, nb, seg_offsets, seg_width, tile, plain):
         return _segment_place_kernel(ids, seg_offsets, num_seg, seg_width, tile,
                                      "rank_hist_batched")
     if seg_offsets is None:
-        seg_offsets = torch.tensor([0, n], dtype=torch.int32, device=dev).expand(B, 2)
+        seg_offsets = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+        seg_offsets[:, 1] = n
     flat, flat_off, row_start, items, local_seg = _row_segments(ids, seg_offsets, tile)
     item_start, item_len, item_seg, first, per_seg = items
     rank, slot, hist = _rank_hist_slots_plain(flat, seg_width, item_start, local_seg)

@@ -15,6 +15,8 @@ although its docstring promises less) and the top/bottom-k keep equal
 keys in input order.  ``classifier="learned"`` runs K4
 ``rank_hist_batched`` at level 1 over the model's ids; "auto" resolves
 against the caller's (B, n, dtype) (``with_engine_batched``).
+The keys are encoded and padded, with the index payload, by one G5 launch
+(``ops.sort.sorted_codes``).
 ``device=None`` means ``"cuda"`` and raises without a card;
 ``device="cpu"`` runs the kernels' plain twins.
 """
@@ -27,14 +29,13 @@ import torch
 from repro_torch.core.ips4o import (
     SortConfig,
     base_case_with_fallback,
-    batched_pad_with_sentinel,
     batched_partition_passes,
     batched_stable_full_sort,
-    ips4o_sort_batched,
     plan_levels,
 )
+from repro_torch.kernels import codec
 from repro_torch.ops import keyspace
-from repro_torch.ops.sort import Device, _device, _keys, _override
+from repro_torch.ops.sort import Device, _device, _keys, _override, padded_codes, sorted_codes
 from repro_torch.ops.topk import _prefix_limit
 
 __all__ = [
@@ -85,11 +86,9 @@ def batched_sort(
     dev = _device(device)
     keys = _keys(keys, dev, dim=2)
     cfg = with_engine_batched(cfg, None, keys, classifier)
-    enc = keyspace.encode(keys)
-    if values is None:
-        return keyspace.decode(ips4o_sort_batched(enc, cfg=cfg), keys.dtype)
-    out, vs = ips4o_sort_batched(enc, values, cfg=cfg)
-    return keyspace.decode(out, keys.dtype), vs
+    codes, _, vs = sorted_codes(keys, cfg, values)
+    out = keyspace.decode(codes[:, :keys.shape[1]], keys.dtype)
+    return out if values is None else (out, vs)
 
 
 def batched_argsort(
@@ -107,24 +106,19 @@ def batched_argsort(
     dev = _device(device)
     keys = _keys(keys, dev, dim=2)
     B, n = keys.shape
-    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n).contiguous()
     if n <= 1:
-        return idx
+        return torch.arange(n, dtype=torch.int32, device=dev).expand(B, n).contiguous()
     cfg = with_engine_batched(cfg, None, keys, classifier)
-    _, order = ips4o_sort_batched(keyspace.encode(keys), idx, cfg=cfg)
-    return order
+    _, order, _ = sorted_codes(keys, cfg, index=True)
+    return order[:, :n]
 
 
-def _batched_smallest(
-    enc: torch.Tensor, kk: int, cfg: SortConfig
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per row, (the kk smallest encoded keys ascending, their indices):
-    the batched ``ops.topk.smallest_encoded``.  One prefix P covers the
+def _batched_smallest_padded(arrays, n: int, kk: int, cfg: SortConfig):
+    """Per row, (the kk smallest codes ascending, their indices) from padded
+    (B, n_pad) codes "k" and index "v" of n real positions a row: the
+    batched ``ops.topk._smallest_padded``.  One prefix P covers the
     rank-(kk-1) bucket of every row, so the base case runs over [0, P) of
     each row only."""
-    B, n = enc.shape
-    idx = torch.arange(n, dtype=torch.int32, device=enc.device).expand(B, n).contiguous()
-    arrays = batched_pad_with_sentinel({"k": enc, "v": idx}, max(cfg.base_case, cfg.tile))
     n_pad = arrays["k"].shape[1]
     levels = plan_levels(n_pad, cfg)
     if not levels:
@@ -144,9 +138,12 @@ def _batched_partial(keys, k, cfg, classifier, device, largest: bool):
     cfg = with_engine_batched(cfg, None, keys, classifier)
     if kk == 0 or B == 0:
         return keys[:, :kk], torch.zeros((B, kk), dtype=torch.int32, device=dev)
-    enc = keyspace.encode(keys)
-    out, idx = _batched_smallest(~enc if largest else enc, kk, cfg)
-    return keyspace.decode(~out if largest else out, keys.dtype), idx
+    # G5: the (complemented) codes and the index, padded, in one launch
+    codes, idx, _ = padded_codes(keys, cfg, index=True, complement=largest)
+    out, idx = _batched_smallest_padded({"k": codes, "v": idx}, n, kk, cfg)
+    if largest:
+        return codec.decode(out, keys.dtype, complement=True), idx
+    return keyspace.decode(out, keys.dtype), idx
 
 
 def batched_bottomk(

@@ -57,6 +57,8 @@ import torch
 __all__ = [
     "encode",
     "decode",
+    "encode_plain",
+    "decode_plain",
     "encoded_dtype",
     "ordered_uint_dtype",
     "supported",
@@ -81,6 +83,7 @@ _DTYPES = {
 }
 _UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
 _SIGNED_OF = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}
+_IDENTITY = (torch.int32, torch.int64)  # key dtypes that are their own codes
 
 
 def _check(dtype: torch.dtype) -> None:
@@ -134,7 +137,21 @@ def _narrow_ucode(keys: torch.Tensor, bits: int) -> torch.Tensor:
 
 def encode(keys: torch.Tensor) -> torch.Tensor:
     """Biject ``keys`` into int32 (keys of <= 32 bits) or int64 (64-bit
-    keys) such that signed ``<`` is the key order."""
+    keys) such that signed ``<`` is the key order.  int32 and int64 keys
+    are their own codes (returned as they are); other keys go through the
+    G5 encode kernel (``kernels.codec.encode_padded``) on a CUDA tensor of
+    any shape, seen as one row, and through :func:`encode_plain` on the
+    CPU."""
+    if keys.device.type == "cuda" and keys.dtype not in _IDENTITY:
+        from repro_torch.kernels import codec  # lazy: the kernels build nothing at import
+
+        key_bits(keys.dtype)  # raises for dtypes with no order-preserving code
+        return codec.encode_padded(keys.reshape(1, -1))[0].view(keys.shape)
+    return encode_plain(keys)
+
+
+def encode_plain(keys: torch.Tensor) -> torch.Tensor:
+    """:func:`encode` in eager torch ops on any device: G5's plain twin."""
     dtype = keys.dtype
     bits = key_bits(dtype)
     if bits < 32:
@@ -157,7 +174,21 @@ def decode(enc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Inverse of :func:`encode` (NaNs come back as the reference's
     canonical NaN).  Narrow floats are decoded from their codes' bits in
     the 16-bit domain, never through a float conversion, which would give
-    other NaN bits."""
+    other NaN bits.  int32 and int64 keys are their codes; other keys come
+    from the G5 decode kernel (``kernels.codec.decode``) on a CUDA tensor of
+    any shape (one row of up to two dims as it lies, any other shape seen as
+    one row), from :func:`decode_plain` on the CPU."""
+    if enc.device.type == "cuda" and dtype not in _IDENTITY:
+        from repro_torch.kernels import codec  # lazy: the kernels build nothing at import
+
+        if enc.dim() in (1, 2):
+            return codec.decode(enc, dtype)
+        return codec.decode(enc.reshape(1, -1), dtype).view(enc.shape)
+    return decode_plain(enc, dtype)
+
+
+def decode_plain(enc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`decode` in eager torch ops on any device: G5's plain twin."""
     bits = key_bits(dtype)
     if enc.dtype != encoded_dtype(dtype):
         raise TypeError(f"keyspace: encoded dtype {enc.dtype} != {encoded_dtype(dtype)}")

@@ -19,13 +19,13 @@ import torch
 
 from repro_torch.core.ips4o import (
     SortConfig,
+    _pad_to,
     _payload,
     base_case_with_fallback,
-    pad_with_sentinel,
     segmented_level_pass,
 )
 from repro_torch.ops import keyspace
-from repro_torch.ops.sort import Device, _device, _keys
+from repro_torch.ops.sort import Device, _device, _keys, padded_codes
 
 __all__ = ["segmented_sort"]
 
@@ -77,13 +77,13 @@ def segmented_sort(
     if n <= 1:
         return keys if values is None else (keys, values)
 
-    arrays = {"k": keyspace.encode(keys)}
+    W = cfg.base_case
+    codes, _, n_pad = padded_codes(keys, cfg)  # G5: encoded and padded in one launch
+    arrays = {"k": codes}
+    del codes  # the level pass frees the codes once it has moved them
     if values is not None:
         payload, rebuild = _payload(values, keys)
-        arrays.update(payload)
-    W = cfg.base_case
-    arrays = pad_with_sentinel(arrays, max(W, cfg.tile))
-    n_pad = arrays["k"].shape[0]
+        arrays.update(_pad_to(payload, n_pad, 0))
     # pads form one extra trailing segment; their sentinel keys make its
     # buckets equality buckets, which the base case leaves alone
     off_ext = torch.cat([offsets, torch.full((1,), n_pad, dtype=torch.int32, device=dev)])

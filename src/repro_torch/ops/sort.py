@@ -12,6 +12,11 @@ composite records as ``keyspace.encode_words`` words, or any (n, W) matrix
 of a keyspace dtype): each word column is encoded, word 0 is sorted and
 the runs that tie are re-sorted word by word (``core.ips4o.tiebreak_passes``).
 
+``sort`` and ``argsort`` encode and pad in one pass (the G5 kernel,
+``kernels.codec``: the codes, the sentinel tail and the index payload) and
+hand the padded arrays to ``core.ips4o.sort_padded``; the sorted codes come
+back through G5's decode.
+
 Every entry point takes ``device=None``, which means ``"cuda"``: the
 kernels run on the card.  ``device="cpu"`` runs the kernels' plain twins
 (the tests do).  With no card and no ``device="cpu"`` they raise; they
@@ -26,7 +31,17 @@ import torch
 
 from repro_torch import obs
 from repro_torch.classify import resolve_classifier
-from repro_torch.core.ips4o import SortConfig, ips4o_sort, signed_payload, tiebreak_passes
+from repro_torch.core.ips4o import (
+    SortConfig,
+    _pad_to,
+    _payload,
+    padded_length,
+    signed_payload,
+    sort_padded,
+    sort_padded_batched,
+    tiebreak_passes,
+)
+from repro_torch.kernels import codec
 from repro_torch.ops import keyspace
 
 __all__ = ["sort", "argsort", "sort_records", "argsort_records", "with_engine"]
@@ -61,6 +76,45 @@ def _keys(keys, dev: torch.device, dim: int = 1) -> torch.Tensor:
         )
     keyspace.encoded_dtype(keys.dtype)  # raises for dtypes with no order-preserving code
     return keys
+
+
+def padded_codes(keys: torch.Tensor, cfg: SortConfig, index: bool = False,
+                 complement: bool = False):
+    """(codes, index or None, n_pad): ``keys`` (n,) or (B, n) encoded and
+    padded in one G5 launch to the pipeline's length (n itself when there
+    is nothing to sort: n <= 1 or no row), with the int32 index payload
+    when ``index`` and the complemented codes when ``complement``.  int32
+    and int64 keys that need no pad, index or complement are their own
+    codes: no launch, no copy (the pipeline never writes its input)."""
+    n = keys.shape[-1]
+    rows = keys.shape[0] if keys.dim() == 2 else 1
+    n_pad = n if n <= 1 or rows == 0 else padded_length(n, max(cfg.base_case, cfg.tile))
+    if (n_pad == n and not index and not complement
+            and keys.dtype in (torch.int32, torch.int64)):
+        return keys, None, n_pad
+    codes, idx = codec.encode_padded(keys, n_pad, index, complement)
+    return codes, idx, n_pad
+
+
+def sorted_codes(keys: torch.Tensor, cfg: SortConfig, values: Any = None, index: bool = False):
+    """The IPS4o pipeline on (n,) or (B, n) keys of any keyspace dtype from
+    G5's padded codes: (the sorted padded codes, the sorted padded index or
+    None, the rebuilt ``values`` or None).  The ``ops`` entry points' one
+    path into ``core.ips4o``."""
+    codes, idx, n_pad = padded_codes(keys, cfg, index)
+    n = keys.shape[-1]
+    if n <= 1 or keys.numel() == 0:  # nothing to sort: the values as they came
+        return codes, idx, values
+    arrays = {"k": codes}
+    if idx is not None:
+        arrays["idx"] = idx
+    del codes, idx  # the passes free each array once they have moved it
+    rebuild = None
+    if values is not None:
+        payload, rebuild = _payload(values, keys)
+        arrays.update(_pad_to(payload, n_pad, keys.dim() - 1))
+    arrays = (sort_padded if keys.dim() == 1 else sort_padded_batched)(arrays, n, cfg)
+    return arrays["k"], arrays.get("idx"), None if rebuild is None else rebuild(arrays, n)
 
 
 def _override(cfg: SortConfig, engine: Optional[str], classifier: Optional[str],
@@ -120,13 +174,12 @@ def sort(
     dev = _device(device)
     keys = _keys(keys, dev)
     cfg = with_engine(cfg, None, keys, classifier)
-    with obs.trace("ops.sort", n=keys.shape[0], dtype=_dtype_name(keys.dtype)):
-        enc = keyspace.encode(keys)
-        if values is None:
-            out = keyspace.decode(ips4o_sort(enc, cfg=cfg), keys.dtype)
-        else:
-            k, vs = ips4o_sort(enc, values, cfg=cfg)
-            out = (keyspace.decode(k, keys.dtype), vs)
+    n = keys.shape[0]
+    with obs.trace("ops.sort", n=n, dtype=_dtype_name(keys.dtype)):
+        codes, _, vs = sorted_codes(keys, cfg, values)
+        out = keyspace.decode(codes[:n], keys.dtype)
+        if values is not None:
+            out = (out, vs)
         obs.block(out)  # obs enabled: the span's host time covers the card's work
     return out
 
@@ -148,12 +201,12 @@ def argsort(
     dev = _device(device)
     keys = _keys(keys, dev)
     n = keys.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
     if n <= 1:
-        return idx
+        return torch.arange(n, dtype=torch.int32, device=dev)
     cfg = with_engine(cfg, None, keys, classifier)
     with obs.trace("ops.argsort", n=n, dtype=_dtype_name(keys.dtype)):
-        _, order = ips4o_sort(keyspace.encode(keys), idx, cfg=cfg)
+        _, order, _ = sorted_codes(keys, cfg, index=True)
+        order = order[:n]
         obs.block(order)
     return order
 

@@ -9,7 +9,9 @@ fallback) run only over the static, W-aligned prefix
 
 which covers that bucket whenever every non-trivial bucket holds at most
 W/2 keys; the fallback, restricted to the buckets that start below P,
-guards that.  ``topk`` is the bottom-k of the complemented codes: ``~``
+guards that.  The entry points encode, complement and pad the keys and
+write the index payload in one G5 launch (``ops.sort.padded_codes``).
+``topk`` is the bottom-k of the complemented codes: ``~``
 reverses the signed order of the port's codes just as it reverses
 the reference's unsigned order.  Ties keep their input order, so both
 agree with the reference bit for bit.
@@ -25,13 +27,13 @@ from repro_torch.classify import resolve_classifier
 from repro_torch.core.ips4o import (
     SortConfig,
     base_case_with_fallback,
-    pad_with_sentinel,
     partition_passes,
     plan_levels,
     stable_full_sort,
 )
+from repro_torch.kernels import codec
 from repro_torch.ops import keyspace
-from repro_torch.ops.sort import Device, _device, _keys, with_engine
+from repro_torch.ops.sort import Device, _device, _keys, padded_codes, with_engine
 
 __all__ = ["topk", "bottomk", "smallest_encoded"]
 
@@ -47,9 +49,14 @@ def smallest_encoded(
     """(the kk smallest encoded int32/int64 keys ascending, their int32 indices)
     of ``enc`` (n,), with 0 < kk <= n; ties keep their input order."""
     resolve_classifier(cfg.classifier)
-    n = enc.shape[0]
-    arrays = {"k": enc, "v": torch.arange(n, dtype=torch.int32, device=enc.device)}
-    arrays = pad_with_sentinel(arrays, max(cfg.base_case, cfg.tile))
+    codes, idx, _ = padded_codes(enc, cfg, index=True)  # G5: the pad and the index
+    return _smallest_padded({"k": codes, "v": idx}, enc.shape[0], kk, cfg)
+
+
+def _smallest_padded(arrays, n: int, kk: int, cfg: SortConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`smallest_encoded` from padded codes "k" and index "v" (n_pad,)
+    of n real positions."""
     n_pad = arrays["k"].shape[0]
     levels = plan_levels(n_pad, cfg)
     if not levels:
@@ -68,11 +75,15 @@ def _partial(keys, k, cfg, classifier, device, largest: bool):
     kk = max(0, min(int(k), n))
     if kk == 0:
         return keys[:0], torch.zeros(0, dtype=torch.int32, device=dev)
-    enc = keyspace.encode(keys)
+    cfg = with_engine(cfg, None, keys, classifier)
+    resolve_classifier(cfg.classifier)
+    # G5: the (complemented) codes and the index, padded, in one launch
+    codes, idx, _ = padded_codes(keys, cfg, index=True, complement=largest)
     with obs.trace("ops.topk" if largest else "ops.bottomk", n=n, k=kk):
-        out, idx = smallest_encoded(~enc if largest else enc, kk,
-                                    with_engine(cfg, None, keys, classifier))
-    return keyspace.decode(~out if largest else out, keys.dtype), idx
+        out, idx = _smallest_padded({"k": codes, "v": idx}, n, kk, cfg)
+    if largest:
+        return codec.decode(out, keys.dtype, complement=True), idx
+    return keyspace.decode(out, keys.dtype), idx
 
 
 def bottomk(

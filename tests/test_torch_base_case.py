@@ -16,6 +16,7 @@ from repro.core import ips4o as ref_ips4o
 from repro.kernels.bitonic import bitonic_sort_windows
 from repro.kernels.ref import bitonic_sort_windows_ref
 from repro_torch.core import ips4o
+from repro_torch.kernels import fallback
 from repro_torch.kernels.bitonic import sort_windows
 from repro_torch.kernels.ops import base_case_windows
 
@@ -134,7 +135,7 @@ def test_oversized_buckets_are_sorted_before_the_windows(seed):
     fb_t = torch.as_tensor(fb)
     assert bool(ips4o.bucket_violations(offsets, nb, W))
     arrays = {"k": torch.tensor(keys), "v": torch.arange(n, dtype=torch.int32)}
-    arrays = ips4o._sort_oversized(arrays, fb_t, offsets, nb, W, None)
+    arrays = fallback.sort_oversized_plain(arrays, fb_t, offsets, nb, W, None)
     out = ips4o.base_case(arrays, fb_t, W, nb)
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(out["v"].numpy(), order)

@@ -47,7 +47,11 @@ close on K4's tile histograms, the segment ids with empty and leading
 buckets, the composite ids of both modes on int32 and int64 keys, the
 scatter of payload rows of 1-16 bytes by a permutation, K1's, K4's and
 K2's placements, and the window gather direct and in place at every W)
-and ``ops.sort``'s profile without ``searchsorted``, and reduced MoE, RWKV-6 and zamba2 models on the card
+and ``ops.sort``'s profile without ``searchsorted``, ``index_put``,
+``nonzero`` or a copy from the host; G5 (the codec on all twelve dtypes),
+G6 (both levels' samples) and G7 (the fallback on crafted offsets, two
+launches) against their twins, and the sort entry points under
+``set_sync_debug_mode("error")``; and reduced MoE, RWKV-6 and zamba2 models on the card
 against the CPU (float32, 1e-3 on the logits); training: the reduced
 models' loss and gradients on the card against the CPU (float32, 1e-4 of
 each leaf's largest gradient, 5e-4 for rwkv6 and zamba2) and bitwise on a second call, K6 twice per
@@ -1968,8 +1972,8 @@ def test_gather_windows_kernel(dev, W):
 
 
 def test_sort_runs_the_glue_kernels(dev):
-    """ops.sort on the card launches G1-G4 and no torch chain of theirs: no
-    searchsorted, and no index_put but the robustness fallback's."""
+    """ops.sort on the card launches G1-G7 and no torch chain of theirs: no
+    searchsorted, no index_put and no nonzero (the fallback is G7's)."""
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.randn(1 << 22, device=dev)
@@ -1977,12 +1981,197 @@ def test_sort_runs_the_glue_kernels(dev):
     y = ops.sort(x)
     counts = kernels.launch_counts()
     for name in ("close_placement", "segment_ids", "composite_ids", "scatter_rows",
-                 "gather_windows"):
+                 "gather_windows", "codec_encode", "codec_decode", "sample_splitters",
+                 "fallback_list", "fallback_sort"):
         assert counts[name] > 0, name
     assert torch.equal(y, torch.sort(x).values)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ops.sort(x)
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages()]
-    assert not [k_ for k_ in names if "searchsorted" in k_]
-    assert sum(e.count for e in prof.key_averages() if "index_put" in e.key) <= 1
+    for torch_op in ("searchsorted", "index_put", "nonzero", "Memcpy HtoD"):
+        assert not [k_ for k_ in names if torch_op in k_], torch_op
+
+
+KEY_DTYPES = [torch.int8, torch.uint8, torch.int16, torch.uint16, torch.float16, torch.bfloat16,
+              torch.int32, torch.uint32, torch.float32, torch.int64, torch.uint64, torch.float64]
+
+
+def _codec_input(dtype, shape, dev, seed=0):
+    """Random bits of ``dtype`` with NaN, -NaN, +-0.0, +-inf and a subnormal
+    in front (floats)."""
+    width = torch.empty(0, dtype=dtype).element_size()
+    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[width]
+    g = torch.Generator().manual_seed(seed)
+    raw = torch.randint(-2**62, 2**62, shape, generator=g).to(signed)
+    keys = raw.view(dtype)
+    if dtype.is_floating_point:
+        sp = torch.tensor([float("nan"), -float("nan"), 0.0, -0.0, float("inf"), -float("inf"),
+                           torch.finfo(dtype).tiny / 2])
+        keys.view(-1)[:len(sp)] = sp.to(dtype)
+    return keys.to(dev)
+
+
+def _same(got, want):
+    assert torch.equal(got, want)
+
+
+def _signed(t):
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+@pytest.mark.parametrize("dtype", KEY_DTYPES)
+def test_codec_kernels(dev, dtype):
+    """G5 against its twin bit for bit: the codes, the sentinel tail, the
+    complement and the index payload, one row and (B, n) rows, and the
+    decode of the first n codes of each row (NaN canonical)."""
+    from repro_torch.kernels import codec
+
+    for shape, n_pad in (((100003,), None), ((100003,), 106496), ((3, 5000), 8192)):
+        x = _codec_input(dtype, shape, dev, seed=len(shape))
+        for index, complement in ((False, False), (True, False), (True, True)):
+            got = codec.encode_padded(x, n_pad, index, complement)
+            want = codec.encode_padded_plain(x, n_pad, index, complement)
+            _same(got[0], want[0])
+            assert (got[1] is None) == (want[1] is None)
+            if index:
+                _same(got[1], want[1])
+            n = shape[-1]
+            _same(_signed(codec.decode(got[0], dtype, n, complement)),
+                   _signed(codec.decode_plain(want[0], dtype, n, complement)))
+
+
+@pytest.mark.parametrize("dtype", [d for d in KEY_DTYPES if d not in (torch.int32, torch.int64)])
+def test_keyspace_codec_any_shape_runs_the_kernels(dev, dtype):
+    """``ops.keyspace.encode``/``decode`` on the card take the G5 kernels for
+    keys of any shape (3-D, a transposed view, 0-d), one launch each, bit
+    for bit the plain twins."""
+    from repro_torch.ops import keyspace
+
+    x3 = _codec_input(dtype, (4, 5, 6), dev, seed=3)
+    for x in (x3, x3.transpose(0, 2), x3[1, 2, 3]):
+        kernels.reset_launch_counts()
+        enc = keyspace.encode(x)
+        assert kernels.launch_counts()["codec_encode"] == 1
+        _same(enc, keyspace.encode_plain(x))
+        dec = keyspace.decode(enc, dtype)
+        assert kernels.launch_counts()["codec_decode"] == 1
+        _same(_signed(dec), _signed(keyspace.decode_plain(enc, dtype)))
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+def test_sample_splitters_kernel(dev, key_dtype):
+    """G6 against its twin: level 1 with the upper form at the main path's
+    m = 512, k = 128 and at m = 7 and 8192; level 2 over empty segments,
+    an empty last one, and a uniform just below 1."""
+    from repro_torch.kernels import glue
+
+    for B, n, m, k in ((1, 1 << 20, 512, 128), (8, 1 << 16, 7, 4), (1, 50000, 8192, 256)):
+        keys = torch.randint(-2**31, 2**31, (B, n), device=dev).to(key_dtype)
+        keys[:, ::7] = 5
+        pos = torch.randint(0, n, (B, m), device=dev)
+        got = glue.sample_splitters(keys, pos, k, upper=True)
+        want = glue.sample_splitters_plain(keys, pos, k, upper=True)
+        _same(got[0], want[0])
+        _same(got[1], want[1])
+    B, n, S, m, k = 2, 1 << 16, 33, 96, 16
+    keys = torch.randint(-2**31, 2**31, (B, n), device=dev).to(key_dtype)
+    cuts = torch.sort(torch.randint(0, n, (B, S - 1), device=dev), dim=1).values
+    cuts[:, 3:9] = cuts[:, 3:4]
+    off = torch.cat([torch.zeros(B, 1, dtype=torch.int64, device=dev), cuts,
+                     torch.full((B, 1), n, device=dev)], 1).to(torch.int32)
+    off[:, -2] = n
+    u = torch.rand((B, S, m), device=dev)
+    u[..., 0] = 0.99999994
+    _same(glue.sample_splitters(keys, u, k, seg_offsets=off),
+           glue.sample_splitters_plain(keys, u, k, seg_offsets=off))
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("sizes,W", [([[1 << 15]], 8192),
+                                      ([[129, 1, 2047, 1, 2048, 1, 2049, 1, 6149]], 256),
+                                      ([[5000, 1, 300], [10, 20], [4097]], 8192),
+                                      ([[100, 200]], 8192)])
+def test_fallback_kernels(dev, key_dtype, sizes, W):
+    """G7 against its twin bit for bit, in two launches: a bucket holding
+    the whole row, buckets of W/2+1, C-1, C, C+1 and 3C+5 keys, rows of
+    other counts with equal keys, no bucket over W/2; with and without
+    ``limit``; keys, an int32 index, bool rows of 3, float32 rows of 2 and
+    bfloat16 payloads moved, and the keys alone (merged themselves)."""
+    from repro_torch.kernels import _build, fallback, glue
+
+    n = max(sum(s) for s in sizes) + 1
+    offs = [np.append(np.concatenate([[0], np.cumsum(s)]), n) for s in sizes]
+    nb = max(len(o) for o in offs) - 1
+    off = torch.tensor(np.stack([np.append(o, [n] * (nb + 1 - len(o))) for o in offs]),
+                       dtype=torch.int32, device=dev)
+    B = off.shape[0]
+    keys = torch.randint(-2**31, 2**31, (B, n), device=dev).to(key_dtype) % 1000
+    keys[-1] = 7
+    fb = glue.segment_ids(off, n)
+    for limit in (None, n // 3):
+        arrays = {"k": keys, "v": torch.arange(B * n, device=dev).reshape(B, n).to(torch.int32),
+                  "b": torch.rand(B, n, 3, device=dev) > 0.5, "f": torch.randn(B, n, 2, device=dev),
+                  "h": torch.randn(B, n, device=dev).to(torch.bfloat16)}
+        a1 = {k_: v.clone() for k_, v in arrays.items()}
+        a2 = {k_: v.clone() for k_, v in arrays.items()}
+        kernels.reset_launch_counts()
+        fallback.sort_oversized(a1, fb, off, nb, W, None, limit)
+        assert _build.LAUNCHES["fallback_list"] == 1 and _build.LAUNCHES["fallback_sort"] == 1
+        fallback.sort_oversized_plain(a2, fb, off, nb, W, None, limit)
+        for k_ in arrays:
+            _same(_signed(a1[k_]) if a1[k_].dtype != torch.bool else a1[k_],
+                  _signed(a2[k_]) if a2[k_].dtype != torch.bool else a2[k_])
+        alone = {"k": keys.clone()}  # the keys alone: the kernel that merges the keys
+        fallback.sort_oversized(alone, fb, off, nb, W, None, limit)
+        _same(alone["k"], fallback.sort_oversized_plain({"k": keys.clone()}, fb, off, nb, W,
+                                                        None, limit)["k"])
+
+
+@pytest.mark.parametrize("leaves,sort_launches", [(20, 1), (128, 1), (129, 2)])
+def test_fallback_moves_many_arrays(dev, leaves, sort_launches):
+    """G7 with a payload of many leaves: one sort launch moves up to
+    ``fallback.MAX_ARRAYS`` arrays (keys included), one more each further
+    128; every array equal to the twin's."""
+    from repro_torch.kernels import _build, fallback, glue
+
+    n, W = 1 << 14, 256
+    off = torch.tensor([[0, 5000, 5001, 9000, n]], dtype=torch.int32, device=dev)
+    keys = torch.randint(0, 50, (1, n), device=dev, dtype=torch.int32)
+    arrays = {"k": keys}
+    for i in range(leaves - 1):
+        dtype = (torch.int32, torch.float16, torch.uint8)[i % 3]
+        arrays[f"v{i}"] = torch.randint(0, 100, (1, n), device=dev).to(dtype) + i
+    a1 = {k_: v.clone() for k_, v in arrays.items()}
+    a2 = {k_: v.clone() for k_, v in arrays.items()}
+    kernels.reset_launch_counts()
+    fallback.sort_oversized(a1, None, off, 4, W, None)
+    assert _build.LAUNCHES["fallback_list"] == 1
+    assert _build.LAUNCHES["fallback_sort"] == sort_launches
+    fallback.sort_oversized_plain(a2, glue.segment_ids(off, n), off, 4, W, None)
+    for k_ in arrays:
+        _same(_signed(a1[k_]), _signed(a2[k_]))
+
+
+def test_sorts_make_no_synchronizing_call(dev):
+    """With obs off, the sort entry points read nothing back from the card
+    between their entry and their return (``set_sync_debug_mode("error")``)."""
+    n = 1 << 20
+    x = torch.rand(n, device=dev)
+    calls = [lambda: ops.sort(x), lambda: ops.argsort(x), lambda: ops.topk(x, 1024),
+             lambda: ops.bottomk(x, 1024), lambda: ops.sort(x.double()),
+             lambda: ops.sort((x * 2**31).to(torch.int32), classifier="radix"),
+             lambda: ops.batched_sort(x.reshape(16, -1)),
+             lambda: ops.batched_argsort(x.reshape(16, -1)),
+             lambda: ops.batched_topk(x.reshape(16, -1), 64)]
+    off = torch.tensor([0, 1000, 1000, 500000, n], dtype=torch.int32, device=dev)
+    calls.append(lambda: ops.segmented_sort(x, off, 4))
+    for call in calls:
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)

@@ -71,6 +71,16 @@ step, so that their schedules are checked where there is no card:
   mode for all twelve key kinds at k = 1 .. 256 (the 64-bit kinds in an x64
   child), batched and in radix mode; the walk is shown to take every tile
   and key once, and the shared bytes to fit a CTA.
+- The sort's glue G1-G4 (``csrc/glue.cu``) and G6 and G7: G6's positions
+  from the drawn uniforms in float32 and its bitonic network over the
+  padded sample, against the plain twin and the reference's
+  ``select_splitters``; G7's list, its chunks sorted by (key, position),
+  its merge rounds (each tile's two cuts by the warp's 32 probes a step,
+  each thread's search and serial merge) and its move through the 4-byte
+  scratch, on crafted offsets (one bucket a whole row; buckets of W/2+1,
+  C-1, C, C+1 and 3C+5 keys; equal keys; rows of other counts; ``limit``;
+  int32 and int64 codes), against the reference's ``stable_full_sort`` of
+  each listed bucket and the plain twin.
 """
 import math
 
@@ -2365,3 +2375,463 @@ def test_g4_window_gather_staging_matches_the_reference(row_bytes, W):
             assert row_bytes % unit == 0 and (not staged or W * chunk * unit <= 65536)
             got = _replay_g4_gather(buf.copy(), perm, lo, W, unit, chunk, staged)
             np.testing.assert_array_equal(got, want)
+
+
+# ---- G6: the levels' samples -----------------------------------------------
+
+
+def _g6_bitonic(vals: np.ndarray) -> np.ndarray:
+    """The kernel's network over P (a power of two) values in shared memory:
+    stage (size, stride), pair t's lower index 2t - (t & (stride - 1)), the
+    direction ascending where (i & size) == 0, a swap when (a > b) equals it."""
+    s = vals.copy()
+    P = s.shape[0]
+    t = np.arange(P // 2)
+    size = 2
+    while size <= P:
+        stride = size >> 1
+        while stride:
+            i = 2 * t - (t & (stride - 1))
+            j = i + stride
+            a, b = s[i], s[j]
+            swap = (a > b) == ((i & size) == 0)
+            s[i], s[j] = np.where(swap, b, a), np.where(swap, a, b)
+            stride >>= 1
+        size <<= 1
+    return s
+
+
+def _replay_g6(keys: np.ndarray, draw: np.ndarray, k: int, seg_off=None):
+    """G6, one CTA a (row, segment): the positions (level 1 the drawn ones;
+    level 2 lo + floor(u * float32(max(hi - lo, 1))) in float32, clamped to
+    [lo, max(hi - 1, lo)] and to the row), the keys there padded to P with
+    the max, the network, and the picks clip(j m // k, 0, m - 1), with the
+    upper form's sentinel last."""
+    B, n = keys.shape
+    S = 1 if seg_off is None else draw.shape[1]
+    m = draw.shape[-1]
+    P = 1 << (m - 1).bit_length()
+    top = np.iinfo(keys.dtype).max
+    spl = np.empty((B, S, k - 1), keys.dtype)
+    for r in range(B):
+        for s in range(S):
+            if seg_off is None:
+                p = draw[r].astype(np.int64)
+            else:
+                lo, hi = int(seg_off[r, s]), int(seg_off[r, s + 1])
+                f = draw[r, s].astype(np.float32) * np.float32(max(hi - lo, 1))
+                assert f.dtype == np.float32
+                p = lo + np.floor(f).astype(np.int64)
+                p = np.minimum(np.minimum(np.maximum(p, lo), max(hi - 1, lo)), n - 1)
+            stage = np.full(P, top, keys.dtype)
+            stage[:m] = keys[r, p]
+            at = np.minimum(np.arange(1, k, dtype=np.int64) * m // k, m - 1)
+            spl[r, s] = _g6_bitonic(stage)[at]
+    upper = np.concatenate([spl[:, 0], np.full((B, 1), top, keys.dtype)], 1)
+    return (spl[:, 0], upper) if seg_off is None else (spl, None)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("m,k", [(512, 128), (7, 4), (1, 2), (100, 16)])
+def test_g6_replay_matches_the_plain_twin_and_the_reference(dtype, m, k):
+    """Level 1 (the upper form too) and level 2 over segments that are
+    empty, the last one at the row's end (its lo is n), with the uniforms'
+    extremes, against ``glue.sample_splitters_plain`` and the reference's
+    ``select_splitters`` of the sorted sample."""
+    from repro.core.sampling import select_splitters as ref_select_splitters
+    from repro_torch.kernels.glue import sample_splitters_plain
+
+    rng = np.random.default_rng(m + k)
+    B, n = 2, 6000
+    keys = (rng.integers(-2**31, 2**31, (B, n)) // 7).astype(dtype)
+    keys[:, ::5] = 3  # duplicates
+    pos = rng.integers(0, n, (B, m))
+    spl, upper = _replay_g6(keys, pos, k)
+    want, want_up = sample_splitters_plain(torch.from_numpy(keys), torch.from_numpy(pos), k,
+                                           upper=True)
+    np.testing.assert_array_equal(spl, want.numpy())
+    np.testing.assert_array_equal(upper, want_up.numpy())
+    for r in range(B):
+        np.testing.assert_array_equal(spl[r], np.asarray(ref_select_splitters(
+            jnp.sort(jnp.asarray(keys[r, pos[r]].astype(np.int64))), k)))
+    S = 6
+    off = np.array([[0, 0, 1000, 1000, 4000, n, n], [0, 10, 20, 3000, 5999, n, n]], np.int32)
+    u = rng.random((B, S, m), dtype=np.float32)
+    u[..., 0] = np.nextafter(np.float32(1), np.float32(0))
+    got, _ = _replay_g6(keys, u, k, off)
+    want = sample_splitters_plain(torch.from_numpy(keys), torch.from_numpy(u), k,
+                                  seg_offsets=torch.from_numpy(off))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+# ---- G7: the robustness fallback ------------------------------------------
+
+G7_PER = 8  # outputs a thread of a merge tile
+
+
+def _g7_list(off, nb, W, limit, C, span=4096, per=4):
+    """G7's list kernel: a CTA a (row, part of ``span`` buckets), thread t of
+    ``span // per`` taking buckets t, t + span // per, ...; phase one each
+    part's count, chunks and largest; phase two each part's entries in
+    bucket order from its row's prefix of the earlier parts (the last part
+    writing the row's totals); phase three the chunk prefix over the rows and
+    the summary (verdict, count, largest size, chunks)."""
+    threads = span // per
+    parts = -(-nb // span)
+
+    def listed(row, b):
+        start, size = int(row[b]), int(row[b + 1] - row[b])
+        return start, size, b % 2 == 0 and size > W // 2 and start < limit
+
+    stats = []
+    for row in off:  # phase one
+        for p in range(parts):
+            bs = [p * span + j * threads + t for j in range(per) for t in range(threads)]
+            big = [listed(row, b)[1] for b in bs if b < nb and listed(row, b)[2]]
+            stats.append((len(big), sum(-(-s // C) for s in big), max(big, default=0)))
+    lists, per_row, largest = [], [], []
+    for r, row in enumerate(off):  # phase two
+        entries = []
+        for p in range(parts):
+            slot = sum(stats[r * parts + q][0] for q in range(p))
+            chunk = sum(stats[r * parts + q][1] for q in range(p))
+            assert slot == len(entries)
+            for j in range(per):  # a block scan a stretch, in bucket order
+                for t in range(threads):
+                    b = p * span + j * threads + t
+                    if b < nb and listed(row, b)[2]:
+                        start, size, _ = listed(row, b)
+                        entries.append((start, size, chunk))
+                        chunk += -(-size // C)
+        lists.append(entries)
+        per_row.append(sum(stats[r * parts + q][1] for q in range(parts)))
+        largest.append(max(stats[r * parts + q][2] for q in range(parts)))
+    prefix = np.concatenate([[0], np.cumsum(per_row)]).astype(np.int64)  # phase three
+    count = sum(len(e) for e in lists)
+    return lists, prefix, (int(count > 0), count, max(largest, default=0), int(prefix[-1]))
+
+
+def _g7_locate(lists, prefix, c):
+    """Chunk c of the sequence: the row by a search of the row prefix, the
+    bucket by a search of the row's first chunks."""
+    row = int(np.searchsorted(prefix, c, side="right")) - 1
+    lc = c - int(prefix[row])
+    firsts = [e[2] for e in lists[row]]
+    j = int(np.searchsorted(firsts, lc, side="right")) - 1
+    start, size, first = lists[row][j]
+    return row, start, size, lc - first
+
+
+def _g7_warp_cut(before, na, nb, d):
+    """The warp's merge-path cut: 32 probes a step, the gap between the last
+    true and the first false probe kept; ``before(i, j)`` compares the left
+    run's i-th with the right run's j-th."""
+    lo, hi = max(0, d - nb), min(d, na)
+    steps = 0
+    while hi - lo > 32:
+        step = (hi - lo + 31) >> 5
+        c = sum(1 for lane in range(32) if lo + lane * step < hi
+                and before(lo + lane * step, d - 1 - lo - lane * step))
+        steps += 1
+        if c == 0:
+            return lo, steps
+        lo, hi = lo + (c - 1) * step + 1, min(hi, lo + c * step)
+    return lo + sum(1 for lane in range(32) if lo + lane < hi
+                    and before(lo + lane, d - 1 - lo - lane)), steps + 1
+
+
+def _g7_chunk_sort(key, pos):
+    """The chunk's bitonic network on (key, position), padded with (max,
+    INT_MAX): a total order, so the stable order."""
+    C = key.shape[0]
+    k, p = key.copy(), pos.copy()
+    t = np.arange(C // 2)
+    size = 2
+    while size <= C:
+        stride = size >> 1
+        while stride:
+            i = 2 * t - (t & (stride - 1))
+            j = i + stride
+            b_first = (k[j] < k[i]) | ((k[j] == k[i]) & (p[j] < p[i]))
+            swap = b_first == ((i & size) == 0)
+            k[i], k[j] = np.where(swap, k[j], k[i]), np.where(swap, k[i], k[j])
+            p[i], p[j] = np.where(swap, p[j], p[i]), np.where(swap, p[i], p[j])
+            stride >>= 1
+        size <<= 1
+    return k, p
+
+
+def _replay_g7(arrays, off, nb, W, limit, C, span=4096, per=4):
+    """G7 over (B, n) ``arrays`` (keys "k" int32 or int64; other arrays any
+    row width): the list, the chunks sorted into buffer 0, the merge rounds
+    (width C, 2C, ... below the largest size) through tiles of C outputs,
+    each with its two cuts and its threads' searches and serial merges, and
+    the move through a scratch of 4 bytes a position, one slice of a row's
+    units at a time.  Returns (arrays, summary, rounds, largest cut steps)."""
+    keys = arrays["k"]
+    B, n = keys.shape
+    lists, prefix, summary = _g7_list(off, nb, W, n if limit is None else limit, C,
+                                      span=span, per=per)
+    chunks, largest = summary[3], summary[2]
+    bufs = np.zeros((2, B, n), np.int64)
+    threads = C // G7_PER
+    top = np.iinfo(keys.dtype).max
+    for c in range(chunks):
+        row, start, size, q = _g7_locate(lists, prefix, c)
+        p0, ln = start + q * C, min(C, size - q * C)
+        kk = np.full(C, top, keys.dtype)
+        pp = np.full(C, 2**31 - 1, np.int64)
+        kk[:ln], pp[:ln] = keys[row, p0:p0 + ln], np.arange(p0, p0 + ln)
+        _, sp = _g7_chunk_sort(kk, pp)
+        bufs[0, row, p0:p0 + ln] = sp[:ln]
+    rounds, w, cur, most_steps = 0, C, 0, 0
+    while w < largest:
+        for c in range(chunks):
+            row, start, size, q = _g7_locate(lists, prefix, c)
+            rk = keys[row]
+            o0, o1 = q * C, min(q * C + C, size)
+            ps = (o0 // (2 * w)) * (2 * w)
+            na = min(w, size - ps)
+            nb_ = min(2 * w, size - ps) - na
+            src = bufs[cur, row, start + ps:start + ps + na + nb_]
+            dst = bufs[1 - cur, row, start + ps:]
+            d0, d1 = o0 - ps, o1 - ps
+            if nb_ == 0:
+                dst[d0:d1] = src[d0:d1]
+                continue
+
+            def before(i, j):
+                a, b = src[i], src[na + j]
+                return (rk[a], a) < (rk[b], b)
+
+            (a0, s0), (a1, s1) = _g7_warp_cut(before, na, nb_, d0), _g7_warp_cut(before, na, nb_, d1)
+            most_steps = max(most_steps, s0, s1)
+            want0 = sum(1 for i in range(max(0, d0 - nb_), min(d0, na)) if before(i, d0 - 1 - i))
+            assert a0 == max(0, d0 - nb_) + want0  # the cut is the merge path's
+            la, lb, b0 = a1 - a0, (d1 - a1) - (d0 - a0), d0 - a0
+            sp = np.concatenate([src[a0:a1], src[na + b0:na + b0 + lb]])
+            sk = rk[sp]
+
+            def lt(i, j):
+                return (sk[i], sp[i]) < (sk[j], sp[j])
+
+            for t in range(threads):
+                dd = t * G7_PER
+                if dd >= la + lb:
+                    continue
+                lo, hi = max(0, dd - lb), min(dd, la)
+                while lo < hi:
+                    mid = (lo + hi) >> 1
+                    if lt(mid, la + dd - 1 - mid):
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                i, j = lo, dd - lo
+                for r in range(G7_PER):
+                    if dd + r < la + lb:
+                        if j >= lb or (i < la and lt(i, la + j)):
+                            dst[d0 + dd + r], i = sp[i], i + 1
+                        else:
+                            dst[d0 + dd + r], j = sp[la + j], j + 1
+        cur, w, rounds = 1 - cur, 2 * w, rounds + 1
+    order, scratch = bufs[cur], np.zeros((B, n, 4), np.uint8)
+    for name, a in arrays.items():
+        rows = np.ascontiguousarray(a).view(np.uint8).reshape(B, n, -1)
+        unit = min(4, 1 << ((rows.shape[2] & -rows.shape[2]).bit_length() - 1))
+        units = rows.shape[2] // unit
+        g = 4 // unit
+        for u0 in range(0, units, g):
+            cu = min(g, units - u0)
+            lo_b, hi_b = u0 * unit, (u0 + cu) * unit
+            for phase in (0, 1):
+                for c in range(chunks):
+                    row, start, size, q = _g7_locate(lists, prefix, c)
+                    p = np.arange(start + q * C, start + min(q * C + C, size))
+                    if phase == 0:
+                        scratch[row, p, :hi_b - lo_b] = rows[row, order[row, p], lo_b:hi_b]
+                    else:
+                        rows[row, p, lo_b:hi_b] = scratch[row, p, :hi_b - lo_b]
+        arrays[name] = rows.view(a.dtype).reshape(a.shape)
+    return arrays, summary, rounds, most_steps
+
+
+def _g7_case(name, dtype):
+    """(B, n, W, per-row bucket sizes) of the crafted offsets."""
+    C = 2048
+    return {
+        "whole row": (1, 6 * C + 5, 256, [[6 * C + 5]]),
+        "W/2+1, C-1, C, C+1, 3C+5": (1, 16000, 256, [[129, 3, C - 1, 1, C, 0, C + 1, 2,
+                                                       3 * C + 5]]),
+        "rows of other counts": (3, 9000, 256, [[4000, 1, 130], [10, 20, 30], [9000]]),
+        "all equal": (2, 7000, 256, [[5000, 1, 200], [300]]),
+    }[name]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", ["whole row", "W/2+1, C-1, C, C+1, 3C+5",
+                                  "rows of other counts", "all equal"])
+@pytest.mark.parametrize("limit", [None, 3000])
+def test_g7_replay_matches_the_reference_and_the_plain_twin(dtype, case, limit):
+    """G7's schedule at the kernel's C = 2048 on crafted offsets: the list's
+    summary, the chunks, the merge rounds with their cuts and the move give
+    what the plain twin gives, and every listed bucket is the reference's
+    ``stable_full_sort`` of its keys (index and payload with them); the
+    other positions never move."""
+    from repro.core.ips4o import stable_full_sort as ref_stable_full_sort
+    from repro_torch.kernels import fallback
+    from repro_torch.kernels.glue import segment_ids_plain
+
+    C = fallback.CHUNK
+    B, n, W, sizes = _g7_case(case, dtype)
+    rng = np.random.default_rng(len(case) + (limit or 0))
+    offs = []
+    for s in sizes:
+        o = np.concatenate([[0], np.cumsum(s)])
+        offs.append(np.append(o, n) if o[-1] < n else o)
+    nb = max(len(o) for o in offs) - 1
+    off = np.stack([np.append(o, [n] * (nb + 1 - len(o))) for o in offs]).astype(np.int32)
+    keys = rng.integers(-2**31, 2**31, (B, n)).astype(dtype) // 3
+    if case == "all equal":
+        keys[:] = 11
+    elif case == "whole row":
+        keys[0, :1000] = keys[0, 0]  # a run of equal keys across chunks
+    arrays = {"k": keys.copy(), "v": np.tile(np.arange(n, dtype=np.int32), (B, 1)),
+              "w": (rng.integers(0, 2, (B, n, 3)) > 0), "x": rng.standard_normal((B, n, 3))}
+    got, summary, rounds, steps = _replay_g7({k_: v.copy() for k_, v in arrays.items()}, off,
+                                             nb, W, limit, C)
+    meta = fallback.oversized_list_plain(torch.from_numpy(off), nb, W, None, limit, n)
+    assert tuple(meta[:4].tolist()) == summary
+    assert rounds == max(0, math.ceil(math.log2(max(summary[2], 1) / C)))
+    tarr = {k_: torch.from_numpy(v.copy()) for k_, v in arrays.items()}
+    fb = segment_ids_plain(torch.from_numpy(off), n)
+    want = fallback.sort_oversized_plain(tarr, fb, torch.from_numpy(off), nb, W, None, limit)
+    for k_ in arrays:
+        np.testing.assert_array_equal(got[k_], want[k_].numpy(), err_msg=k_)
+    big = fallback.oversized_mask(torch.from_numpy(off), nb, W, None, limit).numpy()
+    moved = np.zeros((B, n), bool)
+    for r in range(B):
+        for b in np.nonzero(big[r])[0]:
+            lo, hi = off[r, b], off[r, b + 1]
+            moved[r, lo:hi] = True
+            ref = ref_stable_full_sort({"k": jnp.asarray(keys[r, lo:hi].astype(np.int64)),
+                                        "v": jnp.asarray(np.arange(lo, hi, dtype=np.int32))})
+            np.testing.assert_array_equal(got["k"][r, lo:hi], np.asarray(ref["k"]))
+            np.testing.assert_array_equal(got["v"][r, lo:hi], np.asarray(ref["v"]))
+    for k_ in arrays:
+        np.testing.assert_array_equal(got[k_][~moved], arrays[k_][~moved])
+
+
+@pytest.mark.parametrize("C,sizes", [(16, [37, 1, 16, 2, 33, 0, 200]), (32, [1000]),
+                                     (64, [65, 1, 128, 1, 129, 1, 64 * 5 + 3])])
+def test_g7_merge_rounds_at_small_chunks(C, sizes):
+    """The schedule with chunks of C keys (many rounds: a bucket of 1000 in
+    chunks of 32 takes five) and the list over parts of 4 buckets (two a
+    thread) stays the stable sort of every listed bucket, and the warp cuts
+    stay within their bound of steps."""
+    rng = np.random.default_rng(C)
+    n = sum(sizes) + 10
+    off = np.concatenate([[0], np.cumsum(sizes), [n]]).astype(np.int32)[None]
+    nb = off.shape[1] - 1
+    keys = rng.integers(0, 50, (1, n)).astype(np.int32)  # many ties
+    arrays = {"k": keys.copy(), "v": np.arange(n, dtype=np.int32)[None]}
+    got, summary, rounds, steps = _replay_g7(arrays, off, nb, 8, None, C, span=4, per=2)
+    assert rounds == math.ceil(math.log2(summary[2] / C)) and steps <= 3
+    for b in range(0, nb, 2):
+        lo, hi = off[0, b], off[0, b + 1]
+        if hi - lo > 4:
+            order = np.argsort(keys[0, lo:hi], kind="stable")
+            np.testing.assert_array_equal(got["v"][0, lo:hi], lo + order)
+
+
+def _replay_g7_keys(keys, off, nb, W, limit, C, span=4096, per=4):
+    """G7's sort of the keys alone (no payload): each chunk sorted in place
+    (a network on the keys, the max as the pad), then rounds ping-ponging
+    between the keys and a scratch, each tile's cuts by the warp's probes of
+    A[i] <= B[d-1-i] (ties to the left run) and each thread's serial merge,
+    and the copy back after an odd number of rounds.  Returns (keys,
+    summary, rounds)."""
+    B, n = keys.shape
+    lists, prefix, summary = _g7_list(off, nb, W, n if limit is None else limit, C, span, per)
+    chunks, largest = summary[3], summary[2]
+    bufs = [keys.copy(), np.zeros_like(keys)]
+    top = np.iinfo(keys.dtype).max
+    threads = C // G7_PER
+    for c in range(chunks):
+        row, start, size, q = _g7_locate(lists, prefix, c)
+        p0, ln = start + q * C, min(C, size - q * C)
+        stage = np.full(C, top, keys.dtype)
+        stage[:ln] = bufs[0][row, p0:p0 + ln]
+        bufs[0][row, p0:p0 + ln] = _g6_bitonic(stage)[:ln]
+    cur, w, rounds = 0, C, 0
+    while w < largest:
+        for c in range(chunks):
+            row, start, size, q = _g7_locate(lists, prefix, c)
+            o0, o1 = q * C, min(q * C + C, size)
+            ps = (o0 // (2 * w)) * (2 * w)
+            na = min(w, size - ps)
+            nb_ = min(2 * w, size - ps) - na
+            src = bufs[cur][row, start + ps:start + ps + na + nb_]
+            dst = bufs[1 - cur][row, start + ps:]
+            d0, d1 = o0 - ps, o1 - ps
+            if nb_ == 0:
+                dst[d0:d1] = src[d0:d1]
+                continue
+
+            def before(i, j):
+                return src[i] <= src[na + j]
+
+            a0, a1 = _g7_warp_cut(before, na, nb_, d0)[0], _g7_warp_cut(before, na, nb_, d1)[0]
+            la, lb = a1 - a0, (d1 - a1) - (d0 - a0)
+            sk = np.concatenate([src[a0:a1], src[na + d0 - a0:na + d0 - a0 + lb]])
+            for t in range(threads):
+                dd = t * G7_PER
+                if dd >= la + lb:
+                    continue
+                lo, hi = max(0, dd - lb), min(dd, la)
+                while lo < hi:
+                    mid = (lo + hi) >> 1
+                    if sk[mid] <= sk[la + dd - 1 - mid]:
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                i, j = lo, dd - lo
+                for r in range(G7_PER):
+                    if dd + r < la + lb:
+                        if j >= lb or (i < la and sk[i] <= sk[la + j]):
+                            dst[d0 + dd + r], i = sk[i], i + 1
+                        else:
+                            dst[d0 + dd + r], j = sk[la + j], j + 1
+        cur, w, rounds = 1 - cur, 2 * w, rounds + 1
+    out = bufs[0]
+    if cur:  # an odd number of rounds: the listed positions copied back
+        for c in range(chunks):
+            row, start, size, q = _g7_locate(lists, prefix, c)
+            p = slice(start + q * C, start + min(q * C + C, size))
+            out[row, p] = bufs[1][row, p]
+    return out, summary, rounds
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("C,sizes,limit", [(2048, [129, 1, 2047, 1, 2048, 1, 2049, 1, 6149], None),
+                                           (16, [37, 1, 16, 2, 33, 0, 200], 100),
+                                           (32, [1000], None), (64, [130, 1, 129], None)])
+def test_g7_keys_alone_replay_matches_the_plain_twin(dtype, C, sizes, limit):
+    """The keys-alone kernel (ops.sort's: no payload) over even and odd
+    numbers of rounds, the list over parts of 4 buckets: every listed bucket
+    sorted, everything else as it was, as the plain twin leaves it."""
+    from repro_torch.kernels import fallback
+    from repro_torch.kernels.glue import segment_ids_plain
+
+    rng = np.random.default_rng(C + len(sizes))
+    n = sum(sizes) + 10
+    off = np.concatenate([[0], np.cumsum(sizes), [n]]).astype(np.int32)[None]
+    nb = off.shape[1] - 1
+    keys = (rng.integers(-2**31, 2**31, (1, n)) // 1000).astype(dtype)
+    got, summary, rounds = _replay_g7_keys(keys.copy(), off, nb, 128 if C == 2048 else 8, limit,
+                                           C, span=4, per=2)
+    arr = {"k": torch.from_numpy(keys.copy())}
+    want = fallback.sort_oversized_plain(arr, segment_ids_plain(torch.from_numpy(off), n),
+                                         torch.from_numpy(off), nb, 128 if C == 2048 else 8,
+                                         None, limit)
+    np.testing.assert_array_equal(got, want["k"].numpy())
+    assert rounds == (math.ceil(math.log2(summary[2] / C)) if summary[2] > C else 0)
