@@ -50,9 +50,15 @@ observability layer and the distributed sort:
    level 1's offsets (nb 257), level 2's (nb 65,792), 64 rows and one
    bucket; G3 ``composite_ids`` on the 1-D and batched level 2, int64 codes
    (``composite_ids64``), radix mode and 4097 segments; G4 ``scatter_rows``
-   of payload rows of 1, 2, 4, 8, 12 and 16 bytes by the level-1 and
-   level-2 placements (staged by bucket) and by a permutation (row by row),
-   and ``gather_windows`` of the same rows, into a new tensor and in place;
+   of payload rows of 1, 2, 4, 8, 12 and 16 bytes, all six tensors in one
+   launch, by the level-1 and level-2 placements (planned by bucket), by a
+   permutation (row by row) and on (64, 2^18) rows, and ``gather_windows``
+   of the same rows in one launch, into new tensors and in place, and on
+   the 64 rows with a limit (pass one into copies, pass two in place); in
+   phase 3 ``ops.sort`` and ``ops.argsort`` of 2^24 float32 make one G4
+   launch a level and a pass, and phase 4 times G4 at every span and stage
+   count the wrappers can take (``launch scatter_rows``/``gather_windows``
+   lines: registers, shared memory, CTAs an SM);
    G5 ``codec_encode``/``codec_decode`` on the twelve key dtypes (NaN,
    -NaN, +-0.0, +-inf, a subnormal) at 2^20 + 3 keys and (64, 2^14) rows,
    padded with and without the index and the complement, and on the main
@@ -2862,6 +2868,114 @@ def entry_inputs(torch, dev) -> dict:
     }
 
 
+G4_GROUPS = 1024  # G4's scatter: a planned span's buckets, fewer than this (kScatterGroups)
+
+
+def g4_scatter_paths(torch, dev) -> None:
+    """G4's scatter by path, on the scatters that ``ops.sort``,
+    ``ops.batched_sort`` and ``ops.segmented_sort`` make of ``--parent``'s
+    inputs (2^24 float32 Uniform, 64 rows of 2^18, 4096 ragged segments),
+    the radix sort of the same floats in [0, 1) (most keys in a few
+    buckets) and ``ops.sort`` of them sorted already: for each launch, its
+    spans of ``glue.SCATTER_SPAN`` source rows as the kernel's plan splits
+    them for 4-byte rows (planned, or row by row where a span covers
+    G4_GROUPS buckets or more or, in a row of more offsets than that, its
+    destinations lie within ``glue.ROW_WINDOW_BYTES`` / 4 of each other),
+    the window of destinations, the offsets a planned span takes into
+    shared memory, the buckets its rows fall in and the rows a bucket; then
+    the device time of a 4-byte tensor's scatter by each launch's
+    placement, with its offsets (as the level pass makes it) and without
+    (every span row by row), beside its byte bound."""
+    import numpy as np
+
+    from repro_torch import ops
+    from repro_torch.data.distributions import make_input
+    from repro_torch.kernels import glue
+
+    x = torch.as_tensor(make_input("Uniform", N_BIG, np.float32, seed=1), device=dev)
+    x_sorted = torch.sort(x).values
+    bulk_x = torch.as_tensor(make_input("Uniform", B_BULK * N_ROW, np.float32, seed=3)
+                             .reshape(B_BULK, N_ROW), device=dev)  # entry_inputs' too
+    cuts = np.sort(np.random.default_rng(31).integers(0, N_BIG, SEGMENTS - 1))  # entry_inputs'
+    seg_off = torch.as_tensor(np.concatenate([[0], cuts, [N_BIG]]).astype(np.int32), device=dev)
+    seen, real = [], glue.scatter_rows
+
+    def capture(arrays, dest, offsets=None):
+        seen.append((dest.clone(), None if offsets is None else offsets.clone()))
+        return real(arrays, dest, offsets)
+
+    glue.scatter_rows = capture
+    try:
+        labels = []
+        for call, fn in (("ops.sort", lambda: ops.sort(x)),
+                         ("ops.batched_sort", lambda: ops.batched_sort(bulk_x)),
+                         ("ops.segmented_sort", lambda: ops.segmented_sort(x, seg_off, SEGMENTS)),
+                         ("ops.sort radix [0, 1)", lambda: ops.sort(x, classifier="radix")),
+                         ("ops.sort of sorted keys", lambda: ops.sort(x_sorted))):
+            before = len(seen)
+            fn()
+            labels += [f"{call} scatter {i + 1} of {len(seen) - before}"
+                       for i in range(len(seen) - before)]
+    finally:
+        glue.scatter_rows = real
+    S = glue.SCATTER_SPAN
+    for label, (dest, offsets) in zip(labels, seen):
+        n = dest.shape[-1]
+        d = dest.reshape(-1, n)
+        off = offsets.reshape(d.shape[0], -1)
+        m = off.shape[1]
+        spans = -(-n // S)
+        dv = torch.full((d.shape[0], spans * S), -1, dtype=torch.int32, device=dev)
+        dv[:, :n] = d
+        real_row = dv >= 0
+        b = torch.searchsorted(off, dv.to(off.dtype), right=True) - 1  # each row's bucket
+        dv, real_row, b = (t_.reshape(d.shape[0], spans, S) for t_ in (dv, real_row, b))
+        lo = torch.where(real_row, dv, n).amin(-1)
+        hi = dv.amax(-1)
+        window = hi - lo + 1
+        if m > G4_GROUPS:  # the offsets between the span's least and greatest destination
+            searched = (torch.searchsorted(off, hi.to(off.dtype), right=True)
+                        - torch.searchsorted(off, lo.to(off.dtype), right=True))
+            wide = window > glue.ROW_WINDOW_BYTES // 4
+        else:  # the row's offsets whole, no window taken
+            searched = torch.full_like(lo, m - 1)
+            wide = torch.ones_like(lo, dtype=torch.bool)
+        planned = wide & (searched < G4_GROUPS) & ((dv < n) | ~real_row).all(-1)
+        bs = torch.sort(torch.where(real_row, b, torch.iinfo(b.dtype).max), dim=-1).values
+        buckets = ((bs[..., 1:] != bs[..., :-1]) & (bs[..., 1:] != torch.iinfo(b.dtype).max)
+                   ).sum(-1) + 1  # the buckets a span's rows fall in
+        rows_in = real_row.sum(-1)
+        p_, r_ = planned.reshape(-1), ~planned.reshape(-1)
+        share = rows_in.reshape(-1)[p_].sum().item() / max(1, rows_in.sum().item())
+
+        def stats(t_, sel):
+            t_ = t_.reshape(-1)[sel].double()
+            return "none" if t_.numel() == 0 else (
+                f"mean {t_.mean().item():.1f}, max {t_.max().item():.0f}")
+
+        print(f"g4 path {label}: n {n}, m {m}, spans {spans * d.shape[0]}, planned "
+              f"{int(p_.sum())} ({share:.1%} of the rows), row by row {int(r_.sum())} (by the "
+              f"window {int((r_ & ~wide.reshape(-1)).sum())}); planned spans: window "
+              f"{stats(window, p_)}, offsets staged {stats(searched, p_)}, buckets with rows "
+              f"{stats(buckets, p_)}, rows a bucket "
+              f"{stats(rows_in.double() / buckets.clamp(min=1), p_)}; row-by-row spans: window "
+              f"{stats(window, r_)}, offsets between {stats(searched, r_)}, buckets with rows "
+              f"{stats(buckets, r_)}, rows a bucket "
+              f"{stats(rows_in.double() / buckets.clamp(min=1), r_)}",
+              flush=True)
+        keys = torch.randint(-2**31, 2**31 - 1, dest.shape, dtype=torch.int32, device=dev)
+        want = glue.scatter_rows_plain({"k": keys}, dest)["k"]
+        for how, off_ in (("with its offsets", offsets), ("row by row (no offsets)", None)):
+            if not torch.equal(glue.scatter_rows({"k": keys}, dest, off_)["k"], want):
+                fail(f"g4 path {label} {how}: the scatter differs from its plain twin")
+            ms_ = device_ms(torch, lambda: glue.scatter_rows({"k": keys}, dest, off_),
+                            names=DEVICE_FUNCTIONS["scatter_rows"])
+            bound_ = bound_ms(dest.numel() * 12 + offsets.numel() * 4, 0)[0]
+            print(f"time g4 path {label} {how}: device {ms_:.4f} ms, bound {bound_:.4f} ms "
+                  f"({bound_ / ms_:.1%} of the bound's rate)", flush=True)
+        del dv, b, bs, keys, want
+
+
 def short_kernel(key: str) -> str:
     return key.replace("(anonymous namespace)::", "").split("(")[0]
 
@@ -2985,6 +3099,8 @@ def compare_entry_points_with_parent(torch, parent: Path, keys, dev) -> dict:
 
             split = {k: sum(t["kernels"].get(k, 0.0) for t in times["parent"]) / 2
                      for k in times["parent"][0]["kernels"]}
+            split_this = {k: sum(t["kernels"].get(k, 0.0) for t in times["this"]) / 2
+                          for k in times["this"][0]["kernels"]}
             idle = {side: [1 - t["device_ms"] / t["ms"] for t in ts]
                     for side, ts in times.items()}
             for side in idle:
@@ -2997,7 +3113,9 @@ def compare_entry_points_with_parent(torch, parent: Path, keys, dev) -> dict:
                 f"{' '.join(str(t.get('peak')) for t in ts)}"
                 for side, ts in times.items()) + f"; same outputs: {same}; the earlier "
                 f"tree's device ms per kernel: "
-                + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+                + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                + "; this tree's: " + ", ".join(f"{k} {v:.4f}" for k, v in split_this.items()),
+                flush=True)
             if not same:
                 fail(f"{name}: this tree's entry point and the earlier one differ")
     finally:
@@ -3815,30 +3933,58 @@ def main() -> None:
 
         leaves = payload_leaves((N_BIG,), 25)
         perm_ = torch.randperm(N_BIG, generator=gen, device=dev).to(torch.int32)
+
+        def one_g4_launch(name, call, what):
+            """A G4 call that moves every tensor of its arrays in one launch."""
+            before = kernels.launch_counts()[name]
+            got = call()
+            if kernels.launch_counts()[name] != before + 1:
+                fail(f"{name} made {kernels.launch_counts()[name] - before} launches on {what}")
+            return got
+
         for tag, dest_, off_ in (("level 1 placement", glue_d1, glue_o1),
                                  ("level 2 placement", glue_d2, glue_o2),
                                  ("a permutation", perm_, None)):
-            check_equal("scatter_rows", moved_bits(torch, glue.scatter_rows(leaves, dest_, off_)),
-                        moved_bits(torch, glue.scatter_rows_plain(leaves, dest_)),
-                        f"{tag} n={N_BIG}, rows of 1-16 B")
+            what = f"{tag} n={N_BIG}, {len(leaves)} tensors of 1-16 B rows in one launch"
+            check_equal("scatter_rows", moved_bits(torch, one_g4_launch(
+                "scatter_rows", lambda: glue.scatter_rows(leaves, dest_, off_), what)),
+                        moved_bits(torch, glue.scatter_rows_plain(leaves, dest_)), what)
         rows_leaves = payload_leaves((B_BULK, N_ROW), 26)
-        check_equal("scatter_rows",
-                    moved_bits(torch, glue.scatter_rows(rows_leaves, glue_db, glue_ob)),
-                    moved_bits(torch, glue.scatter_rows_plain(rows_leaves, glue_db)),
-                    f"({B_BULK}, {N_ROW}) level 1 placement, rows of 1-16 B")
-        del perm_, rows_leaves
+        what = f"({B_BULK}, {N_ROW}) level 1 placement, {len(rows_leaves)} tensors in one launch"
+        check_equal("scatter_rows", moved_bits(torch, one_g4_launch(
+            "scatter_rows", lambda: glue.scatter_rows(rows_leaves, glue_db, glue_ob), what)),
+                    moved_bits(torch, glue.scatter_rows_plain(rows_leaves, glue_db)), what)
+        del perm_
         W_g, wperm = cfg.base_case, bitonic.sort_windows(wb, wk, nb=64)[0]
-        for name_, leaf in leaves.items():
-            a_ = leaf[None]
-            check_equal("gather_windows", moved_bits(torch, {0: glue.gather_windows(a_, wperm, 0)}),
-                        moved_bits(torch, {0: glue.gather_windows_plain(a_, wperm, 0)}),
-                        f"{name_} 2048 windows of {W_g}, a new tensor")
-            inplace = a_.clone()
-            glue.gather_windows(inplace, wperm[:-1], W_g // 2, inplace)
-            check_equal("gather_windows", moved_bits(torch, {0: inplace}), moved_bits(
-                torch, {0: glue.gather_windows_plain(a_, wperm[:-1], W_g // 2, a_.clone())}),
-                        f"{name_} 2047 windows at {W_g // 2}, in place")
-        del leaves, inplace, a_
+        one_row = {name_: leaf[None] for name_, leaf in leaves.items()}
+        what = f"{len(one_row)} tensors, 2048 windows of {W_g}, new tensors, one launch"
+        check_equal("gather_windows", moved_bits(torch, one_g4_launch(
+            "gather_windows", lambda: glue.gather_windows(one_row, wperm, 0), what)),
+                    moved_bits(torch, {n_: glue.gather_windows_plain(a_, wperm, 0)
+                                       for n_, a_ in one_row.items()}), what)
+        inplace = {n_: a_.clone() for n_, a_ in one_row.items()}
+        what = f"{len(one_row)} tensors, 2047 windows at {W_g // 2}, in place, one launch"
+        one_g4_launch("gather_windows",
+                      lambda: glue.gather_windows(inplace, wperm[:-1], W_g // 2, inplace), what)
+        check_equal("gather_windows", moved_bits(torch, inplace), moved_bits(torch, {
+            n_: glue.gather_windows_plain(a_, wperm[:-1], W_g // 2, a_.clone())
+            for n_, a_ in one_row.items()}), what)
+        # B rows with a limit: pass one over [0, limit) into copies, pass two
+        # at W/2 in place, as base_case_windows runs them for a top-k
+        limit_g = N_ROW // 2
+        for lo_, per_ in ((0, limit_g // W_g), (W_g // 2, limit_g // W_g - 1)):
+            perm_b = torch.argsort(torch.rand((B_BULK * per_, W_g), generator=gen, device=dev),
+                                   dim=1).to(torch.int32)
+            want_b = {n_: glue.gather_windows_plain(a_, perm_b, lo_, a_.clone())
+                      for n_, a_ in rows_leaves.items()}
+            got_b = {n_: a_.clone() for n_, a_ in rows_leaves.items()}
+            what = (f"({B_BULK}, {N_ROW}) {len(got_b)} tensors, {per_} windows a row at {lo_}, "
+                    f"limit {limit_g}, {'in place' if lo_ else 'into copies'}, one launch")
+            one_g4_launch("gather_windows", lambda: glue.gather_windows(
+                got_b if lo_ else rows_leaves, perm_b, lo_, got_b), what)
+            check_equal("gather_windows", moved_bits(torch, got_b), moved_bits(torch, want_b),
+                        what)
+        del leaves, inplace, one_row, rows_leaves, got_b, want_b, perm_b
 
         # ---- G5-G7 (csrc/codec.cu, G6 in csrc/glue.cu, csrc/fallback.cu)
         # against their plain twins, bit for bit.  G5: the twelve key dtypes
@@ -4552,6 +4698,24 @@ def main() -> None:
                   f"obs off)", flush=True)
         obs.enabled(was_enabled)
         del sync_x, sync_double
+        # G4 moves every tensor in one launch: ops.sort (the keys) and
+        # ops.argsort (the keys and the index) each make one scatter a level
+        # and one gather a base-case pass; records' tie-break sorts likewise
+        g4_levels = len(ips4o.plan_levels(N_BIG, cfg))
+        g4_x = main_input("Uniform", N_BIG)
+        for name, call in (("ops.sort", lambda: ops.sort(g4_x)),
+                           ("ops.argsort", lambda: ops.argsort(g4_x))):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            call()
+            torch.cuda.synchronize()
+            c_ = kernels.launch_counts()
+            print(f"path G4 launches {name} n={N_BIG}: scatter_rows {c_['scatter_rows']} "
+                  f"({g4_levels} levels), gather_windows {c_['gather_windows']} (2 passes)",
+                  flush=True)
+            if c_["scatter_rows"] != g4_levels or c_["gather_windows"] != 2:
+                fail(f"{name}: G4 launched other than once a level and a pass")
+        del g4_x
 
         # ---- every key dtype: the 64-bit paths run the 64-bit kernels, the
         # narrow keys the 32-bit ones; each result held to torch.sort(stable)
@@ -5171,12 +5335,11 @@ def main() -> None:
             "scatter_rows level 1, int64 rows, staged": cuda_ms(
                 torch, lambda: glue.scatter_rows({"k": d_m64}, d_m, o_m)),
         }
-        del d_m64
         perm_m = bitonic.sort_windows(wb, wk, nb=64)[0]
         buf_m = keys1[None].clone()
         t = rows["gather_windows"]
         kernel_ms(torch, "gather_windows", t, lambda: glue.gather_windows(
-            buf_m, perm_m[:-1], W // 2, buf_m))
+            {"k": buf_m}, perm_m[:-1], W // 2, {"k": buf_m}))
         t["plain_ms"] = cuda_ms(torch, lambda: glue.gather_windows_plain(
             buf_m, perm_m[:-1], W // 2, buf_m), reps=5)
         t["bound_ms"], t["bound_by"] = bound_ms((num_w - 1) * W * 12, (num_w - 1) * W * 6)
@@ -5184,8 +5347,37 @@ def main() -> None:
             W // 2, N_BIG - W // 2, W, dtype=torch.int64, device=dev)[:, None]).reshape(-1)
         t["library_ms"] = cuda_ms(torch, lambda: keys1[src_m], reps=5)
         glue_more["gather_windows pass one (2048 windows into a new tensor)"] = cuda_ms(
-            torch, lambda: glue.gather_windows(keys1[None], perm_m, 0))
-        del buf_m, src_m, out_m
+            torch, lambda: glue.gather_windows({"k": keys1[None]}, perm_m, 0))
+        # G4's device time, one tensor and argsort's two (keys and the int32
+        # index: one launch), beside each case's byte bound
+        idx_m = torch.arange(N_BIG, dtype=torch.int32, device=dev)
+        buf64 = d_m64[None].clone()
+        buf_i = idx_m[None].clone()
+        g4_cases = {
+            "scatter_rows level 1": (lambda: glue.scatter_rows({"k": keys1}, d_m, o_m), 12),
+            f"scatter_rows level 2 (nb {nb2})": (
+                lambda: glue.scatter_rows({"k": keys1}, d2_m, o2_m), 12),
+            "scatter_rows level 1, keys + int32 index": (
+                lambda: glue.scatter_rows({"k": keys1, "i": idx_m}, d_m, o_m), 20),
+            "scatter_rows level 1, int64 rows": (
+                lambda: glue.scatter_rows({"k": d_m64}, d_m, o_m), 20),
+            "scatter_rows level 1, row by row (no offsets)": (
+                lambda: glue.scatter_rows({"k": keys1}, d_m), 12),
+            "gather_windows pass two in place": (lambda: glue.gather_windows(
+                {"k": buf_m}, perm_m[:-1], W // 2, {"k": buf_m}), 12),
+            "gather_windows pass two, keys + int32 index": (lambda: glue.gather_windows(
+                {"k": buf_m, "i": buf_i}, perm_m[:-1], W // 2, {"k": buf_m, "i": buf_i}), 20),
+            "gather_windows pass two, int64 rows": (lambda: glue.gather_windows(
+                {"k": buf64}, perm_m[:-1], W // 2, {"k": buf64}), 20),
+            "gather_windows pass one into a new tensor": (
+                lambda: glue.gather_windows({"k": keys1[None]}, perm_m, 0), 12),
+        }
+        g4_device = {what: (device_ms(torch, fn_, names=DEVICE_FUNCTIONS[
+            "scatter_rows" if what.startswith("scatter") else "gather_windows"]),
+                            bound_ms(N_BIG * per_key, 0)[0])
+                     for what, (fn_, per_key) in g4_cases.items()}
+        g4_scatter_paths(torch, dev)
+        del buf_m, src_m, out_m, d_m64, buf64, buf_i, idx_m
 
         # G5-G7 at the main path's shapes (2^24 float32, the tree's two
         # levels).  Bytes, each input read once and each output written once:
@@ -5354,7 +5546,9 @@ def main() -> None:
         # log2 W compares an element of a comparison sort, ~9 operations
         # each (a 96-bit compare and the select of three words)
         t["bound_ms"], t["bound_by"] = bound_ms(num_w * W * 20, num_w * W * log_w * 9)
-        t["library_ms"] = None
+        # no one call takes the (bucket, 64-bit key) pairs: the stable sort of
+        # the int64 keys of each window, as the 32-bit row's of its packed pairs
+        t["library_ms"] = cuda_ms(torch, lambda: torch.sort(wk64, dim=1, stable=True))
         # G3's int64 form at double's level 2 (n = 2^24, 257 segments, k2 =
         # 128): 12 B a key
         gen64 = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -5367,7 +5561,13 @@ def main() -> None:
             a64_m["k"][None], o64_m[None], nb64_m, k2, spl64_m), reps=5)
         t["bound_ms"], t["bound_by"] = bound_ms(
             N_BIG * 12 + o64_m.numel() * 4 + spl64_m.numel() * 8, N_BIG * 4 * (log_k2 + 2))
-        t["library_ms"] = None
+        # one searchsorted of the keys in every segment's splitters at once
+        # (after level 1 the segments' key ranges, and so their sorted
+        # splitters, follow one another)
+        flat64_m = spl64_m.reshape(-1).contiguous()
+        t["library_ms"] = cuda_ms(torch, lambda: torch.searchsorted(flat64_m, a64_m["k"]),
+                                  reps=5)
+        del flat64_m
         del a64_m, spl64_m
         k3_64_more = {f"{w_.shape[0]} x {w_.shape[1]}": cuda_ms(
             torch, lambda w_=w_, k_=k_: bitonic.sort_windows(w_, k_, nb=64))
@@ -5757,6 +5957,9 @@ def main() -> None:
               flush=True)
         for what, ms_ in glue_more.items():
             print(f"time {what}: {ms_:.4f} ms (CUDA events around the wrapper)", flush=True)
+        for what, (ms_, bound_) in g4_device.items():
+            print(f"time {what}: device {ms_:.4f} ms, bound {bound_:.4f} ms "
+                  f"({bound_ / ms_:.1%} of the bound's rate)", flush=True)
         print(f"time level_fused_batched64 radix ({B_BULK}, {N_ROW}): kernel "
               f"{radix_k4_64_ms:.4f} ms", flush=True)
         for what, ms_ in k3_64_more.items():

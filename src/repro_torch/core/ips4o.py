@@ -240,9 +240,9 @@ def _scatter(arrays: Arrays, dest: torch.Tensor,
              offsets: Optional[torch.Tensor] = None) -> Arrays:
     """Move every tensor by the destinations: out[dest[i]] = a[i].  With
     (B, n) row-local ``dest`` each row moves within itself.  G4's scatter
-    (``kernels.glue.scatter_rows``) on a CUDA tensor; a level pass hands
-    it its placement's ``offsets``, with which the kernel writes runs of
-    consecutive destinations."""
+    (``kernels.glue.scatter_rows``, one launch for every tensor) on a CUDA
+    tensor; a level pass hands it its placement's ``offsets``, with which
+    the kernel writes runs of consecutive destinations."""
     return glue.scatter_rows(arrays, dest, offsets)
 
 

@@ -70,30 +70,70 @@
 //   each key descends its segment's k-1 sorted splitters by the
 //   branchless count (j += step while spl[j + step - 1] < key).
 // - G4: one row is `w` units of U bytes (U the largest power of two up to
-//   16 that divides the row and both pointers).  The scatter by a level
-//   pass's placement, rows of one unit, is staged: one CTA a span of 4096
-//   source rows finds each row's bucket from the placement's offsets (the
-//   row's offsets staged whole up to 1024 of them; else the span's least
-//   and greatest destination pick its buckets by two warp searches), counts
-//   the buckets and their least destinations by shared atomics, checks that
-//   each bucket's destinations are a run (the placement is stable), and
-//   writes the span in destination order out of a stage in shared memory:
-//   runs of ~16 consecutive rows at the main path's 257 and 65,792 buckets,
-//   where a row-by-row scatter makes a 32-byte sector write a row.  That
-//   took 0.29 ms at 2^24, the staged one 0.18 (a span of 8192, or fewer
-//   registers and more CTAs an SM, was slower; NVIDIA H100 80GB HBM3,
-//   700 W).  Other rows (wider, or no offsets, or a span that fails the
-//   check) take the row-by-row scatter: a unit a thread, four in flight.
-//   The window gather takes one CTA a window.  Pass one of the base case
-//   writes a new tensor: each unit reads its source through the L1/L2 (the
-//   window is 32 KB of 4-byte keys).  Pass two gathers within windows of
-//   the tensor it writes, so the CTA first stages its whole window (or a
-//   slice of the units of every row of it: at most 64 KB) in shared
-//   memory, waits, then writes: every read of a window precedes every
-//   write, and windows never straddle rows or pass `limit` (the caller's
-//   windows end there).  Staging in place was chosen over ping-ponging two
-//   buffers: it needs no second tensor and no copy of the untouched edges.
+//   16 that divides the row and both pointers).  Both kernels move every
+//   tensor of the arrays in one launch: a table of up to kMaxMove
+//   (pointers, unit, units a row, units staged at once) rides in the
+//   kernel's parameters, the launch reads `dest` or `perm` and makes its
+//   plan once a span or window, then moves each tensor through the same
+//   stage (one launch more each further kMaxMove).  Persistent CTAs of 512
+//   threads walk items (span or window, tensor, chunk of units); an item's
+//   rows come into a stage of at most 64 KB as they lie, by 16-byte
+//   cp.async where aligned, and of two stages the next item's rows are in
+//   flight while the current one is written out.
+//   The scatter (a level pass's placement, with its offsets): a span's
+//   plan finds each row's group (its bucket among the span's) by a lookup
+//   table over the span's destinations and its place in the group by one
+//   shared atomic, scans the counts, and gives each slot a row and its
+//   destination; items are written out slot by slot, a group's rows
+//   together, so a warp's stores fall in one or two runs of a bucket's
+//   destinations.  Each row carries its own destination, so no order of
+//   the atomics and no shape of the placement changes the result; a span
+//   whose destinations leave [0, n) or that spans kScatterGroups buckets
+//   or more (and a scatter with no offsets) moves row by row, and so does
+//   a span of a row of more than kScatterGroups buckets whose destinations
+//   lie within kRowWindowBytes of the widest tensor's rows: such stores
+//   fall in a stretch of at most 128 KB, which the L2 (50 MB; 264 CTAs'
+//   stretches 34 MB) gathers into whole sectors before they reach memory,
+//   and the plan costs more than it saves.  The segmented sort's level
+//   pass (4096 ragged segments over 2^24 keys, 2k = 8: ~11 buckets of
+//   ~500 rows a span) took 0.2033 ms planned against 0.1273 row by row
+//   (device time on the H100),
+//   0.1385 with the rule at 128 KB (0.1422 at 64 KB); the batched sort's
+//   level 2 (rows of 2^18) moves row by row too; level 1 (0.1468 planned,
+//   0.3164 row by row) and the 1-D level 2 (0.1868, 0.2858; windows of
+//   60K rows and more) are planned (PERF.md §6).  A scratch kernel
+//   that moved rows without offsets straight from registers, no stage,
+//   was slower at every one of these placements.
+//   The span (4096 rows) and the stages (two) were chosen by measurement
+//   (PERF.md §6; NVIDIA H100 80GB HBM3, device ms at 2^24 4-byte
+//   keys, 1 / 2 stages): level 1 4096 rows 0.1536 / 0.1484, 8192 0.1586 /
+//   0.1923, 16,384 0.1946; level 2 0.1927 / 0.1887, 0.1886 / 0.2398,
+//   0.2370; keys and an int32 index 0.2230 / 0.2136, 0.2422 / 0.2640,
+//   0.2657.  Longer spans hold fewer CTAs an SM (one at 16,384 rows) and
+//   lose more than their longer runs of stores gain.
+//   Tried on the card and slower: a binary search of all the span's
+//   offsets a row (the kernel bound by its instructions), three 32-bit
+//   atomics a row for an exact check that each group's destinations are a
+//   run, with each slot's destination found again from its group's least
+//   by a search of the scanned counts (no destination a slot: the scatter
+//   0.2349 ms a launch in ops.sort against 0.1760, PERF.md §6), one
+//   64-bit count-and-sum atomic a row, the span's
+//   destinations staged a span ahead, the row's offsets sampled in shared
+//   memory for level 2's warp searches, and CTAs capped at 40 registers
+//   (three an SM).
+//   The window gather: an item is a window's rows (or a chunk of units of
+//   each, when W rows do not fit the stage; the unit shrinks first, see
+//   kernels/glue.py `gather_plan`), written out by the window's
+//   permutation, rows of one unit four at a time (perm read 16 bytes a
+//   thread, four outputs stored as one access).  Every read of a window
+//   precedes every write of it (its stage is complete, behind a barrier,
+//   before it is written out), items are disjoint, and windows never
+//   straddle rows or pass `limit` (the caller's windows end there), so
+//   pass two gathers in place: no second tensor, no copy of the untouched
+//   edges.  Two stages: pass two took 0.0695 ms with one and 0.0684 with
+//   two (2^24 4-byte keys, the H100; PERF.md §6).
 #include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -104,16 +144,20 @@ namespace {
 constexpr int kThreads = 256;          // a CTA of G1's sums and place, G2 and G3
 constexpr int kPerThread = 16;         // positions a thread of G1's place, G2 and G3
 constexpr int kSpan = kThreads * kPerThread;
-constexpr int kMoveThreads = 512;      // a CTA of G4's staged scatter
-constexpr int kMovePer = 8;            // its rows a thread
-constexpr int kMoveSpan = kMoveThreads * kMovePer;
+constexpr int kMoveThreads = 512;      // a CTA of G4's scatter and gather
+constexpr int kMoveRows = 8;           // G4's scatter: source rows a thread of a span
+constexpr int kScatterSpan = kMoveRows * kMoveThreads;  // 4096 source rows a span
+constexpr int kMaxMove = 64;           // G4: tensors a launch moves
+constexpr int kStageBytes = 65536;     // G4: a stage, at most (kernels/glue.py STAGE_BYTES)
 constexpr int kStageOffsets = 2048;    // G2/G3: a span's offsets in shared memory
 constexpr int kStageSplitBytes = 16384;  // G3: a span's splitters in shared memory
 constexpr int kRunTiles = 16;          // G1: tiles a run
 constexpr int kScanThreads = 1024;     // G1's scan CTA
-constexpr int kMoveUnroll = 4;         // G4: units in flight a thread
-constexpr int kGatherThreads = 512;
-constexpr int kScatterGroups = 1024;   // G4's staged scatter: buckets a span, at most
+constexpr int kScatterGroups = 1024;   // G4's scatter: buckets a staged span, at most
+constexpr int kRowWindowBytes = 131072;  // G4's scatter: a span whose destinations lie this close
+                                       // moves row by row (rows of the widest tensor)
+constexpr int kTableLog = 11;          // G4's scatter: a span's lookup table, 2^11 cells
+constexpr int kTableCells = 1 << kTableLog;
 constexpr int kSampleThreads = 512;    // G6's CTA, at most
 
 // ---- G1: the placement close of K1, K1r and K4 ----
@@ -450,256 +494,570 @@ struct Unit<8> { using T = uint2; };
 template <>
 struct Unit<16> { using T = uint4; };
 
-// The scatter: rows of w units, count = rows * n of them, each moved within
-// its row of n to dest (row-local); a dest outside [0, n) moves nothing.
+// Four consecutive units in registers, stored as one access of 4 or 8 bytes
+// or as 16-byte pieces.
+template <int kBytes>
+struct Vec;
+template <>
+struct Vec<4> { using T = unsigned; };
+template <>
+struct Vec<8> { using T = uint2; };
+template <>
+struct Vec<16> { using T = uint4; };
+
 template <typename U>
-__global__ void __launch_bounds__(kThreads)
-    scatter_kernel(const U* __restrict__ src, U* __restrict__ dst, const int* __restrict__ dest,
-                   int count, int n, int w) {
-  const long long total = (long long)count * w;
-  const long long first = (long long)blockIdx.x * kThreads * kMoveUnroll + threadIdx.x;
-  U v[kMoveUnroll];
-  long long to[kMoveUnroll];
+struct Quad {
+  static constexpr int kBytes = 4 * (int)sizeof(U);
+  static constexpr int kPiece = kBytes < 16 ? kBytes : 16;
+  static constexpr int kPieces = kBytes / kPiece;
+  using V = typename Vec<kPiece>::T;
+  union {
+    U u[4];
+    V p[kPieces];
+  };
+};
+
+template <typename U>
+__device__ __forceinline__ void store_quad(U* at, const Quad<U>& q) {
+  auto* v = reinterpret_cast<typename Quad<U>::V*>(at);
 #pragma unroll
-  for (int j = 0; j < kMoveUnroll; ++j) {
-    const long long f = first + (long long)j * kThreads;
-    to[j] = -1;
-    if (f < total) {
-      const int i = w == 1 ? (int)f : (int)(f / w);
-      const int d = __ldg(dest + i);
-      v[j] = src[f];
-      if ((unsigned)d < (unsigned)n) {
-        const int row = i / n;
-        to[j] = ((long long)row * n + d) * w + (f - (long long)i * w);
-      }
-    }
+  for (int i = 0; i < Quad<U>::kPieces; ++i) v[i] = q.p[i];
+}
+
+__device__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+__device__ __forceinline__ void cp_async16(void* to_shared, const void* from) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(to_shared);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(from) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The tensors one G4 launch moves (kernels/glue.py `_table`): each row of a
+// tensor is w units of `unit` bytes, and a stage holds `chunk` units of
+// every row of a span or window at once.
+struct MoveTable {
+  const void* src[kMaxMove];
+  void* dst[kMaxMove];
+  int unit[kMaxMove];   // 1, 2, 4, 8 or 16
+  int w[kMaxMove];      // units a row
+  int chunk[kMaxMove];  // units of a row a stage holds, 1..w
+  int count;
+};
+
+// ---- G4's items ----
+//
+// A launch's work is a list of items, (span or window q, tensor a, chunk
+// c0): the rows of q, units [c0, c0 + chunk) of tensor a.  A CTA's items:
+// its spans or windows q = blockIdx.x + i gridDim.x, every tensor and chunk
+// of each in turn.
+struct Item {
+  int q, a, c0;
+};
+
+__device__ __forceinline__ Item next_item(const MoveTable& t, Item it) {
+  it.c0 += t.chunk[it.a];
+  if (it.c0 >= t.w[it.a]) {
+    it.c0 = 0;
+    if (++it.a == t.count) it.a = 0, it.q += gridDim.x;
   }
-#pragma unroll
-  for (int j = 0; j < kMoveUnroll; ++j) {
-    if (to[j] >= 0) dst[to[j]] = v[j];
+  return it;
+}
+
+// Bring an item's `rows` rows from `first` into a stage, row r's units at
+// r * chunk: where the item is every unit of the rows (chunk == w), one
+// block of bytes copied by 16-byte cp.async when it is aligned (waited for
+// by the caller); else unit by unit, coalesced.
+template <typename U>
+__device__ __forceinline__ void stage_rows(const MoveTable& t, const Item& it, long long first,
+                                           int rows, unsigned char* buf) {
+  const int w = t.w[it.a];
+  const int cw = min(t.chunk[it.a], w - it.c0);
+  const U* src = static_cast<const U*>(t.src[it.a]) + first * w;
+  const int bytes = rows * w * (int)sizeof(U);
+  if (cw == w && aligned(src, 16) && (bytes & 15) == 0) {
+    const unsigned char* from = reinterpret_cast<const unsigned char*>(src);
+    for (int i = threadIdx.x; i < bytes / 16; i += kMoveThreads)
+      cp_async16(buf + 16 * i, from + 16 * i);
+    cp_async_commit();
+    return;
+  }
+  U* st = reinterpret_cast<U*>(buf);
+  const int units = rows * cw;
+#pragma unroll 4
+  for (int f = threadIdx.x; f < units; f += kMoveThreads) {
+    const int j = cw == 1 ? f : f / cw;
+    st[f] = src[(long long)j * w + it.c0 + (f - j * cw)];
   }
 }
 
-// The staged scatter, for a stable placement (a bucket's rows keep their
-// order and land on consecutive positions, as K1's, K4's and K2's do) and
-// rows of one unit: one CTA a span of kMoveSpan source rows of a row of n.  The
-// span's destinations fall into the buckets between its least and its
-// greatest; with the row's offsets (m = nb + 1 of them) each row finds its
-// bucket, and a bucket's rows of the span, whose destinations are
-// consecutive, take consecutive slots of a stage in shared memory from the
-// bucket's least destination on.  The stage is then written out in slot
-// order: runs of consecutive destinations, not a store a row.  A row of at
-// most kScatterGroups offsets is staged whole (every bucket a group, no
-// search in device memory); else the span's least and greatest destination
-// pick the slice of buckets by a warp search each.  A span of more than
-// kScatterGroups buckets, or whose destinations are not such runs (the
-// check is exact: every row's offset from its bucket's least is below the
-// bucket's count), is scattered row by row.
-template <typename U>
-__global__ void __launch_bounds__(kMoveThreads, 3)
-    scatter_staged_kernel(const U* __restrict__ src, U* __restrict__ dst,
-                          const int* __restrict__ dest, const int* __restrict__ offsets, int m,
-                          int n, int spans) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  U* s_val = reinterpret_cast<U*>(smem);                    // kMoveSpan
-  int* s_dest = reinterpret_cast<int*>(s_val + kMoveSpan);  // kMoveSpan
-  int* s_off = s_dest + kMoveSpan;                          // kScatterGroups
-  int* s_cnt = s_off + kScatterGroups;                      // kScatterGroups
-  int* s_min = s_cnt + kScatterGroups;                      // kScatterGroups
-  __shared__ int s_c[2];
-  __shared__ int warp_sums[33];
-  const int row = blockIdx.x / spans;
-  const int p0 = (blockIdx.x - row * spans) * kMoveSpan;
-  const int p1 = min(p0 + kMoveSpan, n);
-  const long long base = (long long)row * n;
-  const int* off = offsets + (long long)row * m;
-  int d[kMovePer];
-  U v[kMovePer];
-#pragma unroll
-  for (int j = 0; j < kMovePer; ++j) {
-    const int p = p0 + j * kMoveThreads + threadIdx.x;
-    d[j] = p < p1 ? __ldg(dest + base + p) : -1;
-    if (p < p1) v[j] = src[base + p];
-  }
-  bool fits = true;  // every destination in [0, n): the same for the whole CTA below
-#pragma unroll
-  for (int j = 0; j < kMovePer; ++j) {
-    if (p0 + j * kMoveThreads + (int)threadIdx.x < p1 && (unsigned)d[j] >= (unsigned)n) fits = false;
-  }
-  int c_lo = 0, len = m - 1;  // the span's buckets: g offsets of off[c_lo, c_lo + len) <= d
+// ---- G4's scatter ----
+//
+// Thread t of a CTA of kMoveThreads reads the span's destinations in quads
+// of 4 consecutive rows, quad j at row 4 (j kMoveThreads + t): one 16-byte
+// load where the span and the pointer allow (rows past the span: -1).  A
+// span's destinations are read from device memory once; the later passes
+// over them hit the L2.
+__device__ __forceinline__ int4 span_quad(const int* ds, int j, int rows_here, bool vec) {
+  const int r = 4 * (j * kMoveThreads + (int)threadIdx.x);
+  if (vec && r + 4 <= rows_here) return __ldg(reinterpret_cast<const int4*>(ds + r));
+  int4 x;
+  x.x = r < rows_here ? __ldg(ds + r) : -1;
+  x.y = r + 1 < rows_here ? __ldg(ds + r + 1) : -1;
+  x.z = r + 2 < rows_here ? __ldg(ds + r + 2) : -1;
+  x.w = r + 3 < rows_here ? __ldg(ds + r + 3) : -1;
+  return x;
+}
+
+// A span of the scatter: kScatterSpan source rows of a row of n.
+struct Span {
+  int row, rows_here;
+  long long row0, first;  // the row's first position, the span's
+  const int* ds;          // the span's destinations
+  bool vec;               // they load 16 bytes at a time
+};
+
+__device__ __forceinline__ Span span_of(int sp, int spans, int n, const int* dest) {
+  Span s;
+  s.row = sp / spans;
+  const int p0 = (sp - s.row * spans) * kScatterSpan;
+  s.rows_here = min(kScatterSpan, n - p0);
+  s.row0 = (long long)s.row * n;
+  s.first = s.row0 + p0;
+  s.ds = dest + s.first;
+  s.vec = (s.first & 3) == 0 && aligned(s.ds, 16);
+  return s;
+}
+
+// The shared memory of a scatter CTA besides its stages.
+struct ScatterShared {
+  int* off;               // kScatterGroups: the span's offsets
+  int* cnt;               // kScatterGroups: a group's count, then its first slot
+  unsigned short* row;    // kScatterSpan: a slot's row
+  int* to;                // kScatterSpan: a slot's destination
+  int* tab;               // kTableCells + 2: the lookup table of the span's groups
+  int* c;                 // 4: the warp searches' counts, the span's least and greatest
+  int* warp_sums;         // 33
+};
+
+// The span's plan: with the row's offsets (m = nb + 1 of them) each row's
+// group (its bucket among the span's: the row's offsets whole up to
+// kScatterGroups, else those between the span's least and greatest
+// destination, by a warp search each) by a lookup table over the span's
+// destinations (kTableCells cells of a power of two positions, each cell's
+// count of offsets below it; a row searches only the offsets in its cell,
+// at most one at the main path's bucket sizes: a binary search of all the
+// span's offsets made the kernel bound by its instructions), and its
+// place in the group by one shared atomic (a count: the order among a
+// group's rows is the atomics' own); one scan of the counts,
+// each group's first slot; each row's slot, first + place, gets the row
+// and its destination.  A group's slots thus hold its rows, and of a
+// stable placement's span, whose rows of a bucket land on consecutive
+// destinations, its run of destinations: written out slot by slot, a
+// warp's stores fall in a few runs.  Each row still goes to its own
+// destination, so the result does not depend on the atomics' order, nor
+// on the destinations being runs.  Returns false (for the whole CTA) where
+// the span moves row by row: no offsets, a destination outside [0, n),
+// kScatterGroups buckets or more, or (where the row has more offsets than
+// kScatterGroups, so that the span's least and greatest destination are
+// found anyway) destinations within `window` positions of each other: their
+// stores, row by row, fall in a stretch the L2 gathers into whole sectors,
+// and the plan would cost more than it saves (see the header).
+__device__ __forceinline__ bool plan_span(const Span& s, const int* offsets, int m, int n,
+                                          int window, const ScatterShared& sh) {
+  constexpr int Q = kMoveRows / 4;
+  const int tid = threadIdx.x;
+  if (offsets == nullptr) return false;
+  const int* off = offsets + (long long)s.row * m;
+  int c_lo = 0, len = m - 1;  // the span's groups: counts of off[c_lo, c_lo + len) <= d
   if (m > kScatterGroups) {
     // the span's least and greatest destination, then the offsets <= each
     int lo = INT_MAX, hi = -1;
+    bool ok = true;
+#pragma unroll 2
+    for (int j = 0; j < Q; ++j) {
+      const int4 x = span_quad(s.ds, j, s.rows_here, s.vec);
+      const int d[4] = {x.x, x.y, x.z, x.w};
+      const int r = 4 * (j * kMoveThreads + tid);
 #pragma unroll
-    for (int j = 0; j < kMovePer; ++j) {
-      if (d[j] >= 0) lo = min(lo, d[j]), hi = max(hi, d[j]);
+      for (int e = 0; e < 4; ++e) {
+        if (r + e >= s.rows_here) continue;
+        if ((unsigned)d[e] >= (unsigned)n) ok = false;
+        lo = min(lo, d[e]), hi = max(hi, d[e]);
+      }
     }
+    if (!__syncthreads_and(ok)) return false;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       lo = min(lo, __shfl_xor_sync(kFull, lo, o));
       hi = max(hi, __shfl_xor_sync(kFull, hi, o));
     }
-    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = lo, warp_sums[16 + (threadIdx.x >> 5)] = hi;
+    if ((tid & 31) == 0) sh.warp_sums[tid >> 5] = lo, sh.warp_sums[16 + (tid >> 5)] = hi;
     __syncthreads();
-    if (threadIdx.x < 64) {
-      const bool is_lo = threadIdx.x < 32;
-      const int w = threadIdx.x & 15;
-      int x = w < (int)(blockDim.x >> 5) ? warp_sums[(is_lo ? 0 : 16) + w] : (is_lo ? INT_MAX : -1);
+    if (tid < 64) {
+      const int w = tid & 15;
+      lo = w < kMoveThreads / 32 ? sh.warp_sums[w] : INT_MAX;
+      hi = w < kMoveThreads / 32 ? sh.warp_sums[16 + w] : -1;
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1) {
-        const int y = __shfl_xor_sync(kFull, x, o);
-        x = is_lo ? min(x, y) : max(x, y);
+        lo = min(lo, __shfl_xor_sync(kFull, lo, o));
+        hi = max(hi, __shfl_xor_sync(kFull, hi, o));
       }
-      const int c = warp_count_le(off, m, max(x, 0));
-      if ((threadIdx.x & 31) == 0) s_c[threadIdx.x >> 5] = c;
+      const int x = tid < 32 ? lo : hi;
+      // a window of destinations this short moves row by row: no search
+      const int c = hi - lo < window ? 0 : warp_count_le(off, m, x);
+      if ((tid & 31) == 0) sh.c[tid >> 5] = c, sh.c[2 + (tid >> 5)] = x;  // counts, lo, hi
     }
     __syncthreads();
-    c_lo = s_c[0];
-    len = s_c[1] - c_lo;
+    if (sh.c[3] - sh.c[2] < window) return false;
+    c_lo = sh.c[0];
+    len = sh.c[1] - c_lo;
   }
-  const bool staged = __syncthreads_and(fits) && len < kScatterGroups;  // the whole CTA alike
-  bool runs = staged;
-  int g[kMovePer];
-  if (staged) {
-    for (int i = threadIdx.x; i <= len; i += blockDim.x) {
-      if (i < len) s_off[i] = off[c_lo + i];
-      s_cnt[i] = 0, s_min[i] = INT_MAX;
+  if (len >= kScatterGroups) return false;
+  // the lookup table over the span's destinations [lo, hi]: cells of 2^shift
+  // positions, tab[c] = the offsets below cell c's first position
+  const int lo = m > kScatterGroups ? sh.c[2] : 0;
+  const int cells = m > kScatterGroups ? sh.c[3] - lo + 1 : n;
+  const int shift = cells > kTableCells ? 32 - __clz(cells - 1) - kTableLog : 0;
+  for (int i = tid; i <= kTableCells + 1; i += kMoveThreads) sh.tab[i] = 0;
+  __syncthreads();
+  for (int i = tid; i <= len; i += kMoveThreads) {
+    if (i < len) {
+      const int v = off[c_lo + i];
+      sh.off[i] = v;
+      atomicAdd(&sh.tab[v < lo ? 0 : min(((v - lo) >> shift) + 1, kTableCells + 1)], 1);
     }
-    __syncthreads();
+    sh.cnt[i] = 0;
+  }
+  __syncthreads();
+  {  // the inclusive scan of tab[0, kTableCells], kTableCells / kMoveThreads a thread
+    constexpr int kPer = kTableCells / kMoveThreads;
+    int v[kPer], sum = 0;
 #pragma unroll
-    for (int j = 0; j < kMovePer; ++j) g[j] = 0;
-    for (int step = len == 0 ? 0 : 1 << (31 - __clz(len)); step > 0; step >>= 1) {
+    for (int e = 0; e < kPer; ++e) sum += (v[e] = sh.tab[kPer * tid + e]);
+    const int last = sh.tab[kTableCells];
+    int all;
+    int run = block_exclusive_scan(sum, sh.warp_sums, &all);
 #pragma unroll
-      for (int j = 0; j < kMovePer; ++j) {
-        const int q = g[j] + step;
-        if (q <= len && s_off[q - 1] <= d[j]) g[j] = q;
+    for (int e = 0; e < kPer; ++e) sh.tab[kPer * tid + e] = (run += v[e]);
+    if (tid == 0) sh.tab[kTableCells] = all + last;
+  }
+  __syncthreads();
+  bool ok = true;
+  int place[kMoveRows];  // a row's group << 16 | its place in the group
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {  // a quad's four lookups in flight together
+    const int4 x = span_quad(s.ds, j, s.rows_here, s.vec);
+    const int d[4] = {x.x, x.y, x.z, x.w};
+    const int r = 4 * (j * kMoveThreads + tid);
+    int g[4], more[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = min(max((d[e] - lo) >> shift, 0), kTableCells - 1);
+      g[e] = sh.tab[c];
+      more[e] = sh.tab[c + 1] - g[e];  // the offsets in the cell: the count of them <= d
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int k = 0;
+      for (int step = more[e] == 0 ? 0 : 1 << (31 - __clz(more[e])); step > 0; step >>= 1) {
+        if (k + step <= more[e] && sh.off[g[e] + k + step - 1] <= d[e]) k += step;
       }
+      g[e] += k;
     }
 #pragma unroll
-    for (int j = 0; j < kMovePer; ++j) {
-      if (d[j] >= 0) atomicAdd(&s_cnt[g[j]], 1), atomicMin(&s_min[g[j]], d[j]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kMovePer; ++j) {
-      if (d[j] >= 0 && d[j] - s_min[g[j]] >= s_cnt[g[j]]) runs = false;
+    for (int e = 0; e < 4; ++e) {
+      place[4 * j + e] = 0;
+      if (r + e >= s.rows_here) continue;
+      if ((unsigned)d[e] >= (unsigned)n) {
+        ok = false;
+        continue;
+      }
+      place[4 * j + e] = (g[e] << 16) | atomicAdd(&sh.cnt[g[e]], 1);
     }
   }
-  if (!__syncthreads_or(!runs)) {
-    // each bucket's first slot: the exclusive scan of the counts
-    int carry = 0;
-    for (int i0 = 0; i0 <= len; i0 += blockDim.x) {  // the same trips for the whole CTA
-      const int i = i0 + threadIdx.x;
-      int total;
-      const int excl = block_exclusive_scan(i <= len ? s_cnt[i] : 0, warp_sums, &total);
-      if (i <= len) s_cnt[i] = carry + excl - s_min[i];  // slot = this + destination
-      carry += total;
-    }
-    __syncthreads();
+  if (!__syncthreads_and(ok)) return false;
+  int carry = 0;
+  for (int i0 = 0; i0 <= len; i0 += kMoveThreads) {  // the same trips for the whole CTA
+    const int i = i0 + tid;
+    int all;
+    const int excl = block_exclusive_scan(i <= len ? sh.cnt[i] : 0, sh.warp_sums, &all);
+    if (i <= len) sh.cnt[i] = carry + excl;
+    carry += all;
+  }
+  __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kMovePer; ++j) {
-      if (d[j] >= 0) {
-        const int slot = s_cnt[g[j]] + d[j];
-        s_dest[slot] = d[j];
-        s_val[slot] = v[j];
-      }
+  for (int j = 0; j < Q; ++j) {
+    const int4 x = span_quad(s.ds, j, s.rows_here, s.vec);
+    const int d[4] = {x.x, x.y, x.z, x.w};
+    const int r = 4 * (j * kMoveThreads + tid);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (r + e >= s.rows_here) continue;
+      const int slot = sh.cnt[place[4 * j + e] >> 16] + (place[4 * j + e] & 0xffff);
+      sh.row[slot] = (unsigned short)(r + e);
+      sh.to[slot] = d[e];
     }
-    __syncthreads();
-    for (int f = threadIdx.x; f < p1 - p0; f += blockDim.x) dst[base + s_dest[f]] = s_val[f];
+  }
+  __syncthreads();
+  return true;
+}
+
+// Write an item out of its stage.  Planned: slot by slot, the slot's row
+// (its units [c0, c0 + cw)) to the slot's destination, a group's rows
+// together.  Row by row otherwise: each row whose destination lies in [0,
+// n).
+template <typename U>
+__device__ __forceinline__ void scatter_out(const MoveTable& t, const Item& it, const Span& s,
+                                            int n, bool planned, const unsigned char* buf,
+                                            const ScatterShared& sh) {
+  const int w = t.w[it.a];
+  const int cw = min(t.chunk[it.a], w - it.c0);
+  U* dst = static_cast<U*>(t.dst[it.a]) + s.row0 * w + it.c0;
+  const U* st = reinterpret_cast<const U*>(buf);
+  if (planned && w == 1) {
+#pragma unroll 4
+    for (int q = threadIdx.x; q < s.rows_here; q += kMoveThreads) dst[sh.to[q]] = st[sh.row[q]];
     return;
   }
-#pragma unroll
-  for (int j = 0; j < kMovePer; ++j) {  // row by row
-    if ((unsigned)d[j] < (unsigned)n) dst[base + d[j]] = v[j];
-  }
-}
-
-// The window gather, one CTA a window: window q of row q / per_row covers
-// positions [lo + (q % per_row) W, + W) of its row of n; perm (windows, W)
-// window-local.  Direct (src is not dst): each unit reads its source.
-// Staged (in place): `chunk` units of every row of the window go through
-// shared memory, all read before any is written.
-template <typename U, bool kStaged>
-__global__ void __launch_bounds__(kGatherThreads)
-    gather_windows_kernel(const U* src, U* dst, const int* __restrict__ perm, int per_row, int n,
-                          int W, int lo, int w, int chunk) {
-  extern __shared__ __align__(16) unsigned char stage_bytes[];
-  U* stage = reinterpret_cast<U*>(stage_bytes);
-  const int q = blockIdx.x;
-  const int row = q / per_row;
-  const long long first = (long long)row * n + lo + (long long)(q - row * per_row) * W;
-  const int* pw = perm + (long long)q * W;
-  if (!kStaged) {
-    const int units = W * w;
+  if (planned) {
+    const int units = s.rows_here * cw;
 #pragma unroll 4
-    for (int f = threadIdx.x; f < units; f += blockDim.x) {
-      const int j = w == 1 ? f : f / w;
-      const int u = f - j * w;
-      dst[(first + j) * w + u] = src[(first + __ldg(pw + j)) * w + u];
+    for (int f = threadIdx.x; f < units; f += kMoveThreads) {
+      const int q = cw == 1 ? f : f / cw;
+      const int u = f - q * cw;
+      dst[(long long)sh.to[q] * w + u] = st[sh.row[q] * cw + u];
     }
     return;
   }
-  for (int c0 = 0; c0 < w; c0 += chunk) {
-    const int cw = min(chunk, w - c0);
-    const int units = W * cw;
-#pragma unroll 4
-    for (int f = threadIdx.x; f < units; f += blockDim.x) {
-      const int j = cw == 1 ? f : f / cw;
-      stage[f] = src[(first + j) * w + c0 + (f - j * cw)];
+#pragma unroll 2
+  for (int j = 0; j < kMoveRows / 4; ++j) {
+    const int4 x = span_quad(s.ds, j, s.rows_here, s.vec);
+    const int d[4] = {x.x, x.y, x.z, x.w};
+    const int r = 4 * (j * kMoveThreads + (int)threadIdx.x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if ((unsigned)d[e] >= (unsigned)n) continue;
+      for (int u = 0; u < cw; ++u) dst[(long long)d[e] * w + u] = st[(r + e) * cw + u];
     }
-    __syncthreads();  // the whole slice read before any of it is written
-#pragma unroll 4
-    for (int f = threadIdx.x; f < units; f += blockDim.x) {
-      const int j = cw == 1 ? f : f / cw;
-      const int u = f - j * cw;
-      dst[(first + j) * w + c0 + u] = stage[__ldg(pw + j) * cw + u];
-    }
-    __syncthreads();
   }
 }
 
-template <typename U>
-cudaError_t launch_scatter(const void* src, void* dst, const int* dest, int count, int n, int w,
-                           cudaStream_t s) {
-  const long long total = (long long)count * w;
-  const long long ctas = (total + kThreads * kMoveUnroll - 1) / (kThreads * kMoveUnroll);
-  if (ctas == 0) return cudaSuccess;
-  if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
-  scatter_kernel<U><<<(unsigned)ctas, kThreads, 0, s>>>((const U*)src, (U*)dst, dest, count, n,
-                                                        w);
-  return cudaGetLastError();
+__device__ __forceinline__ void scatter_item_in(const MoveTable& t, const Item& it,
+                                                const Span& s, unsigned char* buf) {
+  switch (t.unit[it.a]) {
+#define IN(B) \
+  case B: stage_rows<Unit<B>::T>(t, it, s.first, s.rows_here, buf); break;
+    IN(1) IN(2) IN(4) IN(8) IN(16)
+#undef IN
+  }
 }
 
+__device__ __forceinline__ void scatter_item_out(const MoveTable& t, const Item& it,
+                                                 const Span& s, int n, bool planned,
+                                                 const unsigned char* buf,
+                                                 const ScatterShared& sh) {
+  switch (t.unit[it.a]) {
+#define OUT(B) \
+  case B: scatter_out<Unit<B>::T>(t, it, s, n, planned, buf, sh); break;
+    OUT(1) OUT(2) OUT(4) OUT(8) OUT(16)
+#undef OUT
+  }
+}
+
+// The scatter of every tensor of the table by one placement: persistent
+// CTAs walk their items (span, tensor, chunk) of spans of kScatterSpan
+// source rows.  An item's rows come into a stage by cp.async (a block of
+// bytes) as they are; the span's plan (plan_span) gives each slot a row and
+// its destination, and the item is written out slot by slot from the stage.
+// Of the two stages, the next item's rows are in flight while the current
+// one is written out, and the next span's first rows while its plan is
+// made.  (Bringing each span's destinations into shared memory a span ahead
+// as well was slower, on the H100.)
+__global__ void __launch_bounds__(kMoveThreads, 2)
+    scatter_kernel(const __grid_constant__ MoveTable t, const int* __restrict__ dest,
+                   const int* __restrict__ offsets, int m, int n, int spans, int total,
+                   int stage_bytes, int window) {
+  static_assert(kMoveRows % 4 == 0 && kScatterSpan <= 65536, "a span's rows in 16 bits");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_c[4];
+  __shared__ int warp_sums[33];
+  ScatterShared sh;
+  sh.to = reinterpret_cast<int*>(smem + 2 * stage_bytes);
+  sh.off = sh.to + kScatterSpan;
+  sh.cnt = sh.off + kScatterGroups;
+  sh.tab = sh.cnt + kScatterGroups;
+  sh.row = reinterpret_cast<unsigned short*>(sh.tab + kTableCells + 2);
+  sh.c = s_c;
+  sh.warp_sums = warp_sums;
+  Item it{(int)blockIdx.x, 0, 0};
+  if (it.q >= total) return;
+  Span s = span_of(it.q, spans, n, dest);
+  scatter_item_in(t, it, s, smem);
+  bool planned = plan_span(s, offsets, m, n, window, sh);
+  for (int i = 0;; ++i) {
+    const Item nx = next_item(t, it);
+    const bool more = nx.q < total;
+    const Span ns = nx.q == it.q ? s : span_of(nx.q, spans, n, dest);
+    cp_async_wait_all();
+    __syncthreads();  // the item staged; the other stage's last reader done
+    if (more) scatter_item_in(t, nx, ns, smem + ((i + 1) & 1) * stage_bytes);
+    scatter_item_out(t, it, s, n, planned, smem + (i & 1) * stage_bytes, sh);
+    if (!more) break;
+    __syncthreads();  // the stage and the span's plan read
+    if (nx.q != it.q) planned = plan_span(ns, offsets, m, n, window, sh);
+    it = nx;
+    s = ns;
+  }
+}
+
+int scatter_smem(int stage_bytes) {
+  return 2 * stage_bytes + 2 * kScatterGroups * 4 + (kTableCells + 2) * 4 + 6 * kScatterSpan;
+}
+
+// ---- G4's window gather ----
+
+// Write an item out of the stage by the window's permutation: rows of one
+// unit four at a time (perm read 16 bytes a thread, four outputs stored as
+// one access); else unit by unit.
 template <typename U>
-cudaError_t launch_scatter_staged(const void* src, void* dst, const int* dest, const int* offsets,
-                                  int m, int rows, int n, cudaStream_t s) {
-  const int spans = (n + kMoveSpan - 1) / kMoveSpan;
+__device__ __forceinline__ void gather_store(const MoveTable& t, const Item& it, long long first,
+                                             int W, const int* pw, const unsigned char* buf) {
+  const int w = t.w[it.a];
+  const int cw = min(t.chunk[it.a], w - it.c0);
+  U* dst = static_cast<U*>(t.dst[it.a]) + first * w;
+  const U* st = reinterpret_cast<const U*>(buf);
+  if (w == 1 && (W & 3) == 0 && aligned(dst, 4 * sizeof(U)) && aligned(pw, 16)) {
+#pragma unroll 2
+    for (int e = threadIdx.x; e < W / 4; e += kMoveThreads) {
+      const int4 p = __ldg(reinterpret_cast<const int4*>(pw) + e);
+      Quad<U> o;
+      o.u[0] = st[p.x], o.u[1] = st[p.y], o.u[2] = st[p.z], o.u[3] = st[p.w];
+      store_quad(dst + 4 * e, o);
+    }
+    return;
+  }
+  const int units = W * cw;
+#pragma unroll 4
+  for (int f = threadIdx.x; f < units; f += kMoveThreads) {
+    const int j = cw == 1 ? f : f / cw;
+    const int u = f - j * cw;
+    dst[(long long)j * w + it.c0 + u] = st[__ldg(pw + j) * cw + u];
+  }
+}
+
+template <bool kLoad>
+__device__ __forceinline__ void gather_item(const MoveTable& t, const Item& it, const int* perm,
+                                            int per_row, int n, int W, int lo,
+                                            unsigned char* buf) {
+  const int row = it.q / per_row;
+  const long long first = (long long)row * n + lo + (long long)(it.q - row * per_row) * W;
+  const int* pw = perm + (long long)it.q * W;
+  switch (t.unit[it.a]) {
+#define ITEM(B)                                               \
+  case B:                                                     \
+    if (kLoad) stage_rows<Unit<B>::T>(t, it, first, W, buf);  \
+    else gather_store<Unit<B>::T>(t, it, first, W, pw, buf);  \
+    break;
+    ITEM(1) ITEM(2) ITEM(4) ITEM(8) ITEM(16)
+#undef ITEM
+  }
+}
+
+// The window gather of every tensor of the table: window q of row q /
+// per_row covers positions [lo + (q % per_row) W, + W) of its row of n;
+// perm (windows, W) window-local.  Persistent CTAs walk their items with two
+// stages: the next item's loads are in flight while the current one is
+// written.  Every read of an item precedes every write of it (the stage is
+// complete, behind a barrier, before it is written out), and items are
+// disjoint, so src may be dst (pass two, in place).
+__global__ void __launch_bounds__(kMoveThreads)
+    gather_windows_kernel(const __grid_constant__ MoveTable t, const int* __restrict__ perm,
+                          int windows, int per_row, int n, int W, int lo, int stage_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Item it{(int)blockIdx.x, 0, 0};
+  if (it.q >= windows) return;
+  gather_item<true>(t, it, perm, per_row, n, W, lo, smem);
+  for (int i = 0;; ++i) {
+    const Item nx = next_item(t, it);
+    const bool more = nx.q < windows;
+    cp_async_wait_all();
+    __syncthreads();  // the item staged; the other stage's last reader done
+    if (more)
+      gather_item<true>(t, nx, perm, per_row, n, W, lo, smem + ((i + 1) & 1) * stage_bytes);
+    gather_item<false>(t, it, perm, per_row, n, W, lo, smem + (i & 1) * stage_bytes);
+    if (!more) break;
+    it = nx;
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// Persistent CTAs: as many as fit on the card at once, at most `work`.
+cudaError_t persistent_ctas(const void* fn, int smem, int work, int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kMoveThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *ctas = min(work, per_sm * sm_count());
+  return cudaSuccess;
+}
+
+cudaError_t fill_table(MoveTable* t, int count, void* const* srcs, void* const* dsts,
+                       const int* units, const int* ws, const int* chunks) {
+  if (count < 1 || count > kMaxMove) return cudaErrorInvalidValue;
+  t->count = count;
+  for (int i = 0; i < count; ++i) {
+    const int u = units[i];
+    if ((u != 1 && u != 2 && u != 4 && u != 8 && u != 16) || ws[i] < 1 || chunks[i] < 1 ||
+        chunks[i] > ws[i])
+      return cudaErrorInvalidValue;
+    t->src[i] = srcs[i];
+    t->dst[i] = dsts[i];
+    t->unit[i] = u;
+    t->w[i] = ws[i];
+    t->chunk[i] = chunks[i];
+  }
+  return cudaSuccess;
+}
+
+cudaError_t launch_scatter(const MoveTable& t, const int* dest, const int* offsets, int m,
+                           int rows, int n, int stage_bytes, cudaStream_t s) {
+  for (int i = 0; i < t.count; ++i) {
+    if ((long long)kScatterSpan * t.chunk[i] * t.unit[i] > stage_bytes)
+      return cudaErrorInvalidValue;
+  }
+  const int spans = (n + kScatterSpan - 1) / kScatterSpan;
   if ((long long)rows * spans > INT_MAX) return cudaErrorInvalidConfiguration;
-  if (rows == 0 || spans == 0) return cudaSuccess;
-  const int smem = kMoveSpan * ((int)sizeof(U) + 4) + 3 * kScatterGroups * 4;
-  cudaError_t err = cudaFuncSetAttribute((const void*)&scatter_staged_kernel<U>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int total = rows * spans;
+  if (total == 0) return cudaSuccess;
+  const int smem = scatter_smem(stage_bytes);
+  int widest = 1;
+  for (int i = 0; i < t.count; ++i) widest = max(widest, t.unit[i] * t.w[i]);
+  int ctas;
+  cudaError_t err = persistent_ctas((const void*)&scatter_kernel, smem, total, &ctas);
   if (err != cudaSuccess) return err;
-  scatter_staged_kernel<U><<<rows * spans, kMoveThreads, smem, s>>>((const U*)src, (U*)dst,
-                                                                     dest, offsets, m, n, spans);
-  return cudaGetLastError();
-}
-
-template <typename U>
-cudaError_t launch_gather(const void* src, void* dst, const int* perm, int windows, int per_row,
-                          int n, int W, int lo, int w, int chunk, bool staged, cudaStream_t s) {
-  if (windows == 0) return cudaSuccess;
-  if (!staged) {
-    gather_windows_kernel<U, false><<<windows, kGatherThreads, 0, s>>>(
-        (const U*)src, (U*)dst, perm, per_row, n, W, lo, w, chunk);
-    return cudaGetLastError();
-  }
-  const int smem = W * chunk * (int)sizeof(U);
-  cudaError_t err = cudaFuncSetAttribute((const void*)&gather_windows_kernel<U, true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  gather_windows_kernel<U, true><<<windows, kGatherThreads, smem, s>>>(
-      (const U*)src, (U*)dst, perm, per_row, n, W, lo, w, chunk);
+  scatter_kernel<<<ctas, kMoveThreads, smem, s>>>(t, dest, offsets, m, n, spans, total,
+                                                  stage_bytes, max(1, kRowWindowBytes / widest));
   return cudaGetLastError();
 }
 
@@ -868,64 +1226,49 @@ int glue_composite_ids(const void* keys, int key_bits, const void* seg_off, cons
   return cudaGetLastError();
 }
 
-// G4, the scatter: count = rows * n rows of w units of `unit` bytes (1, 2,
-// 4, 8 or 16), row i of src to dst row (i / n) * n + dest[i].  One launch.
-int glue_scatter(const void* src, void* dst, const void* dest, int count, int n, int unit, int w,
-                 void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int* d = (const int*)dest;
-  switch (unit) {
-    case 1: return launch_scatter<Unit<1>::T>(src, dst, d, count, n, w, s);
-    case 2: return launch_scatter<Unit<2>::T>(src, dst, d, count, n, w, s);
-    case 4: return launch_scatter<Unit<4>::T>(src, dst, d, count, n, w, s);
-    case 8: return launch_scatter<Unit<8>::T>(src, dst, d, count, n, w, s);
-    case 16: return launch_scatter<Unit<16>::T>(src, dst, d, count, n, w, s);
-  }
-  return cudaErrorInvalidValue;
+// G4, the scatter: `count` tensors (at most kMaxMove) of rows x n rows, row
+// i of each moved within its row of n to dest[i]; each tensor's rows are
+// ws[i] units of units[i] bytes, staged chunks[i] units at a time.  With
+// offsets (rows, m), m = nb + 1, of the stable placement dest is, spans of
+// kScatterSpan rows are written out by bucket; without (null), row by row;
+// either way through two stages of stage_bytes (at most 64 KB).  One
+// launch.
+int glue_scatter(int count, void* const* srcs, void* const* dsts, const int* units,
+                 const int* ws, const int* chunks, const void* dest, const void* offsets, int m,
+                 int rows, int n, int stage_bytes, void* stream) {
+  MoveTable t{};
+  cudaError_t err = fill_table(&t, count, srcs, dsts, units, ws, chunks);
+  if (err != cudaSuccess) return err;
+  if ((offsets != nullptr && m < 1) || stage_bytes > kStageBytes || (stage_bytes & 15))
+    return cudaErrorInvalidValue;
+  if (rows == 0 || n == 0) return cudaSuccess;
+  return launch_scatter(t, (const int*)dest, (const int*)offsets, m, rows, n, stage_bytes,
+                        (cudaStream_t)stream);
 }
 
-// G4, the staged scatter: rows x n rows of one unit of `unit` bytes (1, 2,
-// 4, 8 or 16) moved by dest, a stable placement whose (rows, m) offsets
-// (m = nb + 1) are given.  One launch.
-int glue_scatter_staged(const void* src, void* dst, const void* dest, const void* offsets, int m,
-                        int rows, int n, int unit, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int* d = (const int*)dest;
-  const int* o = (const int*)offsets;
-  if (m < 1) return cudaErrorInvalidConfiguration;
-  switch (unit) {
-    case 1: return launch_scatter_staged<Unit<1>::T>(src, dst, d, o, m, rows, n, s);
-    case 2: return launch_scatter_staged<Unit<2>::T>(src, dst, d, o, m, rows, n, s);
-    case 4: return launch_scatter_staged<Unit<4>::T>(src, dst, d, o, m, rows, n, s);
-    case 8: return launch_scatter_staged<Unit<8>::T>(src, dst, d, o, m, rows, n, s);
-    case 16: return launch_scatter_staged<Unit<16>::T>(src, dst, d, o, m, rows, n, s);
+// G4, the window gather: `count` tensors (at most kMaxMove), each moved by
+// `windows` windows of W (per_row a row of n, from position lo of each
+// row) of perm (windows, W); rows of ws[i] units of units[i] bytes, chunks[i]
+// units of every row of a window staged at a time, in two stages of
+// stage_bytes (at most 64 KB).  srcs[i] may be dsts[i].  One launch.
+int glue_gather_windows(int count, void* const* srcs, void* const* dsts, const int* units,
+                        const int* ws, const int* chunks, const void* perm, int windows,
+                        int per_row, int n, int W, int lo, int stage_bytes, void* stream) {
+  MoveTable t{};
+  cudaError_t err = fill_table(&t, count, srcs, dsts, units, ws, chunks);
+  if (err != cudaSuccess) return err;
+  if (per_row < 1 || W < 1 || stage_bytes > kStageBytes || (stage_bytes & 15))
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < t.count; ++i) {
+    if ((long long)W * t.chunk[i] * t.unit[i] > stage_bytes) return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
-}
-
-// G4, the window gather: `windows` windows of W, per_row a row of n, from
-// position lo of each row; rows of w units of `unit` bytes; staged (src may
-// be dst) with `chunk` units a row a pass through W * chunk * unit bytes of
-// shared memory.  One launch.
-int glue_gather_windows(const void* src, void* dst, const void* perm, int windows, int per_row,
-                        int n, int W, int lo, int unit, int w, int chunk, int staged,
-                        void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int* p = (const int*)perm;
-  if (per_row < 1 || chunk < 1) return cudaErrorInvalidConfiguration;
-  switch (unit) {
-    case 1: return launch_gather<Unit<1>::T>(src, dst, p, windows, per_row, n, W, lo, w, chunk,
-                                             staged != 0, s);
-    case 2: return launch_gather<Unit<2>::T>(src, dst, p, windows, per_row, n, W, lo, w, chunk,
-                                             staged != 0, s);
-    case 4: return launch_gather<Unit<4>::T>(src, dst, p, windows, per_row, n, W, lo, w, chunk,
-                                             staged != 0, s);
-    case 8: return launch_gather<Unit<8>::T>(src, dst, p, windows, per_row, n, W, lo, w, chunk,
-                                             staged != 0, s);
-    case 16: return launch_gather<Unit<16>::T>(src, dst, p, windows, per_row, n, W, lo, w, chunk,
-                                               staged != 0, s);
-  }
-  return cudaErrorInvalidValue;
+  if (windows == 0) return cudaSuccess;
+  int ctas;
+  err = persistent_ctas((const void*)&gather_windows_kernel, 2 * stage_bytes, windows, &ctas);
+  if (err != cudaSuccess) return err;
+  gather_windows_kernel<<<ctas, kMoveThreads, 2 * stage_bytes, (cudaStream_t)stream>>>(
+      t, (const int*)perm, windows, per_row, n, W, lo, stage_bytes);
+  return cudaGetLastError();
 }
 
 // G6: the splitters (rows, num_seg, k-1) of keys (rows, n) int32 (key_bits

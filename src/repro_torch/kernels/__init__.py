@@ -22,7 +22,7 @@
 | G1 | ``glue.close_placement`` (K1/K1r/K4's placement close) | ``csrc/glue.cu`` | no kernel: XLA's ``_close_placement``, ``repro/kernels/level_fused.py:136`` |
 | G2 | ``glue.segment_ids`` | ``csrc/glue.cu`` | no kernel: XLA's ``segment_ids``, ``repro/core/ips4o.py:229`` |
 | G3 | ``glue.composite_ids`` (level 2's ids, tree or radix; int32 and int64 keys) | ``csrc/glue.cu`` | no kernel: XLA's ``classify_segmented``, ``repro/classify/tree.py:83`` |
-| G4 | ``glue.scatter_rows`` and ``glue.gather_windows`` (one move kernel) | ``csrc/glue.cu`` | no kernel: XLA's ``.at[dest].set`` and ``_apply_window_perm``, ``repro/core/ips4o.py:376``, ``:246`` |
+| G4 | ``glue.scatter_rows`` and ``glue.gather_windows`` (each one launch for every tensor) | ``csrc/glue.cu`` | no kernel: XLA's ``.at[dest].set`` and ``_apply_window_perm``, ``repro/core/ips4o.py:376``, ``:246`` |
 | G5 | ``codec.encode_padded`` and ``codec.decode`` (``ops.keyspace`` on the card) | ``csrc/codec.cu`` | no kernel: XLA's ``encode``/``decode``, ``repro/ops/keyspace.py:94``, ``:118``, and the pad, ``repro/core/ips4o.py:289`` |
 | G6 | ``glue.sample_splitters`` (both levels' samples to splitters) | ``csrc/glue.cu`` | no kernel: XLA's samples, ``repro/core/ips4o.py:356``, ``:442``, ``repro/core/sampling.py:76``, ``:88`` |
 | G7 | ``fallback.oversized_list`` and ``fallback.sort_listed`` (the robustness fallback) | ``csrc/fallback.cu`` | no kernel: XLA's ``bucket_violations`` and ``lax.cond`` sort, ``repro/core/ips4o.py:499``, ``:540`` |

@@ -24,15 +24,17 @@ under its own key of ``_build.LAUNCHES``.
   sorted splitters of each (row, segment), and level 1's upper form with
   its sentinel (``src/repro/core/ips4o.py:356-360``, ``:442-449``, batched
   ``:679-684``, ``:758-768``).  One launch a call.
-- G4, one move kernel with two entry points: :func:`scatter_rows`
-  (``scatter_rows``, one launch a tensor), ``out[dest[i]] = a[i]`` by
-  row-local int32 positions (the level passes' ``.at[dest].set``), and
-  :func:`gather_windows` (``gather_windows``, one launch a tensor), the
-  base case's window gather by K3's permutation, in place for pass two.
-  Rows of any byte width: bool, bfloat16, ``(n, c)`` leaves, records' words.
+- G4, two move kernels that each move every tensor of the arrays in one
+  launch (a table of up to :data:`MAX_MOVE` tensors in the kernel's
+  parameters): :func:`scatter_rows` (``scatter_rows``), ``out[dest[i]] =
+  a[i]`` by row-local int32 positions (the level passes' ``.at[dest].set``),
+  and :func:`gather_windows` (``gather_windows``), the base case's window
+  gather by K3's permutation, in place for pass two.  Rows of any byte
+  width: bool, bfloat16, ``(n, c)`` leaves, records' words.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
@@ -56,22 +58,28 @@ __all__ = [
     "sample_splitters",
     "sample_splitters_plain",
     "move_unit",
+    "stage_plan",
     "gather_plan",
     "RUN_TILES",
     "STAGE_BYTES",
+    "MAX_MOVE",
+    "SCATTER_SPAN",
+    "ROW_WINDOW_BYTES",
 ]
 
 RUN_TILES = 16  # G1: tiles a run of its column sums (csrc/glue.cu's kRunTiles)
-STAGE_BYTES = 65536  # G4's in-place gather: a window's slice in shared memory, at most
+STAGE_BYTES = 65536  # G4: a span's or a window's slice in shared memory, at most (kStageBytes)
+MAX_MOVE = 64  # G4: tensors one launch moves (kMaxMove)
+SCATTER_SPAN = 4096  # G4's scatter: source rows a span (kScatterSpan)
+ROW_WINDOW_BYTES = 131072  # G4's scatter: a span whose destinations lie closer moves row by row
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
     "glue_close_placement": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "glue_segment_ids": (_P, _I, _I, _I, _P, _P),
     "glue_composite_ids": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "glue_scatter": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "glue_scatter_staged": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "glue_gather_windows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "glue_scatter": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "glue_gather_windows": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "glue_sample_splitters": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 MAX_SAMPLE = 16384  # G6: the largest sample a (row, segment) it sorts in shared memory
@@ -300,6 +308,35 @@ def _row_bytes(a: torch.Tensor, lead: int) -> int:
     return a.element_size() * math.prod(a.shape[lead:])
 
 
+def stage_plan(row_bytes: int, rows: int, *pointers: int) -> Tuple[int, int]:
+    """G4's (unit, chunk) for a stage of ``rows`` rows (a scatter's span or a
+    window): the bytes it moves at once (:func:`move_unit`, shrunk where
+    ``rows`` whole units would not fit ``STAGE_BYTES``) and the units of
+    every row it stages at once, so that the stage fits ``STAGE_BYTES``."""
+    unit = move_unit(row_bytes, *pointers)
+    unit = min(unit, 1 << max(0, (STAGE_BYTES // rows).bit_length() - 1))
+    return unit, max(1, min(row_bytes // unit, STAGE_BYTES // (rows * unit)))
+
+
+def gather_plan(row_bytes: int, W: int, *pointers: int) -> Tuple[int, int]:
+    """The window gather's (unit, chunk): :func:`stage_plan` for windows of
+    W rows (both passes stage every window)."""
+    return stage_plan(row_bytes, W, *pointers)
+
+
+def _table(entries) -> tuple:
+    """The C table of one launch from (src, dst, unit, w, chunk) entries:
+    count and five columns (csrc/glue.cu ``MoveTable``)."""
+    k = len(entries)
+    return (k,) + tuple((kind * k)(*[e[i] for e in entries])
+                        for i, kind in enumerate((ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                                  ctypes.c_int, ctypes.c_int)))
+
+
+def _groups(items):
+    return [items[i:i + MAX_MOVE] for i in range(0, len(items), MAX_MOVE)]
+
+
 def scatter_rows_plain(arrays: Arrays, dest: torch.Tensor,
                        offsets: Optional[torch.Tensor] = None) -> Arrays:
     """G4's scatter's plain torch twin on any device: an int64 copy of
@@ -325,19 +362,25 @@ def scatter_rows(arrays: Arrays, dest: torch.Tensor,
     (n,) int32, or (B, n) row-local (each row moves within itself), a
     permutation of each row; every tensor has ``dest``'s leading dims and
     any trailing dims and dtype.  Returns new tensors.  The G4 scatter on a
-    CUDA tensor (one launch a tensor), :func:`scatter_rows_plain` on a CPU
-    tensor.
+    CUDA tensor, one launch for every tensor (one more each further
+    :data:`MAX_MOVE`): ``dest`` is read once a span of
+    :data:`SCATTER_SPAN` source rows for all of them.
+    :func:`scatter_rows_plain` on a CPU tensor.
 
     ``offsets`` ((nb+1,) or (B, nb+1) int32) says that ``dest`` is the
     stable placement with these bucket offsets (a level pass's): the
-    kernel then stages each span of rows of up to 16 bytes by bucket in
-    shared memory and writes runs of consecutive destinations (it checks
-    that they are runs, and scatters row by row where they are not)."""
+    kernel then groups each span's rows by bucket and writes a bucket's
+    rows together, runs of consecutive destinations (each row still goes
+    to its own destination, so any permutation moves right), except where
+    the span's destinations lie within :data:`ROW_WINDOW_BYTES` of the
+    widest tensor's rows of each other (found where the row has more than
+    1024 buckets).  Without, row by row."""
     lead = dest.dim()
     if _build.is_fake(dest):
-        for a in arrays.values():
-            _build.note_fake("scatter_rows", 0.0, 2.0 * a.numel() * a.element_size()
-                             + 4.0 * dest.numel())
+        moved = [a for a in arrays.values() if a.numel()]
+        for group in _groups(moved):
+            _build.note_fake("scatter_rows", 0.0, sum(2.0 * a.numel() * a.element_size()
+                                                      for a in group) + 4.0 * dest.numel())
         return {name: torch.empty_like(a) for name, a in arrays.items()}
     if not _on_card(dest):
         return scatter_rows_plain(arrays, dest, offsets)
@@ -351,39 +394,30 @@ def scatter_rows(arrays: Arrays, dest: torch.Tensor,
         if offsets.shape[:-1] != dest.shape[:-1]:
             raise ValueError(f"scatter_rows: offsets {tuple(offsets.shape)} do not fit dest "
                              f"{tuple(dest.shape)}")
-    out = {}
+    out, items = {}, []
     for name, a in arrays.items():
         if tuple(a.shape[:lead]) != tuple(dest.shape) or a.device != dest.device:
             raise ValueError(f"scatter_rows {name}: {tuple(a.shape)} on {a.device} does not "
                              f"lead with dest's {tuple(dest.shape)} on {dest.device}")
         a = a.contiguous()
-        o = torch.empty_like(a)
+        out[name] = o = torch.empty_like(a)
         row = _row_bytes(a, lead)
         if row and dest.numel():
-            unit = move_unit(row, a.data_ptr(), o.data_ptr())
-            if offsets is not None and unit == row:
-                err = _lib().glue_scatter_staged(
-                    a.data_ptr(), o.data_ptr(), dest.data_ptr(), offsets.data_ptr(),
-                    offsets.shape[-1], rows, n, unit, _build.stream_handle(a.device))
-            else:
-                err = _lib().glue_scatter(a.data_ptr(), o.data_ptr(), dest.data_ptr(),
-                                          dest.numel(), n, unit, row // unit,
-                                          _build.stream_handle(a.device))
-            _launch("scatter_rows", err)
-        out[name] = o
+            items.append((a, o, row))
+    if not items:
+        return out
+    for group in _groups(items):
+        entries = []
+        for a, o, row in group:
+            unit, chunk = stage_plan(row, SCATTER_SPAN, a.data_ptr(), o.data_ptr())
+            entries.append((a.data_ptr(), o.data_ptr(), unit, row // unit, chunk))
+        stage = max(SCATTER_SPAN * e[2] * e[4] for e in entries)
+        err = _lib().glue_scatter(
+            *_table(entries), dest.data_ptr(), None if offsets is None else offsets.data_ptr(),
+            0 if offsets is None else offsets.shape[-1], rows, n, -(-stage // 16) * 16,
+            _build.stream_handle(dest.device))
+        _launch("scatter_rows", err)
     return out
-
-
-def gather_plan(row_bytes: int, W: int, staged: bool, *pointers: int) -> Tuple[int, int]:
-    """The window gather's (unit, chunk): the bytes it moves at once
-    (:func:`move_unit`) and, in place, the units of every row of a window
-    it stages at once, so that W rows' slice fits ``STAGE_BYTES`` (the
-    unit shrinks first where a window of whole units would not)."""
-    unit = move_unit(row_bytes, *pointers)
-    if not staged:
-        return unit, 1
-    unit = min(unit, 1 << max(0, (STAGE_BYTES // W).bit_length() - 1))
-    return unit, max(1, min(row_bytes // unit, STAGE_BYTES // (W * unit)))
 
 
 def _window_shape(src: torch.Tensor, perm: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -412,55 +446,77 @@ def gather_windows_plain(src: torch.Tensor, perm: torch.Tensor, lo: int,
     return out
 
 
-def gather_windows(src: torch.Tensor, perm: torch.Tensor, lo: int,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The base case's window gather: for (B, n, ...) ``src`` and K3's
-    window-local (B * per_row, W) int32 ``perm``, the windows of each row
-    from position ``lo`` (per_row of them, never past the row's end), each
-    gathered by its permutation.  With ``out`` ((B, n, ...), ``src``'s shape
-    and dtype; ``src`` itself for an in-place pass) writes them into
-    ``out[:, lo:lo + per_row * W]`` and returns ``out``; without, the
-    windows must cover the rows from 0, and the gather is returned.  The G4 gather on a CUDA tensor (one
-    launch; in place it stages each window in shared memory before writing
-    it), :func:`gather_windows_plain` on a CPU tensor."""
-    B, n, per_row, W = _window_shape(src, perm)
+def gather_windows(arrays: Arrays, perm: torch.Tensor, lo: int,
+                   out: Optional[Arrays] = None) -> Arrays:
+    """The base case's window gather of every tensor: for (B, n, ...)
+    tensors and K3's window-local (B * per_row, W) int32 ``perm``, the
+    windows of each row from position ``lo`` (per_row of them, never past
+    the row's end), each gathered by its permutation.  With ``out`` (a
+    tensor of each one's shape and dtype under its name; the tensor itself
+    for an in-place pass) writes them into ``out[name][:, lo:lo + per_row
+    * W]`` and returns ``out``; without, the windows must cover the rows
+    from 0, and the gathers are returned.  The G4 gather on CUDA tensors,
+    one launch for every tensor (one more each further :data:`MAX_MOVE`):
+    each window is staged in shared memory, all of it read before any of
+    it is written; :func:`gather_windows_plain` a tensor on the CPU."""
+    if not arrays:
+        return {} if out is None else out
+    first = next(iter(arrays.values()))
+    B, n, per_row, W = _window_shape(first, perm)
+    for name, a in arrays.items():
+        if a.shape[:2] != first.shape[:2] or a.device != first.device:
+            raise ValueError(f"gather_windows {name}: {tuple(a.shape)} on {a.device} does not "
+                             f"lead with {tuple(first.shape[:2])} on {first.device}")
     if lo < 0 or lo + per_row * W > n:
         raise ValueError(f"gather_windows: windows [{lo}, {lo + per_row * W}) exceed rows of {n}")
     if out is None and (lo or per_row * W != n):
-        raise ValueError("gather_windows: a new tensor takes windows over whole rows; pass out "
+        raise ValueError("gather_windows: new tensors take windows over whole rows; pass out "
                          "for the others")
-    if _build.is_fake(src):
-        _build.note_fake("gather_windows", 0.0, 2.0 * B * per_row * W * _row_bytes(src, 2)
-                         + 4.0 * perm.numel())
+    if _build.is_fake(first):
+        moved = [a for a in arrays.values() if a.numel()]
+        for group in _groups(moved):
+            _build.note_fake("gather_windows", 0.0, sum(
+                2.0 * B * per_row * W * _row_bytes(a, 2) for a in group) + 4.0 * perm.numel())
         if out is None:
-            return src.new_empty((B, per_row * W) + tuple(src.shape[2:]))
+            return {name: a.new_empty((B, per_row * W) + tuple(a.shape[2:]))
+                    for name, a in arrays.items()}
         return out
-    if not _on_card(src):
-        return gather_windows_plain(src, perm, lo, out)
+    if not _on_card(first):
+        return {name: gather_windows_plain(a, perm, lo, None if out is None else out[name])
+                for name, a in arrays.items()}
     perm = perm.contiguous()
     _need(perm, "gather_windows perm", dim=2)
-    staged = out is not None and out.untyped_storage().data_ptr() == \
-        src.untyped_storage().data_ptr()
-    if staged:
-        if out.data_ptr() != src.data_ptr() or not out.is_contiguous():
-            raise ValueError("gather_windows in place: out must be src itself, contiguous")
-    else:
-        src = src.contiguous()
-    if out is None:
-        dst = torch.empty_like(src)
-    else:
-        if out.shape != src.shape or out.dtype != src.dtype or not out.is_contiguous():
-            raise ValueError(f"gather_windows: out {tuple(out.shape)} {out.dtype} must be a "
-                             f"contiguous tensor of src's shape {tuple(src.shape)} {src.dtype}")
-        dst = out
-    row = _row_bytes(src, 2)
-    if row and perm.numel():
-        unit, chunk = gather_plan(row, W, staged, src.data_ptr(), dst.data_ptr())
+    result, items = {}, []
+    for name, src in arrays.items():
+        if out is None:
+            src = src.contiguous()
+            dst = torch.empty_like(src)
+        else:
+            dst = out[name]
+            if dst.shape != src.shape or dst.dtype != src.dtype or not dst.is_contiguous():
+                raise ValueError(f"gather_windows {name}: out {tuple(dst.shape)} {dst.dtype} "
+                                 f"must be a contiguous tensor of src's shape "
+                                 f"{tuple(src.shape)} {src.dtype}")
+            if dst.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
+                if dst.data_ptr() != src.data_ptr():
+                    raise ValueError(f"gather_windows {name} in place: out must be src itself")
+            else:
+                src = src.contiguous()
+        result[name] = dst
+        row = _row_bytes(src, 2)
+        if row and perm.numel():
+            items.append((src, dst, row))
+    for group in _groups(items):
+        entries = []
+        for src, dst, row in group:
+            unit, chunk = gather_plan(row, W, src.data_ptr(), dst.data_ptr())
+            entries.append((src.data_ptr(), dst.data_ptr(), unit, row // unit, chunk))
+        stage = max(W * e[2] * e[4] for e in entries)
         err = _lib().glue_gather_windows(
-            src.data_ptr(), dst.data_ptr(), perm.data_ptr(), B * per_row, per_row, n, W, lo,
-            unit, row // unit, chunk, int(staged), _build.stream_handle(src.device))
+            *_table(entries), perm.data_ptr(), B * per_row, per_row, n, W, lo,
+            -(-stage // 16) * 16, _build.stream_handle(first.device))
         _launch("gather_windows", err)
-    return dst
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -68,9 +68,9 @@ def base_case_windows(
     row).  ``limit`` (a multiple of W) restricts both passes to the
     positions [0, limit) of each row; the rest is left as it was.  K3 gives
     each window's permutation; every tensor is gathered by it with G4's
-    window gather (``kernels.glue.gather_windows``, one launch a tensor a
-    pass; pass two in place, each window staged in shared memory before it
-    is written).  Returns new tensors: the inputs are left as they were.
+    window gather (``kernels.glue.gather_windows``, one launch a pass for
+    every tensor; each window staged in shared memory before it is
+    written, pass two in place).  Returns new tensors: the inputs are left as they were.
 
     K3 packs (bucket, key, idx) into 64 bits, so it takes ids below
     2^(32 - log2 W).  Above that (a segmented sort of many segments), it is
@@ -93,11 +93,8 @@ def base_case_windows(
             fb_w.contiguous() if fits else _window_runs(fb_w),
             arrays["k"][:, lo:hi].reshape(B * per_row, W).contiguous(), nb if fits else W,
         )
-        if out is None:  # a first pass over all of [0, n) makes the copies
-            return {name: gather_windows(a, perm, lo) for name, a in arrays.items()}
-        for name, a in arrays.items():
-            gather_windows(a, perm, lo, out[name])
-        return out
+        # a first pass over all of [0, n) makes the copies (out None)
+        return gather_windows(arrays, perm, lo, out)
 
     # a window's sort leaves its (nondecreasing) bucket ids where they were
     if m_all == n:

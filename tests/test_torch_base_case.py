@@ -19,6 +19,7 @@ from repro_torch.core import ips4o
 from repro_torch.kernels import fallback
 from repro_torch.kernels.bitonic import sort_windows
 from repro_torch.kernels.ops import base_case_windows
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _dup_windows(num_w, W, seed, buckets=9, keys=7):

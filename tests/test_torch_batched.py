@@ -34,6 +34,7 @@ from repro_torch.core.partition import batched_stable_partition
 from repro_torch.kernels.level_fused import level_fused_batched, rank_hist_batched
 from test_torch_level import to_port, to_ref
 from test_torch_sort import bits
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # one level up to n = 512, two levels up to n = 4096 (W = 256, kmax = 8)
 TINY = dict(base_case=256, kmax=8, tile=128, max_sample=64, slack=4)

@@ -35,6 +35,7 @@ from repro.kernels.permute_inplace import permute_blocks_inplace as ref_inplace
 from repro_torch.core.partition import partition_blocks
 from repro_torch.core.s3sort import s3_sort
 from repro_torch.kernels import block_permute, ops, permute_inplace, ref
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 BLOCK = 1024
 

@@ -34,6 +34,7 @@ from repro_torch.core.s3sort import s3_sort
 from repro_torch.kernels import classify, ref
 from repro_torch.kernels.ops import sort_blocks
 from repro_torch.ops import keyspace
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # numpy dtype (bfloat16 from ml_dtypes), torch dtype, the unsigned view of its bits
 DTYPES = {

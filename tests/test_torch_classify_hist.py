@@ -22,6 +22,7 @@ from repro.kernels import classify as ref_classify
 from repro.kernels import ref as ref_oracles
 from repro.ops.keyspace import encode_np
 from repro_torch.kernels import classify, ref
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIGN = np.uint32(0x80000000)
 

@@ -1902,25 +1902,45 @@ def _glue_leaves(g, lead, dev):
     }
 
 
+def _g4_record_leaves(g, lead, dev):
+    """The arrays of an argsort of records: int32 keys, the int32 index and a
+    3-word record leaf."""
+    return {"k": torch.randint(-2**31, 2**31 - 1, lead, generator=g, device=dev,
+                               dtype=torch.int32),
+            "idx": torch.arange(lead[-1], device=dev, dtype=torch.int32).expand(lead).contiguous(),
+            "words": torch.randint(-2**31, 2**31 - 1, lead + (3,), generator=g, device=dev,
+                                   dtype=torch.int32)}
+
+
 @pytest.mark.parametrize("lead", [(1 << 20,), (8, 1 << 16), (3, 1000)])
 def test_scatter_rows_kernel(dev, lead):
-    """G4's scatter on payload rows of 1-16 bytes: a random permutation
-    (row by row), K1's and K4's placements with their offsets (the staged
-    path), and offsets the permutation is no placement of (the check)."""
+    """G4's scatter, every tensor in one launch: payload rows of 1-16 bytes
+    and the records' keys, index and 3-word leaf, by a random permutation
+    (row by row), by K1's and K4's placements with their offsets (the
+    planned path), by offsets the permutation is no placement of (planned
+    all the same: each slot carries its row's destination), and more than
+    MAX_MOVE tensors (one launch more)."""
     from repro_torch.kernels import glue
 
     g = torch.Generator(device=dev).manual_seed(len(lead))
     arrays = _glue_leaves(g, lead, dev)
+    records = _g4_record_leaves(g, lead, dev)
     dest = torch.argsort(torch.rand(lead, generator=g, device=dev), dim=-1).to(torch.int32)
 
     def same(got, want):
         _equal(tuple(got.values()), tuple(want.values()))
 
-    same(glue.scatter_rows(arrays, dest), glue.scatter_rows_plain(arrays, dest))
+    def one_launch(arrays_, dest_, offsets_=None):
+        before = kernels.launch_counts()["scatter_rows"]
+        got = glue.scatter_rows(arrays_, dest_, offsets_)
+        assert kernels.launch_counts()["scatter_rows"] == before + 1
+        same(got, glue.scatter_rows_plain(arrays_, dest_))
+
+    one_launch(arrays, dest)
     n = lead[-1]
     off = torch.tensor([0, n // 2, n], dtype=torch.int32, device=dev).expand(
         lead[:-1] + (3,)).contiguous()
-    same(glue.scatter_rows(arrays, dest, off), glue.scatter_rows_plain(arrays, dest))
+    one_launch(arrays, dest, off)
     k = 16
     keys = torch.randint(-2**31, 2**31 - 1, lead, generator=g, device=dev, dtype=torch.int32)
     rows = keys if keys.dim() == 2 else keys[None]
@@ -1928,11 +1948,12 @@ def test_scatter_rows_kernel(dev, lead):
     place, offsets = lf.level_fused_batched(rows, spl.contiguous(), k=k)
     if keys.dim() == 1:
         place, offsets = place[0], offsets[0]
-    before = kernels.launch_counts()["scatter_rows"]
-    same(glue.scatter_rows(arrays, place, offsets), glue.scatter_rows_plain(arrays, place))
-    assert kernels.launch_counts()["scatter_rows"] == before + len(arrays)
+    one_launch(arrays, place, offsets)
+    one_launch(records, place, offsets)
+    one_launch({"k": records["k"], "idx": records["idx"]}, place, offsets)
     # K2's placement over 17 segments x 128 local ids (more buckets than a
-    # span stages whole: each span's buckets found by the warp search)
+    # span stages whole: at 2^20 keys each span's buckets found by the warp
+    # search; at 2^16 its destinations close enough to move row by row)
     ids = torch.sort(torch.randint(0, 17, lead[-1:], generator=g, device=dev,
                                    dtype=torch.int32)).values
     seg_off = torch.searchsorted(ids, torch.arange(18, device=dev, dtype=torch.int32)).to(
@@ -1941,34 +1962,43 @@ def test_scatter_rows_kernel(dev, lead):
                                      dtype=torch.int32)
     place2, offsets2 = lf.rank_hist(comp, nb=17 * 128, seg_offsets=seg_off, seg_width=128)
     flat = {name: a.reshape((-1,) + tuple(a.shape[len(lead):]))[: lead[-1]]
-            for name, a in arrays.items()}
-    same(glue.scatter_rows(flat, place2, offsets2), glue.scatter_rows_plain(flat, place2))
+            for name, a in {**arrays, **records}.items()}
+    one_launch(flat, place2, offsets2)
+    many = {f"t{i}": records["idx"] + i for i in range(glue.MAX_MOVE + 1)}
+    before = kernels.launch_counts()["scatter_rows"]
+    same(glue.scatter_rows(many, place, offsets), glue.scatter_rows_plain(many, place))
+    assert kernels.launch_counts()["scatter_rows"] == before + 2
 
 
 @pytest.mark.parametrize("W", [2, 8, 256, 8192, 16384])
 def test_gather_windows_kernel(dev, W):
-    """G4's window gather: direct into a new tensor and a copy, and in place
-    (pass two at W/2, each window staged), over one row and 4 rows, on
-    rows of 1-16 bytes."""
+    """G4's window gather, every tensor in one launch: into new tensors, into
+    copies and in place (pass two at W/2), over one row and 4 rows, on rows
+    of 1-16 bytes and on the records' keys, index and 3-word leaf."""
     from repro_torch.kernels import glue
 
     g = torch.Generator(device=dev).manual_seed(W)
     for B in (1, 4):
         n = 4 * max(W, 256)
-        arrays = _glue_leaves(g, (B, n), dev)
-        for lo, per in ((0, n // W), (W // 2, n // W - 1), (0, n // W // 2)):
-            perm = torch.argsort(torch.rand((B * per, W), generator=g, device=dev),
-                                 dim=1).to(torch.int32)
-            for a in arrays.values():
-                want = glue.gather_windows_plain(a, perm, lo, a.clone())
-                _equal(glue.gather_windows(a, perm, lo, a.clone()), want)
-                inplace = a.clone()
+        for arrays in (_glue_leaves(g, (B, n), dev), _g4_record_leaves(g, (B, n), dev)):
+            for lo, per in ((0, n // W), (W // 2, n // W - 1), (0, n // W // 2)):
+                perm = torch.argsort(torch.rand((B * per, W), generator=g, device=dev),
+                                     dim=1).to(torch.int32)
+                want = {name: glue.gather_windows_plain(a, perm, lo, a.clone())
+                        for name, a in arrays.items()}
+                got = glue.gather_windows(arrays, perm, lo,
+                                          {name: a.clone() for name, a in arrays.items()})
+                _equal(tuple(got.values()), tuple(want.values()))
+                inplace = {name: a.clone() for name, a in arrays.items()}
                 before = kernels.launch_counts()["gather_windows"]
-                glue.gather_windows(inplace, perm, lo, inplace)
+                got = glue.gather_windows(inplace, perm, lo, inplace)
                 assert kernels.launch_counts()["gather_windows"] == before + 1
-                _equal(inplace, want)
+                assert all(got[name] is inplace[name] for name in arrays)
+                _equal(tuple(inplace.values()), tuple(want.values()))
                 if lo == 0 and per * W == n:
-                    _equal(glue.gather_windows(a, perm, 0), glue.gather_windows_plain(a, perm, 0))
+                    got = glue.gather_windows(arrays, perm, 0)
+                    _equal(tuple(got.values()), tuple(
+                        glue.gather_windows_plain(a, perm, 0) for a in arrays.values()))
 
 
 def test_sort_runs_the_glue_kernels(dev):

@@ -39,8 +39,6 @@ import json
 import os
 import pickle
 import queue as queue_mod
-import subprocess
-import sys
 import tempfile
 import textwrap
 import time
@@ -49,6 +47,7 @@ import traceback
 import numpy as np
 import pytest
 import torch
+from torch_children import Child
 
 N4 = 1 << 15     # keys in all on the 4-rank meshes (n_local = 8192)
 N8 = 1 << 16     # keys in all on the 8-rank mesh (n_local = 8192)
@@ -404,15 +403,22 @@ _REFERENCE = textwrap.dedent(r"""
 """)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def reference_started(tmp_path_factory):
+    """The reference's child, started with the module so that it runs beside
+    the ranks."""
     path = tmp_path_factory.mktemp("ref") / "ref.pkl"
     spec = {"cfg": CFG, "axes": AXES, "n4": N4, "n8": N8, "dists": DISTS,
             "same4": _SAME_POSITIONS4}
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src"), "JAX_PLATFORMS": "cpu"}
-    r = subprocess.run([sys.executable, "-c", _REFERENCE, str(path), pickle.dumps(spec).hex()],
-                       capture_output=True, text=True, env=env, cwd=root, timeout=900)
+    child = Child(_REFERENCE, str(path), pickle.dumps(spec).hex(), x64=False)
+    yield path, child
+    child.stop()
+
+
+@pytest.fixture(scope="module")
+def reference(reference_started):
+    path, child = reference_started
+    r = child.result(timeout=900)
     assert r.returncode == 0 and "REFERENCE-OK" in r.stdout, r.stdout[-3000:] + r.stderr[-3000:]
     with open(path, "rb") as f:
         return pickle.load(f)

@@ -24,9 +24,6 @@ through integer views (``assert_array_equal`` on floats would call any two
 NaNs equal).
 """
 import dataclasses
-import os
-import subprocess
-import sys
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -40,6 +37,8 @@ from repro.core.ips4o import SortConfig as RefConfig
 from repro_torch import ops
 from repro_torch.core import ips4o
 from repro_torch.kernels import level_fused as lf
+from torch_children import Child
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 N = 3000
 SMALL = dict(base_case=512, kmax=8, tile=256)
@@ -552,15 +551,18 @@ print("x64 glue OK")
 """
 
 
+@pytest.fixture(scope="module", autouse=True)
+def x64_started():
+    """One child process with x64 enabled from startup for the module's
+    64-bit tests, started with the module so that it runs beside the others."""
+    child = Child(X64_CHILD)
+    yield child
+    child.stop()
+
+
 @pytest.fixture(scope="module")
-def x64_child():
-    """One child process with x64 enabled from startup, run once for the
-    module's 64-bit tests."""
-    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
-    env["PYTHONPATH"] = (os.path.join(os.path.dirname(__file__), "..", "src") + os.pathsep
-                         + env.get("PYTHONPATH", ""))
-    return subprocess.run([sys.executable, "-c", X64_CHILD], env=env, capture_output=True,
-                          text=True, timeout=600)
+def x64_child(x64_started):
+    return x64_started.result(timeout=600)
 
 
 def test_64bit_dtypes_in_an_x64_child(x64_child):

@@ -35,6 +35,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops, ref
 from repro_torch.models.convert import to_torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 DTYPES = [(jnp.float32, 2e-5), (jnp.bfloat16, 2e-2)]
 

@@ -34,6 +34,7 @@ from repro.core import ips4o as ref_ips4o
 from repro.kernels.level_fused import _close_placement as ref_close_placement
 from repro_torch.core import ips4o
 from repro_torch.kernels import glue
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIGN = np.uint32(0x80000000)
 INT_MAX = np.iinfo(np.int32).max

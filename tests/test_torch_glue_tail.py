@@ -13,9 +13,6 @@ of any payload, +-0.0, +-inf and subnormals among them) and on the three
 agrees with the reference's ``bucket_violations``.  The kernels themselves
 run only on a card (``tests/test_torch_cuda.py``, ``chip_smoke.py``); their
 schedules are replayed in ``tests/test_torch_kernel_schedules.py``."""
-import os
-import subprocess
-import sys
 from unittest import mock
 
 import jax
@@ -31,6 +28,8 @@ from repro.ops import keyspace as ref_keyspace
 from repro_torch.core import ips4o, sampling
 from repro_torch.kernels import codec, fallback, glue
 from repro_torch.ops import keyspace
+from torch_children import Child
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # name -> (numpy dtype, torch dtype, the unsigned numpy dtype of its width)
 NARROW = {
@@ -219,15 +218,20 @@ print("x64 codec OK")
 """
 
 
-def test_64bit_codec_in_an_x64_child():
+@pytest.fixture(scope="module", autouse=True)
+def x64_child():
+    """The x64 child, started with the module so that it runs beside the
+    module's other tests."""
+    child = Child(X64_CHILD)
+    yield child
+    child.stop()
+
+
+def test_64bit_codec_in_an_x64_child(x64_child):
     """G5's twin on int64, uint64 and float64 keys (NaN of any payload, +-0.0,
     +-inf, subnormals) against the reference's keyspace, which needs x64 from
     startup, in a child process."""
-    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
-    env["PYTHONPATH"] = (os.path.join(os.path.dirname(__file__), "..", "src") + os.pathsep
-                         + env.get("PYTHONPATH", ""))
-    out = subprocess.run([sys.executable, "-c", X64_CHILD], env=env, capture_output=True,
-                         text=True, timeout=300)
+    out = x64_child.result(timeout=300)
     assert "x64 codec OK" in out.stdout, out.stdout + out.stderr[-5000:]
 
 

@@ -32,6 +32,7 @@ from repro_torch.core import ips4o
 from repro_torch.core.partition import partition_ranks_kernel
 from repro_torch.kernels import dispatch_rank
 from repro_torch.kernels.ops import moe_group_tokens
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # two levels at n = 2048 (W = 256, kmax = 8), so K1/K2/K3's plain twins run
 TINY = dict(base_case=256, kmax=8, tile=128, max_sample=64, slack=4)

@@ -107,6 +107,8 @@ from repro_torch.kernels.glue import close_placement
 from repro_torch.kernels.level_fused import MAX_NB, MAX_TILE, _items
 from repro_torch.kernels.level_fused import rank_hist_batched_plain, rank_hist_plain
 from repro_torch.kernels.level_fused import segment_schedule
+from torch_children import Child
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # ---- K3 -------------------------------------------------------------------
 
@@ -639,21 +641,26 @@ print("K1 64 replay OK")
 """
 
 
-def test_k1_64bit_replay_matches_the_reference_in_x64():
+@pytest.fixture(scope="module", autouse=True)
+def x64_children():
+    """The x64 children of K1's and K7's 64-bit replays, started with the
+    module so that they run beside its other tests."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    children = {"K1": Child(K1_64_CHILD, here), "K7": Child(K7_64_CHILD, here)}
+    yield children
+    for child in children.values():
+        child.stop()
+
+
+def test_k1_64bit_replay_matches_the_reference_in_x64(x64_children):
     """K1's and K1r's 64-bit form replayed per tile (a warp per 256
     positions; the digit of the 64-bit code at shifts in [0, 64), level 2's
     clamped one included; the sentinel LLONG_MAX), against the reference's
     classification of the uint64 codes and its ``_rank_and_hist``, in a
     child process with x64 enabled from startup."""
-    import os
-    import subprocess
-    import sys
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
-    env["PYTHONPATH"] = os.path.join(here, "..", "src") + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", K1_64_CHILD, here], env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = x64_children["K1"].result(timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr[-5000:]
     assert "K1 64 replay OK" in proc.stdout
 
@@ -1832,21 +1839,13 @@ print("K7 64 replay OK")
 """
 
 
-def test_k7_64bit_replay_matches_the_reference_in_x64():
+def test_k7_64bit_replay_matches_the_reference_in_x64(x64_children):
     """K7's 64-bit form replayed (2 keys a 16-byte load and a piece, 8-byte
     id stores, 8-byte tree nodes): int64, uint64 and float64 keys at every
     k of the tree tests, batched, and radix mode on int64 codes, against
     the reference's kernels on the raw keys and uint64 codes in a child
     process with x64 enabled from startup."""
-    import os
-    import subprocess
-    import sys
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
-    env["PYTHONPATH"] = os.path.join(here, "..", "src") + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", K7_64_CHILD, here], env=env,
-                          capture_output=True, text=True, timeout=600)
+    proc = x64_children["K7"].result(timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr[-5000:]
     assert "K7 64 replay OK" in proc.stdout
 
@@ -1998,7 +1997,7 @@ def test_k7_schedule_and_shared_memory():
 
 # ---- G1-G4, the sort's glue (csrc/glue.cu) ----------------------------------
 
-G_THREADS, G_PER = 256, 16  # a CTA of G2/G3: 256 threads of 16 positions (G4's scatter: 512 of 8)
+G_THREADS, G_PER = 256, 16  # a CTA of G2/G3: 256 threads of 16 positions
 G_SPAN = G_THREADS * G_PER
 G_STAGE_OFFSETS, G_STAGE_SPLIT_BYTES, G_GROUPS = 2048, 16384, 1024
 
@@ -2253,128 +2252,325 @@ def test_g1_replay_matches_the_reference(B, n, tile, nb):
         np.testing.assert_array_equal(offsets[row], np.asarray(want_off))
 
 
-def _replay_g4_staged_scatter(vals, dest, offsets):
-    """G4's staged scatter over one row: per span its least and greatest
-    destination, the buckets between (by the warp's counts), each row's
-    bucket, the counts and least destinations, the exact runs check, the
-    slots and the stage written in slot order.  Returns (out, spans staged,
-    the runs of consecutive destinations a span's writes make)."""
-    n = dest.shape[0]
-    out = np.zeros_like(vals)
-    staged_spans, runs = 0, []
-    offsets = offsets.astype(np.int64)
-    for p0 in range(0, n, G_SPAN):
-        d = dest[p0:p0 + G_SPAN].astype(np.int64)
-        v = vals[p0:p0 + G_SPAN]
-        lo, hi = int(d.min()), int(d.max())
-        if offsets.shape[0] <= G_GROUPS:  # every bucket a group
-            c_lo, len_ = 0, offsets.shape[0] - 1
-        else:
-            c_lo, _ = _g_warp_count_le(offsets, lo)
-            c_hi, _ = _g_warp_count_le(offsets, hi)
-            len_ = c_hi - c_lo
-        staged = 0 <= lo and hi < n and len_ < G_GROUPS
-        if staged:
-            g = _g_counts(offsets[c_lo:c_lo + len_], d)
-            cnt = np.bincount(g, minlength=len_ + 1)
-            gmin = np.full(len_ + 1, np.iinfo(np.int32).max, np.int64)
-            np.minimum.at(gmin, g, d)
-            staged = bool((d - gmin[g] < cnt[g]).all())
-        if not staged:
-            out[d] = v
-            continue
-        staged_spans += 1
-        first = np.cumsum(cnt) - cnt - gmin
-        slot = first[g] + d
-        assert sorted(slot) == list(range(len(d)))  # a bijection onto the stage
-        s_dest, s_val = np.empty_like(d), np.empty_like(v)
-        s_dest[slot], s_val[slot] = d, v
-        out[s_dest] = s_val
-        runs.append(1 + int((np.diff(s_dest) != 1).sum()))
-    return out, staged_spans, runs
+G_MOVE_THREADS = 512  # a CTA of G4's scatter and gather
 
 
-def test_g4_staged_scatter_replay_matches_the_reference():
-    """The staged scatter on K1's placement of 2^16 keys (one span a tile
-    of runs, one run a bucket of the span), on K2's level-2 placement (the
-    span's level-1 segment's buckets), and on a permutation that is no
-    stable placement of the offsets it is given (every span scattered row
-    by row), against ``.at[dest].set``."""
+def _g4_quad_rows(span):
+    """A scatter CTA's rows: thread t holds R = span / 512 rows, quads of four
+    consecutive rows, quad j at 4 (j 512 + t) (csrc/glue.cu ``span_quad``)."""
+    R = span // G_MOVE_THREADS
+    t, i = np.arange(G_MOVE_THREADS)[:, None], np.arange(R)[None, :]
+    return 4 * ((i >> 2) * G_MOVE_THREADS + t) + (i & 3)
+
+
+def _g4_units(a, unit):
+    """A (B, n, row bytes) uint8 tensor as (B, n, w) units of ``unit`` bytes."""
+    return a.view(np.dtype(f"V{unit}"))
+
+
+G4_TABLE_LOG = 11  # the scatter's lookup table: 2^11 cells (kTableLog)
+
+
+def _g4_table_groups(slice_, d, lo, cells):
+    """Each destination's group, the count of the span's offsets ``slice_``
+    that are <= it, by the kernel's lookup table over [lo, lo + cells): cells
+    of 2^shift positions, tab[c] the offsets below cell c's first position
+    (a histogram of the offsets' cells + 1 and its inclusive scan), then a
+    search of the offsets in the destination's cell alone."""
+    n_cells = 1 << G4_TABLE_LOG
+    shift = max(0, int(cells - 1).bit_length() - G4_TABLE_LOG) if cells > n_cells else 0
+    v = slice_.astype(np.int64)
+    where = np.where(v < lo, 0, np.minimum(((v - lo) >> shift) + 1, n_cells + 1))
+    tab = np.cumsum(np.bincount(where, minlength=n_cells + 2))[: n_cells + 1]
+    c = np.clip((d - lo) >> shift, 0, n_cells - 1)
+    g, more = tab[c], tab[c + 1] - tab[c]
+    assert (((d - lo) >> shift) < n_cells).all() and more.max(initial=0) <= max(1, v.shape[0])
+    return g + np.array([int((slice_[a:a + k] <= x).sum()) if k else 0
+                         for a, k, x in zip(g, more, d)], np.int64)
+
+
+def _replay_g4_scatter(arrays, dest, offsets, rng):
+    """G4's scatter over (B, n) row-local ``dest`` and every (B, n, row
+    bytes) uint8 tensor of ``arrays`` in one launch (one table), span by
+    span of :data:`glue.SCATTER_SPAN` source rows: the span's destinations and the check that they lie in [0, n); its groups
+    (the row's offsets whole up to G_GROUPS, else between the two warp
+    counts of its least and greatest destination, after the check that
+    those lie ``glue.ROW_WINDOW_BYTES`` of the widest row apart or more);
+    each row's group by the
+    lookup table (:func:`_g4_table_groups`, held to the branchless search of
+    all the offsets) and its place in the group by a shared atomic count,
+    in an order of the atomics' own (drawn from ``rng``); a scan of the
+    counts, each group's first slot; each slot's row (16 bits) and
+    destination; every tensor's rows staged as they are, in chunks of units
+    (an item each), and written out slot by slot, the slot's row to the
+    slot's destination.  A span whose destinations leave [0, n), that
+    spans G_GROUPS buckets or more, or whose destinations lie closer than
+    that window moves row by row.  Returns (outputs,
+    spans staged, spans row by row, and for each staged span the breaks in
+    the runs of destinations that its groups' slots hold: none for a stable
+    placement, whose group's slots hold one run, so that a warp's 32 slots
+    store into one or two runs)."""
+    from repro_torch.kernels import glue
+
+    B, n = dest.shape
+    rb = {name: a.shape[2] for name, a in arrays.items()}
+    span = glue.SCATTER_SPAN
+    assert sorted(_g4_quad_rows(span).ravel()) == list(range(span))  # the threads' rows
+    plans = {name: glue.stage_plan(rb[name], span, 0, 0) for name in arrays}
+    stage_bytes = max(span * u * c for u, c in plans.values())
+    assert stage_bytes <= glue.STAGE_BYTES
+    src = {name: _g4_units(a, plans[name][0]) for name, a in arrays.items()}
+    out = {name: np.zeros_like(a) for name, a in arrays.items()}
+    dst = {name: _g4_units(o, plans[name][0]) for name, o in out.items()}
+    staged_spans, rowwise, runs = 0, 0, []
+    for row in range(B):
+        for p0 in range(0, n, span):
+            d = dest[row, p0:p0 + span].astype(np.int64)
+            here = d.shape[0]
+            staged = offsets is not None and bool(((d >= 0) & (d < n)).all())
+            if staged:
+                off = offsets[row].astype(np.int64)
+                if off.shape[0] > G_GROUPS:
+                    window = glue.ROW_WINDOW_BYTES // max(rb.values())
+                    c_lo, _ = _g_warp_count_le(off, int(d.min()))
+                    c_hi, _ = _g_warp_count_le(off, int(d.max()))
+                    staged = int(d.max() - d.min()) >= window and c_hi - c_lo < G_GROUPS
+                else:
+                    c_lo, c_hi = 0, off.shape[0] - 1
+                    staged = c_hi - c_lo < G_GROUPS
+            if not staged:
+                ok = (d >= 0) & (d < n)
+                for name in arrays:
+                    dst[name][row, d[ok]] = src[name][row, p0 + np.nonzero(ok)[0]]
+                rowwise += 1
+                continue
+            whole = off.shape[0] <= G_GROUPS  # the table over [0, n), else the span's range
+            g = _g4_table_groups(off[c_lo:c_hi], d, 0 if whole else int(d.min()),
+                                 n if whole else int(d.max() - d.min()) + 1)
+            np.testing.assert_array_equal(g, _g_counts(off[c_lo:c_hi], d))
+            cnt = np.bincount(g, minlength=c_hi - c_lo + 1)
+            place = np.empty(here, np.int64)
+            for grp in np.unique(g):  # the atomics hand out 0 .. count-1 in some order
+                rows_g = np.nonzero(g == grp)[0]
+                place[rows_g] = rng.permutation(rows_g.shape[0])
+            first = np.cumsum(cnt) - cnt
+            slot = first[g] + place
+            assert sorted(slot) == list(range(here)) and place.max() < 1 << 16
+            row_of = np.empty(here, np.int64)  # the slot's row, 16 bits in the kernel
+            row_of[slot] = np.arange(here)
+            to = np.empty(here, np.int64)
+            to[slot] = d
+            for name in arrays:
+                unit, chunk = plans[name]
+                w = src[name].shape[2]
+                for c0 in range(0, w, chunk):  # an item: the span's rows as they are
+                    cw = min(chunk, w - c0)
+                    stage = src[name][row, p0:p0 + here, c0:c0 + cw].copy()
+                    assert stage.nbytes <= stage_bytes
+                    dst[name][row, to, c0:c0 + cw] = stage[row_of]
+            staged_spans += 1
+            breaks = 0  # in the destinations a group's slots hold, past one run
+            for grp in np.nonzero(cnt)[0]:
+                breaks += int((np.diff(np.sort(to[first[grp]:first[grp] + cnt[grp]])) != 1).sum())
+            runs.append(breaks)
+    return out, staged_spans, rowwise, runs
+
+
+def _g4_placement(ids, nb):
+    """The stable placement of each row's bucket ids: (dest, offsets)."""
+    B, n = ids.shape
+    dest = np.empty((B, n), np.int32)
+    off = np.zeros((B, nb + 1), np.int32)
+    for r in range(B):
+        order = np.argsort(ids[r], kind="stable")
+        dest[r, order] = np.arange(n)
+        off[r, 1:] = np.cumsum(np.bincount(ids[r], minlength=nb))
+    return dest, off
+
+
+def _g4_case(case, rng):
+    """(dest (B, n), offsets or None, row widths in bytes) of a scatter case."""
     from repro_torch.kernels.level_fused import level_fused_plain
 
+    n = 1 << 16
+    if case.startswith("level 1") or case == "not a placement":
+        k = 16
+        u = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        keys = torch.as_tensor((u ^ SIGN).view(np.int32))
+        spl = torch.sort(keys[torch.as_tensor(rng.integers(0, n, 256))]).values[
+            torch.arange(1, k) * 256 // k]
+        d1, off1 = (x.numpy()[None] for x in level_fused_plain(keys, spl, k=k))
+        if case == "not a placement":  # a permutation: every span fails the runs check
+            return rng.permutation(n).astype(np.int32)[None], off1, (4, 8)
+        return d1, off1, (4, 4) if case == "level 1, 4-byte rows" else (4, 4, 12)
+    if case == "level 2":  # 1280 buckets within 4 segments of ~32K rows: the groups searched
+        seg = np.sort(rng.integers(0, 4, 2 * n))
+        ids = (seg * 320 + rng.integers(0, 320, 2 * n))[None]
+        return (*_g4_placement(ids, 4 * 320), (8, 4))
+    if case == "sorted keys":  # 257 buckets of sorted ids: a span's rows in one or two groups
+        ids = np.sort(rng.integers(0, 257, n))[None]
+        return (*_g4_placement(ids, 257), (4, 4))
+    if case == "short windows":  # 2112 buckets within 33 segments of ~2000 rows
+        seg = np.sort(rng.integers(0, 33, n))
+        ids = (seg * 64 + rng.integers(0, 64, n))[None]
+        return (*_g4_placement(ids, 33 * 64), (8, 4))
+    if case == "many groups":  # 5000 buckets over n / 2: more than G_GROUPS a span
+        ids = rng.integers(0, 5000, (1, n // 2))
+        return (*_g4_placement(ids, 5000), (1, 2, 16))
+    if case == "rows":  # B rows, unit widths 1-16 and a 20-byte row in two chunks
+        ids = rng.integers(0, 257, (3, (1 << 14) + 40))
+        return (*_g4_placement(ids, 257), (1, 2, 4, 8, 16, 20))
+    assert case == "no offsets"
+    return np.stack([rng.permutation(5000) for _ in range(2)]).astype(np.int32), None, (4, 12)
+
+
+@pytest.mark.parametrize("case", ["level 1", "level 1, 4-byte rows", "level 2", "short windows",
+                                  "sorted keys", "not a placement", "many groups", "rows",
+                                  "no offsets"])
+def test_g4_scatter_replay_matches_the_reference(case):
+    """The scatter's span and slot arithmetic over a table of tensors, on
+    K1's level-1 placement (one run a bucket of a span), a level-2 placement
+    of 1280 buckets in segments of ~32K rows (groups between two warp
+    searches), one of 2112 buckets
+    in segments of ~2000 rows (destinations closer than the window: row by
+    row), one of 257 buckets over sorted ids (a span's rows in one or two
+    groups, planned: a row of 258 offsets is not searched for a window),
+    a permutation that
+    is no placement of the offsets (staged all the same: each slot carries
+    its row's destination), 5000 buckets (more than kScatterGroups a span:
+    row by row), three rows with unit widths 1-16 and a 20-byte row staged
+    in two chunks, and no offsets (row by row), against ``.at[dest].set``
+    of every tensor, whatever order the atomics hand out places in."""
+    from repro_torch.kernels import glue
+
     rng = np.random.default_rng(3)
-    n, k = 1 << 16, 16
-    u = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
-    keys = torch.as_tensor((u ^ SIGN).view(np.int32))
-    spl = torch.sort(keys[torch.as_tensor(rng.integers(0, n, 256))]).values[
-        torch.arange(1, k) * 256 // k]
-    d1, off1 = level_fused_plain(keys, spl, k=k)
-    moved = (u ^ SIGN).view(np.int32)
-    ids = np.arange(n, dtype=np.int32)
-    for dest, off in ((d1.numpy(), off1.numpy()),):
-        got, staged, runs = _replay_g4_staged_scatter(ids, dest, off)
-        np.testing.assert_array_equal(got, np.asarray(jnp.zeros(n, jnp.int32).at[dest].set(ids)))
-        assert staged == n // G_SPAN and max(runs) <= 2 * k + 1
-    # level 2: K2's placement by composite ids within the level-1 buckets
-    seg = np.searchsorted(off1.numpy(), np.arange(n), side="right") - 1
-    after1 = np.empty(n, np.int32)
-    after1[d1.numpy()] = moved
-    comp = torch.as_tensor(seg * 64 + (after1 & 63), dtype=torch.int32)  # 2112 buckets: searched
-    d2, off2 = rank_hist_plain(comp, nb=(2 * k + 1) * 64, seg_offsets=off1, seg_width=64)
-    got, staged, runs = _replay_g4_staged_scatter(ids, d2.numpy(), off2.numpy())
-    np.testing.assert_array_equal(got, np.asarray(jnp.zeros(n, jnp.int32).at[d2.numpy()].set(ids)))
-    assert staged == n // G_SPAN
-    perm = rng.permutation(n).astype(np.int32)
-    got, staged, _ = _replay_g4_staged_scatter(ids, perm, off1.numpy())
-    np.testing.assert_array_equal(got, np.asarray(jnp.zeros(n, jnp.int32).at[perm].set(ids)))
-    assert staged == 0
+    dest, offsets, widths = _g4_case(case, rng)
+    B, n = dest.shape
+    arrays = {f"{w}B #{i}": rng.integers(0, 256, (B, n, w), dtype=np.uint8)
+              for i, w in enumerate(widths)}
+    got, staged, rowwise, runs = _replay_g4_scatter(arrays, dest, offsets, rng)
+    flat = (dest.astype(np.int64) + np.arange(B)[:, None] * n).reshape(-1)
+    for name, a in arrays.items():
+        want = jnp.zeros((B * n, a.shape[2]), jnp.uint8).at[flat].set(a.reshape(B * n, -1))
+        np.testing.assert_array_equal(got[name].reshape(B * n, -1), np.asarray(want))
+    span = glue.SCATTER_SPAN
+    spans = B * -(-n // span)
+    if case in ("many groups", "no offsets", "short windows"):
+        assert staged == 0 and rowwise == spans
+    else:
+        assert staged == spans and rowwise == 0
+    if case.startswith("level") or case in ("rows", "sorted keys"):  # one run a group
+        assert max(runs) == 0
+    if case == "not a placement":
+        assert min(runs) > span // 2
 
 
-def _replay_g4_gather(buf, perm, lo, W, unit, chunk, staged):
-    """The window gather over one row of rows of ``buf.shape[1]`` bytes, as
-    CTAs of one window each: direct, each unit read from the source; staged
-    (in place), ``chunk`` units of every row of the window copied into the
-    stage, then written out by the permutation, chunk by chunk."""
-    w = buf.shape[1] // unit
-    units = buf.view(np.dtype(f"V{unit}")).reshape(buf.shape[0], w)
-    src = units.copy() if not staged else units
-    for q in range(perm.shape[0]):
-        first = lo + q * W
-        if not staged:
-            units[first:first + W] = src[first + perm[q]]
+def _replay_g4_gather(arrays, perm, lo, out, ctas, rng):
+    """G4's gather over (B, n, row bytes) uint8 tensors (``out`` the arrays
+    themselves for pass two in place): each of ``ctas`` persistent CTAs
+    walks its items (its windows q = cta + i ctas, every tensor and chunk of
+    :func:`glue.gather_plan` of each) with two stages: item i+1 is loaded
+    (into the other stage) before item i is stored; the CTAs' steps
+    interleave at random.  A load copies the item's units of
+    the window's rows into the stage, a store writes them out by the
+    window's permutation; a stage is never loaded over before it was
+    written out, and never holds more than STAGE_BYTES."""
+    from repro_torch.kernels import glue
+
+    names = list(arrays)
+    B, n = arrays[names[0]].shape[:2]
+    num_w, W = perm.shape
+    per_row = num_w // B
+    plans = {name: glue.gather_plan(a.shape[2], W, 0, 0) for name, a in arrays.items()}
+    src = {name: _g4_units(a, plans[name][0]) for name, a in arrays.items()}
+    res = {name: (arrays[name].copy() if out is None else out[name]) for name in names}
+    dst = {name: _g4_units(res[name], plans[name][0]) for name in names}
+
+    def items(cta):
+        for q in range(cta, num_w, ctas):
+            for name in names:
+                w, chunk = src[name].shape[2], plans[name][1]
+                for c0 in range(0, w, chunk):
+                    yield q, name, c0, min(chunk, w - c0)
+
+    def program(cta):
+        its = list(items(cta))
+        if not its:
+            return
+        yield "load", its[0], 0
+        for i, it in enumerate(its):
+            if i + 1 < len(its):
+                yield "load", its[i + 1], (i + 1) & 1
+            yield "store", it, i & 1
+
+    progs = [program(c) for c in range(ctas)]
+    bufs = [[None, None] for _ in range(ctas)]
+    while progs:
+        c = int(rng.integers(len(progs)))
+        step = next(progs[c], None)
+        if step is None:
+            progs.pop(c)
+            bufs.pop(c)
             continue
-        for c0 in range(0, w, chunk):
-            cw = min(chunk, w - c0)
-            stage = units[first:first + W, c0:c0 + cw].copy()  # every read before a write
-            assert stage.nbytes <= 65536
-            units[first:first + W, c0:c0 + cw] = stage[perm[q]]
-    return buf
+        op, (q, name, c0, cw), b = step
+        row = q // per_row
+        first = lo + (q - row * per_row) * W
+        if op == "load":
+            assert bufs[c][b] is None  # its last item written out
+            stage = src[name][row, first:first + W, c0:c0 + cw].copy()
+            assert stage.nbytes <= glue.STAGE_BYTES
+            bufs[c][b] = ((q, name, c0), stage)
+        else:
+            held, stage = bufs[c][b]
+            assert held == (q, name, c0)
+            dst[name][row, first:first + W, c0:c0 + cw] = stage[perm[q]]
+            bufs[c][b] = None
+    return res
 
 
-@pytest.mark.parametrize("row_bytes,W", [(4, 8192), (16, 8192), (16, 16384), (12, 256),
-                                         (1, 16384), (100, 8192)])
-def test_g4_window_gather_staging_matches_the_reference(row_bytes, W):
-    """The window gather's plan (unit, chunk) at the base case's W and rows
-    of 1 to 100 bytes, and its two passes, pass two in place through the
-    stage, against the reference's ``_apply_window_perm``: the stage never
-    exceeds 64 KB and every row's bytes move."""
+@pytest.mark.parametrize("widths,W,B,limit", [((4,), 8192, 1, None), ((4, 4, 12), 8192, 1, None),
+                                              ((16, 8), 16384, 1, None),
+                                              ((1, 2, 100), 256, 1, None),
+                                              ((8,), 8192, 2, None),
+                                              ((4, 12), 256, 2, 3 * 256)])
+def test_g4_gather_replay_matches_the_reference(widths, W, B, limit):
+    """The window gather's items over a table of tensors (rows of 1 to 100
+    bytes, the plan's units and chunks), B rows and a ``limit``, both
+    passes (pass two in place) with two stages a CTA and 1 or 3 CTAs whose
+    steps interleave at random, against the reference's
+    ``_apply_window_perm`` of every tensor."""
     from repro.core.ips4o import _apply_window_perm as ref_apply_window_perm
-    from repro_torch.kernels.glue import gather_plan
 
-    rng = np.random.default_rng(row_bytes + W)
-    n = 3 * W
-    buf = rng.integers(0, 256, (n, row_bytes), dtype=np.uint8)
-    for lo, per in ((0, 3), (W // 2, 2)):
-        perm = np.stack([rng.permutation(W) for _ in range(per)]).astype(np.int32)
-        want = buf.copy()
-        windows = want[lo:lo + per * W].reshape(per, W, row_bytes)
-        want[lo:lo + per * W] = np.asarray(ref_apply_window_perm(
-            jnp.asarray(perm), jnp.asarray(windows))).reshape(per * W, row_bytes)
-        for staged in (False, True):
-            unit, chunk = gather_plan(row_bytes, W, staged, 0, 0)
-            assert row_bytes % unit == 0 and (not staged or W * chunk * unit <= 65536)
-            got = _replay_g4_gather(buf.copy(), perm, lo, W, unit, chunk, staged)
-            np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(sum(widths) + W + B)
+    n = 4 * W
+    m_all = n if limit is None else limit
+    arrays = {f"{w}B #{i}": rng.integers(0, 256, (B, n, w), dtype=np.uint8)
+              for i, w in enumerate(widths)}
+
+    def reference(a, perm, lo, per):
+        want = a.copy()
+        for r in range(B):
+            win = want[r, lo:lo + per * W].reshape(per, W, -1)
+            want[r, lo:lo + per * W] = np.asarray(ref_apply_window_perm(
+                jnp.asarray(perm[r * per:(r + 1) * per]), jnp.asarray(win))).reshape(per * W, -1)
+        return want
+
+    for ctas in (3, 1):
+        # pass one: windows at 0 (into new tensors, or into copies up to limit)
+        per = m_all // W
+        perm = np.stack([rng.permutation(W) for _ in range(B * per)]).astype(np.int32)
+        outs = None if limit is None else {k: a.copy() for k, a in arrays.items()}
+        one = _replay_g4_gather(arrays, perm, 0, outs, ctas, rng)
+        for name, a in arrays.items():
+            np.testing.assert_array_equal(one[name], reference(a, perm, 0, per))
+        # pass two: windows at W/2, in place
+        per = (m_all - W) // W
+        perm = np.stack([rng.permutation(W) for _ in range(B * per)]).astype(np.int32)
+        want = {name: reference(a, perm, W // 2, per) for name, a in one.items()}
+        two = _replay_g4_gather(one, perm, W // 2, one, ctas, rng)
+        for name in arrays:
+            assert two[name] is one[name]
+            np.testing.assert_array_equal(two[name], want[name])
 
 
 # ---- G6: the levels' samples -----------------------------------------------

@@ -16,6 +16,7 @@ import torch
 
 from repro.ops import keyspace as ref_keyspace
 from repro_torch.ops import keyspace
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIGN = np.uint32(0x80000000)
 # name -> (numpy dtype, torch dtype, the unsigned numpy dtype of its width)

@@ -41,6 +41,7 @@ from repro_torch.launch import roofline, shardings
 from repro_torch.launch.op_cost import OpCost
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = {"1pod": ((16, 16), ("data", "model")), "2pod": ((2, 16, 16), ("pod", "data", "model"))}
@@ -324,7 +325,7 @@ _CHILD = textwrap.dedent(r"""
 
 @pytest.fixture(scope="module")
 def child():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     p = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True, text=True,
                        env=env, cwd=ROOT, timeout=600)

@@ -16,9 +16,6 @@ Tolerance: zero everywhere; knots and imbalances are compared as float32
 bits, ids and permutations as integers.
 """
 import dataclasses
-import os
-import subprocess
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +29,8 @@ from repro_torch import ops
 from repro_torch.classify import learned
 from repro_torch.core import ips4o
 from repro_torch.data.distributions import make_input
+from torch_children import Child
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 N, M, K = 4096, 512, 32
 SMALL = dict(base_case=512, kmax=8, tile=256)
@@ -192,14 +191,19 @@ print("x64 learned OK")
 """
 
 
-def test_64bit_codes_in_an_x64_child():
+@pytest.fixture(scope="module", autouse=True)
+def x64_child():
+    """The x64 child, started with the module so that it runs beside the
+    module's other tests."""
+    child = Child(X64_CHILD)
+    yield child
+    child.stop()
+
+
+def test_64bit_codes_in_an_x64_child(x64_child):
     """int64 codes (int64, uint64 and float64 keys, and a duplicate-heavy
     input that falls back) against the reference in x64 mode, and the
     uint64 -> float32 cast at the boundary codes."""
-    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
-    env["PYTHONPATH"] = (os.path.join(os.path.dirname(__file__), "..", "src") + os.pathsep
-                         + env.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-c", X64_CHILD], env=env, capture_output=True,
-                          text=True, timeout=600)
+    proc = x64_child.result(timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr[-5000:]
     assert "x64 learned OK" in proc.stdout and "int64 dup fell back OK" in proc.stdout

@@ -28,6 +28,7 @@ from repro_torch.classify import classify, classify_segmented
 from repro_torch.core import ips4o, sampling
 from repro_torch.core.partition import partition_permutation, stable_partition
 from repro_torch.kernels.level_fused import level_fused, rank_hist
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIGN = np.uint32(0x80000000)
 SMALL = dict(base_case=1024, kmax=32, tile=256, max_sample=256, slack=4)

@@ -59,6 +59,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.convert import params_from_jax, to_torch
 from repro_torch.models.policy import compute_policy
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL32 = 1e-5
 

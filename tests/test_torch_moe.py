@@ -24,6 +24,7 @@ from repro.models import moe as ref_moe
 from repro_torch.models import moe
 from repro_torch.models.convert import to_torch
 from repro_torch.models.layers import Dense, SwiGLU
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL32 = 1e-5
 

@@ -40,6 +40,7 @@ from repro.core import ips4o as ref_ips4o
 from repro.core import sampling as ref_sampling
 from repro_torch import obs, ops
 from repro_torch.core import ips4o
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 SMALL = dict(base_case=1024, kmax=16, tile=512, max_sample=1024)

@@ -17,6 +17,7 @@ import pytest
 
 from repro.data import pipeline as ref_pipeline
 from repro_torch.data import pipeline
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 

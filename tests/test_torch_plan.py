@@ -34,6 +34,7 @@ from repro.ops import plan as ref_plan
 from repro_torch import ops
 from repro_torch.classify import router
 from repro_torch.ops import plan
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 

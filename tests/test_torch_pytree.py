@@ -27,6 +27,7 @@ from repro.core.ips4o import SortConfig as RefConfig
 from repro_torch import ops
 from repro_torch.core import ips4o
 from repro_torch.data.distributions import make_input
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 N = 3000
 REF_CFG = RefConfig(base_case=512, kmax=8, tile=256)

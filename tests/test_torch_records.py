@@ -33,6 +33,7 @@ from repro.data import datasets as ref_datasets
 from repro_torch import ops
 from repro_torch.core import ips4o
 from repro_torch.data import datasets
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REF_CFG = RefConfig(base_case=1024, kmax=32, tile=256, max_sample=512)
 CFG = ips4o.config_from_reference(dataclasses.asdict(REF_CFG))

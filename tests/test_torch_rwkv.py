@@ -22,6 +22,7 @@ from repro.models import rwkv as ref_rwkv
 from repro_torch.models import rwkv
 from repro_torch.models.convert import to_torch
 from repro_torch.models.layers import Dense
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 D, HD, DFF = 64, 16, 128
 TOL32 = 1e-5

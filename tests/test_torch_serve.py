@@ -31,6 +31,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.policy import compute_policy
 from repro_torch.models.transformer import init_model
 from repro_torch.serve import Engine, ServeConfig
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 HEADS = {"yi-9b": dict(num_heads=8, num_kv_heads=2),
          "codeqwen1.5-7b": dict(num_heads=8, num_kv_heads=8)}

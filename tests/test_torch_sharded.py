@@ -402,7 +402,7 @@ def results():
              for r in range(WORLD)]
     for p in procs:
         p.start()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     ref = subprocess.Popen([sys.executable, "-c", _REFERENCE, path, ref_out], env=env,
                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)

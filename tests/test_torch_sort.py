@@ -20,6 +20,7 @@ from repro.core.ips4o import SortConfig as RefConfig
 from repro.data import distributions as ref_distributions
 from repro_torch import ops
 from repro_torch.core.ips4o import SortConfig, config_from_reference, plan_levels
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SMALL = dict(base_case=1024, kmax=32, tile=256, max_sample=256, slack=4)
 REF_SMALL = RefConfig(**SMALL)

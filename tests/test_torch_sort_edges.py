@@ -25,6 +25,7 @@ from repro_torch.core.ips4o import SortConfig, ips4o_sort
 from repro_torch.core.ref import ref_partition, ref_sort
 from repro_torch.data import distributions
 from test_torch_sort import PORT_SMALL, REF_SMALL, check_sort
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -126,7 +127,7 @@ def test_port_imports_no_jax_or_reference():
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
 
 

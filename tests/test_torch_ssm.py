@@ -33,6 +33,7 @@ from repro.models import ssm as ref_ssm
 from repro_torch.models import ssm
 from repro_torch.models.convert import to_torch
 from repro_torch.models.layers import Dense
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 D, N, CONV, EXPAND, HD = 64, 16, 4, 2, 16
 KW = dict(d_state=N, expand=EXPAND, head_dim=HD)

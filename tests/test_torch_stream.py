@@ -30,6 +30,7 @@ from repro.ops.keyspace import encode_np
 from repro_torch import stream
 from repro_torch.kernels import merge_path
 from repro_torch.stream import runs
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIGN = np.uint32(0x80000000)
 CPU = dict(device="cpu")

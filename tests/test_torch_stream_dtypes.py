@@ -25,6 +25,7 @@ from repro.ops import PlanCache
 from repro.ops import keyspace as ref_keyspace
 from repro_torch import stream
 from repro_torch.ops import keyspace
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 N, CHUNK = 4096, 1024
